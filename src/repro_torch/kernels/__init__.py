@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for Hopper and what surrounds them.
+
+  fused_ibn       expand -> activation -> project with the expanded
+                  intermediate kept in shared memory and registers
+  flash_attention online-softmax attention, the score matrix never stored
+  depthwise_conv  channels-last SAME depthwise convolution, halo by
+                  bounds checks
+
+``ops`` holds the public entry points, ``ref`` the plain PyTorch versions
+each kernel is held against.  Sources are in ``csrc/``, built by
+``_build`` at first use on a CUDA tensor.
+"""
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

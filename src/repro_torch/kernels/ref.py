@@ -1,0 +1,93 @@
+"""Plain PyTorch versions of the kernels (the allclose targets).
+
+Float32 math with the rounding points of the kernels: ``fused_ibn_ref``
+rounds the expanded intermediate T to the input dtype before the second
+product, ``attention_ref`` masks with a finite -1e30 so a fully masked
+row softmaxes to uniform.  They run on any device; ``ops`` sends only CPU
+tensors here.
+"""
+from __future__ import annotations
+
+import types
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name == "silu":
+        return F.silu(x)
+    if name == "relu2":
+        r = torch.clamp_min(x, 0.0)
+        return r * r
+    raise ValueError(name)
+
+
+def fused_ibn_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                  wg: Optional[torch.Tensor] = None, *,
+                  activation: str = "gelu") -> torch.Tensor:
+    """act(x @ w1) @ w2, or (act(x @ wg) * (x @ w1)) @ w2; x: [..., D]."""
+    xf = x.float()
+    up = xf @ w1.float()
+    if wg is not None:
+        t = _act(activation, xf @ wg.float()) * up
+    else:
+        t = _act(activation, up)
+    out = t.to(x.dtype).float() @ w2.float()
+    return out.to(x.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,H,Sq,D]; k, v: [B,H,Sk,D] -> [B,H,Sq,D]."""
+    Sq, D = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    scale_ = scale if scale is not None else D ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale_
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def depthwise_conv2d_ref(x: torch.Tensor, w: torch.Tensor,
+                         b: torch.Tensor) -> torch.Tensor:
+    """x: [B,H,W,C]; w: [fy,fx,C]; b: [C] -> [B,H,W,C], SAME padding
+    ((k-1)//2 before, k//2 after).  A sum of shifted slices, tap by tap:
+    exact float32 on any device, where a library convolution may not be."""
+    B, H, W, C = x.shape
+    fy, fx, _ = w.shape
+    py0, py1 = (fy - 1) // 2, fy // 2
+    px0, px1 = (fx - 1) // 2, fx // 2
+    xp = F.pad(x.float(), (0, 0, px0, px1, py0, py1))
+    wf = w.float()
+    acc = torch.zeros((B, H, W, C), dtype=torch.float32, device=x.device)
+    for dy in range(fy):
+        for dx in range(fx):
+            acc += xp[:, dy:dy + H, dx:dx + W, :] * wf[dy, dx]
+    return (acc + b.float()).to(x.dtype)
+
+
+# The plain versions under the names and signatures of ``ops``: a model
+# built with ``kernels=ref.PLAIN`` runs the same composition without any
+# kernel, on any device.
+PLAIN = types.SimpleNamespace(
+    fused_ibn=lambda x, w1, w2, wg=None, *, activation="gelu", **_blocks:
+        fused_ibn_ref(x, w1, w2, wg, activation=activation),
+    flash_attention=lambda q, k, v, *, causal=True, window=None, scale=None,
+        **_blocks: attention_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale),
+    depthwise_conv2d=lambda x, w, b, **_blocks: depthwise_conv2d_ref(x, w, b),
+)

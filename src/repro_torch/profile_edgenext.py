@@ -1,0 +1,133 @@
+"""Where an EdgeNeXt-S request spends its time on the card.
+
+    PYTHONPATH=src python -m repro_torch.profile_edgenext [--batches 1 16]
+        [--requests 20] [--traced 5] [--plain] [--out profile.json]
+
+For each batch size: the request time by the host clock (ending in a
+synchronise) and by CUDA events, then a ``torch.profiler`` trace of a few
+requests, summed by kernel name: the device's busy share of the traced
+window (1 - idle share), the hand-written kernels' share of the busy time,
+and the longest kernels.  Weights are random, from a seed.  Needs one
+CUDA device and ``nvcc``; there is no CPU fallback.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.configs.edgenext_s import CONFIG
+from repro_torch.kernels import ref
+from repro_torch.models import edgenext
+from repro_torch.models.params import init_params
+from repro_torch.serve_edgenext import serve
+
+OURS = ("ibn_kernel", "dw_kernel", "flash_kernel")   # names in csrc/*.cu
+SEED = 0
+
+
+def host_ms(model, images, n: int) -> list[float]:
+    out = []
+    with torch.inference_mode():
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(images)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def trace(model, images, n: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                model(images)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            kernels.append((ev.key, dev_us / 1e3, ev.count))
+    kernels.sort(key=lambda r: -r[1])
+    busy = sum(k[1] for k in kernels)
+    ours = sum(k[1] for k in kernels if any(o in k[0] for o in OURS))
+    return dict(
+        traced_requests=n, window_ms=window_ms, device_busy_ms=busy,
+        device_busy_share=busy / window_ms if window_ms else None,
+        own_kernels_ms=ours, own_kernels_share_of_busy=ours / busy if busy else None,
+        device_kernel_launches=sum(k[2] for k in kernels),
+        top=[dict(name=k[0][:90], ms=k[1], count=k[2]) for k in kernels[:12]])
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batches", type=int, nargs="+", default=[1, 16])
+    ap.add_argument("--requests", type=int, default=20)
+    ap.add_argument("--traced", type=int, default=5)
+    ap.add_argument("--plain", action="store_true",
+                    help="run the plain versions instead of the kernels")
+    ap.add_argument("--out")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_edgenext: needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, text=True, check=True).stdout.strip()
+    print(f"device {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    cfg = CONFIG
+    params = init_params(SEED, edgenext.param_defs(cfg), perturb=0.05)
+    model = edgenext.EdgeNeXt(
+        cfg, params, kernels=ref.PLAIN if args.plain else edgenext.ops).eval()
+    rng = np.random.default_rng(SEED + 1)
+    results = dict(device=smi, torch=torch.__version__, plain=args.plain, batches={})
+    for b in args.batches:
+        images = torch.from_numpy(rng.standard_normal(
+            (b, cfg.img_size, cfg.img_size, cfg.in_channels),
+            dtype=np.float32)).cuda()
+        serve(model, [images] * 3)                       # warm-up
+        _, ev_ms = serve(model, [images] * args.requests)
+        h_ms = host_ms(model, images, args.requests)
+        tr = trace(model, images, args.traced)
+        rec = dict(event_ms_median=statistics.median(ev_ms),
+                   event_ms_min=min(ev_ms), event_ms_max=max(ev_ms),
+                   host_ms_median=statistics.median(h_ms),
+                   host_ms_min=min(h_ms), host_ms_max=max(h_ms), **tr)
+        results["batches"][str(b)] = rec
+        print(f"B={b}: request ms events median {rec['event_ms_median']:.3f} "
+              f"[{rec['event_ms_min']:.3f}, {rec['event_ms_max']:.3f}] host "
+              f"median {rec['host_ms_median']:.3f} "
+              f"[{rec['host_ms_min']:.3f}, {rec['host_ms_max']:.3f}]")
+        if not tr["device_busy_ms"]:
+            print("  torch.profiler shows no device time here")
+            continue
+        print(f"  traced {tr['traced_requests']} requests in {tr['window_ms']:.2f} ms: "
+              f"device busy {tr['device_busy_ms']:.2f} ms "
+              f"({100 * tr['device_busy_share']:.1f} %, idle "
+              f"{100 * (1 - tr['device_busy_share']):.1f} %), own kernels "
+              f"{tr['own_kernels_ms']:.2f} ms "
+              f"({100 * tr['own_kernels_share_of_busy']:.1f} % of busy), "
+              f"{tr['device_kernel_launches']} device kernels")
+        for k in tr["top"]:
+            print(f"    {k['ms']:9.3f} ms  x{k['count']:<5d} {k['name']}")
+    if args.out:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(results, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,74 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+These tests need a CUDA device and ``nvcc`` and skip where there is none.
+They import neither JAX nor the JAX package, so they also run where only
+PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _normal(seed, *shapes, scale=1.0):
+    r = np.random.default_rng(seed)
+    return [_t((r.standard_normal(s) * scale).astype(np.float32)).cuda()
+            for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_ibn", "flash_attention",
+                                    "depthwise_conv2d"])
+def test_kernel_on_card_matches_plain(kernel):
+    """Each CUDA kernel against its plain version at one odd shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    if kernel == "fused_ibn":
+        x, = _normal(13, (197, 49))
+        w1, w2, wg = _normal(14, (49, 160), (160, 48), (49, 160), scale=0.1)
+        got = tops.fused_ibn(x, w1, w2, wg, activation="silu")
+        want = tref.fused_ibn_ref(x, w1, w2, wg, activation="silu")
+        tol = 3e-5
+    elif kernel == "flash_attention":
+        q, k, v = _normal(15, (2, 2, 37, 70), (2, 2, 50, 70), (2, 2, 50, 70))
+        got = tops.flash_attention(q, k, v, causal=True, window=9)
+        want = tref.attention_ref(q, k, v, causal=True, window=9)
+        tol = 2e-4
+    else:
+        x, wt, b = _normal(16, (2, 9, 7, 40), (5, 5, 13), (13,))
+        got = tops.depthwise_conv2d(x[..., 13:26], wt, b)
+        want = tref.depthwise_conv2d_ref(x[..., 13:26], wt, b)
+        tol = 3e-5
+    torch.cuda.synchronize()
+    _close(got.cpu().numpy(), want.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+def test_launch_counters_count_launches_only():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import fused_ibn as t_ibn
+    x, w1, w2 = _normal(17, (8, 4), (4, 16), (16, 4))
+    before = t_ibn.launches
+    tops.fused_ibn(x, w1, w2)
+    tops.fused_ibn(x.cpu(), w1.cpu(), w2.cpu())        # plain version: no launch
+    with pytest.raises(ValueError):
+        tops.fused_ibn(x.t().contiguous().t(), w1, w2)  # not dense: refused
+    torch.cuda.synchronize()
+    assert t_ibn.launches == before + 1

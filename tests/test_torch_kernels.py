@@ -1,0 +1,317 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+The same numpy arrays, made from a seed, go through ``repro.kernels.ops``
+(the Pallas kernels in interpret mode, as ``tests/test_kernels.py`` runs
+them) and through ``repro_torch.kernels.ops`` (on a CPU tensor: the plain
+PyTorch version that the CUDA kernel is held against on the card).
+Tolerances are the JAX tests' own: 3e-5 for float32 (2e-4 attention),
+2e-2 for bfloat16 — float32 sums taken in another order, bfloat16
+rounding of the result.
+"""
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build
+from repro_torch.kernels import depthwise_conv as t_dw
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import fused_ibn as t_ibn
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# fused inverted bottleneck
+# ---------------------------------------------------------------------------
+
+
+def _ibn_inputs(seed, m, d, f, do, gated):
+    r = _rng(seed)
+    x = r.standard_normal((m, d)).astype(np.float32)
+    w1 = (r.standard_normal((d, f)) * 0.1).astype(np.float32)
+    w2 = (r.standard_normal((f, do)) * 0.1).astype(np.float32)
+    wg = (r.standard_normal((d, f)) * 0.1).astype(np.float32) if gated else None
+    return x, w1, w2, wg
+
+
+@pytest.mark.parametrize("m,d,f,do,gated,act,bm,bf", [
+    (64, 32, 128, 32, False, "gelu", 32, 64),
+    (64, 32, 128, 32, True, "silu", 32, 64),
+    (64, 32, 128, 32, False, "relu2", 32, 64),
+    (48, 16, 96, 24, True, "gelu", 16, 32),
+    (197, 48, 160, 48, False, "gelu", 64, 64),     # ragged m and f
+    (197, 48, 160, 48, True, "silu", 64, 64),
+    (64, 17, 64, 16, False, "gelu", 32, 32),       # folded-bias odd D
+])
+def test_fused_ibn_matches_jax(m, d, f, do, gated, act, bm, bf):
+    x, w1, w2, wg = _ibn_inputs(1, m, d, f, do, gated)
+    want = jops.fused_ibn(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(w2),
+                          None if wg is None else jnp.asarray(wg),
+                          activation=act, block_m=bm, block_f=bf)
+    got = tops.fused_ibn(_t(x), _t(w1), _t(w2),
+                         None if wg is None else _t(wg), activation=act,
+                         block_m=bm, block_f=bf)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, do)
+    _close(got.numpy(), want, 3e-5)
+
+
+def test_fused_ibn_folded_bias_equals_biased_mlp():
+    """x with a column of ones against w1 with the bias as its last row is
+    gelu(x @ w1 + b1) @ w2: the fold the model uses, on both packages."""
+    r = _rng(2)
+    x = r.standard_normal((40, 24)).astype(np.float32)
+    w1 = (r.standard_normal((24, 96)) * 0.1).astype(np.float32)
+    b1 = (r.standard_normal((96,)) * 0.1).astype(np.float32)
+    w2 = (r.standard_normal((96, 24)) * 0.1).astype(np.float32)
+    xa = np.concatenate([x, np.ones((40, 1), np.float32)], -1)
+    wa = np.concatenate([w1, b1[None]], 0)
+    want = jops.fused_ibn(jnp.asarray(xa), jnp.asarray(wa), jnp.asarray(w2),
+                          block_m=32, block_f=32)
+    got = tops.fused_ibn(_t(xa), _t(wa), _t(w2))
+    direct = torch.nn.functional.gelu(_t(x) @ _t(w1) + _t(b1),
+                                      approximate="tanh") @ _t(w2)
+    _close(got.numpy(), want, 3e-5)
+    _close(got.numpy(), direct.numpy(), 3e-5)
+
+
+@pytest.mark.parametrize("gated,act", [(False, "gelu"), (True, "silu"),
+                                       (False, "relu2")])
+def test_fused_ibn_bf16_ref_matches_jax_ref(gated, act):
+    """The rounding point of T (to the input dtype, before the second
+    product) is the same in the two plain versions."""
+    x, w1, w2, wg = _ibn_inputs(3, 100, 48, 96, 48, gated)
+    jb = [None if a is None else jnp.asarray(a).astype(jnp.bfloat16)
+          for a in (x, w1, w2, wg)]
+    tb = [None if a is None else _t(a).to(torch.bfloat16)
+          for a in (x, w1, w2, wg)]
+    want = jref.fused_ibn_ref(*jb, activation=act)
+    got = tref.fused_ibn_ref(*tb, activation=act)
+    assert got.dtype == torch.bfloat16
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), 2e-2)
+
+
+def test_fused_ibn_rounds_t_to_the_input_dtype():
+    """relu2(1 + 2^-7) = 1.01568604 rounds to 1 + 2^-6 in bfloat16, so
+    against w2 = [1 + 2^-6, -1] the two terms cancel exactly; without the
+    rounding of T the result would be -6.1e-5."""
+    x = np.array([[1.0]], np.float32)
+    w1 = np.array([[1.0, 1.0078125]], np.float32)
+    w2 = np.array([[1.015625], [-1.0]], np.float32)
+    want = jref.fused_ibn_ref(*[jnp.asarray(a).astype(jnp.bfloat16)
+                                for a in (x, w1, w2)], activation="relu2")
+    got = tref.fused_ibn_ref(*[_t(a).to(torch.bfloat16) for a in (x, w1, w2)],
+                             activation="relu2")
+    assert float(want[0, 0]) == 0.0 and got.float().item() == 0.0
+    exact = tref.fused_ibn_ref(_t(x), _t(w1), _t(w2), activation="relu2")
+    assert abs(exact.item() + 6.1035e-5) < 1e-7
+
+
+def test_fused_ibn_leading_dims():
+    x, w1, w2, _ = _ibn_inputs(4, 60, 16, 64, 8, False)
+    flat = tops.fused_ibn(_t(x), _t(w1), _t(w2))
+    lead = tops.fused_ibn(_t(x).reshape(3, 4, 5, 16), _t(w1), _t(w2))
+    assert tuple(lead.shape) == (3, 4, 5, 8)
+    np.testing.assert_array_equal(lead.reshape(60, 8).numpy(), flat.numpy())
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+def _qkv(seed, b, h, sq, sk, d, unit=False):
+    r = _rng(seed)
+    q = r.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = r.standard_normal((b, h, sk, d)).astype(np.float32)
+    v = r.standard_normal((b, h, sk, d)).astype(np.float32)
+    if unit:
+        q /= np.linalg.norm(q, axis=-1, keepdims=True)
+        k /= np.linalg.norm(k, axis=-1, keepdims=True)
+    return q, k, v
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,window,scale,bq,bk,unit", [
+    (64, 64, 16, True, None, None, 16, 16, False),
+    (64, 128, 16, True, 24, None, 16, 64, False),
+    (12, 12, 64, False, None, 1.0, 512, 512, True),   # the XCA shape
+    (37, 50, 16, False, None, None, 16, 16, False),   # ragged Sq and Sk
+    (50, 50, 8, True, 7, 0.5, 16, 32, False),
+])
+def test_flash_attention_matches_jax(sq, sk, d, causal, window, scale, bq, bk,
+                                     unit):
+    q, k, v = _qkv(5, 2, 2, sq, sk, d, unit)
+    kw = dict(causal=causal, window=window, scale=scale)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                block_q=bq, block_k=bk, **kw)
+    got = tops.flash_attention(_t(q), _t(k), _t(v), block_q=bq, block_k=bk,
+                               **kw)
+    assert tuple(got.shape) == (2, 2, sq, d)
+    _close(got.numpy(), want, 2e-4)
+
+
+def test_attention_ref_fully_masked_rows_are_uniform():
+    """NEG_INF is finite: a row with every key masked averages v, in both
+    plain versions (causal + window with Sq > Sk leaves such rows)."""
+    q, k, v = _qkv(6, 1, 1, 30, 10, 8)
+    kw = dict(causal=True, window=4)
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              **kw)
+    got = tref.attention_ref(_t(q), _t(k), _t(v), **kw)
+    _close(got.numpy(), want, 2e-4)
+    _close(got[0, 0, 20].numpy(), v[0, 0].mean(0), 2e-4)
+
+
+def test_attention_ref_bf16_matches_jax_ref():
+    q, k, v = _qkv(7, 1, 2, 64, 64, 32)
+    want = jref.attention_ref(*[jnp.asarray(a).astype(jnp.bfloat16)
+                                for a in (q, k, v)])
+    got = tref.attention_ref(*[_t(a).to(torch.bfloat16) for a in (q, k, v)])
+    assert got.dtype == torch.bfloat16
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), 2e-2)
+
+
+# ---------------------------------------------------------------------------
+# depthwise conv
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h,w,c,k,bc", [(12, 12, 24, 3, 8), (10, 14, 52, 5, 16),
+                                        (8, 8, 16, 7, 16), (9, 7, 52, 3, 128)])
+def test_depthwise_conv_matches_jax(h, w, c, k, bc):
+    r = _rng(8)
+    x = r.standard_normal((2, h, w, c)).astype(np.float32)
+    wt = (r.standard_normal((k, k, c)) * 0.2).astype(np.float32)
+    b = (r.standard_normal((c,)) * 0.1).astype(np.float32)
+    want = jops.depthwise_conv2d(jnp.asarray(x), jnp.asarray(wt),
+                                 jnp.asarray(b), block_c=bc)
+    got = tops.depthwise_conv2d(_t(x), _t(wt), _t(b), block_c=bc)
+    assert tuple(got.shape) == (2, h, w, c)
+    _close(got.numpy(), want, 3e-5)
+
+
+def test_depthwise_conv_even_kernel_pads_as_jax():
+    """SAME with an even kernel pads (k-1)//2 before and k//2 after."""
+    r = _rng(9)
+    x = r.standard_normal((1, 6, 7, 5)).astype(np.float32)
+    wt = r.standard_normal((4, 2, 5)).astype(np.float32)
+    b = r.standard_normal((5,)).astype(np.float32)
+    want = jref.depthwise_conv2d_ref(jnp.asarray(x), jnp.asarray(wt),
+                                     jnp.asarray(b))
+    _close(tref.depthwise_conv2d_ref(_t(x), _t(wt), _t(b)).numpy(), want, 3e-5)
+
+
+def test_depthwise_conv_channel_slice_input():
+    """A channel slice of a wider activation (what the SDTA cascade hands
+    over) gives what its dense copy gives."""
+    r = _rng(10)
+    wide = _t(r.standard_normal((2, 8, 8, 40)).astype(np.float32))
+    wt = _t(r.standard_normal((3, 3, 13)).astype(np.float32))
+    b = _t(r.standard_normal((13,)).astype(np.float32))
+    sl = wide[..., 13:26]
+    assert not sl.is_contiguous()
+    np.testing.assert_array_equal(
+        tops.depthwise_conv2d(sl, wt, b).numpy(),
+        tops.depthwise_conv2d(sl.contiguous(), wt, b).numpy())
+
+
+# ---------------------------------------------------------------------------
+# routing, wrappers, build: what can be checked without a card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("call", [
+    lambda: t_ibn.fused_ibn(torch.zeros(4, 8), torch.zeros(8, 16),
+                            torch.zeros(16, 8)),
+    lambda: t_fa.flash_attention(torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 8),
+                                 torch.zeros(1, 1, 4, 8)),
+    lambda: t_dw.depthwise_conv2d(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8),
+                                  torch.zeros(8)),
+], ids=["fused_ibn", "flash_attention", "depthwise_conv2d"])
+def test_kernel_wrapper_refuses_cpu_tensor(call):
+    """The wrappers launch or raise; only ``ops`` sends a CPU tensor to
+    the plain version.  No launch is counted."""
+    before = (t_ibn.launches, t_fa.launches, t_dw.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    assert (t_ibn.launches, t_fa.launches, t_dw.launches) == before
+
+
+def test_ops_on_cpu_counts_no_launch():
+    before = (t_ibn.launches, t_fa.launches, t_dw.launches)
+    tops.fused_ibn(torch.zeros(4, 8), torch.zeros(8, 16), torch.zeros(16, 8))
+    tops.flash_attention(*[torch.zeros(1, 1, 4, 8)] * 3)
+    tops.depthwise_conv2d(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8),
+                          torch.zeros(8))
+    assert (t_ibn.launches, t_fa.launches, t_dw.launches) == before
+
+
+def test_pixel_stride_takes_dense_and_channel_slices_only():
+    x = torch.zeros(2, 5, 6, 16)
+    assert t_dw._pixel_stride(x) == 16
+    assert t_dw._pixel_stride(x[..., 4:12]) == 16
+    assert t_dw._pixel_stride(torch.zeros(2, 1, 1, 16)) == 16
+    assert t_dw._pixel_stride(torch.zeros(2, 1, 1, 48)[..., 8:32]) == 48
+    assert t_dw._pixel_stride(torch.zeros(1, 1, 1, 48)[..., 8:32]) == 24
+    for bad in (x[:, ::2], x[:, 1:4, 1:4], x.permute(0, 2, 1, 3),
+                x[..., ::2]):
+        with pytest.raises(ValueError):
+            t_dw._pixel_stride(bad)
+
+
+def test_wrappers_check_shapes_before_anything_else():
+    with pytest.raises(ValueError):
+        t_ibn.fused_ibn(torch.zeros(4, 8), torch.zeros(9, 16), torch.zeros(16, 8))
+    with pytest.raises(ValueError):
+        t_ibn.fused_ibn(torch.zeros(4, 8), torch.zeros(8, 16), torch.zeros(16, 8),
+                        activation="tanh")
+    with pytest.raises(ValueError):
+        t_fa.flash_attention(torch.zeros(1, 1, 4, 8), torch.zeros(1, 1, 4, 6),
+                             torch.zeros(1, 1, 4, 6))
+    with pytest.raises(ValueError):
+        t_dw.depthwise_conv2d(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 7),
+                              torch.zeros(8))
+
+
+def test_plain_namespace_has_the_signatures_of_ops():
+    x, w1, w2, _ = _ibn_inputs(11, 8, 4, 16, 4, False)
+    np.testing.assert_array_equal(
+        tref.PLAIN.fused_ibn(_t(x), _t(w1), _t(w2), activation="gelu",
+                             block_m=8).numpy(),
+        tops.fused_ibn(_t(x), _t(w1), _t(w2)).numpy())
+    q, k, v = _qkv(12, 1, 1, 6, 6, 4)
+    np.testing.assert_array_equal(
+        tref.PLAIN.flash_attention(_t(q), _t(k), _t(v), causal=False,
+                                   scale=1.0).numpy(),
+        tops.flash_attention(_t(q), _t(k), _t(v), causal=False,
+                             scale=1.0).numpy())
+
+
+def test_build_is_keyed_by_the_sources_and_lazy():
+    names = sorted(p.name for p in _build.sources())
+    assert names == ["depthwise_conv.cu", "flash_attention.cu", "fused_ibn.cu"]
+    assert _build.build_dir() == _build.build_dir()
+    assert _build.build_dir().parent.name == "repro_torch_kernels"
+    assert "compute_90a" in " ".join(_build.NVCC_FLAGS)
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    if shutil.which("nvcc") is None and _build._lib is None:
+        # importing the package built nothing and loaded nothing
+        assert _build.build_seconds is None
