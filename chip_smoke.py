@@ -8,15 +8,20 @@ network.  Imports nothing of JAX or of the JAX package.  Phases, each of
 which ends the run with a non-zero exit code if it fails:
 
 1. device: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc versions;
-2. build: the three CUDA kernels, from ``src/repro_torch/kernels/csrc``;
+2. build: the four CUDA kernels, from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape one EdgeNeXt-S forward gives it at batch 16 and at ragged /
    odd / bfloat16 cases, ``|a-b| <= tol + tol*|b|`` with tol 3e-5 for
    float32 (2e-4 attention) and 2e-2 for bfloat16: float32 sums taken in
-   another order, bfloat16 rounding of the result.  Each is timed with
-   CUDA events, one pair around each call, the L2 cache flushed before
-   each, median of the repeats: the kernel, the plain version, and a
-   library call of the same function as a yardstick the port never uses;
+   another order, bfloat16 rounding of the result.  ``matmul_ln`` is on
+   no model forward: it runs at the three EdgeNeXt-S shapes the scheduler
+   lowers at batch 16 (M = 16384 / 4096 / 1024, K = N = 96 / 160 / 304),
+   the two LM widths it lowers (512 x 2048 -> 2048, 448 x 2560 -> 2560),
+   two ragged cases and one bfloat16 case, each with the blocks
+   ``search.lower`` gives that shape.  Each is timed with CUDA events,
+   one pair around each call, the L2 cache flushed before each, median of
+   the repeats: the kernel, the plain version, and a library call of the
+   same function as a yardstick the port never uses;
 4. main path: EdgeNeXt-S at full width and depth (256x256x3, dims
    48/96/160/304, depths 3/3/9/3, 1000 classes, float32, seeded random
    weights) answers 4 requests of 16 images and 2 of 1 through
@@ -25,18 +30,34 @@ which ends the run with a non-zero exit code if it fails:
    forward.  Logits must be finite, [B, 1000], within 2e-3 of the same
    model run with the plain versions on the card, and for one single-image
    request within 2e-3 of the plain model on the CPU;
-5. one JSON line ``{"kernels": [...]}``, the device line, and last
+5. lowered (the scheduler's path): ``auto_schedule`` of every registered
+   workload, and every ``lowered`` entry whose kernel is ported launched
+   at the layer's true shapes with exactly the emitted ``block_*``
+   (fused_ibn: M = b*ox*oy, D = c*fx*fy, F = k, Do = the projection's k;
+   matmul_ln: M, K = c*fx*fy, N = k; flash_attention: B*H = b, Sq = ox,
+   D = c, Sk = the softmax extent, non-causal), each distinct (kernel,
+   shapes, blocks) once, against its plain version with the tolerances
+   above.  The launch counters are set to 0 before and read after: every
+   ported kernel launches here, matmul_ln only here.  ``rwkv_chunk``
+   entries are counted and printed as waiting for ``wkv_chunked``;
+6. one JSON line ``{"kernels": [...]}``, the device line, and last
    ``{"ok": true, "device": {...}}``.
 
 Per kernel the JSON line sums over one batch-16 forward: ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are each the sum over the
 forward's launches of that kernel (per-shape time x how often the shape
-occurs); ``shapes`` holds the per-shape numbers.  ``bound_ms`` is the
-larger of bytes / 3.35 TB/s (each input read once, each output written
-once) and operations / peak: 495 TFLOP/s (TF32 tensor cores, the card's
-rate for a float32 matrix product) for the products of fused_ibn and
-attention, 67 TFLOP/s (float32 outside the tensor cores) for the
-depthwise convolution, which has no matrix product.
+occurs; for matmul_ln, once each of the three EdgeNeXt-S shapes it is
+lowered at); ``shapes`` holds the per-shape numbers.  ``launches`` is the
+count of the path the kernel is on: the EdgeNeXt-S requests for the
+first three, the lowered phase for matmul_ln (``launches_by_path`` has
+both).  ``bound_ms`` is the larger of bytes / 3.35 TB/s (each input read
+once, each output written once) and operations / peak: 495 TFLOP/s (TF32
+tensor cores, the card's rate for a float32 matrix product) for the
+products of fused_ibn, attention and matmul_ln, 67 TFLOP/s (float32
+outside the tensor cores) for the depthwise convolution, which has no
+matrix product; 989 TFLOP/s for bfloat16 products.  The matrix products'
+shapes also carry ``bound_fp32_cuda_core_ms``, the same bound at 67
+TFLOP/s, the rate of the exact float32 multiply-adds the kernels run.
 """
 from __future__ import annotations
 
@@ -60,8 +81,12 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import depthwise_conv as dw_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import fused_ibn as ibn_mod  # noqa: E402
+from repro_torch.kernels import matmul_ln as mln_mod  # noqa: E402
 from repro_torch.models import edgenext  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.search import (WORKLOADS, auto_schedule,  # noqa: E402
+                                get_workload, lower)
+from repro_torch.core.workload import NORM, PWCONV, Layer  # noqa: E402
 from repro_torch.serve_edgenext import serve  # noqa: E402
 
 MEM_BYTES_S = 3.35e12
@@ -81,7 +106,13 @@ KERNELS = {
     "flash_attention": dict(module=fa_mod,
                             source="src/repro_torch/kernels/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:86"),
+    "matmul_ln": dict(module=mln_mod,
+                      source="src/repro_torch/kernels/csrc/matmul_ln.cu",
+                      replaces="src/repro/kernels/matmul_ln.py:70"),
 }
+# the EdgeNeXt-S forward launches the first three; matmul_ln runs only on
+# the lowered path
+SERVE_KERNELS = ("fused_ibn", "depthwise_conv2d", "flash_attention")
 
 
 def fail(msg: str) -> None:
@@ -160,15 +191,15 @@ def randn(*shape, scale: float = 1.0, dtype=torch.float32) -> torch.Tensor:
 
 
 def ibn_case(M, D, Fd, Do, *, gated=False, act="gelu", dtype=torch.float32,
-             timed=False):
+             timed=False, blocks=None, w_scale=(0.1, 0.1)):
     x = randn(M, D, dtype=dtype)
-    w1 = randn(D, Fd, scale=0.1, dtype=dtype)
-    w2 = randn(Fd, Do, scale=0.1, dtype=dtype)
-    wg = randn(D, Fd, scale=0.1, dtype=dtype) if gated else None
+    w1 = randn(D, Fd, scale=w_scale[0], dtype=dtype)
+    w2 = randn(Fd, Do, scale=w_scale[1], dtype=dtype)
+    wg = randn(D, Fd, scale=w_scale[0], dtype=dtype) if gated else None
     name = f"fused_ibn[{M}x{D}x{Fd}x{Do} {act}{' gated' if gated else ''} " \
            f"{str(dtype).split('.')[-1]}]"
     tol = 3e-5 if dtype == torch.float32 else 2e-2
-    got = ops.fused_ibn(x, w1, w2, wg, activation=act)
+    got = ops.fused_ibn(x, w1, w2, wg, activation=act, **(blocks or {}))
     want = ref.fused_ibn_ref(x, w1, w2, wg, activation=act)
     rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol)
     if timed:
@@ -232,7 +263,7 @@ def dw_case(B, H, W, C, k, *, dtype=torch.float32, slice_of=None, timed=False):
 
 
 def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
-            dtype=torch.float32, xca=False, timed=False):
+            dtype=torch.float32, xca=False, timed=False, blocks=None):
     q = randn(B, H, Sq, D, dtype=dtype)
     k = randn(B, H, Sk, D, dtype=dtype)
     v = randn(B, H, Sk, D, dtype=dtype)
@@ -243,7 +274,7 @@ def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
            f"window={window} {str(dtype).split('.')[-1]}]"
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     kw = dict(causal=causal, window=window, scale=scale)
-    got = ops.flash_attention(q, k, v, **kw)
+    got = ops.flash_attention(q, k, v, **kw, **(blocks or {}))
     want = ref.attention_ref(q, k, v, **kw)
     rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol)
     if timed:
@@ -257,6 +288,42 @@ def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
         rec["library_ms"] = time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
         rec["gbytes_s"] = nbytes(q, k, v, got) / rec["ms"] / 1e6
+    return rec
+
+
+def mln_blocks(M, K, N):
+    """The blocks ``search.lower`` gives a matmul_ln of these extents
+    (with the search's default tiles, 64 rows and 128 columns)."""
+    lk = lower.lower_matmul_ln(Layer("mac", PWCONV, k=N, c=K, ox=M),
+                               Layer("ln", NORM, c=N, ox=M),
+                               tile_x=64, tile_c=128)
+    return lk.params
+
+
+def mln_case(M, K, N, *, dtype=torch.float32, blocks=None, timed=False):
+    x = randn(M, K, dtype=dtype)
+    w = randn(K, N, scale=K ** -0.5, dtype=dtype)
+    b = randn(N, scale=0.1, dtype=dtype)
+    g = (1.0 + randn(N, scale=0.1)).to(dtype)
+    be = randn(N, scale=0.1, dtype=dtype)
+    blocks = blocks or mln_blocks(M, K, N)
+    name = f"matmul_ln[{M}x{K}->{N} block_m={blocks['block_m']} " \
+           f"block_k={blocks['block_k']} {str(dtype).split('.')[-1]}]"
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    got = ops.matmul_ln(x, w, b, g, be, **blocks)
+    want = ref.matmul_ln_ref(x, w, b, g, be)
+    rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol)
+    if timed:
+        flops = 2.0 * M * N * K
+        moved = nbytes(x, w, b, g, be, got)
+        peak = PEAK_TF32 if dtype == torch.float32 else PEAK_BF16
+        rec["bound_ms"], rec["bound_by"] = bound(moved, flops, peak)
+        rec["bound_fp32_cuda_core_ms"] = bound(moved, flops, PEAK_FP32)[0]
+        rec["ms"] = time_ms(lambda: ops.matmul_ln(x, w, b, g, be, **blocks))
+        rec["plain_ms"] = time_ms(lambda: ref.matmul_ln_ref(x, w, b, g, be))
+        rec["library_ms"] = time_ms(
+            lambda: F.layer_norm(x @ w + b, (N,), g, be, 1e-6))
+        rec["tflops"] = flops / rec["ms"] / 1e9
     return rec
 
 
@@ -313,6 +380,20 @@ def kernels_phase():
         rec["per_forward"] = n
         per_kernel["flash_attention"]["shapes"].append(rec)
 
+    # matmul_ln: the EdgeNeXt-S lowered shapes at batch 16 (once each), then
+    # the LM widths, ragged and bfloat16 cases (timed, outside the sums)
+    mln = [((BATCH * hw * hw, c, c), 1) for hw, c in
+           zip((32, 16, 8), CONFIG.dims[1:])]
+    mln += [((512, 2048, 2048), 0), ((448, 2560, 2560), 0),
+            ((197, 48, 160), 0), ((7, 13, 24), 0)]
+    for (M, K, N), n in mln:
+        rec = mln_case(M, K, N, timed=True)
+        rec["per_forward"] = n
+        per_kernel["matmul_ln"]["shapes"].append(rec)
+    rec = mln_case(197, 48, 160, dtype=torch.bfloat16, timed=True)
+    rec["per_forward"] = 0
+    per_kernel["matmul_ln"]["shapes"].append(rec)
+
     bf16 = torch.bfloat16
     per_kernel["fused_ibn"]["extra"] = [
         ibn_case(197, 48, 160, 48),
@@ -341,6 +422,58 @@ def kernels_phase():
     return per_kernel
 
 
+def lowered_phase():
+    """Every ``lowered`` entry of every registered workload whose kernel is
+    ported, launched with the emitted blocks at the layer's true shapes
+    and held against its plain version; identical (kernel, shapes,
+    blocks) once.  Returns the per-launch records, the entries per kernel,
+    the rwkv_chunk entries per workload and the launch counts."""
+    distinct: dict = {}
+    entries: dict = {name: 0 for name in KERNELS}
+    waiting: dict = {}
+    for wname in WORKLOADS:
+        layers = get_workload(wname)
+        sched = auto_schedule(layers, workload=wname)
+        for key, lk in sched.lowered.items():
+            kern = lk["kernel"]
+            if kern not in KERNELS:
+                waiting[wname] = waiting.get(wname, 0) + 1
+                continue
+            shape = lower.launch_shape(layers, key, lk)
+            blocks = {k: v for k, v in lk.items() if k.startswith("block_")}
+            dkey = (kern, tuple(shape.items()), tuple(sorted(blocks.items())))
+            distinct.setdefault(dkey, []).append(f"{wname}:{key}")
+            entries[kern] += 1
+
+    torch.cuda.synchronize()
+    for info in KERNELS.values():
+        info["module"].launches = 0
+    records = []
+    for (kern, shape, blocks), where in distinct.items():
+        s, blocks = dict(shape), dict(blocks)
+        if kern == "fused_ibn":
+            rec = ibn_case(s["m"], s["d"], s["f"], s["do"], blocks=blocks,
+                           w_scale=(s["d"] ** -0.5, s["f"] ** -0.5))
+        elif kern == "matmul_ln":
+            rec = mln_case(s["m"], s["k"], s["n"], blocks=blocks)
+        else:
+            rec = fa_case(1, s["bh"], s["q"], s["k"], s["d"], causal=False,
+                          blocks=blocks)
+        rec.update(kernel=kern, blocks=blocks, entries=len(where),
+                   first=where[0])
+        records.append(rec)
+    torch.cuda.synchronize()
+    launches = {name: info["module"].launches for name, info in KERNELS.items()}
+    for name in KERNELS:
+        want = sum(1 for r in records if r["kernel"] == name)
+        if launches[name] != want:
+            fail(f"lowered: {name} launched {launches[name]} times for "
+                 f"{want} distinct lowered launches")
+    if not launches["matmul_ln"]:
+        fail("lowered: matmul_ln was never launched")
+    return records, entries, waiting, launches
+
+
 def summarise(per_kernel, launches):
     rows = []
     for name, info in KERNELS.items():
@@ -351,9 +484,11 @@ def summarise(per_kernel, launches):
             by[s["bound_by"]] += s["bound_ms"] * s["per_forward"]
         f32_errs = [s["max_abs_err"] for s in shapes + per_kernel[name]["extra"]
                     if s["tol"] < 1e-2]
+        path = "edgenext_serve" if name in SERVE_KERNELS else "lowered"
         rows.append(dict(
             name=name, route="cuda", source=info["source"],
-            replaces=info["replaces"], launches=launches[name],
+            replaces=info["replaces"], launches=launches[path][name],
+            launches_by_path={p: n[name] for p, n in launches.items()},
             max_abs_err=max(f32_errs), ms=total("ms"), plain_ms=total("plain_ms"),
             bound_ms=total("bound_ms"),
             bound_by=max(by, key=by.get), library_ms=total("library_ms"),
@@ -390,7 +525,7 @@ def main_path():
     if want != {"fused_ibn": 18, "depthwise_conv2d": 21, "flash_attention": 3}:
         fail(f"EdgeNeXt-S should launch 18/21/3 a forward, model says {want}")
     for name, n in launches.items():
-        if n != want[name] * len(batches):
+        if n != want.get(name, 0) * len(batches):
             fail(f"{name}: {n} launches over {len(batches)} requests, "
                  f"expected {want[name]} a forward")
 
@@ -491,8 +626,21 @@ def main() -> None:
           f"(plain {served['plain_ms_per_request_b1']:.3f}) "
           f"peak memory {served['peak_memory_mib']:.0f} MiB")
 
-    # 5. results
-    rows = summarise(per_kernel, launches)
+    # 5. the scheduler's path: every lowered entry onto its kernel
+    lowered, entries, waiting, lowered_launches = lowered_phase()
+    for name in KERNELS:
+        recs = [r for r in lowered if r["kernel"] == name]
+        if not recs:
+            continue
+        print(f"lowered {name}: {entries[name]} entries over {len(WORKLOADS)} "
+              f"workloads, {len(recs)} distinct launches, all passed, max err "
+              f"{max(r['max_abs_err'] for r in recs):.2e} (tol {recs[0]['tol']})")
+    print(f"lowered rwkv_chunk: {sum(waiting.values())} entries waiting for "
+          f"wkv_chunked (not ported): {waiting}", flush=True)
+
+    # 6. results
+    rows = summarise(per_kernel, {"edgenext_serve": launches,
+                                  "lowered": lowered_launches})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:
@@ -501,7 +649,9 @@ def main() -> None:
         out.write_text(json.dumps(dict(
             device=device, nvidia_smi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
-            kernels=rows, main_path=served), indent=1))
+            kernels=rows, main_path=served,
+            lowered=dict(records=lowered, entries=entries,
+                         waiting_rwkv_chunk=waiting)), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -5,6 +5,9 @@
   flash_attention online-softmax attention, the score matrix never stored
   depthwise_conv  channels-last SAME depthwise convolution, halo by
                   bounds checks
+  matmul_ln       matmul with a LayerNorm epilogue: whole rows in a
+                  shared-memory line buffer, statistics before the one
+                  store
 
 ``ops`` holds the public entry points, ``ref`` the plain PyTorch versions
 each kernel is held against.  Sources are in ``csrc/``, built by

@@ -15,6 +15,9 @@ from repro_torch.kernels._launch import check_cuda_dense, check_launch
 
 launches = 0
 
+# the one tile csrc/flash_attention.cu is compiled for (BQ, BK)
+BLOCKS = {"block_q": 16, "block_k": 32}
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _L, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I,
              _P]

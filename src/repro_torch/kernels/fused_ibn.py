@@ -15,6 +15,9 @@ from repro_torch.kernels._launch import check_cuda_dense, check_launch
 
 launches = 0
 
+# the one tile csrc/fused_ibn.cu is compiled for (BM, BF)
+BLOCKS = {"block_m": 64, "block_f": 64}
+
 ACTIVATIONS = {"gelu": 0, "silu": 1, "relu2": 2}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -2,14 +2,17 @@
 package's ``repro.kernels.ops``.
 
 Routing is by the tensor's device and by nothing else: a CPU tensor goes
-to the plain version in ``ref``; a CUDA tensor launches the hand-written
-kernel, or raises if it cannot be built or launched.  No flag, no
-fallback.
+to the plain version in ``ref``, whatever ``block_*`` it is given; a CUDA
+tensor launches the hand-written kernel, or raises if it cannot be built
+or launched.  No flag, no fallback.
 
-The ``block_*`` keywords are accepted so that launch parameters lowered
-from a schedule still splat in.  The Hopper kernels choose their own
-tiles (they take the true extents and mask ragged edges themselves), so
-the values are ignored here.
+The ``block_*`` keywords are the launch parameters that
+``repro_torch.search.lower`` emits, and on a CUDA tensor they are the
+tiles the kernel runs: ``matmul_ln`` picks its template instance by
+(block_m, block_k); ``fused_ibn`` and ``flash_attention`` are built for
+one tile each, which is their default, and raise on any other.
+``depthwise_conv2d`` is not lowered: its ``block_c`` is accepted for the
+JAX signature and not used.
 """
 from __future__ import annotations
 
@@ -20,15 +23,25 @@ import torch
 from repro_torch.kernels import depthwise_conv as _dw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_ibn as _ibn
+from repro_torch.kernels import matmul_ln as _mln
 from repro_torch.kernels import ref
+
+
+def _check_blocks(name: str, built: dict, **given: int) -> None:
+    if given != built:
+        raise ValueError(f"{name}: blocks {given}; the kernel is built for "
+                         f"{built} only")
 
 
 def fused_ibn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
               wg: Optional[torch.Tensor] = None, *, activation: str = "gelu",
-              block_m: int = 256, block_f: int = 512) -> torch.Tensor:
+              block_m: int = _ibn.BLOCKS["block_m"],
+              block_f: int = _ibn.BLOCKS["block_f"]) -> torch.Tensor:
     """act(x @ w1 [* gate]) @ w2 for x of any leading shape [..., D]."""
     if not x.is_cuda:
         return ref.fused_ibn_ref(x, w1, w2, wg, activation=activation)
+    _check_blocks("fused_ibn", _ibn.BLOCKS, block_m=block_m,
+                  block_f=block_f)
     lead = x.shape[:-1]
     # view, not reshape: a layout that would need a copy raises here
     out = _ibn.fused_ibn(x.view(-1, x.shape[-1]), w1, w2, wg,
@@ -36,14 +49,29 @@ def fused_ibn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return out.reshape(*lead, w2.shape[1])
 
 
+def matmul_ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              gamma: torch.Tensor, beta: torch.Tensor, *, block_m: int = 64,
+              block_k: int = 64, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm(x @ w + b) * gamma + beta with the statistics taken
+    before the one store; x: [M, K], w: [K, N]."""
+    if not x.is_cuda:
+        return ref.matmul_ln_ref(x, w, b, gamma, beta, eps=eps)
+    return _mln.matmul_ln(x, w, b, gamma, beta, block_m=block_m,
+                          block_k=block_k, eps=eps)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None, block_q: int = 512,
-                    block_k: int = 512) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    block_q: int = _fa.BLOCKS["block_q"],
+                    block_k: int = _fa.BLOCKS["block_k"]
+                    ) -> torch.Tensor:
     """Online-softmax attention; q: [B,H,Sq,D], k, v: [B,H,Sk,D]."""
     if not q.is_cuda:
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale)
+    _check_blocks("flash_attention", _fa.BLOCKS, block_q=block_q,
+                  block_k=block_k)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale)
 

@@ -3,8 +3,8 @@
 Float32 math with the rounding points of the kernels: ``fused_ibn_ref``
 rounds the expanded intermediate T to the input dtype before the second
 product, ``attention_ref`` masks with a finite -1e30 so a fully masked
-row softmaxes to uniform.  They run on any device; ``ops`` sends only CPU
-tensors here.
+row softmaxes to uniform, ``matmul_ln_ref`` rounds only its output.
+They run on any device; ``ops`` sends only CPU tensors here.
 """
 from __future__ import annotations
 
@@ -40,6 +40,18 @@ def fused_ibn_ref(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         t = _act(activation, up)
     out = t.to(x.dtype).float() @ w2.float()
     return out.to(x.dtype)
+
+
+def matmul_ln_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  gamma: torch.Tensor, beta: torch.Tensor, *,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """LN(x @ w + b) * gamma + beta over the last axis; x: [M, K], w:
+    [K, N].  The biased variance is the mean of squared deviations."""
+    y = x.float() @ w.float() + b.float()
+    mean = y.mean(-1, keepdim=True)
+    var = torch.square(y - mean).mean(-1, keepdim=True)
+    yn = (y - mean) * torch.rsqrt(var + eps)
+    return (yn * gamma.float() + beta.float()).to(x.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -90,4 +102,6 @@ PLAIN = types.SimpleNamespace(
         **_blocks: attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale),
     depthwise_conv2d=lambda x, w, b, **_blocks: depthwise_conv2d_ref(x, w, b),
+    matmul_ln=lambda x, w, b, gamma, beta, *, eps=1e-6, **_blocks:
+        matmul_ln_ref(x, w, b, gamma, beta, eps=eps),
 )

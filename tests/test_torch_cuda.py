@@ -72,3 +72,54 @@ def test_launch_counters_count_launches_only():
         tops.fused_ibn(x.t().contiguous().t(), w1, w2)  # not dense: refused
     torch.cuda.synchronize()
     assert t_ibn.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_ln_every_instance_on_card_matches_plain(dtype):
+    """Every (block_m, block_k) instance of the CUDA matmul_ln against its
+    plain version, at a ragged shape (M and K divide by no block), and at
+    the widest row buffer the budget allows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import matmul_ln as t_mln
+    from repro_torch.search import lower
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    cases = [(197, 77, 160, bm, bk) for bm in lower.MATMUL_LN_BLOCK_M
+             for bk in lower.MATMUL_LN_BLOCK_K]
+    cases.append((40, 2560, 2560, 16, 64))
+    before = t_mln.launches
+    for m, k, n, bm, bk in cases:
+        x, = _normal(18, (m, k))
+        w, b, be = _normal(19, (k, n), (n,), (n,), scale=k ** -0.5)
+        g = 1.0 + _normal(20, (n,), scale=0.1)[0]
+        args = [t.to(dt) for t in (x, w, b, g, be)]
+        got = tops.matmul_ln(*args, block_m=bm, block_k=bk)
+        want = tref.matmul_ln_ref(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == dt
+        _close(got.float().cpu().numpy(), want.float().cpu().numpy(), tol)
+    assert t_mln.launches == before + len(cases)
+
+
+@pytest.mark.cuda
+def test_matmul_ln_on_card_refuses_blocks_it_is_not_built_for():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import matmul_ln as t_mln
+    x, w, b = _normal(21, (32, 2560), (2560, 2560), (2560,))
+    before = t_mln.launches
+    with pytest.raises(ValueError, match="budget"):
+        tops.matmul_ln(x, w, b, b, b, block_m=64, block_k=64)
+    with pytest.raises(ValueError, match="built for"):
+        tops.matmul_ln(x[:, :160].contiguous(),
+                       w[:160, :160].contiguous(), b[:160], b[:160], b[:160],
+                       block_m=12, block_k=64)
+    with pytest.raises(ValueError, match="built for"):
+        tops.fused_ibn(x[:, :16].contiguous(), w[:16, :64].contiguous(),
+                       w[:64, :16].contiguous(), block_m=128)
+    assert t_mln.launches == before

@@ -21,8 +21,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import depthwise_conv as t_dw
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import fused_ibn as t_ibn
+from repro_torch.kernels import matmul_ln as t_mln
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.core.workload import Layer
+from repro_torch.search import lower as t_lower
 
 
 def _rng(seed):
@@ -234,6 +237,65 @@ def test_depthwise_conv_channel_slice_input():
 
 
 # ---------------------------------------------------------------------------
+# matmul + LayerNorm epilogue
+# ---------------------------------------------------------------------------
+
+
+def _mln_inputs(seed, m, k, n):
+    r = _rng(seed)
+    x = r.standard_normal((m, k)).astype(np.float32)
+    w = (r.standard_normal((k, n)) * k ** -0.5).astype(np.float32)
+    b, be = (r.standard_normal((2, n)) * 0.1).astype(np.float32)
+    g = (1.0 + r.standard_normal(n) * 0.1).astype(np.float32)
+    return x, w, b, g, be
+
+
+@pytest.mark.parametrize("m,k,n,bm,bk,dtype", [
+    (64, 32, 48, 32, 16, "float32"),
+    (197, 48, 160, 64, 32, "float32"),     # ragged m and k
+    (160, 304, 48, 32, 128, "float32"),
+    (7, 13, 24, 4, 8, "float32"),          # both blocks below the extents' 8
+    (197, 48, 160, 64, 32, "bfloat16"),
+    (7, 13, 24, 4, 8, "bfloat16"),
+])
+def test_matmul_ln_matches_jax(m, k, n, bm, bk, dtype):
+    """The JAX Pallas kernel (interpret mode, its own blocks) against the
+    port's entry point on a CPU tensor with the blocks the Hopper lowering
+    gives the same extents."""
+    arrs = _mln_inputs(3, m, k, n)
+    want = jops.matmul_ln(*[jnp.asarray(a, dtype=dtype) for a in arrs],
+                          block_m=bm, block_k=bk)
+    blocks = t_lower.lower_matmul_ln(
+        Layer("mac", "pwconv", k=n, c=k, ox=m), Layer("ln", "norm", c=n, ox=m),
+        tile_x=64, tile_c=128).params
+    got = tops.matmul_ln(*[_t(a).to(getattr(torch, dtype)) for a in arrs],
+                         **blocks)
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (m, n)
+    _close(got.float().numpy(), np.asarray(want, np.float32),
+           3e-5 if dtype == "float32" else 2e-2)
+
+
+def test_matmul_ln_ref_matches_jax_ref():
+    """The two plain versions: mean first, biased variance as the mean of
+    squared deviations, eps inside the rsqrt."""
+    arrs = _mln_inputs(4, 33, 70, 90)
+    arrs[2][:] += 30.0            # b: a large row mean, where E[y^2] - E[y]^2 fails
+    want = jref.matmul_ln_ref(*[jnp.asarray(a) for a in arrs])
+    got = tref.matmul_ln_ref(*[_t(a) for a in arrs])
+    _close(got.numpy(), np.asarray(want), 3e-5)
+
+
+def test_matmul_ln_on_cpu_takes_any_blocks():
+    arrs = [_t(a) for a in _mln_inputs(5, 9, 10, 11)]
+    want = tref.matmul_ln_ref(*arrs).numpy()
+    for blocks in ({}, dict(block_m=3, block_k=1000), dict(block_m=256)):
+        np.testing.assert_array_equal(tops.matmul_ln(*arrs, **blocks).numpy(),
+                                      want)
+    np.testing.assert_array_equal(
+        tref.PLAIN.matmul_ln(*arrs, block_m=8, block_k=16).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
 # routing, wrappers, build: what can be checked without a card
 # ---------------------------------------------------------------------------
 
@@ -245,14 +307,17 @@ def test_depthwise_conv_channel_slice_input():
                                  torch.zeros(1, 1, 4, 8)),
     lambda: t_dw.depthwise_conv2d(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8),
                                   torch.zeros(8)),
-], ids=["fused_ibn", "flash_attention", "depthwise_conv2d"])
+    lambda: t_mln.matmul_ln(torch.zeros(4, 8), torch.zeros(8, 16),
+                            *[torch.zeros(16)] * 3, block_m=8, block_k=16),
+], ids=["fused_ibn", "flash_attention", "depthwise_conv2d", "matmul_ln"])
 def test_kernel_wrapper_refuses_cpu_tensor(call):
     """The wrappers launch or raise; only ``ops`` sends a CPU tensor to
     the plain version.  No launch is counted."""
-    before = (t_ibn.launches, t_fa.launches, t_dw.launches)
+    before = (t_ibn.launches, t_fa.launches, t_dw.launches, t_mln.launches)
     with pytest.raises(ValueError, match="CUDA"):
         call()
-    assert (t_ibn.launches, t_fa.launches, t_dw.launches) == before
+    assert (t_ibn.launches, t_fa.launches, t_dw.launches,
+            t_mln.launches) == before
 
 
 def test_ops_on_cpu_counts_no_launch():
@@ -289,6 +354,15 @@ def test_wrappers_check_shapes_before_anything_else():
     with pytest.raises(ValueError):
         t_dw.depthwise_conv2d(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 7),
                               torch.zeros(8))
+    with pytest.raises(ValueError, match="shapes"):
+        t_mln.matmul_ln(torch.zeros(4, 8), torch.zeros(8, 16),
+                        *[torch.zeros(15)] * 3, block_m=8, block_k=16)
+    with pytest.raises(ValueError, match="built for"):
+        t_mln.matmul_ln(torch.zeros(4, 8), torch.zeros(8, 16),
+                        *[torch.zeros(16)] * 3, block_m=128, block_k=16)
+    with pytest.raises(ValueError, match="budget"):
+        t_mln.matmul_ln(torch.zeros(4, 8), torch.zeros(8, 2600),
+                        *[torch.zeros(2600)] * 3, block_m=16, block_k=16)
 
 
 def test_plain_namespace_has_the_signatures_of_ops():
@@ -307,7 +381,8 @@ def test_plain_namespace_has_the_signatures_of_ops():
 
 def test_build_is_keyed_by_the_sources_and_lazy():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["depthwise_conv.cu", "flash_attention.cu", "fused_ibn.cu"]
+    assert names == ["depthwise_conv.cu", "flash_attention.cu", "fused_ibn.cu",
+                     "matmul_ln.cu"]
     assert _build.build_dir() == _build.build_dir()
     assert _build.build_dir().parent.name == "repro_torch_kernels"
     assert "compute_90a" in " ".join(_build.NVCC_FLAGS)
