@@ -8,21 +8,27 @@ network.  Imports nothing of JAX or of the JAX package.  Phases, each of
 which ends the run with a non-zero exit code if it fails:
 
 1. device: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc versions;
-2. build: the four CUDA kernels, from ``src/repro_torch/kernels/csrc``;
+2. build: the five CUDA kernels, from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape one EdgeNeXt-S forward gives it at batch 16 and at ragged /
    odd / bfloat16 cases, ``|a-b| <= tol + tol*|b|`` with tol 3e-5 for
-   float32 (2e-4 attention) and 2e-2 for bfloat16: float32 sums taken in
-   another order, bfloat16 rounding of the result.  ``matmul_ln`` is on
-   no model forward: it runs at the three EdgeNeXt-S shapes the scheduler
-   lowers at batch 16 (M = 16384 / 4096 / 1024, K = N = 96 / 160 / 304),
-   the two LM widths it lowers (512 x 2048 -> 2048, 448 x 2560 -> 2560),
-   two ragged cases and one bfloat16 case, each with the blocks
-   ``search.lower`` gives that shape.  Each is timed with CUDA events,
-   one pair around each call, the L2 cache flushed before each, median of
-   the repeats: the kernel, the plain version, and a library call of the
-   same function as a yardstick the port never uses;
-4. main path: EdgeNeXt-S at full width and depth (256x256x3, dims
+   float32 (2e-4 attention and WKV, the JAX tests' own) and 2e-2 for
+   bfloat16: float32 sums taken in another order, bfloat16 rounding of
+   the result.  ``matmul_ln`` is on no model forward: it runs at the three
+   EdgeNeXt-S shapes the scheduler lowers at batch 16 (M = 16384 / 4096 /
+   1024, K = N = 96 / 160 / 304), the two LM widths it lowers (512 x 2048
+   -> 2048, 448 x 2560 -> 2560), two ragged cases and one bfloat16 case,
+   each with the blocks ``search.lower`` gives that shape.
+   ``wkv_chunked`` runs at RWKV-6's served prefill shape (B*H = 4*32,
+   T = 512, K = V = 64, chunk 64; bfloat16 r/k/v with float32 logw and u,
+   and a float32 copy), every pow2 chunk 8..256 at T = 512, the JAX
+   tests' ragged T / chunk 50/16, 33/8, 100/64, T < chunk (50 / 64), and
+   RecurrentGemma's K = 1, V = 2560, T = 448 at chunks 64 and 256.  Each
+   is timed with CUDA events, one pair around each call, the L2 cache
+   flushed before each, median of the repeats: the kernel, the plain
+   version, and a library call of the same function as a yardstick the
+   port never uses (none for WKV: no single PyTorch call computes it);
+4. main path, EdgeNeXt-S: full width and depth (256x256x3, dims
    48/96/160/304, depths 3/3/9/3, 1000 classes, float32, seeded random
    weights) answers 4 requests of 16 images and 2 of 1 through
    ``serve_edgenext.serve``.  The launch counters are set to 0 just before
@@ -30,38 +36,60 @@ which ends the run with a non-zero exit code if it fails:
    forward.  Logits must be finite, [B, 1000], within 2e-3 of the same
    model run with the plain versions on the card, and for one single-image
    request within 2e-3 of the plain model on the CPU;
-5. lowered (the scheduler's path): ``auto_schedule`` of every registered
-   workload, and every ``lowered`` entry whose kernel is ported launched
-   at the layer's true shapes with exactly the emitted ``block_*``
+5. main path, RWKV-6 1.6B (``rwkv6_path``): full width and depth (24
+   layers, d 2048, 32 heads of 64, d_ff 7168, vocab 65536, 1,599,873,024
+   parameters), weights float32 from seed 0 made on the host with numpy
+   (``params.init_params``), served as ``launch.serve`` serves it
+   (bfloat16 compute): 3 requests of 4 x 512-token prompts and 1 of
+   1 x 200 tokens (ragged at chunk 64), each followed by 32 greedy tokens.
+   Around each prefill and each decode loop the counters are set to 0 and
+   read: 24 wkv_chunked launches a prefill, none in decode, no other
+   kernel.  Checks: the float32 model (same weights) against itself on
+   ``ref.PLAIN`` on the card, one 4 x 512 prefill and 8 decode steps
+   (last hidden state, WKV states, logits within 2e-3 (1 + |b|)); the
+   served bfloat16 run against the plain bfloat16 model, teacher-forced
+   with the served tokens (``BF16_LOGITS_TOL``, ``BF16_AGREEMENT``); one
+   1 x 64 float32 request and 4 decode steps against the plain model on
+   the CPU within 2e-3;
+6. lowered (the scheduler's path): ``auto_schedule`` of every registered
+   workload, and every ``lowered`` entry launched at the layer's true
+   shapes with exactly the emitted ``block_*`` or ``chunk``
    (fused_ibn: M = b*ox*oy, D = c*fx*fy, F = k, Do = the projection's k;
    matmul_ln: M, K = c*fx*fy, N = k; flash_attention: B*H = b, Sq = ox,
-   D = c, Sk = the softmax extent, non-causal), each distinct (kernel,
-   shapes, blocks) once, against its plain version with the tolerances
-   above.  The launch counters are set to 0 before and read after: every
-   ported kernel launches here, matmul_ln only here.  ``rwkv_chunk``
-   entries are counted and printed as waiting for ``wkv_chunked``;
-6. one JSON line ``{"kernels": [...]}``, the device line, and last
+   D = c, Sk = the softmax extent, non-causal; rwkv_chunk: BH = b, T =
+   ox, K = c, V = k), each distinct (kernel, shapes, blocks) once,
+   against its plain version with the tolerances above.  The launch
+   counters are set to 0 before and read after: every kernel but the
+   depthwise convolution (which is not lowered) launches here, matmul_ln
+   only here; an entry whose kernel is not ported fails the run;
+7. one JSON line ``{"kernels": [...]}``, the device line, and last
    ``{"ok": true, "device": {...}}``.
 
-Per kernel the JSON line sums over one batch-16 forward: ``ms``,
-``plain_ms``, ``library_ms`` and ``bound_ms`` are each the sum over the
-forward's launches of that kernel (per-shape time x how often the shape
-occurs; for matmul_ln, once each of the three EdgeNeXt-S shapes it is
-lowered at); ``shapes`` holds the per-shape numbers.  ``launches`` is the
-count of the path the kernel is on: the EdgeNeXt-S requests for the
-first three, the lowered phase for matmul_ln (``launches_by_path`` has
-both).  ``bound_ms`` is the larger of bytes / 3.35 TB/s (each input read
-once, each output written once) and operations / peak: 495 TFLOP/s (TF32
-tensor cores, the card's rate for a float32 matrix product) for the
-products of fused_ibn, attention and matmul_ln, 67 TFLOP/s (float32
+Per kernel the JSON line sums over one forward: ``ms``, ``plain_ms``,
+``library_ms`` and ``bound_ms`` are each the sum over the forward's
+launches of that kernel (per-shape time x how often the shape occurs):
+a batch-16 EdgeNeXt-S forward for the first three, once each of the
+three EdgeNeXt-S shapes matmul_ln is lowered at, and one 4 x 512 RWKV-6
+prefill (24 launches at the served shape) for wkv_chunked; ``shapes``
+holds the per-shape numbers.  ``launches`` is the count of the path the
+kernel is on: the EdgeNeXt-S requests for the first three, the lowered
+phase for matmul_ln, the RWKV-6 requests for wkv_chunked
+(``launches_by_path`` has all three paths).  ``bound_ms`` is the larger
+of bytes / 3.35 TB/s (each input read once, each output written once)
+and operations / peak: 495 TFLOP/s (TF32 tensor cores, the card's rate
+for a float32 matrix product) for the products of fused_ibn, attention,
+matmul_ln and WKV (2 * ``core.workload.scan_macs`` at the run's chunk;
+its sums are float32 whatever the input type), 67 TFLOP/s (float32
 outside the tensor cores) for the depthwise convolution, which has no
-matrix product; 989 TFLOP/s for bfloat16 products.  The matrix products'
-shapes also carry ``bound_fp32_cuda_core_ms``, the same bound at 67
-TFLOP/s, the rate of the exact float32 multiply-adds the kernels run.
+matrix product; 989 TFLOP/s for bfloat16 products.  The matrix
+products' shapes also carry ``bound_fp32_cuda_core_ms``, the same bound
+at 67 TFLOP/s, the rate of the exact float32 multiply-adds the kernels
+run.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -76,17 +104,21 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.edgenext_s import CONFIG  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import depthwise_conv as dw_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import fused_ibn as ibn_mod  # noqa: E402
 from repro_torch.kernels import matmul_ln as mln_mod  # noqa: E402
-from repro_torch.models import edgenext  # noqa: E402
-from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.kernels import rwkv_chunk as wkv_mod  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.models import edgenext, rwkv6  # noqa: E402
+from repro_torch.models.params import count_params, init_params  # noqa: E402
+from repro_torch.runtime import build_decode_step, build_prefill_step  # noqa: E402
 from repro_torch.search import (WORKLOADS, auto_schedule,  # noqa: E402
                                 get_workload, lower)
-from repro_torch.core.workload import NORM, PWCONV, Layer  # noqa: E402
+from repro_torch.core.workload import NORM, PWCONV, SCAN, Layer, scan_macs  # noqa: E402
 from repro_torch.serve_edgenext import serve  # noqa: E402
 
 MEM_BYTES_S = 3.35e12
@@ -109,10 +141,35 @@ KERNELS = {
     "matmul_ln": dict(module=mln_mod,
                       source="src/repro_torch/kernels/csrc/matmul_ln.cu",
                       replaces="src/repro/kernels/matmul_ln.py:70"),
+    "wkv_chunked": dict(module=wkv_mod,
+                        source="src/repro_torch/kernels/csrc/wkv_chunked.cu",
+                        replaces="src/repro/kernels/rwkv_chunk.py:88"),
 }
-# the EdgeNeXt-S forward launches the first three; matmul_ln runs only on
-# the lowered path
-SERVE_KERNELS = ("fused_ibn", "depthwise_conv2d", "flash_attention")
+# the path whose run gives each kernel's ``launches``: the EdgeNeXt-S
+# forward launches the first three, the RWKV-6 prefill wkv_chunked, and
+# matmul_ln runs only on the lowered path
+MAIN_PATH = {"fused_ibn": "edgenext_serve", "depthwise_conv2d": "edgenext_serve",
+             "flash_attention": "edgenext_serve", "matmul_ln": "lowered",
+             "wkv_chunked": "rwkv6_serve"}
+# lowered kernel name -> the kernel that runs it
+LOWERED = {"fused_ibn": "fused_ibn", "flash_attention": "flash_attention",
+           "matmul_ln": "matmul_ln", "rwkv_chunk": "wkv_chunked"}
+
+# RWKV-6 traffic: (batch, prompt tokens) per request, greedy tokens each
+RWKV_REQUESTS = [(4, 512)] * 3 + [(1, 200)]
+RWKV_GEN = 32
+RWKV_PARAMS = 1_599_873_024
+# The served bfloat16 run against the plain bfloat16 model, teacher-forced
+# with the served tokens.  The two differ only in the WKV: the kernel and
+# ``wkv_ref`` take the same float32 sums in another order and round them to
+# bfloat16 (2^-8 relative) at one place, so single-ulp flips of the WKV
+# output enter each of 24 residual layers.  Logits here are O(1) (|logits|
+# <= ~6 on random weights): a logit that moves by more than BF16_LOGITS_TOL
+# (a few percent of that range) is a fault, not rounding.  Greedy tokens
+# may flip where the top two logits are closer than the noise, so
+# BF16_AGREEMENT asks for most, not all, of them.
+BF16_LOGITS_TOL = 0.25
+BF16_AGREEMENT = 0.75
 
 
 def fail(msg: str) -> None:
@@ -161,6 +218,17 @@ def bound(bytes_moved: int, flops: float, peak: float) -> tuple[float, str]:
     t_bytes = bytes_moved / MEM_BYTES_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_counts() -> None:
+    torch.cuda.synchronize()
+    for info in KERNELS.values():
+        info["module"].launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {name: info["module"].launches for name, info in KERNELS.items()}
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -327,6 +395,40 @@ def mln_case(M, K, N, *, dtype=torch.float32, blocks=None, timed=False):
     return rec
 
 
+def wkv_inputs(BH, T, K, V, dtype=torch.float32):
+    """r, k, v, u ~ N(0, 0.5^2), logw = -exp(N(0, 0.5^2)), as the JAX WKV
+    tests draw them; r, k, v in ``dtype``, logw and u float32."""
+    r, k, v = (randn(BH, T, n, scale=0.5) for n in (K, K, V))
+    logw = -torch.exp(randn(BH, T, K, scale=0.5))
+    u = randn(BH, K, scale=0.5)
+    return r.to(dtype), k.to(dtype), v.to(dtype), logw, u
+
+
+def wkv_case(BH, T, K, V, chunk, *, dtype=torch.float32, inputs=None,
+             timed=False):
+    r, k, v, logw, u = inputs or wkv_inputs(BH, T, K, V, dtype)
+    C = min(chunk, T)
+    name = f"wkv_chunked[{BH}x{T}x{K}->{V} chunk={chunk} " \
+           f"{str(r.dtype).split('.')[-1]}]"
+    tol = 2e-4 if r.dtype == torch.float32 else 2e-2
+    out, state = ops.wkv_chunked(r, k, v, logw, u, chunk=chunk)
+    want_out, want_state = ref.wkv_ref(r, k, v, logw, u)
+    err = max(compare(name, out, want_out, tol),
+              compare(name + " state", state, want_state, 2e-4))
+    rec = dict(case=name, max_abs_err=err, tol=tol)
+    if timed:
+        flops = 2.0 * scan_macs(Layer("wkv", SCAN, b=BH, ox=T, c=K, k=V), C)
+        moved = nbytes(r, k, v, logw, u, out, state)
+        rec["bound_ms"], rec["bound_by"] = bound(moved, flops, PEAK_TF32)
+        rec["bound_fp32_cuda_core_ms"] = bound(moved, flops, PEAK_FP32)[0]
+        rec["ms"] = time_ms(lambda: ops.wkv_chunked(r, k, v, logw, u, chunk=chunk))
+        rec["plain_ms"] = time_ms(lambda: ref.wkv_ref(r, k, v, logw, u),
+                                  reps=5, warmup=1)
+        rec["library_ms"] = None     # no single PyTorch call computes WKV6
+        rec["gbytes_s"] = moved / rec["ms"] / 1e6
+    return rec
+
+
 def path_shapes(cfg, batch):
     """(kernel, arguments, launches per forward) for every shape one
     forward of ``cfg`` at ``batch`` gives each kernel."""
@@ -394,7 +496,23 @@ def kernels_phase():
     rec["per_forward"] = 0
     per_kernel["matmul_ln"]["shapes"].append(rec)
 
+    # wkv_chunked: the served shape once a layer (24 a prefill), bfloat16
+    # r/k/v as served and a float32 copy of the same values; the chunk
+    # sweep and RecurrentGemma's K = 1 shape (timed, outside the sums)
     bf16 = torch.bfloat16
+    served = wkv_inputs(128, 512, 64, 64)
+    for dtype, n in ((bf16, rwkv6.kernel_launches_per_prefill(
+            get_config("rwkv6-1.6b"))["wkv_chunked"]), (torch.float32, 0)):
+        rec = wkv_case(128, 512, 64, 64, 64, timed=True, inputs=(
+            *(t.to(dtype) for t in served[:3]), *served[3:]))
+        rec["per_forward"] = n
+        per_kernel["wkv_chunked"]["shapes"].append(rec)
+    for BH, T, K, V, chunk in [(128, 512, 64, 64, c) for c in (8, 16, 32, 128, 256)] \
+            + [(1, 448, 1, 2560, 64), (1, 448, 1, 2560, 256)]:
+        rec = wkv_case(BH, T, K, V, chunk, timed=True)
+        rec["per_forward"] = 0
+        per_kernel["wkv_chunked"]["shapes"].append(rec)
+
     per_kernel["fused_ibn"]["extra"] = [
         ibn_case(197, 48, 160, 48),
         ibn_case(197, 48, 160, 48, gated=True, act="silu"),
@@ -419,35 +537,45 @@ def kernels_phase():
         fa_case(1, 2, 33, 77, 1500, causal=True),            # D over 2 blocks
         fa_case(1, 2, 64, 64, 32, causal=True, dtype=bf16),
     ]
+    per_kernel["wkv_chunked"]["extra"] = [
+        wkv_case(4, 50, 64, 64, 16),             # the JAX tests' ragged T
+        wkv_case(4, 33, 64, 64, 8),
+        wkv_case(4, 100, 64, 64, 64),
+        wkv_case(4, 50, 64, 64, 64),             # T < chunk
+        wkv_case(4, 100, 8, 40, 32),             # narrow K, V off the 32-column tile
+        wkv_case(4, 100, 64, 64, 64, dtype=bf16),
+    ]
     return per_kernel
 
 
 def lowered_phase():
-    """Every ``lowered`` entry of every registered workload whose kernel is
-    ported, launched with the emitted blocks at the layer's true shapes
-    and held against its plain version; identical (kernel, shapes,
-    blocks) once.  Returns the per-launch records, the entries per kernel,
-    the rwkv_chunk entries per workload and the launch counts."""
+    """Every ``lowered`` entry of every registered workload, launched with
+    the emitted blocks (or chunk) at the layer's true shapes and held
+    against its plain version; identical (kernel, shapes, blocks) once.
+    Fails on an entry whose kernel is not ported.  Returns the per-launch
+    records, the entries per lowered kernel name, the entries per
+    workload and lowered kernel, and the launch counts."""
     distinct: dict = {}
-    entries: dict = {name: 0 for name in KERNELS}
-    waiting: dict = {}
+    entries: dict = {name: 0 for name in LOWERED}
+    by_workload: dict = {}
     for wname in WORKLOADS:
         layers = get_workload(wname)
         sched = auto_schedule(layers, workload=wname)
         for key, lk in sched.lowered.items():
-            kern = lk["kernel"]
-            if kern not in KERNELS:
-                waiting[wname] = waiting.get(wname, 0) + 1
-                continue
+            if lk["kernel"] not in LOWERED:
+                fail(f"lowered: {wname}:{key} is lowered onto "
+                     f"{lk['kernel']!r}, which no ported kernel runs")
+            kern = LOWERED[lk["kernel"]]
             shape = lower.launch_shape(layers, key, lk)
-            blocks = {k: v for k, v in lk.items() if k.startswith("block_")}
+            blocks = {k: v for k, v in lk.items()
+                      if k.startswith("block_") or k == "chunk"}
             dkey = (kern, tuple(shape.items()), tuple(sorted(blocks.items())))
             distinct.setdefault(dkey, []).append(f"{wname}:{key}")
-            entries[kern] += 1
+            entries[lk["kernel"]] += 1
+            per = by_workload.setdefault(lk["kernel"], {})
+            per[wname] = per.get(wname, 0) + 1
 
-    torch.cuda.synchronize()
-    for info in KERNELS.values():
-        info["module"].launches = 0
+    reset_counts()
     records = []
     for (kern, shape, blocks), where in distinct.items():
         s, blocks = dict(shape), dict(blocks)
@@ -456,35 +584,44 @@ def lowered_phase():
                            w_scale=(s["d"] ** -0.5, s["f"] ** -0.5))
         elif kern == "matmul_ln":
             rec = mln_case(s["m"], s["k"], s["n"], blocks=blocks)
+        elif kern == "wkv_chunked":
+            rec = wkv_case(s["bh"], s["t"], s["k"], s["v"], blocks["chunk"])
         else:
             rec = fa_case(1, s["bh"], s["q"], s["k"], s["d"], causal=False,
                           blocks=blocks)
         rec.update(kernel=kern, blocks=blocks, entries=len(where),
                    first=where[0])
         records.append(rec)
-    torch.cuda.synchronize()
-    launches = {name: info["module"].launches for name, info in KERNELS.items()}
+    launches = read_counts()
     for name in KERNELS:
         want = sum(1 for r in records if r["kernel"] == name)
         if launches[name] != want:
             fail(f"lowered: {name} launched {launches[name]} times for "
                  f"{want} distinct lowered launches")
-    if not launches["matmul_ln"]:
-        fail("lowered: matmul_ln was never launched")
-    return records, entries, waiting, launches
+        if name in LOWERED.values() and not launches[name]:
+            fail(f"lowered: {name} was never launched")
+    return records, entries, by_workload, launches
+
+
+def per_forward_sum(shapes, key):
+    """Sum of ``key`` over one forward's launches; None where a shape has
+    no such number (WKV has no library call)."""
+    if any(s[key] is None for s in shapes):
+        return None
+    return sum(s[key] * s["per_forward"] for s in shapes)
 
 
 def summarise(per_kernel, launches):
     rows = []
     for name, info in KERNELS.items():
         shapes = per_kernel[name]["shapes"]
-        total = lambda key: sum(s[key] * s["per_forward"] for s in shapes)  # noqa: E731
+        total = lambda key: per_forward_sum(shapes, key)  # noqa: E731
         by = {"bytes": 0.0, "operations": 0.0}
         for s in shapes:
             by[s["bound_by"]] += s["bound_ms"] * s["per_forward"]
         f32_errs = [s["max_abs_err"] for s in shapes + per_kernel[name]["extra"]
                     if s["tol"] < 1e-2]
-        path = "edgenext_serve" if name in SERVE_KERNELS else "lowered"
+        path = MAIN_PATH[name]
         rows.append(dict(
             name=name, route="cuda", source=info["source"],
             replaces=info["replaces"], launches=launches[path][name],
@@ -493,7 +630,8 @@ def summarise(per_kernel, launches):
             bound_ms=total("bound_ms"),
             bound_by=max(by, key=by.get), library_ms=total("library_ms"),
             launches_per_forward=sum(s["per_forward"] for s in shapes),
-            batch=BATCH, shapes=shapes, extra=per_kernel[name]["extra"]))
+            batch=RWKV_REQUESTS[0][0] if name == "wkv_chunked" else BATCH,
+            shapes=shapes, extra=per_kernel[name]["extra"]))
     return rows
 
 
@@ -514,12 +652,9 @@ def main_path():
         for b in sizes]
 
     serve(model, [batches[0], batches[-1]])       # warm-up, one of each size
-    torch.cuda.synchronize()
-    for info in KERNELS.values():
-        info["module"].launches = 0
+    reset_counts()
     logits, ms = serve(model, batches)
-    torch.cuda.synchronize()
-    launches = {name: info["module"].launches for name, info in KERNELS.items()}
+    launches = read_counts()
 
     want = edgenext.kernel_launches_per_forward(cfg)
     if want != {"fused_ibn": 18, "depthwise_conv2d": 21, "flash_attention": 3}:
@@ -569,6 +704,167 @@ def main_path():
     return launches, result
 
 
+def decode_inputs(tokens: torch.Tensor) -> torch.Tensor:
+    """What a greedy run fed its decode steps: token 0, then its own
+    tokens but the last."""
+    return torch.cat([torch.zeros_like(tokens[:, :1]), tokens[:, :-1]], 1)
+
+
+def forced_decode(decode, params, cache, inputs: torch.Tensor):
+    """Decode steps fed ``inputs`` [B, n] (teacher forcing) -> (logits
+    [B, n, Vp], cache)."""
+    logits = []
+    with torch.inference_mode():
+        for i in range(inputs.shape[1]):
+            _, lg, cache = decode(params, cache, {"tokens": inputs[:, i:i + 1]})
+            logits.append(lg)
+    return torch.stack(logits, 1), cache
+
+
+def rwkv6_path():
+    """RWKV-6 1.6B served through ``launch.serve``'s prefill and greedy
+    decode at full width, then held against its plain versions (see the
+    module docstring, phase 5).  Returns the launch counts of the served
+    requests and the numbers."""
+    cfg = get_config("rwkv6-1.6b")
+    defs = rwkv6.param_defs(cfg)
+    if count_params(defs) != RWKV_PARAMS:
+        fail(f"rwkv6: {count_params(defs)} parameters, expected {RWKV_PARAMS}")
+    want = rwkv6.kernel_launches_per_prefill(cfg)
+    if want != {"wkv_chunked": 24}:
+        fail(f"RWKV-6 1.6B should launch wkv_chunked 24 times a prefill, "
+             f"model says {want}")
+    t0 = time.perf_counter()
+    tree = init_params(SEED, defs)              # numpy float32, on the host
+    init_s = time.perf_counter() - t0
+    params = rwkv6.load_params(cfg, tree)       # as served: bfloat16 compute
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t),
+                                             dtype=np.int32)).cuda()
+               for b, t in RWKV_REQUESTS]
+
+    for p in (prompts[0], prompts[-1]):        # warm-up, one of each size
+        _, cache, _ = lm_serve.run_prefill(prefill, params, p)
+        lm_serve.run_decode(decode, params, cache, p.shape[0], 2, p.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served = []
+    launches = {name: 0 for name in KERNELS}
+    for i, p in enumerate(prompts):
+        B = p.shape[0]
+        reset_counts()
+        last, cache, prefill_ms = lm_serve.run_prefill(prefill, params, p)
+        n_prefill = read_counts()
+        reset_counts()
+        toks, logits, decode_ms = lm_serve.run_decode(
+            decode, params, cache, B, RWKV_GEN, p.device)
+        n_decode = read_counts()
+        for name in KERNELS:
+            expect = want.get(name, 0)
+            if n_prefill[name] != expect or n_decode[name]:
+                fail(f"rwkv6 request {i}: {name} launched {n_prefill[name]} "
+                     f"times in prefill and {n_decode[name]} in decode, "
+                     f"expected {expect} and 0")
+            launches[name] += n_prefill[name] + n_decode[name]
+        logits = torch.stack(logits, 1)
+        if logits.shape != (B, RWKV_GEN, cfg.padded_vocab) \
+                or not torch.isfinite(logits).all():
+            fail(f"rwkv6 request {i}: logits {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}")
+        if toks.shape != (B, RWKV_GEN) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"rwkv6 request {i}: tokens {tuple(toks.shape)} out of range")
+        served.append(dict(prompt=p, last=last, tokens=toks, logits=logits,
+                           prefill_ms=prefill_ms, decode_ms=decode_ms))
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # the served bfloat16 run against the plain bfloat16 model
+    plain_prefill = build_prefill_step(cfg, kernels=ref.PLAIN)
+    plain_decode = build_decode_step(cfg, kernels=ref.PLAIN)
+    bf16_err, bf16_hidden_err, agree, steps = 0.0, 0.0, 0, 0
+    for r in (served[0], served[-1]):
+        with torch.inference_mode():
+            last_p, cache_p = plain_prefill(params, {"tokens": r["prompt"]})
+        logits_p, _ = forced_decode(plain_decode, params, cache_p,
+                                    decode_inputs(r["tokens"]))
+        V = cfg.vocab_size
+        bf16_err = max(bf16_err, (r["logits"][..., :V] - logits_p[..., :V])
+                       .abs().max().item())
+        bf16_hidden_err = max(bf16_hidden_err, (r["last"].float() - last_p.float())
+                              .abs().max().item())
+        agree += int((logits_p[..., :V].argmax(-1) == r["tokens"]).sum())
+        steps += r["tokens"].numel()
+    if bf16_err > BF16_LOGITS_TOL or agree < BF16_AGREEMENT * steps:
+        fail(f"rwkv6 bfloat16: logits differ from the plain model by "
+             f"{bf16_err:.3e} (limit {BF16_LOGITS_TOL}), greedy tokens agree "
+             f"{agree}/{steps} (at least {BF16_AGREEMENT:.0%})")
+    del params, plain_prefill, plain_decode
+    torch.cuda.empty_cache()
+
+    # float32: the kernel model against the plain model on the card
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = rwkv6.load_params(cfg32, tree)
+    pre32, dec32 = build_prefill_step(cfg32), build_decode_step(cfg32)
+    p = prompts[0]
+    last_k, cache_k, _ = lm_serve.run_prefill(pre32, params32, p)
+    toks_k, logits_k, _ = lm_serve.run_decode(dec32, params32, cache_k,
+                                              p.shape[0], 8, p.device)
+    with torch.inference_mode():
+        last_p, cache_p = build_prefill_step(cfg32, kernels=ref.PLAIN)(
+            params32, {"tokens": p})
+    logits_p, _ = forced_decode(build_decode_step(cfg32, kernels=ref.PLAIN),
+                                params32, cache_p, decode_inputs(toks_k))
+    f32_err = max(
+        compare("rwkv6 float32 last hidden", last_k, last_p, 2e-3),
+        compare("rwkv6 float32 WKV states", cache_k.state, cache_p.state, 2e-3),
+        compare("rwkv6 float32 time-mix shifts", cache_k.shift_tm,
+                cache_p.shift_tm, 2e-3),
+        compare("rwkv6 float32 logits", torch.stack(logits_k, 1), logits_p, 2e-3))
+
+    # one 1 x 64 float32 request against the plain model on the CPU
+    p64 = prompts[-1][:, :64]
+    last_k, cache_k, _ = lm_serve.run_prefill(pre32, params32, p64)
+    toks_k, logits_k, _ = lm_serve.run_decode(dec32, params32, cache_k, 1, 4,
+                                              p64.device)
+    logits_k = torch.stack(logits_k, 1).cpu()
+    del params32, cache_k, cache_p
+    torch.cuda.empty_cache()
+    params_cpu = rwkv6.load_params(cfg32, tree, device="cpu")
+    del tree
+    pre_cpu, dec_cpu = build_prefill_step(cfg32), build_decode_step(cfg32)
+    with torch.inference_mode():
+        last_c, cache_c = pre_cpu(params_cpu, {"tokens": p64.cpu()})
+    logits_c, _ = forced_decode(dec_cpu, params_cpu, cache_c,
+                                decode_inputs(toks_k).cpu())
+    cpu_err = max((last_k.cpu() - last_c).abs().max().item(),
+                  (logits_k - logits_c).abs().max().item())
+    bound_c = 2e-3 * (1 + max(last_c.abs().max().item(), logits_c.abs().max().item()))
+    if not (torch.allclose(last_k.cpu(), last_c, rtol=2e-3, atol=2e-3)
+            and torch.allclose(logits_k, logits_c, rtol=2e-3, atol=2e-3)):
+        fail(f"rwkv6 float32: the card differs from the plain model on the CPU "
+             f"by {cpu_err:.3e} (limit 2e-3 (1 + |b|), at most {bound_c:.3e})")
+
+    b4 = served[:-1]
+    result = dict(
+        requests=RWKV_REQUESTS, gen=RWKV_GEN, parameters=RWKV_PARAMS,
+        init_params_s=init_s, launches=launches,
+        prefill_ms=[r["prefill_ms"] for r in served],
+        decode_ms=[r["decode_ms"] for r in served],
+        prefill_ms_b4_t512=statistics.median(r["prefill_ms"] for r in b4),
+        prefill_ms_b1_t200=served[-1]["prefill_ms"],
+        decode_ms_per_token_b4=statistics.median(r["decode_ms"] / RWKV_GEN for r in b4),
+        decode_ms_per_token_b1=served[-1]["decode_ms"] / RWKV_GEN,
+        peak_memory_mib=peak_mib,
+        logits_abs_max=max(r["logits"].abs().max().item() for r in served),
+        bf16_max_logits_err_vs_plain=bf16_err,
+        bf16_max_last_hidden_err_vs_plain=bf16_hidden_err,
+        bf16_greedy_agreement=agree / steps,
+        f32_max_err_vs_plain_on_card=f32_err, f32_max_err_vs_plain_on_cpu=cpu_err,
+        first_tokens=served[0]["tokens"][0, :16].tolist())
+    return launches, result
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -591,6 +887,10 @@ def main() -> None:
           f"cuda {torch.version.cuda} | {' | '.join(nvcc)}", flush=True)
 
     # 2. build
+    want_sources = sorted(ROOT / info["source"] for info in KERNELS.values())
+    if _build.sources() != want_sources:
+        fail(f"build: sources {[str(p) for p in _build.sources()]}, expected "
+             f"the {len(want_sources)} of KERNELS")
     _build.library()
     built = _build.build_seconds
     print(f"build {len(_build.sources())} sources -> {_build.build_dir()} in "
@@ -607,14 +907,15 @@ def main() -> None:
     per_kernel = kernels_phase()
     for name, rec in per_kernel.items():
         for s in rec["shapes"]:
+            lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
             print(f"kernel {s['case']} x{s['per_forward']}: err {s['max_abs_err']:.2e} "
                   f"ms {s['ms']:.4f} plain {s['plain_ms']:.4f} library "
-                  f"{s['library_ms']:.4f} bound {s['bound_ms']:.4f} ({s['bound_by']})")
+                  f"{lib} bound {s['bound_ms']:.4f} ({s['bound_by']})")
         for s in rec["extra"]:
             print(f"kernel {s['case']}: err {s['max_abs_err']:.2e} (tol {s['tol']})")
     sys.stdout.flush()
 
-    # 4. main path
+    # 4. main path, EdgeNeXt-S
     launches, served = main_path()
     print(f"main_path EdgeNeXt-S requests {served['requests']} launches {launches} "
           f"err_vs_plain {served['max_abs_err_vs_plain_on_card']:.2e} "
@@ -624,22 +925,41 @@ def main() -> None:
           f"(plain {served['plain_ms_per_request_b16']:.3f}) "
           f"B=1 {served['ms_per_request_b1']:.3f} "
           f"(plain {served['plain_ms_per_request_b1']:.3f}) "
-          f"peak memory {served['peak_memory_mib']:.0f} MiB")
+          f"peak memory {served['peak_memory_mib']:.0f} MiB", flush=True)
 
-    # 5. the scheduler's path: every lowered entry onto its kernel
-    lowered, entries, waiting, lowered_launches = lowered_phase()
-    for name in KERNELS:
-        recs = [r for r in lowered if r["kernel"] == name]
-        if not recs:
-            continue
+    # 5. main path, RWKV-6 1.6B
+    rwkv_launches, rwkv = rwkv6_path()
+    print(f"rwkv6 requests {rwkv['requests']} x {rwkv['gen']} tokens, "
+          f"{rwkv['parameters']} parameters (init on the host "
+          f"{rwkv['init_params_s']:.1f} s), launches {rwkv_launches} = "
+          f"24 wkv_chunked a prefill, 0 in decode")
+    print(f"rwkv6 prefill ms B=4 T=512 {rwkv['prefill_ms_b4_t512']:.3f} "
+          f"B=1 T=200 {rwkv['prefill_ms_b1_t200']:.3f}; decode ms/token B=4 "
+          f"{rwkv['decode_ms_per_token_b4']:.3f} B=1 "
+          f"{rwkv['decode_ms_per_token_b1']:.3f}; peak memory "
+          f"{rwkv['peak_memory_mib']:.0f} MiB")
+    print(f"rwkv6 bfloat16 vs plain: max |dlogits| "
+          f"{rwkv['bf16_max_logits_err_vs_plain']:.3e} (limit {BF16_LOGITS_TOL}), "
+          f"last hidden {rwkv['bf16_max_last_hidden_err_vs_plain']:.3e}, greedy "
+          f"agreement {rwkv['bf16_greedy_agreement']:.3f} (at least "
+          f"{BF16_AGREEMENT}); |logits| <= {rwkv['logits_abs_max']:.3f}")
+    print(f"rwkv6 float32 err vs plain on card {rwkv['f32_max_err_vs_plain_on_card']:.2e}, "
+          f"vs CPU {rwkv['f32_max_err_vs_plain_on_cpu']:.2e} (limit 2e-3 (1+|b|))",
+          flush=True)
+
+    # 6. the scheduler's path: every lowered entry onto its kernel
+    lowered, entries, by_workload, lowered_launches = lowered_phase()
+    for name, kern in LOWERED.items():
+        recs = [r for r in lowered if r["kernel"] == kern]
         print(f"lowered {name}: {entries[name]} entries over {len(WORKLOADS)} "
               f"workloads, {len(recs)} distinct launches, all passed, max err "
               f"{max(r['max_abs_err'] for r in recs):.2e} (tol {recs[0]['tol']})")
-    print(f"lowered rwkv_chunk: {sum(waiting.values())} entries waiting for "
-          f"wkv_chunked (not ported): {waiting}", flush=True)
+    print(f"lowered rwkv_chunk entries by workload: {by_workload['rwkv_chunk']}; "
+          f"0 waiting", flush=True)
 
-    # 6. results
+    # 7. results
     rows = summarise(per_kernel, {"edgenext_serve": launches,
+                                  "rwkv6_serve": rwkv_launches,
                                   "lowered": lowered_launches})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -649,9 +969,9 @@ def main() -> None:
         out.write_text(json.dumps(dict(
             device=device, nvidia_smi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
-            kernels=rows, main_path=served,
+            kernels=rows, main_path=served, rwkv6=rwkv,
             lowered=dict(records=lowered, entries=entries,
-                         waiting_rwkv_chunk=waiting)), indent=1))
+                         by_workload=by_workload)), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

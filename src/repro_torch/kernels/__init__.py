@@ -8,6 +8,8 @@
   matmul_ln       matmul with a LayerNorm epilogue: whole rows in a
                   shared-memory line buffer, statistics before the one
                   store
+  rwkv_chunk      chunked RWKV-6 WKV recurrence: per-block chunk loop,
+                  the score matrix built 64 x 64 in shared memory
 
 ``ops`` holds the public entry points, ``ref`` the plain PyTorch versions
 each kernel is held against.  Sources are in ``csrc/``, built by

@@ -12,7 +12,8 @@ tiles the kernel runs: ``matmul_ln`` picks its template instance by
 (block_m, block_k); ``fused_ibn`` and ``flash_attention`` are built for
 one tile each, which is their default, and raise on any other.
 ``depthwise_conv2d`` is not lowered: its ``block_c`` is accepted for the
-JAX signature and not used.
+JAX signature and not used.  ``wkv_chunked``'s ``chunk`` is the searched
+schedule parameter and is run as given (see there).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_ibn as _ibn
 from repro_torch.kernels import matmul_ln as _mln
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv_chunk as _wkv
 
 
 def _check_blocks(name: str, built: dict, **given: int) -> None:
@@ -82,3 +84,20 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     if not x.is_cuda:
         return ref.depthwise_conv2d_ref(x, w, b)
     return _dw.depthwise_conv2d(x, w, b)
+
+
+def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64):
+    """Chunked WKV6 from a zero state; r, k, logw: [BH,T,K], v: [BH,T,V],
+    u: [BH,K] (the per-head bonus expanded by the caller) -> (out
+    [BH,T,V] in r's dtype, final state [BH,K,V] float32).
+
+    The requested chunk is honoured verbatim (it is the searched schedule
+    parameter, never shrunk to a divisor of T): the kernel takes
+    C = min(chunk, T) at run time, any C, and the last chunk's rows past T
+    are neither read nor written (masked by bounds, no pad copy), which
+    equals the JAX kernel's zero-padded, recurrence-neutral tail.  A CPU
+    tensor goes to the per-token ``ref.wkv_ref``."""
+    if not r.is_cuda:
+        return ref.wkv_ref(r, k, v, logw, u)
+    return _wkv.wkv_chunked(r, k, v, logw, u, chunk=chunk)

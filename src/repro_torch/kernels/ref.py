@@ -3,7 +3,8 @@
 Float32 math with the rounding points of the kernels: ``fused_ibn_ref``
 rounds the expanded intermediate T to the input dtype before the second
 product, ``attention_ref`` masks with a finite -1e30 so a fully masked
-row softmaxes to uniform, ``matmul_ln_ref`` rounds only its output.
+row softmaxes to uniform, ``matmul_ln_ref`` rounds only its output,
+``wkv_ref`` is the per-token recurrence (no chunks) in float32.
 They run on any device; ``ops`` sends only CPU tensors here.
 """
 from __future__ import annotations
@@ -92,6 +93,24 @@ def depthwise_conv2d_ref(x: torch.Tensor, w: torch.Tensor,
     return (acc + b.float()).to(x.dtype)
 
 
+def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            logw: torch.Tensor, u: torch.Tensor):
+    """Per-token WKV6 recurrence from a zero state.  r, k, logw: [BH,T,K];
+    v: [BH,T,V]; u: [BH,K].  Returns (out [BH,T,V] in r's dtype, final
+    state [BH,K,V] float32).  Products and sums are written out
+    elementwise, so they are exact float32 on any device."""
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    rf, kf, vf, wf, uf = (t.float() for t in (r, k, v, logw, u))
+    S = torch.zeros((BH, K, V), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(T):
+        at = kf[:, t, :, None] * vf[:, t, None, :]            # [BH,K,V]
+        outs.append((rf[:, t, :, None] * (S + uf[:, :, None] * at)).sum(1))
+        S = torch.exp(wf[:, t])[..., None] * S + at
+    return torch.stack(outs, 1).to(r.dtype), S
+
+
 # The plain versions under the names and signatures of ``ops``: a model
 # built with ``kernels=ref.PLAIN`` runs the same composition without any
 # kernel, on any device.
@@ -104,4 +123,5 @@ PLAIN = types.SimpleNamespace(
     depthwise_conv2d=lambda x, w, b, **_blocks: depthwise_conv2d_ref(x, w, b),
     matmul_ln=lambda x, w, b, gamma, beta, *, eps=1e-6, **_blocks:
         matmul_ln_ref(x, w, b, gamma, beta, eps=eps),
+    wkv_chunked=lambda r, k, v, logw, u, *, chunk=64: wkv_ref(r, k, v, logw, u),
 )

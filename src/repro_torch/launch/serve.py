@@ -1,0 +1,116 @@
+"""Serving launcher of the port: batched prefill + greedy decode.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+      [--reduced] [--batch 4] [--prompt-len 64] [--gen 32] [--seed 0] \
+      [--device cuda|cpu]
+
+Port of ``repro/launch/serve.py``.  Weights come from ``--seed``
+(``params.init_params``, numpy), prompts from
+``np.random.default_rng(seed)``, and decode starts from token 0, as in the
+JAX launcher.  ``--device`` defaults to ``cuda`` and the run raises where
+there is no card; ``--device cpu`` runs the plain versions on the CPU.
+The prefill and the decode loop are timed with CUDA events on the card
+(the device's time), with the host clock on the CPU.  One device, no
+mesh: the distributed runtime is ROADMAP queue 1 item 8.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import get_module
+from repro_torch.models.params import init_params
+from repro_torch.runtime import build_decode_step, build_prefill_step
+
+
+def timed(fn: Callable, device: torch.device):
+    """(fn(), milliseconds): CUDA events on the card, host clock else."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def run_prefill(prefill_step: Callable, params, tokens: torch.Tensor):
+    """tokens: [B, S] -> (last hidden [B, D], cache, ms)."""
+    with torch.inference_mode():
+        (last, cache), ms = timed(lambda: prefill_step(params, {"tokens": tokens}),
+                                  tokens.device)
+    return last, cache, ms
+
+
+def run_decode(decode_step: Callable, params, cache, batch: int, gen: int,
+               device: torch.device
+               ) -> Tuple[torch.Tensor, List[torch.Tensor], float]:
+    """``gen`` greedy steps from token 0 -> (tokens [B, gen] int32, logits
+    of each step [B, Vp], ms for all steps)."""
+    def loop(cache):
+        tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+        toks, logits = [], []
+        for _ in range(gen):
+            tok1, lg, cache = decode_step(params, cache, {"tokens": tok})
+            tok = tok1[:, None]
+            toks.append(tok1)
+            logits.append(lg)
+        return torch.stack(toks, 1), logits
+
+    with torch.inference_mode():
+        (toks, logits), ms = timed(lambda: loop(cache), torch.device(device))
+    return toks, logits, ms
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default: the hand-written kernels) or cpu "
+                         "(the plain versions)")
+    args = ap.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("serve: --device cuda (the default) but no CUDA "
+                           "device is available; pass --device cpu to run "
+                           "the plain versions on the CPU")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    mod = get_module(cfg)
+    params = mod.load_params(cfg, init_params(args.seed, mod.param_defs(cfg)),
+                             device=device)
+
+    B, S = args.batch, args.prompt_len
+    rng = np.random.default_rng(args.seed)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)).to(device)
+    _, cache, t_prefill = run_prefill(build_prefill_step(cfg), params, tokens)
+    gen, _, t_decode = run_decode(build_decode_step(cfg), params, cache, B,
+                                  args.gen, device)
+    gen = gen.cpu().numpy()
+    print(f"arch={cfg.name} device={device} prefill[{B}x{S}]={t_prefill:.1f}ms "
+          f"decode {args.gen} steps={t_decode:.1f}ms "
+          f"({t_decode / max(args.gen, 1):.2f} ms/tok)")
+    print("generated (first seq):", gen[0][:16].tolist())
+    return {"tokens": gen, "prefill_ms": t_prefill,
+            "decode_ms_per_token": t_decode / max(args.gen, 1)}
+
+
+if __name__ == "__main__":
+    main()

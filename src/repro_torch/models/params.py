@@ -32,7 +32,7 @@ Tree = Any
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"           # normal | zeros | ones
+    init: str = "normal"           # normal | zeros | ones | embed | uniform_decay
     scale: Optional[float] = None  # stddev override; default fan-in scaling
 
 
@@ -80,9 +80,15 @@ def _init_leaf(rng: np.random.Generator, d: ParamDef,
         if perturb:
             a += perturb * rng.standard_normal(d.shape, dtype=np.float32)
         return a
-    if d.init != "normal":
+    if d.init == "uniform_decay":
+        # decay-parameter init in (-6, -3) log space (RWKV/LRU style)
+        return (-6.0 + 3.0 * rng.random(d.shape, dtype=np.float32)
+                ).astype(np.float32)
+    if d.init not in ("normal", "embed"):
         raise ValueError(d.init)
-    scale = d.scale if d.scale is not None else 1.0 / math.sqrt(_fan_in(d.shape))
+    scale = d.scale
+    if scale is None:
+        scale = 1.0 if d.init == "embed" else 1.0 / math.sqrt(_fan_in(d.shape))
     return (scale * rng.standard_normal(d.shape, dtype=np.float32)
             ).astype(np.float32)
 

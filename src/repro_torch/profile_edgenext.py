@@ -28,7 +28,9 @@ from repro_torch.models import edgenext
 from repro_torch.models.params import init_params
 from repro_torch.serve_edgenext import serve
 
-OURS = ("ibn_kernel", "dw_kernel", "flash_kernel")   # names in csrc/*.cu
+# the hand-written kernels' names in csrc/*.cu
+OURS = ("ibn_kernel", "dw_kernel", "flash_kernel", "matmul_ln_kernel",
+        "wkv_chunked_kernel")
 SEED = 0
 
 

@@ -7,7 +7,7 @@ maps its decisions onto the port's hand-written CUDA kernels
   fused IBN group    -> kernels.ops.fused_ibn        (block_m, block_f)
   MAC + fused LN     -> kernels.ops.matmul_ln        (block_m, block_k)
   attention matmuls  -> kernels.ops.flash_attention  (block_q, block_k)
-  chunked recurrence -> rwkv_chunk                   (chunk)
+  chunked recurrence -> kernels.ops.wkv_chunked      (chunk)
 
 The Hopper launch contract, which every emitted ``block_*`` obeys:
 
@@ -27,7 +27,15 @@ The Hopper launch contract, which every emitted ``block_*`` obeys:
   extents and mask ragged edges themselves, nothing is padded.
   ``ragged[axis] = extent % block`` for every blocked axis (the extent
   itself when the block is larger), as in the JAX package.
-- ``rwkv_chunk`` keeps the searched chunk as it is (``lower_scan``).
+- ``rwkv_chunk`` keeps the searched chunk as it is (``lower_scan``), and
+  ``ops.wkv_chunked`` runs it as given: C = min(chunk, T) is a run-time
+  argument of the kernel (any C, not only powers of two), the last
+  chunk's rows past T are masked by bounds (nothing is padded), and
+  ``ragged["t"] = T % chunk``.  The kernel holds k and the decay cumsum
+  of a whole chunk in shared memory, two [C, K + 1] float32 arrays (the
+  other operands are tiled 64 t rows or 32 V columns at a time), so C * K
+  may reach 256 * 64 (``rwkv_chunk.smem_bytes`` within the 227 KiB of a
+  block); the search's pow2 chunks 8..256 at K <= 64 all fit.
 """
 from __future__ import annotations
 
@@ -196,7 +204,7 @@ def launch_shape(layers: Sequence[Layer], key: str,
       matmul_ln        m = b*ox*oy, k = c*fx*fy, n = k
       flash_attention  bh = b, q = ox, k = the softmax extent after the
                        score product, d = c (non-causal)
-      rwkv_chunk       t = ox
+      rwkv_chunk       bh = b, t = ox, k = c, v = k (the [K, V] state)
     """
     index = {l.name: i for i, l in enumerate(layers)}
     names = key.split(" + ")
@@ -211,4 +219,4 @@ def launch_shape(layers: Sequence[Layer], key: str,
     if kernel == "flash_attention":
         sm = next(l for l in layers[index[m.name] + 1:] if l.op == SOFTMAX)
         return {"bh": m.b, "q": m.ox, "k": sm.c, "d": m.c}
-    return {"t": m.ox}
+    return {"bh": m.b, "t": m.ox, "k": m.c, "v": m.k}

@@ -123,3 +123,32 @@ def test_matmul_ln_on_card_refuses_blocks_it_is_not_built_for():
         tops.fused_ibn(x[:, :16].contiguous(), w[:16, :64].contiguous(),
                        w[:64, :16].contiguous(), block_m=128)
     assert t_mln.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_f32", "bf16", "k1_v2560"])
+def test_wkv_chunked_on_card_matches_plain(case):
+    """The CUDA chunked WKV against ``wkv_ref``: a ragged float32 case
+    (T = 50 at chunk 16), the served types (bfloat16 r/k/v, float32 logw
+    and u), and RecurrentGemma's lowered K = 1, V = 2560 at chunk 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import rwkv_chunk as t_wkv
+    bh, t, k, v, chunk, dt = {
+        "ragged_f32": (4, 50, 64, 64, 16, torch.float32),
+        "bf16": (8, 100, 64, 64, 64, torch.bfloat16),
+        "k1_v2560": (1, 448, 1, 2560, 256, torch.float32)}[case]
+    r, kk, vv, w, u = _normal(22, (bh, t, k), (bh, t, k), (bh, t, v), (bh, t, k),
+                              (bh, k), scale=0.5)
+    logw = -torch.exp(w)
+    args = (r.to(dt), kk.to(dt), vv.to(dt), logw, u)
+    before = t_wkv.launches
+    out, state = tops.wkv_chunked(*args, chunk=chunk)
+    want_out, want_state = tref.wkv_ref(*args)
+    torch.cuda.synchronize()
+    assert t_wkv.launches == before + 1
+    assert out.dtype == dt and state.dtype == torch.float32
+    _close(out.float().cpu().numpy(), want_out.float().cpu().numpy(),
+           2e-4 if dt == torch.float32 else 2e-2)
+    _close(state.cpu().numpy(), want_state.cpu().numpy(), 2e-4)

@@ -24,6 +24,7 @@ from repro_torch.kernels import fused_ibn as t_ibn
 from repro_torch.kernels import matmul_ln as t_mln
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rwkv_chunk as t_wkv
 from repro_torch.core.workload import Layer
 from repro_torch.search import lower as t_lower
 
@@ -296,6 +297,83 @@ def test_matmul_ln_on_cpu_takes_any_blocks():
 
 
 # ---------------------------------------------------------------------------
+# chunked WKV6
+# ---------------------------------------------------------------------------
+
+
+def _wkv_inputs(seed, bh, t, k, v):
+    """As the JAX WKV tests draw them: N(0, 0.5^2), logw = -exp(N(0, 0.5^2))."""
+    r = _rng(seed)
+    n = lambda *s: (r.standard_normal(s) * 0.5).astype(np.float32)  # noqa: E731
+    return (n(bh, t, k), n(bh, t, k), n(bh, t, v),
+            (-np.exp(r.standard_normal((bh, t, k)) * 0.5)).astype(np.float32),
+            n(bh, k))
+
+
+@pytest.mark.parametrize("t,chunk", [(50, 16), (33, 8), (100, 64), (64, 8),
+                                     (64, 32)])
+def test_wkv_chunked_matches_jax(t, chunk):
+    """The JAX Pallas kernel (interpret mode) at ragged T and two chunks of
+    one T against the port's entry point on a CPU tensor (the per-token
+    ``wkv_ref`` that the CUDA kernel is held against on the card); 2e-4,
+    the JAX WKV tests' tolerance (tests/test_kernels.py:282-335)."""
+    arrs = _wkv_inputs(7, 4, t, 8, 8)
+    want_o, want_s = jops.wkv_chunked(*map(jnp.asarray, arrs), chunk=chunk,
+                                      interpret=True)
+    got_o, got_s = tops.wkv_chunked(*map(_t, arrs), chunk=chunk)
+    assert got_o.dtype == torch.float32 and tuple(got_o.shape) == (4, t, 8)
+    assert got_s.dtype == torch.float32 and tuple(got_s.shape) == (4, 8, 8)
+    _close(got_o.numpy(), want_o, 2e-4)
+    _close(got_s.numpy(), want_s, 2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_ref_matches_jax_ref(dtype):
+    """The two per-token plain versions, with V != K, and in bfloat16 r/k/v
+    with float32 logw and u (the served model's types)."""
+    r, k, v, w, u = _wkv_inputs(8, 3, 21, 8, 12)
+    cast_j = lambda a: jnp.asarray(a, dtype=dtype)          # noqa: E731
+    cast_t = lambda a: _t(a).to(getattr(torch, dtype))      # noqa: E731
+    want_o, want_s = jref.wkv_ref(cast_j(r), cast_j(k), cast_j(v),
+                                  jnp.asarray(w), jnp.asarray(u))
+    got_o, got_s = tref.wkv_ref(cast_t(r), cast_t(k), cast_t(v), _t(w), _t(u))
+    assert got_o.dtype == getattr(torch, dtype) and got_s.dtype == torch.float32
+    tol = 2e-4 if dtype == "float32" else 2e-2
+    _close(got_o.float().numpy(), np.asarray(want_o, np.float32), tol)
+    _close(got_s.numpy(), want_s, 2e-4)
+
+
+def test_wkv_smem_budget_covers_the_searched_chunks():
+    """k and the decay cumsum of a whole chunk live in shared memory: every
+    pow2 chunk 8..256 at K <= 64 fits a block, 512 at K = 64 does not."""
+    for chunk in (8, 16, 32, 64, 128, 256):
+        for k in (1, 8, 16, 64):
+            assert t_wkv.smem_bytes(chunk, k) <= t_wkv.SMEM_LIMIT
+    assert t_wkv.smem_bytes(256, 64) == 208132
+    assert t_wkv.smem_bytes(512, 64) > t_wkv.SMEM_LIMIT
+
+
+def test_wkv_wrapper_checks_before_anything_else():
+    r = torch.zeros(2, 5, 4)
+    u = torch.zeros(2, 4)
+    with pytest.raises(ValueError, match="shapes"):
+        t_wkv.wkv_chunked(r, r, torch.zeros(2, 6, 4), r, u, chunk=4)
+    with pytest.raises(ValueError, match="shapes"):
+        t_wkv.wkv_chunked(r, r, r, r, torch.zeros(2, 3), chunk=4)
+    with pytest.raises(ValueError, match="at least 1"):
+        t_wkv.wkv_chunked(r, r, r, r, u, chunk=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 512, 64)
+        t_wkv.wkv_chunked(big, big, big, big, torch.zeros(1, 64), chunk=512)
+    with pytest.raises(TypeError, match="logw"):
+        t_wkv.wkv_chunked(r.bfloat16(), r.bfloat16(), r.bfloat16(), r.half(),
+                          u, chunk=4)
+    with pytest.raises(ValueError, match="CUDA"):          # then the device
+        t_wkv.wkv_chunked(r.bfloat16(), r.bfloat16(), r.bfloat16(), r, u,
+                          chunk=4)
+
+
+# ---------------------------------------------------------------------------
 # routing, wrappers, build: what can be checked without a card
 # ---------------------------------------------------------------------------
 
@@ -309,24 +387,30 @@ def test_matmul_ln_on_cpu_takes_any_blocks():
                                   torch.zeros(8)),
     lambda: t_mln.matmul_ln(torch.zeros(4, 8), torch.zeros(8, 16),
                             *[torch.zeros(16)] * 3, block_m=8, block_k=16),
-], ids=["fused_ibn", "flash_attention", "depthwise_conv2d", "matmul_ln"])
+    lambda: t_wkv.wkv_chunked(*[torch.zeros(2, 5, 4)] * 4, torch.zeros(2, 4),
+                              chunk=4),
+], ids=["fused_ibn", "flash_attention", "depthwise_conv2d", "matmul_ln",
+        "wkv_chunked"])
 def test_kernel_wrapper_refuses_cpu_tensor(call):
     """The wrappers launch or raise; only ``ops`` sends a CPU tensor to
     the plain version.  No launch is counted."""
-    before = (t_ibn.launches, t_fa.launches, t_dw.launches, t_mln.launches)
+    before = (t_ibn.launches, t_fa.launches, t_dw.launches, t_mln.launches,
+              t_wkv.launches)
     with pytest.raises(ValueError, match="CUDA"):
         call()
     assert (t_ibn.launches, t_fa.launches, t_dw.launches,
-            t_mln.launches) == before
+            t_mln.launches, t_wkv.launches) == before
 
 
 def test_ops_on_cpu_counts_no_launch():
-    before = (t_ibn.launches, t_fa.launches, t_dw.launches)
+    before = (t_ibn.launches, t_fa.launches, t_dw.launches, t_wkv.launches)
     tops.fused_ibn(torch.zeros(4, 8), torch.zeros(8, 16), torch.zeros(16, 8))
     tops.flash_attention(*[torch.zeros(1, 1, 4, 8)] * 3)
     tops.depthwise_conv2d(torch.zeros(1, 4, 4, 8), torch.zeros(3, 3, 8),
                           torch.zeros(8))
-    assert (t_ibn.launches, t_fa.launches, t_dw.launches) == before
+    tops.wkv_chunked(*[torch.zeros(2, 5, 4)] * 4, torch.zeros(2, 4), chunk=2)
+    assert (t_ibn.launches, t_fa.launches, t_dw.launches,
+            t_wkv.launches) == before
 
 
 def test_pixel_stride_takes_dense_and_channel_slices_only():
@@ -377,12 +461,16 @@ def test_plain_namespace_has_the_signatures_of_ops():
                                    scale=1.0).numpy(),
         tops.flash_attention(_t(q), _t(k), _t(v), causal=False,
                              scale=1.0).numpy())
+    arrs = [_t(a) for a in _wkv_inputs(13, 2, 9, 4, 6)]
+    for got, want in zip(tref.PLAIN.wkv_chunked(*arrs, chunk=4),
+                         tops.wkv_chunked(*arrs, chunk=4)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_build_is_keyed_by_the_sources_and_lazy():
     names = sorted(p.name for p in _build.sources())
     assert names == ["depthwise_conv.cu", "flash_attention.cu", "fused_ibn.cu",
-                     "matmul_ln.cu"]
+                     "matmul_ln.cu", "wkv_chunked.cu"]
     assert _build.build_dir() == _build.build_dir()
     assert _build.build_dir().parent.name == "repro_torch_kernels"
     assert "compute_90a" in " ".join(_build.NVCC_FLAGS)

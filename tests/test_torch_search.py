@@ -32,6 +32,7 @@ from repro_torch.configs.edgenext_s import reduced_edgenext as t_reduced
 from repro_torch.core import costmodel as tcost
 from repro_torch.core import schedule as tschedule
 from repro_torch.core import workload as tworkload
+from repro_torch.kernels import rwkv_chunk as _wkv
 from repro_torch.search import lower
 
 GOLDEN = Path(__file__).parent / "golden"
@@ -185,6 +186,10 @@ def test_lowered_params_follow_the_hopper_contract(name):
             axes = {"m": "block_m", "k": "block_k"}
         else:
             assert lk["kernel"] == "rwkv_chunk" and not blocks
+            assert set(ext) == {"bh", "t", "k", "v"}
+            assert {a: lk[a] for a in ext} == ext         # the lowered extents
+            assert 1 <= lk["chunk"] <= ext["t"]
+            assert _wkv.smem_bytes(lk["chunk"], ext["k"]) <= _wkv.SMEM_LIMIT
             assert lk["ragged"] == ({"t": ext["t"] % lk["chunk"]}
                                     if ext["t"] % lk["chunk"] else {})
             continue
@@ -212,6 +217,10 @@ def test_lowered_params_follow_the_hopper_contract(name):
     ("vit-tiny", "blk0.fc1 + blk0.fc2",
      {"m": 196, "d": 192, "f": 768, "do": 192}),
     ("vit-tiny", "blk0.proj + blk0.ln2", {"m": 196, "k": 192, "n": 192}),
+    # RWKV-6 1.6B at B = 1: 32 heads of a [64, 64] state over 512 tokens;
+    # RecurrentGemma's LRU: one [1, 2560] state over 448 tokens
+    ("rwkv6", "blk0.tmix.wkv", {"bh": 32, "t": 512, "k": 64, "v": 64}),
+    ("recurrentgemma", "blk0.lru", {"bh": 1, "t": 448, "k": 1, "v": 2560}),
 ])
 def test_launch_shape_is_the_models_shape(name, key, want):
     layers = tsearch.get_workload(name)
