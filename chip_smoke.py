@@ -11,7 +11,12 @@ which ends the run with a non-zero exit code if it fails:
 2. build: the five CUDA kernels, from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape one EdgeNeXt-S forward gives it at batch 16 and at ragged /
-   odd / bfloat16 cases, ``|a-b| <= tol + tol*|b|`` with tol 3e-5 for
+   odd / bfloat16 cases (fused_ibn also at the four batch-1 shapes, at
+   RWKV-6's channel mix in bfloat16, M = 4 x 512, D = 2048, F = 7168,
+   relu^2, which the model leaves to two library products, and at cases
+   that split F over the grid with a ragged last tile, M = 1 and gated
+   bfloat16; each fused_ibn record carries ``splits`` and ``ctas`` from
+   ``kernels.fused_ibn.plan``), ``|a-b| <= tol + tol*|b|`` with tol 3e-5 for
    float32 (2e-4 attention and WKV, the JAX tests' own) and 2e-2 for
    bfloat16: float32 sums taken in another order, bfloat16 rounding of
    the result.  ``matmul_ln`` is on no model forward: it runs at the three
@@ -83,8 +88,9 @@ its sums are float32 whatever the input type), 67 TFLOP/s (float32
 outside the tensor cores) for the depthwise convolution, which has no
 matrix product; 989 TFLOP/s for bfloat16 products.  The matrix
 products' shapes also carry ``bound_fp32_cuda_core_ms``, the same bound
-at 67 TFLOP/s, the rate of the exact float32 multiply-adds the kernels
-run.
+at 67 TFLOP/s, the rate of the exact float32 multiply-adds matmul_ln,
+attention and WKV run (fused_ibn runs 3xTF32 on the tensor cores: three
+TF32 products for each one counted here).
 """
 from __future__ import annotations
 
@@ -258,8 +264,16 @@ def randn(*shape, scale: float = 1.0, dtype=torch.float32) -> torch.Tensor:
     return torch.from_numpy(a).to(dtype).cuda()
 
 
+def ibn_library(x, w1, w2, wg, act):
+    """The same function as two library products around the activation."""
+    act_fn = {"gelu": lambda t: F.gelu(t, approximate="tanh"), "silu": F.silu,
+              "relu2": lambda t: torch.square(torch.relu(t))}[act]
+    h = act_fn(torch.matmul(x, w1 if wg is None else wg))
+    return torch.matmul(h if wg is None else h * torch.matmul(x, w1), w2)
+
+
 def ibn_case(M, D, Fd, Do, *, gated=False, act="gelu", dtype=torch.float32,
-             timed=False, blocks=None, w_scale=(0.1, 0.1)):
+             timed=False, blocks=None, w_scale=(0.1, 0.1), min_splits=1):
     x = randn(M, D, dtype=dtype)
     w1 = randn(D, Fd, scale=w_scale[0], dtype=dtype)
     w2 = randn(Fd, Do, scale=w_scale[1], dtype=dtype)
@@ -267,9 +281,13 @@ def ibn_case(M, D, Fd, Do, *, gated=False, act="gelu", dtype=torch.float32,
     name = f"fused_ibn[{M}x{D}x{Fd}x{Do} {act}{' gated' if gated else ''} " \
            f"{str(dtype).split('.')[-1]}]"
     tol = 3e-5 if dtype == torch.float32 else 2e-2
+    plan = ibn_mod.plan(M, Fd, Do, torch.cuda.get_device_properties(0).multi_processor_count)
+    if plan["splits"] < min_splits:
+        fail(f"{name}: {plan['splits']} splits, the case needs at least {min_splits}")
     got = ops.fused_ibn(x, w1, w2, wg, activation=act, **(blocks or {}))
     want = ref.fused_ibn_ref(x, w1, w2, wg, activation=act)
-    rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol)
+    rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol,
+               splits=plan["splits"], ctas=plan["ctas"])
     if timed:
         flops = 2.0 * M * (D * Fd * (2 if gated else 1) + Fd * Do)
         moved = nbytes(x, w1, w2, wg, got)
@@ -279,8 +297,7 @@ def ibn_case(M, D, Fd, Do, *, gated=False, act="gelu", dtype=torch.float32,
         rec["ms"] = time_ms(lambda: ops.fused_ibn(x, w1, w2, wg, activation=act))
         rec["plain_ms"] = time_ms(
             lambda: ref.fused_ibn_ref(x, w1, w2, wg, activation=act))
-        rec["library_ms"] = time_ms(
-            lambda: torch.matmul(F.gelu(torch.matmul(x, w1), approximate="tanh"), w2))
+        rec["library_ms"] = time_ms(lambda: ibn_library(x, w1, w2, wg, act))
         rec["tflops"] = flops / rec["ms"] / 1e9
     return rec
 
@@ -469,9 +486,20 @@ def kernels_phase():
     ibn, dw, fa = path_shapes(CONFIG, BATCH)
     per_kernel = {name: dict(shapes=[], extra=[]) for name in KERNELS}
 
-    for (M, D, Fd, Do), n in merge_counts(ibn):
-        rec = ibn_case(M, D, Fd, Do, timed=True)
-        rec["per_forward"] = n
+    # fused_ibn: the batch-16 shapes (in the sums), then outside the sums
+    # the batch-1 shapes and RWKV-6's channel mix in bfloat16 (D = 2048,
+    # F = 7168, relu^2), which the model leaves to two library products
+    ibn1, _, _ = path_shapes(CONFIG, 1)
+    cmix = get_config("rwkv6-1.6b")
+    for (M, D, Fd, Do), n, batch, kw in (
+            [(args, n, BATCH, {}) for args, n in merge_counts(ibn)]
+            + [(args, 0, 1, {}) for args, _ in merge_counts(ibn1)]
+            + [((RWKV_REQUESTS[0][0] * RWKV_REQUESTS[0][1], cmix.d_model, cmix.d_ff,
+                 cmix.d_model), 0, RWKV_REQUESTS[0][0],
+                dict(act="relu2", dtype=torch.bfloat16,
+                     w_scale=(cmix.d_model ** -0.5, cmix.d_ff ** -0.5)))]):
+        rec = ibn_case(M, D, Fd, Do, timed=True, **kw)
+        rec.update(per_forward=n, batch=batch)
         per_kernel["fused_ibn"]["shapes"].append(rec)
     for (B, H, W, C, k, sl), n in merge_counts(dw):
         rec = dw_case(B, H, W, C, k, slice_of=sl, timed=True)
@@ -521,6 +549,12 @@ def kernels_phase():
         ibn_case(197, 48, 160, 48, dtype=bf16),
         ibn_case(197, 48, 160, 48, gated=True, act="silu", dtype=bf16),
         ibn_rounding_case(),
+        # split F: the last share ends in a ragged F tile, a single row,
+        # gated bfloat16 over several shares
+        ibn_case(64, 49, 1000, 48, min_splits=2),
+        ibn_case(197, 97, 330, 96, act="silu", min_splits=2),
+        ibn_case(1, 305, 1216, 304, min_splits=2),
+        ibn_case(64, 161, 640, 160, gated=True, act="silu", dtype=bf16, min_splits=2),
     ]
     per_kernel["depthwise_conv2d"]["extra"] = [
         dw_case(1, 10, 14, 52, 5),
@@ -908,9 +942,10 @@ def main() -> None:
     for name, rec in per_kernel.items():
         for s in rec["shapes"]:
             lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
+            split = f" splits {s['splits']} ctas {s['ctas']}" if "splits" in s else ""
             print(f"kernel {s['case']} x{s['per_forward']}: err {s['max_abs_err']:.2e} "
                   f"ms {s['ms']:.4f} plain {s['plain_ms']:.4f} library "
-                  f"{lib} bound {s['bound_ms']:.4f} ({s['bound_by']})")
+                  f"{lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}")
         for s in rec["extra"]:
             print(f"kernel {s['case']}: err {s['max_abs_err']:.2e} (tol {s['tol']})")
     sys.stdout.flush()

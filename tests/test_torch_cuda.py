@@ -58,6 +58,61 @@ def test_kernel_on_card_matches_plain(kernel):
     _close(got.cpu().numpy(), want.cpu().numpy(), tol)
 
 
+_SPLIT_F_CASES = {
+    # m, d, f, do, gated, activation, dtype
+    "stage4_m64": (64, 305, 1216, 304, False, "gelu", torch.float32),
+    "stage4_m1024": (1024, 305, 1216, 304, False, "gelu", torch.float32),
+    "ragged_f_last_split": (197, 97, 330, 96, False, "silu", torch.float32),
+    "do_over_304": (100, 64, 300, 400, True, "gelu", torch.float32),
+    "m1": (1, 305, 1216, 304, False, "relu2", torch.float32),
+    "gated_bf16": (64, 161, 640, 160, True, "silu", torch.bfloat16),
+}
+
+
+def _split_f_inputs(case, seed):
+    from repro_torch.kernels import fused_ibn as t_ibn
+    m, d, f, do, gated, act, dt = _SPLIT_F_CASES[case]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert t_ibn.plan(m, f, do, sms)["splits"] > 1
+    x, = _normal(seed, (m, d))
+    w1, w2, wg = _normal(seed + 1, (d, f), (f, do), (d, f), scale=0.1)
+    return [t.to(dt) for t in (x, w1, w2)] + [wg.to(dt) if gated else None], act
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_SPLIT_F_CASES))
+def test_fused_ibn_split_f_on_card_matches_plain(case):
+    """fused_ibn with F split over the grid (S > 1, partials reduced in a
+    second pass) against its plain version: stage-4 widths at M = 64 and
+    1024, a ragged F tile at the end of the last split, Do over two
+    blocks, a single row, gated bfloat16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    (x, w1, w2, wg), act = _split_f_inputs(case, 23)
+    got = tops.fused_ibn(x, w1, w2, wg, activation=act)
+    want = tref.fused_ibn_ref(x, w1, w2, wg, activation=act)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype
+    _close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+           3e-5 if x.dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stage4_m1024", "gated_bf16"])
+def test_fused_ibn_split_f_is_bitwise_repeatable(case):
+    """The split partials are summed in a fixed order, without atomics:
+    two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    (x, w1, w2, wg), act = _split_f_inputs(case, 24)
+    first = tops.fused_ibn(x, w1, w2, wg, activation=act)
+    second = tops.fused_ibn(x, w1, w2, wg, activation=act)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 def test_launch_counters_count_launches_only():
     if not torch.cuda.is_available():

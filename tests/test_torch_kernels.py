@@ -137,6 +137,145 @@ def test_fused_ibn_leading_dims():
     np.testing.assert_array_equal(lead.reshape(60, 8).numpy(), flat.numpy())
 
 
+# the fused_ibn kernel's own arithmetic, on the CPU: how plan() splits F
+# over the grid, the split sums, and the 3xTF32 products
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+_PLAN_SHAPES = [
+    (65536, 192, 48), (16384, 384, 96), (4096, 640, 160), (1024, 1216, 304),
+    (4096, 192, 48), (1024, 384, 96), (256, 640, 160), (64, 1216, 304),
+    (1, 1216, 304), (197, 160, 48), (100, 300, 400), (2048, 7168, 2048),
+    (64, 1000, 48)]
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("m,f,do", _PLAN_SHAPES)
+def test_fused_ibn_plan_splits_f_into_nonempty_shares(m, f, do, sms):
+    """S never exceeds the F tiles; the shares are contiguous, none is
+    empty, their sizes differ by at most one and together they walk every
+    F tile once; the workspace is S*M*Do float32 only where S > 1."""
+    p = t_ibn.plan(m, f, do, sms)
+    s, nf = p["splits"], p["f_tiles"]
+    assert nf == _cdiv(f, t_ibn.BLOCKS["block_f"])
+    assert 1 <= s <= nf
+    shares = [t_ibn.share(z, s, nf) for z in range(s)]
+    assert all(len(sh) >= 1 for sh in shares)
+    assert max(map(len, shares)) - min(map(len, shares)) <= 1
+    assert [t for sh in shares for t in sh] == list(range(nf))
+    assert p["workspace_bytes"] == (s * m * do * 4 if s > 1 else 0)
+    assert p["block_do"] in t_ibn.BLOCK_DO
+    assert p["grid"] == (_cdiv(m, t_ibn.BLOCKS["block_m"]),
+                         _cdiv(do, p["block_do"]), s)
+    assert p["ctas"] == p["grid"][0] * p["grid"][1] * p["grid"][2]
+
+
+@pytest.mark.parametrize("m,f,do", [(4096, 640, 160), (1024, 1216, 304)],
+                         ids=["stage3_b16", "stage4_b16"])
+def test_fused_ibn_plan_fills_the_card_at_stages_3_4(m, f, do):
+    """EdgeNeXt-S stages 3-4 at B = 16 have 64 and 16 row tiles; split
+    over F they reach about two blocks a SM of a 132-SM card."""
+    p = t_ibn.plan(m, f, do, 132)
+    assert p["splits"] > 1
+    assert p["ctas"] >= 0.9 * t_ibn.BLOCKS_PER_SM * 132
+
+
+def _split_f_sum(x, w1, w2, wg, act, splits):
+    """The kernel's split-F arithmetic in plain torch: per split, each of
+    its F tiles zero-filled to 64 columns, activated, masked past F,
+    rounded to x's type and contracted into a float32 partial; the
+    partials summed in the order s = 0..S-1."""
+    d, f = w1.shape
+    bf = t_ibn.BLOCKS["block_f"]
+    nf = _cdiv(f, bf)
+    xf = x.float()
+    parts = []
+    for z in range(splits):
+        acc = torch.zeros((x.shape[0], w2.shape[1]))
+        for t in t_ibn.share(z, splits, nf):
+            n = min(bf, f - t * bf)
+            cols = slice(t * bf, t * bf + n)
+            w1t = torch.zeros((d, bf))
+            w1t[:, :n] = w1[:, cols].float()
+            up = xf @ w1t
+            if wg is None:
+                h = tref._act(act, up)
+            else:
+                wgt = torch.zeros((d, bf))
+                wgt[:, :n] = wg[:, cols].float()
+                h = tref._act(act, xf @ wgt) * up
+            h[:, n:] = 0.0
+            w2t = torch.zeros((bf, w2.shape[1]))
+            w2t[:n] = w2[cols].float()
+            acc += h.to(x.dtype).float() @ w2t
+        parts.append(acc)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("m,d,f,do,gated,act", [
+    (64, 49, 1000, 48, False, "gelu"),      # 16 shares, ragged last tile
+    (197, 48, 160, 48, True, "silu"),       # 3 shares, ragged last tile
+    (33, 17, 330, 20, False, "relu2"),
+    (1, 305, 1216, 304, False, "gelu"),     # M = 1, stage-4 widths
+])
+def test_fused_ibn_split_f_sum_matches_ref(m, d, f, do, gated, act):
+    x, w1, w2, wg = _ibn_inputs(31, m, d, f, do, gated)
+    splits = t_ibn.plan(m, f, do, 132)["splits"]
+    assert splits > 1
+    args = (_t(x), _t(w1), _t(w2), None if wg is None else _t(wg))
+    got = _split_f_sum(*args, act, splits)
+    want = tref.fused_ibn_ref(*args, activation=act)
+    _close(got.numpy(), want.numpy(), 3e-5)
+
+
+def _tf32(a):
+    """Round to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``wmma::__float_to_tf32`` does."""
+    i = a.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(a):
+    """The top 19 bits of a float32: what the tensor cores read of a TF32
+    operand."""
+    return (a.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_mm(a, b, terms):
+    """a @ b on TF32 tensor cores: one term (big . big) or three (each
+    operand split into big = tf32(a) and small = a - big, which the tensor
+    cores truncate; small . small dropped), as csrc/fused_ibn.cu does."""
+    ab, bb = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ab @ bb
+    return (ab @ _tf32_trunc(b - bb) + _tf32_trunc(a - ab) @ bb) + ab @ bb
+
+
+@pytest.mark.parametrize("m,d,f,do,scale", [
+    (64, 305, 1216, 304, (0.1, 0.1)),                  # EdgeNeXt-S stage 4
+    (64, 2048, 7168, 2048, (2048 ** -0.5, 7168 ** -0.5)),  # RWKV-6 lowered
+], ids=["edgenext_stage4", "rwkv6"])
+def test_fused_ibn_3xtf32_holds_the_float32_tolerance(m, d, f, do, scale):
+    """3xTF32 products stay within 3e-5 (1 + |b|) of the float32 plain
+    version at the widest fused_ibn shapes; one TF32 term does not."""
+    r = _rng(32)
+    x = _t(r.standard_normal((m, d)).astype(np.float32))
+    w1 = _t((r.standard_normal((d, f)) * scale[0]).astype(np.float32))
+    w2 = _t((r.standard_normal((f, do)) * scale[1]).astype(np.float32))
+    want = tref.fused_ibn_ref(x, w1, w2, activation="gelu")
+    err = {terms: float(((_tf32_mm(tref._act("gelu", _tf32_mm(x, w1, terms)),
+                                   w2, terms) - want).abs()
+                         / (1 + want.abs())).max())
+           for terms in (1, 3)}
+    assert err[3] <= 3e-5 < err[1]
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
