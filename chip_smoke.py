@@ -22,8 +22,14 @@ which ends the run with a non-zero exit code if it fails:
    the result.  ``matmul_ln`` is on no model forward: it runs at the three
    EdgeNeXt-S shapes the scheduler lowers at batch 16 (M = 16384 / 4096 /
    1024, K = N = 96 / 160 / 304), the two LM widths it lowers (512 x 2048
-   -> 2048, 448 x 2560 -> 2560), two ragged cases and one bfloat16 case,
-   each with the blocks ``search.lower`` gives that shape.
+   -> 2048, 448 x 2560 -> 2560), two ragged cases, bfloat16 cases (also
+   at 512 x 2048 -> 2048) and two calls at 448 x 2560 -> 2560 that must
+   give the same bits, each with the blocks ``search.lower`` gives that
+   shape.  The kernel splits N over a thread-block cluster of up to 8
+   blocks, takes the row statistics through distributed shared memory in
+   rank order and multiplies in 3xTF32 (float32) or bf16 on the tensor
+   cores; each matmul_ln record, here and in the lowered phase, carries
+   ``splits`` and ``ctas`` from ``kernels.matmul_ln.plan``.
    ``wkv_chunked`` runs at RWKV-6's served prefill shape (B*H = 4*32,
    T = 512, K = V = 64, chunk 64; bfloat16 r/k/v with float32 logw and u,
    and a float32 copy), every pow2 chunk 8..256 at T = 512, the JAX
@@ -88,8 +94,8 @@ its sums are float32 whatever the input type), 67 TFLOP/s (float32
 outside the tensor cores) for the depthwise convolution, which has no
 matrix product; 989 TFLOP/s for bfloat16 products.  The matrix
 products' shapes also carry ``bound_fp32_cuda_core_ms``, the same bound
-at 67 TFLOP/s, the rate of the exact float32 multiply-adds matmul_ln,
-attention and WKV run (fused_ibn runs 3xTF32 on the tensor cores: three
+at 67 TFLOP/s, the rate of the exact float32 multiply-adds attention and
+WKV run (fused_ibn and matmul_ln run 3xTF32 on the tensor cores: three
 TF32 products for each one counted here).
 """
 from __future__ import annotations
@@ -385,7 +391,8 @@ def mln_blocks(M, K, N):
     return lk.params
 
 
-def mln_case(M, K, N, *, dtype=torch.float32, blocks=None, timed=False):
+def mln_case(M, K, N, *, dtype=torch.float32, blocks=None, timed=False,
+             repeat=False):
     x = randn(M, K, dtype=dtype)
     w = randn(K, N, scale=K ** -0.5, dtype=dtype)
     b = randn(N, scale=0.1, dtype=dtype)
@@ -395,9 +402,19 @@ def mln_case(M, K, N, *, dtype=torch.float32, blocks=None, timed=False):
     name = f"matmul_ln[{M}x{K}->{N} block_m={blocks['block_m']} " \
            f"block_k={blocks['block_k']} {str(dtype).split('.')[-1]}]"
     tol = 3e-5 if dtype == torch.float32 else 2e-2
+    plan = mln_mod.plan(M, N, torch.cuda.get_device_properties(0).multi_processor_count,
+                        block_m=blocks["block_m"])
     got = ops.matmul_ln(x, w, b, g, be, **blocks)
     want = ref.matmul_ln_ref(x, w, b, g, be)
-    rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol)
+    rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol,
+               splits=plan["splits"], ctas=plan["ctas"])
+    if repeat:
+        again = ops.matmul_ln(x, w, b, g, be, **blocks)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"{name}: two calls on the same inputs differ "
+                 f"(max {(got - again).abs().max().item():.3e})")
+        rec["case"] = name + " twice, same bits"
     if timed:
         flops = 2.0 * M * N * K
         moved = nbytes(x, w, b, g, be, got)
@@ -520,9 +537,10 @@ def kernels_phase():
         rec = mln_case(M, K, N, timed=True)
         rec["per_forward"] = n
         per_kernel["matmul_ln"]["shapes"].append(rec)
-    rec = mln_case(197, 48, 160, dtype=torch.bfloat16, timed=True)
-    rec["per_forward"] = 0
-    per_kernel["matmul_ln"]["shapes"].append(rec)
+    for M, K, N in ((197, 48, 160), (512, 2048, 2048)):
+        rec = mln_case(M, K, N, dtype=torch.bfloat16, timed=True)
+        rec["per_forward"] = 0
+        per_kernel["matmul_ln"]["shapes"].append(rec)
 
     # wkv_chunked: the served shape once a layer (24 a prefill), bfloat16
     # r/k/v as served and a float32 copy of the same values; the chunk
@@ -555,6 +573,12 @@ def kernels_phase():
         ibn_case(197, 97, 330, 96, act="silu", min_splits=2),
         ibn_case(1, 305, 1216, 304, min_splits=2),
         ibn_case(64, 161, 640, 160, gated=True, act="silu", dtype=bf16, min_splits=2),
+    ]
+    per_kernel["matmul_ln"]["extra"] = [
+        # N split unevenly over the cluster, rows far fewer than a tile
+        mln_case(1024, 304, 304, blocks=dict(block_m=32, block_k=16)),
+        mln_case(1, 2560, 2560), mln_case(7, 2560, 2560),
+        mln_case(448, 2560, 2560, repeat=True),
     ]
     per_kernel["depthwise_conv2d"]["extra"] = [
         dw_case(1, 10, 14, 52, 5),
@@ -947,7 +971,8 @@ def main() -> None:
                   f"ms {s['ms']:.4f} plain {s['plain_ms']:.4f} library "
                   f"{lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}")
         for s in rec["extra"]:
-            print(f"kernel {s['case']}: err {s['max_abs_err']:.2e} (tol {s['tol']})")
+            split = f" splits {s['splits']} ctas {s['ctas']}" if "splits" in s else ""
+            print(f"kernel {s['case']}: err {s['max_abs_err']:.2e} (tol {s['tol']}){split}")
     sys.stdout.flush()
 
     # 4. main path, EdgeNeXt-S

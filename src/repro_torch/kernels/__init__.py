@@ -5,9 +5,10 @@
   flash_attention online-softmax attention, the score matrix never stored
   depthwise_conv  channels-last SAME depthwise convolution, halo by
                   bounds checks
-  matmul_ln       matmul with a LayerNorm epilogue: whole rows in a
-                  shared-memory line buffer, statistics before the one
-                  store
+  matmul_ln       matmul with a LayerNorm epilogue: N split over a
+                  thread-block cluster, each block's slice of the rows in
+                  a shared-memory line buffer, row statistics through
+                  distributed shared memory before the one store
   rwkv_chunk      chunked RWKV-6 WKV recurrence: per-block chunk loop,
                   the score matrix built 64 x 64 in shared memory
 

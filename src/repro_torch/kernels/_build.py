@@ -10,6 +10,7 @@ together, and the objects are linked into one shared library::
     nvcc -shared -o librepro_kernels.so *.o
 
 The library goes to ``build/repro_torch_kernels/<hash of the sources>/``
+(the ``*.cu`` and the ``*.cuh`` headers they include)
 under the root of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides the
 ``build`` directory), is built at first use and reused while the sources
 keep their hash.  What ``-Xptxas -v`` says about registers, shared memory
@@ -66,10 +67,14 @@ def _build_root() -> Path:
     return Path(__file__).resolve().parents[3] / "build"
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def build_dir() -> Path:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _build_root() / "repro_torch_kernels" / h.hexdigest()[:16]

@@ -27,7 +27,7 @@
 // from zero and is then added to the accumulator in float32.  The mma
 // instructions are issued directly, with the PTX ISA's fragment layouts:
 // the WMMA API's tf32 fragments compile here to k = 4 instructions and
-// generic loads.
+// generic loads (the helpers are in mma.cuh, shared with matmul_ln.cu).
 //
 // Split F.  The grid is (row tiles, Do tiles, S): F is split into S shares
 // over blockIdx.z (the wrapper's plan() picks S so that the grid fills the
@@ -52,11 +52,9 @@
 // the products, warpgroup `wgmma` instead of mma.sync, and one launch
 // instead of two where S > 1.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -68,124 +66,6 @@ constexpr int WC = 4;    // warps across the columns; 4 across the rows (16 each
 constexpr int NT = 32 * 4 * WC;  // 512 threads
 constexpr int NH = BF / (8 * WC);  // 8-column mma tiles of T a warp computes
 constexpr int XMAX = 320;  // widest D whose x block stays in shared memory
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f32(float v, float* p) { *p = v; }
-__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
-
-// v rounded to TF32 (10 mantissa bits), to nearest with ties away from zero
-// (as cvt.rna.tf32.f32, without its checks for inf and NaN: two integer
-// operations instead of four)
-__device__ __forceinline__ uint32_t tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// The tensor-core arithmetic of each input type.  Fragments follow the PTX
-// ISA layouts of mma.m16n8k8 (tf32) and mma.m16n8k16 (bf16), with
-// g = lane / 4 and t = lane % 4: A (16 x K, row-major in shared memory), B
-// (K x 8, row-major [k][n] in shared memory), C (16 x 8): rows g and g + 8,
-// columns 2t and 2t + 1.  Padding of the shared-memory rows (elements):
-// PAD_A makes the A loads, PAD_B the B loads free of bank conflicts.
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<float> {
-  using S = float;
-  static constexpr int K = 8, PAD_A = 4, PAD_B = 8;
-  struct A { uint32_t big[4], small[4]; };
-  struct B { uint32_t big[2], small[2]; };
-  // a = big + small exactly; small goes to the tensor cores as it is, which
-  // read its top 19 bits (|small| <= 2^-11 |a|, so that costs 2^-21 |a|)
-  template <int N>
-  __device__ static void split(const float (&v)[N], uint32_t (&big)[N], uint32_t (&small)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      big[i] = tf32(v[i]);
-      small[i] = __float_as_uint(v[i] - __uint_as_float(big[i]));
-    }
-  }
-  // s: the tile's (row 0, k 0)
-  __device__ static A load_a(const S* s, int ld, int lane) {
-    const int g = lane / 4, t = lane % 4;
-    const float v[4] = {s[g * ld + t], s[(g + 8) * ld + t], s[g * ld + t + 4],
-                        s[(g + 8) * ld + t + 4]};
-    A a;
-    split(v, a.big, a.small);
-    return a;
-  }
-  // The resident x block (the A operand of every F tile) is split once, as
-  // it is stored: big at p, small at p + part.
-  static constexpr int X_PARTS = 2;
-  __device__ static void put_x(float v, S* p, int part) {
-    const uint32_t big = tf32(v);
-    p[0] = __uint_as_float(big);
-    p[part] = v - __uint_as_float(big);
-  }
-  __device__ static A load_x(const S* s, int ld, int part, int lane) {
-    const int g = lane / 4, t = lane % 4;
-    const int o[4] = {g * ld + t, (g + 8) * ld + t, g * ld + t + 4, (g + 8) * ld + t + 4};
-    A a;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a.big[i] = __float_as_uint(s[o[i]]);
-      a.small[i] = __float_as_uint(s[part + o[i]]);
-    }
-    return a;
-  }
-  // s: the tile's (k 0, n 0)
-  __device__ static B load_b(const S* s, int ld, int lane) {
-    const int g = lane / 4, t = lane % 4;
-    const float v[2] = {s[t * ld + g], s[(t + 4) * ld + g]};
-    B b;
-    split(v, b.big, b.small);
-    return b;
-  }
-  __device__ static void mma1(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-        "{%8,%9}, {%0,%1,%2,%3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  // d += a @ b: the small terms first, then big . big
-  __device__ static void mma(float (&d)[4], const A& a, const B& b) {
-    mma1(d, a.big, b.small);
-    mma1(d, a.small, b.big);
-    mma1(d, a.big, b.big);
-  }
-};
-
-template <>
-struct Mma<__nv_bfloat16> {
-  using S = __nv_bfloat16;
-  static constexpr int K = 16, PAD_A = 8, PAD_B = 8;
-  struct A { uint32_t r[4]; };
-  struct B { uint32_t r[2]; };
-  __device__ static uint32_t pair(const S* p) { return *reinterpret_cast<const uint32_t*>(p); }
-  __device__ static uint32_t pack(S lo, S hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-  }
-  __device__ static A load_a(const S* s, int ld, int lane) {
-    const int g = lane / 4, t = lane % 4;
-    return A{{pair(s + g * ld + 2 * t), pair(s + (g + 8) * ld + 2 * t),
-              pair(s + g * ld + 2 * t + 8), pair(s + (g + 8) * ld + 2 * t + 8)}};
-  }
-  static constexpr int X_PARTS = 1;
-  __device__ static void put_x(float v, S* p, int) { *p = __float2bfloat16(v); }
-  __device__ static A load_x(const S* s, int ld, int, int lane) { return load_a(s, ld, lane); }
-  __device__ static B load_b(const S* s, int ld, int lane) {
-    const int g = lane / 4, t = lane % 4;
-    return B{{pack(s[2 * t * ld + g], s[(2 * t + 1) * ld + g]),
-              pack(s[(2 * t + 8) * ld + g], s[(2 * t + 9) * ld + g])}};
-  }
-  __device__ static void mma(float (&d)[4], const A& a, const B& b) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-        "{%8,%9}, {%0,%1,%2,%3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
-  }
-};
 
 // Shared memory of one instance, in elements: the resident x block (XR), then
 // the slab buffers, two of each phase (the operand slabs of the first
@@ -224,12 +104,6 @@ __device__ __forceinline__ float activate(float v, int act) {
   if (act == 1) return v / (1.f + expf(-v));
   const float r = fmaxf(v, 0.f);
   return r * r;
-}
-
-__device__ __forceinline__ void zero(float (&d)[4]) { d[0] = d[1] = d[2] = d[3] = 0.f; }
-__device__ __forceinline__ void add(float (&acc)[4], const float (&d)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += d[e];
 }
 
 template <typename T, bool GATED, int NJW, bool XR>

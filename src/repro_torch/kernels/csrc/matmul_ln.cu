@@ -4,201 +4,399 @@
 // Replaces the TPU kernel `matmul_ln` (`_matmul_ln_kernel`) of
 // src/repro/kernels/matmul_ln.py.  There a (bm, N) float32 accumulator
 // lives in VMEM across a sequential K grid axis and the row statistics
-// are taken on the last K step.  Here one block owns BM whole rows: it
-// walks N in tiles of BN columns, streams K through shared memory in BK
-// slabs into a register tile, and writes each finished y + b tile into a
-// shared-memory row buffer of BM x N float32 (dynamic shared memory, up to
-// 160 KiB; the wrapper and the lowering keep BM * N * 4 under that
-// budget).  After the last N tile each warp takes the mean of its rows,
-// then the biased variance as the mean of squared deviations (not
-// E[y^2] - E[y]^2), normalises with rsqrt(var + eps), scales, offsets and
-// stores every output element once.  No [M, N] intermediate reaches
-// device memory.
+// are taken on the last K step.  Here a thread-block cluster of S blocks
+// (S in {1, 2, 4, 8}, the wrapper's plan()) owns BM rows, and each block of
+// it a contiguous slice of N: the 8-column groups of N are shared out as
+// evenly as they go (sizes differ by one group at most) and the ragged last
+// group is masked by bounds.  The grid is (S, row tiles) with cluster
+// dimension (S, 1, 1), so the blocks of a cluster are the slices of one
+// row tile.
+//
+// A block walks its slice in BN-column steps and K in 32-deep slabs (every
+// block_k runs on that slab).  The x and w slabs go to shared memory by
+// cp.async two slabs ahead of the products that read them (three buffers;
+// two where the row buffer leaves no room for three), 16 bytes a copy
+// where the rows are aligned, zero-filled past the bounds, and
+// bounds-checked scalars otherwise (any M, K, N).  The 8-column mma tiles
+// of a step fall on the warps round-robin, so a slice narrower than a step
+// leaves no warp with more than its share.  The products run on the tensor
+// cores (mma.cuh): float32 as 3xTF32 on mma.m16n8k8, bfloat16 as one
+// mma.m16n8k16 term, both accumulating in float32; each slab sums from zero
+// and is added to the accumulator in float32, which holds the float32
+// tolerance (3e-5 (1 + |b|)) where one accumulator over the whole K does
+// not.  The bias is added on the accumulator fragments and y + b goes to
+// the slice's row buffer in shared memory (BM x slice float32).
+//
+// Row statistics across the cluster through distributed shared memory, in
+// a fixed order: each block writes the partial sums of its slice's rows to
+// its own shared memory, cluster.sync(), and every block reads the S
+// partials of ranks 0..S-1 in that order (map_shared_rank), so every block
+// gets the same mean to the bit; the same again for the squared deviations
+// about that mean (the biased variance as the mean of squared deviations,
+// not E[y^2] - E[y]^2).  A last cluster.sync() keeps every block's shared
+// memory alive until all have read it.  Then each block normalises its
+// slice with rsqrt(var + eps), scales, offsets and stores every output
+// element once.  No atomics: two calls give the same bits.  No [M, N]
+// intermediate reaches device memory.
 //
 // Bound on this card: a row costs 2*K*N operations against (K + N) * 4
-// bytes of x and out, K*N / (2 (K + N)) operations a byte: 24 at the
-// smallest lowered width (K = N = 96), 512 at K = N = 2048.  Against the
-// 148 that the 495 TFLOP/s TF32 rate over 3.35 TB/s needs, the vision
-// widths are bound by bytes and the LM widths by operations.  This first
-// version multiplies in exact float32 on the CUDA cores (the 3e-5
-// tolerance against the reference needs it; TF32 would not hold it), one
-// block per BM rows, so a narrow M leaves most SMs idle; PERF.md has its
-// times against that bound.
+// bytes of x and out.  At the three EdgeNeXt-S B = 16 shapes (16384 x 96
+// -> 96, 4096 x 160 -> 160, 1024 x 304 -> 304) that is bytes: 0.0062 ms
+// summed at 3.35 TB/s.  512 x 2048 -> 2048 (4.29 GFLOP, 0.0087 ms at 495
+// TFLOP/s TF32) and 448 x 2560 -> 2560 (5.87 GFLOP, 0.0119 ms) are bound by
+// operations, and 3xTF32 reaches a third of that rate at most.  The
+// wrapper's plan() doubles S until the grid covers the card (16 row tiles
+// at 1024 x 304, 28-32 at the LM widths) and further while a slice keeps a
+// whole BN-column step.  What bounds the kernel as it is (PERF.md): the
+// latency of each slab step with one or two blocks an SM, and at the LM
+// widths w read again from L2 by every 16-row tile.
 //
-// Shapes: any M, K, N.  Rows past M and the ragged final K slab are masked
-// by bounds-checked scalar loads (the counterpart of `valid_k`); nothing
-// is padded.  Template instances: BM in {8, 16, 32, 64}, BK in
-// {16, 32, 64}; the C entry point refuses other values.
+// Left for later: TMA, with x multicast to the blocks of a cluster (each
+// reads the same rows), warpgroup `wgmma`, and more rows a cluster at the
+// LM widths (block_m is the lowering's).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
+#include "mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BN = 64;                       // columns per N tile
-constexpr int SMEM_BUDGET = 160 * 1024;      // row buffer, bytes
+constexpr int NT = 256;                    // threads a block: 8 warps
+constexpr int KS = 32;                     // K slab
+constexpr int SMEM_BUDGET = 160 * 1024;    // block_m * N * 4: the whole row, over the cluster
+constexpr int SMEM_OPT_IN = 220 * 1024;    // dynamic shared memory a block may take
+constexpr int MAX_CLUSTER = 8;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f32(float v, float* p) { *p = v; }
-__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Threads: 16 column groups of 4 columns x RG row groups of TM rows.
-template <int BM>
+// The block's shape for BM rows: MR rows of mma tiles (BM = 8 runs one
+// 16-row tile with rows 8-15 zero), WR warps down the rows and WC across,
+// each warp NJ 8-column mma tiles of a BN-column step.
+template <typename T, int BM>
 struct Layout {
-  static constexpr int TM = BM >= 16 ? BM / 16 : 1;  // rows per thread
-  static constexpr int RG = BM / TM;                 // row groups
-  static constexpr int NT = 16 * RG;                 // threads
+  using S = typename Mma<T>::S;
+  using R = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;  // raw bits
+  static constexpr int MR = BM < 16 ? 16 : BM;
+  static constexpr int WR = MR / 16, WC = 8 / WR;
+  static constexpr int NJ = BM == 64 ? 4 : 128 / (8 * WC);
+  static constexpr int BN = 8 * WC * NJ;  // 64 at BM = 64, else 128
+  static constexpr int LDX = KS + Mma<T>::PAD_A, LDW = BN + Mma<T>::PAD_B;
+  static constexpr int V = 16 / sizeof(T);  // elements of a 16-byte load
+  static constexpr int XCH = MR * KS / V, WCH = KS * BN / V;  // 16-byte chunks of a slab
+  static constexpr int XQ = (XCH + NT - 1) / NT, WQ = (WCH + NT - 1) / NT;  // chunks a thread
+  static constexpr int XS = MR * LDX;        // elements of an x slab
+  static constexpr int SLAB = XS + KS * LDW;  // elements of one x + w buffer
+  // shared memory: the STAGES buffers, then the row buffer [BM][ldy]
+  static size_t bytes(int stages, int ldy) {
+    return (size_t)stages * SLAB * sizeof(S) + (size_t)BM * ldy * sizeof(float);
+  }
 };
 
-template <typename T, int BM, int BK>
-__global__ void __launch_bounds__(Layout<BM>::NT)
+// f(integral_constant<int, n>) for a run-time n in 1..N (nothing for n = 0)
+template <int N, typename F>
+__device__ __forceinline__ void with_count(int n, F&& f) {
+  if constexpr (N > 0) {
+    if (n == N) f(std::integral_constant<int, N>{});
+    else with_count<N - 1>(n, f);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// V elements from src to shared memory at dst, the first `valid` of them
+// inside the bounds and the rest zero.  Where `vec` says the rows are
+// 16-byte aligned: one asynchronous 16-byte copy that reads only the valid
+// bytes (none, from the aligned `base`, where valid <= 0) and zero-fills the
+// rest.  Else bounds-checked scalars, stored at once.
+template <typename R, int V>
+__device__ __forceinline__ void copy_chunk(void* dst, const R* src, long long valid, bool vec,
+                                           const R* base) {
+  if (vec) {
+    const int n = valid <= 0 ? 0 : valid >= V ? V : (int)valid;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst)),
+                 "l"(n ? src : base), "r"(n * (int)sizeof(R))
+                 : "memory");
+    return;
+  }
+  union {
+    uint4 u;
+    R r[V];
+  } c;
+#pragma unroll
+  for (int i = 0; i < V; ++i) c.r[i] = i < valid ? src[i] : R(0);
+  *reinterpret_cast<uint4*>(dst) = c.u;
+}
+
+template <typename T, int BM, int STAGES>
+__global__ void __launch_bounds__(NT)
 matmul_ln_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
                  const T* __restrict__ gamma, const T* __restrict__ beta, T* __restrict__ out,
-                 int M, int K, int N, float eps) {
-  constexpr int TM = Layout<BM>::TM, RG = Layout<BM>::RG, NT = Layout<BM>::NT;
-  __shared__ float xs[BM][BK];
-  __shared__ __align__(16) float ws[BK][BN];
-  extern __shared__ float ys[];  // [BM][N]
+                 int M, int K, int N, float eps, int ldy) {
+  using L = Layout<T, BM>;
+  using MM = Mma<T>;
+  using S = typename MM::S;
+  using R = typename L::R;
+  constexpr int NJ = L::NJ, BN = L::BN, LDX = L::LDX, LDW = L::LDW, V = L::V;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* slabs = reinterpret_cast<S*>(smem_raw);  // STAGES buffers of [MR][LDX] x, [KS][LDW] w
+  float* ybuf = reinterpret_cast<float*>(slabs + STAGES * L::SLAB);  // [BM][ldy]
+  __shared__ float part_sum[BM], part_sq[BM], mean_s[BM], rstd_s[BM];
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const long long m0 = (long long)blockIdx.x * BM;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nblk = (int)cluster.num_blocks(), z = (int)cluster.block_rank();
+  // this block's slice [s0, s1) of N: groups of 8 columns shared out evenly
+  const int groups = (N + 7) / 8;
+  const int s0 = min(N, 8 * (int)((long long)z * groups / nblk));
+  const int s1 = min(N, 8 * (int)((long long)(z + 1) * groups / nblk));
+  const int ns = s1 - s0;
 
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    float acc[TM][4];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // the warps of a row slab sit on different schedulers (warp % 4)
+  const int wr = warp % L::WR, wc = warp / L::WR;
+  const int g = lane / 4, t = lane % 4;
+  const R* xr = reinterpret_cast<const R*>(x);
+  const R* wrw = reinterpret_cast<const R*>(w);
+  const bool vec_x = K % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_w = N % V == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+
+  const int kt = (K + KS - 1) / KS, nt = (ns + BN - 1) / BN, steps = kt * nt;
+  const long long row_tiles = ((long long)M + BM - 1) / BM;
+  for (long long rt = blockIdx.y; rt < row_tiles; rt += gridDim.y) {
+    const long long m0 = rt * BM;
+
+    // step i: columns n0 = (i / kt) * BN of the slice, K slab k0 = (i % kt) * KS,
+    // copied into buffer i % STAGES
+    auto issue = [&](int i) {
+      const int n0 = (i / kt) * BN, k0 = (i % kt) * KS;
+      S* xs = slabs + (i % STAGES) * L::SLAB;
+      S* ws = xs + L::XS;
 #pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      for (int i = tid; i < BM * BK; i += NT) {
-        const int r = i / BK, k = i % BK;
+      for (int q = 0; q < L::XQ; ++q) {
+        const int c = tid + q * NT, r = c / (KS / V), k = (c % (KS / V)) * V;
         const long long gm = m0 + r;
-        const int gk = k0 + k;
-        xs[r][k] = (gm < M && gk < K) ? to_f32(x[gm * K + gk]) : 0.f;
+        if (c < L::XCH)
+          copy_chunk<R, V>(xs + r * LDX + k, xr + gm * K + k0 + k,
+                           r < BM && gm < M ? (long long)K - k0 - k : 0, vec_x, xr);
       }
-      for (int i = tid; i < BK * BN; i += NT) {
-        const int k = i / BN, n = i % BN;
-        const int gk = k0 + k, gn = n0 + n;
-        ws[k][n] = (gk < K && gn < N) ? to_f32(w[(long long)gk * N + gn]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < BK; ++k) {
-        const float4 wv = *reinterpret_cast<const float4*>(&ws[k][tx * 4]);
 #pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          const float xv = xs[ty + r * RG][k];
-          acc[r][0] += xv * wv.x;
-          acc[r][1] += xv * wv.y;
-          acc[r][2] += xv * wv.z;
-          acc[r][3] += xv * wv.w;
+      for (int q = 0; q < L::WQ; ++q) {
+        const int c = tid + q * NT, r = c / (BN / V), n = (c % (BN / V)) * V;
+        const int gk = k0 + r, gn = s0 + n0 + n;
+        if (c < L::WCH)
+          copy_chunk<R, V>(ws + r * LDW + n, wrw + (long long)gk * N + gn, gk < K ? s1 - gn : 0,
+                           vec_w, wrw);
+      }
+    };
+
+    float acc[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) zero(acc[j]);
+    // STAGES - 1 slabs in flight ahead of the products that read them
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < steps) issue(i);
+      cp_async_commit();
+    }
+    for (int i = 0; i < steps; ++i) {
+      const int buf = i % STAGES, n0 = (i / kt) * BN, k0 = (i % kt) * KS;
+      cp_async_wait<STAGES - 2>();  // slab i has landed
+      __syncthreads();              // for every thread; and slab i - 1 is read
+      if (i + STAGES - 1 < steps) issue(i + STAGES - 1);
+      cp_async_commit();
+      // the slab's products: each of the warp's 8-column tiles summed from
+      // zero (its small terms and big . big apart, so that the tiles' mma
+      // interleave), then added.  Tile j of a warp is columns (j WC + wc) 8
+      // of the step, so the tiles inside the slice fall evenly on the warps;
+      // a warp runs only those (NV, an instance each), with no branch
+      // between them.  Branch-free where the slab is whole (FULL); past K
+      // the last slab is zero and stops at the mma depth.
+      auto slab = [&](auto full, auto nv) {
+        constexpr int NV = decltype(nv)::value;
+        const S* xs = slabs + buf * L::SLAB;
+        const S* ws = xs + L::XS;
+        float ds[NV][4], db[NV][4];
+#pragma unroll
+        for (int j = 0; j < NV; ++j) zero(ds[j]), zero(db[j]);
+#pragma unroll
+        for (int kk = 0; kk < KS; kk += MM::K) {
+          if (!decltype(full)::value && kk >= K - k0) break;
+          const typename MM::A a = MM::load_a(xs + wr * 16 * LDX + kk, LDX, lane);
+          typename MM::B bf[NV];
+#pragma unroll
+          for (int j = 0; j < NV; ++j)
+            bf[j] = MM::load_b(ws + kk * LDW + (j * L::WC + wc) * 8, LDW, lane);
+          MM::mma_row(ds, db, a, bf);
+        }
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] += ds[j][e] + db[j][e];
+      };
+      const int tiles = (min(ns - n0, BN) + 7) / 8;  // 8-column tiles of the step in the slice
+      const int nv = tiles > wc ? min(NJ, (tiles - wc + L::WC - 1) / L::WC) : 0;
+      with_count<NJ>(nv, [&](auto nvc) {
+        if (k0 + KS <= K) slab(std::true_type{}, nvc);
+        else slab(std::false_type{}, nvc);
+      });
+      if (i % kt == kt - 1) {  // the step's columns are done: y + b to the row buffer
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = wr * 16 + g + (e / 2) * 8, c = n0 + (j * L::WC + wc) * 8 + 2 * t + e % 2;
+            if (r < BM && c < ns) ybuf[r * ldy + c] = acc[j][e] + to_f32(b[s0 + c]);
+          }
+          zero(acc[j]);
         }
       }
-      __syncthreads();  // before xs and ws are written again
     }
+    __syncthreads();  // the row buffer is whole
 
-    // y + b into the row buffer
+    // ---- statistics: a warp takes rows warp, warp + NW, ..., all at once
+    //      (their loads and shuffles interleave), a lane every 32nd column ----
+    constexpr int NW = NT / 32, RW = (BM + NW - 1) / NW;  // rows a warp
+    // the slice's sums of f(row r, y) for the warp's rows, to part[r]
+    auto row_sums = [&](float* part, auto f) {
+      float s[RW];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int gn = n0 + tx * 4 + c;
-      if (gn >= N) continue;
-      const float bias = to_f32(b[gn]);
+      for (int i = 0; i < RW; ++i) s[i] = 0.f;
+      for (int c = lane; c < ns; c += 32)
 #pragma unroll
-      for (int r = 0; r < TM; ++r) ys[(long long)(ty + r * RG) * N + gn] = acc[r][c] + bias;
-    }
-  }
-  __syncthreads();
+        for (int i = 0; i < RW; ++i)
+          if (warp + i * NW < BM) s[i] += f(warp + i * NW, ybuf[(warp + i * NW) * ldy + c]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < RW; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+        if (lane == 0 && warp + i * NW < BM) part[warp + i * NW] = s[i];
+    };
+    // the cluster's partials, all loads in flight at once, added in rank
+    // order: the same sum in every block
+    auto cluster_sum = [&](float* part) {
+      float v[MAX_CLUSTER], s = 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        if (q < nblk) v[q] = cluster.map_shared_rank(part, q)[tid];
+#pragma unroll
+      for (int q = 0; q < MAX_CLUSTER; ++q)
+        if (q < nblk) s += v[q];
+      return s;
+    };
+    row_sums(part_sum, [](int, float y) { return y; });
+    cluster.sync();
+    if (tid < BM) mean_s[tid] = cluster_sum(part_sum) / (float)N;
+    __syncthreads();
+    row_sums(part_sq, [&](int r, float y) {
+      const float d = y - mean_s[r];
+      return d * d;
+    });
+    cluster.sync();
+    if (tid < BM) rstd_s[tid] = rsqrtf(cluster_sum(part_sq) / (float)N + eps);
+    // every block has read the others' partials: none is overwritten (next
+    // row tile) or leaves while another still reads it; rstd_s is visible
+    cluster.sync();
 
-  // statistics and the one store: a warp per row
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < BM; r += NT / 32) {
-    const long long gm = m0 + r;
-    if (gm >= M) continue;
-    const float* y = ys + (long long)r * N;
-    float s = 0.f;
-    for (int n = lane; n < N; n += 32) s += y[n];
-    const float mean = warp_sum(s) / (float)N;
-    float q = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      const float d = y[n] - mean;
-      q += d * d;
+    // ---- normalise, scale, offset: one store of the slice, the warp's
+    //      rows a column at a time (gamma and beta loaded once) ----
+    for (int c = lane; c < ns; c += 32) {
+      const float gc = to_f32(gamma[s0 + c]), bc = to_f32(beta[s0 + c]);
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        const int r = warp + i * NW;
+        if (r < BM && m0 + r < M)
+          from_f32((ybuf[r * ldy + c] - mean_s[r]) * rstd_s[r] * gc + bc, out + (m0 + r) * N + s0 + c);
+      }
     }
-    const float rstd = rsqrtf(warp_sum(q) / (float)N + eps);
-    for (int n = lane; n < N; n += 32)
-      from_f32((y[n] - mean) * rstd * to_f32(gamma[n]) + to_f32(beta[n]), out + gm * N + n);
   }
 }
 
 constexpr int MAX_DEVICES = 64;
 
-template <typename T, int BM, int BK>
-int launch(const void* x, const void* w, const void* b, const void* g, const void* be,
-           void* out, long long M, int K, int N, float eps, cudaStream_t s) {
-  auto kern = matmul_ln_kernel<T, BM, BK>;
-  const size_t smem = (size_t)BM * N * sizeof(float);
-  // The static operand tiles plus the row buffer pass 48 KiB even for a
-  // small N, so every instance needs the opt-in; it is raised to the whole
-  // budget once per instance and device, not on every launch.
+template <typename T, int BM, int STAGES>
+cudaError_t launch_(const void* x, const void* w, const void* b, const void* g, const void* be,
+                    void* out, long long M, int K, int N, int S, float eps, int ldy,
+                    cudaStream_t s) {
+  auto kern = matmul_ln_kernel<T, BM, STAGES>;
+  // shared memory past the 48 KiB a launch gets without asking: opt in once
+  // per instance and device
   static bool opted_in[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES || !opted_in[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BUDGET);
-    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_OPT_IN);
+    if (err != cudaSuccess) return err;
     if (dev < MAX_DEVICES) opted_in[dev] = true;
   }
-  kern<<<(unsigned)((M + BM - 1) / BM), Layout<BM>::NT, smem, s>>>(
-      (const T*)x, (const T*)w, (const T*)b, (const T*)g, (const T*)be, (T*)out, (int)M, K, N,
-      eps);
-  return (int)cudaGetLastError();
+  const long long row_tiles = (M + BM - 1) / BM;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)S, (unsigned)(row_tiles < 65535 ? row_tiles : 65535), 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = Layout<T, BM>::bytes(STAGES, ldy);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, (const T*)x, (const T*)w, (const T*)b, (const T*)g,
+                           (const T*)be, (T*)out, (int)M, K, N, eps, ldy);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
+// three slab buffers where the row buffer leaves room for them, else two
 template <typename T, int BM>
-int launch_bk(int bk, const void* x, const void* w, const void* b, const void* g,
-              const void* be, void* out, long long M, int K, int N, float eps, cudaStream_t s) {
-  switch (bk) {
-    case 16: return launch<T, BM, 16>(x, w, b, g, be, out, M, K, N, eps, s);
-    case 32: return launch<T, BM, 32>(x, w, b, g, be, out, M, K, N, eps, s);
-    case 64: return launch<T, BM, 64>(x, w, b, g, be, out, M, K, N, eps, s);
-  }
-  return (int)cudaErrorInvalidValue;
+int launch(const void* x, const void* w, const void* b, const void* g, const void* be,
+           void* out, long long M, int K, int N, int S, float eps, cudaStream_t s) {
+  // the widest slice, and a row-buffer stride of 8 (mod 32) floats (the
+  // accumulator fragments' stores free of bank conflicts)
+  const int groups = (N + 7) / 8;
+  const int ns_max = 8 * ((groups + S - 1) / S);
+  const int ldy = ns_max + (40 - ns_max % 32) % 32;
+  if (Layout<T, BM>::bytes(3, ldy) <= (size_t)SMEM_OPT_IN)
+    return (int)launch_<T, BM, 3>(x, w, b, g, be, out, M, K, N, S, eps, ldy, s);
+  return (int)launch_<T, BM, 2>(x, w, b, g, be, out, M, K, N, S, eps, ldy, s);
 }
 
 template <typename T>
-int launch_bm(int bm, int bk, const void* x, const void* w, const void* b, const void* g,
-              const void* be, void* out, long long M, int K, int N, float eps, cudaStream_t s) {
+int launch_bm(int bm, const void* x, const void* w, const void* b, const void* g, const void* be,
+              void* out, long long M, int K, int N, int S, float eps, cudaStream_t s) {
   switch (bm) {
-    case 8: return launch_bk<T, 8>(bk, x, w, b, g, be, out, M, K, N, eps, s);
-    case 16: return launch_bk<T, 16>(bk, x, w, b, g, be, out, M, K, N, eps, s);
-    case 32: return launch_bk<T, 32>(bk, x, w, b, g, be, out, M, K, N, eps, s);
-    case 64: return launch_bk<T, 64>(bk, x, w, b, g, be, out, M, K, N, eps, s);
+    case 8: return launch<T, 8>(x, w, b, g, be, out, M, K, N, S, eps, s);
+    case 16: return launch<T, 16>(x, w, b, g, be, out, M, K, N, S, eps, s);
+    case 32: return launch<T, 32>(x, w, b, g, be, out, M, K, N, S, eps, s);
+    case 64: return launch<T, 64>(x, w, b, g, be, out, M, K, N, S, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; block_m in {8, 16, 32, 64}, block_k in
-// {16, 32, 64}, block_m * N * 4 <= 160 KiB.  Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16; block_m in {8, 16, 32, 64} rows a
+// cluster, block_m * N * 4 <= 160 KiB; splits (the cluster size) in
+// {1, 2, 4, 8} and at most ceil(N / 8).  Returns cudaGetLastError().
 extern "C" int repro_matmul_ln(const void* x, const void* w, const void* b, const void* gamma,
                                const void* beta, void* out, long long M, int K, int N,
-                               int block_m, int block_k, float eps, int dtype, void* stream) {
+                               int block_m, int splits, float eps, int dtype, void* stream) {
   if (M <= 0 || M > 2147483647LL || K <= 0 || N <= 0 ||
-      (long long)block_m * N * 4 > SMEM_BUDGET || (M + block_m - 1) / block_m > 2147483647LL)
+      (long long)block_m * N * 4 > SMEM_BUDGET ||
+      (splits != 1 && splits != 2 && splits != 4 && splits != 8) || splits > (N + 7) / 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_bm<float>(block_m, block_k, x, w, b, gamma, beta, out, M, K, N, eps, s);
+  if (dtype == 0) return launch_bm<float>(block_m, x, w, b, gamma, beta, out, M, K, N, splits, eps, s);
   if (dtype == 1)
-    return launch_bm<__nv_bfloat16>(block_m, block_k, x, w, b, gamma, beta, out, M, K, N, eps, s);
+    return launch_bm<__nv_bfloat16>(block_m, x, w, b, gamma, beta, out, M, K, N, splits, eps, s);
   return (int)cudaErrorInvalidValue;
 }

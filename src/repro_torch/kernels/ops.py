@@ -9,7 +9,8 @@ or launched.  No flag, no fallback.
 The ``block_*`` keywords are the launch parameters that
 ``repro_torch.search.lower`` emits, and on a CUDA tensor they are the
 tiles the kernel runs: ``matmul_ln`` picks its template instance by
-(block_m, block_k); ``fused_ibn`` and ``flash_attention`` are built for
+block_m (the rows a thread-block cluster owns) and takes block_k from its
+menu onto its one K slab; ``fused_ibn`` and ``flash_attention`` are built for
 one tile each, which is their default, and raise on any other.
 ``depthwise_conv2d`` is not lowered: its ``block_c`` is accepted for the
 JAX signature and not used.  ``wkv_chunked``'s ``chunk`` is the searched

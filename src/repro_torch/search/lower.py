@@ -15,12 +15,15 @@ The Hopper launch contract, which every emitted ``block_*`` obeys:
   ``fused_ibn`` runs (block_m, block_f) = (64, 64) only
   (``FUSED_IBN_BLOCKS``), ``flash_attention`` (block_q, block_k) =
   (16, 32) only (``FLASH_ATTENTION_BLOCKS``), ``matmul_ln`` one template
-  instance per block_m in ``MATMUL_LN_BLOCK_M`` = (8, 16, 32, 64) and
-  block_k in ``MATMUL_LN_BLOCK_K`` = (16, 32, 64).  The ``ops`` entry
-  points raise on any other value for a CUDA tensor.
+  instance per block_m in ``MATMUL_LN_BLOCK_M`` = (8, 16, 32, 64), with
+  block_k in ``MATMUL_LN_BLOCK_K`` = (16, 32, 64) run on the kernel's one
+  32-deep K slab.  The ``ops`` entry points raise on any other value for
+  a CUDA tensor.
 - ``matmul_ln`` keeps ``block_m`` whole rows of N float32 values in
   shared memory: ``block_m * N * 4 <= MATMUL_LN_SMEM_BYTES`` (160 KiB,
   below sm_90's 227 KiB a block, which also holds the operand tiles).
+  The kernel splits N over the blocks of a thread-block cluster, each
+  holding its slice of the rows.
   The searched row tile is snapped into the menu and then halved until
   it fits; a layer so wide that 8 rows do not fit is left unlowered.
 - A block may be larger than its extent: the kernels take the true

@@ -180,6 +180,62 @@ def test_matmul_ln_on_card_refuses_blocks_it_is_not_built_for():
     assert t_mln.launches == before
 
 
+_CLUSTER_CASES = {
+    # m, k, n, block_m, dtype
+    "n304_over_8": (1024, 304, 304, 64, torch.float32),
+    "n160_over_2": (4096, 160, 160, 64, torch.float32),
+    "m1_n2560": (1, 2560, 2560, 16, torch.float32),
+    "m7_n2560": (7, 2560, 2560, 16, torch.float32),
+    "bf16_2048": (512, 2048, 2048, 16, torch.bfloat16),
+}
+
+
+def _cluster_inputs(case, seed):
+    from repro_torch.kernels import matmul_ln as t_mln
+    m, k, n, bm, dt = _CLUSTER_CASES[case]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert t_mln.plan(m, n, sms, block_m=bm)["splits"] > 1
+    x, = _normal(seed, (m, k))
+    w, b, be = _normal(seed + 1, (k, n), (n,), (n,), scale=k ** -0.5)
+    g = 1.0 + _normal(seed + 2, (n,), scale=0.1)[0]
+    return [t.to(dt) for t in (x, w, b, g, be)], bm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_CLUSTER_CASES))
+def test_matmul_ln_cluster_split_on_card_matches_plain(case):
+    """matmul_ln with N split over a thread-block cluster against its plain
+    version: 304 columns over 8 blocks and 160 over 2 (slices of unequal
+    width), one and seven rows at N = 2560, bfloat16 at 512 x 2048."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, bm = _cluster_inputs(case, 25)
+    got = tops.matmul_ln(*args, block_m=bm, block_k=64)
+    want = tref.matmul_ln_ref(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == args[0].dtype
+    _close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+           3e-5 if args[0].dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+def test_matmul_ln_is_bitwise_repeatable():
+    """The row statistics are summed over the cluster in rank order,
+    without atomics: two calls at 448 x 2560 -> 2560 give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    x, = _normal(26, (448, 2560))
+    w, b, be = _normal(27, (2560, 2560), (2560,), (2560,), scale=2560 ** -0.5)
+    g = 1.0 + _normal(28, (2560,), scale=0.1)[0]
+    first = tops.matmul_ln(x, w, b, g, be, block_m=16, block_k=64)
+    second = tops.matmul_ln(x, w, b, g, be, block_m=16, block_k=64)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ragged_f32", "bf16", "k1_v2560"])
 def test_wkv_chunked_on_card_matches_plain(case):

@@ -435,6 +435,99 @@ def test_matmul_ln_on_cpu_takes_any_blocks():
         tref.PLAIN.matmul_ln(*arrs, block_m=8, block_k=16).numpy(), want)
 
 
+# the matmul_ln kernel's own arithmetic, on the CPU: how plan() splits N
+# over a cluster, the statistics summed over the slices, and the 3xTF32
+# products in K slabs
+
+
+_MLN_PLAN_SHAPES = [
+    (16384, 96, 64), (4096, 160, 64), (1024, 304, 64), (512, 2048, 16),
+    (448, 2560, 16), (64, 304, 64), (1, 2560, 16), (7, 2560, 16),
+    (197, 160, 32), (7, 24, 8), (5, 7, 8), (64, 13, 8), (33, 90, 32)]
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("m,n,bm", _MLN_PLAN_SHAPES)
+def test_matmul_ln_plan_slices_n_over_the_cluster(m, n, bm, sms):
+    """The cluster size is one of 1, 2, 4, 8 and at most the 8-column
+    groups of N; the slices cover N contiguously, each a multiple of 8
+    columns but the last, none empty, their groups differing by one at
+    most; the grid is (splits, row tiles) and ``ctas`` its blocks."""
+    p = t_mln.plan(m, n, sms, block_m=bm)
+    s, sl = p["splits"], p["slices"]
+    assert s in t_mln.CLUSTER and s <= 8 and s <= _cdiv(n, 8)
+    assert len(sl) == s and sl[0][0] == 0 and sl[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
+    widths = [hi - lo for lo, hi in sl]
+    assert min(widths) > 0
+    assert all(w % 8 == 0 for w in widths[:-1])
+    groups = [_cdiv(w, 8) for w in widths]
+    assert max(groups) - min(groups) <= 1
+    assert p["grid"] == (s, _cdiv(m, bm))
+    assert p["ctas"] == s * _cdiv(m, bm)
+
+
+@pytest.mark.parametrize("m,n,bm,splits", [
+    (16384, 96, 64, 1), (4096, 160, 64, 2), (1024, 304, 64, 8),
+    (512, 2048, 16, 8), (448, 2560, 16, 8)],
+    ids=["b16_96", "b16_160", "b16_304", "rwkv6", "recurrentgemma"])
+def test_matmul_ln_plan_fills_the_card_where_row_tiles_do_not(m, n, bm,
+                                                              splits):
+    """At the three EdgeNeXt-S B = 16 shapes and the two LM widths the
+    lowering gives (16-256 row tiles) on a 132-SM card: split until the
+    grid fills the card, further only while a slice keeps a whole step of
+    columns (the LM widths, 256-320 columns a slice)."""
+    p = t_mln.plan(m, n, 132, block_m=bm)
+    assert p["splits"] == splits
+    assert p["ctas"] >= t_mln.FILL * 132
+    if splits > 1 and p["ctas"] // 2 >= t_mln.FILL * 132:
+        # split past filling the card: each slice still a whole step
+        assert min(hi - lo for lo, hi in p["slices"]) >= t_mln.BLOCK_N[bm]
+
+
+@pytest.mark.parametrize("n,splits", [(304, 8), (160, 2), (2560, 8), (7, 1),
+                                      (90, 8)])
+def test_matmul_ln_cluster_statistics_match_ref(n, splits):
+    """The kernel's statistics: per-slice partial sums added in rank order
+    0..S-1 for the mean, then per-slice squared deviations about that mean,
+    the LayerNorm of x @ w + b the plain version takes."""
+    x, w, b, g, be = [_t(a) for a in _mln_inputs(34, 37, 50, n)]
+    y = x @ w + b
+    sl = t_mln.slices(n, splits)
+    mean = sum(y[:, lo:hi].sum(-1) for lo, hi in sl) / n
+    var = sum(torch.square(y[:, lo:hi] - mean[:, None]).sum(-1)
+              for lo, hi in sl) / n
+    got = (y - mean[:, None]) * torch.rsqrt(var + 1e-6)[:, None] * g + be
+    _close(got.numpy(), tref.matmul_ln_ref(x, w, b, g, be).numpy(), 3e-5)
+
+
+def _slab_mm(a, b, terms, slab):
+    """a @ b as the kernel takes it: each K slab on the tensor cores
+    (``_tf32_mm``) summed from zero, the slabs added in float32."""
+    acc = torch.zeros((a.shape[0], b.shape[1]))
+    for k0 in range(0, a.shape[1], slab):
+        acc = acc + _tf32_mm(a[:, k0:k0 + slab], b[k0:k0 + slab], terms)
+    return acc
+
+
+@pytest.mark.parametrize("m,k,n", [(1024, 304, 304), (64, 2048, 2048)],
+                         ids=["edgenext_b16_304", "rwkv6_width"])
+def test_matmul_ln_3xtf32_holds_the_float32_tolerance(m, k, n):
+    """LayerNorm of the 3xTF32 product (K slabs of ``SLAB_K``, w ~ N(0,
+    1/K)) stays within 3e-5 (1 + |b|) of the float32 plain version; one
+    TF32 term does not."""
+    x, w, b, g, be = [_t(a) for a in _mln_inputs(35, m, k, n)]
+    want = tref.matmul_ln_ref(x, w, b, g, be)
+    err = {}
+    for terms in (1, 3):
+        y = _slab_mm(x, w, terms, t_mln.SLAB_K) + b
+        mean = y.mean(-1, keepdim=True)
+        var = torch.square(y - mean).mean(-1, keepdim=True)
+        got = (y - mean) * torch.rsqrt(var + 1e-6) * g + be
+        err[terms] = float(((got - want).abs() / (1 + want.abs())).max())
+    assert err[3] <= 3e-5 < err[1]
+
+
 # ---------------------------------------------------------------------------
 # chunked WKV6
 # ---------------------------------------------------------------------------
@@ -617,3 +710,27 @@ def test_build_is_keyed_by_the_sources_and_lazy():
     if shutil.which("nvcc") is None and _build._lib is None:
         # importing the package built nothing and loaded nothing
         assert _build.build_seconds is None
+
+
+def test_build_dir_hashes_the_headers_too(tmp_path, monkeypatch):
+    """Editing a header the kernels include (``csrc/*.cuh``) rebuilds the
+    library; only the ``*.cu`` are compiled."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.name for p in _build.headers()] == ["mma.cuh"]
+    assert all(p.suffix == ".cu" for p in _build.sources())
+    before = _build.build_dir()
+    (csrc / "mma.cuh").write_text((csrc / "mma.cuh").read_text() + "\n")
+    assert _build.build_dir() != before
+
+
+def test_profile_matmul_ln_instruments_the_kernel_source():
+    """The phase profiler's stamps still find their places in
+    csrc/matmul_ln.cu (it compiles only on the card): the slab loop, the
+    three cluster barriers and the block's end, each once."""
+    from repro_torch import profile_matmul_ln
+    src = profile_matmul_ln.instrumented_source()
+    for slot in range(7):
+        assert src.count(f"prof_t[{slot}] = prof_now();") == 1
+    assert "extern \"C\" int profile_occupancy(" in src
