@@ -30,6 +30,14 @@ which ends the run with a non-zero exit code if it fails:
    rank order and multiplies in 3xTF32 (float32) or bf16 on the tensor
    cores; each matmul_ln record, here and in the lowered phase, carries
    ``splits`` and ``ctas`` from ``kernels.matmul_ln.plan``.
+   ``flash_attention`` runs at the three XCA shapes of a batch-16 forward
+   (in the sums) and of a batch-1 forward (timed, outside the sums), at
+   causal, windowed, ragged and bfloat16 cases, at Sk = 128 and 129 (the
+   boundary of its whole-row regime), with D shared out unevenly over
+   the cluster, with rows that see no key, and twice at 64 x 40 x 256,
+   where the two calls must give the same bits; each record, here and in
+   the lowered phase, carries ``regime``, ``splits``, ``row_splits`` and
+   ``ctas`` from ``kernels.flash_attention.plan``.
    ``wkv_chunked`` runs at RWKV-6's served prefill shape (B*H = 4*32,
    T = 512, K = V = 64, chunk 64; bfloat16 r/k/v with float32 logw and u,
    and a float32 copy), every pow2 chunk 8..256 at T = 512, the JAX
@@ -94,9 +102,10 @@ its sums are float32 whatever the input type), 67 TFLOP/s (float32
 outside the tensor cores) for the depthwise convolution, which has no
 matrix product; 989 TFLOP/s for bfloat16 products.  The matrix
 products' shapes also carry ``bound_fp32_cuda_core_ms``, the same bound
-at 67 TFLOP/s, the rate of the exact float32 multiply-adds attention and
-WKV run (fused_ibn and matmul_ln run 3xTF32 on the tensor cores: three
-TF32 products for each one counted here).
+at 67 TFLOP/s, the rate of the exact float32 multiply-adds WKV and
+attention's online regime run (fused_ibn, matmul_ln and attention's
+whole-row regime run 3xTF32 on the tensor cores: three TF32 products for
+each one counted here).
 """
 from __future__ import annotations
 
@@ -354,7 +363,8 @@ def dw_case(B, H, W, C, k, *, dtype=torch.float32, slice_of=None, timed=False):
 
 
 def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
-            dtype=torch.float32, xca=False, timed=False, blocks=None):
+            dtype=torch.float32, xca=False, timed=False, blocks=None,
+            repeat=False):
     q = randn(B, H, Sq, D, dtype=dtype)
     k = randn(B, H, Sk, D, dtype=dtype)
     v = randn(B, H, Sk, D, dtype=dtype)
@@ -365,9 +375,20 @@ def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
            f"window={window} {str(dtype).split('.')[-1]}]"
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     kw = dict(causal=causal, window=window, scale=scale)
+    plan = fa_mod.plan(B * H, Sq, Sk, D, torch.cuda.get_device_properties(0)
+                       .multi_processor_count, itemsize=q.element_size())
     got = ops.flash_attention(q, k, v, **kw, **(blocks or {}))
     want = ref.attention_ref(q, k, v, **kw)
-    rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol)
+    rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol,
+               regime=plan["regime"], splits=plan["splits"],
+               row_splits=plan["row_splits"], ctas=plan["ctas"])
+    if repeat:
+        again = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"{name}: two calls on the same inputs differ "
+                 f"(max {(got - again).abs().max().item():.3e})")
+        rec["case"] = name + " twice, same bits"
     if timed:
         if causal or window is not None:
             raise ValueError("timed cases are the XCA shapes: no mask")
@@ -379,6 +400,7 @@ def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
         rec["library_ms"] = time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
         rec["gbytes_s"] = nbytes(q, k, v, got) / rec["ms"] / 1e6
+        rec["tflops"] = flops / rec["ms"] / 1e9
     return rec
 
 
@@ -522,9 +544,13 @@ def kernels_phase():
         rec = dw_case(B, H, W, C, k, slice_of=sl, timed=True)
         rec["per_forward"] = n
         per_kernel["depthwise_conv2d"]["shapes"].append(rec)
-    for (B, H, S, D), n in merge_counts(fa):
+    # flash_attention: the batch-16 XCA shapes (in the sums), then the
+    # batch-1 ones outside the sums
+    _, _, fa1 = path_shapes(CONFIG, 1)
+    for (B, H, S, D), n, batch in ([(args, n, BATCH) for args, n in merge_counts(fa)]
+                                   + [(args, 0, 1) for args, _ in merge_counts(fa1)]):
         rec = fa_case(B, H, S, S, D, causal=False, scale=1.0, xca=True, timed=True)
-        rec["per_forward"] = n
+        rec.update(per_forward=n, batch=batch)
         per_kernel["flash_attention"]["shapes"].append(rec)
 
     # matmul_ln: the EdgeNeXt-S lowered shapes at batch 16 (once each), then
@@ -592,8 +618,18 @@ def kernels_phase():
         fa_case(1, 2, 197, 197, 16, causal=False),
         fa_case(1, 2, 128, 64, 8, causal=False),
         fa_case(1, 1, 100, 40, 8, causal=True, window=10),   # rows with no key
-        fa_case(1, 2, 33, 77, 1500, causal=True),            # D over 2 blocks
+        fa_case(1, 2, 33, 77, 1500, causal=True),            # D over 8 slices
         fa_case(1, 2, 64, 64, 32, causal=True, dtype=bf16),
+        # whole rows: Sk = S_MAX and S_MAX + 1 (the regime boundary), D
+        # shared out unevenly (125 units over 8) with the query rows split,
+        # rows with no key, bfloat16 XCA shapes, two calls with the same bits
+        fa_case(1, 2, 40, 128, 64, causal=False),
+        fa_case(1, 2, 40, 129, 64, causal=False),
+        fa_case(1, 4, 70, 100, 1000, causal=True),
+        fa_case(1, 2, 30, 10, 24, causal=True, window=4),
+        fa_case(16, 4, 24, 24, 1024, causal=False, scale=1.0, xca=True, dtype=bf16),
+        fa_case(16, 4, 76, 76, 64, causal=False, scale=1.0, xca=True, dtype=bf16),
+        fa_case(16, 4, 40, 40, 256, causal=False, scale=1.0, xca=True, repeat=True),
     ]
     per_kernel["wkv_chunked"]["extra"] = [
         wkv_case(4, 50, 64, 64, 16),             # the JAX tests' ragged T
@@ -923,6 +959,14 @@ def rwkv6_path():
     return launches, result
 
 
+def split_text(rec: dict) -> str:
+    """`` [regime R] splits S ctas N`` from a record's plan, if it has one."""
+    if "splits" not in rec:
+        return ""
+    regime = f" regime {rec['regime']}" if "regime" in rec else ""
+    return f"{regime} splits {rec['splits']} ctas {rec['ctas']}"
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -966,12 +1010,12 @@ def main() -> None:
     for name, rec in per_kernel.items():
         for s in rec["shapes"]:
             lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
-            split = f" splits {s['splits']} ctas {s['ctas']}" if "splits" in s else ""
+            split = split_text(s)
             print(f"kernel {s['case']} x{s['per_forward']}: err {s['max_abs_err']:.2e} "
                   f"ms {s['ms']:.4f} plain {s['plain_ms']:.4f} library "
                   f"{lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}")
         for s in rec["extra"]:
-            split = f" splits {s['splits']} ctas {s['ctas']}" if "splits" in s else ""
+            split = split_text(s)
             print(f"kernel {s['case']}: err {s['max_abs_err']:.2e} (tol {s['tol']}){split}")
     sys.stdout.flush()
 

@@ -2,7 +2,9 @@
 
   fused_ibn       expand -> activation -> project with the expanded
                   intermediate kept in shared memory and registers
-  flash_attention online-softmax attention, the score matrix never stored
+  flash_attention attention, the score matrix never stored: whole score
+                  rows with D split over a thread-block cluster where the
+                  keys fit one block, else an online softmax over KV tiles
   depthwise_conv  channels-last SAME depthwise convolution, halo by
                   bounds checks
   matmul_ln       matmul with a LayerNorm epilogue: N split over a

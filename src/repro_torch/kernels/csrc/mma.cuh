@@ -1,4 +1,5 @@
-// The mma.sync arithmetic that csrc/fused_ibn.cu and csrc/matmul_ln.cu share
+// The mma.sync arithmetic that csrc/fused_ibn.cu, csrc/matmul_ln.cu and
+// csrc/flash_attention.cu share
 // (sm_80 and later; built here for sm_90a): float32 as 3xTF32 on
 // mma.m16n8k8, bfloat16 as one mma.m16n8k16 term, both accumulating in
 // float32, issued as PTX with the ISA's fragment layouts (the WMMA API's
@@ -92,6 +93,15 @@ struct Mma<float> {
     split(v, b.big, b.small);
     return b;
   }
+  // the same B tile stored transposed, [n][k] (s: its (n 0, k 0)), as K is
+  // in Q K^T: the A layout's rows g, so PAD_A's padding fits it too
+  __device__ static B load_bt(const S* s, int ld, int lane) {
+    const int g = lane / 4, t = lane % 4;
+    const float v[2] = {s[g * ld + t], s[g * ld + t + 4]};
+    B b;
+    split(v, b.big, b.small);
+    return b;
+  }
   __device__ static void mma1(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
     asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
         "{%8,%9}, {%0,%1,%2,%3};"
@@ -141,6 +151,10 @@ struct Mma<__nv_bfloat16> {
     const int g = lane / 4, t = lane % 4;
     return B{{pack(s[2 * t * ld + g], s[(2 * t + 1) * ld + g]),
               pack(s[(2 * t + 8) * ld + g], s[(2 * t + 9) * ld + g])}};
+  }
+  __device__ static B load_bt(const S* s, int ld, int lane) {
+    const int g = lane / 4, t = lane % 4;
+    return B{{pair(s + g * ld + 2 * t), pair(s + g * ld + 2 * t + 8)}};
   }
   __device__ static void mma(float (&d)[4], const A& a, const B& b) {
     asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "

@@ -1,11 +1,15 @@
 """Wrapper of the CUDA flash attention (``csrc/flash_attention.cu``).
 
-Port of ``repro/kernels/flash_attention.py``, forward only.  ``launches``
-counts the kernel launches made through this wrapper.
+Port of ``repro/kernels/flash_attention.py``, forward only.  ``plan``
+picks one of the kernel's two regimes: whole score rows with D split over
+a thread-block cluster where the keys fit one block (Sk <= S_MAX), else
+the online softmax over KV tiles.  ``launches`` counts the kernel
+launches made through this wrapper.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -15,12 +19,150 @@ from repro_torch.kernels._launch import check_cuda_dense, check_launch
 
 launches = 0
 
-# the one tile csrc/flash_attention.cu is compiled for (BQ, BK)
+# The online regime's tile (BQ, BK), the one tile search.lower emits; the
+# whole-row regime takes every lowered shape with Sk <= S_MAX whatever it.
 BLOCKS = {"block_q": 16, "block_k": 32}
+# Whole rows: keys a launch takes, rows of a row tile (the unit the query
+# rows are split in), the cluster sizes (8 is the portable maximum) and
+# the dynamic shared memory a block may take (csrc/flash_attention.cu's
+# S_MAX, RT, MAX_CLUSTER, SMEM_OPT_IN), and the share of the SMs a grid
+# must cover to count as filling the card.  What bounds the blocks an SM
+# of this card holds at once: its shared memory, 1 KiB of it reserved a
+# block, and the registers (256 threads x at most 128 registers: 2 blocks).
+S_MAX = 128
+ROW_TILE = 16
+CLUSTER = (1, 2, 4, 8)
+SMEM_BYTES = 220 * 1024
+FILL = 0.9
+MAX_ROW_SPLITS = 65535      # the grid's y
+SM_SMEM_BYTES = 228 * 1024
+BLOCK_RESERVED_BYTES = 1024
+MAX_BLOCKS_SM = 2
+# the online kernel's threads (columns of the output a thread walks)
+_ONLINE_NT = 256
+_REGIMES = {"online": 0, "rows": 1}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def unit(itemsize: int) -> int:
+    """Columns of a slice's unit: one mma depth (8 float32, 16 bf16)."""
+    return 8 if itemsize == 4 else 16
+
+
+def slices(D: int, splits: int, itemsize: int = 4) -> list[tuple[int, int]]:
+    """The columns [lo, hi) block ``z`` of a cluster owns (the kernel's
+    ``c0``/``c1``): whole units shared out evenly, the last clipped to D."""
+    u, units = unit(itemsize), _cdiv(D, unit(itemsize))
+    return [(min(D, u * (z * units // splits)),
+             min(D, u * ((z + 1) * units // splits)))
+            for z in range(splits)]
+
+
+def row_blocks(Sq: int, row_splits: int) -> list[tuple[int, int]]:
+    """The query rows [lo, hi) of each block along the grid's y: whole
+    16-row tiles shared out evenly, the last clipped to Sq."""
+    tiles = _cdiv(Sq, ROW_TILE)
+    return [(ROW_TILE * (y * tiles // row_splits),
+             min(Sq, ROW_TILE * ((y + 1) * tiles // row_splits)))
+            for y in range(row_splits)]
+
+
+def smem_bytes(bq: int, Sk: int, wmax: int, itemsize: int = 4) -> int:
+    """Dynamic shared memory of a whole-row block (the kernel's
+    ``row_shape``): q, k, v and p of the input type, the partial scores,
+    the cluster's sums of them and l in float32, with the strides that
+    keep the fragment loads free of bank conflicts."""
+    nk = ROW_TILE * _cdiv(Sk, ROW_TILE)
+    pad_a = 4 if itemsize == 4 else 8
+    ldq = wmax + pad_a
+    ldv = (wmax + (40 - wmax % 32) % 32 if itemsize == 4
+           else wmax + (72 - wmax % 64) % 64)
+    return (itemsize * (bq * ldq + nk * ldq + nk * ldv + bq * (nk + pad_a))
+            + 4 * (2 * bq * (nk + 8) + bq))
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Whole-row blocks of ``smem`` dynamic bytes an SM holds at once."""
+    return min(MAX_BLOCKS_SM,
+               SM_SMEM_BYTES // (smem + BLOCK_RESERVED_BYTES))
+
+
+def plan(BH: int, Sq: int, Sk: int, D: int, sms: int, *,
+         itemsize: int = 4) -> dict:
+    """How the kernel runs [BH, Sq, D] queries against [BH, Sk, D] keys on
+    a card with ``sms`` SMs.
+
+    ``regime`` "rows" (Sk <= S_MAX): a cluster of ``splits`` blocks owns a
+    (b, h), a block a slice of D and ``row_splits`` blocks along the
+    grid's y share the query rows.  Of every (splits, row_splits) whose
+    block fits its shared memory, the one with the fewest waves on the
+    card (all blocks resident at once where they fit), then the one whose
+    grid comes nearest to filling the card (FILL of the SMs), then with a
+    cluster of at most 2 (every block of a cluster sums the partials and
+    takes the softmax of its rows again, which shows from 4 blocks on),
+    then the one that fills more of the card's resident block slots
+    (each block's phases are latency-bound: more of them on a SM hide
+    more), then with the smaller cluster, then with even shares (the
+    column units and row tiles divide), then with the most blocks.  The
+    order is the one under which ``python -m
+    repro_torch.profile_flash_attention`` found the fastest split of the
+    XCA shapes on the H100, or one within 10 % of it.  Grid (splits * BH,
+    row_splits) in clusters of (splits, 1, 1).
+
+    ``regime`` "online" (longer rows, or D too wide for eight slices): the
+    grid is (BH, query tiles of BLOCKS["block_q"], ``splits`` column
+    blocks of D), and ``row_splits`` the query tiles."""
+    u, units, tiles = unit(itemsize), _cdiv(D, unit(itemsize)), \
+        _cdiv(Sq, ROW_TILE)
+    best = None
+    for splits in [c for c in CLUSTER if c <= units] if Sk <= S_MAX else []:
+        for rows in range(1, min(tiles, MAX_ROW_SPLITS) + 1):
+            smem = smem_bytes(ROW_TILE * _cdiv(tiles, rows), Sk,
+                              u * _cdiv(units, splits), itemsize)
+            if smem > SMEM_BYTES:
+                continue
+            ctas = BH * splits * rows
+            slots = blocks_per_sm(smem) * sms
+            key = (_cdiv(ctas, slots), -min(ctas, FILL * sms),
+                   max(splits, 2), -min(ctas, slots), splits,
+                   units % splits != 0 or tiles % rows != 0, -ctas)
+            if best is None or key < best[0]:
+                best = (key, splits, rows)
+    if best is None:
+        nj = 1 if D <= _ONLINE_NT else 2 if D <= 2 * _ONLINE_NT else 4
+        gy, gz = _cdiv(Sq, BLOCKS["block_q"]), _cdiv(D, _ONLINE_NT * nj)
+        return dict(regime="online", splits=gz, row_splits=gy,
+                    grid=(BH, gy, gz), ctas=BH * gy * gz)
+    _, splits, rows = best
+    return dict(regime="rows", splits=splits, row_splits=rows,
+                grid=(splits * BH, rows), ctas=splits * rows * BH,
+                slices=slices(D, splits, itemsize),
+                rows=row_blocks(Sq, rows))
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_plan(BH: int, Sq: int, Sk: int, D: int, sms: int,
+                 itemsize: int) -> tuple[int, int, int]:
+    p = plan(BH, Sq, Sk, D, sms, itemsize=itemsize)
+    return _REGIMES[p["regime"]], p["splits"], p["row_splits"]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return _build.function("repro_flash_attention", _ARGTYPES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _L, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I,
-             _P]
+             _I, _I, _I, _P]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -42,12 +184,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Sk == 0:
         raise ValueError("flash_attention: no keys")
     scale_ = float(scale) if scale is not None else D ** -0.5
-    fn = _build.function("repro_flash_attention", _ARGTYPES)
+    regime, splits, row_splits = _launch_plan(B * H, Sq, Sk, D, _sms(q.device),
+                                              q.element_size())
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B * H, Sq, Sk, D, scale_, int(causal),
-                 int(window is not None), int(window or 0), code,
-                 torch.cuda.current_stream().cuda_stream)
+        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B * H, Sq, Sk, D, scale_, int(causal),
+                        int(window is not None), int(window or 0), regime,
+                        splits, row_splits, code,
+                        torch.cuda.current_stream().cuda_stream)
     check_launch("flash_attention", err)
     launches += 1
     return out

@@ -69,7 +69,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = _fa.BLOCKS["block_q"],
                     block_k: int = _fa.BLOCKS["block_k"]
                     ) -> torch.Tensor:
-    """Online-softmax attention; q: [B,H,Sq,D], k, v: [B,H,Sk,D]."""
+    """Flash attention (whole score rows where Sk <= 128, else an online
+    softmax over KV tiles); q: [B,H,Sq,D], k, v: [B,H,Sk,D]."""
     if not q.is_cuda:
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  scale=scale)

@@ -263,3 +263,113 @@ def test_wkv_chunked_on_card_matches_plain(case):
     _close(out.float().cpu().numpy(), want_out.float().cpu().numpy(),
            2e-4 if dt == torch.float32 else 2e-2)
     _close(state.cpu().numpy(), want_state.cpu().numpy(), 2e-4)
+
+
+_FA_ROWS_CASES = {
+    # B, H, Sq, Sk, D, causal, window, unit rows (XCA), dtype, regime
+    "xca_stage2": (16, 4, 24, 24, 1024, False, None, True, torch.float32, "rows"),
+    "xca_stage3": (16, 4, 40, 40, 256, False, None, True, torch.float32, "rows"),
+    "xca_stage4": (16, 4, 76, 76, 64, False, None, True, torch.float32, "rows"),
+    "sk_s_max": (1, 2, 40, 128, 64, False, None, False, torch.float32, "rows"),
+    "sk_s_max_plus_1": (1, 2, 40, 129, 64, False, None, False, torch.float32,
+                        "online"),
+    "masked_rows": (1, 2, 30, 10, 24, True, 4, False, torch.float32, "rows"),
+    "bf16_stage2": (16, 4, 24, 24, 1024, False, None, True, torch.bfloat16, "rows"),
+    "bf16_stage4": (16, 4, 76, 76, 64, False, None, True, torch.bfloat16, "rows"),
+}
+
+
+def _fa_inputs(seed, B, H, Sq, Sk, D, unit, dtype):
+    q, k, v = _normal(seed, (B, H, Sq, D), (B, H, Sk, D), (B, H, Sk, D))
+    if unit:    # as XCA calls it: rows L2-normalised over D, scale 1
+        q = q / q.norm(dim=-1, keepdim=True)
+        k = k / k.norm(dim=-1, keepdim=True)
+    return [t.to(dtype).contiguous() for t in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_FA_ROWS_CASES))
+def test_flash_attention_whole_rows_on_card_matches_plain(case):
+    """flash_attention through ``ops`` in the regime ``plan`` picks against
+    its plain version: the three XCA shapes at B = 16, Sk = S_MAX and
+    S_MAX + 1 (the regime boundary), rows whose every key is masked, and
+    bfloat16 at the widest and the longest XCA rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import flash_attention as t_fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Sq, Sk, D, causal, window, unit, dt, regime = _FA_ROWS_CASES[case]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert t_fa.plan(B * H, Sq, Sk, D, sms, itemsize=dt.itemsize)["regime"] == regime
+    q, k, v = _fa_inputs(29, B, H, Sq, Sk, D, unit, dt)
+    kw = dict(causal=causal, window=window, scale=1.0 if unit else None)
+    before = t_fa.launches
+    got = tops.flash_attention(q, k, v, **kw)
+    want = tref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert t_fa.launches == before + 1 and got.dtype == dt
+    _close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+           2e-4 if dt == torch.float32 else 2e-2)
+
+
+def _fa_launch(q, k, v, out, splits, row_splits, causal=False, window=None):
+    """The C entry point in the whole-row regime at a given split."""
+    from repro_torch.kernels import flash_attention as t_fa
+    B, H, Sq, D = q.shape
+    return t_fa._kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), B * H, Sq, k.shape[2], D, D ** -0.5,
+                          int(causal), int(window is not None), int(window or 0),
+                          1, splits, row_splits, 0,
+                          torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,splits,row_splits", [
+    ((1, 4, 70, 40, 1000), 4, 3),      # 125 column units over 4: 31, 31, 31, 32
+    ((1, 4, 70, 100, 1000), 8, 3),     # and over 8, the 5 row tiles over 3
+    ((1, 2, 100, 64, 70), 8, 7),       # 9 units over 8, a 16-row tile a block
+    ((2, 3, 33, 77, 130), 2, 2),       # D off the unit: the last slice ragged
+], ids=["d1000_over_4_rows_3", "d1000_over_8_rows_3", "d70_over_8_rows_7",
+        "d130_over_2_rows_2"])
+def test_flash_attention_uneven_splits_on_card_match_plain(shape, splits,
+                                                           row_splits):
+    """The whole-row kernel at splits ``plan`` does not pick: D shared out
+    unevenly over the cluster, the query rows split over the grid, a
+    causal mask, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import flash_attention as t_fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, Sq, Sk, D = shape
+    tiles, units = -(-Sq // 16), -(-D // 8)
+    assert t_fa.smem_bytes(16 * -(-tiles // row_splits), Sk,
+                           8 * -(-units // splits)) <= t_fa.SMEM_BYTES
+    q, k, v = _fa_inputs(30, B, H, Sq, Sk, D, False, torch.float32)
+    out = torch.empty_like(q)
+    assert _fa_launch(q, k, v, out, splits, row_splits, causal=True) == 0
+    want = tref.attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _close(out.cpu().numpy(), want.cpu().numpy(), 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 4], ids=["plan", "cluster_of_4"])
+def test_flash_attention_is_bitwise_repeatable(splits):
+    """The partial scores are summed over the cluster in rank order,
+    without atomics: two calls at 64 x 76 x 64 give the same bits, at the
+    split ``plan`` picks and with D over a cluster of 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    q, k, v = _fa_inputs(31, 16, 4, 76, 76, 64, True, torch.float32)
+    if splits is None:
+        first = tops.flash_attention(q, k, v, causal=False, scale=1.0)
+        second = tops.flash_attention(q, k, v, causal=False, scale=1.0)
+    else:
+        first, second = torch.empty_like(q), torch.empty_like(q)
+        assert _fa_launch(q, k, v, first, splits, 5) == 0
+        assert _fa_launch(q, k, v, second, splits, 5) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

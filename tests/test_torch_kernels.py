@@ -332,6 +332,183 @@ def test_attention_ref_bf16_matches_jax_ref():
     _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), 2e-2)
 
 
+# the flash attention kernel's whole-row regime, on the CPU: how plan()
+# splits D over a cluster and the query rows over the grid, and its
+# arithmetic (partial scores of each slice summed in rank order, an exact
+# softmax, 3xTF32 products in 32-deep slabs)
+
+# (BH, Sq, Sk, D): the 19 distinct lowered launches (EdgeNeXt-S's are its
+# B = 1 XCA shapes), then the XCA shapes of a B = 16 EdgeNeXt-S forward
+_FA_LOWERED = [
+    (4, 24, 24, 1024), (4, 40, 40, 256), (4, 76, 76, 64), (16, 24, 24, 1024),
+    (16, 40, 40, 256), (16, 76, 76, 64), (2, 12, 12, 16), (2, 16, 16, 4),
+    (2, 24, 24, 1), (3, 196, 196, 64), (16, 256, 256, 36), (16, 64, 64, 48),
+    (16, 16, 16, 60), (64, 256, 256, 36), (64, 64, 64, 48), (64, 16, 16, 60),
+    (8, 64, 64, 64), (32, 64, 64, 64), (10, 448, 448, 256)]
+_FA_XCA_B16 = [(64, 24, 24, 1024), (64, 40, 40, 256), (64, 76, 76, 64)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bh,sq,sk,d", _FA_LOWERED + _FA_XCA_B16)
+def test_flash_attention_plan_splits_d_and_rows(bh, sq, sk, d, itemsize):
+    """Whole rows where Sk <= S_MAX: the cluster size is one of 1, 2, 4, 8
+    and at most the column units of D; the slices cover D contiguously in
+    whole units (the last clipped to D), none empty, differing by one
+    unit at most; the row blocks cover Sq in whole 16-row tiles, differing
+    by one tile at most; the block fits its shared memory.  Longer rows
+    take the online regime."""
+    p = t_fa.plan(bh, sq, sk, d, 132, itemsize=itemsize)
+    if sk > t_fa.S_MAX:
+        assert p["regime"] == "online"
+        assert p["ctas"] == bh * p["row_splits"] * p["splits"]
+        assert p["row_splits"] == _cdiv(sq, t_fa.BLOCKS["block_q"])
+        return
+    assert p["regime"] == "rows"
+    u = t_fa.unit(itemsize)
+    s, r, sl, rows = p["splits"], p["row_splits"], p["slices"], p["rows"]
+    assert s in t_fa.CLUSTER and s <= 8 and s <= _cdiv(d, u)
+    assert len(sl) == s and sl[0][0] == 0 and sl[-1][1] == d
+    assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
+    widths = [hi - lo for lo, hi in sl]
+    assert min(widths) > 0 and all(w % u == 0 for w in widths[:-1])
+    assert max(_cdiv(w, u) for w in widths) - min(_cdiv(w, u)
+                                                  for w in widths) <= 1
+    assert len(rows) == r and rows[0][0] == 0 and rows[-1][1] == sq
+    assert all(a[1] == b[0] and a[1] % 16 == 0 for a, b in zip(rows, rows[1:]))
+    tiles = [_cdiv(hi - lo, 16) for lo, hi in rows]
+    assert min(tiles) > 0 and max(tiles) - min(tiles) <= 1
+    assert p["grid"] == (s * bh, r) and p["ctas"] == s * r * bh
+    assert t_fa.smem_bytes(16 * max(tiles), sk, u * max(_cdiv(w, u)
+                                                        for w in widths),
+                           itemsize) <= t_fa.SMEM_BYTES
+
+
+@pytest.mark.parametrize("sk,d,regime", [
+    (128, 64, "rows"), (129, 64, "online"), (128, 1024, "rows"),
+    (1, 1, "rows"), (128, 16384, "online")])
+def test_flash_attention_plan_switches_regime_at_s_max(sk, d, regime):
+    """Whole rows up to S_MAX keys, where the slices fit shared memory;
+    the online regime past it, and for a D too wide for eight slices."""
+    assert t_fa.plan(2, 128, sk, d, 132)["regime"] == regime
+
+
+@pytest.mark.parametrize("bh,sq,d,splits,row_splits", [
+    (64, 24, 1024, 2, 1), (64, 40, 256, 2, 2), (64, 76, 64, 1, 4),
+    (4, 24, 1024, 8, 2), (4, 40, 256, 8, 3), (4, 76, 64, 8, 5)],
+    ids=["b16_stage2", "b16_stage3", "b16_stage4", "b1_stage2", "b1_stage3",
+         "b1_stage4"])
+def test_flash_attention_plan_at_the_xca_shapes(bh, sq, d, splits,
+                                                row_splits):
+    """The splits ``plan`` gives the XCA shapes on a 132-SM card, the
+    fastest of every split ``python -m repro_torch.profile_flash_attention``
+    timed on the H100 or within 10 % of it: at B = 16 one wave that fills
+    the card with a cluster of at most 2 (D over 2 blocks at 1024 and 256
+    columns, none at 64) and the most of the card's block slots (the
+    query rows in 2 and 4 blocks at 40 and 76 rows); at B = 1, whose grid
+    cannot fill the card, the most blocks (D over 8, a 16-row tile
+    each)."""
+    p = t_fa.plan(bh, sq, sq, d, 132)
+    assert (p["regime"], p["splits"], p["row_splits"]) == ("rows", splits,
+                                                           row_splits)
+    smem = t_fa.smem_bytes(16 * _cdiv(_cdiv(sq, 16), row_splits), sq,
+                           8 * _cdiv(_cdiv(d, 8), splits))
+    assert p["ctas"] <= t_fa.blocks_per_sm(smem) * 132    # one wave
+
+
+def _slab_bmm(a, b, terms, slab=32):
+    """a @ b (batched) as the kernel takes it: each slab of the reduction
+    on the tensor cores (``_tf32_mm``) summed from zero, the slabs added
+    in float32."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], slab):
+        acc = acc + _tf32_mm(a[..., k0:k0 + slab], b[..., k0:k0 + slab, :],
+                             terms)
+    return acc
+
+
+def _rows_emulated(q, k, v, *, causal, window, scale, splits, terms):
+    """The whole-row kernel's arithmetic on [BH, S, D] float32 tensors: the
+    partial scores of each slice of D, summed in rank order, scaled and
+    masked; an exact softmax over whole rows; P V / l."""
+    sq, sk = q.shape[1], k.shape[1]
+    s = None
+    for lo, hi in t_fa.slices(q.shape[-1], splits):
+        part = _slab_bmm(q[..., lo:hi], k[..., lo:hi].transpose(1, 2), terms)
+        s = part if s is None else s + part
+    qp, kp = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= qp - kp < window
+    s = torch.where(mask, s * scale, torch.full_like(s, tref.NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return _slab_bmm(p, v, terms) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,window,scale,unit", [
+    (24, 24, 1024, False, None, 1.0, True),    # the XCA shapes
+    (40, 40, 256, False, None, 1.0, True),
+    (76, 76, 64, False, None, 1.0, True),
+    (64, 64, 16, True, None, None, False),
+    (64, 128, 16, True, 24, None, False),
+    (50, 50, 24, True, 7, 0.5, False),
+    (30, 10, 24, True, 4, None, False),         # rows 14.. see no key
+    (37, 50, 70, True, 9, None, False),         # D = 70: a ragged last unit
+], ids=["xca_24", "xca_40", "xca_76", "causal", "window", "window_scale",
+        "masked_rows", "ragged_d"])
+def test_flash_attention_whole_rows_match_jax(sq, sk, d, causal, window,
+                                              scale, unit):
+    """The whole-row algorithm, with D over the largest cluster its column
+    units allow (2-8 blocks; 9 units over 8 at D = 70), against the JAX
+    Pallas kernel in interpret mode on the same inputs within the
+    attention tolerance, 2e-4."""
+    q, k, v = _qkv(41, 1, 2, sq, sk, d, unit)
+    assert t_fa.plan(2, sq, sk, d, 132)["regime"] == "rows"
+    splits = max(c for c in t_fa.CLUSTER if c <= _cdiv(d, 8))
+    assert splits > 1
+    kw = dict(causal=causal, window=window)
+    want = jops.flash_attention(*map(jnp.asarray, (q, k, v)), scale=scale,
+                                **t_fa.BLOCKS, **kw)
+    got = _rows_emulated(*(_t(a)[0] for a in (q, k, v)), splits=splits,
+                         terms=3, scale=d ** -0.5 if scale is None else scale,
+                         **kw)
+    _close(got.numpy(), np.asarray(want)[0], 2e-4)
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal", [
+    (64, 24, 24, 1024, False), (64, 40, 40, 256, False),
+    (64, 76, 76, 64, False), (8, 128, 128, 64, True)],
+    ids=["xca_b16_24", "xca_b16_40", "xca_b16_76", "causal_128"])
+def test_flash_attention_3xtf32_holds_the_attention_tolerance(bh, sq, sk, d,
+                                                              causal):
+    """3xTF32 holds 2e-4 (1 + |b|) against the float32 plain version at
+    the B = 16 XCA shapes (unit rows, scale 1) and at a causal 128-key
+    shape (N(0, 1) rows, scale D^-0.5), with ``plan``'s splits.  One TF32
+    term breaks it at the widest XCA shape (D = 1024, where v's rounding
+    in P V dominates) and at the causal shape; at the narrower XCA shapes
+    it stays within 1.5x of the limit."""
+    r = _rng(42)
+    q, k, v = (_t(r.standard_normal((bh, s, d)).astype(np.float32))
+               for s in (sq, sk, sk))
+    if causal:
+        scale = d ** -0.5
+    else:
+        q, k, scale = q / q.norm(dim=-1, keepdim=True), \
+            k / k.norm(dim=-1, keepdim=True), 1.0
+    want = tref.attention_ref(q[None], k[None], v[None], causal=causal,
+                              scale=scale)[0]
+    splits = t_fa.plan(bh, sq, sk, d, 132)["splits"]
+    err = {terms: float(((_rows_emulated(q, k, v, causal=causal, window=None,
+                                         scale=scale, splits=splits,
+                                         terms=terms) - want).abs()
+                         / (1 + want.abs())).max())
+           for terms in (1, 3)}
+    assert err[3] <= 2e-4
+    if d == 1024 or causal:
+        assert err[1] > 2e-4
+
+
 # ---------------------------------------------------------------------------
 # depthwise conv
 # ---------------------------------------------------------------------------
@@ -718,11 +895,12 @@ def test_build_dir_hashes_the_headers_too(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert [p.name for p in _build.headers()] == ["mma.cuh"]
+    assert [p.name for p in _build.headers()] == ["cp_async.cuh", "mma.cuh"]
     assert all(p.suffix == ".cu" for p in _build.sources())
-    before = _build.build_dir()
-    (csrc / "mma.cuh").write_text((csrc / "mma.cuh").read_text() + "\n")
-    assert _build.build_dir() != before
+    for header in _build.headers():
+        before = _build.build_dir()
+        header.write_text(header.read_text() + "\n")
+        assert _build.build_dir() != before
 
 
 def test_profile_matmul_ln_instruments_the_kernel_source():
@@ -734,3 +912,19 @@ def test_profile_matmul_ln_instruments_the_kernel_source():
     for slot in range(7):
         assert src.count(f"prof_t[{slot}] = prof_now();") == 1
     assert "extern \"C\" int profile_occupancy(" in src
+
+
+def test_profile_flash_attention_instruments_the_kernel_source():
+    """The flash attention phase profiler's stamps still find their places
+    in csrc/flash_attention.cu (it compiles only on the card): the loads,
+    the partial scores, the cluster barrier and sum, the softmax, the
+    store and the block's end, each once, all in the whole-row kernel."""
+    from repro_torch import profile_flash_attention
+    src = profile_flash_attention.instrumented_source()
+    rows = src.index("rows_kernel(const T*")
+    online = src.index("flash_kernel(const T*")
+    for slot in range(8):
+        at = src.index(f"prof_t[{slot}] = prof_now();")
+        assert src.count(f"prof_t[{slot}] = prof_now();") == 1
+        assert rows < at < online
+    assert "extern \"C\" int profile_read(" in src
