@@ -38,6 +38,15 @@ which ends the run with a non-zero exit code if it fails:
    where the two calls must give the same bits; each record, here and in
    the lowered phase, carries ``regime``, ``splits``, ``row_splits`` and
    ``ctas`` from ``kernels.flash_attention.plan``.
+   ``depthwise_conv2d`` runs at the nine shapes of a batch-16 forward (in
+   the sums) and of a batch-1 forward (timed, outside the sums), the first
+   SDTA split of a stage as the channel slice the model hands over, and at
+   the generic instance's sizes (4 x 2, 1 x 1, 11 x 11), a 3 x 5 image under
+   7 x 7, C = 1 and 3, the stage-3 cascade slice at channel 54 of 160 in
+   float32 and bfloat16, and twice at 16 x 16 x 16 x 160 under 7 x 7, where
+   the two calls must give the same bits; each record carries ``th``,
+   ``tw``, ``cb``, ``cv``, ``ctas`` and ``smem`` from
+   ``kernels.depthwise_conv.plan``.
    ``wkv_chunked`` runs at RWKV-6's served prefill shape (B*H = 4*32,
    T = 512, K = V = 64, chunk 64; bfloat16 r/k/v with float32 logw and u,
    and a float32 copy), every pow2 chunk 8..256 at T = 512, the JAX
@@ -333,22 +342,39 @@ def ibn_rounding_case():
     return dict(case=name, max_abs_err=err, tol=2e-2)
 
 
-def dw_case(B, H, W, C, k, *, dtype=torch.float32, slice_of=None, timed=False):
+def dw_case(B, H, W, C, k, *, dtype=torch.float32, slice_of=None, timed=False,
+            repeat=False):
+    """``k`` is the kernel's size, or (fy, fx)."""
+    fy, fx = (k, k) if isinstance(k, int) else k
     if slice_of is None:
         x = randn(B, H, W, C, dtype=dtype)
     else:   # a channel slice of a wider activation, as the SDTA cascade gives
         total, start = slice_of
         x = randn(B, H, W, total, dtype=dtype)[..., start:start + C]
-    w = randn(k, k, C, scale=0.2, dtype=dtype)
+    w = randn(fy, fx, C, scale=0.2, dtype=dtype)
     b = randn(C, scale=0.1, dtype=dtype)
-    name = f"depthwise_conv2d[{B}x{H}x{W}x{C} k{k}" \
-           f"{' slice' if slice_of else ''} {str(dtype).split('.')[-1]}]"
+    size = f"k{fy}" if fy == fx else f"k{fy}x{fx}"
+    name = f"depthwise_conv2d[{B}x{H}x{W}x{C} {size}" \
+           f"{f' slice at {slice_of[1]} of {slice_of[0]}' if slice_of else ''} " \
+           f"{str(dtype).split('.')[-1]}]"
     tol = 3e-5 if dtype == torch.float32 else 2e-2
+    plan = dw_mod.plan(B, H, W, C, fy, fx,
+                       torch.cuda.get_device_properties(0).multi_processor_count,
+                       itemsize=x.element_size(),
+                       align=dw_mod.alignment(x, w, dw_mod._pixel_stride(x)))
     got = ops.depthwise_conv2d(x, w, b)
     want = ref.depthwise_conv2d_ref(x, w, b)
-    rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol)
+    rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol,
+               **{key: plan[key] for key in ("th", "tw", "cb", "cv", "ctas", "smem")})
+    if repeat:
+        again = ops.depthwise_conv2d(x, w, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"{name}: two calls on the same inputs differ "
+                 f"(max {(got - again).abs().max().item():.3e})")
+        rec["case"] = name + " twice, same bits"
     if timed:
-        flops = 2.0 * B * H * W * C * k * k
+        flops = 2.0 * B * H * W * C * fy * fx
         rec["bound_ms"], rec["bound_by"] = bound(nbytes(x, w, b, got), flops,
                                                  PEAK_FP32)
         rec["ms"] = time_ms(lambda: ops.depthwise_conv2d(x, w, b))
@@ -357,7 +383,7 @@ def dw_case(B, H, W, C, k, *, dtype=torch.float32, slice_of=None, timed=False):
         x_nchw = x.permute(0, 3, 1, 2)            # channels_last memory, no copy
         w_oihw = w.permute(2, 0, 1)[:, None].contiguous()
         rec["library_ms"] = time_ms(
-            lambda: F.conv2d(x_nchw, w_oihw, b, padding=k // 2, groups=C))
+            lambda: F.conv2d(x_nchw, w_oihw, b, padding=(fy // 2, fx // 2), groups=C))
         rec["gbytes_s"] = nbytes(x, w, b, got) / rec["ms"] / 1e6
     return rec
 
@@ -540,9 +566,14 @@ def kernels_phase():
         rec = ibn_case(M, D, Fd, Do, timed=True, **kw)
         rec.update(per_forward=n, batch=batch)
         per_kernel["fused_ibn"]["shapes"].append(rec)
-    for (B, H, W, C, k, sl), n in merge_counts(dw):
+    # depthwise_conv2d: the batch-16 shapes (in the sums), then the batch-1
+    # ones outside the sums
+    _, dw1, _ = path_shapes(CONFIG, 1)
+    for (B, H, W, C, k, sl), n, batch in (
+            [(args, n, BATCH) for args, n in merge_counts(dw)]
+            + [(args, 0, 1) for args, _ in merge_counts(dw1)]):
         rec = dw_case(B, H, W, C, k, slice_of=sl, timed=True)
-        rec["per_forward"] = n
+        rec.update(per_forward=n, batch=batch)
         per_kernel["depthwise_conv2d"]["shapes"].append(rec)
     # flash_attention: the batch-16 XCA shapes (in the sums), then the
     # batch-1 ones outside the sums
@@ -610,6 +641,19 @@ def kernels_phase():
         dw_case(1, 10, 14, 52, 5),
         dw_case(2, 9, 7, 33, 7),
         dw_case(2, 16, 16, 52, 5, dtype=bf16),
+        # the generic instance (an even kernel padded as JAX pads it, 1x1,
+        # 11x11), an image smaller than the kernel, one and three channels,
+        # the stage-3 cascade slice (channel 54 of 160: 8-byte aligned in
+        # float32, 4-byte in bf16) and two calls that must give the same bits
+        dw_case(2, 10, 14, 52, (4, 2)),
+        dw_case(2, 9, 7, 40, 1),
+        dw_case(1, 16, 16, 24, 11),
+        dw_case(2, 3, 5, 12, 7),
+        dw_case(2, 9, 7, 1, 3),
+        dw_case(2, 9, 7, 3, 5),
+        dw_case(16, 16, 16, 54, 3, slice_of=(160, 54)),
+        dw_case(16, 16, 16, 54, 3, slice_of=(160, 54), dtype=bf16),
+        dw_case(16, 16, 16, 160, 7, repeat=True),
     ]
     per_kernel["flash_attention"]["extra"] = [
         fa_case(2, 2, 64, 64, 16, causal=True),
@@ -960,7 +1004,11 @@ def rwkv6_path():
 
 
 def split_text(rec: dict) -> str:
-    """`` [regime R] splits S ctas N`` from a record's plan, if it has one."""
+    """`` [regime R] splits S ctas N`` from a record's plan, or the
+    depthwise tile ``tile THxTWxCB cv CV ctas N smem S``, if it has one."""
+    if "cb" in rec:
+        return (f" tile {rec['th']}x{rec['tw']}x{rec['cb']} cv {rec['cv']} "
+                f"ctas {rec['ctas']} smem {rec['smem']}")
     if "splits" not in rec:
         return ""
     regime = f" regime {rec['regime']}" if "regime" in rec else ""

@@ -5,8 +5,9 @@
   flash_attention attention, the score matrix never stored: whole score
                   rows with D split over a thread-block cluster where the
                   keys fit one block, else an online softmax over KV tiles
-  depthwise_conv  channels-last SAME depthwise convolution, halo by
-                  bounds checks
+  depthwise_conv  channels-last SAME depthwise convolution: halo tiles
+                  staged in shared memory with zero fill, taps unrolled
+                  per kernel size, the tile from ``plan``
   matmul_ln       matmul with a LayerNorm epilogue: N split over a
                   thread-block cluster, each block's slice of the rows in
                   a shared-memory line buffer, row statistics through

@@ -13,7 +13,8 @@ block_m (the rows a thread-block cluster owns) and takes block_k from its
 menu onto its one K slab; ``fused_ibn`` and ``flash_attention`` are built for
 one tile each, which is their default, and raise on any other.
 ``depthwise_conv2d`` is not lowered: its ``block_c`` is accepted for the
-JAX signature and not used.  ``wkv_chunked``'s ``chunk`` is the searched
+JAX signature and not used (the kernel's tile comes from
+``depthwise_conv.plan``).  ``wkv_chunked``'s ``chunk`` is the searched
 schedule parameter and is run as given (see there).
 """
 from __future__ import annotations

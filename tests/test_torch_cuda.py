@@ -373,3 +373,92 @@ def test_flash_attention_is_bitwise_repeatable(splits):
         assert _fa_launch(q, k, v, second, splits, 5) == 0
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# depthwise: (B, H, W, C, fy, fx, (wider C, first channel) or None, dtype)
+_DW_CASES = {
+    "k3_cv4": (2, 64, 64, 48, 3, 3, None, torch.float32),
+    "k5_cv4": (2, 32, 32, 96, 5, 5, None, torch.float32),
+    "k7_cv4": (4, 16, 16, 160, 7, 7, None, torch.float32),
+    "k9_cv4": (4, 8, 8, 304, 9, 9, None, torch.float32),
+    "k3_slice54_cv2": (2, 16, 16, 54, 3, 3, (160, 54), torch.float32),
+    "k7_c3_cv1": (2, 9, 7, 3, 7, 7, None, torch.float32),
+    "k9_image_under_k": (2, 3, 5, 12, 9, 9, None, torch.float32),
+    "generic_4x2": (2, 10, 14, 52, 4, 2, None, torch.float32),
+    "generic_11x11": (1, 16, 16, 24, 11, 11, None, torch.float32),
+    "generic_1x1_c1": (2, 5, 6, 1, 1, 1, None, torch.float32),
+    "bf16_k7": (2, 16, 16, 160, 7, 7, None, torch.bfloat16),
+    "bf16_slice54": (2, 16, 16, 54, 3, 3, (160, 54), torch.bfloat16),
+    "bf16_slice53_2_bytes": (2, 16, 16, 53, 3, 3, (160, 53), torch.bfloat16),
+}
+
+
+def _dw_inputs(case, seed):
+    B, H, W, C, fy, fx, sl, dt = _DW_CASES[case]
+    total, start = sl or (C, 0)
+    wide, wt, b = _normal(seed, (B, H, W, total), (fy, fx, C), (C,), scale=0.3)
+    return wide.to(dt)[..., start:start + C], wt.to(dt), b.to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_DW_CASES))
+def test_depthwise_every_instance_on_card_matches_plain(case):
+    """Each compiled (fy, fx) at CV = 4, 2 and 1, the generic instance
+    (even, 1x1 and 11x11 kernels), an image smaller than the kernel, and
+    bf16 slices whose start is 4-byte aligned (2-channel copies) or only
+    2-byte aligned (one channel a copy), against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import depthwise_conv as t_dw
+    x, wt, b = _dw_inputs(case, 21)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = t_dw.plan(*x.shape, *wt.shape[:2], sms, itemsize=x.element_size(),
+                  align=t_dw.alignment(x, wt, t_dw._pixel_stride(x)))
+    if case.startswith("bf16_slice53"):
+        assert p["cv"] == 1
+    got = tops.depthwise_conv2d(x, wt, b)
+    want = tref.depthwise_conv2d_ref(x, wt, b)
+    torch.cuda.synchronize()
+    tol = 3e-5 if x.dtype == torch.float32 else 2e-2
+    _close(got.float().cpu().numpy(), want.float().cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+def test_depthwise_is_bitwise_repeatable():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    x, wt, b = _dw_inputs("k7_cv4", 22)
+    first = tops.depthwise_conv2d(x, wt, b)
+    second = tops.depthwise_conv2d(x, wt, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_depthwise_refuses_a_plan_it_cannot_run():
+    """The C entry returns cudaErrorInvalidValue (1) and launches nothing
+    for a vector wider than the input's alignment, a tile of more than
+    MAX_THREADS threads or a width that is not whole strips; the wrapper
+    raises on a refused launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import depthwise_conv as t_dw
+    from repro_torch.kernels._launch import check_launch
+    x, wt, b = _dw_inputs("k3_slice54_cv2", 23)
+    out = torch.empty(x.shape, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry(th, tw, cb, cv):
+        return t_dw._kernel()(x.data_ptr(), wt.data_ptr(), b.data_ptr(),
+                              out.data_ptr(), *x.shape, 160, 3, 3, th, tw, cb,
+                              cv, 0, stream)
+    assert entry(4, 8, 54, 2) == 0
+    assert entry(4, 8, 56, 4) == 1          # 8-byte aligned slice, 16-byte copies
+    assert entry(16, 16, 54, 2) == 1        # 27 x 4 x 16 threads
+    assert entry(4, 6, 54, 2) == 1          # 6 columns: not whole strips of 4
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        check_launch("depthwise_conv2d", entry(4, 8, 56, 4))

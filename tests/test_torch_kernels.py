@@ -8,7 +8,10 @@ Tolerances are the JAX tests' own: 3e-5 for float32 (2e-4 attention),
 2e-2 for bfloat16 — float32 sums taken in another order, bfloat16
 rounding of the result.
 """
+import importlib.util
+import math
 import shutil
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -553,6 +556,191 @@ def test_depthwise_conv_channel_slice_input():
         tops.depthwise_conv2d(sl.contiguous(), wt, b).numpy())
 
 
+# the depthwise kernel's own arithmetic, on the CPU: how plan() tiles the
+# image and the channels, and each block's halo tile zero-filled outside
+# the image with every output's taps summed in the order dy, then dx
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _dw_path_shapes():
+    """(B, H, W, C, k, slice) of every depthwise launch of an EdgeNeXt-S
+    forward at batch 16 and at batch 1, from ``chip_smoke.path_shapes``."""
+    smoke = _chip_smoke()
+    return [args for batch in (16, 1)
+            for args, _ in smoke.merge_counts(
+                smoke.path_shapes(smoke.CONFIG, batch)[1])]
+
+
+def _dw_align(C, slice_of, itemsize):
+    """``alignment`` of a dense x, or of a slice at channel ``start`` of a
+    ``total``-wide x whose base is 256-byte aligned (as the allocator's)."""
+    total, start = slice_of or (C, 0)
+    return math.gcd(start * itemsize, total * itemsize, 16)
+
+
+def _dw_emulated(x, w, b, p):
+    """The kernel's arithmetic on float32 [B, H, W, C]: every block of the
+    plan ``p`` (th x tw pixels x cb channels of one image) stages its
+    (th + fy - 1) x (tw + fx - 1) halo tile, zero outside the image, and
+    sums each output's taps from zero in the order dy, then dx, then adds
+    the bias.  Which thread owns an output (its strip) changes no sum."""
+    B, H, W, C = x.shape
+    fy, fx, _ = w.shape
+    th, tw, cb = p["th"], p["tw"], p["cb"]
+    out = torch.full((B, H, W, C), float("nan"))
+    for bi in range(B):
+        for c0 in range(0, C, cb):
+            c1 = min(C, c0 + cb)
+            for oy0 in range(0, H, th):
+                for ox0 in range(0, W, tw):
+                    iy0, ix0 = oy0 - (fy - 1) // 2, ox0 - (fx - 1) // 2
+                    halo = torch.zeros(th + fy - 1, tw + fx - 1, c1 - c0)
+                    y0, y1 = max(iy0, 0), min(iy0 + th + fy - 1, H)
+                    x0, x1 = max(ix0, 0), min(ix0 + tw + fx - 1, W)
+                    halo[y0 - iy0:y1 - iy0, x0 - ix0:x1 - ix0] = \
+                        x[bi, y0:y1, x0:x1, c0:c1]
+                    acc = torch.zeros(th, tw, c1 - c0)
+                    for dy in range(fy):
+                        for dx in range(fx):
+                            acc = acc + halo[dy:dy + th, dx:dx + tw] \
+                                * w[dy, dx, c0:c1]
+                    acc = acc + b[c0:c1]
+                    out[bi, oy0:oy0 + th, ox0:ox0 + tw, c0:c1] = \
+                        acc[:min(th, H - oy0), :min(tw, W - ox0)]
+    return out
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,W,C,k,sl", _dw_path_shapes())
+def test_depthwise_plan_fills_the_card_within_budget(B, H, W, C, k, sl,
+                                                     itemsize):
+    """At every EdgeNeXt-S depthwise shape of a batch-16 and a batch-1
+    forward, on a 132-SM card: blocks of at least a warp; where such
+    blocks can cover every SM, the grid does (every batch-16 shape, and
+    the batch-1 stage-1 and stage-2 convolutions), else the tile of least
+    modelled time; a block's shared memory within the opt-in limit and
+    its threads within MAX_THREADS; the tile no wider or taller than the
+    image (rounded to whole strips); the last channel chunk at least half
+    full."""
+    align = _dw_align(C, sl, itemsize)
+    p = t_dw.plan(B, H, W, C, k, k, 132, itemsize=itemsize, align=align)
+    cv = p["cv"]
+    tiles = [c for c in t_dw.candidates(B, H, W, C, k, k, 132,
+                                        itemsize=itemsize, align=align)
+             if c["threads"] >= t_dw.MIN_THREADS]
+    assert p["threads"] >= t_dw.MIN_THREADS
+    if max(c["ctas"] for c in tiles) >= 132:
+        assert p["ctas"] >= 132
+    else:
+        assert p["est_us"] == min(c["est_us"] for c in tiles)
+    if B == 16:
+        assert p["ctas"] >= 132
+    assert p["smem"] == t_dw.smem_bytes(p["th"], p["tw"], p["cb"], k, k,
+                                        itemsize, cv) <= t_dw.SMEM_BYTES
+    assert p["threads"] == p["cb"] // cv * p["tw"] // t_dw.SW * p["th"] \
+        <= t_dw.MAX_THREADS
+    assert p["th"] <= H and p["tw"] <= t_dw.SW * _cdiv(W, t_dw.SW)
+    assert p["tw"] % t_dw.SW == 0 and p["cb"] % cv == 0
+    last = C - (_cdiv(C, p["cb"]) - 1) * p["cb"]
+    assert 2 * last >= p["cb"]
+    assert p["ctas"] == B * _cdiv(H, p["th"]) * _cdiv(W, p["tw"]) \
+        * _cdiv(C, p["cb"])
+
+
+@pytest.mark.parametrize("C", [1, 3, 4, 33, 48, 52, 54, 76, 96, 160, 304])
+def test_depthwise_chunks_are_even_and_at_least_half_full(C):
+    """Each chunk width C may be split in: a multiple of CV, and C split
+    into chunks of it leaves the last one at least half full (C = 48, 76,
+    54, 52 split evenly, never 32 + remainder)."""
+    for cv in [v for v in (1, 2, 4) if C % v == 0]:
+        widths = t_dw.chunk_widths(C, cv)
+        assert widths[0] == C and C // cv * cv in widths
+        for cb in widths:
+            last = C - (_cdiv(C, cb) - 1) * cb
+            assert cb % cv == 0 and 2 * last >= cb
+    assert 32 not in t_dw.chunk_widths(48, 4)
+    assert 32 not in t_dw.chunk_widths(76, 4)
+
+
+@pytest.mark.parametrize("C,itemsize,sl,cv", [
+    (48, 4, None, (4,)), (54, 4, (160, 54), (2,)), (54, 2, (160, 54), (2, 1)),
+    (52, 4, None, (4,)), (76, 4, (304, 76), (4,)), (53, 2, (160, 53), (1,)),
+    (3, 4, None, (1,)), (54, 4, None, (2,))],
+    ids=["dense48", "f32_slice54", "bf16_slice54", "dense52", "slice76",
+         "bf16_slice53", "c3", "dense54"])
+def test_depthwise_vector_width_follows_alignment(C, itemsize, sl, cv):
+    """CV comes from C, the slice's start and its pixel stride together:
+    a dense C = 48 float32 reads 4 channels a vector; the float32 slice
+    at channel 54 of 160 starts 216 bytes in (8-byte aligned): 2; the
+    bf16 slice there 108 bytes in (4-byte aligned): 2 or 1."""
+    align = _dw_align(C, sl, itemsize)
+    assert t_dw.vector_width(C, itemsize, align) in cv
+    assert t_dw.plan(1, 16, 16, C, 3, 3, 132, itemsize=itemsize,
+                     align=align)["cv"] in cv
+    x = torch.zeros(1, 2, 3, (sl or (C, 0))[0],
+                    dtype=torch.float32 if itemsize == 4 else torch.bfloat16)
+    start = (sl or (C, 0))[1]
+    view = x[..., start:start + C]
+    w = torch.zeros(3, 3, C, dtype=x.dtype)
+    assert t_dw.alignment(view, w, t_dw._pixel_stride(view)) == math.gcd(
+        x.data_ptr() + start * itemsize, w.data_ptr(),
+        (sl or (C, 0))[0] * itemsize, 16)
+
+
+def test_depthwise_plan_refuses_too_many_taps():
+    with pytest.raises(ValueError, match="taps"):
+        t_dw.plan(1, 8, 8, 4, 16, 15, 132)
+
+
+@pytest.mark.parametrize("B,H,W,C,fy,fx,sl", [
+    (2, 12, 12, 24, 3, 3, None), (2, 10, 14, 52, 5, 5, None),
+    (1, 16, 16, 20, 7, 7, None), (2, 8, 8, 12, 9, 9, None),
+    (1, 6, 7, 5, 4, 2, None), (2, 3, 5, 6, 7, 7, None),
+    (2, 9, 7, 13, 3, 3, (40, 13)), (1, 16, 16, 54, 3, 3, (160, 54)),
+    (1, 5, 6, 3, 1, 1, None), (1, 12, 12, 2, 11, 11, None)],
+    ids=["k3", "k5", "k7", "k9", "even_4x2", "h_w_under_k", "slice_13",
+         "slice_54", "k1", "k11"])
+def test_depthwise_tiles_match_jax(B, H, W, C, fy, fx, sl):
+    """The kernel's tiling and arithmetic at the tile ``plan`` picks on a
+    132-SM card (small shapes: many small tiles, ragged at the image's
+    edge) against the JAX Pallas kernel in interpret mode on the same
+    inputs within 3e-5.  Covers each compiled (fy, fx), an even kernel
+    padded as JAX pads it, H and W smaller than the kernel, channel
+    slices and sizes the generic instance takes."""
+    r = _rng(43)
+    total, start = sl or (C, 0)
+    wide = r.standard_normal((B, H, W, total)).astype(np.float32)
+    x = wide[..., start:start + C]
+    wt = (r.standard_normal((fy, fx, C)) * 0.2).astype(np.float32)
+    b = (r.standard_normal((C,)) * 0.1).astype(np.float32)
+    want = jops.depthwise_conv2d(jnp.asarray(np.ascontiguousarray(x)),
+                                 jnp.asarray(wt), jnp.asarray(b), block_c=C,
+                                 interpret=True)
+    p = t_dw.plan(B, H, W, C, fy, fx, 132, align=_dw_align(C, sl, 4))
+    got = _dw_emulated(_t(wide)[..., start:start + C], _t(wt), _t(b), p)
+    _close(got.numpy(), want, 3e-5)
+
+
+def test_depthwise_every_tile_gives_the_same_bits():
+    """Every tile ``candidates`` lists for a ragged shape gives the same
+    bits: a tile changes which block computes an output, never its sum."""
+    r = _rng(44)
+    x, wt, b = (_t(r.standard_normal(s).astype(np.float32))
+                for s in ((1, 9, 7, 12), (3, 3, 12), (12,)))
+    tiles = t_dw.candidates(1, 9, 7, 12, 3, 3, 132)
+    assert len({(p["th"], p["tw"], p["cb"]) for p in tiles}) > 10
+    first = _dw_emulated(x, wt, b, tiles[0])
+    for p in tiles[1:]:
+        assert torch.equal(_dw_emulated(x, wt, b, p), first)
+
+
 # ---------------------------------------------------------------------------
 # matmul + LayerNorm epilogue
 # ---------------------------------------------------------------------------
@@ -912,6 +1100,20 @@ def test_profile_matmul_ln_instruments_the_kernel_source():
     for slot in range(7):
         assert src.count(f"prof_t[{slot}] = prof_now();") == 1
     assert "extern \"C\" int profile_occupancy(" in src
+
+
+def test_profile_depthwise_instruments_the_kernel_source():
+    """The depthwise phase profiler's stamps still find their places in
+    csrc/depthwise_conv.cu (it compiles only on the card): the block's
+    start, the halo landed, the taps done and the store, each once, in
+    that order."""
+    from repro_torch import profile_depthwise
+    src = profile_depthwise.instrumented_source()
+    at = [src.index(f"prof_t[{slot}] = prof_now();") for slot in range(4)]
+    assert at == sorted(at)
+    for slot in range(4):
+        assert src.count(f"prof_t[{slot}] = prof_now();") == 1
+    assert "extern \"C\" int profile_read(" in src
 
 
 def test_profile_flash_attention_instruments_the_kernel_source():
