@@ -49,9 +49,16 @@ which ends the run with a non-zero exit code if it fails:
    ``kernels.depthwise_conv.plan``.
    ``wkv_chunked`` runs at RWKV-6's served prefill shape (B*H = 4*32,
    T = 512, K = V = 64, chunk 64; bfloat16 r/k/v with float32 logw and u,
-   and a float32 copy), every pow2 chunk 8..256 at T = 512, the JAX
-   tests' ragged T / chunk 50/16, 33/8, 100/64, T < chunk (50 / 64), and
-   RecurrentGemma's K = 1, V = 2560, T = 448 at chunks 64 and 256.  Each
+   and a float32 copy), the B = 1 x 200 prompt's shape (32 x 200, bf16),
+   every pow2 chunk 8..256 at T = 512, the JAX tests' ragged T / chunk
+   50/16, 33/8, 100/64, T < chunk (50 / 64), RecurrentGemma's K = 1,
+   V = 2560, T = 448 at chunks 64 and 256, decays at the extremes
+   (-exp(N(2.5, 1)), 0, -1e-6; float32 and bf16) and twice at the served
+   shape, where the two calls must give the same bits; each record
+   carries the outputs pass's plan from ``kernels.rwkv_chunk.plan``
+   (``wv``, ``warps``, ``rows``, ``ctas``) and the states pass's
+   blocks (``states_ctas``), and, where timed, the bytes of the float32
+   workspace of entering states (written once, read once).  Each
    is timed with CUDA events, one pair around each call, the L2 cache
    flushed before each, median of the repeats: the kernel, the plain
    version, and a library call of the same function as a yardstick the
@@ -111,10 +118,10 @@ its sums are float32 whatever the input type), 67 TFLOP/s (float32
 outside the tensor cores) for the depthwise convolution, which has no
 matrix product; 989 TFLOP/s for bfloat16 products.  The matrix
 products' shapes also carry ``bound_fp32_cuda_core_ms``, the same bound
-at 67 TFLOP/s, the rate of the exact float32 multiply-adds WKV and
-attention's online regime run (fused_ibn, matmul_ln and attention's
-whole-row regime run 3xTF32 on the tensor cores: three TF32 products for
-each one counted here).
+at 67 TFLOP/s, the rate of the exact float32 multiply-adds attention's
+online regime runs (fused_ibn, matmul_ln, attention's whole-row regime
+and WKV run 3xTF32 on the tensor cores: three TF32 products for each one
+counted here).
 """
 from __future__ import annotations
 
@@ -477,32 +484,52 @@ def mln_case(M, K, N, *, dtype=torch.float32, blocks=None, timed=False,
     return rec
 
 
-def wkv_inputs(BH, T, K, V, dtype=torch.float32):
+def wkv_inputs(BH, T, K, V, dtype=torch.float32, decay="normal"):
     """r, k, v, u ~ N(0, 0.5^2), logw = -exp(N(0, 0.5^2)), as the JAX WKV
-    tests draw them; r, k, v in ``dtype``, logw and u float32."""
+    tests draw them; r, k, v in ``dtype``, logw and u float32.  ``decay``
+    "extreme": logw = -exp(N(2.5, 1)) (single steps near -40, a chunk's
+    decay far past e^88), "zero": logw = 0, "tiny": logw = -1e-6."""
     r, k, v = (randn(BH, T, n, scale=0.5) for n in (K, K, V))
-    logw = -torch.exp(randn(BH, T, K, scale=0.5))
+    logw = {"normal": lambda: -torch.exp(randn(BH, T, K, scale=0.5)),
+            "extreme": lambda: -torch.exp(2.5 + randn(BH, T, K)),
+            "zero": lambda: torch.zeros(BH, T, K, device="cuda"),
+            "tiny": lambda: torch.full((BH, T, K), -1e-6, device="cuda")}[decay]()
     u = randn(BH, K, scale=0.5)
     return r.to(dtype), k.to(dtype), v.to(dtype), logw, u
 
 
 def wkv_case(BH, T, K, V, chunk, *, dtype=torch.float32, inputs=None,
-             timed=False):
-    r, k, v, logw, u = inputs or wkv_inputs(BH, T, K, V, dtype)
+             timed=False, decay="normal", repeat=False):
+    r, k, v, logw, u = inputs or wkv_inputs(BH, T, K, V, dtype, decay)
     C = min(chunk, T)
     name = f"wkv_chunked[{BH}x{T}x{K}->{V} chunk={chunk} " \
-           f"{str(r.dtype).split('.')[-1]}]"
+           f"{str(r.dtype).split('.')[-1]}{'' if decay == 'normal' else ' ' + decay}]"
     tol = 2e-4 if r.dtype == torch.float32 else 2e-2
     out, state = ops.wkv_chunked(r, k, v, logw, u, chunk=chunk)
     want_out, want_state = ref.wkv_ref(r, k, v, logw, u)
     err = max(compare(name, out, want_out, tol),
               compare(name + " state", state, want_state, 2e-4))
-    rec = dict(case=name, max_abs_err=err, tol=tol)
+    if repeat:
+        again = ops.wkv_chunked(r, k, v, logw, u, chunk=chunk)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and torch.equal(state, again[1])):
+            fail(f"{name}: two calls give different bits")
+        name += " twice, same bits"
+    p = wkv_mod.plan(BH, T, K, V, C, r.element_size(),
+                     logw_itemsize=logw.element_size(),
+                     sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    rec = dict(case=name, max_abs_err=err, tol=tol,
+               **{key: p[key] for key in ("wv", "warps", "rows", "ctas",
+                                          "states_ctas")})
     if timed:
         flops = 2.0 * scan_macs(Layer("wkv", SCAN, b=BH, ox=T, c=K, k=V), C)
         moved = nbytes(r, k, v, logw, u, out, state)
         rec["bound_ms"], rec["bound_by"] = bound(moved, flops, PEAK_TF32)
         rec["bound_fp32_cuda_core_ms"] = bound(moved, flops, PEAK_FP32)[0]
+        # the float32 workspace of the entering states, written once by the
+        # states pass and read once by the outputs pass: bytes the design
+        # adds to those of the bound
+        rec["workspace_bytes"] = BH * -(-T // C) * K * V * 4
         rec["ms"] = time_ms(lambda: ops.wkv_chunked(r, k, v, logw, u, chunk=chunk))
         rec["plain_ms"] = time_ms(lambda: ref.wkv_ref(r, k, v, logw, u),
                                   reps=5, warmup=1)
@@ -600,8 +627,9 @@ def kernels_phase():
         per_kernel["matmul_ln"]["shapes"].append(rec)
 
     # wkv_chunked: the served shape once a layer (24 a prefill), bfloat16
-    # r/k/v as served and a float32 copy of the same values; the chunk
-    # sweep and RecurrentGemma's K = 1 shape (timed, outside the sums)
+    # r/k/v as served and a float32 copy of the same values; the B = 1 x 200
+    # prompt's shape, the chunk sweep and RecurrentGemma's K = 1 shape
+    # (timed, outside the sums)
     bf16 = torch.bfloat16
     served = wkv_inputs(128, 512, 64, 64)
     for dtype, n in ((bf16, rwkv6.kernel_launches_per_prefill(
@@ -610,6 +638,9 @@ def kernels_phase():
             *(t.to(dtype) for t in served[:3]), *served[3:]))
         rec["per_forward"] = n
         per_kernel["wkv_chunked"]["shapes"].append(rec)
+    rec = wkv_case(32, 200, 64, 64, 64, dtype=bf16, timed=True)
+    rec["per_forward"] = 0
+    per_kernel["wkv_chunked"]["shapes"].append(rec)
     for BH, T, K, V, chunk in [(128, 512, 64, 64, c) for c in (8, 16, 32, 128, 256)] \
             + [(1, 448, 1, 2560, 64), (1, 448, 1, 2560, 256)]:
         rec = wkv_case(BH, T, K, V, chunk, timed=True)
@@ -682,6 +713,14 @@ def kernels_phase():
         wkv_case(4, 50, 64, 64, 64),             # T < chunk
         wkv_case(4, 100, 8, 40, 32),             # narrow K, V off the 32-column tile
         wkv_case(4, 100, 64, 64, 64, dtype=bf16),
+        # decays at the extremes: single steps near -40 (a reference at the
+        # chunk's start would overflow), none, and nearly none; two calls
+        # that must give the same bits
+        wkv_case(4, 200, 64, 64, 64, decay="extreme"),
+        wkv_case(4, 200, 64, 64, 64, dtype=bf16, decay="extreme"),
+        wkv_case(4, 130, 64, 64, 64, decay="zero"),
+        wkv_case(4, 130, 64, 64, 64, decay="tiny"),
+        wkv_case(128, 512, 64, 64, 64, dtype=bf16, repeat=True),
     ]
     return per_kernel
 
@@ -1004,8 +1043,12 @@ def rwkv6_path():
 
 
 def split_text(rec: dict) -> str:
-    """`` [regime R] splits S ctas N`` from a record's plan, or the
-    depthwise tile ``tile THxTWxCB cv CV ctas N smem S``, if it has one."""
+    """`` [regime R] splits S ctas N`` from a record's plan, the depthwise
+    tile ``tile THxTWxCB cv CV ctas N smem S``, or the WKV plan ``wv W
+    warps N rows R ctas N | states ctas N``, if it has one."""
+    if "states_ctas" in rec:
+        return (f" wv {rec['wv']} warps {rec['warps']} rows {rec['rows']} ctas "
+                f"{rec['ctas']} | states ctas {rec['states_ctas']}")
     if "cb" in rec:
         return (f" tile {rec['th']}x{rec['tw']}x{rec['cb']} cv {rec['cv']} "
                 f"ctas {rec['ctas']} smem {rec['smem']}")

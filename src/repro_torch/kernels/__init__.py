@@ -12,8 +12,10 @@
                   thread-block cluster, each block's slice of the rows in
                   a shared-memory line buffer, row statistics through
                   distributed shared memory before the one store
-  rwkv_chunk      chunked RWKV-6 WKV recurrence: per-block chunk loop,
-                  the score matrix built 64 x 64 in shared memory
+  rwkv_chunk      chunked RWKV-6 WKV recurrence in two passes: the state
+                  entering every chunk (a short serial pass), then every
+                  chunk at once, tile-factored products on 3xTF32 tensor
+                  cores
 
 ``ops`` holds the public entry points, ``ref`` the plain PyTorch versions
 each kernel is held against.  Sources are in ``csrc/``, built by

@@ -1,11 +1,16 @@
 """Wrapper of the CUDA chunked WKV kernel (``csrc/wkv_chunked.cu``).
 
-Port of ``repro/kernels/rwkv_chunk.py``.  ``launches`` counts the kernel
-launches made through this wrapper.
+Port of ``repro/kernels/rwkv_chunk.py``.  One call launches two kernels on
+the current stream: the states pass (the state entering every chunk, into
+a float32 workspace, and the final state) and the outputs pass (every
+chunk at once).  ``plan`` picks how each runs for the shape and the card;
+the kernel refuses a plan it cannot run.  ``launches`` counts the calls
+that launched the kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -15,25 +20,166 @@ from repro_torch.kernels._launch import check_cuda_dense, check_launch
 
 launches = 0
 
-# facts of csrc/wkv_chunked.cu: V columns a block owns (BV), rows of a
-# t-row / score tile (TR = TS), and the shared memory a block may have
+# the chunk at which the kernel is fastest on the H100: in python -m
+# repro_torch.profile_wkv's chunk sweep (chunks 16..128, rounds that
+# alternate their order) 32 leads 64 by 2 % in every round at RWKV-6's
+# served bf16 shape and ties it at RecurrentGemma's K = 1 shape (PERF.md);
+# search.lower snaps to it
+CHUNK = 32
+
+# facts of csrc/wkv_chunked.cu: the shared memory a block may have; the
+# V columns a warp owns in either pass (BVS); the state rows a
+# states-pass warp owns (KT), the row pitch of its staged k and cumsum
+# (KTP), its slab rows (SLAB) and slabs in flight (STAGES); the exact
+# diagonal block (SUB) and tile (TILE) rows, the warps on a tile (wv) and
+# the warps a block of the outputs pass
 SMEM_LIMIT = 232448
-_BV, _TILE = 32, 64
+BVS = 32
+KT, KTP = 16, 24
+SLAB = 32
+STAGES = 2
+SUB, TILE = 8, 16
+WVS = (1, 2)
+MAX_WARPS = 8
+# the rows an outputs-pass block may own (each a multiple of TILE, at most
+# C rounded up to it)
+ROW_MENU = (32, 64, 128)
 
 
-def smem_bytes(chunk: int, k: int) -> int:
-    """Shared memory of one block at chunk length ``chunk`` and key width
-    ``k`` (``layout`` in the source): k and b of the whole chunk (rows
-    padded to k + 1), its V tile of v, one 64-row tile of r and of
-    scores, the state tile, u and the bonus."""
-    kp = k + 1
-    ast = max(k, _TILE) + 1
-    return 4 * (chunk * kp + (chunk + 1) * kp + chunk * _BV + _TILE * kp
-                + _TILE * ast + k * _BV + k + _TILE)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def smem_bytes(chunk: int, k: int, *, itemsize: int = 4,
+               logw_itemsize: int = 4, wv: int = 1, warps: int = 1,
+               rows: int = TILE) -> int:
+    """Shared memory of an outputs-pass block (``out_layout`` in the
+    source) at chunk length ``chunk`` and key width ``k``: k of the whole
+    chunk and the r rows the block owns in the input type (rows padded to
+    k rounded up to 8, plus 16 bytes), the decay cumsum of the chunk in
+    float32 (and bf16 logw before it), the chunk's V tile of v (BVS wv
+    columns plus 32 bytes a row), u, the cumsum's partial totals, and for
+    each group of ``wv`` warps its q and its block of A, a TILE each; the
+    chunk is rounded up to a TILE.  By default the least a chunk can run
+    with in float32 (one warp on one tile): a chunk runs at all where this
+    is within SMEM_LIMIT."""
+    groups = warps // wv
+    kp = _cdiv(k, 8) * 8
+    ldk, ldkt = kp + 4, kp + 16 // itemsize
+    ldvt = BVS * wv + 32 // itemsize
+    cp = _cdiv(chunk, TILE) * TILE
+    return (cp * ldkt * itemsize + (cp + 1) * ldk * 4
+            + (0 if logw_itemsize == 4 else cp * kp * 2)
+            + rows * ldkt * itemsize + groups * TILE * ldk * 4
+            + cp * ldvt * itemsize + kp * 4 + 32 * warps * 4
+            + groups * TILE * (TILE + 4) * 4)
+
+
+def states_smem_bytes(itemsize: int, logw_itemsize: int) -> int:
+    """Shared memory of a states-pass block (``states_layout``, one warp):
+    STAGES stages of SLAB rows of raw k (KT columns in rows of KTP), logw
+    (KT columns) and v (BVS columns, padded by 8), and the slab's cumsum
+    in float32 (rows of KTP)."""
+    return (STAGES * SLAB * (KTP * itemsize + KT * logw_itemsize
+                             + (BVS + 8) * itemsize) + 4 * SLAB * KTP)
+
+
+def outputs_ctas(BH: int, T: int, V: int, C: int, rows: int, wv: int) -> int:
+    """Blocks of the outputs pass: (bh, chunk x row tile, V tile)."""
+    return BH * _cdiv(T, C) * _cdiv(C, rows) * _cdiv(V, BVS * wv)
+
+
+def states_ctas(BH: int, K: int, V: int) -> int:
+    """Blocks (one warp each) of the states pass: (bh, K tile, V tile)."""
+    return BH * _cdiv(K, KT) * _cdiv(V, BVS)
+
+
+def candidates(BH: int, T: int, K: int, V: int, C: int, itemsize: int = 4,
+               logw_itemsize: int = 4) -> list[dict]:
+    """Every outputs-pass configuration the kernel can run the shape with:
+    ``wv`` (a V tile of BVS wv columns), ``rows`` (from ROW_MENU and C
+    rounded up to TILE), ``warps`` (wv times a power of two up to the
+    block's tiles), each within SMEM_LIMIT, with its blocks (``ctas``) and
+    shared memory."""
+    out = []
+    cp = _cdiv(C, TILE) * TILE
+    for rows in sorted({r for r in ROW_MENU + (cp,) if r % TILE == 0
+                        and TILE <= r <= cp}):
+        for wv in WVS:
+            for groups in (1, 2, 4, 8):
+                warps = groups * wv
+                if groups > rows // TILE or warps > MAX_WARPS:
+                    continue
+                smem = smem_bytes(C, K, itemsize=itemsize,
+                                  logw_itemsize=logw_itemsize, wv=wv,
+                                  warps=warps, rows=rows)
+                if smem <= SMEM_LIMIT:
+                    out.append(dict(wv=wv, rows=rows, warps=warps, smem=smem,
+                                    ctas=outputs_ctas(BH, T, V, C, rows, wv)))
+    return out
+
+
+def plan(BH: int, T: int, K: int, V: int, C: int, itemsize: int = 4, *,
+         logw_itemsize: int = 4, sms: int = 132) -> dict:
+    """How the outputs pass runs r, k, logw [BH, T, K], v [BH, T, V] at
+    chunk C on a card with ``sms`` SMs, fitted to ``python -m
+    repro_torch.profile_wkv``'s sweep on the H100 (RWKV-6's served and
+    B = 1 x 200 shapes, RecurrentGemma's K = 1, V = 2560): ``rows`` a block
+    = the chunk rounded up to a TILE, at most 64, and a V tile of 64
+    columns, ``wv`` = 2 warps on a tile that share its scores; a group of
+    wv warps for each of up to 4 tiles.  Where the grid does not cover the
+    card, the rows a block are halved while they hold two tiles; where the
+    block does not fit, one warp a tile (a V tile of 32), then fewer rows.
+    The states pass has no choice: one warp for each (bh, K tile, V
+    tile)."""
+    sz = dict(itemsize=itemsize, logw_itemsize=logw_itemsize)
+    cp = _cdiv(C, TILE) * TILE
+    rows = min(cp, 64)
+    wv = 2
+    while rows >= 2 * TILE and outputs_ctas(BH, T, V, C, rows, wv) < sms:
+        rows = rows // 2 // TILE * TILE
+    warps = wv * min(4, rows // TILE)
+    while smem_bytes(C, K, **sz, wv=wv, warps=warps,
+                     rows=rows) > SMEM_LIMIT and (wv > 1 or rows > TILE):
+        if wv > 1:
+            wv = 1
+        else:
+            rows = max(TILE, rows // 2 // TILE * TILE)
+        warps = wv * min(4, rows // TILE)
+    return dict(wv=wv, rows=rows, warps=warps,
+                smem=smem_bytes(C, K, **sz, wv=wv, warps=warps, rows=rows),
+                states_smem=states_smem_bytes(itemsize, logw_itemsize),
+                ctas=outputs_ctas(BH, T, V, C, rows, wv),
+                states_ctas=states_ctas(BH, K, V))
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_plan(BH: int, T: int, K: int, V: int, C: int, itemsize: int,
+                 logw_itemsize: int, sms: int) -> tuple:
+    p = plan(BH, T, K, V, C, itemsize, logw_itemsize=logw_itemsize, sms=sms)
+    return tuple(p[key] for key in ("wv", "warps", "rows"))
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 8 + [_L] + [_I] * 10 + [_P]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return _build.function("repro_wkv_chunked", _ARGTYPES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def workspace(BH: int, T: int, K: int, V: int, C: int,
+              device: torch.device) -> torch.Tensor:
+    """The float32 [BH, ceil(T / C), K, V] the states pass writes the state
+    entering each chunk to and the outputs pass reads."""
+    return torch.empty((BH, _cdiv(T, C), K, V), dtype=torch.float32,
+                       device=device)
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,13 +220,15 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{r.device}")
     out = torch.empty((BH, T, V), dtype=r.dtype, device=r.device)
     state = torch.empty((BH, K, V), dtype=torch.float32, device=r.device)
-    fn = _build.function("repro_wkv_chunked", _ARGTYPES)
+    ws = workspace(BH, T, K, V, C, r.device)
+    p = _launch_plan(BH, T, K, V, C, r.element_size(), logw.element_size(),
+                     _sms(r.device))
     with torch.cuda.device(r.device):
-        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                 u.data_ptr(), out.data_ptr(), state.data_ptr(), BH, T, K, V,
-                 C, code, side["logw"], side["u"],
-                 torch.cuda.current_stream().cuda_stream)
+        err = _kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        logw.data_ptr(), u.data_ptr(), out.data_ptr(),
+                        state.data_ptr(), ws.data_ptr(), BH, T, K, V, C,
+                        code, side["logw"], side["u"], *p,
+                        torch.cuda.current_stream().cuda_stream)
     check_launch("wkv_chunked", err)
     launches += 1
     return out, state
-

@@ -30,15 +30,17 @@ The Hopper launch contract, which every emitted ``block_*`` obeys:
   extents and mask ragged edges themselves, nothing is padded.
   ``ragged[axis] = extent % block`` for every blocked axis (the extent
   itself when the block is larger), as in the JAX package.
-- ``rwkv_chunk`` keeps the searched chunk as it is (``lower_scan``), and
-  ``ops.wkv_chunked`` runs it as given: C = min(chunk, T) is a run-time
-  argument of the kernel (any C, not only powers of two), the last
-  chunk's rows past T are masked by bounds (nothing is padded), and
-  ``ragged["t"] = T % chunk``.  The kernel holds k and the decay cumsum
-  of a whole chunk in shared memory, two [C, K + 1] float32 arrays (the
-  other operands are tiled 64 t rows or 32 V columns at a time), so C * K
-  may reach 256 * 64 (``rwkv_chunk.smem_bytes`` within the 227 KiB of a
-  block); the search's pow2 chunks 8..256 at K <= 64 all fit.
+- ``rwkv_chunk`` runs at the chunk the kernel is fastest at on this card,
+  ``rwkv_chunk.CHUNK`` (``WKV_CHUNK``), cut to T (``lower_scan``), as the
+  block menus are snapped; the searched chunk, the paper's accelerator's
+  choice, is not the card's.  ``ops.wkv_chunked`` runs it as given: C =
+  min(chunk, T) is a run-time argument of the kernel (any C, not only
+  powers of two), the last chunk's rows past T are masked by bounds
+  (nothing is padded), and ``ragged["t"] = T % chunk``.  The kernel's
+  outputs pass holds k and the decay cumsum of a whole chunk in shared
+  memory, so C * K may reach 256 * 64 (``rwkv_chunk.smem_bytes`` within
+  the 227 KiB of a block); the search's pow2 chunks 8..256 at K <= 64
+  all fit.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ from repro_torch.core.workload import (MAC_OPS, MATMUL, NORM, PWCONV, SCAN,
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_ibn as _ibn
 from repro_torch.kernels import matmul_ln as _mln
+from repro_torch.kernels import rwkv_chunk as _wkv
 from repro_torch.search import tiler
 
 # the menus are facts of the CUDA builds; the kernel wrappers own them
@@ -58,6 +61,7 @@ FUSED_IBN_BLOCKS = _ibn.BLOCKS
 FLASH_ATTENTION_BLOCKS = _fa.BLOCKS
 MATMUL_LN_BLOCK_M = _mln.BLOCK_M
 MATMUL_LN_BLOCK_K = _mln.BLOCK_K
+WKV_CHUNK = _wkv.CHUNK
 MATMUL_LN_SMEM_BYTES = _mln.SMEM_BYTES
 
 
@@ -125,13 +129,14 @@ def lower_attention(qk: Layer, *, seq: int) -> LoweredKernel:
 
 
 def lower_scan(scan: Layer, tinfo: Dict[str, int]) -> LoweredKernel:
-    """Chunked-recurrence layer -> rwkv_chunk(chunk): the searched chunk
-    length IS the kernel's sequence block.  Unlike the GEMM kernels the
-    chunk is not re-snapped here — the search already restricted itself
-    to the pow2 chunk menu, and the carry makes the grid order
-    non-negotiable (chunks run sequentially).  A non-dividing final
-    chunk is reported via ``ragged["t"]``."""
-    chunk = max(1, min(int(tinfo.get("chunk") or 64), scan.ox))
+    """Chunked-recurrence layer -> rwkv_chunk(chunk).  The chunk is snapped
+    to the card, as the GEMM kernels' blocks are snapped to their menus:
+    ``WKV_CHUNK`` (``kernels.rwkv_chunk.CHUNK``, where the kernel is
+    fastest in ``profile_wkv``'s chunk sweep on the H100), cut to the
+    sequence length.  The searched chunk (``tinfo["chunk"]``) describes
+    the paper's accelerator and is not used here.  A non-dividing final
+    chunk is reported via ``ragged["t"] = T % chunk``."""
+    chunk = max(1, min(WKV_CHUNK, scan.ox))
     ragged = {"t": scan.ox % chunk} if scan.ox % chunk else {}
     return LoweredKernel("rwkv_chunk", (scan.name,),
                          {"chunk": chunk, "bh": scan.b, "t": scan.ox,

@@ -462,3 +462,142 @@ def test_depthwise_refuses_a_plan_it_cannot_run():
     torch.cuda.synchronize()
     with pytest.raises(RuntimeError, match="launch failed"):
         check_launch("depthwise_conv2d", entry(4, 8, 56, 4))
+
+
+# chunked WKV: (bh, T, K, V, chunk, dtype, decay); decay "normal" draws
+# logw = -exp(N(0, 0.5^2)) as the JAX tests do, "extreme" -exp(N(2.5, 1))
+# (single steps near -40: a chunk's decay passes e^88), "zero" logw = 0,
+# "tiny" logw = -1e-6
+_WKV_CASES = {
+    "served_bf16": (16, 512, 64, 64, 64, torch.bfloat16, "normal"),
+    "prompt_200_bf16": (8, 200, 64, 64, 64, torch.bfloat16, "normal"),
+    "ragged_c8": (4, 50, 64, 64, 8, torch.float32, "normal"),
+    "ragged_c16": (4, 50, 64, 64, 16, torch.float32, "normal"),
+    "ragged_c33": (4, 100, 64, 64, 33, torch.float32, "normal"),
+    "ragged_c50": (3, 150, 64, 72, 50, torch.float32, "normal"),
+    "ragged_c64": (4, 100, 64, 64, 64, torch.float32, "normal"),
+    "c128": (4, 300, 64, 64, 128, torch.float32, "normal"),
+    "c256": (2, 300, 64, 64, 256, torch.float32, "normal"),
+    "k1_v2560": (1, 448, 1, 2560, 64, torch.float32, "normal"),
+    "k8_v40": (4, 100, 8, 40, 32, torch.float32, "normal"),
+    "extreme_f32": (4, 200, 64, 64, 64, torch.float32, "extreme"),
+    "extreme_bf16": (4, 200, 64, 64, 64, torch.bfloat16, "extreme"),
+    "zero_decay": (4, 130, 64, 64, 64, torch.float32, "zero"),
+    "tiny_decay": (4, 130, 64, 64, 64, torch.float32, "tiny"),
+}
+
+
+def _wkv_inputs(case, seed):
+    bh, t, k, v, chunk, dt, decay = _WKV_CASES[case]
+    r, kk, vv, w, u = _normal(seed, (bh, t, k), (bh, t, k), (bh, t, v),
+                              (bh, t, k), (bh, k), scale=0.5)
+    logw = {"normal": lambda: -torch.exp(w),
+            "extreme": lambda: -torch.exp(2.5 + 2.0 * w),
+            "zero": lambda: torch.zeros_like(w),
+            "tiny": lambda: torch.full_like(w, -1e-6)}[decay]()
+    return (r.to(dt), kk.to(dt), vv.to(dt), logw, u), chunk
+
+
+def _wkv_check(out, state, args):
+    want_out, want_state = tref.wkv_ref(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and state.dtype == torch.float32
+    assert torch.isfinite(out.float()).all() and torch.isfinite(state).all()
+    _close(out.float().cpu().numpy(), want_out.float().cpu().numpy(),
+           2e-4 if out.dtype == torch.float32 else 2e-2)
+    _close(state.cpu().numpy(), want_state.cpu().numpy(), 2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_WKV_CASES))
+def test_wkv_chunked_two_passes_on_card_match_plain(case):
+    """The states and outputs passes, at the plan's configuration, against
+    the per-token ``wkv_ref``: the served and prompt shapes, ragged T at
+    chunks 8-256, K = 1 with V = 2560, K = 8 with V = 40, V off the tile,
+    and decays at the extremes (finite, within tolerance); one launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import rwkv_chunk as t_wkv
+    args, chunk = _wkv_inputs(case, 24)
+    before = t_wkv.launches
+    out, state = tops.wkv_chunked(*args, chunk=chunk)
+    assert t_wkv.launches == before + 1
+    _wkv_check(out, state, args)
+
+
+def _wkv_entry(args, chunk, warps, rows, wv=1):
+    """The C entry at a given plan; returns (error, out, state)."""
+    from repro_torch.kernels import rwkv_chunk as t_wkv
+    r, k, v, logw, u = args
+    BH, T, K = r.shape
+    V = v.shape[2]
+    C = min(chunk, T)
+    out = torch.empty((BH, T, V), dtype=r.dtype, device=r.device)
+    state = torch.empty((BH, K, V), device=r.device)
+    ws = t_wkv.workspace(BH, T, K, V, C, r.device)
+    codes = [0 if t.dtype == torch.float32 else 1 for t in (r, logw, u)]
+    err = t_wkv._kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          logw.data_ptr(), u.data_ptr(), out.data_ptr(),
+                          state.data_ptr(), ws.data_ptr(), BH, T, K, V, C,
+                          *codes, wv, warps, rows,
+                          torch.cuda.current_stream().cuda_stream)
+    return err, out, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wv,warps,rows", [
+    (1, 2, 32), (2, 8, 64), (1, 1, 16), (2, 4, 64), (2, 2, 32), (1, 2, 64),
+])
+def test_wkv_chunked_every_instance_on_card_matches_plain(dtype, wv, warps,
+                                                          rows):
+    """Each compiled instance of the outputs pass (one a dtype) with one
+    warp and two warps on a tile, a group on several tiles and several
+    groups, through the C entry at a ragged shape (T = 150, chunk 50: slabs
+    that cut chunks; V = 72 off both V tiles) with bf16 logw."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    dt = getattr(torch, dtype)
+    r, k, v, _, u = _normal(25, (3, 150, 64), (3, 150, 64), (3, 150, 72),
+                            (3, 150, 64), (3, 64), scale=0.5)
+    (w,) = _normal(26, (3, 150, 64), scale=0.5)
+    args = (r.to(dt), k.to(dt), v.to(dt), (-torch.exp(w)).to(dt), u)
+    err, out, state = _wkv_entry(args, 50, warps, rows, wv)
+    assert err == 0
+    _wkv_check(out, state, args)
+
+
+@pytest.mark.cuda
+def test_wkv_chunked_is_bitwise_repeatable():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    args, chunk = _wkv_inputs("extreme_bf16", 27)
+    first = tops.wkv_chunked(*args, chunk=chunk)
+    second = tops.wkv_chunked(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+def test_wkv_chunked_refuses_a_plan_it_cannot_run():
+    """The C entry returns cudaErrorInvalidValue (1) for warps a tile it is
+    not built for, more groups of warps than tiles, warps that are not
+    whole groups, more than 8 warps, and rows that are not whole tiles or
+    pass the chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    args, _ = _wkv_inputs("ragged_c64", 28)
+    assert _wkv_entry(args, 64, 4, 64)[0] == 0
+    assert _wkv_entry(args, 64, 1, 24)[0] == 1
+    assert _wkv_entry(args, 64, 2, 16)[0] == 1
+    assert _wkv_entry(args, 64, 1, 80)[0] == 1
+    assert _wkv_entry(args, 64, 4, 32, 3)[0] == 1
+    assert _wkv_entry(args, 64, 3, 64, 2)[0] == 1
+    assert _wkv_entry(args, 64, 16, 64, 2)[0] == 1
+    assert _wkv_entry(args, 64, 8, 64, 2)[0] == 0
+    torch.cuda.synchronize()

@@ -946,8 +946,187 @@ def test_wkv_smem_budget_covers_the_searched_chunks():
     for chunk in (8, 16, 32, 64, 128, 256):
         for k in (1, 8, 16, 64):
             assert t_wkv.smem_bytes(chunk, k) <= t_wkv.SMEM_LIMIT
-    assert t_wkv.smem_bytes(256, 64) == 208132
+    assert t_wkv.smem_bytes(256, 64) == 190864
     assert t_wkv.smem_bytes(512, 64) > t_wkv.SMEM_LIMIT
+
+
+LOG2E = 1.4426950408889634
+
+
+def _wkv_emulated(r, k, v, logw, u, *, chunk, terms=3, rho_at="tile"):
+    """csrc/wkv_chunked.cu's two passes in torch, float32, every product
+    through ``_tf32_mm`` with ``terms``.  States pass: slabs of SLAB rows
+    cut at chunk boundaries, b = cumsum(logw log2 e) over the slab,
+    S <- 2^{b_e - b_a} S + (k 2^{b_e - b})^T v a segment, the state
+    entering each chunk kept.  Outputs pass, each tile of TILE rows: its
+    SUB-row diagonal blocks exact (one 2^{b_prev[t] - b[s]} a term, the
+    bonus on their diagonal), the block below the first factored about
+    b_prev at its first row, q = r 2^{b_prev - rho}, each earlier tile's
+    block q @ (k 2^{rho - b})^T and inter = (q 2^rho) @ S, with rho =
+    b_prev at the tile's first row (``rho_at="chunk"``: 0, the chunk's
+    start, as SNIPPETS.md snippet 3 takes it)."""
+    sub, slab, tile = t_wkv.SUB, t_wkv.SLAB, t_wkv.TILE
+    r, k, v, logw, u = (t.float() for t in (r, k, v, logw, u))
+    BH, T, K = r.shape
+    C = min(chunk, T)
+    mm = lambda a, b: _tf32_mm(a, b, terms)        # noqa: E731
+    w2 = logw * LOG2E
+    S = torch.zeros(BH, K, v.shape[2])
+    entering = []
+    for r0 in range(0, T, slab):
+        n = min(slab, T - r0)
+        b = torch.cumsum(w2[:, r0:r0 + n], 1)
+        a = 0
+        while a < n:
+            ga, e = r0 + a, min(n, (r0 + a) // C * C + C - r0)
+            if ga % C == 0:
+                entering.append(S)
+            kd = k[:, ga:r0 + e] * torch.exp2(b[:, e - 1:e] - b[:, a:e])
+            pre = b[:, a - 1] if a else torch.zeros(BH, K)
+            S = torch.exp2(b[:, e - 1] - pre)[..., None] * S \
+                + mm(kd.transpose(1, 2).contiguous(), v[:, ga:r0 + e])
+            a = e
+    out = torch.empty(v.shape)
+    for c, S_in in enumerate(entering):
+        c0, n = c * C, min(C, T - c * C)
+        bz = torch.cat([torch.zeros(BH, 1, K),
+                        torch.cumsum(w2[:, c0:c0 + n], 1)], 1)
+        rc, kc, vc = r[:, c0:c0 + n], k[:, c0:c0 + n], v[:, c0:c0 + n]
+        for j0 in range(0, n, tile):
+            j1 = min(n, j0 + tile)
+            rho = bz[:, j0] if rho_at == "tile" else torch.zeros(BH, K)
+            # the tile's block: exact SUB x SUB diagonal blocks (the bonus on
+            # their diagonal), the block below the first factored about
+            # b_prev at its first row
+            D = torch.zeros(BH, j1 - j0, j1 - j0)
+            for b0 in range(j0, j1, sub):
+                b1 = min(j1, b0 + sub)
+                mask = torch.tril(torch.ones(b1 - b0, b1 - b0, dtype=torch.bool), -1)
+                diff = bz[:, b0:b1, None] - bz[:, None, b0 + 1:b1 + 1]
+                dec = torch.exp2(torch.where(mask[None, :, :, None], diff,
+                                             torch.tensor(-math.inf)))
+                D[:, b0 - j0:b1 - j0, b0 - j0:b1 - j0] = torch.einsum(
+                    "btk,bsk,btsk->bts", rc[:, b0:b1], kc[:, b0:b1], dec) \
+                    + torch.diag_embed((rc[:, b0:b1] * u[:, None] * kc[:, b0:b1]).sum(-1))
+                if b0 > j0:
+                    r8 = bz[:, b0]
+                    q8 = rc[:, b0:b1] * torch.exp2(bz[:, b0:b1] - r8[:, None])
+                    k8 = kc[:, j0:b0] * torch.exp2(r8[:, None] - bz[:, j0 + 1:b0 + 1])
+                    D[:, b0 - j0:b1 - j0, :b0 - j0] = mm(q8, k8.transpose(1, 2).contiguous())
+            acc = mm(D, vc[:, j0:j1])
+            q = rc[:, j0:j1] * torch.exp2(bz[:, j0:j1] - rho[:, None])
+            for s0 in range(0, j0, tile):
+                kdec = kc[:, s0:s0 + tile] * torch.exp2(
+                    rho[:, None] - bz[:, s0 + 1:s0 + tile + 1])
+                acc = acc + mm(mm(q, kdec.transpose(1, 2).contiguous()),
+                               vc[:, s0:s0 + tile])
+            acc = acc + mm(q * torch.exp2(rho)[:, None], S_in)
+            out[:, c0 + j0:c0 + j1] = acc
+    return out, S
+
+
+def _wkv_decayed_inputs(seed, bh, t, k, v, decay):
+    """``_wkv_inputs`` with logw = -exp(N(0, 0.5^2)) ("normal"), -exp(N(2.5,
+    1)) ("extreme": single steps near -40, a chunk's decay past e^88), 0
+    ("zero") or -1e-6 ("tiny")."""
+    r, kk, vv, w, u = _wkv_inputs(seed, bh, t, k, v)
+    if decay != "normal":
+        z = _rng(seed + 1).standard_normal((bh, t, k))
+        w = {"extreme": -np.exp(2.5 + z), "zero": np.zeros_like(z),
+             "tiny": np.full_like(z, -1e-6)}[decay].astype(np.float32)
+    return r, kk, vv, w, u
+
+
+# seed, bh, T, K, V, chunk, decay
+_WKV_EMU_CASES = {
+    "ragged_c8_sub8": (40, 2, 50, 16, 16, 8, "normal"),
+    "ragged_c16": (41, 2, 50, 16, 16, 16, "normal"),
+    "ragged_c33_sub8": (42, 2, 100, 16, 24, 33, "normal"),
+    "ragged_c64_served_width": (43, 2, 100, 64, 64, 64, "normal"),
+    "ragged_c64_slab_over_chunks": (44, 2, 150, 16, 16, 50, "normal"),
+    "c256": (45, 1, 300, 8, 8, 256, "normal"),
+    "k1_v2560": (46, 1, 48, 1, 2560, 16, "normal"),
+    "k8_v40": (47, 2, 100, 8, 40, 32, "normal"),
+    "extreme_decay": (48, 2, 128, 16, 16, 64, "extreme"),
+    "extreme_decay_sub8": (52, 2, 128, 16, 16, 64, "extreme"),
+    "zero_decay": (49, 2, 70, 16, 16, 32, "zero"),
+    "tiny_decay": (50, 2, 70, 16, 16, 32, "tiny"),
+}
+
+
+@pytest.mark.parametrize("case", list(_WKV_EMU_CASES))
+def test_wkv_two_pass_emulation_matches_jax(case):
+    """The CUDA kernel's algorithm (``_wkv_emulated``: two passes, sub-chunk
+    factored products in 3xTF32) against the JAX Pallas kernel in
+    interpret mode, 2e-4: ragged T at chunks 8-256, K = 1 with V = 2560,
+    K = 8 with V = 40, slabs across chunk boundaries, decays at the
+    extremes (finite)."""
+    seed, bh, t, k, v, chunk, decay = _WKV_EMU_CASES[case]
+    arrs = _wkv_decayed_inputs(seed, bh, t, k, v, decay)
+    want_o, want_s = jops.wkv_chunked(*map(jnp.asarray, arrs), chunk=chunk,
+                                      interpret=True)
+    got_o, got_s = _wkv_emulated(*map(_t, arrs), chunk=chunk)
+    assert torch.isfinite(got_o).all() and torch.isfinite(got_s).all()
+    _close(got_o.numpy(), want_o, 2e-4)
+    _close(got_s.numpy(), want_s, 2e-4)
+
+
+def test_wkv_chunk_start_reference_overflows_at_extreme_decays():
+    """Factoring the earlier sub-chunks' blocks about the chunk's start
+    (k e^{-b[s]}, SNIPPETS.md snippet 3) overflows float32 once a chunk's
+    decay passes e^88, which RWKV-6's decays reach; about b_prev at each
+    tile's first row every factor is at most 1 and the result holds."""
+    seed, bh, t, k, v, chunk, _ = _WKV_EMU_CASES["extreme_decay"]
+    arrs = [_t(a) for a in _wkv_decayed_inputs(seed, bh, t, k, v, "extreme")]
+    assert float(-arrs[3][:, :chunk].sum(1).min()) > 88
+    at_start, _ = _wkv_emulated(*arrs, chunk=chunk, rho_at="chunk")
+    at_sub, _ = _wkv_emulated(*arrs, chunk=chunk)
+    assert not torch.isfinite(at_start).all()
+    assert torch.isfinite(at_sub).all()
+    _close(at_sub.numpy(), tref.wkv_ref(*arrs)[0].numpy(), 2e-4)
+
+
+def test_wkv_3xtf32_holds_the_float32_tolerance():
+    """At the served width (K = V = 64, chunk 64, 16-row tiles) three
+    TF32 terms a product stay within 2e-4 (1 + |b|) of the per-token
+    recurrence; one term does not."""
+    arrs = [_t(a) for a in _wkv_inputs(51, 2, 128, 64, 64)]
+    want_o, want_s = tref.wkv_ref(*arrs)
+    err = {}
+    for terms in (1, 3):
+        got_o, got_s = _wkv_emulated(*arrs, chunk=64, terms=terms)
+        err[terms] = max(float(((got_o - want_o).abs() / (1 + want_o.abs())).max()),
+                         float(((got_s - want_s).abs() / (1 + want_s.abs())).max()))
+    assert err[3] <= 2e-4 < err[1]
+
+
+@pytest.mark.parametrize("bh,t", [(128, 512), (32, 200)], ids=["b4x512", "b1x200"])
+def test_wkv_plan_fills_the_card(bh, t):
+    """At RWKV-6's prefill shapes (32 heads of 64, chunk 64, bf16 r/k/v,
+    float32 logw) both passes launch at least a block for every SM, within
+    the shared memory a block may have."""
+    p = t_wkv.plan(bh, t, 64, 64, 64, 2, logw_itemsize=4, sms=132)
+    assert p["ctas"] >= 132 and p["states_ctas"] >= 132
+    assert p["smem"] <= t_wkv.SMEM_LIMIT and p["states_smem"] <= t_wkv.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k,v", [(64, 64), (1, 2560), (8, 40)])
+@pytest.mark.parametrize("chunk", [1, 8, 16, 32, 33, 50, 64, 128, 256])
+def test_wkv_plan_is_one_the_kernel_runs(k, v, chunk):
+    """Every plan at the searched chunks (and odd ones) keeps the C entry's
+    rules: built warps a tile, rows a multiple of the tile within the chunk
+    rounded up to it, whole groups of warps, at most one group a tile,
+    both passes within SMEM_LIMIT in float32 and bf16."""
+    for isz in (4, 2):
+        p = t_wkv.plan(4, 300, k, v, chunk, isz, sms=132)
+        assert p["wv"] in t_wkv.WVS
+        tile = t_wkv.TILE
+        cp = -(-chunk // tile) * tile
+        assert p["rows"] % tile == 0 and tile <= p["rows"] <= cp
+        assert p["warps"] % p["wv"] == 0 and p["warps"] <= t_wkv.MAX_WARPS
+        assert 1 <= p["warps"] // p["wv"] <= p["rows"] // tile
+        assert p["smem"] <= t_wkv.SMEM_LIMIT
+        assert p["states_smem"] <= t_wkv.SMEM_LIMIT
 
 
 def test_wkv_wrapper_checks_before_anything_else():
@@ -1114,6 +1293,49 @@ def test_profile_depthwise_instruments_the_kernel_source():
     for slot in range(4):
         assert src.count(f"prof_t[{slot}] = prof_now();") == 1
     assert "extern \"C\" int profile_read(" in src
+
+
+def test_profile_wkv_instruments_the_kernel_source():
+    """The WKV phase profiler's stamps still find their places in
+    csrc/wkv_chunked.cu (it compiles only on the card): in the states pass
+    the copies landed, the cumsum and the products of each slab and the
+    block's end; in the outputs pass the copies landed, the cumsum, the
+    diagonal block, q, the earlier sub-chunks, inter, the store and the
+    warp's end; each once, each in its kernel."""
+    from repro_torch import profile_wkv
+    src = profile_wkv.instrumented_source()
+    states = src.index("wkv_states_kernel(const Tin*")
+    outputs = src.index("wkv_outputs_kernel(const Tin*")
+    for slot in range(3):
+        at = src.index(f"prof_s[{slot}] +=")
+        assert src.count(f"prof_s[{slot}] +=") == 1 and states < at < outputs
+    for slot in range(7):
+        assert src.count(f"prof_o[{slot}] +=") == 1
+        assert src.index(f"prof_o[{slot}] +=") > outputs
+    assert src.count("prof_span(prof_s, prof_t0)") == 1
+    assert src.count("prof_span(prof_o, prof_t0)") == 1
+    assert "extern \"C\" int profile_read(" in src
+    # both copies launch the passes the switch asks for; the timing copy
+    # has no stamps
+    plain = profile_wkv.instrumented_source(stamps=False)
+    for copy in (src, plain):
+        assert copy.count("prof_passes & 1 ? launch_states<Tin>(a, s)") == 1
+        assert copy.count("!(prof_passes & 2)") == 1
+    assert "prof_now" not in plain
+
+
+def test_profiles_count_every_kernel_of_the_sources():
+    """The request profilers count a device kernel as the port's own by
+    name (``profile_edgenext.OURS``): every ``__global__`` function of
+    csrc/*.cu is on that list."""
+    import re
+    from repro_torch import profile_edgenext
+    names = set()
+    for src in _build.sources():
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+            src.read_text()))
+    assert names and names <= set(profile_edgenext.OURS), names
 
 
 def test_profile_flash_attention_instruments_the_kernel_source():

@@ -228,6 +228,21 @@ def test_launch_shape_is_the_models_shape(name, key, want):
     assert lower.launch_shape(layers, key, lk) == want
 
 
+@pytest.mark.parametrize("name,key", [("rwkv6", "blk0.tmix.wkv"),
+                                      ("recurrentgemma", "blk0.lru")])
+def test_scan_lowers_to_the_cards_chunk(name, key):
+    """The searched chunk (8 for both, the paper's accelerator's choice) is
+    snapped to ``rwkv_chunk.CHUNK``, the chunk the kernel runs fastest at
+    on the H100, as the block menus are; ragged T stays T % chunk."""
+    lowered = _schedules(name)[2].lowered
+    scans = [lk for lk in lowered.values() if lk["kernel"] == "rwkv_chunk"]
+    assert scans and all(lk["chunk"] == _wkv.CHUNK == lower.WKV_CHUNK
+                         for lk in scans)
+    lk = lowered[key]
+    assert lk["ragged"] == ({"t": lk["t"] % _wkv.CHUNK} if lk["t"] % _wkv.CHUNK
+                            else {})
+
+
 @pytest.mark.parametrize("n,block_m", [(2560, 16),(2048, 16), (512, 64),
                                        (304, 64), (96, 64), (5120, 8)])
 def test_matmul_ln_row_block_shrinks_to_the_budget(n, block_m):
