@@ -87,7 +87,10 @@ which ends the run with a non-zero exit code if it fails:
    1 x 64 float32 request and 4 decode steps against the plain model on
    the CPU within 2e-3;
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
-   workload, and every ``lowered`` entry launched at the layer's true
+   workload, each schedule verified by ``repro_torch.check.verify_schedule``
+   (the static checker and the Hopper launch lint; any finding fails the
+   run and names the workload, code and key), and only then every
+   ``lowered`` entry launched at the layer's true
    shapes with exactly the emitted ``block_*`` or ``chunk``
    (fused_ibn: M = b*ox*oy, D = c*fx*fy, F = k, Do = the projection's k;
    matmul_ln: M, K = c*fx*fy, N = k; flash_attention: B*H = b, Sq = ox,
@@ -96,9 +99,22 @@ which ends the run with a non-zero exit code if it fails:
    against its plain version with the tolerances above.  The launch
    counters are set to 0 before and read after: every kernel but the
    depthwise convolution (which is not lowered) launches here, matmul_ln
-   only here; an entry whose kernel is not ported fails the run;
-7. one JSON line ``{"kernels": [...]}``, the device line, and last
-   ``{"ok": true, "device": {...}}``.
+   only here; an entry whose kernel is not ported fails the run.  Then
+   the checker is held to the kernels (``check_phase``): the mutation
+   corpus (``check.mutations.run_corpus``) must catch 21 of 21, and for
+   each kernel with a block menu (fused_ibn, flash_attention, matmul_ln)
+   one emitted entry takes the corpus's ``oversize_block`` and
+   ``non_pow2_block`` corruptions; the lint must flag each with
+   ``lint.block_menu`` and the ``ops`` entry point must refuse it on
+   CUDA tensors at the entry's launch shape with its launch counter
+   unchanged.  ``rwkv_chunk`` at a chunk other than min(CHUNK, T) must
+   be a ``lint.scan_chunk`` finding; ``ops.wkv_chunked`` runs any chunk
+   (C = min(chunk, T) is a run-time argument of the kernel), so it is not
+   asked to refuse it.  A lint finding that ``ops`` accepts, or the other
+   way round, fails the run;
+7. one JSON line ``{"check": {...}}`` (findings by workload, the corpus
+   caught, the agreement cases), one JSON line ``{"kernels": [...]}``,
+   the device line, and last ``{"ok": true, "device": {...}}``.
 
 Per kernel the JSON line sums over one forward: ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are each the sum over the forward's
@@ -141,6 +157,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.check import lint_doc, verify_schedule  # noqa: E402
+from repro_torch.check.mutations import MUTATIONS, run_corpus  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.edgenext_s import CONFIG  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -726,19 +744,35 @@ def kernels_phase():
 
 
 def lowered_phase():
-    """Every ``lowered`` entry of every registered workload, launched with
-    the emitted blocks (or chunk) at the layer's true shapes and held
-    against its plain version; identical (kernel, shapes, blocks) once.
-    Fails on an entry whose kernel is not ported.  Returns the per-launch
-    records, the entries per lowered kernel name, the entries per
-    workload and lowered kernel, and the launch counts."""
+    """Every registered workload's schedule verified by the static checker,
+    then every ``lowered`` entry launched with the emitted blocks (or
+    chunk) at the layer's true shapes and held against its plain version;
+    identical (kernel, shapes, blocks) once.  Fails on any finding and on
+    an entry whose kernel is not ported.  Returns the per-launch records,
+    the entries per lowered kernel name, the entries per workload and
+    lowered kernel, the launch counts, the findings per workload with the
+    seconds the checker took on the host, and the first entry of each
+    lowered kernel (workload, key, layers, groups, entry) for
+    ``check_phase``."""
     distinct: dict = {}
     entries: dict = {name: 0 for name in LOWERED}
     by_workload: dict = {}
+    findings: dict = {}
+    samples: dict = {}
+    verify_s = 0.0
     for wname in WORKLOADS:
         layers = get_workload(wname)
         sched = auto_schedule(layers, workload=wname)
+        t0 = time.perf_counter()
+        found = verify_schedule(layers, sched, source="chip_smoke")
+        verify_s += time.perf_counter() - t0
+        if found:
+            fail(f"check: {wname} has {len(found)} findings, first "
+                 f"{found[0].code} at {found[0].where}: {found[0].detail}")
+        findings[wname] = len(found)
         for key, lk in sched.lowered.items():
+            samples.setdefault(lk["kernel"], (wname, key, layers,
+                                              sched.groups, lk))
             if lk["kernel"] not in LOWERED:
                 fail(f"lowered: {wname}:{key} is lowered onto "
                      f"{lk['kernel']!r}, which no ported kernel runs")
@@ -777,7 +811,88 @@ def lowered_phase():
                  f"{want} distinct lowered launches")
         if name in LOWERED.values() and not launches[name]:
             fail(f"lowered: {name} was never launched")
-    return records, entries, by_workload, launches
+    verified = dict(findings=findings, verify_s=verify_s)
+    return records, entries, by_workload, launches, verified, samples
+
+
+def refuse_case(kernel: str, shape: dict, blocks: dict):
+    """Call the ``ops`` entry point of ``kernel`` on CUDA tensors at a
+    lowered entry's launch shape with ``blocks``.  Returns the message it
+    refused them with, or None where it ran; a refusal must leave the
+    kernel's launch counter as it was."""
+    before = read_counts()
+    z = lambda *shape: torch.zeros(shape, device="cuda")  # noqa: E731
+    try:
+        if kernel == "fused_ibn":
+            ops.fused_ibn(z(shape["m"], shape["d"]), z(shape["d"], shape["f"]),
+                          z(shape["f"], shape["do"]), **blocks)
+        elif kernel == "matmul_ln":
+            n = shape["n"]
+            ops.matmul_ln(z(shape["m"], shape["k"]), z(shape["k"], n), z(n),
+                          z(n), z(n), **blocks)
+        else:
+            qkv = [z(1, shape["bh"], s, shape["d"])
+                   for s in (shape["q"], shape["k"], shape["k"])]
+            ops.flash_attention(*qkv, causal=False, **blocks)
+    except ValueError as e:
+        if read_counts() != before:
+            fail(f"check: ops.{kernel} refused {blocks} after launching")
+        return str(e)
+    torch.cuda.synchronize()
+    return None
+
+
+def check_phase(samples: dict) -> dict:
+    """The checker held to the kernels: the mutation corpus must catch all
+    of its corruptions, and the lint and the ``ops`` entry points must
+    agree on the corpus's off-menu blocks (see the module docstring,
+    phase 6).  Fails on anything else.  Returns the corpus result, the
+    agreement cases and the seconds the phase took on the host."""
+    t0 = time.perf_counter()
+    results, base = run_corpus()
+    dirty = {w: [f.code for f in fs] for w, fs in base.items() if fs}
+    if dirty:
+        fail(f"check: corpus base artifacts not clean: {dirty}")
+    missed = [r.mutation for r in results if not r.caught]
+    if missed:
+        fail(f"check: mutations not caught: {missed}")
+    by_name = {m.name: m for m in MUTATIONS}
+    cases = []
+    for kernel in ("fused_ibn", "flash_attention", "matmul_ln"):
+        wname, key, layers, groups, lk = samples[kernel]
+        shape = lower.launch_shape(layers, key, lk)
+        for mutation in ("oversize_block", "non_pow2_block"):
+            doc = {"groups": [list(g) for g in groups],
+                   "lowered": {key: json.loads(json.dumps(lk))}}
+            if not by_name[mutation].apply(doc, layers):
+                fail(f"check: {mutation} did not apply to {wname}:{key}")
+            entry = doc["lowered"][key]
+            codes = sorted({f.code for f in lint_doc(doc, layers)})
+            blocks = {k: v for k, v in entry.items() if k.startswith("block_")}
+            refused = refuse_case(kernel, shape, blocks)
+            if "lint.block_menu" not in codes:
+                fail(f"check: the lint passes {kernel} {blocks} at "
+                     f"{wname}:{key} (codes {codes})")
+            if refused is None:
+                fail(f"check: disagreement: the lint flags {kernel} {blocks} "
+                     f"at {wname}:{key} ({codes}), ops.{kernel} ran it")
+            cases.append(dict(kernel=kernel, entry=f"{wname}:{key}",
+                              mutation=mutation, blocks=blocks, lint=codes,
+                              ops_refused=True, launches_unchanged=True))
+    wname, key, layers, groups, lk = samples["rwkv_chunk"]
+    off = dict(json.loads(json.dumps(lk)), chunk=2 * max(lk["chunk"], 1))
+    doc = {"groups": [list(g) for g in groups], "lowered": {key: off}}
+    codes = sorted({f.code for f in lint_doc(doc, layers)})
+    if "lint.scan_chunk" not in codes:
+        fail(f"check: the lint passes rwkv_chunk at chunk {off['chunk']} "
+             f"at {wname}:{key} (codes {codes})")
+    cases.append(dict(kernel="rwkv_chunk", entry=f"{wname}:{key}",
+                      mutation="chunk", blocks={"chunk": off["chunk"]},
+                      lint=codes, ops_refused=None,
+                      note="ops.wkv_chunked runs any chunk"))
+    return dict(corpus=dict(caught=sum(r.caught for r in results),
+                            total=len(MUTATIONS)),
+                agreement=cases, check_phase_s=time.perf_counter() - t0)
 
 
 def per_forward_sum(shapes, key):
@@ -1143,7 +1258,8 @@ def main() -> None:
           flush=True)
 
     # 6. the scheduler's path: every lowered entry onto its kernel
-    lowered, entries, by_workload, lowered_launches = lowered_phase()
+    lowered, entries, by_workload, lowered_launches, verified, samples = \
+        lowered_phase()
     for name, kern in LOWERED.items():
         recs = [r for r in lowered if r["kernel"] == kern]
         print(f"lowered {name}: {entries[name]} entries over {len(WORKLOADS)} "
@@ -1151,6 +1267,14 @@ def main() -> None:
               f"{max(r['max_abs_err'] for r in recs):.2e} (tol {recs[0]['tol']})")
     print(f"lowered rwkv_chunk entries by workload: {by_workload['rwkv_chunk']}; "
           f"0 waiting", flush=True)
+    check = dict(verified, **check_phase(samples))
+    found = check["findings"]
+    print(f"check: {len(found)} workloads verified, {sum(found.values())} "
+          f"findings ({check['verify_s']:.2f} s on the host); mutation corpus "
+          f"{check['corpus']['caught']}/{check['corpus']['total']} caught; "
+          f"{sum(1 for c in check['agreement'] if c['ops_refused'])} "
+          f"lint-flagged blocks refused by ops with no launch "
+          f"({check['check_phase_s']:.2f} s)", flush=True)
 
     # 7. results
     rows = summarise(per_kernel, {"edgenext_serve": launches,
@@ -1164,10 +1288,11 @@ def main() -> None:
         out.write_text(json.dumps(dict(
             device=device, nvidia_smi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
-            kernels=rows, main_path=served, rwkv6=rwkv,
+            kernels=rows, main_path=served, rwkv6=rwkv, check=check,
             lowered=dict(records=lowered, entries=entries,
                          by_workload=by_workload)), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"check": check}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -4,7 +4,7 @@ A ``Tracer`` records a tree of *spans* (named wall-time intervals with
 attributes), integer *counters*, float *gauges*, and the flat
 ``phase_s`` wall-time table the legacy ``search.perf.PerfRecorder``
 surface reads.  One tracer covers one search run, one DSE sweep, or one
-CLI invocation; exporters (``obs.exporters``, not ported yet) turn it into a
+CLI invocation; exporters (``repro_torch.obs.exporters``) turn it into a
 Chrome-trace JSON (loadable in ``chrome://tracing`` / Perfetto) or
 BENCH rows.
 

@@ -4,6 +4,8 @@ onto the port's CUDA kernels.
   mapper     spatial mappings + temporal loop orders per layer
   partition  DP fusion partitioner over the layer chain
   tiler      budget-driven tile search for depth-first groups
+  dse        Pareto sweep over HWSpec variants (sweep-wide shared memo,
+             optional process-pool fan-out)
   lower      schedule -> launch parameters of the Hopper kernels
              (``block_*`` values the kernels really run)
   cache      JSON schedule artifacts + content-addressed cache
@@ -14,19 +16,24 @@ onto the port's CUDA kernels.
              the bit-exact brute-force equivalence mode)
 
 Every module but ``lower`` is a copy of the JAX package's and gives the
-same schedule document in every field but ``lowered``.  The design-space
-sweep (``dse``) and the command line (``__main__``) are not ported yet.
+same schedule document in every field but ``lowered``.
+
+CLI: ``PYTHONPATH=src python -m repro_torch.search --workload edgenext-s``.
 """
 import re
 
 from repro_torch.search.auto import Schedule, auto_schedule, evaluate_schedule
 from repro_torch.search.cache import (cached_search, load_schedule,
                                       save_schedule, schedule_key)
+from repro_torch.search.dse import (DsePoint, edp_best, hw_variants,
+                                    memory_variants, pareto_front, sweep,
+                                    sweep_memory)
 
 __all__ = [
     "Schedule", "auto_schedule", "evaluate_schedule", "cached_search",
-    "load_schedule", "save_schedule", "schedule_key", "WORKLOADS",
-    "get_workload", "parse_workload",
+    "load_schedule", "save_schedule", "schedule_key", "DsePoint",
+    "edp_best", "hw_variants", "memory_variants", "pareto_front", "sweep",
+    "sweep_memory", "WORKLOADS", "get_workload", "parse_workload",
 ]
 
 

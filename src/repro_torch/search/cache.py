@@ -14,7 +14,7 @@ observes either no artifact or a complete one, never a truncated JSON
 per-key ``flock``-held claim file additionally serializes the store
 itself: of N processes missing on one key, exactly one performs the
 store — in *every* interleaving, not just the common ones (the claim
-protocol is exhaustively model-checked by ``check.races`` (not ported yet)); the
+protocol is exhaustively model-checked by ``repro_torch.check.races``); the
 others still search (they need the result) but skip the redundant
 write (``cache.store_skipped``).
 """
@@ -123,7 +123,7 @@ def _claim_store(path: Path) -> bool:
     dead inode is detected by re-validating ``fstat`` vs ``stat`` after
     acquiring, and the loser simply retries on the new file.  The
     interleaving space of this protocol is exhaustively model-checked
-    by ``check.races`` (not ported yet).
+    by ``repro_torch.check.races``.
 
     Returns True when this process owns the store (and must
     ``_release_store`` afterwards), False when another live claimant
@@ -385,13 +385,14 @@ def cached_search(layers: List[Layer], hw: Optional[HWSpec] = None, *,
     launch parameters are this package's Hopper ones, so the two
     packages must never replay each other's files.
 
-    ``verify=True`` (the static checker over every replayed artifact)
-    raises ``NotImplementedError``: the checker is not ported yet."""
+    ``verify=True`` runs the independent static checker
+    (``repro_torch.check``, with the Hopper launch lint) over every
+    replayed artifact before returning it (``check.pass`` /
+    ``check.fail`` counters): a schedule that fails verification is
+    treated as a miss, re-searched and stored again instead of being
+    served.  Fault-free replays are bit-identical with or without the
+    flag — the checker only reads."""
     from repro_torch.search.auto import auto_schedule
-    if verify:
-        raise NotImplementedError(
-            "cached_search(verify=True) needs the static schedule checker "
-            "(check/), which repro_torch does not have yet")
     hw = hw or HWSpec()
     if cache_dir is None:
         return auto_schedule(layers, hw, workload=workload,
@@ -400,10 +401,20 @@ def cached_search(layers: List[Layer], hw: Optional[HWSpec] = None, *,
     key = schedule_key(layers, hw, tile_mode=tile_mode,
                        spatial_mode=spatial_mode)
     path = Path(cache_dir) / f"{workload}-hopper-{key}.json"
+    verify_failed = False
     if not refresh:
         sched, _why = try_replay(path, layers, key, workload=workload)
         if sched is not None:
-            return sched
+            if not verify:
+                return sched
+            from repro_torch.check import verify_schedule
+            if not verify_schedule(layers, sched, source="replay"):
+                return sched
+            # loadable but statically invalid: fall through to the
+            # miss path and force the overwrite under the claim
+            verify_failed = True
+            obs.event("cache.replay", outcome="verify_fail",
+                      workload=workload, key=key, path=str(path))
     obs.count("cache.miss")
     obs.event("cache.replay", outcome="miss", workload=workload, key=key,
               refresh=refresh)
@@ -419,7 +430,8 @@ def cached_search(layers: List[Layer], hw: Optional[HWSpec] = None, *,
         # must not store again: exactly-one-store is unconditional, not
         # a matter of racing luck.  A bad on-disk artifact (corrupt /
         # stale version / mis-named) is still repaired.
-        if refresh or (claimed and not _replayable(path, layers, key)):
+        if refresh or (claimed and (verify_failed or
+                                    not _replayable(path, layers, key))):
             save_schedule(sched, path)
             obs.count("cache.store")
         else:

@@ -601,3 +601,52 @@ def test_wkv_chunked_refuses_a_plan_it_cannot_run():
     assert _wkv_entry(args, 64, 16, 64, 2)[0] == 1
     assert _wkv_entry(args, 64, 8, 64, 2)[0] == 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_ibn", "flash_attention",
+                                    "matmul_ln"])
+def test_lint_flagged_blocks_are_refused_by_ops_without_a_launch(kernel):
+    """The launch lint and the kernels agree: the corpus's off-menu blocks
+    on an emitted EdgeNeXt-S entry are a ``lint.block_menu`` finding, and
+    the ``ops`` entry point refuses them on CUDA tensors at the entry's
+    launch shape before anything launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    import copy
+    from repro_torch.check import lint_doc
+    from repro_torch.check.mutations import MUTATIONS
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.kernels import fused_ibn as t_ibn
+    from repro_torch.kernels import matmul_ln as t_mln
+    from repro_torch.search import auto_schedule, get_workload, lower
+    layers = get_workload("edgenext-s")
+    sched = auto_schedule(layers, workload="edgenext-s")
+    key, lk = next((k, v) for k, v in sched.lowered.items()
+                   if v["kernel"] == kernel)
+    s = lower.launch_shape(layers, key, lk)
+    module = {"fused_ibn": t_ibn, "flash_attention": t_fa,
+              "matmul_ln": t_mln}[kernel]
+    for name in ("oversize_block", "non_pow2_block"):
+        doc = {"groups": [list(g) for g in sched.groups],
+               "lowered": {key: copy.deepcopy(lk)}}
+        assert next(m for m in MUTATIONS if m.name == name).apply(doc, layers)
+        assert "lint.block_menu" in {f.code for f in lint_doc(doc, layers)}
+        blocks = {k: v for k, v in doc["lowered"][key].items()
+                  if k.startswith("block_")}
+        z = lambda *shape: torch.zeros(shape, device="cuda")  # noqa: E731
+        before = module.launches
+        with pytest.raises(ValueError, match="built for"):
+            if kernel == "fused_ibn":
+                tops.fused_ibn(z(s["m"], s["d"]), z(s["d"], s["f"]),
+                               z(s["f"], s["do"]), **blocks)
+            elif kernel == "matmul_ln":
+                tops.matmul_ln(z(s["m"], s["k"]), z(s["k"], s["n"]),
+                               z(s["n"]), z(s["n"]), z(s["n"]), **blocks)
+            else:
+                tops.flash_attention(
+                    *[z(1, s["bh"], n, s["d"]) for n in (s["q"], s["k"], s["k"])],
+                    causal=False, **blocks)
+        torch.cuda.synchronize()
+        assert module.launches == before
