@@ -70,7 +70,18 @@ which ends the run with a non-zero exit code if it fails:
    and read just after: 18 fused_ibn, 21 depthwise, 3 attention launches a
    forward.  Logits must be finite, [B, 1000], within 2e-3 of the same
    model run with the plain versions on the card, and for one single-image
-   request within 2e-3 of the plain model on the CPU;
+   request within 2e-3 of the plain model on the CPU.  Then the same model
+   as ``runtime.capture.captured(model)`` (``edgenext_captured``): captured
+   at B = 16 and at B = 1 on images of its own, the counters set to 0
+   before each capture and read after it: 18 / 21 / 3 for the capture and
+   as many for each of the ``WARMUP`` eager forwards before it; then the
+   six requests and one more single image replayed (four fresh batches at
+   B = 16, three at B = 1): no counter moves, and the logits equal the
+   eager ones bit for bit and are within 2e-3 of the plain model's;
+   request ms of both forms in turns (10 rounds at each batch size), by
+   CUDA events and by the host's clock from the call to a synchronise; the
+   peak device memory of a request in each form and the memory the
+   capture reserved;
 5. main path, RWKV-6 1.6B (``rwkv6_path``): full width and depth (24
    layers, d 2048, 32 heads of 64, d_ff 7168, vocab 65536, 1,599,873,024
    parameters), weights float32 from seed 0 made on the host with numpy
@@ -85,7 +96,23 @@ which ends the run with a non-zero exit code if it fails:
    served bfloat16 run against the plain bfloat16 model, teacher-forced
    with the served tokens (``BF16_LOGITS_TOL``, ``BF16_AGREEMENT``); one
    1 x 64 float32 request and 4 decode steps against the plain model on
-   the CPU within 2e-3;
+   the CPU within 2e-3.  Then the steps ``launch.serve`` serves on the
+   card (``launch.serve.captured_steps``, ``rwkv6_captured``): the prefill
+   captured at 4 x 512 and 1 x 200 and the donated decode step at B = 4 and
+   1, on prompts of their own: 24 wkv_chunked for each prefill capture and
+   as many for each ``WARMUP`` run, none for a decode capture; the four
+   requests replayed move no counter and give the eager steps' last
+   hidden state, prefill cache, every step's tokens and logits and last
+   cache bit for bit; the bfloat16 check above on the captured requests
+   too, and the float32 request through the float32 model's captured
+   steps (bit for bit its eager run, within 2e-3 of the plain model);
+   prefill ms (10 rounds) and decode ms a token (5 loops of 32 steps) of
+   both forms in turns, both clocks; peak memory of a 4 x 512 request in
+   each form, and each capture's host seconds and reserved memory.  Last,
+   ``wkv_graph_edge``: one ``wkv_chunked`` call captured alone, the types of
+   the graph's edges as the driver gives them (whether the outputs pass's
+   programmatic dependent launch stays one in a graph), a replay on new
+   inputs bit for bit the eager call, and both forms' time;
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
    workload, each schedule verified by ``repro_torch.check.verify_schedule``
    (the static checker and the Hopper launch lint; any finding fails the
@@ -142,6 +169,7 @@ counted here).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import statistics
@@ -171,6 +199,7 @@ from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import edgenext, rwkv6  # noqa: E402
 from repro_torch.models.params import count_params, init_params  # noqa: E402
 from repro_torch.runtime import build_decode_step, build_prefill_step  # noqa: E402
+from repro_torch.runtime.capture import WARMUP, captured  # noqa: E402
 from repro_torch.search import (WORKLOADS, auto_schedule,  # noqa: E402
                                 get_workload, lower)
 from repro_torch.core.workload import NORM, PWCONV, SCAN, Layer, scan_macs  # noqa: E402
@@ -263,6 +292,77 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def both_clocks(fn):
+    """(fn(), CUDA-event ms, host wall ms from the call to a synchronise)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return out, start.elapsed_time(end), wall
+
+
+def alternate(forms: dict, rounds: int, per: int = 1) -> dict:
+    """Each of ``forms`` (name -> fn) once a round, in turns whose order
+    flips every round, under inference mode -> per form the medians of
+    both clocks (each divided by ``per``), their difference (the host's
+    time outside the device's span) and every reading."""
+    names = list(forms)
+    got = {n: ([], []) for n in names}
+    with torch.inference_mode():
+        for r in range(rounds):
+            for n in (names if r % 2 == 0 else names[::-1]):
+                _, ev, wall = both_clocks(forms[n])
+                got[n][0].append(ev / per)
+                got[n][1].append(wall / per)
+    out = {}
+    for n, (ev, wall) in got.items():
+        e, w = statistics.median(ev), statistics.median(wall)
+        out[n] = dict(event_ms=e, wall_ms=w, wall_minus_event_ms=w - e,
+                      event_ms_all=ev, wall_ms_all=wall)
+    return out
+
+
+def peak_mib(fn) -> float:
+    """Peak device memory allocated over ``fn()`` (inference mode), MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def capture_counted(fn) -> tuple:
+    """Runs ``fn()`` (a first call that captures) with the launch counters
+    set to 0 before and read after -> (its result, the counts, MiB the
+    caching allocator reserved for it: the graph's pool and its static
+    buffers)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    reset_counts()
+    out = fn()
+    counts = read_counts()
+    return out, counts, (torch.cuda.memory_reserved() - before) / 2 ** 20
+
+
+def first_difference(got: list, want: list) -> str | None:
+    """None if each pair is bit for bit equal (shape, dtype, bits); else
+    which pair differs first and by how much."""
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return f"#{i}: {tuple(g.shape)} {g.dtype} against {tuple(w.shape)} {w.dtype}"
+        if not torch.equal(g, w):
+            d = (g.float() - w.float()).abs().max().item()
+            return f"#{i} {tuple(g.shape)}: max |difference| {d:.3e}"
+    return None
 
 
 def nbytes(*tensors) -> int:
@@ -993,7 +1093,64 @@ def main_path():
         plain_ms_per_request_b16=statistics.median(pms16),
         plain_ms_per_request_b1=statistics.median(pms1),
         peak_memory_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    result["captured"] = edgenext_captured(cfg, model, plain, batches, logits,
+                                           plain_logits, rng)
     return launches, result
+
+
+def edgenext_captured(cfg, model, plain, batches, logits, plain_logits,
+                      rng) -> dict:
+    """EdgeNeXt-S as ``captured(model)``: each capture (B = 16, then B = 1,
+    on images of its own) counts 18 / 21 / 3 launches for the capture and
+    as many for each of the WARMUP eager runs before it; the replays of the
+    six requests and one more single image (four fresh batches at B = 16,
+    three at B = 1) count none and give the eager logits bit for bit;
+    request ms eager and captured in turns, 10 rounds at each batch; peak
+    memory of each form."""
+    want = edgenext.kernel_launches_per_forward(cfg)
+    per_capture = {k: (WARMUP + 1) * want.get(k, 0) for k in KERNELS}
+
+    def images(b):
+        return torch.from_numpy(rng.standard_normal(
+            (b, cfg.img_size, cfg.img_size, cfg.in_channels),
+            dtype=np.float32)).cuda()
+
+    cap = captured(model)
+    captures = {}
+    for b in (BATCH, 1):
+        x = images(b)
+        _, n, reserved = capture_counted(lambda: cap(x))
+        if n != per_capture:
+            fail(f"EdgeNeXt-S capture at B={b}: launches {n}, expected "
+                 f"{per_capture} ({WARMUP} warm-up forwards and the capture)")
+        captures[b] = dict(launches=n, capture_s=cap.capture_s[-1],
+                           reserved_mib=reserved)
+    requests = batches + [images(1)]
+    with torch.inference_mode():
+        eager = logits + [model(requests[-1])]
+        plain_all = plain_logits + [plain(requests[-1])]
+    reset_counts()
+    got, _ = serve(cap, requests)
+    on_replay = read_counts()
+    if any(on_replay.values()):
+        fail(f"EdgeNeXt-S captured: launches {on_replay} counted over "
+             f"{len(requests)} replays, expected none")
+    diff = first_difference(got, eager)
+    if diff:
+        fail(f"EdgeNeXt-S captured: replayed logits differ from the eager "
+             f"ones, request {diff}")
+    err = max((g - w).abs().max().item() for g, w in zip(got, plain_all))
+    if err > 2e-3:
+        fail(f"EdgeNeXt-S captured: logits differ from the plain versions on "
+             f"the card by {err:.3e} (limit 2e-3)")
+    timing, peak = {}, {}
+    for b, x in ((BATCH, batches[0]), (1, batches[-1])):
+        forms = {"eager": lambda: model(x), "captured": lambda: cap(x)}
+        timing[b] = alternate(forms, rounds=10)
+        peak[b] = {name: peak_mib(fn) for name, fn in forms.items()}
+    return dict(captures=captures, requests=[r.shape[0] for r in requests],
+                launches_on_replay=on_replay, max_abs_err_vs_plain_on_card=err,
+                timing=timing, peak_allocated_mib=peak)
 
 
 def decode_inputs(tokens: torch.Tensor) -> torch.Tensor:
@@ -1013,6 +1170,144 @@ def forced_decode(decode, params, cache, inputs: torch.Tensor):
     return torch.stack(logits, 1), cache
 
 
+def wkv_graph_edge() -> dict:
+    """One ``ops.wkv_chunked`` call at the served prefill shape (bfloat16,
+    chunk ``rwkv_chunk.CHUNK``) captured alone into a CUDA graph: the graph's
+    kernel nodes and the types of its edges as the driver reports them
+    (``cuGraphGetEdges_v2``: 1 = programmatic, the dependent launch of the
+    outputs pass kept as such; 0 = a full dependency); a replay on new
+    inputs against the eager call, bit for bit; the call's time eager and
+    replayed (CUDA events, median of 20, in turns)."""
+    BH, T, K = 128, 512, 64                    # 4 x 512 tokens, 32 heads of 64
+    r, k, v = (randn(BH, T, K, dtype=torch.bfloat16) for _ in range(3))
+    logw = -torch.exp(randn(BH, T, K, scale=0.5))
+    u = randn(BH, K)
+
+    def call():
+        return ops.wkv_chunked(r, k, v, logw, u, chunk=wkv_mod.CHUNK)
+
+    drv = ctypes.CDLL("libcuda.so.1")
+    with torch.inference_mode():
+        for _ in range(WARMUP):
+            call()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            out, state = call()
+        raw = ctypes.c_void_p(graph.raw_cuda_graph())
+        nodes, n = ctypes.c_size_t(0), ctypes.c_size_t(0)
+        errs = [drv.cuGraphGetNodes(raw, None, ctypes.byref(nodes)),
+                drv.cuGraphGetEdges_v2(raw, None, None, None, ctypes.byref(n))]
+        frm, to = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
+        data = (ctypes.c_uint8 * (8 * n.value))()   # CUgraphEdgeData: 8 bytes
+        errs.append(drv.cuGraphGetEdges_v2(raw, frm, to, data, ctypes.byref(n)))
+        if any(errs):
+            fail(f"wkv_chunked graph: driver calls returned {errs}")
+        edges = [data[8 * i + 2] for i in range(n.value)]
+        r.copy_(randn(BH, T, K, dtype=torch.bfloat16))
+        want = call()
+        graph.replay()
+        diff = first_difference([out, state], list(want))
+        if diff:
+            fail(f"wkv_chunked graph: a replay on new inputs differs from the "
+                 f"eager call at {diff}")
+        times = {"eager": [], "graph": []}
+        for i in range(20):
+            for name in (("eager", "graph") if i % 2 == 0 else ("graph", "eager")):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                if name == "eager":
+                    call()
+                else:
+                    graph.replay()
+                end.record()
+                end.synchronize()
+                times[name].append(start.elapsed_time(end))
+    return dict(kernel_nodes=nodes.value, edge_types=edges,
+                programmatic_edges=edges.count(1), replay_follows_inputs=True,
+                eager_ms=statistics.median(times["eager"]),
+                graph_ms=statistics.median(times["graph"]))
+
+
+def rwkv6_captured(cfg, params, prompts, served, rng) -> tuple[dict, list]:
+    """RWKV-6 through ``launch.serve.captured_steps``: each prefill capture
+    (4 x 512, then 1 x 200, on prompts of its own) counts 24 wkv_chunked
+    for the capture and as many for each of the WARMUP eager runs, each
+    decode capture (B = 4, 1) none; the four requests replayed count none
+    and give the eager steps' last hidden, prefill cache, every step's
+    tokens and logits and the last cache bit for bit; prefill and decode ms
+    eager and captured in turns; peak memory; capture seconds.  Returns the
+    numbers and the captured requests' records."""
+    per = rwkv6.kernel_launches_per_prefill(cfg)
+    per_capture = {k: (WARMUP + 1) * per.get(k, 0) for k in KERNELS}
+    pre_c, dec_c = lm_serve.captured_steps(cfg, params)
+    pre_e, dec_e = lm_serve.eager_steps(cfg, params)
+    dev = torch.device("cuda")
+    shapes = list(dict.fromkeys(RWKV_REQUESTS))
+    captures = {}
+    for B, T in shapes:
+        p = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T),
+                                          dtype=np.int32)).cuda()
+        (_, cache, _), n_pre, res_pre = capture_counted(
+            lambda: lm_serve.run_prefill(pre_c, p))
+        _, n_dec, res_dec = capture_counted(
+            lambda: lm_serve.run_decode(dec_c, cache, B, 1, dev))
+        if n_pre != per_capture or any(n_dec.values()):
+            fail(f"rwkv6 capture at {B} x {T}: launches {n_pre} in the prefill "
+                 f"and {n_dec} in decode, expected {per_capture} ({WARMUP} "
+                 f"warm-up runs and the capture) and none")
+        captures[f"{B}x{T}"] = dict(
+            prefill_launches=n_pre, decode_launches=n_dec,
+            prefill_capture_s=pre_c.capture_s[-1],
+            decode_capture_s=dec_c.capture_s[-1],
+            prefill_reserved_mib=res_pre, decode_reserved_mib=res_dec)
+
+    reset_counts()
+    records = []
+    for i, (p, r) in enumerate(zip(prompts, served)):
+        B = p.shape[0]
+        last, cache, _ = lm_serve.run_prefill(pre_c, p)
+        toks, logits, cache_end, _ = lm_serve.run_decode(dec_c, cache, B,
+                                                         RWKV_GEN, dev)
+        logits = torch.stack(logits, 1)
+        # the last cache is the decode graph's buffer: compared before the
+        # next request overwrites it
+        diff = first_difference(
+            [last, *cache, toks, logits, *cache_end],
+            [r["last"], *r["cache"], r["tokens"], r["logits"], *r["cache_end"]])
+        if diff:
+            fail(f"rwkv6 captured request {i}: differs from the eager steps "
+                 f"(last hidden, prefill cache, tokens, logits, last cache) "
+                 f"at {diff}")
+        records.append(dict(prompt=p, last=last, tokens=toks, logits=logits))
+    on_replay = read_counts()
+    if any(on_replay.values()):
+        fail(f"rwkv6 captured: launches {on_replay} counted over the replayed "
+             f"requests, expected none")
+
+    timing = {}
+    for (B, T), p in zip(shapes, (prompts[0], prompts[-1])):
+        batch = {"tokens": p}
+        timing[f"prefill_{B}x{T}"] = alternate(
+            {"eager": lambda: pre_e(batch), "captured": lambda: pre_c(batch)},
+            rounds=10)
+        with torch.inference_mode():
+            c_e, c_c = pre_e(batch)[1], pre_c(batch)[1]
+        timing[f"decode_b{B}"] = alternate(
+            {"eager": lambda: lm_serve.run_decode(dec_e, c_e, B, RWKV_GEN, dev),
+             "captured": lambda: lm_serve.run_decode(dec_c, c_c, B, RWKV_GEN, dev)},
+            rounds=5, per=RWKV_GEN)
+    p = prompts[0]
+    peak = {name: peak_mib(lambda: lm_serve.run_decode(
+        dec, pre({"tokens": p})[1], p.shape[0], RWKV_GEN, dev))
+        for name, pre, dec in (("eager", pre_e, dec_e),
+                               ("captured", pre_c, dec_c))}
+    return dict(captures=captures, launches_on_replay=on_replay,
+                bitwise_equal_requests=len(records), timing=timing,
+                peak_allocated_mib_b4_t512=peak,
+                wkv_graph=wkv_graph_edge()), records
+
+
 def rwkv6_path():
     """RWKV-6 1.6B served through ``launch.serve``'s prefill and greedy
     decode at full width, then held against its plain versions (see the
@@ -1030,15 +1325,15 @@ def rwkv6_path():
     tree = init_params(SEED, defs)              # numpy float32, on the host
     init_s = time.perf_counter() - t0
     params = rwkv6.load_params(cfg, tree)       # as served: bfloat16 compute
-    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    prefill, decode = lm_serve.eager_steps(cfg, params)
     rng = np.random.default_rng(SEED + 2)
     prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t),
                                              dtype=np.int32)).cuda()
                for b, t in RWKV_REQUESTS]
 
     for p in (prompts[0], prompts[-1]):        # warm-up, one of each size
-        _, cache, _ = lm_serve.run_prefill(prefill, params, p)
-        lm_serve.run_decode(decode, params, cache, p.shape[0], 2, p.device)
+        _, cache, _ = lm_serve.run_prefill(prefill, p)
+        lm_serve.run_decode(decode, cache, p.shape[0], 2, p.device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     served = []
@@ -1046,11 +1341,11 @@ def rwkv6_path():
     for i, p in enumerate(prompts):
         B = p.shape[0]
         reset_counts()
-        last, cache, prefill_ms = lm_serve.run_prefill(prefill, params, p)
+        last, cache, prefill_ms = lm_serve.run_prefill(prefill, p)
         n_prefill = read_counts()
         reset_counts()
-        toks, logits, decode_ms = lm_serve.run_decode(
-            decode, params, cache, B, RWKV_GEN, p.device)
+        toks, logits, cache_end, decode_ms = lm_serve.run_decode(
+            decode, cache, B, RWKV_GEN, p.device)
         n_decode = read_counts()
         for name in KERNELS:
             expect = want.get(name, 0)
@@ -1067,41 +1362,58 @@ def rwkv6_path():
         if toks.shape != (B, RWKV_GEN) or not bool(
                 ((toks >= 0) & (toks < cfg.vocab_size)).all()):
             fail(f"rwkv6 request {i}: tokens {tuple(toks.shape)} out of range")
-        served.append(dict(prompt=p, last=last, tokens=toks, logits=logits,
+        served.append(dict(prompt=p, last=last, cache=cache,
+                           cache_end=cache_end, tokens=toks, logits=logits,
                            prefill_ms=prefill_ms, decode_ms=decode_ms))
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # the same requests through the captured steps
+    cap, cap_records = rwkv6_captured(cfg, params, prompts, served, rng)
 
     # the served bfloat16 run against the plain bfloat16 model
     plain_prefill = build_prefill_step(cfg, kernels=ref.PLAIN)
     plain_decode = build_decode_step(cfg, kernels=ref.PLAIN)
-    bf16_err, bf16_hidden_err, agree, steps = 0.0, 0.0, 0, 0
-    for r in (served[0], served[-1]):
-        with torch.inference_mode():
-            last_p, cache_p = plain_prefill(params, {"tokens": r["prompt"]})
-        logits_p, _ = forced_decode(plain_decode, params, cache_p,
-                                    decode_inputs(r["tokens"]))
-        V = cfg.vocab_size
-        bf16_err = max(bf16_err, (r["logits"][..., :V] - logits_p[..., :V])
-                       .abs().max().item())
-        bf16_hidden_err = max(bf16_hidden_err, (r["last"].float() - last_p.float())
-                              .abs().max().item())
-        agree += int((logits_p[..., :V].argmax(-1) == r["tokens"]).sum())
-        steps += r["tokens"].numel()
-    if bf16_err > BF16_LOGITS_TOL or agree < BF16_AGREEMENT * steps:
-        fail(f"rwkv6 bfloat16: logits differ from the plain model by "
-             f"{bf16_err:.3e} (limit {BF16_LOGITS_TOL}), greedy tokens agree "
-             f"{agree}/{steps} (at least {BF16_AGREEMENT:.0%})")
+    # the eager and the captured records, each against the plain model
+    # teacher-forced with its own tokens (run once where the two agree)
+    V = cfg.vocab_size
+    bf16, forced = {}, {}
+    for form, recs in (("eager", served), ("captured", cap_records)):
+        bf16_err, bf16_hidden_err, agree, steps = 0.0, 0.0, 0, 0
+        for i in (0, len(recs) - 1):
+            r = recs[i]
+            if i not in forced or not torch.equal(forced[i][0], r["tokens"]):
+                with torch.inference_mode():
+                    last_p, cache_p = plain_prefill(params, {"tokens": r["prompt"]})
+                logits_p, _ = forced_decode(plain_decode, params, cache_p,
+                                            decode_inputs(r["tokens"]))
+                forced[i] = (r["tokens"], last_p, logits_p)
+            _, last_p, logits_p = forced[i]
+            bf16_err = max(bf16_err, (r["logits"][..., :V] - logits_p[..., :V])
+                           .abs().max().item())
+            bf16_hidden_err = max(bf16_hidden_err, (r["last"].float()
+                                                    - last_p.float()).abs().max().item())
+            agree += int((logits_p[..., :V].argmax(-1) == r["tokens"]).sum())
+            steps += r["tokens"].numel()
+        if bf16_err > BF16_LOGITS_TOL or agree < BF16_AGREEMENT * steps:
+            fail(f"rwkv6 bfloat16 {form}: logits differ from the plain model by "
+                 f"{bf16_err:.3e} (limit {BF16_LOGITS_TOL}), greedy tokens agree "
+                 f"{agree}/{steps} (at least {BF16_AGREEMENT:.0%})")
+        bf16[form] = (bf16_err, bf16_hidden_err, agree / steps)
+    bf16_err, bf16_hidden_err, agreement = bf16["eager"]
+    cap["bf16_vs_plain"] = dict(zip(("max_logits_err", "max_last_hidden_err",
+                                     "greedy_agreement"), bf16["captured"]))
+    del cap_records, forced
     del params, plain_prefill, plain_decode
     torch.cuda.empty_cache()
 
     # float32: the kernel model against the plain model on the card
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = rwkv6.load_params(cfg32, tree)
-    pre32, dec32 = build_prefill_step(cfg32), build_decode_step(cfg32)
+    pre32, dec32 = lm_serve.eager_steps(cfg32, params32)
     p = prompts[0]
-    last_k, cache_k, _ = lm_serve.run_prefill(pre32, params32, p)
-    toks_k, logits_k, _ = lm_serve.run_decode(dec32, params32, cache_k,
-                                              p.shape[0], 8, p.device)
+    last_k, cache_k, _ = lm_serve.run_prefill(pre32, p)
+    toks_k, logits_k, _, _ = lm_serve.run_decode(dec32, cache_k, p.shape[0], 8,
+                                                 p.device)
     with torch.inference_mode():
         last_p, cache_p = build_prefill_step(cfg32, kernels=ref.PLAIN)(
             params32, {"tokens": p})
@@ -1113,12 +1425,29 @@ def rwkv6_path():
         compare("rwkv6 float32 time-mix shifts", cache_k.shift_tm,
                 cache_p.shift_tm, 2e-3),
         compare("rwkv6 float32 logits", torch.stack(logits_k, 1), logits_p, 2e-3))
+    # the same through the float32 model's captured steps: the eager bits,
+    # and so the same distance from the plain model
+    pre32c, dec32c = lm_serve.captured_steps(cfg32, params32)
+    last_c, cache_c, _ = lm_serve.run_prefill(pre32c, p)
+    toks_c, logits_c, _, _ = lm_serve.run_decode(dec32c, cache_c, p.shape[0], 8,
+                                                 p.device)
+    diff = first_difference([last_c, *cache_c, toks_c, *logits_c],
+                            [last_k, *cache_k, toks_k, *logits_k])
+    if diff:
+        fail(f"rwkv6 float32 captured: differs from the eager steps at {diff}")
+    cap["f32_max_err_vs_plain_on_card"] = max(
+        compare("rwkv6 float32 captured last hidden", last_c, last_p, 2e-3),
+        compare("rwkv6 float32 captured WKV states", cache_c.state,
+                cache_p.state, 2e-3),
+        compare("rwkv6 float32 captured logits", torch.stack(logits_c, 1),
+                logits_p, 2e-3))
+    del pre32c, dec32c, cache_c
 
     # one 1 x 64 float32 request against the plain model on the CPU
     p64 = prompts[-1][:, :64]
-    last_k, cache_k, _ = lm_serve.run_prefill(pre32, params32, p64)
-    toks_k, logits_k, _ = lm_serve.run_decode(dec32, params32, cache_k, 1, 4,
-                                              p64.device)
+    last_k, cache_k, _ = lm_serve.run_prefill(pre32, p64)
+    toks_k, logits_k, _, _ = lm_serve.run_decode(dec32, cache_k, 1, 4,
+                                                 p64.device)
     logits_k = torch.stack(logits_k, 1).cpu()
     del params32, cache_k, cache_p
     torch.cuda.empty_cache()
@@ -1151,9 +1480,9 @@ def rwkv6_path():
         logits_abs_max=max(r["logits"].abs().max().item() for r in served),
         bf16_max_logits_err_vs_plain=bf16_err,
         bf16_max_last_hidden_err_vs_plain=bf16_hidden_err,
-        bf16_greedy_agreement=agree / steps,
+        bf16_greedy_agreement=agreement,
         f32_max_err_vs_plain_on_card=f32_err, f32_max_err_vs_plain_on_cpu=cpu_err,
-        first_tokens=served[0]["tokens"][0, :16].tolist())
+        first_tokens=served[0]["tokens"][0, :16].tolist(), captured=cap)
     return launches, result
 
 
@@ -1236,6 +1565,23 @@ def main() -> None:
           f"B=1 {served['ms_per_request_b1']:.3f} "
           f"(plain {served['plain_ms_per_request_b1']:.3f}) "
           f"peak memory {served['peak_memory_mib']:.0f} MiB", flush=True)
+    cap = served["captured"]
+    c16, c1 = cap["captures"][BATCH], cap["captures"][1]
+    print(f"main_path captured EdgeNeXt-S: capture B=16 {c16['capture_s']:.2f} s "
+          f"B=1 {c1['capture_s']:.2f} s (host clock, {WARMUP} warm-up forwards "
+          f"included), launches at each capture {c16['launches']} = "
+          f"(1 + {WARMUP} warm-up) x 18/21/3, over {len(cap['requests'])} "
+          f"replays {cap['launches_on_replay']}; logits equal the eager ones "
+          f"bit for bit on requests {cap['requests']}, err vs plain "
+          f"{cap['max_abs_err_vs_plain_on_card']:.2e}")
+    for b in (BATCH, 1):
+        t, m = cap["timing"][b], cap["peak_allocated_mib"][b]
+        print(f"main_path B={b} ms/request eager|captured (median of 10, in "
+              f"turns): events {t['eager']['event_ms']:.3f}|"
+              f"{t['captured']['event_ms']:.3f} wall "
+              f"{t['eager']['wall_ms']:.3f}|{t['captured']['wall_ms']:.3f}; "
+              f"peak allocated {m['eager']:.0f}|{m['captured']:.0f} MiB, graph "
+              f"reserved {cap['captures'][b]['reserved_mib']:.0f} MiB", flush=True)
 
     # 5. main path, RWKV-6 1.6B
     rwkv_launches, rwkv = rwkv6_path()
@@ -1256,6 +1602,33 @@ def main() -> None:
     print(f"rwkv6 float32 err vs plain on card {rwkv['f32_max_err_vs_plain_on_card']:.2e}, "
           f"vs CPU {rwkv['f32_max_err_vs_plain_on_cpu']:.2e} (limit 2e-3 (1+|b|))",
           flush=True)
+    cap = rwkv["captured"]
+    for shape, c in cap["captures"].items():
+        print(f"rwkv6 captured {shape}: capture prefill {c['prefill_capture_s']:.2f} s "
+              f"decode {c['decode_capture_s']:.2f} s (host clock, {WARMUP} warm-up "
+              f"runs included), launches prefill {c['prefill_launches']['wkv_chunked']} "
+              f"wkv_chunked = (1 + {WARMUP}) x 24, decode "
+              f"{sum(c['decode_launches'].values())}; graph reserved "
+              f"{c['prefill_reserved_mib']:.0f} + {c['decode_reserved_mib']:.0f} MiB")
+    bf = cap["bf16_vs_plain"]
+    print(f"rwkv6 captured: {cap['bitwise_equal_requests']} requests replayed equal "
+          f"the eager steps bit for bit (last hidden, prefill cache, {RWKV_GEN} "
+          f"steps of tokens and logits, last cache), launches on replay "
+          f"{sum(cap['launches_on_replay'].values())}; bfloat16 vs plain "
+          f"{bf['max_logits_err']:.3e}, agreement {bf['greedy_agreement']:.3f}; "
+          f"float32 (bit for bit the eager) vs plain "
+          f"{cap['f32_max_err_vs_plain_on_card']:.2e}")
+    for key, t in cap["timing"].items():
+        unit = "ms/token" if key.startswith("decode") else "ms"
+        print(f"rwkv6 {key} {unit} eager|captured (median, in turns): events "
+              f"{t['eager']['event_ms']:.3f}|{t['captured']['event_ms']:.3f} wall "
+              f"{t['eager']['wall_ms']:.3f}|{t['captured']['wall_ms']:.3f}")
+    m, w = cap["peak_allocated_mib_b4_t512"], cap["wkv_graph"]
+    print(f"rwkv6 4x512 request peak allocated eager|captured {m['eager']:.0f}|"
+          f"{m['captured']:.0f} MiB; wkv_chunked alone in a graph: "
+          f"{w['kernel_nodes']} kernel nodes, edge types {w['edge_types']} "
+          f"(1 = programmatic), replay follows new inputs bit for bit, ms eager "
+          f"{w['eager_ms']:.4f} graph {w['graph_ms']:.4f}", flush=True)
 
     # 6. the scheduler's path: every lowered entry onto its kernel
     lowered, entries, by_workload, lowered_launches, verified, samples = \

@@ -9,13 +9,23 @@ Port of ``repro/launch/serve.py``.  Weights come from ``--seed``
 ``np.random.default_rng(seed)``, and decode starts from token 0, as in the
 JAX launcher.  ``--device`` defaults to ``cuda`` and the run raises where
 there is no card; ``--device cpu`` runs the plain versions on the CPU.
-The prefill and the decode loop are timed with CUDA events on the card
-(the device's time), with the host clock on the CPU.  One device, no
-mesh: the distributed runtime is ROADMAP queue 1 item 8.
+
+On the card the steps are captured, as the reference jits them: the
+prefill as ``captured(partial(prefill, params))`` and the decode step as
+``captured(partial(donating(decode, 1), params))`` (``jax.jit(decode,
+donate_argnums=(1,))``), both in one graph pool (``runtime.capture``).
+Both are captured for the run's (B, S) and B before the timed calls, and
+the capture's host seconds are printed on a line of their own.  The
+printed prefill ms and ms/token are then the replays', timed with CUDA
+events.  This is one deliberate difference from the reference, whose
+``t_prefill`` (and first decode step) include the compile.  On the CPU the
+eager steps run, timed by the host clock.  One device, no mesh: the
+distributed runtime is ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import Callable, List, Optional, Tuple
 
@@ -23,9 +33,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_module
 from repro_torch.models.params import init_params
 from repro_torch.runtime import build_decode_step, build_prefill_step
+from repro_torch.runtime.capture import captured, donating
 
 
 def timed(fn: Callable, device: torch.device):
@@ -43,32 +55,52 @@ def timed(fn: Callable, device: torch.device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def run_prefill(prefill_step: Callable, params, tokens: torch.Tensor):
-    """tokens: [B, S] -> (last hidden [B, D], cache, ms)."""
+def eager_steps(cfg: ModelConfig, params) -> Tuple[Callable, Callable]:
+    """(prefill(batch), decode(cache, batch)): the eager steps with
+    ``params`` bound."""
+    return (functools.partial(build_prefill_step(cfg), params),
+            functools.partial(build_decode_step(cfg), params))
+
+
+def captured_steps(cfg: ModelConfig, params) -> Tuple[Callable, Callable]:
+    """The same steps captured, as the reference jits them: the prefill,
+    and the decode step with its cache donated; one graph pool."""
+    pool = torch.cuda.graph_pool_handle()
+    decode = donating(build_decode_step(cfg), 1)
+    return (captured(functools.partial(build_prefill_step(cfg), params),
+                     pool=pool),
+            captured(functools.partial(decode, params), pool=pool))
+
+
+def run_prefill(prefill: Callable, tokens: torch.Tensor):
+    """``prefill(batch)`` on tokens [B, S] -> (last hidden [B, D], cache,
+    ms)."""
     with torch.inference_mode():
-        (last, cache), ms = timed(lambda: prefill_step(params, {"tokens": tokens}),
+        (last, cache), ms = timed(lambda: prefill({"tokens": tokens}),
                                   tokens.device)
     return last, cache, ms
 
 
-def run_decode(decode_step: Callable, params, cache, batch: int, gen: int,
+def run_decode(decode: Callable, cache, batch: int, gen: int,
                device: torch.device
-               ) -> Tuple[torch.Tensor, List[torch.Tensor], float]:
-    """``gen`` greedy steps from token 0 -> (tokens [B, gen] int32, logits
-    of each step [B, Vp], ms for all steps)."""
+               ) -> Tuple[torch.Tensor, List[torch.Tensor], object, float]:
+    """``gen`` greedy steps of ``decode(cache, batch)`` from token 0 ->
+    (tokens [B, gen] int32, logits of each step [B, Vp], the last cache, ms
+    for all steps)."""
     def loop(cache):
         tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
         toks, logits = [], []
         for _ in range(gen):
-            tok1, lg, cache = decode_step(params, cache, {"tokens": tok})
+            tok1, lg, cache = decode(cache, {"tokens": tok})
             tok = tok1[:, None]
             toks.append(tok1)
             logits.append(lg)
-        return torch.stack(toks, 1), logits
+        return torch.stack(toks, 1), logits, cache
 
     with torch.inference_mode():
-        (toks, logits), ms = timed(lambda: loop(cache), torch.device(device))
-    return toks, logits, ms
+        (toks, logits, cache), ms = timed(lambda: loop(cache),
+                                          torch.device(device))
+    return toks, logits, cache, ms
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -80,8 +112,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default: the hand-written kernels) or cpu "
-                         "(the plain versions)")
+                    help="cuda (default: the hand-written kernels, steps "
+                         "captured as CUDA graphs) or cpu (the plain "
+                         "versions, eager)")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -100,9 +133,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
     rng = np.random.default_rng(args.seed)
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)).to(device)
-    _, cache, t_prefill = run_prefill(build_prefill_step(cfg), params, tokens)
-    gen, _, t_decode = run_decode(build_decode_step(cfg), params, cache, B,
-                                  args.gen, device)
+    if device.type == "cuda":
+        prefill, decode = captured_steps(cfg, params)
+        # capture both at the run's shapes (the first call at a signature
+        # captures it) before the timed calls
+        _, cache, _ = run_prefill(prefill, tokens)
+        run_decode(decode, cache, B, 1, device)
+        print(f"capture prefill[{B}x{S}]={prefill.capture_s[0]:.2f}s "
+              f"decode[{B}]={decode.capture_s[0]:.2f}s (host clock)")
+    else:
+        prefill, decode = eager_steps(cfg, params)
+    _, cache, t_prefill = run_prefill(prefill, tokens)
+    gen, _, _, t_decode = run_decode(decode, cache, B, args.gen, device)
     gen = gen.cpu().numpy()
     print(f"arch={cfg.name} device={device} prefill[{B}x{S}]={t_prefill:.1f}ms "
           f"decode {args.gen} steps={t_decode:.1f}ms "

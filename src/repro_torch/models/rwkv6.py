@@ -372,9 +372,12 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     T = x.shape[1]
     x, st, sh_tm, sh_cm = _blocks(cfg, params, x, kernels)
     x = L.norm_apply(cfg, params["ln_f"], x)
+    # step is filled on the device: a copy from the host's pageable memory
+    # (torch.tensor(T, device=...)) cannot be captured into a CUDA graph
     cache = RWKVCache(state=torch.stack(st), shift_tm=torch.stack(sh_tm),
                       shift_cm=torch.stack(sh_cm),
-                      step=torch.tensor(T, dtype=torch.int32, device=x.device))
+                      step=torch.full((), T, dtype=torch.int32,
+                                      device=x.device))
     return x[:, -1, :], cache
 
 

@@ -3,12 +3,14 @@
     PYTHONPATH=src python -m repro_torch.profile_edgenext [--batches 1 16]
         [--requests 20] [--traced 5] [--plain] [--out profile.json]
 
-For each batch size: the request time by the host clock (ending in a
-synchronise) and by CUDA events, then a ``torch.profiler`` trace of a few
-requests, summed by kernel name: the device's busy share of the traced
-window (1 - idle share), the hand-written kernels' share of the busy time,
-and the longest kernels.  Weights are random, from a seed.  Needs one
-CUDA device and ``nvcc``; there is no CPU fallback.
+For each batch size, the model eager and then captured as a CUDA graph
+(``runtime.capture.captured(model)``): the request time by the host clock
+(ending in a synchronise) and by CUDA events, then a ``torch.profiler``
+trace of a few requests, summed by kernel name: the device's busy share of
+the traced window (1 - idle share), the hand-written kernels' share of the
+busy time, the device kernels a request, and the longest kernels.  Weights
+are random, from a seed.  Needs one CUDA device and ``nvcc``; there is no
+CPU fallback.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.configs.edgenext_s import CONFIG
 from repro_torch.kernels import ref
 from repro_torch.models import edgenext
 from repro_torch.models.params import init_params
+from repro_torch.runtime.capture import captured
 from repro_torch.serve_edgenext import serve
 
 # the hand-written kernels' names in csrc/*.cu
@@ -74,6 +77,28 @@ def trace(model, images, n: int) -> dict:
         top=[dict(name=k[0][:90], ms=k[1], count=k[2]) for k in kernels[:12]])
 
 
+def report(label: str, unit: str, rec: dict) -> None:
+    """Prints one form's times and trace."""
+    print(f"{label}: ms events median {rec['event_ms_median']:.3f} "
+          f"[{rec['event_ms_min']:.3f}, {rec['event_ms_max']:.3f}]"
+          + (f" host median {rec['host_ms_median']:.3f} [{rec['host_ms_min']:.3f}, "
+             f"{rec['host_ms_max']:.3f}]" if "host_ms_median" in rec else ""))
+    if not rec["device_busy_ms"]:
+        print("  torch.profiler shows no device time here")
+        return
+    n = rec["traced_requests"]
+    print(f"  traced {n} {unit} in {rec['window_ms']:.2f} ms: device busy "
+          f"{rec['device_busy_ms']:.2f} ms "
+          f"({100 * rec['device_busy_share']:.1f} %, idle "
+          f"{100 * (1 - rec['device_busy_share']):.1f} %), own kernels "
+          f"{rec['own_kernels_ms']:.2f} ms "
+          f"({100 * rec['own_kernels_share_of_busy']:.1f} % of busy), "
+          f"{rec['device_kernel_launches']} device kernels "
+          f"({rec['device_kernel_launches'] / n:.0f} a step)")
+    for k in rec["top"]:
+        print(f"    {k['ms']:9.3f} ms  x{k['count']:<5d} {k['name']}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 16])
@@ -101,31 +126,18 @@ def main() -> None:
         images = torch.from_numpy(rng.standard_normal(
             (b, cfg.img_size, cfg.img_size, cfg.in_channels),
             dtype=np.float32)).cuda()
-        serve(model, [images] * 3)                       # warm-up
-        _, ev_ms = serve(model, [images] * args.requests)
-        h_ms = host_ms(model, images, args.requests)
-        tr = trace(model, images, args.traced)
-        rec = dict(event_ms_median=statistics.median(ev_ms),
-                   event_ms_min=min(ev_ms), event_ms_max=max(ev_ms),
-                   host_ms_median=statistics.median(h_ms),
-                   host_ms_min=min(h_ms), host_ms_max=max(h_ms), **tr)
-        results["batches"][str(b)] = rec
-        print(f"B={b}: request ms events median {rec['event_ms_median']:.3f} "
-              f"[{rec['event_ms_min']:.3f}, {rec['event_ms_max']:.3f}] host "
-              f"median {rec['host_ms_median']:.3f} "
-              f"[{rec['host_ms_min']:.3f}, {rec['host_ms_max']:.3f}]")
-        if not tr["device_busy_ms"]:
-            print("  torch.profiler shows no device time here")
-            continue
-        print(f"  traced {tr['traced_requests']} requests in {tr['window_ms']:.2f} ms: "
-              f"device busy {tr['device_busy_ms']:.2f} ms "
-              f"({100 * tr['device_busy_share']:.1f} %, idle "
-              f"{100 * (1 - tr['device_busy_share']):.1f} %), own kernels "
-              f"{tr['own_kernels_ms']:.2f} ms "
-              f"({100 * tr['own_kernels_share_of_busy']:.1f} % of busy), "
-              f"{tr['device_kernel_launches']} device kernels")
-        for k in tr["top"]:
-            print(f"    {k['ms']:9.3f} ms  x{k['count']:<5d} {k['name']}")
+        forms = {}
+        for form, fn in (("eager", model), ("captured", captured(model))):
+            serve(fn, [images] * 3)                      # warm-up (a capture)
+            _, ev_ms = serve(fn, [images] * args.requests)
+            h_ms = host_ms(fn, images, args.requests)
+            forms[form] = rec = dict(
+                event_ms_median=statistics.median(ev_ms), event_ms_min=min(ev_ms),
+                event_ms_max=max(ev_ms), host_ms_median=statistics.median(h_ms),
+                host_ms_min=min(h_ms), host_ms_max=max(h_ms),
+                **trace(fn, images, args.traced))
+            report(f"B={b} {form}", "requests", rec)
+        results["batches"][str(b)] = forms
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -5,13 +5,14 @@
 
 The served model (full width and depth, bfloat16 compute, float32
 weights from a seed, made on the host with numpy) through
-``launch.serve``'s prefill and greedy decode steps: each timed by CUDA
-events over ``--repeats`` runs, then a ``torch.profiler`` trace of
-``--traced`` prefills and of 4 x ``--traced`` decode steps, summed by
-kernel name: the device's busy share of the traced window (1 - idle
-share), the hand-written kernels' share of the busy time, the device
-kernels launched, and the longest kernels.  Needs one CUDA device and
-``nvcc``; there is no CPU fallback.
+``launch.serve``'s prefill and greedy decode steps, eager and captured as
+CUDA graphs (``launch.serve.captured_steps``, the decode step's cache
+donated): each timed by CUDA events over ``--repeats`` runs, then a
+``torch.profiler`` trace of ``--traced`` prefills and of 4 x ``--traced``
+decode steps, summed by kernel name: the device's busy share of the traced
+window (1 - idle share), the hand-written kernels' share of the busy time,
+the device kernels a step, and the longest kernels.  Needs one CUDA device
+and ``nvcc``; there is no CPU fallback.
 """
 from __future__ import annotations
 
@@ -25,11 +26,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.launch.serve import timed
+from repro_torch.launch.serve import captured_steps, eager_steps, timed
 from repro_torch.models import rwkv6
 from repro_torch.models.params import init_params
-from repro_torch.profile_edgenext import trace
-from repro_torch.runtime import build_decode_step, build_prefill_step
+from repro_torch.profile_edgenext import report, trace
 
 SEED = 0
 
@@ -52,50 +52,40 @@ def main() -> None:
 
     cfg = get_config("rwkv6-1.6b")
     params = rwkv6.load_params(cfg, init_params(SEED, rwkv6.param_defs(cfg)))
-    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
     tokens = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)).cuda()
     tok = torch.zeros((args.batch, 1), dtype=torch.int32, device="cuda")
     device = torch.device("cuda")
-
-    def prefill_once(x):
-        return prefill(params, {"tokens": x})
-
-    with torch.inference_mode():
-        _, cache = prefill_once(tokens)                      # warm-up
-
-        def decode_once(x):
-            return decode(params, cache, {"tokens": x})
-
-        decode_once(tok)
-        pre_ms = [timed(lambda: prefill_once(tokens), device)[1]
-                  for _ in range(args.repeats)]
-        dec_ms = [timed(lambda: decode_once(tok), device)[1]
-                  for _ in range(4 * args.repeats)]
     results = dict(device=smi, torch=torch.__version__, batch=args.batch,
                    prompt_len=args.prompt_len, phases={})
-    for name, ms, fn, x, n in (
-            ("prefill", pre_ms, prefill_once, tokens, args.traced),
-            ("decode_step", dec_ms, decode_once, tok, 4 * args.traced)):
-        rec = dict(event_ms_median=statistics.median(ms), event_ms_min=min(ms),
-                   event_ms_max=max(ms), **trace(fn, x, n))
-        results["phases"][name] = rec
-        print(f"{name} B={args.batch}"
-              f"{f' T={args.prompt_len}' if name == 'prefill' else ''}: ms "
-              f"events median {rec['event_ms_median']:.3f} "
-              f"[{rec['event_ms_min']:.3f}, {rec['event_ms_max']:.3f}]")
-        if not rec["device_busy_ms"]:
-            print("  torch.profiler shows no device time here")
-            continue
-        print(f"  traced {n} in {rec['window_ms']:.2f} ms: device busy "
-              f"{rec['device_busy_ms']:.2f} ms "
-              f"({100 * rec['device_busy_share']:.1f} %, idle "
-              f"{100 * (1 - rec['device_busy_share']):.1f} %), own kernels "
-              f"{rec['own_kernels_ms']:.2f} ms "
-              f"({100 * rec['own_kernels_share_of_busy']:.1f} % of busy), "
-              f"{rec['device_kernel_launches']} device kernels")
-        for k in rec["top"]:
-            print(f"    {k['ms']:9.3f} ms  x{k['count']:<5d} {k['name']}")
+    for form, (prefill, decode) in (("eager", eager_steps(cfg, params)),
+                                    ("captured", captured_steps(cfg, params))):
+        def prefill_once(x):
+            return prefill({"tokens": x})
+
+        with torch.inference_mode():
+            _, cache = prefill_once(tokens)                  # warm-up (a capture)
+            held = [cache]
+
+            def decode_once(x):
+                # the captured step returns its donated cache, which the
+                # next step is given back, as in the served loop
+                tok1, _, held[0] = decode(held[0], {"tokens": x})
+                return tok1
+
+            decode_once(tok)
+            pre_ms = [timed(lambda: prefill_once(tokens), device)[1]
+                      for _ in range(args.repeats)]
+            dec_ms = [timed(lambda: decode_once(tok), device)[1]
+                      for _ in range(4 * args.repeats)]
+        for name, ms, fn, x, n in (
+                ("prefill", pre_ms, prefill_once, tokens, args.traced),
+                ("decode_step", dec_ms, decode_once, tok, 4 * args.traced)):
+            rec = dict(event_ms_median=statistics.median(ms), event_ms_min=min(ms),
+                       event_ms_max=max(ms), **trace(fn, x, n))
+            results["phases"][f"{name}_{form}"] = rec
+            shape = f" T={args.prompt_len}" if name == "prefill" else ""
+            report(f"{name} {form} B={args.batch}{shape}", "steps", rec)
     if args.out:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -3,17 +3,20 @@
 ``serve(model, batches)`` answers a list of image batches one after the
 other under ``torch.inference_mode()`` and times each: with CUDA events
 on the card (the device's time for the request), with the host clock on
-the CPU.
+the CPU.  ``model`` is any callable from images to logits: an ``EdgeNeXt``
+or, on the card, ``runtime.capture.captured(model)``, which replays the
+forward as a CUDA graph.
 """
 from __future__ import annotations
 
 import time
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
 
-def serve(model: torch.nn.Module, batches: Sequence[torch.Tensor]
+def serve(model: Callable[[torch.Tensor], torch.Tensor],
+          batches: Sequence[torch.Tensor]
           ) -> Tuple[List[torch.Tensor], List[float]]:
     """batches: each [B, img, img, 3] on the model's device.
     Returns (logits per request, milliseconds per request)."""

@@ -650,3 +650,104 @@ def test_lint_flagged_blocks_are_refused_by_ops_without_a_launch(kernel):
                     causal=False, **blocks)
         torch.cuda.synchronize()
         assert module.launches == before
+
+
+# ---------------------------------------------------------------------------
+# whole steps captured as CUDA graphs (runtime.capture)
+# ---------------------------------------------------------------------------
+
+
+def _counts(*mods):
+    torch.cuda.synchronize()
+    return [m.launches for m in mods]
+
+
+@pytest.mark.cuda
+def test_captured_edgenext_replays_the_eager_forward_bit_for_bit():
+    """The reduced EdgeNeXt at B = 2 captured and replayed on three fresh
+    batches: logits equal to the eager forward's bit for bit; the launch
+    counters tick at the warm-up runs and the capture, not at a replay; a
+    second batch size makes a second graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: CUDA graphs run on the "
+                    "card only")
+    from repro_torch.configs.edgenext_s import reduced_edgenext
+    from repro_torch.kernels import depthwise_conv, flash_attention, fused_ibn
+    from repro_torch.models import edgenext
+    from repro_torch.models.params import init_params
+    from repro_torch.runtime.capture import WARMUP, captured
+
+    cfg = reduced_edgenext()
+    model = edgenext.EdgeNeXt(cfg, init_params(0, edgenext.param_defs(cfg),
+                                               perturb=0.05)).eval()
+    mods = (fused_ibn, depthwise_conv, flash_attention)
+    per = edgenext.kernel_launches_per_forward(cfg)
+    want = [per["fused_ibn"], per["depthwise_conv2d"], per["flash_attention"]]
+    images = [_normal(40 + i, (2, 32, 32, 3))[0] for i in range(4)]
+    with torch.inference_mode():
+        eager = [model(x) for x in images]
+    cap = captured(model)
+    base = _counts(*mods)
+    first = cap(images[0])
+    assert [a - b for a, b in zip(_counts(*mods), base)] == [
+        (WARMUP + 1) * n for n in want]
+    assert torch.equal(first, eager[0])
+    base = _counts(*mods)
+    for x, e in zip(images[1:], eager[1:]):
+        got = cap(x)
+        assert torch.equal(got, e)
+    assert _counts(*mods) == base and len(cap.graphs) == 1
+    one, = _normal(50, (1, 32, 32, 3))
+    with torch.inference_mode():
+        e1 = model(one)
+    assert torch.equal(cap(one), e1) and len(cap.graphs) == 2
+
+
+@pytest.mark.cuda
+def test_captured_rwkv6_prefill_and_donated_decode_replay_the_eager_steps():
+    """The reduced RWKV-6 (float32) served through ``launch.serve``'s captured
+    steps, prefill and 6 donated decode steps, on three fresh prompts after
+    the capture: last hidden, caches, tokens and logits equal to the eager
+    steps' bit for bit; wkv_chunked ticks at the prefill's warm-up runs and
+    capture only; the decode cache stays in one set of buffers; a second
+    (B, T) makes a second graph of each step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: CUDA graphs run on the "
+                    "card only")
+    from repro_torch import configs as TC
+    from repro_torch.kernels import rwkv_chunk
+    from repro_torch.launch import serve
+    from repro_torch.models import rwkv6
+    from repro_torch.models.params import init_params
+    from repro_torch.runtime.capture import WARMUP
+
+    cfg = TC.reduced(TC.get_config("rwkv6-1.6b"))
+    params = rwkv6.load_params(cfg, init_params(0, rwkv6.param_defs(cfg)))
+    pre_e, dec_e = serve.eager_steps(cfg, params)
+    pre_c, dec_c = serve.captured_steps(cfg, params)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(60)
+
+    def request(prefill, decode, toks):
+        last, cache, _ = serve.run_prefill(prefill, toks)
+        out = serve.run_decode(decode, cache, toks.shape[0], 6, dev)
+        return [last, *cache, out[0], *out[1], *out[2]]
+
+    held = None
+    for i in range(4):
+        toks = _t(rng.integers(0, cfg.vocab_size, (2, 24), dtype=np.int32)).cuda()
+        eager = request(pre_e, dec_e, toks)
+        base = _counts(rwkv_chunk)[0]
+        got = request(pre_c, dec_c, toks)
+        n = _counts(rwkv_chunk)[0] - base
+        assert n == ((WARMUP + 1) * cfg.num_layers if i == 0 else 0)
+        assert len(got) == len(eager)
+        for a, b in zip(got, eager):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        state = got[-4]                     # the last cache's WKV states
+        assert held is None or state is held
+        held = state
+    toks = _t(rng.integers(0, cfg.vocab_size, (1, 17), dtype=np.int32)).cuda()
+    for a, b in zip(request(pre_c, dec_c, toks), request(pre_e, dec_e, toks)):
+        assert torch.equal(a, b)
+    assert len(pre_c.graphs) == 2 and len(dec_c.graphs) == 2
