@@ -139,7 +139,26 @@ which ends the run with a non-zero exit code if it fails:
    (C = min(chunk, T) is a run-time argument of the kernel), so it is not
    asked to refuse it.  A lint finding that ``ops`` accepts, or the other
    way round, fails the run;
-7. one JSON line ``{"check": {...}}`` (findings by workload, the corpus
+7. serve (``serve_phase``), the schedule store of ``repro_torch.serve``
+   on the card's host: (1) a ``ServeStore(verify=True)`` warms EdgeNeXt-S
+   and RWKV-6 at batch levels 1, 4, 16 and 64 over a pool of 4 spawned
+   processes while this process holds the card's context: 8 entries, 8
+   searched, no worker failed; (2) a fresh store on the same directory
+   answers all 8 requests from disk (one ``cache.hit`` and one
+   ``check.pass`` each, 0 findings), then from memory, and a store
+   without the checker from disk: each hit timed on the host clock; (3)
+   every lowered entry of the EdgeNeXt-S answers that the lowered phase
+   did not run (deduplicated on kernel, launch shape and blocks across
+   both phases: the batch-16 and batch-64 shapes) launched once against
+   its plain version with the tolerances above, the counters set to 0
+   before and read after, then each timed as phase 3 times a shape; a
+   degraded answer is never launched, and RWKV-6's answers are verified
+   only; (4) a chaos session (``serve.chaos_session``, every fault at 0.3
+   with crashes that outlast the store's three search attempts, seed 0)
+   over 24 EdgeNeXt-S requests at batches 1 and 4 on a store of its own:
+   every request served, every answer verified (a degraded one with its
+   marker), and no launch while it runs;
+8. one JSON line ``{"check": {...}}`` (findings by workload, the corpus
    caught, the agreement cases), one JSON line ``{"kernels": [...]}``,
    the device line, and last ``{"ok": true, "device": {...}}``.
 
@@ -152,7 +171,8 @@ prefill (24 launches at the served shape) for wkv_chunked; ``shapes``
 holds the per-shape numbers.  ``launches`` is the count of the path the
 kernel is on: the EdgeNeXt-S requests for the first three, the lowered
 phase for matmul_ln, the RWKV-6 requests for wkv_chunked
-(``launches_by_path`` has all three paths).  ``bound_ms`` is the larger
+(``launches_by_path`` has all four paths, the serve phase's new launches
+as ``serve_store``).  ``bound_ms`` is the larger
 of bytes / 3.35 TB/s (each input read once, each output written once)
 and operations / peak: 495 TFLOP/s (TF32 tensor cores, the card's rate
 for a float32 matrix product) for the products of fused_ibn, attention,
@@ -172,6 +192,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -185,6 +206,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.check import lint_doc, verify_schedule  # noqa: E402
 from repro_torch.check.mutations import MUTATIONS, run_corpus  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -203,6 +225,8 @@ from repro_torch.runtime.capture import WARMUP, captured  # noqa: E402
 from repro_torch.search import (WORKLOADS, auto_schedule,  # noqa: E402
                                 get_workload, lower)
 from repro_torch.core.workload import NORM, PWCONV, SCAN, Layer, scan_macs  # noqa: E402
+from repro_torch.serve import (BATCH_LEVELS, ChaosPlan, ServeStore,  # noqa: E402
+                               chaos_session)
 from repro_torch.serve_edgenext import serve  # noqa: E402
 
 MEM_BYTES_S = 3.35e12
@@ -240,6 +264,17 @@ LOWERED = {"fused_ibn": "fused_ibn", "flash_attention": "flash_attention",
            "matmul_ln": "matmul_ln", "rwkv_chunk": "wkv_chunked"}
 
 # RWKV-6 traffic: (batch, prompt tokens) per request, greedy tokens each
+# the serve phase: the store warms these workloads at every batch level over
+# a pool of SERVE_JOBS spawned processes, and launches the lowered entries of
+# SERVE_LAUNCHED's answers; its chaos session arms every fault at 0.3, with
+# crashes that outlast the store's three search attempts, so that some
+# answers come off the degraded rungs
+SERVE_WORKLOADS = ("edgenext-s", "rwkv6")
+SERVE_LAUNCHED = "edgenext-s"
+SERVE_JOBS = 4
+CHAOS_PLAN = "all=0.3,crash_attempts=3"
+CHAOS_REQUESTS = 24
+CHAOS_BATCHES = (1, 4)
 RWKV_REQUESTS = [(4, 512)] * 3 + [(1, 200)]
 RWKV_GEN = 32
 RWKV_PARAMS = 1_599_873_024
@@ -876,32 +911,17 @@ def lowered_phase():
             if lk["kernel"] not in LOWERED:
                 fail(f"lowered: {wname}:{key} is lowered onto "
                      f"{lk['kernel']!r}, which no ported kernel runs")
-            kern = LOWERED[lk["kernel"]]
-            shape = lower.launch_shape(layers, key, lk)
-            blocks = {k: v for k, v in lk.items()
-                      if k.startswith("block_") or k == "chunk"}
-            dkey = (kern, tuple(shape.items()), tuple(sorted(blocks.items())))
-            distinct.setdefault(dkey, []).append(f"{wname}:{key}")
+            distinct.setdefault(launch_key(layers, key, lk), []).append(
+                f"{wname}:{key}")
             entries[lk["kernel"]] += 1
             per = by_workload.setdefault(lk["kernel"], {})
             per[wname] = per.get(wname, 0) + 1
 
     reset_counts()
     records = []
-    for (kern, shape, blocks), where in distinct.items():
-        s, blocks = dict(shape), dict(blocks)
-        if kern == "fused_ibn":
-            rec = ibn_case(s["m"], s["d"], s["f"], s["do"], blocks=blocks,
-                           w_scale=(s["d"] ** -0.5, s["f"] ** -0.5))
-        elif kern == "matmul_ln":
-            rec = mln_case(s["m"], s["k"], s["n"], blocks=blocks)
-        elif kern == "wkv_chunked":
-            rec = wkv_case(s["bh"], s["t"], s["k"], s["v"], blocks["chunk"])
-        else:
-            rec = fa_case(1, s["bh"], s["q"], s["k"], s["d"], causal=False,
-                          blocks=blocks)
-        rec.update(kernel=kern, blocks=blocks, entries=len(where),
-                   first=where[0])
+    for dkey, where in distinct.items():
+        rec = launch_entry(dkey)
+        rec.update(entries=len(where), first=where[0])
         records.append(rec)
     launches = read_counts()
     for name in KERNELS:
@@ -912,7 +932,35 @@ def lowered_phase():
         if name in LOWERED.values() and not launches[name]:
             fail(f"lowered: {name} was never launched")
     verified = dict(findings=findings, verify_s=verify_s)
-    return records, entries, by_workload, launches, verified, samples
+    return records, entries, by_workload, launches, verified, samples, set(distinct)
+
+
+def launch_key(layers, key: str, lk: dict) -> tuple:
+    """(kernel, launch shape, blocks or chunk) of one lowered entry: what
+    it launches, and what the lowered and serve phases dedupe on."""
+    shape = lower.launch_shape(layers, key, lk)
+    blocks = {k: v for k, v in lk.items() if k.startswith("block_") or k == "chunk"}
+    return LOWERED[lk["kernel"]], tuple(shape.items()), tuple(sorted(blocks.items()))
+
+
+def launch_entry(dkey: tuple, timed: bool = False) -> dict:
+    """One lowered launch (a ``launch_key``) at the layer's true shapes with
+    its blocks, held against its plain version; timed as ``kernels_phase``
+    times a shape where ``timed``."""
+    kern, shape, blocks = dkey
+    s, blocks = dict(shape), dict(blocks)
+    if kern == "fused_ibn":
+        rec = ibn_case(s["m"], s["d"], s["f"], s["do"], blocks=blocks, timed=timed,
+                       w_scale=(s["d"] ** -0.5, s["f"] ** -0.5))
+    elif kern == "matmul_ln":
+        rec = mln_case(s["m"], s["k"], s["n"], blocks=blocks, timed=timed)
+    elif kern == "wkv_chunked":
+        rec = wkv_case(s["bh"], s["t"], s["k"], s["v"], blocks["chunk"], timed=timed)
+    else:
+        rec = fa_case(1, s["bh"], s["q"], s["k"], s["d"], causal=False,
+                      blocks=blocks, timed=timed)
+    rec.update(kernel=kern, blocks=blocks)
+    return rec
 
 
 def refuse_case(kernel: str, shape: dict, blocks: dict):
@@ -993,6 +1041,153 @@ def check_phase(samples: dict) -> dict:
     return dict(corpus=dict(caught=sum(r.caught for r in results),
                             total=len(MUTATIONS)),
                 agreement=cases, check_phase_s=time.perf_counter() - t0)
+
+
+class RecordingStore(ServeStore):
+    """A ``ServeStore`` that keeps every answer its ``request`` gives, so
+    that each answer of a chaos session can be verified after it."""
+
+    def __init__(self, *args, **kw) -> None:
+        super().__init__(*args, **kw)
+        self.answers = []
+
+    def request(self, *args, **kw):
+        res = super().request(*args, **kw)
+        self.answers.append(res)
+        return res
+
+
+def host_ms(fn) -> tuple:
+    """(fn(), host milliseconds it took)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def serve_phase(launched: set) -> tuple[dict, dict]:
+    """The schedule store on the card's host (module docstring, phase 7).
+    ``launched`` holds the ``launch_key``s the lowered phase ran.  Fails on
+    any miss.  Returns the launch counts of step 3 and the phase's record."""
+    root = ROOT / "build" / "serve_store"
+    shutil.rmtree(root, ignore_errors=True)
+    grid = [(w, b) for w in SERVE_WORKLOADS for b in BATCH_LEVELS]
+
+    # 1. warm over a spawned pool while this process holds the card's context
+    if not torch.cuda.is_initialized():
+        fail("serve: the card's context should be live before the warm")
+    store = ServeStore(root / "store", verify=True)
+    with obs.tracing() as tr:
+        rep, warm_ms = host_ms(lambda: store.warm(SERVE_WORKLOADS, batches=BATCH_LEVELS,
+                                                  jobs=SERVE_JOBS))
+    warm = dict(entries=len(rep.entries), searched=rep.searched,
+                worker_failed=rep.worker_failed, jobs=SERVE_JOBS, seconds=warm_ms / 1e3,
+                counters=dict(tr.counters))
+    if (warm["entries"], warm["searched"], warm["worker_failed"]) != (len(grid), len(grid), 0):
+        fail(f"serve: warm gave {warm['entries']} entries, {warm['searched']} searched, "
+             f"{warm['worker_failed']} workers failed; want {len(grid)}, {len(grid)}, 0")
+
+    # 2. a fresh store on the same directory answers every request from disk,
+    # each answer verified; then the same request from memory, and the same
+    # replay without the checker
+    fresh, bare = ServeStore(root / "store", verify=True), ServeStore(root / "store")
+    answers, disk_ms, mem_ms, bare_ms = {}, [], [], []
+    for w, b in grid:
+        with obs.tracing() as tr:
+            res, ms = host_ms(lambda: fresh.request(w, b))
+        layers = get_workload(res.workload)
+        found = verify_schedule(layers, res.schedule, source="chip_smoke")
+        hits = (tr.counters.get("cache.hit", 0), tr.counters.get("check.pass", 0),
+                tr.counters.get("cache.miss", 0))
+        if res.outcome != "disk" or res.degraded or hits != (1, 1, 0) or found:
+            fail(f"serve: {res.workload} answered {res.outcome!r} (degraded "
+                 f"{res.degraded}), cache.hit/check.pass/cache.miss {hits}, "
+                 f"{len(found)} findings; want a verified disk hit")
+        disk_ms.append(ms)
+        again, ms = host_ms(lambda: fresh.request(w, b))
+        if again.outcome != "mem":
+            fail(f"serve: {res.workload} again answered {again.outcome!r}, not from memory")
+        mem_ms.append(ms)
+        plain, ms = host_ms(lambda: bare.request(w, b))
+        if plain.outcome != "disk":
+            fail(f"serve: {res.workload} answered {plain.outcome!r} without the checker")
+        bare_ms.append(ms)
+        answers[(w, b)] = (layers, res)
+    disk = dict(requests=len(grid), disk_hits=len(disk_ms), findings=0,
+                disk_hit_ms=statistics.median(disk_ms), disk_hit_ms_max=max(disk_ms),
+                disk_hit_unverified_ms=statistics.median(bare_ms),
+                mem_hit_ms=statistics.median(mem_ms), mem_hit_ms_max=max(mem_ms))
+
+    # 3. the lowered entries of the EdgeNeXt-S answers (none degraded, step 2)
+    # that the lowered phase did not run, each once against its plain
+    # version; RWKV-6's answers are verified only
+    new: dict = {}
+    served_entries, seen = 0, set()
+    for (w, b), (layers, res) in answers.items():
+        if w != SERVE_LAUNCHED:
+            continue
+        for key, lk in res.schedule.lowered.items():
+            served_entries += 1
+            dkey = launch_key(layers, key, lk)
+            seen.add(dkey)
+            if dkey not in launched:
+                new.setdefault(dkey, []).append((b, f"{res.workload}:{key}"))
+    reset_counts()
+    records = []
+    for dkey, where in new.items():
+        rec = launch_entry(dkey)
+        rec.update(entries=len(where), batch=where[0][0], first=where[0][1])
+        records.append(rec)
+    launches = read_counts()
+    for name in KERNELS:
+        want = sum(1 for r in records if r["kernel"] == name)
+        if launches[name] != want:
+            fail(f"serve: {name} launched {launches[name]} times for {want} "
+                 f"new served launches")
+    if not records:
+        fail("serve: the lowered phase ran every served launch already; "
+             "batches 16 and 64 should bring new ones")
+    for rec, dkey in zip(records, new):
+        timed = launch_entry(dkey, timed=True)
+        rec.update({k: v for k, v in timed.items() if k not in rec},
+                   max_abs_err=max(rec["max_abs_err"], timed["max_abs_err"]))
+    launch = dict(workload=SERVE_LAUNCHED, entries=served_entries, distinct=len(seen),
+                  already_launched=len(seen) - len(new), new=len(new),
+                  new_by_batch={b: sum(1 for r in records if r["batch"] == b)
+                                for b in sorted({r["batch"] for r in records})},
+                  records=records)
+
+    # 4. a deterministic chaos session over a store of its own: every request
+    # served, every answer verified (a degraded one with its marker), and not
+    # one launch while it runs
+    chaos_store = RecordingStore(root / "chaos", verify=True)
+    chaos_store.warm([SERVE_LAUNCHED], batches=CHAOS_BATCHES)
+    chaos_store.answers.clear()
+    reset_counts()
+    with obs.tracing() as tr:
+        rep = chaos_session(chaos_store, SERVE_LAUNCHED, n_requests=CHAOS_REQUESTS,
+                            plan=ChaosPlan.parse(CHAOS_PLAN, seed=SEED),
+                            batches=CHAOS_BATCHES)
+    chaos_launches = read_counts()
+    if not rep.all_served or len(chaos_store.answers) != rep.requests:
+        fail(f"serve: chaos served {rep.served} of {rep.requests}")
+    for res in chaos_store.answers:
+        marker = getattr(res.schedule, "degraded", None)
+        if res.degraded != (marker is not None) or (res.degraded and marker != res.outcome):
+            fail(f"serve: chaos answer {res.outcome!r} carries the marker {marker!r}")
+        found = verify_schedule(get_workload(res.workload), res.schedule,
+                                source="chip_smoke")
+        if found:
+            fail(f"serve: chaos answer {res.workload} ({res.outcome}) has "
+                 f"{len(found)} findings, first {found[0].code}: {found[0].detail}")
+    if any(chaos_launches.values()):
+        fail(f"serve: the chaos session launched {chaos_launches}")
+    chaos = dict(plan=CHAOS_PLAN, seed=SEED, requests=rep.requests, served=rep.served,
+                 degraded=rep.degraded, outcomes=rep.outcomes, faults=rep.faults,
+                 findings=0, launches=chaos_launches,
+                 counters={k: v for k, v in tr.counters.items()
+                           if k.startswith(("serve.", "cache."))})
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, dict(warm=warm, disk=disk, launch=launch, chaos=chaos)
 
 
 def per_forward_sum(shapes, key):
@@ -1631,7 +1826,7 @@ def main() -> None:
           f"{w['eager_ms']:.4f} graph {w['graph_ms']:.4f}", flush=True)
 
     # 6. the scheduler's path: every lowered entry onto its kernel
-    lowered, entries, by_workload, lowered_launches, verified, samples = \
+    lowered, entries, by_workload, lowered_launches, verified, samples, launched = \
         lowered_phase()
     for name, kern in LOWERED.items():
         recs = [r for r in lowered if r["kernel"] == kern]
@@ -1649,10 +1844,39 @@ def main() -> None:
           f"lint-flagged blocks refused by ops with no launch "
           f"({check['check_phase_s']:.2f} s)", flush=True)
 
-    # 7. results
+    # 7. the schedule store: warm, disk hits, its new launches, chaos
+    serve_launches, store = serve_phase(launched)
+    w, d, ln, ch = store["warm"], store["disk"], store["launch"], store["chaos"]
+    print(f"serve warm: {w['entries']} entries ({', '.join(SERVE_WORKLOADS)} at "
+          f"batches {list(BATCH_LEVELS)}), {w['searched']} searched, "
+          f"{w['worker_failed']} workers failed; a spawned pool of {w['jobs']} "
+          f"with the card's context live, {w['seconds']:.2f} s on the host")
+    print(f"serve disk: a fresh store answered {d['disk_hits']}/{d['requests']} "
+          f"requests from disk, each a cache.hit verified with 0 findings; host ms "
+          f"a disk hit verified {d['disk_hit_ms']:.3f} (median, max "
+          f"{d['disk_hit_ms_max']:.3f}), unverified {d['disk_hit_unverified_ms']:.3f}, "
+          f"a memory hit {d['mem_hit_ms']:.4f} (max {d['mem_hit_ms_max']:.4f})")
+    print(f"serve launch: {ln['workload']} answers carry {ln['entries']} lowered "
+          f"entries, {ln['distinct']} distinct, {ln['already_launched']} run by the "
+          f"lowered phase, {ln['new']} new by batch {ln['new_by_batch']} all passed, "
+          f"max err {max(r['max_abs_err'] for r in ln['records']):.2e}; launches "
+          f"{serve_launches}")
+    for r in ln["records"]:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"serve kernel {r['case']} B={r['batch']}: err {r['max_abs_err']:.2e} "
+              f"(tol {r['tol']}) ms {r['ms']:.4f} plain {r['plain_ms']:.4f} library "
+              f"{lib} bound {r['bound_ms']:.4f} ({r['bound_by']}){split_text(r)}")
+    print(f"serve chaos: {ch['served']}/{ch['requests']} served ({ch['plan']}, seed "
+          f"{ch['seed']}), {ch['degraded']} degraded, outcomes {ch['outcomes']}, "
+          f"faults {ch['faults']}; every answer verified with 0 findings (a degraded "
+          f"one with its marker); launches during the session {ch['launches']}",
+          flush=True)
+
+    # 8. results
     rows = summarise(per_kernel, {"edgenext_serve": launches,
                                   "rwkv6_serve": rwkv_launches,
-                                  "lowered": lowered_launches})
+                                  "lowered": lowered_launches,
+                                  "serve_store": serve_launches})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:
@@ -1661,7 +1885,7 @@ def main() -> None:
         out.write_text(json.dumps(dict(
             device=device, nvidia_smi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
-            kernels=rows, main_path=served, rwkv6=rwkv, check=check,
+            kernels=rows, main_path=served, rwkv6=rwkv, check=check, serve=store,
             lowered=dict(records=lowered, entries=entries,
                          by_workload=by_workload)), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -63,9 +63,9 @@ def verify_schedule(layers: Sequence[Layer], sched, *,
                     source: str = "replay") -> List[Finding]:
     """Verify a live ``Schedule`` object; returns the findings (empty
     on a clean pass) and keeps the ``check.pass`` / ``check.fail``
-    counters.  This is the hook ``cached_search`` calls when
-    verify-on-replay is enabled, and ``chip_smoke.py`` before it launches
-    a schedule's lowered entries.  ``degraded`` is the marker of a
+    counters.  This is the hook ``cached_search`` and ``ServeStore``
+    call when verify-on-replay is enabled, and ``chip_smoke.py`` before
+    it launches a schedule's lowered entries.  ``degraded`` is the marker of a
     serving store's degraded answer, which relaxes the checks such an
     answer cannot meet."""
     if degraded is None:

@@ -71,6 +71,16 @@ def schedule_key(layers: List[Layer], hw: HWSpec,
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
+def artifact_name(workload: str, key: str) -> str:
+    """The file name of one artifact in a cache directory:
+    ``<workload>-hopper-<key>.json``.  The key is the same content hash
+    as the JAX package's, but the ``lowered`` launch parameters are this
+    package's Hopper ones, so the two packages must never replay each
+    other's files.  Every site that reads or writes an artifact by name
+    goes through this function."""
+    return f"{workload}-hopper-{key}.json"
+
+
 def save_schedule(schedule, path: Path) -> Path:
     """Write a Schedule (dataclass) as a JSON artifact, atomically.
 
@@ -101,7 +111,26 @@ def save_schedule(schedule, path: Path) -> Path:
 
 # a claim older than this is stale even if its pid looks alive (pid
 # reuse): the claiming search should take milliseconds, not minutes.
+# ``REPRO_CLAIM_STALE_S`` overrides the default deployment-wide; the
+# ``stale_s`` keyword on ``_claim_store`` / ``cached_search`` overrides
+# it per call (a serving loop under a tight deadline wants takeovers in
+# seconds, a batch DSE sweep can afford minutes).
 _CLAIM_STALE_S = 120.0
+
+
+def claim_stale_s(stale_s: Optional[float] = None) -> float:
+    """The effective claim-staleness threshold: the explicit keyword,
+    else the ``REPRO_CLAIM_STALE_S`` environment override, else the
+    built-in default."""
+    if stale_s is not None:
+        return float(stale_s)
+    env = os.environ.get("REPRO_CLAIM_STALE_S")
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            pass
+    return _CLAIM_STALE_S
 
 
 # flock fds held by claims this process owns, keyed by lock path; the
@@ -109,7 +138,7 @@ _CLAIM_STALE_S = 120.0
 _CLAIM_FDS: dict = {}
 
 
-def _claim_store(path: Path) -> bool:
+def _claim_store(path: Path, stale_s: Optional[float] = None) -> bool:
     """Try to claim the store of one artifact key.
 
     The claim is an exclusive non-blocking ``flock`` on ``<path>.lock``
@@ -130,8 +159,9 @@ def _claim_store(path: Path) -> bool:
     holds the key.  A pid stamp found *without* a held flock means the
     stamper crashed (the kernel dropped its lock), or the stamp was
     planted by an older-protocol writer: it is honored only while the
-    pid is alive and the stamp younger than ``_CLAIM_STALE_S``, else
+    pid is alive and the stamp younger than ``claim_stale_s``, else
     taken over (``cache.lock_takeover``)."""
+    limit = claim_stale_s(stale_s)
     lock = Path(f"{path}.lock")
     lock.parent.mkdir(parents=True, exist_ok=True)
     for _ in range(3):
@@ -167,7 +197,7 @@ def _claim_store(path: Path) -> bool:
                     alive = True
                 except (OSError, PermissionError):
                     alive = False
-            if alive and age < _CLAIM_STALE_S:
+            if alive and age < limit:
                 os.close(fd)    # leave the stamp untouched
                 return False
             obs.count("cache.lock_takeover")
@@ -305,8 +335,10 @@ def try_replay(path: Path, layers: List[Layer], key: str, *,
     else ``(None, why)`` with ``why`` one of ``"absent"`` (no file —
     nothing counted), ``"version"`` (``cache.version_reject``), or
     ``"corrupt"`` (``cache.corrupt``: unreadable / non-reconstructing /
-    key-mismatched / ambiguously named).  Emits the counters and
-    ``cache.replay`` events of ``cached_search``'s replay half."""
+    key-mismatched / ambiguously named).  Emits exactly the counters and
+    ``cache.replay`` events ``cached_search`` always emitted for its
+    replay half; extracted so the serving degradation ladder can probe
+    the disk tier without committing to the search half."""
     path = Path(path)
     if not path.exists():
         return None, "absent"
@@ -353,6 +385,8 @@ def cached_search(layers: List[Layer], hw: Optional[HWSpec] = None, *,
                   refresh: bool = False,
                   tile_mode: str = "full",
                   spatial_mode: str = "factored",
+                  replay: bool = True,
+                  stale_s: Optional[float] = None,
                   verify: bool = False):
     """Run (or replay) the auto-scheduler through the artifact cache.
     Replayed artifacts are name-remapped onto the request's layers (the
@@ -378,12 +412,16 @@ def cached_search(layers: List[Layer], hw: Optional[HWSpec] = None, *,
     released in a ``finally`` — a claimant that raises between claim
     and store (a crashed search, an injected fault) never leaks the
     lock file; a claim that *was* leaked by a killed process is broken
-    after ``_CLAIM_STALE_S`` seconds (``cache.lock_takeover``).
+    after ``stale_s`` seconds (``cache.lock_takeover``, default via
+    ``claim_stale_s``).
 
-    Artifacts are named ``<workload>-hopper-<key>.json``: the key is
-    the same content hash as the JAX package's, but the ``lowered``
-    launch parameters are this package's Hopper ones, so the two
-    packages must never replay each other's files.
+    ``replay=False`` skips the artifact-replay half entirely (the
+    caller — e.g. the serving degradation ladder — already probed the
+    disk tier itself and wants exactly one ``cache.corrupt`` count per
+    bad artifact, not two): the call counts a miss, searches, and
+    stores under the claim.
+
+    Artifacts are named by ``artifact_name``.
 
     ``verify=True`` runs the independent static checker
     (``repro_torch.check``, with the Hopper launch lint) over every
@@ -400,9 +438,9 @@ def cached_search(layers: List[Layer], hw: Optional[HWSpec] = None, *,
                              spatial_mode=spatial_mode)
     key = schedule_key(layers, hw, tile_mode=tile_mode,
                        spatial_mode=spatial_mode)
-    path = Path(cache_dir) / f"{workload}-hopper-{key}.json"
+    path = Path(cache_dir) / artifact_name(workload, key)
     verify_failed = False
-    if not refresh:
+    if replay and not refresh:
         sched, _why = try_replay(path, layers, key, workload=workload)
         if sched is not None:
             if not verify:
@@ -421,7 +459,7 @@ def cached_search(layers: List[Layer], hw: Optional[HWSpec] = None, *,
     # claim BEFORE the search so concurrent missers resolve the single
     # writer up front; ``refresh`` is an explicit operator override and
     # always stores (atomic replace makes the last writer win safely)
-    claimed = _claim_store(path)
+    claimed = _claim_store(path, stale_s)
     try:
         sched = auto_schedule(layers, hw, workload=workload,
                               tile_mode=tile_mode,

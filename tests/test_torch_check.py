@@ -8,8 +8,10 @@ corruptions that do not touch ``lowered``), the mutation corpus is caught
 21/21 on the port's artifacts, the Hopper lint passes every port
 ``lowered`` entry and flags the reference's TPU blocks, its constants
 equal the kernel wrappers', verify-on-replay is a pure read that repairs a
-bad artifact, the claim-lock explorer gives the reference's results, and
-the CLI gives the reference's exit codes.
+bad artifact (in ``cached_search`` and in ``ServeStore(verify=True)``),
+the serving ladder's degraded answers pass the checks they can meet, the
+claim-lock explorer gives the reference's results, and the CLI gives the
+reference's exit codes.
 """
 import copy
 import dataclasses
@@ -35,6 +37,7 @@ from repro_torch.check import lint_lower
 from repro_torch.check.__main__ import main as check_main
 from repro_torch.check.mutations import MUTATIONS, build_base_doc, run_corpus
 from repro_torch.check.races import explore, verify_protocol
+from repro_torch.core.costmodel import HWSpec
 from repro_torch.core.workload import Layer
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import fused_ibn as t_ibn
@@ -42,6 +45,7 @@ from repro_torch.kernels import matmul_ln as t_mln
 from repro_torch.kernels import rwkv_chunk as t_wkv
 from repro_torch.search.cache import (_claim_store, _release_store,
                                       cached_search)
+from repro_torch.serve.store import ServeStore, heuristic_schedule
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDENS = sorted((ROOT / "tests" / "golden").glob("*.json"))
@@ -282,6 +286,36 @@ def test_searched_batched_schedules_verify_clean(workload):
     assert verify_schedule(layers, sched, source="test") == []
 
 
+@pytest.mark.parametrize("workload", ("edgenext-s", "rwkv6"))
+def test_heuristic_schedule_verifies(workload):
+    """Rung 5 of the serving ladder passes the conservation checks; its
+    ``lowered`` is empty, so the launch lint has nothing to read."""
+    layers = tsearch.get_workload(workload)
+    sched = heuristic_schedule(layers, workload=workload)
+    assert getattr(sched, "degraded", None) == "heuristic"
+    assert sched.lowered == {}
+    assert verify_schedule(layers, sched, source="test") == []
+
+
+def test_nearest_batch_rescale_verifies(tmp_path, monkeypatch):
+    """Rung 4 of the serving ladder: warm one batch level, fail the cold
+    search for another, and check the rescaled answer against the
+    *requested* batch's layers.  It carries the neighbour's launch
+    parameters, which its ``degraded`` marker keeps from the lint."""
+    from repro_torch.serve import chaos as chaos_mod
+    store = ServeStore(tmp_path, HWSpec())
+    store.lookup("edgenext-s", 4)
+
+    def boom():
+        raise RuntimeError("injected search failure")
+
+    monkeypatch.setattr(chaos_mod, "on_search_attempt", boom)
+    res = store.request("edgenext-s", 16)
+    assert res.outcome == "nearest_batch" and res.degraded
+    layers = tsearch.get_workload("edgenext-s-b16")
+    assert verify_schedule(layers, res.schedule, source="test") == []
+
+
 def test_artifact_roundtrip_verifies_clean(tmp_path):
     """The raw JSON an artifact file holds (tuples -> lists) verifies
     identically to the live Schedule."""
@@ -342,6 +376,41 @@ def test_cached_search_verify_fail_repairs_artifact(tmp_path, tamper):
                               cache_dir=tmp_path, verify=True)
     assert tr2.counters.get("check.pass") == 1
     assert dataclasses.asdict(again) == dataclasses.asdict(base)
+
+
+def test_servestore_verify_falls_back_to_search(tmp_path):
+    """A ServeStore built with verify=True treats a tampered disk
+    artifact as a miss: the request is served by a fresh search, not
+    the bad replay."""
+    layers = tsearch.get_workload("edgenext-reduced")
+    base = cached_search(layers, workload="edgenext-reduced",
+                         cache_dir=tmp_path)
+    art, = tmp_path.glob("edgenext-reduced-hopper-*.json")
+    doc = json.loads(art.read_text())
+    doc["cost"]["energy_j"] *= 0.1
+    art.write_text(json.dumps(doc))
+    store = ServeStore(tmp_path, HWSpec(), verify=True)
+    with obs.tracing() as tr:
+        res = store.request("edgenext-reduced")
+    assert res.outcome == "searched" and not res.degraded
+    assert tr.counters.get("check.fail") == 1
+    assert dataclasses.asdict(res.schedule) == dataclasses.asdict(base)
+    # the repaired schedule also overwrote the bad artifact on disk
+    assert check_artifact(json.loads(art.read_text()), layers) == []
+    # now resident in memory: no re-verification, no disk touch
+    assert store.request("edgenext-reduced").outcome == "mem"
+
+
+def test_servestore_verify_off_by_default(tmp_path):
+    store = ServeStore(tmp_path, HWSpec())
+    assert store.verify is False
+    with obs.tracing() as tr:
+        store.lookup("edgenext-reduced")
+        store.evict("edgenext-reduced")
+        store.lookup("edgenext-reduced")       # disk replay, unverified
+    assert tr.counters.get("cache.hit") == 1
+    assert not tr.counters.get("check.pass")
+    assert not tr.counters.get("check.fail")
 
 
 def test_cli_clean_and_tampered_artifact(tmp_path):
@@ -510,18 +579,16 @@ def test_live_fresh_stamp_not_taken_over(tmp_path):
     assert (tmp_path / "wl-key.json.lock").exists()   # left intact
 
 
-def test_late_claim_skips_store_on_valid_artifact(tmp_path, monkeypatch):
-    """Exactly-one-store is unconditional: a claimant that missed before
-    the first writer stored, and wins the lock after a valid artifact
-    landed, does not store again; the artifact stays byte-identical."""
-    from repro_torch.search import cache as tcache
+def test_late_claim_skips_store_on_valid_artifact(tmp_path):
+    """Exactly-one-store is unconditional: a claimant that wins the lock
+    after a valid artifact already landed does not store again; the
+    artifact stays byte-identical."""
     first = cached_search(_TINY, workload="tiny", cache_dir=tmp_path)
     art, = tmp_path.glob("tiny-hopper-*.json")
     before = art.read_bytes()
-    monkeypatch.setattr(tcache, "try_replay",
-                        lambda *a, **k: (None, "miss"))
     with obs.tracing() as tr:
-        again = cached_search(_TINY, workload="tiny", cache_dir=tmp_path)
+        again = cached_search(_TINY, workload="tiny",
+                              cache_dir=tmp_path, replay=False)
     assert tr.counters.get("cache.store_skipped") == 1
     assert not tr.counters.get("cache.store")
     assert art.read_bytes() == before

@@ -751,3 +751,44 @@ def test_captured_rwkv6_prefill_and_donated_decode_replay_the_eager_steps():
     for a, b in zip(request(pre_c, dec_c, toks), request(pre_e, dec_e, toks)):
         assert torch.equal(a, b)
     assert len(pre_c.graphs) == 2 and len(dec_c.graphs) == 2
+
+
+# ---------------------------------------------------------------------------
+# the schedule store (serve/) beside a live CUDA context
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_spawned_warm_beside_a_live_context_serves_a_b64_fused_ibn_entry(tmp_path):
+    """``ServeStore.warm`` spawns its pool, so it runs while this process
+    holds the card's context; a fresh store replays the batch-64 answer
+    from disk, verified, and its first ``fused_ibn`` entry launched at its
+    true shape with its blocks agrees with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.check import verify_schedule
+    from repro_torch.search import get_workload, lower
+    from repro_torch.serve import ServeStore
+    live = torch.ones(1024, device="cuda")
+    assert torch.cuda.is_initialized()
+    rep = ServeStore(tmp_path, verify=True).warm(["edgenext-s"],
+                                                 batches=(16, 64), jobs=2)
+    assert (rep.searched, rep.worker_failed) == (2, 0)
+    res = ServeStore(tmp_path, verify=True).request("edgenext-s", 64)
+    assert res.outcome == "disk" and not res.degraded
+    layers = get_workload(res.workload)
+    assert verify_schedule(layers, res.schedule, source="test") == []
+    key, lk = next((k, v) for k, v in res.schedule.lowered.items()
+                   if v["kernel"] == "fused_ibn")
+    s = lower.launch_shape(layers, key, lk)
+    assert s["m"] % 64 == 0
+    x, = _normal(31, (s["m"], s["d"]))
+    w1, = _normal(32, (s["d"], s["f"]), scale=s["d"] ** -0.5)
+    w2, = _normal(33, (s["f"], s["do"]), scale=s["f"] ** -0.5)
+    blocks = {k: v for k, v in lk.items() if k.startswith("block_")}
+    got = tops.fused_ibn(x, w1, w2, **blocks)
+    want = tref.fused_ibn_ref(x, w1, w2)
+    torch.cuda.synchronize()
+    _close(got.cpu().numpy(), want.cpu().numpy(), 3e-5)
+    assert live.sum().item() == 1024
