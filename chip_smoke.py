@@ -35,9 +35,18 @@ which ends the run with a non-zero exit code if it fails:
    causal, windowed, ragged and bfloat16 cases, at Sk = 128 and 129 (the
    boundary of its whole-row regime), with D shared out unevenly over
    the cluster, with rows that see no key, and twice at 64 x 40 x 256,
-   where the two calls must give the same bits; each record, here and in
-   the lowered phase, carries ``regime``, ``splits``, ``row_splits`` and
-   ``ctas`` from ``kernels.flash_attention.plan``.
+   where the two calls must give the same bits; then, in the online
+   regime, the dense path's prefill shapes (timed, outside the sums:
+   h2o-danube-1.8b 4 x 32 x 512 and 1 x 32 x 4608 under a window of 4096,
+   D 80, K / V made on 8 heads and repeated over 32; olmo-1b 4 x 16 x 512,
+   D 128; bfloat16, causal; the operations bound counts only the unmasked
+   q.k pairs, the library call is SDPA with ``is_causal`` or a boolean
+   mask), a float32 causal 1 x 4 x 300 (ragged against the 64-row tile),
+   minitron-4b's 24 / 8 heads at D 128, a causal bf16 prompt of the
+   whole-row regime, D chunked over the grid, and twice at the served
+   shape, where the two calls must give the same bits; each record, here
+   and in the lowered phase, carries ``regime``, ``splits``,
+   ``row_splits`` and ``ctas`` from ``kernels.flash_attention.plan``.
    ``depthwise_conv2d`` runs at the nine shapes of a batch-16 forward (in
    the sums) and of a batch-1 forward (timed, outside the sums), the first
    SDTA split of a stage as the channel slice the model hands over, and at
@@ -113,6 +122,23 @@ which ends the run with a non-zero exit code if it fails:
    the graph's edges as the driver gives them (whether the outputs pass's
    programmatic dependent launch stays one in a graph), a replay on new
    inputs bit for bit the eager call, and both forms' time;
+5b. dense (``dense_path``): ``h2o-danube-1.8b`` uncut (24 layers, d 2560,
+   32 query heads over 8 KV heads of 80, d_ff 6912 SwiGLU, vocab 32000,
+   window 4096, 1,831,201,280 parameters), weights float32 from seed 0 made
+   on the host, bfloat16 compute, served as ``launch.serve`` serves it: 2
+   requests of 4 x 512-token prompts with 32 greedy tokens and 1 of a
+   1 x 4608 prompt (longer than the window: the banded prefill and a ring
+   cache of 4096) with 8.  Around each prefill and each decode loop the
+   counters are set to 0 and read: 24 flash_attention a prefill, none in
+   decode, no other kernel.  Logits finite, of their shapes; the served
+   run held to the plain model (``kernels=ref.PLAIN``) teacher-forced with
+   its tokens (``BF16_LOGITS_TOL``, ``BF16_AGREEMENT``).  Then the captured
+   steps (``dense_captured``): captures at 4 x 512 and 1 x 4608 (24 a
+   prefill capture and as many for each ``WARMUP`` run, none for decode),
+   the three requests replayed bit for bit the eager steps with no
+   launch; prefill ms and decode ms a token eager and captured in turns,
+   both clocks; peak memory; capture seconds; the device's busy share of
+   one ``torch.profiler`` trace of three captured 4 x 512 prefills;
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
    workload, each schedule verified by ``repro_torch.check.verify_schedule``
    (the static checker and the Hopper launch lint; any finding fails the
@@ -171,8 +197,8 @@ prefill (24 launches at the served shape) for wkv_chunked; ``shapes``
 holds the per-shape numbers.  ``launches`` is the count of the path the
 kernel is on: the EdgeNeXt-S requests for the first three, the lowered
 phase for matmul_ln, the RWKV-6 requests for wkv_chunked
-(``launches_by_path`` has all four paths, the serve phase's new launches
-as ``serve_store``).  ``bound_ms`` is the larger
+(``launches_by_path`` has all five paths: the dense requests as
+``dense_serve``, the serve phase's new launches as ``serve_store``).  ``bound_ms`` is the larger
 of bytes / 3.35 TB/s (each input read once, each output written once)
 and operations / peak: 495 TFLOP/s (TF32 tensor cores, the card's rate
 for a float32 matrix product) for the products of fused_ibn, attention,
@@ -218,7 +244,7 @@ from repro_torch.kernels import fused_ibn as ibn_mod  # noqa: E402
 from repro_torch.kernels import matmul_ln as mln_mod  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as wkv_mod  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
-from repro_torch.models import edgenext, rwkv6  # noqa: E402
+from repro_torch.models import edgenext, rwkv6, transformer  # noqa: E402
 from repro_torch.models.params import count_params, init_params  # noqa: E402
 from repro_torch.runtime import build_decode_step, build_prefill_step  # noqa: E402
 from repro_torch.runtime.capture import WARMUP, captured  # noqa: E402
@@ -228,6 +254,7 @@ from repro_torch.core.workload import NORM, PWCONV, SCAN, Layer, scan_macs  # no
 from repro_torch.serve import (BATCH_LEVELS, ChaosPlan, ServeStore,  # noqa: E402
                                chaos_session)
 from repro_torch.serve_edgenext import serve  # noqa: E402
+from repro_torch.profile_edgenext import trace  # noqa: E402
 
 MEM_BYTES_S = 3.35e12
 PEAK_TF32 = 495e12
@@ -255,7 +282,8 @@ KERNELS = {
 }
 # the path whose run gives each kernel's ``launches``: the EdgeNeXt-S
 # forward launches the first three, the RWKV-6 prefill wkv_chunked, and
-# matmul_ln runs only on the lowered path
+# matmul_ln runs only on the lowered path (flash_attention also runs on the
+# dense path: ``launches_by_path``)
 MAIN_PATH = {"fused_ibn": "edgenext_serve", "depthwise_conv2d": "edgenext_serve",
              "flash_attention": "edgenext_serve", "matmul_ln": "lowered",
              "wkv_chunked": "rwkv6_serve"}
@@ -278,6 +306,12 @@ CHAOS_BATCHES = (1, 4)
 RWKV_REQUESTS = [(4, 512)] * 3 + [(1, 200)]
 RWKV_GEN = 32
 RWKV_PARAMS = 1_599_873_024
+# the dense phase: h2o-danube-1.8b uncut, (batch, prompt tokens, greedy
+# tokens) per request; the 1 x 4608 prompt is longer than the window (4096):
+# the banded prefill and a ring cache
+DENSE_ARCH = "h2o-danube-1.8b"
+DENSE_REQUESTS = [(4, 512, 32), (4, 512, 32), (1, 4608, 8)]
+DENSE_PARAMS = 1_831_201_280
 # The served bfloat16 run against the plain bfloat16 model, teacher-forced
 # with the served tokens.  The two differ only in the WKV: the kernel and
 # ``wkv_ref`` take the same float32 sums in another order and round them to
@@ -548,17 +582,42 @@ def dw_case(B, H, W, C, k, *, dtype=torch.float32, slice_of=None, timed=False,
     return rec
 
 
+def unmasked_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """q.k pairs that no mask removes: what the operations bound counts."""
+    qp = np.arange(Sq)
+    hi = np.minimum(Sk - 1, qp) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(0, qp - window + 1) if window is not None else np.zeros(Sq, int)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def sdpa_library(q, k, v, causal, window, scale):
+    """The library call of the same function: SDPA causal, with a boolean
+    mask where a window is set, else unmasked."""
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                      scale=scale)
+    Sq, Sk = q.shape[2], k.shape[2]
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
 def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
             dtype=torch.float32, xca=False, timed=False, blocks=None,
-            repeat=False):
+            repeat=False, kv_heads=None):
+    """``kv_heads``: k and v made with that many heads and repeated over
+    the query heads' groups, as the LM's GQA hands them over."""
     q = randn(B, H, Sq, D, dtype=dtype)
-    k = randn(B, H, Sk, D, dtype=dtype)
-    v = randn(B, H, Sk, D, dtype=dtype)
+    hk = kv_heads or H
+    k = randn(B, hk, Sk, D, dtype=dtype).repeat_interleave(H // hk, dim=1)
+    v = randn(B, hk, Sk, D, dtype=dtype).repeat_interleave(H // hk, dim=1)
     if xca:     # as the model calls it: rows L2-normalised over D, scale 1
         q = (q / q.norm(dim=-1, keepdim=True)).contiguous()
         k = (k / k.norm(dim=-1, keepdim=True)).contiguous()
     name = f"flash_attention[{B}x{H}x{Sq}x{Sk}x{D} causal={causal} " \
-           f"window={window} {str(dtype).split('.')[-1]}]"
+           f"window={window} {str(dtype).split('.')[-1]}" \
+           f"{f' gqa {H}/{hk}' if kv_heads else ''}]"
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     kw = dict(causal=causal, window=window, scale=scale)
     plan = fa_mod.plan(B * H, Sq, Sk, D, torch.cuda.get_device_properties(0)
@@ -568,6 +627,7 @@ def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
     rec = dict(case=name, max_abs_err=compare(name, got, want, tol), tol=tol,
                regime=plan["regime"], splits=plan["splits"],
                row_splits=plan["row_splits"], ctas=plan["ctas"])
+    del want
     if repeat:
         again = ops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -576,15 +636,14 @@ def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
                  f"(max {(got - again).abs().max().item():.3e})")
         rec["case"] = name + " twice, same bits"
     if timed:
-        if causal or window is not None:
-            raise ValueError("timed cases are the XCA shapes: no mask")
-        flops = 4.0 * B * H * Sq * Sk * D
+        pairs = B * H * unmasked_pairs(Sq, Sk, causal, window)
+        flops = 4.0 * D * pairs
         peak = PEAK_TF32 if dtype == torch.float32 else PEAK_BF16
         rec["bound_ms"], rec["bound_by"] = bound(nbytes(q, k, v, got), flops, peak)
+        rec["unmasked_pairs"] = pairs
         rec["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
         rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, **kw))
-        rec["library_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        rec["library_ms"] = time_ms(sdpa_library(q, k, v, causal, window, scale))
         rec["gbytes_s"] = nbytes(q, k, v, got) / rec["ms"] / 1e6
         rec["tflops"] = flops / rec["ms"] / 1e9
     return rec
@@ -763,6 +822,16 @@ def kernels_phase():
         rec = fa_case(B, H, S, S, D, causal=False, scale=1.0, xca=True, timed=True)
         rec.update(per_forward=n, batch=batch)
         per_kernel["flash_attention"]["shapes"].append(rec)
+    # ... and the dense path's prefill attention (the online regime,
+    # outside the sums): h2o-danube-1.8b at 4 x 512 and at 1 x 4608 over
+    # its window, olmo-1b at 4 x 512 (bfloat16, causal, GQA-expanded)
+    for (B, H, S, D, window, hk), batch in (((4, 32, 512, 80, None, 8), 4),
+                                            ((1, 32, 4608, 80, 4096, 8), 1),
+                                            ((4, 16, 512, 128, None, None), 4)):
+        rec = fa_case(B, H, S, S, D, causal=True, window=window, dtype=torch.bfloat16,
+                      kv_heads=hk, timed=True)
+        rec.update(per_forward=0, batch=batch)
+        per_kernel["flash_attention"]["shapes"].append(rec)
 
     # matmul_ln: the EdgeNeXt-S lowered shapes at batch 16 (once each), then
     # the LM widths, ragged and bfloat16 cases (timed, outside the sums)
@@ -858,6 +927,16 @@ def kernels_phase():
         fa_case(16, 4, 24, 24, 1024, causal=False, scale=1.0, xca=True, dtype=bf16),
         fa_case(16, 4, 76, 76, 64, causal=False, scale=1.0, xca=True, dtype=bf16),
         fa_case(16, 4, 40, 40, 256, causal=False, scale=1.0, xca=True, repeat=True),
+        # the online regime at the LM's shapes: float32 causal ragged against
+        # the 64-row tile, minitron-4b's D = 128 over 24 / 8 heads, a prompt
+        # of the whole-row regime causal in bf16, D chunked over the grid,
+        # and two calls with the same bits at the served shape
+        fa_case(1, 4, 300, 300, 80, causal=True),
+        fa_case(4, 24, 512, 512, 128, causal=True, dtype=bf16, kv_heads=8),
+        fa_case(4, 32, 100, 100, 80, causal=True, dtype=bf16, kv_heads=8),
+        fa_case(1, 2, 200, 300, 300, causal=True, dtype=bf16),
+        fa_case(1, 2, 150, 200, 1024, causal=False),
+        fa_case(4, 32, 512, 512, 80, causal=True, dtype=bf16, kv_heads=8, repeat=True),
     ]
     per_kernel["wkv_chunked"]["extra"] = [
         wkv_case(4, 50, 64, 64, 16),             # the JAX tests' ragged T
@@ -1424,23 +1503,24 @@ def wkv_graph_edge() -> dict:
                 graph_ms=statistics.median(times["graph"]))
 
 
-def rwkv6_captured(cfg, params, prompts, served, rng) -> tuple[dict, list]:
-    """RWKV-6 through ``launch.serve.captured_steps``: each prefill capture
-    (4 x 512, then 1 x 200, on prompts of its own) counts 24 wkv_chunked
-    for the capture and as many for each of the WARMUP eager runs, each
-    decode capture (B = 4, 1) none; the four requests replayed count none
-    and give the eager steps' last hidden, prefill cache, every step's
-    tokens and logits and the last cache bit for bit; prefill and decode ms
-    eager and captured in turns; peak memory; capture seconds.  Returns the
-    numbers and the captured requests' records."""
-    per = rwkv6.kernel_launches_per_prefill(cfg)
+def lm_captured(cfg, mod, params, prompts, served, rng, requests,
+                rounds) -> tuple[dict, list, tuple]:
+    """An LM through ``launch.serve.captured_steps``: each prefill capture
+    (one a distinct (B, T) of ``requests``, on prompts of its own) counts
+    ``mod.kernel_launches_per_prefill`` for the capture and as many for each
+    of the WARMUP eager runs, each decode capture none; the served requests
+    replayed count none and give the eager steps' last hidden, prefill
+    cache, every step's tokens and logits and the last cache bit for bit;
+    prefill ms and decode ms a token eager and captured in turns (``rounds``
+    of each) at the first and the last request's shape.  Returns the
+    numbers, the replayed records and the captured steps."""
+    per = mod.kernel_launches_per_prefill(cfg)
     per_capture = {k: (WARMUP + 1) * per.get(k, 0) for k in KERNELS}
     pre_c, dec_c = lm_serve.captured_steps(cfg, params)
     pre_e, dec_e = lm_serve.eager_steps(cfg, params)
     dev = torch.device("cuda")
-    shapes = list(dict.fromkeys(RWKV_REQUESTS))
     captures = {}
-    for B, T in shapes:
+    for B, T in dict.fromkeys((b, t) for b, t, _ in requests):
         p = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T),
                                           dtype=np.int32)).cuda()
         (_, cache, _), n_pre, res_pre = capture_counted(
@@ -1448,22 +1528,22 @@ def rwkv6_captured(cfg, params, prompts, served, rng) -> tuple[dict, list]:
         _, n_dec, res_dec = capture_counted(
             lambda: lm_serve.run_decode(dec_c, cache, B, 1, dev))
         if n_pre != per_capture or any(n_dec.values()):
-            fail(f"rwkv6 capture at {B} x {T}: launches {n_pre} in the prefill "
-                 f"and {n_dec} in decode, expected {per_capture} ({WARMUP} "
-                 f"warm-up runs and the capture) and none")
+            fail(f"{cfg.name} capture at {B} x {T}: launches {n_pre} in the "
+                 f"prefill and {n_dec} in decode, expected {per_capture} "
+                 f"({WARMUP} warm-up runs and the capture) and none")
         captures[f"{B}x{T}"] = dict(
             prefill_launches=n_pre, decode_launches=n_dec,
             prefill_capture_s=pre_c.capture_s[-1],
             decode_capture_s=dec_c.capture_s[-1],
             prefill_reserved_mib=res_pre, decode_reserved_mib=res_dec)
+        del cache
 
     reset_counts()
     records = []
-    for i, (p, r) in enumerate(zip(prompts, served)):
-        B = p.shape[0]
+    for i, (p, r, (_, _, gen)) in enumerate(zip(prompts, served, requests)):
         last, cache, _ = lm_serve.run_prefill(pre_c, p)
-        toks, logits, cache_end, _ = lm_serve.run_decode(dec_c, cache, B,
-                                                         RWKV_GEN, dev)
+        toks, logits, cache_end, _ = lm_serve.run_decode(dec_c, cache, p.shape[0],
+                                                         gen, dev)
         logits = torch.stack(logits, 1)
         # the last cache is the decode graph's buffer: compared before the
         # next request overwrites it
@@ -1471,36 +1551,49 @@ def rwkv6_captured(cfg, params, prompts, served, rng) -> tuple[dict, list]:
             [last, *cache, toks, logits, *cache_end],
             [r["last"], *r["cache"], r["tokens"], r["logits"], *r["cache_end"]])
         if diff:
-            fail(f"rwkv6 captured request {i}: differs from the eager steps "
+            fail(f"{cfg.name} captured request {i}: differs from the eager steps "
                  f"(last hidden, prefill cache, tokens, logits, last cache) "
                  f"at {diff}")
         records.append(dict(prompt=p, last=last, tokens=toks, logits=logits))
+        del cache, cache_end
     on_replay = read_counts()
     if any(on_replay.values()):
-        fail(f"rwkv6 captured: launches {on_replay} counted over the replayed "
-             f"requests, expected none")
+        fail(f"{cfg.name} captured: launches {on_replay} counted over the "
+             f"replayed requests, expected none")
 
     timing = {}
-    for (B, T), p in zip(shapes, (prompts[0], prompts[-1])):
-        batch = {"tokens": p}
+    for i in (0, -1):
+        B, T, gen = requests[i]
+        batch = {"tokens": prompts[i]}
         timing[f"prefill_{B}x{T}"] = alternate(
             {"eager": lambda: pre_e(batch), "captured": lambda: pre_c(batch)},
-            rounds=10)
+            rounds=rounds[0])
         with torch.inference_mode():
             c_e, c_c = pre_e(batch)[1], pre_c(batch)[1]
-        timing[f"decode_b{B}"] = alternate(
-            {"eager": lambda: lm_serve.run_decode(dec_e, c_e, B, RWKV_GEN, dev),
-             "captured": lambda: lm_serve.run_decode(dec_c, c_c, B, RWKV_GEN, dev)},
-            rounds=5, per=RWKV_GEN)
+        timing[f"decode_b{B}_{T}"] = alternate(
+            {"eager": lambda: lm_serve.run_decode(dec_e, c_e, B, gen, dev),
+             "captured": lambda: lm_serve.run_decode(dec_c, c_c, B, gen, dev)},
+            rounds=rounds[1], per=gen)
+        del c_e, c_c
+    return (dict(captures=captures, launches_on_replay=on_replay,
+                 bitwise_equal_requests=len(records), timing=timing),
+            records, (pre_e, dec_e, pre_c, dec_c))
+
+
+def rwkv6_captured(cfg, params, prompts, served, rng) -> tuple[dict, list]:
+    """RWKV-6 through ``lm_captured`` (4 x 512 and 1 x 200), then the peak
+    memory of a 4 x 512 request in each form and ``wkv_graph_edge``."""
+    requests = [(b, t, RWKV_GEN) for b, t in RWKV_REQUESTS]
+    cap, records, (pre_e, dec_e, pre_c, dec_c) = lm_captured(
+        cfg, rwkv6, params, prompts, served, rng, requests, rounds=(10, 5))
+    dev = torch.device("cuda")
     p = prompts[0]
-    peak = {name: peak_mib(lambda: lm_serve.run_decode(
-        dec, pre({"tokens": p})[1], p.shape[0], RWKV_GEN, dev))
-        for name, pre, dec in (("eager", pre_e, dec_e),
-                               ("captured", pre_c, dec_c))}
-    return dict(captures=captures, launches_on_replay=on_replay,
-                bitwise_equal_requests=len(records), timing=timing,
-                peak_allocated_mib_b4_t512=peak,
-                wkv_graph=wkv_graph_edge()), records
+    cap["peak_allocated_mib_b4_t512"] = {
+        name: peak_mib(lambda: lm_serve.run_decode(
+            dec, pre({"tokens": p})[1], p.shape[0], RWKV_GEN, dev))
+        for name, pre, dec in (("eager", pre_e, dec_e), ("captured", pre_c, dec_c))}
+    cap["wkv_graph"] = wkv_graph_edge()
+    return cap, records
 
 
 def rwkv6_path():
@@ -1681,6 +1774,123 @@ def rwkv6_path():
     return launches, result
 
 
+def dense_captured(cfg, params, prompts, served, rng) -> tuple[dict, list]:
+    """The dense model through ``lm_captured`` (4 x 512 and 1 x 4608), then
+    one torch.profiler trace of three captured 4 x 512 prefills."""
+    cap, records, (_, _, pre_c, _) = lm_captured(
+        cfg, transformer, params, prompts, served, rng, DENSE_REQUESTS,
+        rounds=(6, 4))
+    cap["trace_prefill_4x512"] = trace(pre_c, {"tokens": prompts[0]}, 3)
+    return cap, records
+
+
+def dense_path():
+    """``h2o-danube-1.8b`` uncut served through ``launch.serve``'s prefill
+    and greedy decode, eager then captured, held to its plain model (see
+    the module docstring, phase 5b).  Returns the launch counts of the
+    served requests and the numbers."""
+    cfg = get_config(DENSE_ARCH)
+    defs = transformer.param_defs(cfg)
+    if count_params(defs) != DENSE_PARAMS:
+        fail(f"dense: {count_params(defs)} parameters, expected {DENSE_PARAMS}")
+    want = transformer.kernel_launches_per_prefill(cfg)
+    if want != {"flash_attention": 24}:
+        fail(f"{DENSE_ARCH} should launch flash_attention 24 times a prefill, "
+             f"model says {want}")
+    t0 = time.perf_counter()
+    tree = init_params(SEED, defs)              # numpy float32, on the host
+    init_s = time.perf_counter() - t0
+    params = transformer.load_params(cfg, tree)  # as served: bfloat16 compute
+    del tree
+    prefill, decode = lm_serve.eager_steps(cfg, params)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t),
+                                             dtype=np.int32)).cuda()
+               for b, t, _ in DENSE_REQUESTS]
+
+    for p in (prompts[0], prompts[-1]):        # warm-up, one of each size
+        _, cache, _ = lm_serve.run_prefill(prefill, p)
+        lm_serve.run_decode(decode, cache, p.shape[0], 2, p.device)
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served = []
+    launches = {name: 0 for name in KERNELS}
+    for i, (p, (B, T, gen)) in enumerate(zip(prompts, DENSE_REQUESTS)):
+        reset_counts()
+        last, cache, prefill_ms = lm_serve.run_prefill(prefill, p)
+        n_prefill = read_counts()
+        reset_counts()
+        toks, logits, cache_end, decode_ms = lm_serve.run_decode(
+            decode, cache, B, gen, p.device)
+        n_decode = read_counts()
+        for name in KERNELS:
+            expect = want.get(name, 0)
+            if n_prefill[name] != expect or n_decode[name]:
+                fail(f"dense request {i}: {name} launched {n_prefill[name]} "
+                     f"times in prefill and {n_decode[name]} in decode, "
+                     f"expected {expect} and 0")
+            launches[name] += n_prefill[name] + n_decode[name]
+        logits = torch.stack(logits, 1)
+        W = transformer.cache_len(cfg, T)
+        if logits.shape != (B, gen, cfg.padded_vocab) \
+                or not torch.isfinite(logits).all() \
+                or cache.k.shape != (cfg.num_layers, B, cfg.num_kv_heads, W, cfg.head_dim):
+            fail(f"dense request {i}: logits {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}, cache {tuple(cache.k.shape)}")
+        if toks.shape != (B, gen) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"dense request {i}: tokens {tuple(toks.shape)} out of range")
+        served.append(dict(prompt=p, last=last, cache=cache, cache_end=cache_end,
+                           tokens=toks, logits=logits, prefill_ms=prefill_ms,
+                           decode_ms=decode_ms))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    cap, cap_records = dense_captured(cfg, params, prompts, served, rng)
+
+    # the served run against the plain model (no kernel), teacher-forced
+    # with the served tokens; the captured records are the eager bits
+    plain_prefill = build_prefill_step(cfg, kernels=ref.PLAIN)
+    plain_decode = build_decode_step(cfg, kernels=ref.PLAIN)
+    V = cfg.vocab_size
+    err, hidden_err, agree, steps = 0.0, 0.0, 0, 0
+    for r in (served[0], served[-1]):
+        with torch.inference_mode():
+            last_p, cache_p = plain_prefill(params, {"tokens": r["prompt"]})
+        logits_p, _ = forced_decode(plain_decode, params, cache_p,
+                                    decode_inputs(r["tokens"]))
+        del cache_p
+        err = max(err, (r["logits"][..., :V] - logits_p[..., :V]).abs().max().item())
+        hidden_err = max(hidden_err, (r["last"].float() - last_p.float())
+                         .abs().max().item())
+        agree += int((logits_p[..., :V].argmax(-1) == r["tokens"]).sum())
+        steps += r["tokens"].numel()
+    if err > BF16_LOGITS_TOL or agree < BF16_AGREEMENT * steps:
+        fail(f"dense bfloat16: logits differ from the plain model by {err:.3e} "
+             f"(limit {BF16_LOGITS_TOL}), greedy tokens agree {agree}/{steps} "
+             f"(at least {BF16_AGREEMENT:.0%})")
+    del cap_records, params, plain_prefill, plain_decode
+    served_b4 = [r for r in served if r["prompt"].shape[0] == 4]
+    result = dict(
+        arch=DENSE_ARCH, requests=DENSE_REQUESTS, parameters=DENSE_PARAMS,
+        init_params_s=init_s, launches=launches,
+        prefill_ms=[r["prefill_ms"] for r in served],
+        decode_ms=[r["decode_ms"] for r in served],
+        prefill_ms_b4_t512=statistics.median(r["prefill_ms"] for r in served_b4),
+        prefill_ms_b1_t4608=served[-1]["prefill_ms"],
+        decode_ms_per_token_b4=statistics.median(
+            r["decode_ms"] / r["tokens"].shape[1] for r in served_b4),
+        decode_ms_per_token_b1_ring=served[-1]["decode_ms"] / served[-1]["tokens"].shape[1],
+        peak_memory_mib=peak,
+        logits_abs_max=max(r["logits"].abs().max().item() for r in served),
+        bf16_max_logits_err_vs_plain=err, bf16_max_last_hidden_err_vs_plain=hidden_err,
+        bf16_greedy_agreement=agree / steps,
+        first_tokens=served[0]["tokens"][0, :16].tolist(), captured=cap)
+    del served
+    torch.cuda.empty_cache()
+    return launches, result
+
+
 def split_text(rec: dict) -> str:
     """`` [regime R] splits S ctas N`` from a record's plan, the depthwise
     tile ``tile THxTWxCB cv CV ctas N smem S``, or the WKV plan ``wv W
@@ -1825,6 +2035,48 @@ def main() -> None:
           f"(1 = programmatic), replay follows new inputs bit for bit, ms eager "
           f"{w['eager_ms']:.4f} graph {w['graph_ms']:.4f}", flush=True)
 
+    # 5b. the dense path, h2o-danube-1.8b uncut
+    dense_launches, dense = dense_path()
+    print(f"dense {dense['arch']} requests {dense['requests']} (batch, prompt, greedy "
+          f"tokens), {dense['parameters']} parameters (init on the host "
+          f"{dense['init_params_s']:.1f} s), launches {dense_launches} = 24 "
+          f"flash_attention a prefill, 0 in decode")
+    print(f"dense prefill ms B=4 T=512 {dense['prefill_ms_b4_t512']:.3f} B=1 T=4608 "
+          f"{dense['prefill_ms_b1_t4608']:.3f}; decode ms/token B=4 "
+          f"{dense['decode_ms_per_token_b4']:.3f} B=1 (ring of 4096) "
+          f"{dense['decode_ms_per_token_b1_ring']:.3f} (eager); peak memory "
+          f"{dense['peak_memory_mib']:.0f} MiB")
+    print(f"dense bfloat16 vs plain: max |dlogits| "
+          f"{dense['bf16_max_logits_err_vs_plain']:.3e} (limit {BF16_LOGITS_TOL}), "
+          f"last hidden {dense['bf16_max_last_hidden_err_vs_plain']:.3e}, greedy "
+          f"agreement {dense['bf16_greedy_agreement']:.3f} (at least "
+          f"{BF16_AGREEMENT}); |logits| <= {dense['logits_abs_max']:.3f}", flush=True)
+    cap = dense["captured"]
+    for shape, c in cap["captures"].items():
+        print(f"dense captured {shape}: capture prefill {c['prefill_capture_s']:.2f} s "
+              f"decode {c['decode_capture_s']:.2f} s (host clock, {WARMUP} warm-up "
+              f"runs included), launches prefill "
+              f"{c['prefill_launches']['flash_attention']} flash_attention = "
+              f"(1 + {WARMUP}) x 24, decode {sum(c['decode_launches'].values())}; "
+              f"graph reserved {c['prefill_reserved_mib']:.0f} + "
+              f"{c['decode_reserved_mib']:.0f} MiB")
+    print(f"dense captured: {cap['bitwise_equal_requests']} requests replayed equal "
+          f"the eager steps bit for bit (last hidden, prefill cache, tokens, "
+          f"logits, last cache), launches on replay "
+          f"{sum(cap['launches_on_replay'].values())}")
+    for key, t in cap["timing"].items():
+        unit = "ms/token" if key.startswith("decode") else "ms"
+        print(f"dense {key} {unit} eager|captured (median, in turns): events "
+              f"{t['eager']['event_ms']:.3f}|{t['captured']['event_ms']:.3f} wall "
+              f"{t['eager']['wall_ms']:.3f}|{t['captured']['wall_ms']:.3f}")
+    tr = cap["trace_prefill_4x512"]
+    busy = tr["device_busy_share"]
+    print(f"dense captured prefill 4x512 traced x{tr['traced_requests']}: window "
+          f"{tr['window_ms']:.2f} ms, device busy {tr['device_busy_ms']:.2f} ms "
+          f"({'not measured' if busy is None else f'{100 * busy:.1f} %'}), own "
+          f"kernels {tr['own_kernels_ms']:.2f} ms, {tr['device_kernel_launches']} "
+          f"device kernels", flush=True)
+
     # 6. the scheduler's path: every lowered entry onto its kernel
     lowered, entries, by_workload, lowered_launches, verified, samples, launched = \
         lowered_phase()
@@ -1875,6 +2127,7 @@ def main() -> None:
     # 8. results
     rows = summarise(per_kernel, {"edgenext_serve": launches,
                                   "rwkv6_serve": rwkv_launches,
+                                  "dense_serve": dense_launches,
                                   "lowered": lowered_launches,
                                   "serve_store": serve_launches})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1885,7 +2138,8 @@ def main() -> None:
         out.write_text(json.dumps(dict(
             device=device, nvidia_smi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
-            kernels=rows, main_path=served, rwkv6=rwkv, check=check, serve=store,
+            kernels=rows, main_path=served, rwkv6=rwkv, dense=dense, check=check,
+            serve=store,
             lowered=dict(records=lowered, entries=entries,
                          by_workload=by_workload)), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")

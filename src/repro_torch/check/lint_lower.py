@@ -7,7 +7,7 @@ the kernel wrappers:
 
 - every block is one its kernel is compiled for: ``fused_ibn``
   (block_m, block_f) = (64, 64) only, ``flash_attention`` (block_q,
-  block_k) = (16, 32) only, ``matmul_ln`` block_m in (8, 16, 32, 64) and
+  block_k) = (64, 64) only, ``matmul_ln`` block_m in (8, 16, 32, 64) and
   block_k in (16, 32, 64); anything else is ``lint.block_menu``;
 - ``matmul_ln`` keeps block_m whole float32 rows of N in shared memory:
   ``block_m * N * 4`` within 160 KiB (``lint.smem``);
@@ -35,7 +35,7 @@ from repro_torch.check.schedule import Finding
 
 # the tiles each kernel is compiled for
 FUSED_IBN_BLOCKS = {"block_m": 64, "block_f": 64}
-FLASH_ATTENTION_BLOCKS = {"block_q": 16, "block_k": 32}
+FLASH_ATTENTION_BLOCKS = {"block_q": 64, "block_k": 64}
 MATMUL_LN_BLOCK_M = (8, 16, 32, 64)
 MATMUL_LN_BLOCK_K = (16, 32, 64)
 # matmul_ln's float32 row buffer: block_m rows of N, over the whole row

@@ -47,22 +47,36 @@
 //    the launch's fixed cost, the loads, and the latency of the Q K^T and
 //    P V loops where D is wide.
 //
-// 2. Online softmax over KV tiles (flash_kernel), for Sk > S_MAX: one block
-//    owns a tile of BQ query rows of one (batch, head) and loops over the
-//    KV tiles itself, with m and l in registers and acc spread over the
-//    threads' registers; float32 multiply-adds on the CUDA cores:
-//      * Q K^T loops D in slabs of DS columns staged in shared memory; warp
-//        w owns query rows w and w + 8, lane i owns key i of the KV tile
-//        (BK = 32 = one warp), so the row max and row sum are warp shuffles;
-//      * the output's D is spread over the block: thread t owns columns
-//        t, t + 256, ... (NJ of them) of all BQ rows, reads each v element
-//        straight from device memory and p from shared memory;
-//      * D wider than 256 * NJ is split over blockIdx.z; each such block
-//        recomputes the scores.  KV tiles that causal/window masking
-//        empties for the whole query tile are skipped, unless a row of the
-//        tile has no unmasked key at all (it then needs every tile for its
-//        uniform average).
-//    This regime is not redesigned yet: no model path runs it.
+// 2. Online softmax over KV tiles (online_kernel), for Sk > S_MAX: the
+//    prefill attention of the LM stack (causal, windowed, GQA heads
+//    expanded by the caller; D = 64..256).  Bound on this card: bytes at
+//    the served 4 x 512 prompts, operations at long windowed prompts (only
+//    the unmasked q.k pairs count).  A block of 4 warps owns 64 query rows
+//    of one (batch, head), a warp 16 of them, and loops over the KV tiles
+//    itself:
+//      * K and V tiles of 64 keys come into shared memory by cp.async
+//        (cp_async.cuh), double-buffered (the next tile lands while this
+//        one is used), zero-filled past Sk and D; q is staged once and
+//        read as mma fragments at each step (held in registers it cost a
+//        block a SM, which was slower);
+//      * both products run on the tensor cores (mma.cuh): one bf16 term
+//        with float32 accumulation, or 3xTF32 for float32 in slabs summed
+//        from zero; bf16 operands come by ldmatrix (V transposed on the
+//        way), from row strides that keep it free of bank conflicts;
+//      * the online softmax runs on the score fragments: a row's 64 scores
+//        lie on the 4 lanes of a quad, so its max and sum are two shuffles;
+//        exp2 of the scores scaled by scale * log2(e); p is rounded to v's
+//        type in registers and is the A operand of P V as it stands (the
+//        float32 path reads V's rows in the order of the score fragment's
+//        columns: key 2t, then 2t + 1);
+//      * the KV loop is bounded by `causal` and `window`: tiles masked for
+//        the whole query tile are never loaded, unless a row of the tile
+//        has no unmasked key at all (it then needs every key for its
+//        uniform average); the heaviest query tiles are scheduled first.
+//    D <= 256 (128 in float32) is one chunk, held in registers; a wider D
+//    is cut into chunks: the output columns over blockIdx.z, each such
+//    block recomputing the scores over all chunks (q and K chunks staged
+//    per tile).  One pass, no atomics: two calls give the same bits.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -79,22 +93,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // ---------------------------------------------------------------------------
 // 1. whole rows
@@ -369,133 +367,365 @@ rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 }
 
 // ---------------------------------------------------------------------------
-// 2. online softmax over KV tiles
+// 2. online softmax over KV tiles, on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 16;    // query rows per block (2 per warp)
-constexpr int BK = 32;    // keys per KV tile (1 per lane)
-constexpr int DS = 128;   // slab of D per step of Q K^T
-constexpr int NT = 256;   // threads
+constexpr int OQ = 64;    // query rows of a block: 16 a warp
+constexpr int OKT = 64;   // keys of a KV tile
+constexpr int NTO = 128;  // threads: 4 warps
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(NT)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int Sq, int Sk, int D, float scale, int causal,
-             int has_window, int window) {
-  __shared__ float qs[BQ][DS];
-  __shared__ float ks[BK][DS + 1];
-  __shared__ float ps[BQ][BK];
-  __shared__ float alphas[BQ];
-  __shared__ float ls[BQ];
+// ldmatrix: four 8x8 tiles of 16-bit elements, row addresses from lanes
+// 8i..8i+7 for tile i (`trans`: each tile transposed on the way)
+// (a shared-memory address: a lane's base plus a constant offset, so that
+// the unrolled loops keep no address of their own in registers)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Columns of D a block takes at once (a compiled instance each): a chunk of
+// the score product's depth, and the output columns a block owns
+// (blockIdx.z).  D <= 256 is one chunk (128 for float32, whose 3xTF32
+// temporaries need the registers), in the narrowest instance that holds it
+// (bf16 rows a multiple of the 16-deep mma step, float32 of 32 columns, the
+// P V group); a wider D is cut into chunks and its scores recomputed by
+// every output chunk.  The registers a thread keeps grow with the chunk.
+template <typename T>
+__host__ __device__ inline int online_chunk(int D) {
+  if (sizeof(T) == 2) return D <= 64 ? 64 : D <= 80 ? 80 : D <= 128 ? 128 : 256;
+  return D <= 64 ? 64 : D <= 96 ? 96 : 128;
+}
+// Row stride (elements) of a staged tile of a chunk: bf16 rows that ldmatrix
+// reads free of bank conflicts (ld / 8 odd), float32 rows that the scalar
+// fragment loads read free of them (ld = 4 mod 32).
+template <typename T>
+__host__ __device__ constexpr int online_ld(int dc) {
+  return sizeof(T) == 2 ? dc + 8 : dc + 4;
+}
+// Dynamic shared memory: with one chunk, q resident and a ring of RING K / V
+// tiles; with several, a ring of RING (q chunk, K chunk) / V tiles.
+constexpr int RING = 3;
+template <typename T>
+__host__ __device__ inline size_t online_smem(int D) {
+  const int dc = online_chunk<T>(D), nc = (D + dc - 1) / dc;
+  return sizeof(T) * (size_t)online_ld<T>(dc) * OQ * (nc == 1 ? 1 + RING : 2 * RING);
+}
+// Blocks a SM should hold at once (the registers' bound passed to ptxas):
+// four for bf16 chunks up to 80 columns (128 registers a thread), three up to
+// 128 (168); wider chunks and float32 take what they need.  Tighter bounds
+// spill at D = 128 and were slower there.
+template <typename T, int DC>
+constexpr int online_min_blocks = sizeof(T) != 2 ? 1 : DC <= 80 ? 4 : DC <= 128 ? 3 : 1;
+// 2^x: one MUFU.EX2 (relative error ~2^-22; ex2(0) = 1 and ex2(-1e30) = 0
+// exactly, which the masks rely on)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// grid (BH, query tiles, output chunks); DC = online_chunk<T>(D)
+template <typename T, int DC>
+__global__ void __launch_bounds__(NTO, online_min_blocks<T, DC>)
+online_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              T* __restrict__ out, int Sq, int Sk, int D, float scale, int causal,
+              int has_window, int window) {
+  using MM = Mma<T>;
+  using S = typename MM::S;
+  using R = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;  // raw bits
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int U = MM::K;                    // depth of an mma step
+  constexpr int V = 16 / sizeof(T);           // elements of a 16-byte copy
+  constexpr int NKS = DC / U;                 // mma steps of a chunk's depth
+  constexpr int NO = DC / 8;                  // 8-column output tiles of a chunk
+  constexpr int CPR = DC * (int)sizeof(T) / 16;  // 16-byte copies a staged row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S* smem = reinterpret_cast<S*>(smem_raw);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const long long bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
-  const int dz = blockIdx.z * (NT * NJ);
-  const T* qb = q + bh * Sq * D;
-  const T* kb = k + bh * Sk * D;
-  const T* vb = v + bh * Sk * D;
+  // the last query tiles (the most keys under `causal`) are scheduled first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * OQ;
+  const int nc = (D + DC - 1) / DC, z = blockIdx.z;
+  constexpr int ld = online_ld<T>(DC), tile = OQ * ld;
+  // one chunk: q [OQ][ld], then the ring; several: the ring alone, each
+  // buffer a q chunk and a K chunk, or a V tile.  A unit (a K, q/K or V
+  // stage) is issued two units ahead of its use, a whole KV tile's work.
+  S* qres = smem;
+  S* ring = smem + (nc == 1 ? tile : 0);
+  const int buf = nc == 1 ? tile : 2 * tile;
+
+  const R* qb = reinterpret_cast<const R*>(q) + bh * Sq * D;
+  const R* kb = reinterpret_cast<const R*>(k) + bh * Sk * D;
+  const R* vb = reinterpret_cast<const R*>(v) + bh * Sk * D;
+  const bool vec = D % V == 0 &&
+                   (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  // rows [row0, row0 + 64) of src (those past `rows` zero), chunk c's
+  // columns (those past D zero), into dst [64][ld]
+  auto stage = [&](S* dst, const R* src, int row0, int rows, int c) {
+    const int c0 = c * DC, c1 = min(D, c0 + DC);
+#pragma unroll
+    for (int j = 0; j < (OQ * CPR + NTO - 1) / NTO; ++j) {
+      const int i = tid + j * NTO;
+      if (i >= OQ * CPR) break;
+      const int r = i / CPR, col = (i % CPR) * V;
+      copy_chunk<R, V>(dst + r * ld + col, src + (long long)(row0 + r) * D + c0 + col,
+                       row0 + r < rows ? (long long)(c1 - c0 - col) : 0, vec, src);
+    }
+  };
 
   // KV range this query tile can see; all of it if some row sees nothing
-  const int q_last = min(q0 + BQ, Sq) - 1;
+  // (that row then averages every key, as NEG_INF is finite).  Row qp sees
+  // keys [max(0, qp - window + 1), causal ? min(Sk - 1, qp) : Sk - 1]: with a
+  // window that is empty for qp >= Sk + window - 1, and for every row under
+  // `causal` with window <= 0; without one, never.
+  const int q_last = min(q0 + OQ, Sq) - 1;
   int k_begin = has_window ? max(0, q0 - window + 1) : 0;
   int k_end = causal ? min(Sk, q_last + 1) : Sk;
-  bool some_row_empty = k_begin >= k_end;
-  for (int qp = q0; qp <= q_last; ++qp) {
-    const int lo = has_window ? max(0, qp - window + 1) : 0;
-    const int hi = causal ? min(Sk - 1, qp) : Sk - 1;
-    some_row_empty |= lo > hi;
-  }
+  const bool some_row_empty =
+      k_begin >= k_end ||
+      (has_window && ((long long)q_last >= (long long)Sk + window - 1 || (causal && window <= 0)));
   if (some_row_empty) { k_begin = 0; k_end = Sk; }
+  const int kt0 = k_begin / OKT, kt1 = (k_end + OKT - 1) / OKT;
+  const int parts = nc + 1;                  // nc q.k chunks, then V
+  const int units = (kt1 - kt0) * parts;
 
+  auto issue = [&](int u) {
+    const int key0 = (kt0 + u / parts) * OKT, p = u % parts;
+    S* b = ring + (u % RING) * buf;
+    if (p == nc) {
+      stage(b, vb, key0, Sk, z);
+    } else {
+      if (nc > 1) stage(b, qb, q0, Sq, p);
+      stage(b + (nc > 1 ? tile : 0), kb, key0, Sk, p);
+    }
+  };
+
+  // this warp's rows g and g + 8 of its 16: scores of the KV tile, the
+  // running max (log2 domain) and sum, the output chunk
+  float s[8][4], o[NO][4];
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
-  float acc[BQ][NJ];
 #pragma unroll
-  for (int r = 0; r < BQ; ++r)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
+  for (int j = 0; j < NO; ++j) zero(o[j]);
+  const int wz = min(D, (z + 1) * DC) - z * DC;   // this block's output columns
+  const float sl = scale * LOG2E;
 
-  for (int kk0 = (k_begin / BK) * BK; kk0 < k_end; kk0 += BK) {
-    // ---- scores of rows (warp, warp + 8) against key `lane` ----
-    float s[2] = {0.f, 0.f};
-    for (int d0 = 0; d0 < D; d0 += DS) {
-      for (int i = tid; i < BQ * DS; i += NT) {
-        const int r = i / DS, d = i % DS;
-        const bool ok = q0 + r < Sq && d0 + d < D;
-        qs[r][d] = ok ? to_f32(qb[(long long)(q0 + r) * D + d0 + d]) * scale : 0.f;
-      }
-      for (int i = tid; i < BK * DS; i += NT) {
-        const int r = i / DS, d = i % DS;
-        const bool ok = kk0 + r < Sk && d0 + d < D;
-        ks[r][d] = ok ? to_f32(kb[(long long)(kk0 + r) * D + d0 + d]) : 0.f;
-      }
-      __syncthreads();
-      const int dmax = min(DS, D - d0);
-      for (int d = 0; d < dmax; ++d) {
-        const float kv = ks[lane][d];
-        s[0] += qs[warp][d] * kv;
-        s[1] += qs[warp + 8][d] * kv;
-      }
-      __syncthreads();
-    }
-
-    // ---- mask, online softmax; p goes to shared memory ----
-    const int kp = kk0 + lane;
-    const bool in_range = kp < Sk;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = warp + 8 * h;
-      const int qp = q0 + r;
-      const bool ok = in_range && (!causal || qp >= kp) && (!has_window || qp - kp < window);
-      const float sv = ok ? s[h] : NEG_INF;
-      const float m_new = fmaxf(m_run[h], warp_max(sv));
-      const float p = in_range ? expf(sv - m_new) : 0.f;  // keys past Sk do not exist
-      const float alpha = expf(m_run[h] - m_new);
-      l_run[h] = l_run[h] * alpha + warp_sum(p);
-      m_run[h] = m_new;
-      ps[r][lane] = round_to(p, v);
-      if (lane == 0) alphas[r] = alpha;
-    }
+  if (nc == 1) stage(qres, qb, q0, Sq, 0);
+  issue(0);
+  cp_async_commit();
+  if (units > 1) issue(1);
+  cp_async_commit();
+  for (int u = 0; u < units; ++u) {
+    cp_async_wait<1>();  // unit u (and q) landed; unit u + 1 may be in flight
+    // every warp is done with unit u - 1, whose buffer unit u + 2 takes
     __syncthreads();
-
-    // ---- acc = acc * alpha + P @ V; thread owns columns dz + tid + NT * j ----
+    if (u + 2 < units) issue(u + 2);
+    cp_async_commit();
+    const int kt = kt0 + u / parts, p = u % parts;
+    const S* b = ring + (u % RING) * buf;
+    if (p < nc) {
+      // ---- s (+)= Q_c K_c^T over chunk p ----
+      const S* qs = (nc == 1 ? qres : b) + warp * 16 * ld;
+      const S* ks = b + (nc > 1 ? tile : 0);
+      const int nks = (min(D, (p + 1) * DC) - p * DC + U - 1) / U;
+      if (p == 0) {
 #pragma unroll
-    for (int r = 0; r < BQ; ++r) {
-      const float a = alphas[r];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[r][j] *= a;
-    }
-    const int nk = min(BK, Sk - kk0);
-    for (int kk = 0; kk < nk; ++kk) {
-      float vv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = dz + tid + NT * j;
-        vv[j] = d < D ? to_f32(vb[(long long)(kk0 + kk) * D + d]) : 0.f;
+        for (int j = 0; j < 8; ++j) zero(s[j]);
       }
+      if constexpr (BF) {
+        // this lane's row addresses for ldmatrix (bytes): q's A tiles, K's
+        // B tiles; every fragment is one of them plus a constant
+        const uint32_t qa = smem_u32(qs) + 2 * (((lane >> 3 & 1) * 8 + (lane & 7)) * ld +
+                                                (lane >> 4) * 8);
+        const uint32_t ka = smem_u32(ks) + 2 * (((lane >> 4) * 8 + (lane & 7)) * ld +
+                                                (lane >> 3 & 1) * 8);
 #pragma unroll
-      for (int r = 0; r < BQ; ++r) {
-        const float pv = ps[r][kk];
+        for (int ks_ = 0; ks_ < NKS; ++ks_) {
+          if (ks_ >= nks) break;
+          typename MM::A a;
+          ldsm_x4(a.r, qa + 32 * ks_);
+          // the step's K fragments first, then its products: the loads are
+          // in flight together
+          uint32_t r[4][4];
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[r][j] += pv * vv[j];
+          for (int np = 0; np < 4; ++np) ldsm_x4(r[np], ka + 2 * (np * 16 * ld + ks_ * 16));
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            MM::mma(s[2 * np], a, typename MM::B{{r[np][0], r[np][1]}});
+            MM::mma(s[2 * np + 1], a, typename MM::B{{r[np][2], r[np][3]}});
+          }
+        }
+      } else {
+        // 3xTF32: each 32-deep slab summed from zero, then added
+#pragma unroll
+        for (int grp = 0; grp < 2; ++grp) {
+          for (int k0 = 0; k0 < nks * U; k0 += 32) {
+            float ds[4][4], db[4][4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) zero(ds[j]), zero(db[j]);
+#pragma unroll
+            for (int kk = 0; kk < 32; kk += U) {
+              if (k0 + kk >= nks * U) break;
+              const typename MM::A a = MM::load_a(qs + k0 + kk, ld, lane);
+              typename MM::B bb[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                bb[j] = MM::load_bt(ks + (grp * 32 + 8 * j) * ld + k0 + kk, ld, lane);
+              MM::mma_row(ds, db, a, bb);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) s[grp * 4 + j][e] += ds[j][e] + db[j][e];
+          }
+        }
+      }
+      if (p == nc - 1) {
+        // ---- masks and the online softmax on the fragments: a row's 64
+        //      scores lie on the 4 lanes of a quad ----
+        // (only a tile that crosses Sk, the diagonal or the window's edge
+        // for this warp's rows tests each score: the test is warp-uniform)
+        const int key0 = kt * OKT, r_lo = q0 + warp * 16;
+        const bool tail = key0 + OKT > Sk;
+        const bool edge = tail || (causal && key0 + OKT - 1 > r_lo) ||
+                          (has_window && r_lo + 15 - key0 >= window);
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] *= sl;
+            if (edge) {
+              const int qp = r_lo + g + (e >> 1) * 8;
+              const int kp = key0 + 8 * j + 2 * t + (e & 1);
+              if (!(kp < Sk && (!causal || qp >= kp) && (!has_window || qp - kp < window)))
+                s[j][e] = NEG_INF;
+            }
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          }
+        float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float m_new = fmaxf(m_run[h], mx[h]);
+          alpha[h] = ex2(m_run[h] - m_new);
+          m_run[h] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = ex2(s[j][e] - m_run[e >> 1]);
+            // keys past Sk do not exist
+            if (tail && key0 + 8 * j + 2 * t + (e & 1) >= Sk) s[j][e] = 0.f;
+            sum[e >> 1] += s[j][e];
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+          l_run[h] = l_run[h] * alpha[h] + sum[h];
+        }
+#pragma unroll
+        for (int j = 0; j < NO; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+      }
+    } else {
+      // ---- o += P V_z, p from the score fragments (rounded to v's type) ----
+      if constexpr (BF) {
+        const int nvp = (wz + 15) / 16;
+        const uint32_t va = smem_u32(b) + 2 * (((lane >> 3 & 1) * 8 + (lane & 7)) * ld +
+                                               (lane >> 4) * 8);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const typename MM::A a{{pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                  pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                  pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                  pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])}};
+          // V fragments of up to four column pairs in flight, then their
+          // products
+#pragma unroll
+          for (int n0 = 0; n0 < NO / 2; n0 += 4) {
+            uint32_t r[4][4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (n0 + i < NO / 2 && n0 + i < nvp)
+                ldsm_x4_t(r[i], va + 2 * (kk * 16 * ld + (n0 + i) * 16));
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (n0 + i < NO / 2 && n0 + i < nvp) {
+                MM::mma(o[2 * (n0 + i)], a, typename MM::B{{r[i][0], r[i][1]}});
+                MM::mma(o[2 * (n0 + i) + 1], a, typename MM::B{{r[i][2], r[i][3]}});
+              }
+          }
+        }
+      } else {
+        // the A fragment's column t holds key 2t and t + 4 key 2t + 1 (the
+        // C layout of the scores); V's rows are read in the same order
+        const int nvg = (wz + 31) / 32;
+#pragma unroll
+        for (int grp = 0; grp < NO / 4; ++grp) {
+          if (grp >= nvg) break;
+          float ds[4][4], db[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) zero(ds[j]), zero(db[j]);
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            const float av[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+            typename MM::A a;
+            MM::split(av, a.big, a.small);
+            typename MM::B bb[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const S* vp = b + (kk * 8 + 2 * t) * ld + grp * 32 + 8 * j + g;
+              const float vv[2] = {vp[0], vp[ld]};
+              MM::split(vv, bb[j].big, bb[j].small);
+            }
+            MM::mma_row(ds, db, a, bb);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[grp * 4 + j][e] += ds[j][e] + db[j][e];
+        }
       }
     }
-    __syncthreads();  // before ps and alphas are written again
   }
 
-  if (lane == 0) {
-    ls[warp] = l_run[0];
-    ls[warp + 8] = l_run[1];
-  }
-  __syncthreads();
+  // ---- o / l, stored once ----
+  const bool pairs = D % 2 == 0;
+  T* ob = out + bh * Sq * D + z * DC;
 #pragma unroll
-  for (int r = 0; r < BQ; ++r) {
-    if (q0 + r >= Sq) continue;
-    const float l = ls[r] == 0.f ? 1.f : ls[r];
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + warp * 16 + g + 8 * h;
+    if (r >= Sq) continue;
+    const float l = l_run[h] == 0.f ? 1.f : l_run[h];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = dz + tid + NT * j;
-      if (d < D) from_f32(acc[r][j] / l, out + (bh * Sq + q0 + r) * D + d);
+    for (int j = 0; j < NO; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (col < wz)
+        store2(o[j][2 * h] / l, o[j][2 * h + 1] / l, ob + (long long)r * D + col,
+               pairs && col + 1 < wz);
     }
   }
 }
@@ -546,22 +776,51 @@ int launch_rows(const void* q, const void* k, const void* v, void* out, long lon
   return (int)cudaGetLastError();
 }
 
+template <typename T, int DC>
+int launch_online_at(const void* q, const void* k, const void* v, void* out, long long BH,
+                     int Sq, int Sk, int D, float scale, int causal, int has_window, int window,
+                     cudaStream_t s) {
+  const unsigned gy = (Sq + OQ - 1) / OQ, gz = (D + DC - 1) / DC;
+  if (BH > 2147483647LL || gy > 65535u || gz > 65535u) return (int)cudaErrorInvalidValue;
+  const size_t smem = online_smem<T>(D);
+  if (smem > (size_t)SMEM_OPT_IN) return (int)cudaErrorInvalidValue;
+  auto kern = online_kernel<T, DC>;
+  // shared memory past the 48 KiB a launch gets without asking: opt in once
+  // per instance and device
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_OPT_IN);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) opted_in[dev] = true;
+  }
+  kern<<<dim3((unsigned)BH, gy, gz), NTO, smem, s>>>((const T*)q, (const T*)k, (const T*)v,
+                                                     (T*)out, Sq, Sk, D, scale, causal,
+                                                     has_window, window);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_online(const void* q, const void* k, const void* v, void* out, long long BH, int Sq,
                   int Sk, int D, float scale, int causal, int has_window, int window,
                   cudaStream_t s) {
-  const int nj = D <= NT ? 1 : (D <= 2 * NT ? 2 : 4);
-  const unsigned gy = (Sq + BQ - 1) / BQ, gz = (D + NT * nj - 1) / (NT * nj);
-  if (BH > 2147483647LL || gy > 65535u || gz > 65535u) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)BH, gy, gz);
-#define REPRO_FLASH_LAUNCH(NJ)                                                            \
-  flash_kernel<T, NJ><<<grid, NT, 0, s>>>((const T*)q, (const T*)k, (const T*)v, (T*)out, \
-                                          Sq, Sk, D, scale, causal, has_window, window)
-  if (nj == 1) REPRO_FLASH_LAUNCH(1);
-  else if (nj == 2) REPRO_FLASH_LAUNCH(2);
-  else REPRO_FLASH_LAUNCH(4);
-#undef REPRO_FLASH_LAUNCH
-  return (int)cudaGetLastError();
+  const int dc = online_chunk<T>(D);
+#define REPRO_ONLINE(DC)                                                                     \
+  if (dc == DC)                                                                              \
+    return launch_online_at<T, DC>(q, k, v, out, BH, Sq, Sk, D, scale, causal, has_window, \
+                                   window, s);
+  REPRO_ONLINE(64)
+  REPRO_ONLINE(128)
+  if constexpr (sizeof(T) == 2) {
+    REPRO_ONLINE(80)
+    REPRO_ONLINE(256)
+  } else {
+    REPRO_ONLINE(96)
+  }
+#undef REPRO_ONLINE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

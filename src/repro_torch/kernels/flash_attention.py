@@ -3,7 +3,8 @@
 Port of ``repro/kernels/flash_attention.py``, forward only.  ``plan``
 picks one of the kernel's two regimes: whole score rows with D split over
 a thread-block cluster where the keys fit one block (Sk <= S_MAX), else
-the online softmax over KV tiles.  ``launches`` counts the kernel
+the online softmax over KV tiles on the tensor cores (64 query rows a
+block, 64-key tiles; D in chunks of ``online_chunk``).  ``launches`` counts the kernel
 launches made through this wrapper.
 """
 from __future__ import annotations
@@ -19,9 +20,10 @@ from repro_torch.kernels._launch import check_cuda_dense, check_launch
 
 launches = 0
 
-# The online regime's tile (BQ, BK), the one tile search.lower emits; the
+# The online regime's tile (query rows of a block, keys of a KV tile:
+# csrc/flash_attention.cu's OQ, OKT), the one tile search.lower emits; the
 # whole-row regime takes every lowered shape with Sk <= S_MAX whatever it.
-BLOCKS = {"block_q": 16, "block_k": 32}
+BLOCKS = {"block_q": 64, "block_k": 64}
 # Whole rows: keys a launch takes, rows of a row tile (the unit the query
 # rows are split in), the cluster sizes (8 is the portable maximum) and
 # the dynamic shared memory a block may take (csrc/flash_attention.cu's
@@ -38,8 +40,6 @@ MAX_ROW_SPLITS = 65535      # the grid's y
 SM_SMEM_BYTES = 228 * 1024
 BLOCK_RESERVED_BYTES = 1024
 MAX_BLOCKS_SM = 2
-# the online kernel's threads (columns of the output a thread walks)
-_ONLINE_NT = 256
 _REGIMES = {"online": 0, "rows": 1}
 
 
@@ -84,6 +84,15 @@ def smem_bytes(bq: int, Sk: int, wmax: int, itemsize: int = 4) -> int:
             + 4 * (2 * bq * (nk + 8) + bq))
 
 
+def online_chunk(D: int, itemsize: int = 4) -> int:
+    """Columns of D an online block takes at once (the kernel's
+    ``online_chunk``, one compiled instance each): all of D up to 256 (128
+    in float32), in the narrowest instance that holds it, in registers; a
+    wider D in chunks of the widest, the output chunks over the grid's z."""
+    widths = (64, 80, 128, 256) if itemsize == 2 else (64, 96, 128)
+    return next((w for w in widths if D <= w), widths[-1])
+
+
 def blocks_per_sm(smem: int) -> int:
     """Whole-row blocks of ``smem`` dynamic bytes an SM holds at once."""
     return min(MAX_BLOCKS_SM,
@@ -113,8 +122,9 @@ def plan(BH: int, Sq: int, Sk: int, D: int, sms: int, *,
     row_splits) in clusters of (splits, 1, 1).
 
     ``regime`` "online" (longer rows, or D too wide for eight slices): the
-    grid is (BH, query tiles of BLOCKS["block_q"], ``splits`` column
-    blocks of D), and ``row_splits`` the query tiles."""
+    grid is (BH, query tiles of BLOCKS["block_q"], ``splits`` chunks of
+    ``chunk`` = ``online_chunk`` columns of D), and ``row_splits`` the
+    query tiles."""
     u, units, tiles = unit(itemsize), _cdiv(D, unit(itemsize)), \
         _cdiv(Sq, ROW_TILE)
     best = None
@@ -132,9 +142,9 @@ def plan(BH: int, Sq: int, Sk: int, D: int, sms: int, *,
             if best is None or key < best[0]:
                 best = (key, splits, rows)
     if best is None:
-        nj = 1 if D <= _ONLINE_NT else 2 if D <= 2 * _ONLINE_NT else 4
-        gy, gz = _cdiv(Sq, BLOCKS["block_q"]), _cdiv(D, _ONLINE_NT * nj)
-        return dict(regime="online", splits=gz, row_splits=gy,
+        dc = online_chunk(D, itemsize)
+        gy, gz = _cdiv(Sq, BLOCKS["block_q"]), _cdiv(D, dc)
+        return dict(regime="online", splits=gz, row_splits=gy, chunk=dc,
                     grid=(BH, gy, gz), ctas=BH * gy * gz)
     _, splits, rows = best
     return dict(regime="rows", splits=splits, row_splits=rows,

@@ -1,13 +1,15 @@
 """Serving launcher of the port: batched prefill + greedy decode.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
       [--reduced] [--batch 4] [--prompt-len 64] [--gen 32] [--seed 0] \
       [--device cuda|cpu]
 
-Port of ``repro/launch/serve.py``.  Weights come from ``--seed``
+Port of ``repro/launch/serve.py`` for every ported arch (``configs.ARCHS``:
+RWKV-6, the dense transformers and Qwen2-VL).  Weights come from ``--seed``
 (``params.init_params``, numpy), prompts from
-``np.random.default_rng(seed)``, and decode starts from token 0, as in the
-JAX launcher.  ``--device`` defaults to ``cuda`` and the run raises where
+``np.random.default_rng(seed)`` (and, where the config takes embedding
+inputs, the prompt's ``inputs_embeds`` drawn after the tokens), and decode
+starts from token 0, as in the JAX launcher.  ``--device`` defaults to ``cuda`` and the run raises where
 there is no card; ``--device cpu`` runs the plain versions on the CPU.
 
 On the card the steps are captured, as the reference jits them: the
@@ -72,12 +74,15 @@ def captured_steps(cfg: ModelConfig, params) -> Tuple[Callable, Callable]:
             captured(functools.partial(decode, params), pool=pool))
 
 
-def run_prefill(prefill: Callable, tokens: torch.Tensor):
-    """``prefill(batch)`` on tokens [B, S] -> (last hidden [B, D], cache,
-    ms)."""
+def run_prefill(prefill: Callable, tokens: torch.Tensor,
+                inputs_embeds: Optional[torch.Tensor] = None):
+    """``prefill(batch)`` on tokens [B, S] (and ``inputs_embeds`` [B, S, D]
+    where given) -> (last hidden [B, D], cache, ms)."""
+    batch = {"tokens": tokens}
+    if inputs_embeds is not None:
+        batch["inputs_embeds"] = inputs_embeds
     with torch.inference_mode():
-        (last, cache), ms = timed(lambda: prefill({"tokens": tokens}),
-                                  tokens.device)
+        (last, cache), ms = timed(lambda: prefill(batch), tokens.device)
     return last, cache, ms
 
 
@@ -133,17 +138,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
     rng = np.random.default_rng(args.seed)
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)).to(device)
+    embeds = None
+    if cfg.embedding_inputs:
+        embeds = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)).to(device)
     if device.type == "cuda":
         prefill, decode = captured_steps(cfg, params)
         # capture both at the run's shapes (the first call at a signature
         # captures it) before the timed calls
-        _, cache, _ = run_prefill(prefill, tokens)
+        _, cache, _ = run_prefill(prefill, tokens, embeds)
         run_decode(decode, cache, B, 1, device)
         print(f"capture prefill[{B}x{S}]={prefill.capture_s[0]:.2f}s "
               f"decode[{B}]={decode.capture_s[0]:.2f}s (host clock)")
     else:
         prefill, decode = eager_steps(cfg, params)
-    _, cache, t_prefill = run_prefill(prefill, tokens)
+    _, cache, t_prefill = run_prefill(prefill, tokens, embeds)
     gen, _, _, t_decode = run_decode(decode, cache, B, args.gen, device)
     gen = gen.cpu().numpy()
     print(f"arch={cfg.name} device={device} prefill[{B}x{S}]={t_prefill:.1f}ms "

@@ -1,19 +1,26 @@
-"""Shared layers of the LM stack: norms, activations, embedding, LM head.
+"""Shared layers of the LM stack: norms, activations, the MLP (plain and
+chunked), RoPE / M-RoPE, the GQA attention layer, embedding, LM head.
 
-Port of the part of ``repro/models/layers.py`` that RWKV-6 uses, with the
-JAX names, parameter layouts and rounding points: a norm computes in
-float32 and returns the input's dtype, ``lm_logits`` is a float32 product
-with the unembedding.  The MLP, MoE, RoPE and attention halves are ROADMAP
-queue 1 item 6.
+Port of ``repro/models/layers.py`` but MoE (ROADMAP queue 1 item 6b), with
+the JAX names, parameter layouts and rounding points: a norm computes in
+float32 and returns the input's dtype, RoPE rotates in float32, the
+projections and the MLP are products in the compute dtype (``torch.matmul``,
+as they are XLA's in the JAX package), ``lm_logits`` is a float32 product
+with the unembedding.  The reference's ``actshard`` anchors are left out:
+one device (the distributed runtime is item 8).  Prefill attention goes
+through ``kernels.flash_attention`` (``models.attention``); decode
+attention is plain tensor code, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import attention as attn_lib
 from repro_torch.models.params import ParamDef
 
 Params = Dict[str, Any]
@@ -47,6 +54,13 @@ def norm_apply(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tenso
     return y.to(x.dtype)
 
 
+def rms_head_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """QK-norm: RMS over the head dim."""
+    xf = x.float()
+    var = torch.square(xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + 1e-6) * scale.float()).to(x.dtype)
+
+
 def activation(name: str, x: torch.Tensor) -> torch.Tensor:
     if name in ("gelu", "geglu"):
         return F.gelu(x, approximate="tanh")
@@ -56,6 +70,214 @@ def activation(name: str, x: torch.Tensor) -> torch.Tensor:
         r = F.relu(x)
         return r * r
     raise ValueError(name)
+
+
+# ---------------------------------------------------------------------------
+# MLP (inverted bottleneck) — plain and chunked (C3) paths
+# ---------------------------------------------------------------------------
+
+
+def mlp_defs(cfg: ModelConfig, layers_dim: Tuple[int, ...] = (),
+             d_model: Optional[int] = None,
+             d_ff: Optional[int] = None) -> Params:
+    d = d_model or cfg.d_model
+    f = d_ff or cfg.d_ff
+    defs: Params = {"wi": ParamDef(layers_dim + (d, f)),
+                    "wo": ParamDef(layers_dim + (f, d))}
+    if cfg.mlp in ("swiglu", "geglu"):
+        defs["wg"] = ParamDef(layers_dim + (d, f))
+    return defs
+
+
+def mlp_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
+              ibn_chunks: int = 0) -> torch.Tensor:
+    """FFN.  ``ibn_chunks > 1`` is the depth-first inverted-bottleneck
+    schedule (contribution C3): the d_ff intermediate is produced and
+    consumed one tile at a time, the output summed tile by tile in the
+    compute dtype as the reference's unrolled scan sums it.  Plain products
+    on every device (no LM MLP goes through ``ops.fused_ibn`` until it has
+    an LM-width tiling, ROADMAP queue 2 b)."""
+    dtype = x.dtype
+    wi, wo = params["wi"].to(dtype), params["wo"].to(dtype)
+    wg = params.get("wg")
+    gated = wg is not None
+    if gated:
+        wg = wg.to(dtype)
+    if ibn_chunks <= 1:
+        h = x @ wi
+        h = activation(cfg.mlp, x @ wg) * h if gated else activation(cfg.mlp, h)
+        return h @ wo
+    f = wi.shape[-1]
+    assert f % ibn_chunks == 0, (f, ibn_chunks)
+    tile = f // ibn_chunks
+    out = torch.zeros(x.shape[:-1] + (wo.shape[-1],), dtype=dtype,
+                      device=x.device)
+    for c in range(ibn_chunks):
+        cols = slice(c * tile, (c + 1) * tile)
+        if gated:
+            t = activation(cfg.mlp, x @ wg[:, cols]) * (x @ wi[:, cols])
+        else:
+            t = activation(cfg.mlp, x @ wi[:, cols])
+        out = out + t @ wo[cols]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# RoPE / M-RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: "torch.device | str" = "cpu") -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B,H,S,D], positions: [B,S] (int). GPT-NeoX half rotation."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)                # [D/2]
+    angles = positions[:, None, :, None].float() * freqs           # [B,1,S,D/2]
+    return _rotate(x, torch.cos(angles), torch.sin(angles))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): positions [3,B,S] (t/h/w streams), the head_dim/2
+    frequency slots are partitioned into ``sections``, each rotated by its
+    own position stream.  The slot -> stream map is built on the device (no
+    copy from the host, so the step stays capturable)."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    slot = torch.arange(half, device=x.device)
+    sec_id = torch.zeros(half, dtype=torch.long, device=x.device)
+    edge = 0
+    for n in sections[:-1]:
+        edge += n
+        sec_id += (slot >= edge).long()
+    pos_sel = positions[sec_id]                                    # [half,B,S]
+    angles = pos_sel.permute(1, 2, 0).float() * freqs              # [B,S,half]
+    return _rotate(x, torch.cos(angles[:, None]), torch.sin(angles[:, None]))
+
+
+def positional_rotate(cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope == "rope":
+        return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer (projections + flash / decode core)
+# ---------------------------------------------------------------------------
+
+
+def attention_defs(cfg: ModelConfig, layers_dim: Tuple[int, ...] = ()) -> Params:
+    d = cfg.d_model
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    defs: Params = {
+        "wq": ParamDef(layers_dim + (d, h, hd)),
+        "wk": ParamDef(layers_dim + (d, hk, hd)),
+        "wv": ParamDef(layers_dim + (d, hk, hd)),
+        "wo": ParamDef(layers_dim + (h, hd, d)),
+    }
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef(layers_dim + (hd,), "ones")
+        defs["k_norm"] = ParamDef(layers_dim + (hd,), "ones")
+    return defs
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhe->bhse") as one product: [B,S,d] @ [d,h*e]."""
+    B, S, _ = x.shape
+    d, h, e = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * e)).view(B, S, h, e).transpose(1, 2)
+
+
+def qkv_project(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                positions: Optional[torch.Tensor]):
+    """Returns q:[B,H,S,D], k,v:[B,Hkv,S,D] (rope applied, qk-norm applied)."""
+    q, k, v = (_heads(x, params[n]) for n in ("wq", "wk", "wv"))
+    if cfg.qk_norm:
+        q = rms_head_norm(q, params["q_norm"])
+        k = rms_head_norm(k, params["k_norm"])
+    if positions is not None and cfg.rope != "none":
+        q = positional_rotate(cfg, q, positions)
+        k = positional_rotate(cfg, k, positions)
+    return q, k, v
+
+
+def out_project(params: Params, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """einsum("bhse,hed->bsd"): [B,H,S,D] -> [B,S,d]."""
+    B, H, S, e = o.shape
+    w = params["wo"].to(dtype)
+    return o.transpose(1, 2).reshape(B, S, H * e) @ w.reshape(H * e, w.shape[-1])
+
+
+def expand_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
+    """GQA: each KV head repeated for its ``q_per_kv`` query heads, so that
+    query head h reads KV head h // G (``jnp.repeat(k, G, axis=1)``)."""
+    G = cfg.q_per_kv
+    if G > 1:
+        return k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    return k, v
+
+
+def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                    positions: torch.Tensor, *, causal: Optional[bool] = None,
+                    window: Optional[int] = None, kernels=ops) -> torch.Tensor:
+    """Full-sequence attention (train / prefill)."""
+    causal_ = cfg.causal if causal is None else causal
+    window_ = cfg.window if window is None else window
+    q, k, v = qkv_project(cfg, params, x, positions)
+    k, v = expand_kv(cfg, k, v)
+    o = attn_lib.flash_attention(q, k, v, causal_, window_, kernels=kernels)
+    return out_project(params, o, x.dtype)
+
+
+def attention_decode_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                           position: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, cache_index: torch.Tensor,
+                           window: Optional[int] = None):
+    """Single-token decode.  x: [B,1,d].  cache_k/v: [B,Hkv,S,D].
+
+    Returns (out [B,1,d], new_cache_k, new_cache_v).  ``cache_index`` is the
+    absolute decode step, a 0-d integer tensor on the device (as are the
+    write index, ``valid`` and the RoPE position, so that the step can be
+    captured); ring addressing is used iff window is not None.  The write
+    index is clamped to S - 1, as ``lax.dynamic_update_slice_in_dim``
+    clamps it: past a linear cache of the prompt's length every step
+    overwrites its last slot, as the reference's does.
+    """
+    B = x.shape[0]
+    S = cache_k.shape[2]
+    if cfg.rope == "mrope":
+        # text-token M-RoPE: all three streams advance with the step
+        positions = position.reshape(1, 1, 1).expand(3, B, 1)
+    else:
+        positions = position.reshape(1, 1).expand(B, 1)
+    q, k, v = qkv_project(cfg, params, x, positions)
+    write_idx = cache_index % S if window is not None else cache_index
+    write_idx = torch.clamp(write_idx, max=S - 1).long().reshape(1)
+    cache_k = cache_k.index_copy(2, write_idx, k.to(cache_k.dtype))
+    cache_v = cache_v.index_copy(2, write_idx, v.to(cache_v.dtype))
+    valid = torch.clamp(cache_index + 1, max=S)
+    o = attn_lib.decode_attention(q, cache_k, cache_v, valid,
+                                  ring=window is not None)
+    return out_project(params, o, x.dtype), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
 
 
 def embedding_defs(cfg: ModelConfig) -> Params:

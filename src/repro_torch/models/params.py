@@ -126,5 +126,16 @@ def from_jax_params(tree: Tree, defs: Optional[Tree] = None, *,
     return tree_map(leaf, tree)
 
 
+def per_layer(blocks: Tree, n: int) -> list:
+    """A stacked [L, ...] block tree -> one tree of views per layer (one
+    ``unbind`` a leaf): the port walks the layers that the JAX models scan."""
+    def split(tree):
+        if isinstance(tree, dict):
+            parts = {k: split(v) for k, v in tree.items()}
+            return [{k: parts[k][i] for k in tree} for i in range(n)]
+        return torch.unbind(tree, 0)
+    return split(blocks)
+
+
 def count_params(defs: Tree) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(defs))

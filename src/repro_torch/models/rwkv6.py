@@ -34,7 +34,7 @@ functions are then no-ops.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +42,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.params import ParamDef, from_jax_params, tree_map
+from repro_torch.models.params import (ParamDef, from_jax_params, per_layer,
+                                      tree_map)
 
 Params = Dict[str, Any]
 
@@ -133,17 +134,6 @@ def load_params(cfg: ModelConfig, tree: Params, *,
         return t.to(dtype) if path in cast else t
 
     return tree_map(leaf, from_jax_params(tree, param_defs(cfg), device=device))
-
-
-def _per_layer(blocks: Params, n: int) -> List[Params]:
-    """The stacked [L, ...] block tree -> one tree of views per layer (one
-    ``unbind`` a leaf)."""
-    def split(tree):
-        if isinstance(tree, dict):
-            parts = {k: split(v) for k, v in tree.items()}
-            return [{k: parts[k][i] for k in tree} for i in range(n)]
-        return torch.unbind(tree, 0)
-    return split(blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +309,7 @@ def _blocks(cfg: ModelConfig, params: Params, x: torch.Tensor, kernels,
     else:
         prev_tm, prev_cm, states = cache.shift_tm, cache.shift_cm, cache.state
     st, sh_tm, sh_cm = [], [], []
-    for i, bp in enumerate(_per_layer(params["blocks"], n)):
+    for i, bp in enumerate(per_layer(params["blocks"], n)):
         h = L.norm_apply(cfg, bp["ln1"], x)
         h, s_tm, s = time_mix(cfg, bp["tm"], h, prev_tm[i], states[i],
                               cfg.wkv_chunk, kernels)

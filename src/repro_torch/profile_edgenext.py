@@ -33,7 +33,7 @@ from repro_torch.serve_edgenext import serve
 
 # the hand-written kernels' names in csrc/*.cu
 OURS = ("ibn_kernel", "ibn_reduce_kernel", "dw_kernel", "rows_kernel",
-        "flash_kernel", "matmul_ln_kernel", "wkv_states_kernel",
+        "online_kernel", "matmul_ln_kernel", "wkv_states_kernel",
         "wkv_outputs_kernel")
 SEED = 0
 

@@ -16,6 +16,16 @@ buffer zeroed) before each.  Each line also gives the blocks a SM holds
 The first line times the smallest launch (one block, 16 x 16 x 8): the
 fixed cost of a launch measured this way.
 
+``--lm`` times only the entry point ``kernels.ops.flash_attention`` (no
+other function of the package) at the LM stack's prefill shapes
+(LM_CASES: bfloat16, causal; the online regime), beside
+``F.scaled_dot_product_attention`` of the same function (``is_causal``, a
+boolean mask where a window is set), the same way.  Run as a file with
+another checkout's ``src`` first on PYTHONPATH, it times that checkout's
+kernel, so that two versions are compared in one call on one card:
+
+    PYTHONPATH=OTHER/src python src/repro_torch/profile_flash_attention.py --lm
+
 Then the phases of one launch at the split ``plan`` picks: a copy of the
 kernel with ``%globaltimer`` stamps (built under
 ``build/profile_flash_attention/``; the library the port loads is not
@@ -39,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.edgenext_s import CONFIG
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import flash_attention as fa
 
 SEED = 0
@@ -241,9 +251,47 @@ def sweep(BH: int, S: int, D: int, flush: torch.Tensor, sms: int,
     return dict(bh=BH, s=S, d=D, runs=runs, online_ms=online, library_ms=library)
 
 
+# (name, B, H, S, D, window): the dense path's prefill attention,
+# h2o-danube-1.8b at 4 x 512 and at 1 x 4608 over its window of 4096, and
+# olmo-1b at 4 x 512
+LM_CASES = [("h2o 4x32x512 D80", 4, 32, 512, 80, None),
+            ("h2o 1x32x4608 D80 window 4096", 1, 32, 4608, 80, 4096),
+            ("olmo 4x16x512 D128", 4, 16, 512, 128, None)]
+
+
+def lm_times(flush: torch.Tensor) -> list[dict]:
+    """``ops.flash_attention`` and SDPA at LM_CASES, each checked against
+    ``ref.attention_ref`` at 2e-2."""
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for name, B, H, S, D, window in LM_CASES:
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, H, S, D), dtype=np.float32))
+                   .to("cuda", torch.bfloat16) for _ in range(3))
+        got = ops.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.attention_ref(q, k, v, causal=True, window=window)
+        err = (got.float() - want.float()).abs().max().item()
+        del want
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+        else:
+            i = torch.arange(S, device="cuda")
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
+        row = dict(case=name, max_abs_err=err,
+                   ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                          window=window), flush),
+                   library_ms=time_ms(lib, flush))
+        rows.append(row)
+        print(f"lm {name}: ms {row['ms']:.4f} library {row['library_ms']:.4f} "
+              f"max err {err:.2e}", flush=True)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
+    ap.add_argument("--lm", action="store_true",
+                    help="time only ops.flash_attention at the LM prefill shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_flash_attention: needs a CUDA device")
@@ -252,6 +300,15 @@ def main() -> None:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"device {smi}", flush=True)
     _build.library()
+    if args.lm:
+        flush = torch.empty(256 * 1024 * 1024, dtype=torch.int8, device="cuda")
+        package = str(Path(_build.__file__).parents[2])
+        print(f"lm: the package at {package}", flush=True)
+        rows = lm_times(flush)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(device=smi, package=package, lm=rows), f, indent=1)
+        return
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.int8, device="cuda")
     floor = sweep(1, 16, 8, flush, sms, heads=1)["runs"][0]["ms"]

@@ -14,7 +14,7 @@ The Hopper launch contract, which every emitted ``block_*`` obeys:
 - A block is a value its kernel is compiled for, from a fixed menu:
   ``fused_ibn`` runs (block_m, block_f) = (64, 64) only
   (``FUSED_IBN_BLOCKS``), ``flash_attention`` (block_q, block_k) =
-  (16, 32) only (``FLASH_ATTENTION_BLOCKS``), ``matmul_ln`` one template
+  (64, 64) only (``FLASH_ATTENTION_BLOCKS``), ``matmul_ln`` one template
   instance per block_m in ``MATMUL_LN_BLOCK_M`` = (8, 16, 32, 64), with
   block_k in ``MATMUL_LN_BLOCK_K`` = (16, 32, 64) run on the kernel's one
   32-deep K slab.  The ``ops`` entry points raise on any other value for

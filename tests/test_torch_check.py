@@ -208,7 +208,7 @@ def _entry_doc(name, kernel):
     ("fused_ibn", {"block_f": 128}, "lint.block_menu"),
     ("fused_ibn", {"block_m": "64x"}, "lint.block_type"),
     ("fused_ibn", {"block_m": 0}, "lint.block_range"),
-    ("flash_attention", {"block_k": 64}, "lint.block_menu"),
+    ("flash_attention", {"block_k": 32}, "lint.block_menu"),
     ("matmul_ln", {"block_k": 128}, "lint.block_menu"),
     ("matmul_ln", {"block_m": 12}, "lint.block_menu"),
     ("rwkv_chunk", {"chunk": 64}, "lint.scan_chunk"),

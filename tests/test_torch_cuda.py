@@ -313,6 +313,54 @@ def test_flash_attention_whole_rows_on_card_matches_plain(case):
            2e-4 if dt == torch.float32 else 2e-2)
 
 
+# the online regime (Sk > 128) at the LM stack's prefill shapes: B, H, Sq,
+# Sk, D, causal, window, KV heads (repeated over the query heads), dtype
+_FA_ONLINE_CASES = {
+    "h2o_4x512": (4, 32, 512, 512, 80, True, None, 8, torch.bfloat16),
+    "h2o_window": (1, 8, 700, 700, 80, True, 256, 2, torch.bfloat16),
+    "olmo_4x512": (4, 16, 512, 512, 128, True, None, None, torch.bfloat16),
+    "minitron_4x512": (2, 24, 512, 512, 128, True, None, 8, torch.bfloat16),
+    "f32_ragged_300": (1, 4, 300, 300, 80, True, None, None, torch.float32),
+    "f32_d128": (1, 2, 260, 260, 128, True, None, None, torch.float32),
+    "f32_d36_noncausal": (1, 4, 256, 256, 36, False, None, None, torch.float32),
+    "d256_bf16": (1, 2, 200, 260, 256, True, 50, None, torch.bfloat16),
+    "d300_bf16_chunked": (1, 2, 200, 300, 300, True, None, None, torch.bfloat16),
+    "f32_d256_chunked": (1, 2, 300, 448, 256, False, None, None, torch.float32),
+    "rows_without_keys": (2, 2, 260, 130, 36, True, 7, None, torch.bfloat16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_FA_ONLINE_CASES))
+def test_flash_attention_online_on_card_matches_plain(case):
+    """The online regime (64-row query tiles, 64-key K / V tiles by
+    cp.async, both products on the tensor cores) against its plain version
+    at the dense path's shapes: causal GQA prompts, a window shorter than
+    the prompt, float32 ragged against the tile, D up to 256 in one chunk,
+    a wider D over the grid, and rows that see no key; one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import flash_attention as t_fa
+    B, H, Sq, Sk, D, causal, window, hk, dt = _FA_ONLINE_CASES[case]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert t_fa.plan(B * H, Sq, Sk, D, sms, itemsize=dt.itemsize)["regime"] == "online"
+    hk = hk or H
+    q, k, v = _normal(31, (B, H, Sq, D), (B, hk, Sk, D), (B, hk, Sk, D))
+    k, v = (t.repeat_interleave(H // hk, dim=1) for t in (k, v))
+    q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
+    before = t_fa.launches
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    want = tref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert t_fa.launches == before + 1 and got.dtype == dt
+    _close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+           2e-4 if dt == torch.float32 else 2e-2)
+    again = tops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
 def _fa_launch(q, k, v, out, splits, row_splits, causal=False, window=None):
     """The C entry point in the whole-row regime at a given split."""
     from repro_torch.kernels import flash_attention as t_fa
@@ -750,6 +798,50 @@ def test_captured_rwkv6_prefill_and_donated_decode_replay_the_eager_steps():
     toks = _t(rng.integers(0, cfg.vocab_size, (1, 17), dtype=np.int32)).cuda()
     for a, b in zip(request(pre_c, dec_c, toks), request(pre_e, dec_e, toks)):
         assert torch.equal(a, b)
+    assert len(pre_c.graphs) == 2 and len(dec_c.graphs) == 2
+
+
+@pytest.mark.cuda
+def test_captured_dense_prefill_and_decode_replay_the_eager_steps():
+    """The reduced h2o-danube (float32, window 32) served through
+    ``launch.serve``'s captured steps: a 40-token prompt (the banded
+    prefill, a ring cache) and a 12-token one (a prompt-sized cache that
+    decode writes past, each write clamped to its last slot), each with 5
+    donated decode steps; last hidden, caches, tokens and logits equal to
+    the eager steps' bit for bit; flash_attention ticks at the prefill's
+    warm-up runs and capture only, never in decode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: CUDA graphs run on the "
+                    "card only")
+    from repro_torch import configs as TC
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.runtime.capture import WARMUP
+
+    cfg = TC.reduced(TC.get_config("h2o-danube-1.8b"))
+    params = transformer.load_params(cfg, init_params(0, transformer.param_defs(cfg)))
+    pre_e, dec_e = serve.eager_steps(cfg, params)
+    pre_c, dec_c = serve.captured_steps(cfg, params)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(61)
+
+    def request(prefill, decode, toks):
+        last, cache, _ = serve.run_prefill(prefill, toks)
+        out = serve.run_decode(decode, cache, toks.shape[0], 5, dev)
+        return [last, *cache, out[0], *out[1], *out[2]]
+
+    for S in (40, 12):
+        for i in range(2):
+            toks = _t(rng.integers(0, cfg.vocab_size, (2, S), dtype=np.int32)).cuda()
+            eager = request(pre_e, dec_e, toks)
+            base = t_fa.launches
+            got = request(pre_c, dec_c, toks)
+            assert t_fa.launches - base == ((WARMUP + 1) * cfg.num_layers
+                                            if i == 0 else 0)
+            for a, b in zip(got, eager, strict=True):
+                assert a.dtype == b.dtype and torch.equal(a, b)
     assert len(pre_c.graphs) == 2 and len(dec_c.graphs) == 2
 
 

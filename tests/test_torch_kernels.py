@@ -1346,7 +1346,7 @@ def test_profile_flash_attention_instruments_the_kernel_source():
     from repro_torch import profile_flash_attention
     src = profile_flash_attention.instrumented_source()
     rows = src.index("rows_kernel(const T*")
-    online = src.index("flash_kernel(const T*")
+    online = src.index("online_kernel(const T*")
     for slot in range(8):
         at = src.index(f"prof_t[{slot}] = prof_now();")
         assert src.count(f"prof_t[{slot}] = prof_now();") == 1
