@@ -41,7 +41,13 @@ which ends the run with a non-zero exit code if it fails:
    D 80, K / V made on 8 heads and repeated over 32; olmo-1b 4 x 16 x 512,
    D 128; bfloat16, causal; the operations bound counts only the unmasked
    q.k pairs, the library call is SDPA with ``is_causal`` or a boolean
-   mask), a float32 causal 1 x 4 x 300 (ragged against the 64-row tile),
+   mask), the encoder-decoder's (timed, outside the sums: the Seamless
+   encoder, 4 x 16 x 512 and 1 x 16 x 1500, and the cross-attention of one
+   decoder token against 512 and 1500 frames; bfloat16, D 64, non-causal,
+   SDPA with ``is_causal=False``), qwen3-moe's 32 / 4 heads at D 128, the
+   decoder's first token (Sq = Sk = 1, whole rows), a float32 cross-
+   attention 1 -> 700, the 1500-frame encoder twice with the same bits,
+   a float32 causal 1 x 4 x 300 (ragged against the 64-row tile),
    minitron-4b's 24 / 8 heads at D 128, a causal bf16 prompt of the
    whole-row regime, D chunked over the grid, and twice at the served
    shape, where the two calls must give the same bits; each record, here
@@ -122,7 +128,7 @@ which ends the run with a non-zero exit code if it fails:
    the graph's edges as the driver gives them (whether the outputs pass's
    programmatic dependent launch stays one in a graph), a replay on new
    inputs bit for bit the eager call, and both forms' time;
-5b. dense (``dense_path``): ``h2o-danube-1.8b`` uncut (24 layers, d 2560,
+5b. dense (``dense_path``, ``lm_phase``): ``h2o-danube-1.8b`` uncut (24 layers, d 2560,
    32 query heads over 8 KV heads of 80, d_ff 6912 SwiGLU, vocab 32000,
    window 4096, 1,831,201,280 parameters), weights float32 from seed 0 made
    on the host, bfloat16 compute, served as ``launch.serve`` serves it: 2
@@ -130,15 +136,43 @@ which ends the run with a non-zero exit code if it fails:
    1 x 4608 prompt (longer than the window: the banded prefill and a ring
    cache of 4096) with 8.  Around each prefill and each decode loop the
    counters are set to 0 and read: 24 flash_attention a prefill, none in
-   decode, no other kernel.  Logits finite, of their shapes; the served
-   run held to the plain model (``kernels=ref.PLAIN``) teacher-forced with
-   its tokens (``BF16_LOGITS_TOL``, ``BF16_AGREEMENT``).  Then the captured
-   steps (``dense_captured``): captures at 4 x 512 and 1 x 4608 (24 a
+   decode, no other kernel.  Logits finite, of their shapes, the K cache
+   of the prompt's length (a ring of 4096 past the window); the first and
+   the last request held to the plain model (``kernels=ref.PLAIN``)
+   teacher-forced with the served tokens (``BF16_LOGITS_TOL``,
+   ``BF16_AGREEMENT``).  Then the captured steps (``lm_captured``):
+   captures at 4 x 512 and 1 x 4608 (24 a
    prefill capture and as many for each ``WARMUP`` run, none for decode),
    the three requests replayed bit for bit the eager steps with no
    launch; prefill ms and decode ms a token eager and captured in turns,
    both clocks; peak memory; capture seconds; the device's busy share of
    one ``torch.profiler`` trace of three captured 4 x 512 prefills;
+5c. MoE (``moe_path``, ``lm_phase``): ``qwen2-moe-a2.7b`` at full width and
+   8 of its 24 layers (``reduced: num_layers 24 -> 8``: every layer has the
+   same shapes, and the uncut 15.1 B parameters would be 60.6 GB of float32
+   made on the host; d 2048, 16 heads of 128, 60 routed experts padded to
+   64, top 4, 4 shared experts, vocab 151936; 5,463,656,448 parameters),
+   served as ``launch.serve`` serves it: 2 requests of 4 x 512 with 32
+   greedy tokens, 1 of 1 x 200 with 16.  8 flash_attention a prefill, none
+   in decode; then the captured steps, held bit for bit to the eager ones
+   (as in 5b, ``lm_captured``), a trace of three captured 4 x 512 prefills;
+   the first and the last request held to the plain model teacher-forced
+   (``BF16_LOGITS_TOL``, ``BF16_AGREEMENT``), with the share of (token,
+   choice) routings the two models agree on.  Then float32 on the first 2
+   layers of the same weights: a 2 x 256 prefill and 4 greedy steps through
+   the kernels, within 2e-3 (1 + |b|) of the plain model fed the same
+   tokens (a routing that flips between the two moves a logit by more than
+   rounding, which the bf16 limits alone would not tell apart);
+5d. encoder-decoder (``audio_path``, ``lm_phase``): ``seamless-m4t-large-v2``
+   uncut (24 + 24 layers, d 1024, 16 heads of 64, d_ff 8192, vocab 256206;
+   1,632,358,400 parameters), frames [B, T, 1024] drawn after the tokens,
+   the tokens' first column the decoder's prefix, the self cache sized
+   T + gen: 2 requests of 4 x 512 frames with 32 tokens, 1 of 1 x 1500 with
+   16.  72 flash_attention a prefill (24 encoder, non-causal; 24 decoder
+   self, Sq = Sk = 1; 24 cross, 1 query row against the frames), none in
+   decode; captured, traced and held to the plain model as in 5c.  Each of
+   5c and 5d prints prefill ms and decode ms a token eager and captured,
+   peak memory, capture seconds and its own wall seconds;
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
    workload, each schedule verified by ``repro_torch.check.verify_schedule``
    (the static checker and the Hopper launch lint; any finding fails the
@@ -197,8 +231,9 @@ prefill (24 launches at the served shape) for wkv_chunked; ``shapes``
 holds the per-shape numbers.  ``launches`` is the count of the path the
 kernel is on: the EdgeNeXt-S requests for the first three, the lowered
 phase for matmul_ln, the RWKV-6 requests for wkv_chunked
-(``launches_by_path`` has all five paths: the dense requests as
-``dense_serve``, the serve phase's new launches as ``serve_store``).  ``bound_ms`` is the larger
+(``launches_by_path`` has all seven paths: the dense, MoE and
+encoder-decoder requests as ``dense_serve``, ``moe_serve`` and
+``audio_serve``, the serve phase's new launches as ``serve_store``).  ``bound_ms`` is the larger
 of bytes / 3.35 TB/s (each input read once, each output written once)
 and operations / peak: 495 TFLOP/s (TF32 tensor cores, the card's rate
 for a float32 matrix product) for the products of fused_ibn, attention,
@@ -215,6 +250,7 @@ counted here).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -244,8 +280,9 @@ from repro_torch.kernels import fused_ibn as ibn_mod  # noqa: E402
 from repro_torch.kernels import matmul_ln as mln_mod  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as wkv_mod  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
-from repro_torch.models import edgenext, rwkv6, transformer  # noqa: E402
-from repro_torch.models.params import count_params, init_params  # noqa: E402
+from repro_torch.models import edgenext, rwkv6, seamless, transformer  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models.params import count_params, init_params, tree_map  # noqa: E402
 from repro_torch.runtime import build_decode_step, build_prefill_step  # noqa: E402
 from repro_torch.runtime.capture import WARMUP, captured  # noqa: E402
 from repro_torch.search import (WORKLOADS, auto_schedule,  # noqa: E402
@@ -312,6 +349,20 @@ RWKV_PARAMS = 1_599_873_024
 DENSE_ARCH = "h2o-danube-1.8b"
 DENSE_REQUESTS = [(4, 512, 32), (4, 512, 32), (1, 4608, 8)]
 DENSE_PARAMS = 1_831_201_280
+# the MoE phase: qwen2-moe-a2.7b at full width and MOE_LAYERS of its 24
+# layers (every layer has the same shapes; uncut, its 15.1 B parameters are
+# 60.6 GB of float32 made on the host); its float32 check: (layers, batch,
+# prompt tokens, greedy steps)
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_LAYERS = 8
+MOE_REQUESTS = [(4, 512, 32), (4, 512, 32), (1, 200, 16)]
+MOE_PARAMS = 5_463_656_448
+MOE_F32 = (2, 2, 256, 4)
+# the encoder-decoder phase: seamless-m4t-large-v2 uncut; (batch, source
+# frames, greedy tokens) per request, the decoder's prefix one token
+AUDIO_ARCH = "seamless-m4t-large-v2"
+AUDIO_REQUESTS = [(4, 512, 32), (4, 512, 32), (1, 1500, 16)]
+AUDIO_PARAMS = 1_632_358_400
 # The served bfloat16 run against the plain bfloat16 model, teacher-forced
 # with the served tokens.  The two differ only in the WKV: the kernel and
 # ``wkv_ref`` take the same float32 sums in another order and round them to
@@ -832,6 +883,17 @@ def kernels_phase():
                       kv_heads=hk, timed=True)
         rec.update(per_forward=0, batch=batch)
         per_kernel["flash_attention"]["shapes"].append(rec)
+    # ... and the encoder-decoder's (outside the sums): the Seamless encoder
+    # at 4 x 512 and 1 x 1500 frames (non-causal, D 64, bfloat16; 1500 =
+    # 23 x 64 + 28, a ragged last KV tile), and its prefill's cross-attention
+    # of one decoder token (63 empty rows of a 64-row query tile) against
+    # them; the library call is SDPA with ``is_causal=False``
+    for (B, Sq, Sk), batch in (((4, 512, 512), 4), ((1, 1500, 1500), 1),
+                               ((4, 1, 512), 4), ((1, 1, 1500), 1)):
+        rec = fa_case(B, 16, Sq, Sk, 64, causal=False, dtype=torch.bfloat16,
+                      timed=True)
+        rec.update(per_forward=0, batch=batch)
+        per_kernel["flash_attention"]["shapes"].append(rec)
 
     # matmul_ln: the EdgeNeXt-S lowered shapes at batch 16 (once each), then
     # the LM widths, ragged and bfloat16 cases (timed, outside the sums)
@@ -937,6 +999,14 @@ def kernels_phase():
         fa_case(1, 2, 200, 300, 300, causal=True, dtype=bf16),
         fa_case(1, 2, 150, 200, 1024, causal=False),
         fa_case(4, 32, 512, 512, 80, causal=True, dtype=bf16, kv_heads=8, repeat=True),
+        # the MoE and encoder-decoder paths: qwen3-moe's 32 query heads over
+        # 4 KV heads at D 128, the decoder's first causal self-attention
+        # (Sq = Sk = 1, whole rows), the cross-attention in float32 at a
+        # ragged Sk, and the encoder's ragged tail twice with the same bits
+        fa_case(4, 32, 512, 512, 128, causal=True, dtype=bf16, kv_heads=4),
+        fa_case(4, 16, 1, 1, 64, causal=True, dtype=bf16),
+        fa_case(2, 16, 1, 700, 64, causal=False),
+        fa_case(1, 16, 1500, 1500, 64, causal=False, dtype=bf16, repeat=True),
     ]
     per_kernel["wkv_chunked"]["extra"] = [
         wkv_case(4, 50, 64, 64, 16),             # the JAX tests' ragged T
@@ -1503,28 +1573,55 @@ def wkv_graph_edge() -> dict:
                 graph_ms=statistics.median(times["graph"]))
 
 
-def lm_captured(cfg, mod, params, prompts, served, rng, requests,
+def lm_batch(cfg, rng, B: int, T: int) -> dict:
+    """A request's prefill batch on the card, drawn as ``launch.serve``
+    draws it: tokens [B, T]; for an encoder-decoder also the source frames
+    [B, T, D] after them, and the tokens' first column as the decoder's
+    prefix."""
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T),
+                                                     dtype=np.int32)).cuda()}
+    if cfg.family == "audio":
+        batch["inputs_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, T, cfg.d_model)).astype(np.float32)).cuda()
+        batch["tokens"] = batch["tokens"][:, :1].contiguous()
+    return batch
+
+
+def decode_len(cfg, T: int, gen: int):
+    """The prefill's ``decode_len`` of a request, as ``launch.serve`` passes
+    it: prompt + generated tokens for an encoder-decoder (its self cache's
+    length), nothing for the others."""
+    return T + gen if cfg.family == "audio" else None
+
+
+def lm_prefill(prefill, batch: dict, dlen=None):
+    """``launch.serve.run_prefill`` on a batch dict."""
+    return lm_serve.run_prefill(prefill, batch["tokens"],
+                                batch.get("inputs_embeds"), dlen)
+
+
+def lm_captured(cfg, mod, params, batches, served, rng, requests,
                 rounds) -> tuple[dict, list, tuple]:
     """An LM through ``launch.serve.captured_steps``: each prefill capture
     (one a distinct (B, T) of ``requests``, on prompts of its own) counts
     ``mod.kernel_launches_per_prefill`` for the capture and as many for each
     of the WARMUP eager runs, each decode capture none; the served requests
-    replayed count none and give the eager steps' last hidden, prefill
-    cache, every step's tokens and logits and the last cache bit for bit;
-    prefill ms and decode ms a token eager and captured in turns (``rounds``
-    of each) at the first and the last request's shape.  Returns the
-    numbers, the replayed records and the captured steps."""
+    (their prefill ``batches``) replayed count none and give the eager
+    steps' last hidden, prefill cache, every step's tokens and logits and
+    the last cache bit for bit; prefill ms and decode ms a token eager and
+    captured in turns (``rounds`` of each) at the first and the last
+    request's shape.  Returns the numbers, the replayed records and the
+    captured steps."""
     per = mod.kernel_launches_per_prefill(cfg)
     per_capture = {k: (WARMUP + 1) * per.get(k, 0) for k in KERNELS}
     pre_c, dec_c = lm_serve.captured_steps(cfg, params)
     pre_e, dec_e = lm_serve.eager_steps(cfg, params)
     dev = torch.device("cuda")
     captures = {}
-    for B, T in dict.fromkeys((b, t) for b, t, _ in requests):
-        p = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T),
-                                          dtype=np.int32)).cuda()
+    for B, T, gen in {(b, t): (b, t, g) for b, t, g in requests}.values():
+        p = lm_batch(cfg, rng, B, T)
         (_, cache, _), n_pre, res_pre = capture_counted(
-            lambda: lm_serve.run_prefill(pre_c, p))
+            lambda: lm_prefill(pre_c, p, decode_len(cfg, T, gen)))
         _, n_dec, res_dec = capture_counted(
             lambda: lm_serve.run_decode(dec_c, cache, B, 1, dev))
         if n_pre != per_capture or any(n_dec.values()):
@@ -1540,10 +1637,9 @@ def lm_captured(cfg, mod, params, prompts, served, rng, requests,
 
     reset_counts()
     records = []
-    for i, (p, r, (_, _, gen)) in enumerate(zip(prompts, served, requests)):
-        last, cache, _ = lm_serve.run_prefill(pre_c, p)
-        toks, logits, cache_end, _ = lm_serve.run_decode(dec_c, cache, p.shape[0],
-                                                         gen, dev)
+    for i, (p, r, (B, T, gen)) in enumerate(zip(batches, served, requests)):
+        last, cache, _ = lm_prefill(pre_c, p, decode_len(cfg, T, gen))
+        toks, logits, cache_end, _ = lm_serve.run_decode(dec_c, cache, B, gen, dev)
         logits = torch.stack(logits, 1)
         # the last cache is the decode graph's buffer: compared before the
         # next request overwrites it
@@ -1554,7 +1650,8 @@ def lm_captured(cfg, mod, params, prompts, served, rng, requests,
             fail(f"{cfg.name} captured request {i}: differs from the eager steps "
                  f"(last hidden, prefill cache, tokens, logits, last cache) "
                  f"at {diff}")
-        records.append(dict(prompt=p, last=last, tokens=toks, logits=logits))
+        records.append(dict(prompt=r["prompt"], last=last, tokens=toks,
+                            logits=logits))
         del cache, cache_end
     on_replay = read_counts()
     if any(on_replay.values()):
@@ -1564,12 +1661,14 @@ def lm_captured(cfg, mod, params, prompts, served, rng, requests,
     timing = {}
     for i in (0, -1):
         B, T, gen = requests[i]
-        batch = {"tokens": prompts[i]}
+        batch, dlen = batches[i], decode_len(cfg, T, gen)
         timing[f"prefill_{B}x{T}"] = alternate(
-            {"eager": lambda: pre_e(batch), "captured": lambda: pre_c(batch)},
+            {"eager": lambda: lm_serve.call_prefill(pre_e, batch, dlen),
+             "captured": lambda: lm_serve.call_prefill(pre_c, batch, dlen)},
             rounds=rounds[0])
         with torch.inference_mode():
-            c_e, c_c = pre_e(batch)[1], pre_c(batch)[1]
+            c_e = lm_serve.call_prefill(pre_e, batch, dlen)[1]
+            c_c = lm_serve.call_prefill(pre_c, batch, dlen)[1]
         timing[f"decode_b{B}_{T}"] = alternate(
             {"eager": lambda: lm_serve.run_decode(dec_e, c_e, B, gen, dev),
              "captured": lambda: lm_serve.run_decode(dec_c, c_c, B, gen, dev)},
@@ -1585,7 +1684,8 @@ def rwkv6_captured(cfg, params, prompts, served, rng) -> tuple[dict, list]:
     memory of a 4 x 512 request in each form and ``wkv_graph_edge``."""
     requests = [(b, t, RWKV_GEN) for b, t in RWKV_REQUESTS]
     cap, records, (pre_e, dec_e, pre_c, dec_c) = lm_captured(
-        cfg, rwkv6, params, prompts, served, rng, requests, rounds=(10, 5))
+        cfg, rwkv6, params, [{"tokens": p} for p in prompts], served, rng,
+        requests, rounds=(10, 5))
     dev = torch.device("cuda")
     p = prompts[0]
     cap["peak_allocated_mib_b4_t512"] = {
@@ -1774,21 +1874,12 @@ def rwkv6_path():
     return launches, result
 
 
-def dense_captured(cfg, params, prompts, served, rng) -> tuple[dict, list]:
-    """The dense model through ``lm_captured`` (4 x 512 and 1 x 4608), then
-    one torch.profiler trace of three captured 4 x 512 prefills."""
-    cap, records, (_, _, pre_c, _) = lm_captured(
-        cfg, transformer, params, prompts, served, rng, DENSE_REQUESTS,
-        rounds=(6, 4))
-    cap["trace_prefill_4x512"] = trace(pre_c, {"tokens": prompts[0]}, 3)
-    return cap, records
-
-
 def dense_path():
     """``h2o-danube-1.8b`` uncut served through ``launch.serve``'s prefill
-    and greedy decode, eager then captured, held to its plain model (see
-    the module docstring, phase 5b).  Returns the launch counts of the
-    served requests and the numbers."""
+    and greedy decode, eager then captured, held to its plain model
+    (``lm_phase``; module docstring, phase 5b).  Returns the launch counts
+    of the served requests and the numbers."""
+    t0 = time.perf_counter()
     cfg = get_config(DENSE_ARCH)
     defs = transformer.param_defs(cfg)
     if count_params(defs) != DENSE_PARAMS:
@@ -1797,98 +1888,329 @@ def dense_path():
     if want != {"flash_attention": 24}:
         fail(f"{DENSE_ARCH} should launch flash_attention 24 times a prefill, "
              f"model says {want}")
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     tree = init_params(SEED, defs)              # numpy float32, on the host
-    init_s = time.perf_counter() - t0
+    init_s = time.perf_counter() - t1
     params = transformer.load_params(cfg, tree)  # as served: bfloat16 compute
     del tree
-    prefill, decode = lm_serve.eager_steps(cfg, params)
     rng = np.random.default_rng(SEED + 3)
-    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t),
-                                             dtype=np.int32)).cuda()
-               for b, t, _ in DENSE_REQUESTS]
+    launches, result = lm_phase("dense", cfg, transformer, params, DENSE_REQUESTS, rng)
+    del params
+    torch.cuda.empty_cache()
+    result.update(arch=DENSE_ARCH, parameters=DENSE_PARAMS, init_params_s=init_s,
+                  wall_s=time.perf_counter() - t0)
+    return launches, result
 
-    for p in (prompts[0], prompts[-1]):        # warm-up, one of each size
-        _, cache, _ = lm_serve.run_prefill(prefill, p)
-        lm_serve.run_decode(decode, cache, p.shape[0], 2, p.device)
+
+@contextlib.contextmanager
+def recording_routes():
+    """Every expert choice ``layers.moe_route`` makes while open, in call
+    order: a list of [N, k] index tensors."""
+    got, route = [], lm_layers.moe_route
+
+    def rec(*args, **kw):
+        out = route(*args, **kw)
+        got.append(out[2])
+        return out
+
+    lm_layers.moe_route = rec
+    try:
+        yield got
+    finally:
+        lm_layers.moe_route = route
+
+
+def serve_lm(tag: str, cfg, mod, params, requests, rng) -> tuple:
+    """An LM's eager requests through ``launch.serve``'s steps (prefill,
+    then greedy decode from token 0), after a warm-up at the first and the
+    last request's shape.  Around each prefill and each decode loop the
+    counters are set to 0 and read: ``mod.kernel_launches_per_prefill`` in
+    a prefill, nothing in decode.  Logits of their shape, finite over the
+    vocabulary and -inf over its padding (the decode step masks it before
+    the argmax), tokens in the vocabulary.  Returns (the prefill batches, the served records,
+    the launches, the peak allocated MiB)."""
+    prefill, decode = lm_serve.eager_steps(cfg, params)
+    batches = [lm_batch(cfg, rng, b, t) for b, t, _ in requests]
+    want = mod.kernel_launches_per_prefill(cfg)
+    for i in (0, -1):
+        B, T, gen = requests[i]
+        _, cache, _ = lm_prefill(prefill, batches[i], decode_len(cfg, T, gen))
+        lm_serve.run_decode(decode, cache, B, 2, batches[i]["tokens"].device)
     del cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    served = []
-    launches = {name: 0 for name in KERNELS}
-    for i, (p, (B, T, gen)) in enumerate(zip(prompts, DENSE_REQUESTS)):
+    served, launches = [], {name: 0 for name in KERNELS}
+    for i, (batch, (B, T, gen)) in enumerate(zip(batches, requests)):
         reset_counts()
-        last, cache, prefill_ms = lm_serve.run_prefill(prefill, p)
+        last, cache, prefill_ms = lm_prefill(prefill, batch, decode_len(cfg, T, gen))
         n_prefill = read_counts()
         reset_counts()
         toks, logits, cache_end, decode_ms = lm_serve.run_decode(
-            decode, cache, B, gen, p.device)
+            decode, cache, B, gen, last.device)
         n_decode = read_counts()
         for name in KERNELS:
             expect = want.get(name, 0)
             if n_prefill[name] != expect or n_decode[name]:
-                fail(f"dense request {i}: {name} launched {n_prefill[name]} "
+                fail(f"{tag} request {i}: {name} launched {n_prefill[name]} "
                      f"times in prefill and {n_decode[name]} in decode, "
                      f"expected {expect} and 0")
             launches[name] += n_prefill[name] + n_decode[name]
         logits = torch.stack(logits, 1)
-        W = transformer.cache_len(cfg, T)
-        if logits.shape != (B, gen, cfg.padded_vocab) \
-                or not torch.isfinite(logits).all() \
-                or cache.k.shape != (cfg.num_layers, B, cfg.num_kv_heads, W, cfg.head_dim):
-            fail(f"dense request {i}: logits {tuple(logits.shape)}, finite "
-                 f"{bool(torch.isfinite(logits).all())}, cache {tuple(cache.k.shape)}")
+        V = cfg.vocab_size
+        finite = bool(torch.isfinite(logits[..., :V]).all())
+        masked = bool((logits[..., V:] == float("-inf")).all())
+        if logits.shape != (B, gen, cfg.padded_vocab) or not (finite and masked) \
+                or last.shape != (B, cfg.d_model):
+            fail(f"{tag} request {i}: logits {tuple(logits.shape)}, finite over "
+                 f"the vocabulary {finite}, padding -inf {masked}, last hidden "
+                 f"{tuple(last.shape)}")
         if toks.shape != (B, gen) or not bool(
                 ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-            fail(f"dense request {i}: tokens {tuple(toks.shape)} out of range")
-        served.append(dict(prompt=p, last=last, cache=cache, cache_end=cache_end,
+            fail(f"{tag} request {i}: tokens {tuple(toks.shape)} out of range")
+        # the (self) K cache: [L, B, Hkv, S, D], S the decode budget of an
+        # encoder-decoder, else the prompt (a ring of the window past it)
+        S = decode_len(cfg, T, gen) or mod.cache_len(cfg, T)
+        if tuple(cache[0].shape) != (cfg.num_layers, B, cfg.num_kv_heads, S, cfg.head_dim):
+            fail(f"{tag} request {i}: K cache {tuple(cache[0].shape)}, expected "
+                 f"{(cfg.num_layers, B, cfg.num_kv_heads, S, cfg.head_dim)}")
+        served.append(dict(prompt=batch, last=last, cache=cache, cache_end=cache_end,
                            tokens=toks, logits=logits, prefill_ms=prefill_ms,
                            decode_ms=decode_ms))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    return batches, served, launches, torch.cuda.max_memory_allocated() / 2 ** 20
 
-    cap, cap_records = dense_captured(cfg, params, prompts, served, rng)
 
-    # the served run against the plain model (no kernel), teacher-forced
-    # with the served tokens; the captured records are the eager bits
-    plain_prefill = build_prefill_step(cfg, kernels=ref.PLAIN)
-    plain_decode = build_decode_step(cfg, kernels=ref.PLAIN)
-    V = cfg.vocab_size
-    err, hidden_err, agree, steps = 0.0, 0.0, 0, 0
-    for r in (served[0], served[-1]):
+def forced_run(cfg, params, batch: dict, dlen, tokens, kernels) -> tuple:
+    """A request's prefill, then its decode steps fed the served tokens
+    (teacher forcing), through ``kernels`` -> (last hidden, logits [B, n, Vp],
+    the expert choices made on the way, the prefill's cache)."""
+    with recording_routes() as routes:
         with torch.inference_mode():
-            last_p, cache_p = plain_prefill(params, {"tokens": r["prompt"]})
-        logits_p, _ = forced_decode(plain_decode, params, cache_p,
-                                    decode_inputs(r["tokens"]))
-        del cache_p
+            last, cache = build_prefill_step(cfg, decode_len=dlen, kernels=kernels)(
+                params, batch)
+        logits, _ = forced_decode(build_decode_step(cfg, kernels=kernels), params,
+                                  cache, decode_inputs(tokens))
+    return last, logits, routes, cache
+
+
+def routing_agreement(got: list, want: list) -> tuple[int, int]:
+    """(claims of ``got`` that the same token's choices in ``want`` hold,
+    claims), over two runs' ``recording_routes``."""
+    same = sum(int((a[:, :, None] == b[:, None, :]).any(-1).sum())
+               for a, b in zip(got, want, strict=True))
+    return same, sum(a.numel() for a in got)
+
+
+def hold_to_plain(tag: str, cfg, params, served, requests) -> dict:
+    """The first and the last served request against the plain model
+    (``kernels=ref.PLAIN``), teacher-forced with the served tokens:
+    ``BF16_LOGITS_TOL`` on the logits, ``BF16_AGREEMENT`` on the greedy
+    tokens.  For an MoE model, also the share of (token, choice) routings
+    of the kernel model (the same requests forced through ``ops``) that the
+    plain model's choices for that token hold."""
+    V = cfg.vocab_size
+    err, hidden_err, agree, steps, same, claims = 0.0, 0.0, 0, 0, 0, 0
+    for i in (0, len(served) - 1):
+        r, (_, T, gen) = served[i], requests[i]
+        dlen = decode_len(cfg, T, gen)
+        last_p, logits_p, routes_p, _ = forced_run(cfg, params, r["prompt"], dlen,
+                                                   r["tokens"], ref.PLAIN)
         err = max(err, (r["logits"][..., :V] - logits_p[..., :V]).abs().max().item())
         hidden_err = max(hidden_err, (r["last"].float() - last_p.float())
                          .abs().max().item())
         agree += int((logits_p[..., :V].argmax(-1) == r["tokens"]).sum())
         steps += r["tokens"].numel()
+        if cfg.moe.enabled:
+            routes_k = forced_run(cfg, params, r["prompt"], dlen, r["tokens"], ops)[2]
+            n_same, n = routing_agreement(routes_k, routes_p)
+            same, claims = same + n_same, claims + n
+        del logits_p, routes_p
     if err > BF16_LOGITS_TOL or agree < BF16_AGREEMENT * steps:
-        fail(f"dense bfloat16: logits differ from the plain model by {err:.3e} "
+        fail(f"{tag} bfloat16: logits differ from the plain model by {err:.3e} "
              f"(limit {BF16_LOGITS_TOL}), greedy tokens agree {agree}/{steps} "
              f"(at least {BF16_AGREEMENT:.0%})")
-    del cap_records, params, plain_prefill, plain_decode
-    served_b4 = [r for r in served if r["prompt"].shape[0] == 4]
-    result = dict(
-        arch=DENSE_ARCH, requests=DENSE_REQUESTS, parameters=DENSE_PARAMS,
-        init_params_s=init_s, launches=launches,
+    out = dict(bf16_max_logits_err_vs_plain=err,
+               bf16_max_last_hidden_err_vs_plain=hidden_err,
+               bf16_greedy_agreement=agree / steps)
+    if claims:
+        out["bf16_routing_agreement"] = same / claims
+        out["routing_claims"] = claims
+    return out
+
+
+def lm_result(served, requests, launches, peak, cap, vocab: int) -> dict:
+    """The phase's numbers: each request's prefill and decode ms (eager),
+    the medians at the first request's shape and the last request's, peak
+    memory, |logits|, first tokens and the captured form's numbers."""
+    first = [r for r, q in zip(served, requests) if q[:2] == requests[0][:2]]
+    return dict(
+        requests=requests, launches=launches,
         prefill_ms=[r["prefill_ms"] for r in served],
-        decode_ms=[r["decode_ms"] for r in served],
-        prefill_ms_b4_t512=statistics.median(r["prefill_ms"] for r in served_b4),
-        prefill_ms_b1_t4608=served[-1]["prefill_ms"],
-        decode_ms_per_token_b4=statistics.median(
-            r["decode_ms"] / r["tokens"].shape[1] for r in served_b4),
-        decode_ms_per_token_b1_ring=served[-1]["decode_ms"] / served[-1]["tokens"].shape[1],
+        decode_ms_per_token=[r["decode_ms"] / r["tokens"].shape[1] for r in served],
+        prefill_ms_first=statistics.median(r["prefill_ms"] for r in first),
+        decode_ms_per_token_first=statistics.median(
+            r["decode_ms"] / r["tokens"].shape[1] for r in first),
+        prefill_ms_last=served[-1]["prefill_ms"],
+        decode_ms_per_token_last=served[-1]["decode_ms"] / served[-1]["tokens"].shape[1],
         peak_memory_mib=peak,
-        logits_abs_max=max(r["logits"].abs().max().item() for r in served),
-        bf16_max_logits_err_vs_plain=err, bf16_max_last_hidden_err_vs_plain=hidden_err,
-        bf16_greedy_agreement=agree / steps,
+        logits_abs_max=max(r["logits"][..., :vocab].abs().max().item() for r in served),
         first_tokens=served[0]["tokens"][0, :16].tolist(), captured=cap)
-    del served
-    torch.cuda.empty_cache()
+
+
+def lm_phase(tag: str, cfg, mod, params, requests, rng) -> tuple:
+    """Serve ``requests`` eager (``serve_lm``), then captured
+    (``lm_captured``, 6 / 4 rounds, and a trace of three captured prefills
+    at the first request's shape), then hold the eager records to the
+    plain model (``hold_to_plain``).  Returns (launches, numbers)."""
+    batches, served, launches, peak = serve_lm(tag, cfg, mod, params, requests, rng)
+    cap, records, (_, _, pre_c, _) = lm_captured(cfg, mod, params, batches, served,
+                                                 rng, requests, rounds=(6, 4))
+    B, T, gen = requests[0]
+    dlen = decode_len(cfg, T, gen)
+    cap["trace_prefill_first"] = trace(
+        lambda b: lm_serve.call_prefill(pre_c, b, dlen), batches[0], 3)
+    if len(pre_c.graphs) != len({(b, t) for b, t, _ in requests}):
+        fail(f"{tag}: the captured prefill holds {len(pre_c.graphs)} graphs, "
+             f"one a request shape expected")
+    del records, pre_c
+    result = lm_result(served, requests, launches, peak, cap, cfg.vocab_size)
+    result.update(hold_to_plain(tag, cfg, params, served, requests))
     return launches, result
+
+
+def moe_f32_check(cfg, tree, rng) -> tuple[float, float]:
+    """``qwen2-moe-a2.7b`` at full width in float32 on the first
+    MOE_F32_LAYERS layers of the served weights: a 2 x 256 prefill and 4
+    greedy steps through the kernels, held to the plain model fed the same
+    tokens (last hidden, cache, logits within 2e-3 (1 + |b|)); also the
+    share of routings the two agree on."""
+    n, B, T, steps = MOE_F32
+    cfg32 = dataclasses.replace(cfg, num_layers=n, dtype="float32")
+    sub = dict(tree, blocks=tree_map(lambda a, path: a[:n], tree["blocks"]))
+    params = transformer.load_params(cfg32, sub)
+    batch = lm_batch(cfg32, rng, B, T)
+    pre, dec = lm_serve.eager_steps(cfg32, params)
+    with recording_routes() as routes_k:
+        last_k, cache_k, _ = lm_prefill(pre, batch)
+        toks, logits_k, _, _ = lm_serve.run_decode(dec, cache_k, B, steps, last_k.device)
+    last_p, logits_p, routes_p, cache_p = forced_run(cfg32, params, batch, None,
+                                                     toks, ref.PLAIN)
+    # the greedy run's prefill routes come first in both lists
+    same, claims = routing_agreement(routes_k, routes_p)
+    err = max(compare("moe float32 last hidden", last_k, last_p, 2e-3),
+              compare("moe float32 cache k", cache_k.k, cache_p.k, 2e-3),
+              compare("moe float32 cache v", cache_k.v, cache_p.v, 2e-3),
+              compare("moe float32 logits", torch.stack(logits_k, 1), logits_p, 2e-3))
+    return err, same / claims
+
+
+def moe_path():
+    """``qwen2-moe-a2.7b`` at full width and 8 of its 24 layers served
+    through ``launch.serve``'s steps, eager then captured, held to its
+    plain model (module docstring, phase 5c).  Returns (launches, numbers)."""
+    t0 = time.perf_counter()
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    print(f"moe {MOE_ARCH} reduced: num_layers {full.num_layers} -> "
+          f"{cfg.num_layers} (every layer has the same shapes; the uncut "
+          f"{count_params(transformer.param_defs(full))} parameters would be "
+          f"{4 * count_params(transformer.param_defs(full)) / 1e9:.1f} GB of "
+          f"float32 on the host)", flush=True)
+    defs = transformer.param_defs(cfg)
+    if count_params(defs) != MOE_PARAMS:
+        fail(f"moe: {count_params(defs)} parameters, expected {MOE_PARAMS}")
+    want = transformer.kernel_launches_per_prefill(cfg)
+    if want != {"flash_attention": MOE_LAYERS}:
+        fail(f"moe: should launch flash_attention {MOE_LAYERS} times a prefill, "
+             f"model says {want}")
+    t1 = time.perf_counter()
+    tree = init_params(SEED, defs)              # numpy float32, on the host
+    init_s = time.perf_counter() - t1
+    params = transformer.load_params(cfg, tree)  # as served: bfloat16 compute
+    rng = np.random.default_rng(SEED + 4)
+    launches, result = lm_phase("moe", cfg, transformer, params, MOE_REQUESTS, rng)
+    del params
+    torch.cuda.empty_cache()
+    f32_err, f32_routing = moe_f32_check(cfg, tree, rng)
+    del tree
+    torch.cuda.empty_cache()
+    result.update(arch=MOE_ARCH, layers=MOE_LAYERS, parameters=MOE_PARAMS,
+                  init_params_s=init_s, f32_max_err_vs_plain_on_card=f32_err,
+                  f32_routing_agreement=f32_routing,
+                  wall_s=time.perf_counter() - t0)
+    return launches, result
+
+
+def audio_path():
+    """``seamless-m4t-large-v2`` uncut served through ``launch.serve``'s
+    steps, eager then captured, held to its plain model (module docstring,
+    phase 5d).  Returns (launches, numbers)."""
+    t0 = time.perf_counter()
+    cfg = get_config(AUDIO_ARCH)
+    defs = seamless.param_defs(cfg)
+    if count_params(defs) != AUDIO_PARAMS:
+        fail(f"audio: {count_params(defs)} parameters, expected {AUDIO_PARAMS}")
+    want = seamless.kernel_launches_per_prefill(cfg)
+    if want != {"flash_attention": 72}:
+        fail(f"audio: should launch flash_attention 72 times a prefill, model "
+             f"says {want}")
+    t1 = time.perf_counter()
+    tree = init_params(SEED, defs)
+    init_s = time.perf_counter() - t1
+    params = seamless.load_params(cfg, tree)
+    del tree
+    rng = np.random.default_rng(SEED + 5)
+    launches, result = lm_phase("audio", cfg, seamless, params, AUDIO_REQUESTS, rng)
+    del params
+    torch.cuda.empty_cache()
+    result.update(arch=AUDIO_ARCH, parameters=AUDIO_PARAMS, init_params_s=init_s,
+                  wall_s=time.perf_counter() - t0)
+    return launches, result
+
+
+def print_lm(tag: str, res: dict, per_prefill: int) -> None:
+    """The lines of an LM phase (``lm_phase``'s numbers)."""
+    (B0, T0, g0), (B1, T1, g1) = res["requests"][0], res["requests"][-1]
+    print(f"{tag} {res['arch']} requests {res['requests']} (batch, prompt, greedy "
+          f"tokens), {res['parameters']} parameters (init on the host "
+          f"{res['init_params_s']:.1f} s), launches {res['launches']} = "
+          f"{per_prefill} flash_attention a prefill, 0 in decode")
+    print(f"{tag} prefill ms {B0}x{T0} {res['prefill_ms_first']:.3f} {B1}x{T1} "
+          f"{res['prefill_ms_last']:.3f}; decode ms/token B={B0} "
+          f"{res['decode_ms_per_token_first']:.3f} B={B1} "
+          f"{res['decode_ms_per_token_last']:.3f} (eager); peak memory "
+          f"{res['peak_memory_mib']:.0f} MiB")
+    routing = (f", expert routings agree {res['bf16_routing_agreement']:.4f} of "
+               f"{res['routing_claims']}" if "bf16_routing_agreement" in res else "")
+    print(f"{tag} bfloat16 vs plain: max |dlogits| "
+          f"{res['bf16_max_logits_err_vs_plain']:.3e} (limit {BF16_LOGITS_TOL}), "
+          f"last hidden {res['bf16_max_last_hidden_err_vs_plain']:.3e}, greedy "
+          f"agreement {res['bf16_greedy_agreement']:.3f} (at least "
+          f"{BF16_AGREEMENT}){routing}; |logits| <= {res['logits_abs_max']:.3f}")
+    cap = res["captured"]
+    for shape, c in cap["captures"].items():
+        print(f"{tag} captured {shape}: capture prefill {c['prefill_capture_s']:.2f} s "
+              f"decode {c['decode_capture_s']:.2f} s (host clock, {WARMUP} warm-up "
+              f"runs included), launches prefill "
+              f"{c['prefill_launches']['flash_attention']} flash_attention = "
+              f"(1 + {WARMUP}) x {per_prefill}, decode "
+              f"{sum(c['decode_launches'].values())}; graph reserved "
+              f"{c['prefill_reserved_mib']:.0f} + {c['decode_reserved_mib']:.0f} MiB")
+    print(f"{tag} captured: {cap['bitwise_equal_requests']} requests replayed equal "
+          f"the eager steps bit for bit (last hidden, prefill cache, tokens, "
+          f"logits, last cache), launches on replay "
+          f"{sum(cap['launches_on_replay'].values())}")
+    for key, t in cap["timing"].items():
+        unit = "ms/token" if key.startswith("decode") else "ms"
+        print(f"{tag} {key} {unit} eager|captured (median, in turns): events "
+              f"{t['eager']['event_ms']:.3f}|{t['captured']['event_ms']:.3f} wall "
+              f"{t['eager']['wall_ms']:.3f}|{t['captured']['wall_ms']:.3f}")
+    tr = cap["trace_prefill_first"]
+    busy = tr["device_busy_share"]
+    print(f"{tag} captured prefill {B0}x{T0} traced x{tr['traced_requests']}: window "
+          f"{tr['window_ms']:.2f} ms, device busy {tr['device_busy_ms']:.2f} ms "
+          f"({'not measured' if busy is None else f'{100 * busy:.1f} %'}), own "
+          f"kernels {tr['own_kernels_ms']:.2f} ms, {tr['device_kernel_launches']} "
+          f"device kernels; phase wall {res['wall_s']:.1f} s", flush=True)
 
 
 def split_text(rec: dict) -> str:
@@ -2037,45 +2359,19 @@ def main() -> None:
 
     # 5b. the dense path, h2o-danube-1.8b uncut
     dense_launches, dense = dense_path()
-    print(f"dense {dense['arch']} requests {dense['requests']} (batch, prompt, greedy "
-          f"tokens), {dense['parameters']} parameters (init on the host "
-          f"{dense['init_params_s']:.1f} s), launches {dense_launches} = 24 "
-          f"flash_attention a prefill, 0 in decode")
-    print(f"dense prefill ms B=4 T=512 {dense['prefill_ms_b4_t512']:.3f} B=1 T=4608 "
-          f"{dense['prefill_ms_b1_t4608']:.3f}; decode ms/token B=4 "
-          f"{dense['decode_ms_per_token_b4']:.3f} B=1 (ring of 4096) "
-          f"{dense['decode_ms_per_token_b1_ring']:.3f} (eager); peak memory "
-          f"{dense['peak_memory_mib']:.0f} MiB")
-    print(f"dense bfloat16 vs plain: max |dlogits| "
-          f"{dense['bf16_max_logits_err_vs_plain']:.3e} (limit {BF16_LOGITS_TOL}), "
-          f"last hidden {dense['bf16_max_last_hidden_err_vs_plain']:.3e}, greedy "
-          f"agreement {dense['bf16_greedy_agreement']:.3f} (at least "
-          f"{BF16_AGREEMENT}); |logits| <= {dense['logits_abs_max']:.3f}", flush=True)
-    cap = dense["captured"]
-    for shape, c in cap["captures"].items():
-        print(f"dense captured {shape}: capture prefill {c['prefill_capture_s']:.2f} s "
-              f"decode {c['decode_capture_s']:.2f} s (host clock, {WARMUP} warm-up "
-              f"runs included), launches prefill "
-              f"{c['prefill_launches']['flash_attention']} flash_attention = "
-              f"(1 + {WARMUP}) x 24, decode {sum(c['decode_launches'].values())}; "
-              f"graph reserved {c['prefill_reserved_mib']:.0f} + "
-              f"{c['decode_reserved_mib']:.0f} MiB")
-    print(f"dense captured: {cap['bitwise_equal_requests']} requests replayed equal "
-          f"the eager steps bit for bit (last hidden, prefill cache, tokens, "
-          f"logits, last cache), launches on replay "
-          f"{sum(cap['launches_on_replay'].values())}")
-    for key, t in cap["timing"].items():
-        unit = "ms/token" if key.startswith("decode") else "ms"
-        print(f"dense {key} {unit} eager|captured (median, in turns): events "
-              f"{t['eager']['event_ms']:.3f}|{t['captured']['event_ms']:.3f} wall "
-              f"{t['eager']['wall_ms']:.3f}|{t['captured']['wall_ms']:.3f}")
-    tr = cap["trace_prefill_4x512"]
-    busy = tr["device_busy_share"]
-    print(f"dense captured prefill 4x512 traced x{tr['traced_requests']}: window "
-          f"{tr['window_ms']:.2f} ms, device busy {tr['device_busy_ms']:.2f} ms "
-          f"({'not measured' if busy is None else f'{100 * busy:.1f} %'}), own "
-          f"kernels {tr['own_kernels_ms']:.2f} ms, {tr['device_kernel_launches']} "
-          f"device kernels", flush=True)
+    print_lm("dense", dense, 24)
+
+    # 5c. the MoE path, qwen2-moe-a2.7b at 8 of its 24 layers
+    moe_launches, moe = moe_path()
+    print_lm("moe", moe, MOE_LAYERS)
+    print(f"moe float32 ({MOE_F32[0]} layers, {MOE_F32[1]}x{MOE_F32[2]}, "
+          f"{MOE_F32[3]} steps) err vs plain on card "
+          f"{moe['f32_max_err_vs_plain_on_card']:.2e} (limit 2e-3 (1+|b|)), expert "
+          f"routings agree {moe['f32_routing_agreement']:.4f}", flush=True)
+
+    # 5d. the encoder-decoder, seamless-m4t-large-v2 uncut
+    audio_launches, audio = audio_path()
+    print_lm("audio", audio, 72)
 
     # 6. the scheduler's path: every lowered entry onto its kernel
     lowered, entries, by_workload, lowered_launches, verified, samples, launched = \
@@ -2128,6 +2424,8 @@ def main() -> None:
     rows = summarise(per_kernel, {"edgenext_serve": launches,
                                   "rwkv6_serve": rwkv_launches,
                                   "dense_serve": dense_launches,
+                                  "moe_serve": moe_launches,
+                                  "audio_serve": audio_launches,
                                   "lowered": lowered_launches,
                                   "serve_store": serve_launches})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2138,7 +2436,8 @@ def main() -> None:
         out.write_text(json.dumps(dict(
             device=device, nvidia_smi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
-            kernels=rows, main_path=served, rwkv6=rwkv, dense=dense, check=check,
+            kernels=rows, main_path=served, rwkv6=rwkv, dense=dense, moe=moe,
+            audio=audio, check=check,
             serve=store,
             lowered=dict(records=lowered, entries=entries,
                          by_workload=by_workload)), indent=1))

@@ -1,16 +1,19 @@
 """Model configurations of the port: ``get_config(arch)`` / ``ARCHS``.
 
-``ARCHS`` holds the LM configurations whose model is ported (RWKV-6, and
-the dense and VLM transformers: ``models.transformer``); EdgeNeXt-S
+``ARCHS`` holds the LM configurations whose model is ported (RWKV-6; the
+dense, VLM and MoE transformers: ``models.transformer``; the Seamless
+encoder-decoder: ``models.seamless``); EdgeNeXt-S
 (``edgenext_s``) is the vision model of the paper's path and stands
-apart, as in the JAX package.  The JAX package's other architectures are
-named in ``NOT_PORTED`` with the ROADMAP item that ports them;
-``get_config`` raises ``KeyError`` for them and for any unknown name.
+apart, as in the JAX package.  The JAX package's one other architecture
+is named in ``NOT_PORTED`` with the ROADMAP item that ports it;
+``get_config`` raises ``KeyError`` for it and for any unknown name.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (h2o_danube_1_8b, minitron_4b, olmo_1b,
-                                 qwen2_vl_2b, rwkv6_1_6b, starcoder2_15b)
+                                 qwen2_moe_a2_7b, qwen2_vl_2b,
+                                 qwen3_moe_30b_a3b, rwkv6_1_6b,
+                                 seamless_m4t_large_v2, starcoder2_15b)
 from repro_torch.configs.base import (ModelConfig, MoEConfig, ShapeConfig,
                                       reduced, reduced_shape)
 
@@ -19,16 +22,14 @@ ARCHS = {
     "minitron-4b": minitron_4b.CONFIG,
     "h2o-danube-1.8b": h2o_danube_1_8b.CONFIG,
     "olmo-1b": olmo_1b.CONFIG,
-    "qwen2-vl-2b": qwen2_vl_2b.CONFIG,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
+    "qwen2-moe-a2.7b": qwen2_moe_a2_7b.CONFIG,
     "rwkv6-1.6b": rwkv6_1_6b.CONFIG,
+    "seamless-m4t-large-v2": seamless_m4t_large_v2.CONFIG,
+    "qwen2-vl-2b": qwen2_vl_2b.CONFIG,
 }
 
-_MOE = "ROADMAP queue 1 item 6b (MoE: layers.moe_defs / moe_apply)"
 NOT_PORTED = {
-    "qwen3-moe-30b-a3b": _MOE,
-    "qwen2-moe-a2.7b": _MOE,
-    "seamless-m4t-large-v2": ("ROADMAP queue 1 item 6b (the encoder-decoder, "
-                              "models/seamless.py)"),
     "recurrentgemma-2b": "ROADMAP queue 1 item 5 (models/recurrentgemma.py)",
 }
 

@@ -5,11 +5,13 @@
       [--device cuda|cpu]
 
 Port of ``repro/launch/serve.py`` for every ported arch (``configs.ARCHS``:
-RWKV-6, the dense transformers and Qwen2-VL).  Weights come from ``--seed``
-(``params.init_params``, numpy), prompts from
-``np.random.default_rng(seed)`` (and, where the config takes embedding
-inputs, the prompt's ``inputs_embeds`` drawn after the tokens), and decode
-starts from token 0, as in the JAX launcher.  ``--device`` defaults to ``cuda`` and the run raises where
+RWKV-6, the dense and MoE transformers, Qwen2-VL and the Seamless
+encoder-decoder).  Weights come from ``--seed`` (``params.init_params``,
+numpy), prompts from ``np.random.default_rng(seed)`` (and, where the config
+takes embedding inputs, the prompt's ``inputs_embeds`` drawn after the
+tokens: for the encoder-decoder they are the source frames, the tokens'
+first column is the decoder's prefix and its self cache is sized for
+prompt + gen), and decode starts from token 0, as in the JAX launcher.  ``--device`` defaults to ``cuda`` and the run raises where
 there is no card; ``--device cpu`` runs the plain versions on the CPU.
 
 On the card the steps are captured, as the reference jits them: the
@@ -57,11 +59,20 @@ def timed(fn: Callable, device: torch.device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _prefill(cfg: ModelConfig, params) -> Callable:
+    """prefill(batch, decode_len=None) with ``params`` bound: the step
+    ``build_prefill_step(cfg, decode_len=decode_len)`` builds.  Captured,
+    it keeps one graph for each value of ``decode_len``, as it does for
+    each shape."""
+    def prefill(batch, decode_len=None):
+        return build_prefill_step(cfg, decode_len=decode_len)(params, batch)
+    return prefill
+
+
 def eager_steps(cfg: ModelConfig, params) -> Tuple[Callable, Callable]:
-    """(prefill(batch), decode(cache, batch)): the eager steps with
-    ``params`` bound."""
-    return (functools.partial(build_prefill_step(cfg), params),
-            functools.partial(build_decode_step(cfg), params))
+    """(prefill(batch, decode_len=None), decode(cache, batch)): the eager
+    steps with ``params`` bound."""
+    return _prefill(cfg, params), functools.partial(build_decode_step(cfg), params)
 
 
 def captured_steps(cfg: ModelConfig, params) -> Tuple[Callable, Callable]:
@@ -69,20 +80,28 @@ def captured_steps(cfg: ModelConfig, params) -> Tuple[Callable, Callable]:
     and the decode step with its cache donated; one graph pool."""
     pool = torch.cuda.graph_pool_handle()
     decode = donating(build_decode_step(cfg), 1)
-    return (captured(functools.partial(build_prefill_step(cfg), params),
-                     pool=pool),
+    return (captured(_prefill(cfg, params), pool=pool),
             captured(functools.partial(decode, params), pool=pool))
 
 
+def call_prefill(prefill: Callable, batch: dict, decode_len: Optional[int] = None):
+    """``prefill(batch)``, or ``prefill(batch, decode_len)`` where there is a
+    ``decode_len``: one way of calling for each, so that a captured prefill
+    sees one signature (and keeps one graph) whoever calls it."""
+    return prefill(batch) if decode_len is None else prefill(batch, decode_len)
+
+
 def run_prefill(prefill: Callable, tokens: torch.Tensor,
-                inputs_embeds: Optional[torch.Tensor] = None):
-    """``prefill(batch)`` on tokens [B, S] (and ``inputs_embeds`` [B, S, D]
+                inputs_embeds: Optional[torch.Tensor] = None,
+                decode_len: Optional[int] = None):
+    """``call_prefill`` on tokens [B, S] (and ``inputs_embeds`` [B, S, D]
     where given) -> (last hidden [B, D], cache, ms)."""
     batch = {"tokens": tokens}
     if inputs_embeds is not None:
         batch["inputs_embeds"] = inputs_embeds
     with torch.inference_mode():
-        (last, cache), ms = timed(lambda: prefill(batch), tokens.device)
+        (last, cache), ms = timed(lambda: call_prefill(prefill, batch, decode_len),
+                                  tokens.device)
     return last, cache, ms
 
 
@@ -142,17 +161,20 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if cfg.embedding_inputs:
         embeds = torch.from_numpy(rng.standard_normal(
             (B, S, cfg.d_model)).astype(np.float32)).to(device)
+        if cfg.family == "audio":
+            tokens = tokens[:, :1]
+    total = S + args.gen if cfg.family == "audio" else None
     if device.type == "cuda":
         prefill, decode = captured_steps(cfg, params)
         # capture both at the run's shapes (the first call at a signature
         # captures it) before the timed calls
-        _, cache, _ = run_prefill(prefill, tokens, embeds)
+        _, cache, _ = run_prefill(prefill, tokens, embeds, total)
         run_decode(decode, cache, B, 1, device)
         print(f"capture prefill[{B}x{S}]={prefill.capture_s[0]:.2f}s "
               f"decode[{B}]={decode.capture_s[0]:.2f}s (host clock)")
     else:
         prefill, decode = eager_steps(cfg, params)
-    _, cache, t_prefill = run_prefill(prefill, tokens, embeds)
+    _, cache, t_prefill = run_prefill(prefill, tokens, embeds, total)
     gen, _, _, t_decode = run_decode(decode, cache, B, args.gen, device)
     gen = gen.cpu().numpy()
     print(f"arch={cfg.name} device={device} prefill[{B}x{S}]={t_prefill:.1f}ms "

@@ -1,7 +1,7 @@
 """Models of the port: EdgeNeXt (``edgenext``), RWKV-6 (``rwkv6``), the
-dense and VLM transformer (``transformer``) over the attention library
-(``attention``), their parameter trees (``params``) and shared LM layers
-(``layers``).
+dense, VLM and MoE transformer (``transformer``) and the Seamless
+encoder-decoder (``seamless``) over the attention library (``attention``),
+their parameter trees (``params``) and shared LM layers (``layers``).
 
 ``get_module(cfg)`` dispatches an LM configuration's family to its module,
 as the JAX package's ``repro.models.get_module`` does; a family that is
@@ -10,8 +10,6 @@ not ported yet raises ``NotImplementedError`` naming its ROADMAP item.
 from __future__ import annotations
 
 NOT_PORTED = {
-    "moe": "ROADMAP queue 1 item 6b (MoE: layers.moe_defs / moe_apply)",
-    "audio": "ROADMAP queue 1 item 6b (models/seamless.py)",
     "hybrid": "ROADMAP queue 1 item 5 (models/recurrentgemma.py)",
 }
 
@@ -20,9 +18,12 @@ def get_module(cfg):
     if cfg.family == "ssm":
         from repro_torch.models import rwkv6
         return rwkv6
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "moe"):
         from repro_torch.models import transformer
         return transformer
+    if cfg.family == "audio":
+        from repro_torch.models import seamless
+        return seamless
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not "
                                   f"ported yet: {NOT_PORTED[cfg.family]}")

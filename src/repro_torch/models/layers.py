@@ -1,12 +1,14 @@
 """Shared layers of the LM stack: norms, activations, the MLP (plain and
-chunked), RoPE / M-RoPE, the GQA attention layer, embedding, LM head.
+chunked), the MoE block, RoPE / M-RoPE, the GQA attention layer (self and
+cross), embedding, LM head.
 
-Port of ``repro/models/layers.py`` but MoE (ROADMAP queue 1 item 6b), with
-the JAX names, parameter layouts and rounding points: a norm computes in
-float32 and returns the input's dtype, RoPE rotates in float32, the
-projections and the MLP are products in the compute dtype (``torch.matmul``,
-as they are XLA's in the JAX package), ``lm_logits`` is a float32 product
-with the unembedding.  The reference's ``actshard`` anchors are left out:
+Port of ``repro/models/layers.py``, with the JAX names, parameter layouts
+and rounding points: a norm computes in float32 and returns the input's
+dtype, RoPE rotates in float32, the projections, the MLP and the experts
+are products in the compute dtype (``torch.matmul`` / ``torch.bmm``, as
+they are XLA's in the JAX package), the router's logits are cast to
+float32 after their product, ``lm_logits`` is a float32 product with the
+unembedding.  The reference's ``actshard`` anchors are left out:
 one device (the distributed runtime is item 8).  Prefill attention goes
 through ``kernels.flash_attention`` (``models.attention``); decode
 attention is plain tensor code, as in the JAX package.
@@ -123,6 +125,116 @@ def mlp_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice, capacity-bounded)
+# ---------------------------------------------------------------------------
+
+
+def moe_defs(cfg: ModelConfig, layers_dim: Tuple[int, ...] = ()) -> Params:
+    m = cfg.moe
+    d, e, f = cfg.d_model, m.num_experts_padded, m.d_ff_expert
+    defs: Params = {"router": ParamDef(layers_dim + (d, e)),
+                    "wi": ParamDef(layers_dim + (e, d, f)),
+                    "wo": ParamDef(layers_dim + (e, f, d))}
+    if cfg.mlp in ("swiglu", "geglu"):
+        defs["wg"] = ParamDef(layers_dim + (e, d, f))
+    if m.num_shared_experts:
+        defs["shared"] = mlp_defs(cfg, layers_dim, d_model=d, d_ff=m.d_ff_shared)
+        defs["shared_gate"] = ParamDef(layers_dim + (d, 1))
+    return defs
+
+
+def moe_apply_auto(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   capacity_factor: float = 1.25
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block as the models call it.  The reference picks its
+    shard-local form under a production mesh; the port has no mesh until
+    the distributed runtime (ROADMAP queue 1 item 8), so this is always
+    the plain ``moe_apply``."""
+    return moe_apply(cfg, params, x, capacity_factor=capacity_factor)
+
+
+def moe_route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor):
+    """Router of ``moe_apply``: xt [N, d] -> (probs [N, E] float32, gate
+    values [N, k] float32, expert indices [N, k]).  Padded experts are
+    masked to ``NEG_INF`` before the softmax.  The top k come from a stable
+    descending sort, so that equal probabilities go to the lower expert
+    index first, as ``lax.top_k`` orders them (``torch.topk`` promises no
+    order among equals)."""
+    m = cfg.moe
+    logits = (xt @ router.to(xt.dtype)).float()
+    if m.num_experts_padded > m.num_experts:
+        pad = torch.arange(m.num_experts_padded, device=xt.device) >= m.num_experts
+        logits = logits.masked_fill(pad[None, :], attn_lib.NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = vals[:, :m.top_k], idx[:, :m.top_k]
+    if m.norm_topk_prob:
+        gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    return probs, gate_vals, expert_idx
+
+
+def moe_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
+              capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with capacity-bounded sort-free dispatch.
+
+    x: [..., N, d] flattened internally to [N, d].  Returns (out, aux_loss).
+    Claims on an expert are taken token-major, choice-minor; a claim past
+    the expert's ``capacity`` is dropped (its row of the dispatch buffer
+    is a sentinel cut off after the scatter, as ``mode="drop"`` discards
+    it, and its gathered output is zero).  Every step stays on the device
+    and the shapes depend on N alone, so the block can be captured."""
+    m = cfg.moe
+    orig_shape, d = x.shape, x.shape[-1]
+    xt = x.reshape(-1, d)
+    n, e_pad, e_real, k = xt.shape[0], m.num_experts_padded, m.num_experts, m.top_k
+    dtype, dev = x.dtype, x.device
+
+    probs, gate_vals, expert_idx = moe_route(cfg, params["router"], xt)
+
+    # load-balancing aux loss (Switch-style), over real experts only
+    me = probs[:, :e_real].mean(0)
+    ce = torch.zeros(e_pad, dtype=torch.float32, device=dev).index_add_(
+        0, expert_idx.reshape(-1),
+        torch.full((n * k,), 1.0 / (n * k), dtype=torch.float32, device=dev))
+    aux_loss = e_real * torch.sum(me * ce[:e_real])
+
+    # capacity-bounded dispatch: slot = expert * C + position_in_expert
+    capacity = int(max(1, (k * n * capacity_factor) // e_pad))
+    flat_expert = expert_idx.reshape(-1)                          # [N*k]
+    # the reference's cumsum over the [N*k, E] one-hot, taken over its
+    # transpose [E, N*k]: the same integers, but a scan along the inner
+    # dimension, which the card runs in parallel (along the outer one,
+    # PyTorch's scan took 1.5 ms at N*k = 8192 on the H100)
+    onehot_t = flat_expert[None, :] == torch.arange(e_pad, device=dev)[:, None]
+    pos_in_expert = onehot_t.cumsum(1).gather(0, flat_expert[None, :])[0] - 1
+    keep = pos_in_expert < capacity
+    sentinel = e_pad * capacity
+    slot = torch.where(keep, flat_expert * capacity + pos_in_expert, sentinel)
+    token_idx = torch.arange(n, device=dev).repeat_interleave(k)
+    buf = torch.zeros(sentinel + 1, d, dtype=dtype, device=dev).index_copy_(
+        0, slot, xt[token_idx])[:sentinel].view(e_pad, capacity, d)
+
+    h = torch.bmm(buf, params["wi"].to(dtype))
+    if "wg" in params:
+        h = activation(cfg.mlp, torch.bmm(buf, params["wg"].to(dtype))) * h
+    else:
+        h = activation(cfg.mlp, h)
+    expert_out = torch.bmm(h, params["wo"].to(dtype)).reshape(sentinel, d)
+
+    gathered = expert_out.index_select(0, slot.clamp(max=sentinel - 1))
+    gathered = torch.where(keep[:, None], gathered, torch.zeros((), dtype=dtype,
+                                                                device=dev))
+    weighted = gathered * gate_vals.reshape(-1, 1).to(dtype)
+    out = weighted.reshape(n, k, d).sum(1)
+
+    if m.num_shared_experts:
+        shared = mlp_apply(cfg, params["shared"], xt)
+        sg = torch.sigmoid((xt @ params["shared_gate"].to(dtype)).float())
+        out = out + shared * sg.to(dtype)
+    return out.reshape(orig_shape), aux_loss
+
+
+# ---------------------------------------------------------------------------
 # RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
@@ -202,16 +314,31 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, h * e)).view(B, S, h, e).transpose(1, 2)
 
 
-def qkv_project(cfg: ModelConfig, params: Params, x: torch.Tensor,
-                positions: Optional[torch.Tensor]):
-    """Returns q:[B,H,S,D], k,v:[B,Hkv,S,D] (rope applied, qk-norm applied)."""
-    q, k, v = (_heads(x, params[n]) for n in ("wq", "wk", "wv"))
+def query_project(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                  positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """The q of ``qkv_project`` alone: [B,H,S,D]."""
+    q = _heads(x, params["wq"])
     if cfg.qk_norm:
         q = rms_head_norm(q, params["q_norm"])
-        k = rms_head_norm(k, params["k_norm"])
     if positions is not None and cfg.rope != "none":
         q = positional_rotate(cfg, q, positions)
-        k = positional_rotate(cfg, k, positions)
+    return q
+
+
+def qkv_project(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                positions: Optional[torch.Tensor],
+                kv_x: Optional[torch.Tensor] = None,
+                kv_positions: Optional[torch.Tensor] = None):
+    """Returns q:[B,H,S,D], k,v:[B,Hkv,Skv,D] (rope applied, qk-norm
+    applied); k and v are made from ``kv_x`` (cross-attention) where given."""
+    kv_src = x if kv_x is None else kv_x
+    kv_pos = positions if kv_positions is None else kv_positions
+    q = query_project(cfg, params, x, positions)
+    k, v = _heads(kv_src, params["wk"]), _heads(kv_src, params["wv"])
+    if cfg.qk_norm:
+        k = rms_head_norm(k, params["k_norm"])
+    if positions is not None and cfg.rope != "none":
+        k = positional_rotate(cfg, k, kv_pos)
     return q, k, v
 
 
@@ -232,12 +359,17 @@ def expand_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
 
 
 def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
-                    positions: torch.Tensor, *, causal: Optional[bool] = None,
-                    window: Optional[int] = None, kernels=ops) -> torch.Tensor:
-    """Full-sequence attention (train / prefill)."""
+                    positions: Optional[torch.Tensor], *,
+                    causal: Optional[bool] = None,
+                    window: Optional[int] = None, kernels=ops,
+                    kv_x: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill); cross-attention into
+    ``kv_x`` where given."""
     causal_ = cfg.causal if causal is None else causal
     window_ = cfg.window if window is None else window
-    q, k, v = qkv_project(cfg, params, x, positions)
+    q, k, v = qkv_project(cfg, params, x, positions, kv_x=kv_x,
+                          kv_positions=kv_positions)
     k, v = expand_kv(cfg, k, v)
     o = attn_lib.flash_attention(q, k, v, causal_, window_, kernels=kernels)
     return out_project(params, o, x.dtype)

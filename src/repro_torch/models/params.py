@@ -11,7 +11,8 @@ layouts as the JAX package (``stages[i].conv_blocks[j].dw_w`` is
                         numbers: the two generators differ)
 - ``from_jax_params`` : carries a tree of numpy arrays, such as the JAX
                         package's ``init_params`` turned to numpy, across
-                        into a tree of tensors
+                        into a tree of tensors (``load_cast``: and casts
+                        a model's compute-dtype leaves once)
 - ``count_params``
 
 The logical-axis / ``PartitionSpec`` half of the JAX module belongs to
@@ -124,6 +125,21 @@ def from_jax_params(tree: Tree, defs: Optional[Tree] = None, *,
     if defs is not None:
         tree_map(check, defs, tree)
     return tree_map(leaf, tree)
+
+
+def load_cast(cfg, tree: Tree, defs: Tree, cast_leaves, *,
+              device: "torch.device | str" = "cuda") -> Tree:
+    """A model's ``load_params``: a tree of numpy arrays (``init_params`` or
+    the JAX package's parameters) -> tensors on ``device`` (the card by
+    default; raises without one), float32, with the leaves at the paths
+    ``cast_leaves`` cast once to ``cfg.compute_dtype`` (the rounding of the
+    reference's cast at each use).  A tied embedding stays float32: the LM
+    head reads it in float32.  TF32 products are switched off, so that a
+    float32 product on the card is exact float32, as the reference's is."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cast = set(cast_leaves) - ({"embed.embedding"} if cfg.tie_embeddings else set())
+    return tree_map(lambda t, path: t.to(cfg.compute_dtype) if path in cast else t,
+                    from_jax_params(tree, defs, device=device))
 
 
 def per_layer(blocks: Tree, n: int) -> list:

@@ -42,8 +42,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.params import (ParamDef, from_jax_params, per_layer,
-                                      tree_map)
+from repro_torch.models.params import ParamDef, load_cast, per_layer
 
 Params = Dict[str, Any]
 
@@ -119,21 +118,10 @@ COMPUTE_DTYPE_LEAVES = (
 
 def load_params(cfg: ModelConfig, tree: Params, *,
                 device: "torch.device | str" = "cuda") -> Params:
-    """A tree of numpy arrays (``params.init_params`` or the JAX package's
-    parameters) -> tensors on ``device`` (the card by default; raises
-    without one), float32, with ``COMPUTE_DTYPE_LEAVES`` cast once to
-    ``cfg.compute_dtype``.  A tied embedding stays float32: the LM head
-    reads it in float32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dtype = cfg.compute_dtype
-    cast = set(COMPUTE_DTYPE_LEAVES)
-    if cfg.tie_embeddings:
-        cast.discard("embed.embedding")
-
-    def leaf(t, path):
-        return t.to(dtype) if path in cast else t
-
-    return tree_map(leaf, from_jax_params(tree, param_defs(cfg), device=device))
+    """``params.load_cast`` of RWKV-6's tree: float32 tensors on
+    ``device`` (the card by default), ``COMPUTE_DTYPE_LEAVES`` in
+    ``cfg.compute_dtype``."""
+    return load_cast(cfg, tree, param_defs(cfg), COMPUTE_DTYPE_LEAVES, device=device)
 
 
 # ---------------------------------------------------------------------------

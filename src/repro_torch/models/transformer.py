@@ -1,5 +1,5 @@
-"""Decoder-only TransformerLM, dense and VLM (M-RoPE, embedding inputs),
-with sliding-window attention: port of ``repro/models/transformer.py``
+"""Decoder-only TransformerLM, dense, VLM (M-RoPE, embedding inputs) and
+MoE, with sliding-window attention: port of ``repro/models/transformer.py``
 for inference.
 
 Names, the nested parameter tree and the stacked ``[L, ...]`` layouts are
@@ -15,8 +15,9 @@ Entry points:
 
 Where the work goes: prefill attention -> ``kernels.flash_attention`` (one
 launch a layer on the card; the banded form where the prompt is longer
-than the window); projections and MLPs -> plain products; decode attention
--> plain tensor code, no kernel (as in the JAX package).
+than the window); projections, MLPs and the MoE block's router, experts
+and shared experts -> plain products (``layers.moe_apply_auto``); decode
+attention -> plain tensor code, no kernel (as in the JAX package).
 
 The cache is the reference's, quirks included: a prefill returns K/V of
 the prompt's length (a ring of ``window`` slots where the prompt is longer),
@@ -35,7 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.params import from_jax_params, per_layer, tree_map
+from repro_torch.models.params import load_cast, per_layer
 
 Params = Dict[str, Any]
 
@@ -53,45 +54,36 @@ class Cache(NamedTuple):
 
 
 def param_defs(cfg: ModelConfig) -> Params:
-    if cfg.moe.enabled:
-        raise NotImplementedError(f"{cfg.name}: the MoE block is not ported yet "
-                                  f"(ROADMAP queue 1 item 6b)")
     ld = (cfg.num_layers,)
     block: Params = {
         "ln1": L.norm_defs(cfg, ld),
         "attn": L.attention_defs(cfg, ld),
         "ln2": L.norm_defs(cfg, ld),
-        "mlp": L.mlp_defs(cfg, ld),
     }
+    if cfg.moe.enabled:
+        block["moe"] = L.moe_defs(cfg, ld)
+    else:
+        block["mlp"] = L.mlp_defs(cfg, ld)
     return {"embed": L.embedding_defs(cfg), "blocks": block,
             "ln_f": L.norm_defs(cfg)}
 
 
-# the leaves the JAX functions cast to the compute dtype at every use
+# the leaves the JAX functions cast to the compute dtype at every use (a
+# model holds the MLP's or the MoE block's, as its config says)
 COMPUTE_DTYPE_LEAVES = (
     ["embed.embedding"]
     + [f"blocks.attn.{n}" for n in ("wq", "wk", "wv", "wo")]
-    + [f"blocks.mlp.{n}" for n in ("wi", "wo", "wg")])
+    + [f"blocks.mlp.{n}" for n in ("wi", "wo", "wg")]
+    + [f"blocks.moe.{n}" for n in ("router", "wi", "wg", "wo", "shared_gate")]
+    + [f"blocks.moe.shared.{n}" for n in ("wi", "wg", "wo")])
 
 
 def load_params(cfg: ModelConfig, tree: Params, *,
                 device: "torch.device | str" = "cuda") -> Params:
-    """A tree of numpy arrays (``params.init_params`` or the JAX package's
-    parameters) -> tensors on ``device`` (the card by default; raises
-    without one), float32, with ``COMPUTE_DTYPE_LEAVES`` cast once to
-    ``cfg.compute_dtype`` (the same rounding as the reference's cast at each
-    use).  Norm scales and the unembedding stay float32, as JAX reads them,
-    and so does a tied embedding, which the LM head reads in float32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dtype = cfg.compute_dtype
-    cast = set(COMPUTE_DTYPE_LEAVES)
-    if cfg.tie_embeddings:
-        cast.discard("embed.embedding")
-
-    def leaf(t, path):
-        return t.to(dtype) if path in cast else t
-
-    return tree_map(leaf, from_jax_params(tree, param_defs(cfg), device=device))
+    """``params.load_cast`` of the transformer's tree: float32 tensors on
+    ``device`` (the card by default), ``COMPUTE_DTYPE_LEAVES`` in
+    ``cfg.compute_dtype``."""
+    return load_cast(cfg, tree, param_defs(cfg), COMPUTE_DTYPE_LEAVES, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -99,12 +91,23 @@ def load_params(cfg: ModelConfig, tree: Params, *,
 # ---------------------------------------------------------------------------
 
 
+def _ffn(cfg: ModelConfig, bp: Params, h: torch.Tensor, *, ibn_chunks: int = 0,
+         moe_capacity: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's feed-forward half: (out, MoE aux loss, 0 for an MLP)."""
+    if cfg.moe.enabled:
+        return L.moe_apply_auto(cfg, bp["moe"], h, capacity_factor=moe_capacity)
+    return (L.mlp_apply(cfg, bp["mlp"], h, ibn_chunks=ibn_chunks),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
 def _block(cfg: ModelConfig, bp: Params, x: torch.Tensor,
-           positions: torch.Tensor, *, kernels, ibn_chunks: int) -> torch.Tensor:
+           positions: torch.Tensor, *, kernels, ibn_chunks: int,
+           moe_capacity: float) -> Tuple[torch.Tensor, torch.Tensor]:
     h = L.norm_apply(cfg, bp["ln1"], x)
     x = x + L.attention_apply(cfg, bp["attn"], h, positions, kernels=kernels)
     h = L.norm_apply(cfg, bp["ln2"], x)
-    return x + L.mlp_apply(cfg, bp["mlp"], h, ibn_chunks=ibn_chunks)
+    h, aux = _ffn(cfg, bp, h, ibn_chunks=ibn_chunks, moe_capacity=moe_capacity)
+    return x + h, aux
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
@@ -123,13 +126,18 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            kernels=ops, ibn_chunks: int = 0, **_) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden states [B,S,D] post-ln_f, aux loss 0: no MoE)."""
+            kernels=ops, ibn_chunks: int = 0, moe_capacity: float = 1.25,
+            **_) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (final hidden states [B,S,D] post-ln_f, MoE aux loss: the
+    mean over the layers, 0 without MoE)."""
     x, positions = _embed_inputs(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in per_layer(params["blocks"], cfg.num_layers):
-        x = _block(cfg, bp, x, positions, kernels=kernels, ibn_chunks=ibn_chunks)
+        x, aux_i = _block(cfg, bp, x, positions, kernels=kernels,
+                          ibn_chunks=ibn_chunks, moe_capacity=moe_capacity)
+        aux = aux + aux_i
     x = L.norm_apply(cfg, params["ln_f"], x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux / cfg.num_layers
 
 
 def logits_fn(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
@@ -177,7 +185,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
                                            kernels=kernels)
         x = x + L.out_project(bp["attn"], o, x.dtype)
         h = L.norm_apply(cfg, bp["ln2"], x)
-        x = x + L.mlp_apply(cfg, bp["mlp"], h)
+        x = x + _ffn(cfg, bp, h)[0]
         if banded:
             k, v = _to_ring(k, W), _to_ring(v, W)
         ks.append(k)
@@ -224,7 +232,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                                              window=cfg.window)
         x = x + h
         h = L.norm_apply(cfg, bp["ln2"], x)
-        x = x + L.mlp_apply(cfg, bp["mlp"], h)
+        x = x + _ffn(cfg, bp, h)[0]
         ks.append(ck)
         vs.append(cv)
     x = L.norm_apply(cfg, params["ln_f"], x)

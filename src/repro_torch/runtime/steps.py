@@ -8,7 +8,7 @@ any kernel.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -17,12 +17,17 @@ from repro_torch.kernels import ops
 from repro_torch.models import get_module
 
 
-def build_prefill_step(cfg: ModelConfig, *, kernels=ops) -> Callable:
-    """(params, batch) -> (last_hidden [B,D], cache)."""
+def build_prefill_step(cfg: ModelConfig, *, decode_len: Optional[int] = None,
+                       kernels=ops) -> Callable:
+    """(params, batch) -> (last_hidden [B,D], cache).  ``decode_len`` sizes
+    the encoder-decoder's self-attention cache (the audio family only, as
+    in the reference)."""
     mod = get_module(cfg)
+    kw = {"decode_len": decode_len} if cfg.family == "audio" \
+        and decode_len is not None else {}
 
     def prefill_step(params, batch):
-        return mod.prefill(cfg, params, batch, kernels=kernels)
+        return mod.prefill(cfg, params, batch, kernels=kernels, **kw)
 
     return prefill_step
 

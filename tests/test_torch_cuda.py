@@ -276,6 +276,9 @@ _FA_ROWS_CASES = {
     "masked_rows": (1, 2, 30, 10, 24, True, 4, False, torch.float32, "rows"),
     "bf16_stage2": (16, 4, 24, 24, 1024, False, None, True, torch.bfloat16, "rows"),
     "bf16_stage4": (16, 4, 76, 76, 64, False, None, True, torch.bfloat16, "rows"),
+    # the Seamless decoder's first self-attention at prefill: one token
+    "decoder_first_token": (4, 16, 1, 1, 64, True, None, False, torch.bfloat16,
+                            "rows"),
 }
 
 
@@ -327,6 +330,15 @@ _FA_ONLINE_CASES = {
     "d300_bf16_chunked": (1, 2, 200, 300, 300, True, None, None, torch.bfloat16),
     "f32_d256_chunked": (1, 2, 300, 448, 256, False, None, None, torch.float32),
     "rows_without_keys": (2, 2, 260, 130, 36, True, 7, None, torch.bfloat16),
+    # the MoE and encoder-decoder paths: qwen3-moe's 32 query heads over 4
+    # KV heads; the Seamless encoder, non-causal at D 64 (1500 frames end in
+    # a ragged KV tile of 28 keys); its cross-attention of one decoder token
+    # (63 empty rows of the query tile) against 512 and 1500 frames
+    "qwen3_gqa_4x512": (4, 32, 512, 512, 128, True, None, 4, torch.bfloat16),
+    "encoder_4x512": (4, 16, 512, 512, 64, False, None, None, torch.bfloat16),
+    "encoder_1x1500": (1, 16, 1500, 1500, 64, False, None, None, torch.bfloat16),
+    "cross_1_to_512": (4, 16, 1, 512, 64, False, None, None, torch.bfloat16),
+    "cross_1_to_1500": (1, 16, 1, 1500, 64, False, None, None, torch.bfloat16),
 }
 
 
@@ -843,6 +855,93 @@ def test_captured_dense_prefill_and_decode_replay_the_eager_steps():
             for a, b in zip(got, eager, strict=True):
                 assert a.dtype == b.dtype and torch.equal(a, b)
     assert len(pre_c.graphs) == 2 and len(dec_c.graphs) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "seamless-m4t-large-v2"])
+def test_captured_moe_and_seamless_steps_replay_the_eager_steps(arch):
+    """The reduced MoE transformer and encoder-decoder (float32) served
+    through ``launch.serve``'s captured steps: two shapes (the encoder-
+    decoder's prefill with its decode budget as ``decode_len``), each with 4
+    donated decode steps; last hidden, caches, tokens and logits equal to
+    the eager steps' bit for bit; flash_attention ticks at the prefill's
+    warm-up runs and capture only.  The encoder-decoder's cross K/V are
+    the prefill's values after every decode step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: CUDA graphs run on the "
+                    "card only")
+    from repro_torch import configs as TC
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.launch import serve
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_params
+    from repro_torch.runtime.capture import WARMUP
+
+    cfg = TC.reduced(TC.get_config(arch))
+    mod = get_module(cfg)
+    params = mod.load_params(cfg, init_params(0, mod.param_defs(cfg)))
+    pre_e, dec_e = serve.eager_steps(cfg, params)
+    pre_c, dec_c = serve.captured_steps(cfg, params)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(67)
+    audio = cfg.family == "audio"
+
+    def request(prefill, decode, toks, embeds):
+        last, cache, _ = serve.run_prefill(prefill, toks, embeds,
+                                           embeds.shape[1] + 4 if audio else None)
+        cross = [t.clone() for t in cache[2:4]] if audio else []
+        out = serve.run_decode(decode, cache, toks.shape[0], 4, dev)
+        for a, b in zip(cross, out[2][2:4]):
+            assert torch.equal(a, b)
+        return [last, *cache, out[0], *out[1], *out[2]]
+
+    for S in (40, 70):
+        for i in range(2):
+            toks = _t(rng.integers(0, cfg.vocab_size, (2, S), dtype=np.int32)).cuda()
+            embeds = _t(rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+                        ).cuda() if audio else None
+            toks = toks[:, :1].contiguous() if audio else toks
+            eager = request(pre_e, dec_e, toks, embeds)
+            base = t_fa.launches
+            got = request(pre_c, dec_c, toks, embeds)
+            per = mod.kernel_launches_per_prefill(cfg)["flash_attention"]
+            assert t_fa.launches - base == ((WARMUP + 1) * per if i == 0 else 0)
+            for a, b in zip(got, eager, strict=True):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+    assert len(pre_c.graphs) == 2 and len(dec_c.graphs) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [0.1, 1.25])
+def test_moe_apply_on_card_matches_the_cpu(capacity_factor):
+    """``layers.moe_apply`` on CUDA tensors against the same call on the
+    CPU, reduced qwen2-moe (3 experts padded to 4, top 2, one shared
+    expert), float32 with TF32 off: equal expert choices, output and aux
+    loss within 2e-4; at 0.1 most claims are dropped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch import configs as TC
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import from_jax_params, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TC.reduced(TC.get_config("qwen2-moe-a2.7b"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=3, num_experts_padded=4))
+    tree = init_params(5, L.moe_defs(cfg))
+    x = np.random.default_rng(6).standard_normal((2, 48, cfg.d_model)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = from_jax_params(tree, L.moe_defs(cfg), device=dev)
+        xt = _t(x).to(dev)
+        y, aux = L.moe_apply(cfg, p, xt, capacity_factor=capacity_factor)
+        idx = L.moe_route(cfg, p["router"], xt.reshape(-1, cfg.d_model))[2]
+        out[dev] = (y.cpu(), aux.cpu(), idx.cpu())
+    assert torch.equal(out["cpu"][2], out["cuda"][2])
+    assert (out["cuda"][2] < 3).all()
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        _close(a.numpy(), b.numpy(), 2e-4)
 
 
 # ---------------------------------------------------------------------------

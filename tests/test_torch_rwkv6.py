@@ -94,10 +94,12 @@ def test_registry_names_the_roadmap_item_of_what_is_not_ported():
     with pytest.raises(KeyError, match="unknown"):
         TC.get_config("rwkv7")
     assert get_module(TC.get_config("rwkv6-1.6b")) is R
-    for family in ("dense", "vlm"):
+    for family in ("dense", "vlm", "moe"):
         cfg = dataclasses.replace(TC.get_config("rwkv6-1.6b"), family=family)
         assert get_module(cfg).__name__ == "repro_torch.models.transformer"
-    for family in ("moe", "audio", "hybrid"):
+    cfg = dataclasses.replace(TC.get_config("rwkv6-1.6b"), family="audio")
+    assert get_module(cfg).__name__ == "repro_torch.models.seamless"
+    for family in ("hybrid",):
         cfg = dataclasses.replace(TC.get_config("rwkv6-1.6b"), family=family)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_module(cfg)
