@@ -47,6 +47,11 @@ which ends the run with a non-zero exit code if it fails:
    SDPA with ``is_causal=False``), qwen3-moe's 32 / 4 heads at D 128, the
    decoder's first token (Sq = Sk = 1, whole rows), a float32 cross-
    attention 1 -> 700, the 1500-frame encoder twice with the same bits,
+   RecurrentGemma's local attention (timed, outside the sums, 8 launches
+   a prefill: 10 query heads over 1 KV head at D 256, bfloat16, causal, at
+   4 x 512, at 1 x 4608 under the window of 2048 and at a ragged 1 x 700;
+   the build's ``ptxas`` registers and spill bytes of each online instance
+   are printed after the build),
    a float32 causal 1 x 4 x 300 (ragged against the 64-row tile),
    minitron-4b's 24 / 8 heads at D 128, a causal bf16 prompt of the
    whole-row regime, D chunked over the grid, and twice at the served
@@ -173,6 +178,19 @@ which ends the run with a non-zero exit code if it fails:
    decode; captured, traced and held to the plain model as in 5c.  Each of
    5c and 5d prints prefill ms and decode ms a token eager and captured,
    peak memory, capture seconds and its own wall seconds;
+5e. hybrid (``hybrid_path``, ``lm_phase``): ``recurrentgemma-2b`` uncut (26
+   layers in the pattern recurrent, recurrent, attention: 18 RG-LRU blocks
+   and 8 local-attention blocks; d 2560, 10 query heads over 1 KV head of
+   256, window 2048, GeGLU d_ff 7680, LRU width 2560, vocab 256000;
+   3,549,934,080 parameters): 2 requests of 4 x 512 with 32 greedy tokens,
+   1 of 1 x 4608 with 8 (past the window: the banded prefill, a ring of
+   2048, the RG-LRU's doubling scan over 4608 rows).  8 flash_attention a
+   prefill, none in decode; the recurrent states of their shapes and types;
+   captured, traced and held to the plain model as in 5c.  Then float32 on
+   the first 3 layers (recurrent, recurrent, attention) of the same
+   weights: a 2 x 300 prefill and 4 greedy steps through the kernels within
+   2e-3 (1 + |b|) of the plain model fed the same tokens, every cache leaf
+   included;
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
    workload, each schedule verified by ``repro_torch.check.verify_schedule``
    (the static checker and the Hopper launch lint; any finding fails the
@@ -231,9 +249,10 @@ prefill (24 launches at the served shape) for wkv_chunked; ``shapes``
 holds the per-shape numbers.  ``launches`` is the count of the path the
 kernel is on: the EdgeNeXt-S requests for the first three, the lowered
 phase for matmul_ln, the RWKV-6 requests for wkv_chunked
-(``launches_by_path`` has all seven paths: the dense, MoE and
-encoder-decoder requests as ``dense_serve``, ``moe_serve`` and
-``audio_serve``, the serve phase's new launches as ``serve_store``).  ``bound_ms`` is the larger
+(``launches_by_path`` has all eight paths: the dense, MoE,
+encoder-decoder and hybrid requests as ``dense_serve``, ``moe_serve``,
+``audio_serve`` and ``hybrid_serve``, the serve phase's new launches as
+``serve_store``).  ``bound_ms`` is the larger
 of bytes / 3.35 TB/s (each input read once, each output written once)
 and operations / peak: 495 TFLOP/s (TF32 tensor cores, the card's rate
 for a float32 matrix product) for the products of fused_ibn, attention,
@@ -254,6 +273,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -267,6 +287,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.check import lint_doc, verify_schedule  # noqa: E402
@@ -280,7 +301,8 @@ from repro_torch.kernels import fused_ibn as ibn_mod  # noqa: E402
 from repro_torch.kernels import matmul_ln as mln_mod  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as wkv_mod  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
-from repro_torch.models import edgenext, rwkv6, seamless, transformer  # noqa: E402
+from repro_torch.models import (edgenext, recurrentgemma, rwkv6,  # noqa: E402
+                                seamless, transformer)
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models.params import count_params, init_params, tree_map  # noqa: E402
 from repro_torch.runtime import build_decode_step, build_prefill_step  # noqa: E402
@@ -363,6 +385,15 @@ MOE_F32 = (2, 2, 256, 4)
 AUDIO_ARCH = "seamless-m4t-large-v2"
 AUDIO_REQUESTS = [(4, 512, 32), (4, 512, 32), (1, 1500, 16)]
 AUDIO_PARAMS = 1_632_358_400
+# the hybrid phase: recurrentgemma-2b uncut; (batch, prompt tokens, greedy
+# tokens) per request; the 1 x 4608 prompt is longer than the window (2048):
+# the banded prefill, a ring cache of 2048, the scan over 4608 rows; its
+# float32 check: (layers, batch, prompt tokens, greedy steps), the first
+# three layers (recurrent, recurrent, attention) of the served weights
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_REQUESTS = [(4, 512, 32), (4, 512, 32), (1, 4608, 8)]
+HYBRID_PARAMS = 3_549_934_080
+HYBRID_F32 = (3, 2, 300, 4)
 # The served bfloat16 run against the plain bfloat16 model, teacher-forced
 # with the served tokens.  The two differ only in the WKV: the kernel and
 # ``wkv_ref`` take the same float32 sums in another order and round them to
@@ -493,6 +524,30 @@ def bound(bytes_moved: int, flops: float, peak: float) -> tuple[float, str]:
     t_bytes = bytes_moved / MEM_BYTES_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def online_ptxas(log: str) -> dict:
+    """``ptxas -v``'s registers and spill bytes of each ``online_kernel``
+    instance: "float32 128" / "bf16 256" -> (registers, spill stores, spill
+    loads)."""
+    out, name, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            if m.group(1) != name:
+                spill = (0, 0)
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        inst = name and re.search(r"online_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+        if m and inst:
+            key = f"{'float32' if inst.group(1) == 'f' else 'bf16'} {inst.group(2)}"
+            out[key] = (int(m.group(1)), *spill)
+    return dict(sorted(out.items()))
 
 
 def reset_counts() -> None:
@@ -893,6 +948,16 @@ def kernels_phase():
         rec = fa_case(B, 16, Sq, Sk, 64, causal=False, dtype=torch.bfloat16,
                       timed=True)
         rec.update(per_forward=0, batch=batch)
+        per_kernel["flash_attention"]["shapes"].append(rec)
+    # ... and RecurrentGemma's local attention (outside the sums; each shape
+    # launched once an attention block, 8 a prefill): 10 query heads over 1
+    # KV head, D 256, bfloat16, causal, at the served 4 x 512, at 1 x 4608
+    # under the window of 2048 (the banded prefill), and at a ragged 1 x 700
+    rg_attn = get_config(HYBRID_ARCH).block_pattern.count("attention")
+    for B, S, window in ((4, 512, None), (1, 4608, 2048), (1, 700, None)):
+        rec = fa_case(B, 10, S, S, 256, causal=True, window=window,
+                      dtype=torch.bfloat16, kv_heads=1, timed=True)
+        rec.update(per_forward=0, batch=B, per_prefill=rg_attn)
         per_kernel["flash_attention"]["shapes"].append(rec)
 
     # matmul_ln: the EdgeNeXt-S lowered shapes at batch 16 (once each), then
@@ -1644,8 +1709,10 @@ def lm_captured(cfg, mod, params, batches, served, rng, requests,
         # the last cache is the decode graph's buffer: compared before the
         # next request overwrites it
         diff = first_difference(
-            [last, *cache, toks, logits, *cache_end],
-            [r["last"], *r["cache"], r["tokens"], r["logits"], *r["cache_end"]])
+            [last, *pytree.tree_leaves(cache), toks, logits,
+             *pytree.tree_leaves(cache_end)],
+            [r["last"], *pytree.tree_leaves(r["cache"]), r["tokens"], r["logits"],
+             *pytree.tree_leaves(r["cache_end"])])
         if diff:
             fail(f"{cfg.name} captured request {i}: differs from the eager steps "
                  f"(last hidden, prefill cache, tokens, logits, last cache) "
@@ -1970,13 +2037,31 @@ def serve_lm(tag: str, cfg, mod, params, requests, rng) -> tuple:
         # the (self) K cache: [L, B, Hkv, S, D], S the decode budget of an
         # encoder-decoder, else the prompt (a ring of the window past it)
         S = decode_len(cfg, T, gen) or mod.cache_len(cfg, T)
-        if tuple(cache[0].shape) != (cfg.num_layers, B, cfg.num_kv_heads, S, cfg.head_dim):
-            fail(f"{tag} request {i}: K cache {tuple(cache[0].shape)}, expected "
-                 f"{(cfg.num_layers, B, cfg.num_kv_heads, S, cfg.head_dim)}")
+        want_k = (cfg.block_pattern.count("attention") if cfg.block_pattern
+                  else cfg.num_layers, B, cfg.num_kv_heads, S, cfg.head_dim)
+        if k_cache_shape(cache) != want_k:
+            fail(f"{tag} request {i}: K cache {k_cache_shape(cache)}, expected {want_k}")
+        if cfg.family == "hybrid":
+            n_rec = cfg.block_pattern.count("recurrent")
+            got = {(tuple(h.shape), h.dtype) for h in cache.rec_h} | {
+                (tuple(c.shape), c.dtype) for c in cache.conv_state}
+            states = {((B, cfg.lru_width), torch.float32),
+                      ((B, cfg.conv1d_width - 1, cfg.lru_width), cfg.compute_dtype)}
+            if got != states or len(cache.rec_h) != n_rec or len(cache.conv_state) != n_rec:
+                fail(f"{tag} request {i}: recurrent states {sorted(map(str, got))} x "
+                     f"{len(cache.rec_h)}, expected {sorted(map(str, states))} x {n_rec}")
         served.append(dict(prompt=batch, last=last, cache=cache, cache_end=cache_end,
                            tokens=toks, logits=logits, prefill_ms=prefill_ms,
                            decode_ms=decode_ms))
     return batches, served, launches, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def k_cache_shape(cache) -> tuple:
+    """[layers, B, Hkv, S, D] of a request's (self) K cache: the hybrid's
+    list of attention layers, else the stacked first field."""
+    if isinstance(cache, recurrentgemma.RGCache):
+        return (len(cache.attn_k), *cache.attn_k[0].shape)
+    return tuple(cache[0].shape)
 
 
 def forced_run(cfg, params, batch: dict, dlen, tokens, kernels) -> tuple:
@@ -2167,6 +2252,65 @@ def audio_path():
     return launches, result
 
 
+def hybrid_f32_check(cfg, tree, rng) -> float:
+    """``recurrentgemma-2b`` at full width in float32 on the first
+    HYBRID_F32 layers (recurrent, recurrent, attention) of the served
+    weights: a prefill and greedy steps through the kernels (the attention
+    in float32, D 256 in two chunks over the grid), held to the plain model
+    fed the same tokens: last hidden, every cache leaf (the scan's states,
+    the convolution's, K / V), logits within 2e-3 (1 + |b|)."""
+    n, B, T, steps = HYBRID_F32
+    cfg32 = dataclasses.replace(cfg, num_layers=n, block_pattern=cfg.block_pattern[:n],
+                                dtype="float32")
+    params = recurrentgemma.load_params(cfg32, dict(tree, blocks=tree["blocks"][:n]))
+    batch = lm_batch(cfg32, rng, B, T)
+    pre, dec = lm_serve.eager_steps(cfg32, params)
+    reset_counts()
+    last_k, cache_k, _ = lm_prefill(pre, batch)
+    if read_counts()["flash_attention"] != cfg32.block_pattern.count("attention"):
+        fail(f"hybrid float32: {read_counts()} launches in its prefill")
+    toks, logits_k, _, _ = lm_serve.run_decode(dec, cache_k, B, steps, last_k.device)
+    last_p, logits_p, _, cache_p = forced_run(cfg32, params, batch, None, toks, ref.PLAIN)
+    errs = [compare("hybrid float32 last hidden", last_k, last_p, 2e-3),
+            compare("hybrid float32 logits", torch.stack(logits_k, 1), logits_p, 2e-3)]
+    for i, (a, b) in enumerate(zip(pytree.tree_leaves(cache_k),
+                                   pytree.tree_leaves(cache_p), strict=True)):
+        errs.append(compare(f"hybrid float32 cache leaf {i}", a, b, 2e-3))
+    return max(errs)
+
+
+def hybrid_path():
+    """``recurrentgemma-2b`` uncut served through ``launch.serve``'s steps,
+    eager then captured, held to its plain model, then the float32 check on
+    its first three layers (module docstring, phase 5e).  Returns
+    (launches, numbers)."""
+    t0 = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    defs = recurrentgemma.param_defs(cfg)
+    if count_params(defs) != HYBRID_PARAMS:
+        fail(f"hybrid: {count_params(defs)} parameters, expected {HYBRID_PARAMS}")
+    want = recurrentgemma.kernel_launches_per_prefill(cfg)
+    if want != {"flash_attention": 8}:
+        fail(f"hybrid: should launch flash_attention 8 times a prefill, model "
+             f"says {want}")
+    t1 = time.perf_counter()
+    tree = init_params(SEED, defs)              # numpy float32, on the host
+    init_s = time.perf_counter() - t1
+    params = recurrentgemma.load_params(cfg, tree)  # as served: bfloat16 compute
+    rng = np.random.default_rng(SEED + 6)
+    launches, result = lm_phase("hybrid", cfg, recurrentgemma, params,
+                                HYBRID_REQUESTS, rng)
+    del params
+    torch.cuda.empty_cache()
+    f32_err = hybrid_f32_check(cfg, tree, rng)
+    del tree
+    torch.cuda.empty_cache()
+    result.update(arch=HYBRID_ARCH, parameters=HYBRID_PARAMS, init_params_s=init_s,
+                  f32_max_err_vs_plain_on_card=f32_err,
+                  wall_s=time.perf_counter() - t0)
+    return launches, result
+
+
 def print_lm(tag: str, res: dict, per_prefill: int) -> None:
     """The lines of an LM phase (``lm_phase``'s numbers)."""
     (B0, T0, g0), (B1, T1, g1) = res["requests"][0], res["requests"][-1]
@@ -2266,6 +2410,9 @@ def main() -> None:
             for tok in [line.split("Used")[1].split()[0]]]
     print(f"ptxas {len(regs)} kernels, registers {min(regs)}..{max(regs)} a thread",
           flush=True)
+    for inst, (n_regs, stores, loads) in online_ptxas(_build.ptxas_log()).items():
+        print(f"ptxas online_kernel<{inst}>: {n_regs} registers a thread, spill "
+              f"stores {stores} loads {loads} bytes")
 
     # 3. kernels against their plain versions
     per_kernel = kernels_phase()
@@ -2273,9 +2420,10 @@ def main() -> None:
         for s in rec["shapes"]:
             lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
             split = split_text(s)
-            print(f"kernel {s['case']} x{s['per_forward']}: err {s['max_abs_err']:.2e} "
-                  f"ms {s['ms']:.4f} plain {s['plain_ms']:.4f} library "
-                  f"{lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}")
+            pre = f" ({s['per_prefill']} a prefill)" if "per_prefill" in s else ""
+            print(f"kernel {s['case']} x{s['per_forward']}{pre}: err "
+                  f"{s['max_abs_err']:.2e} ms {s['ms']:.4f} plain {s['plain_ms']:.4f} "
+                  f"library {lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}")
         for s in rec["extra"]:
             split = split_text(s)
             print(f"kernel {s['case']}: err {s['max_abs_err']:.2e} (tol {s['tol']}){split}")
@@ -2373,6 +2521,14 @@ def main() -> None:
     audio_launches, audio = audio_path()
     print_lm("audio", audio, 72)
 
+    # 5e. the hybrid, recurrentgemma-2b uncut
+    hybrid_launches, hybrid = hybrid_path()
+    print_lm("hybrid", hybrid, 8)
+    print(f"hybrid float32 ({HYBRID_F32[0]} layers {'/'.join(get_config(HYBRID_ARCH).block_pattern[:HYBRID_F32[0]])}, "
+          f"{HYBRID_F32[1]}x{HYBRID_F32[2]}, {HYBRID_F32[3]} steps) err vs plain on "
+          f"card {hybrid['f32_max_err_vs_plain_on_card']:.2e} (limit 2e-3 (1+|b|))",
+          flush=True)
+
     # 6. the scheduler's path: every lowered entry onto its kernel
     lowered, entries, by_workload, lowered_launches, verified, samples, launched = \
         lowered_phase()
@@ -2426,6 +2582,7 @@ def main() -> None:
                                   "dense_serve": dense_launches,
                                   "moe_serve": moe_launches,
                                   "audio_serve": audio_launches,
+                                  "hybrid_serve": hybrid_launches,
                                   "lowered": lowered_launches,
                                   "serve_store": serve_launches})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2437,7 +2594,7 @@ def main() -> None:
             device=device, nvidia_smi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
             kernels=rows, main_path=served, rwkv6=rwkv, dense=dense, moe=moe,
-            audio=audio, check=check,
+            audio=audio, hybrid=hybrid, check=check,
             serve=store,
             lowered=dict(records=lowered, entries=entries,
                          by_workload=by_workload)), indent=1))

@@ -5,14 +5,16 @@
       [--device cuda|cpu]
 
 Port of ``repro/launch/serve.py`` for every ported arch (``configs.ARCHS``:
-RWKV-6, the dense and MoE transformers, Qwen2-VL and the Seamless
-encoder-decoder).  Weights come from ``--seed`` (``params.init_params``,
-numpy), prompts from ``np.random.default_rng(seed)`` (and, where the config
-takes embedding inputs, the prompt's ``inputs_embeds`` drawn after the
-tokens: for the encoder-decoder they are the source frames, the tokens'
-first column is the decoder's prefix and its self cache is sized for
-prompt + gen), and decode starts from token 0, as in the JAX launcher.  ``--device`` defaults to ``cuda`` and the run raises where
-there is no card; ``--device cpu`` runs the plain versions on the CPU.
+RWKV-6, the dense and MoE transformers, Qwen2-VL, the Seamless
+encoder-decoder and the RecurrentGemma hybrid).  Weights come from
+``--seed`` (``params.init_params``, numpy), prompts from
+``np.random.default_rng(seed)`` (and, where the config takes embedding
+inputs, the prompt's ``inputs_embeds`` drawn after the tokens: for the
+encoder-decoder they are the source frames, the tokens' first column is
+the decoder's prefix and its self cache is sized for prompt + gen), and
+decode starts from token 0, as in the JAX launcher.  ``--device``
+defaults to ``cuda`` and the run raises where there is no card;
+``--device cpu`` runs the plain versions on the CPU.
 
 On the card the steps are captured, as the reference jits them: the
 prefill as ``captured(partial(prefill, params))`` and the decode step as

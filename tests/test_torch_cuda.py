@@ -339,6 +339,12 @@ _FA_ONLINE_CASES = {
     "encoder_1x1500": (1, 16, 1500, 1500, 64, False, None, None, torch.bfloat16),
     "cross_1_to_512": (4, 16, 1, 512, 64, False, None, None, torch.bfloat16),
     "cross_1_to_1500": (1, 16, 1, 1500, 64, False, None, None, torch.bfloat16),
+    # RecurrentGemma's local attention: 10 query heads over 1 KV head (MQA)
+    # at D 256, causal at a ragged length (700 = 10 x 64 + 60) and under a
+    # window shorter than it, and at the served 4 x 512
+    "rg_mqa_d256_700": (1, 10, 700, 700, 256, True, None, 1, torch.bfloat16),
+    "rg_mqa_d256_700_window": (1, 10, 700, 700, 256, True, 300, 1, torch.bfloat16),
+    "rg_mqa_d256_4x512": (4, 10, 512, 512, 256, True, None, 1, torch.bfloat16),
 }
 
 

@@ -99,10 +99,9 @@ def test_registry_names_the_roadmap_item_of_what_is_not_ported():
         assert get_module(cfg).__name__ == "repro_torch.models.transformer"
     cfg = dataclasses.replace(TC.get_config("rwkv6-1.6b"), family="audio")
     assert get_module(cfg).__name__ == "repro_torch.models.seamless"
-    for family in ("hybrid",):
-        cfg = dataclasses.replace(TC.get_config("rwkv6-1.6b"), family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_module(cfg)
+    cfg = dataclasses.replace(TC.get_config("rwkv6-1.6b"), family="hybrid")
+    assert get_module(cfg).__name__ == "repro_torch.models.recurrentgemma"
+    assert not TC.NOT_PORTED
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "reduced"])

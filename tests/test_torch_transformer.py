@@ -142,20 +142,24 @@ def test_param_defs_match_jax(arch):
 
 def test_moe_and_audio_raise_naming_their_roadmap_item():
     """The MoE and audio families were refused until ROADMAP queue 1 item 6b
-    ported them: now their configs resolve and their modules serve them
-    (``tests/test_torch_moe.py``, ``tests/test_torch_seamless.py``), and
-    what stays refused (RecurrentGemma) raises naming its item, 5."""
-    for arch in ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "seamless-m4t-large-v2"):
+    ported them, and the hybrid family until item 5 did: now their configs
+    resolve and their modules serve them (``tests/test_torch_moe.py``,
+    ``tests/test_torch_seamless.py``, ``tests/test_torch_recurrentgemma.py``),
+    and no LM family or architecture of the JAX package is refused."""
+    for arch in ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "seamless-m4t-large-v2",
+                 "recurrentgemma-2b"):
         assert get_module(TC.get_config(arch)).__name__.rsplit(".", 1)[1] == (
-            "seamless" if arch.startswith("seamless") else "transformer")
+            "seamless" if arch.startswith("seamless") else
+            "recurrentgemma" if arch.startswith("recurrentgemma") else "transformer")
     moe = dataclasses.replace(TC.get_config("olmo-1b"), moe=TC.MoEConfig(
         num_experts=4, num_experts_padded=4, top_k=2, d_ff_expert=32))
     assert "moe" in T.param_defs(moe)["blocks"]
     assert get_module(dataclasses.replace(moe, family="moe")) is T
-    with pytest.raises(KeyError, match="ROADMAP queue 1 item 5"):
-        TC.get_config("recurrentgemma-2b")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        get_module(dataclasses.replace(moe, family="hybrid"))
+    assert get_module(dataclasses.replace(moe, family="hybrid")).__name__ == \
+        "repro_torch.models.recurrentgemma"
+    assert not TC.NOT_PORTED
+    with pytest.raises(ValueError, match="unknown family"):
+        get_module(dataclasses.replace(moe, family="diffusion"))
 
 
 def test_load_params_casts_what_jax_casts_at_each_use():
@@ -476,7 +480,8 @@ def test_donated_decode_chain_equals_the_functional_one():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,S", [("h2o-danube-1.8b", 40), ("qwen2-vl-2b", 12)])
+@pytest.mark.parametrize("arch,S", [("h2o-danube-1.8b", 40), ("qwen2-vl-2b", 12),
+                                    ("recurrentgemma-2b", 40)])
 def test_serve_on_cpu_gives_the_jax_greedy_tokens(arch, S, capsys):
     out = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--batch", "2", "--prompt-len", str(S), "--gen", "6",
@@ -488,7 +493,8 @@ def test_serve_on_cpu_gives_the_jax_greedy_tokens(arch, S, capsys):
     # the same run on the JAX package: the port's seeded weights and
     # prompts, the JAX launcher's prefill and greedy decode loop
     jcfg = jreduced(jget(arch))
-    tree = TP.init_params(3, T.param_defs(TC.reduced(TC.get_config(arch))))
+    tcfg = TC.reduced(TC.get_config(arch))
+    tree = TP.init_params(3, get_module(tcfg).param_defs(tcfg))
     jp = jax.tree.map(jnp.asarray, tree)
     rng = np.random.default_rng(3)
     batch = {"tokens": jnp.asarray(rng.integers(0, jcfg.vocab_size, (2, S),
