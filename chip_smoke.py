@@ -8,7 +8,7 @@ network.  Imports nothing of JAX or of the JAX package.  Phases, each of
 which ends the run with a non-zero exit code if it fails:
 
 1. device: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc versions;
-2. build: the five CUDA kernels, from ``src/repro_torch/kernels/csrc``;
+2. build: the six CUDA sources, from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape one EdgeNeXt-S forward gives it at batch 16 and at ragged /
    odd / bfloat16 cases (fused_ibn also at the four batch-1 shapes, at
@@ -191,6 +191,30 @@ which ends the run with a non-zero exit code if it fails:
    weights: a 2 x 300 prefill and 4 greedy steps through the kernels within
    2e-3 (1 + |b|) of the plain model fed the same tokens, every cache leaf
    included;
+5f. train (``train_path``, run right after 5b on its weights while they are
+   on the host): ``h2o-danube-1.8b`` uncut, float32 master weights,
+   bfloat16 compute with remat, ``runtime.build_train_step`` as
+   ``launch.train`` builds it (AdamW, warmup 5 then cosine from lr 3e-4,
+   clip 1.0) over 20 batches of 4 x 512 tokens of ``data.synthetic`` (vocab
+   32000, seed 0).  First the four ``ops`` entries without a backward are
+   each given a CUDA weight that requires grad: each must raise, naming its
+   kernel, with its counter unchanged.  The first step's gradients
+   (``build_grad_fn``) launch 24 + 24 flash_attention (the forward and
+   remat's recompute) and 24 flash_attention_bwd and nothing else; against
+   the same step under ``kernels=ref.PLAIN`` (both bfloat16, so they
+   differ in the 24 attention calls only): loss within 1e-2, every
+   gradient leaf within a relative L2 error of 5e-2, the global norm
+   within 1 %; run twice, the same bits; float32 on the first 2 layers of
+   the same weights: every gradient leaf within 2e-3 (1 + |b|) of the plain
+   step's.  Then the 20 steps, the counters set to 0 before and read after
+   (20 x 48 and 20 x 24), each timed by CUDA events and the host's clock:
+   every loss and gradient norm finite, the mean loss of the last 5 steps
+   below that of the first 5, peak memory; a checkpoint
+   (``checkpoint.save_checkpoint``) after step 10, restored
+   (``checkpoint.restore``) into fresh tensors once the run is over, must
+   give steps 10-19 again bit for bit (losses, gradient norms, and the
+   final parameters and moments by digest).  Step ms is the median of the
+   last 10; tokens/s = 2048 / step;
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
    workload, each schedule verified by ``repro_torch.check.verify_schedule``
    (the static checker and the Hopper launch lint; any finding fails the
@@ -245,14 +269,21 @@ Per kernel the JSON line sums over one forward: ``ms``, ``plain_ms``,
 launches of that kernel (per-shape time x how often the shape occurs):
 a batch-16 EdgeNeXt-S forward for the first three, once each of the
 three EdgeNeXt-S shapes matmul_ln is lowered at, and one 4 x 512 RWKV-6
-prefill (24 launches at the served shape) for wkv_chunked; ``shapes``
+prefill (24 launches at the served shape) for wkv_chunked, one train step
+(24 launches at 4 x 32 x 512 x 80) for flash_attention_bwd; ``shapes``
 holds the per-shape numbers.  ``launches`` is the count of the path the
 kernel is on: the EdgeNeXt-S requests for the first three, the lowered
-phase for matmul_ln, the RWKV-6 requests for wkv_chunked
-(``launches_by_path`` has all eight paths: the dense, MoE,
-encoder-decoder and hybrid requests as ``dense_serve``, ``moe_serve``,
-``audio_serve`` and ``hybrid_serve``, the serve phase's new launches as
-``serve_store``).  ``bound_ms`` is the larger
+phase for matmul_ln, the RWKV-6 requests for wkv_chunked, the 20 train
+steps for flash_attention_bwd (``launches_by_path`` has all nine paths:
+the dense, MoE, encoder-decoder and hybrid requests as ``dense_serve``,
+``moe_serve``, ``audio_serve`` and ``hybrid_serve``, the train steps as
+``dense_train``, the serve phase's new launches as ``serve_store``).
+The backward is held to autograd of ``ref.attention_ref`` (2e-3 (1 + |b|)
+float32, 2e-2 bfloat16) at the trained heads (h2o 80, olmo 128,
+Seamless 64 self and cross, RecurrentGemma 256), its ``library_ms`` is
+SDPA's backward and each of its records also times the forward with and
+without its lse; its operations are five products of 2 Sq Sk D over the
+unmasked pairs.  ``bound_ms`` is the larger
 of bytes / 3.35 TB/s (each input read once, each output written once)
 and operations / peak: 495 TFLOP/s (TF32 tensor cores, the card's rate
 for a float32 matrix product) for the products of fused_ibn, attention,
@@ -278,6 +309,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -292,11 +324,13 @@ from torch.utils import _pytree as pytree  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.check import lint_doc, verify_schedule  # noqa: E402
 from repro_torch.check.mutations import MUTATIONS, run_corpus  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint import restore, save_checkpoint  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.configs.edgenext_s import CONFIG  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import depthwise_conv as dw_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fab_mod  # noqa: E402
 from repro_torch.kernels import fused_ibn as ibn_mod  # noqa: E402
 from repro_torch.kernels import matmul_ln as mln_mod  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as wkv_mod  # noqa: E402
@@ -304,8 +338,12 @@ from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import (edgenext, recurrentgemma, rwkv6,  # noqa: E402
                                 seamless, transformer)
 from repro_torch.models import layers as lm_layers  # noqa: E402
-from repro_torch.models.params import count_params, init_params, tree_map  # noqa: E402
-from repro_torch.runtime import build_decode_step, build_prefill_step  # noqa: E402
+from repro_torch.data.synthetic import make_dataset  # noqa: E402
+from repro_torch.models.params import (count_params, init_params,  # noqa: E402
+                                       tree_leaves, tree_map)
+from repro_torch.optim import adamw_init, warmup_cosine  # noqa: E402
+from repro_torch.runtime import (build_decode_step, build_grad_fn,  # noqa: E402
+                                 build_prefill_step, build_train_step)
 from repro_torch.runtime.capture import WARMUP, captured  # noqa: E402
 from repro_torch.search import (WORKLOADS, auto_schedule,  # noqa: E402
                                 get_workload, lower)
@@ -338,14 +376,17 @@ KERNELS = {
     "wkv_chunked": dict(module=wkv_mod,
                         source="src/repro_torch/kernels/csrc/wkv_chunked.cu",
                         replaces="src/repro/kernels/rwkv_chunk.py:88"),
+    "flash_attention_bwd": dict(module=fab_mod,
+                                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                replaces="src/repro/models/attention.py:111"),
 }
 # the path whose run gives each kernel's ``launches``: the EdgeNeXt-S
 # forward launches the first three, the RWKV-6 prefill wkv_chunked, and
 # matmul_ln runs only on the lowered path (flash_attention also runs on the
-# dense path: ``launches_by_path``)
+# dense path: ``launches_by_path``), the attention backward only in training
 MAIN_PATH = {"fused_ibn": "edgenext_serve", "depthwise_conv2d": "edgenext_serve",
              "flash_attention": "edgenext_serve", "matmul_ln": "lowered",
-             "wkv_chunked": "rwkv6_serve"}
+             "wkv_chunked": "rwkv6_serve", "flash_attention_bwd": "dense_train"}
 # lowered kernel name -> the kernel that runs it
 LOWERED = {"fused_ibn": "fused_ibn", "flash_attention": "flash_attention",
            "matmul_ln": "matmul_ln", "rwkv_chunk": "wkv_chunked"}
@@ -394,6 +435,21 @@ HYBRID_ARCH = "recurrentgemma-2b"
 HYBRID_REQUESTS = [(4, 512, 32), (4, 512, 32), (1, 4608, 8)]
 HYBRID_PARAMS = 3_549_934_080
 HYBRID_F32 = (3, 2, 300, 4)
+# the training phase: the dense phase's weights (h2o-danube-1.8b uncut) as
+# float32 masters, bfloat16 compute with remat, TRAIN_STEPS steps of
+# ``build_train_step`` as ``launch.train`` builds it over (batch, tokens)
+# from ``data.synthetic``; a checkpoint after TRAIN_CKPT steps, restored
+# into fresh tensors, must give the rest of the run bit for bit; the float32
+# check on the first TRAIN_F32_LAYERS layers.  The first step's gradients
+# against the plain step's (both bfloat16; they differ in the 24 attention
+# calls only): each leaf within a relative L2 error of TRAIN_GRAD_REL, the
+# loss within TRAIN_LOSS_TOL, the global norm within TRAIN_NORM_REL.
+TRAIN_STEPS = 20
+TRAIN_BATCH = (4, 512)
+TRAIN_LR, TRAIN_WARMUP, TRAIN_CLIP = 3e-4, 5, 1.0
+TRAIN_CKPT = 10
+TRAIN_F32_LAYERS = 2
+TRAIN_GRAD_REL, TRAIN_LOSS_TOL, TRAIN_NORM_REL = 5e-2, 1e-2, 1e-2
 # The served bfloat16 run against the plain bfloat16 model, teacher-forced
 # with the served tokens.  The two differ only in the WKV: the kernel and
 # ``wkv_ref`` take the same float32 sums in another order and round them to
@@ -755,6 +811,63 @@ def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
     return rec
 
 
+def bwd_case(B, H, Sq, Sk, D, *, causal=True, window=None, dtype=torch.bfloat16,
+             kv_heads=None, timed=False, repeat=False):
+    """The attention backward kernel (``flash_attention_bwd``, given the
+    forward kernel's out and lse) against autograd of ``ref.attention_ref``
+    on the same inputs: dq, dk, dv within 2e-3 (1 + |b|) in float32 (the JAX
+    test's tolerance) and 2e-2 in bfloat16; the forward's lse against
+    ``ref.attention_fwd_lse_ref``'s within 2e-4.  Timed: the kernel, the
+    plain version's backward (autograd of ``attention_ref``), SDPA's
+    backward (the library call: timed only), and the forward with and
+    without its lse."""
+    q = randn(B, H, Sq, D, dtype=dtype)
+    hk = kv_heads or H
+    k = randn(B, hk, Sk, D, dtype=dtype).repeat_interleave(H // hk, dim=1)
+    v = randn(B, hk, Sk, D, dtype=dtype).repeat_interleave(H // hk, dim=1)
+    dout = randn(B, H, Sq, D, dtype=dtype)
+    name = f"flash_attention_bwd[{B}x{H}x{Sq}x{Sk}x{D} causal={causal} " \
+           f"window={window} {str(dtype).split('.')[-1]}" \
+           f"{f' gqa {H}/{hk}' if kv_heads else ''}]"
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    kw = dict(causal=causal, window=window)
+    out, lse = fa_mod.flash_attention(q, k, v, **kw, return_lse=True)
+    lse_err = compare(name + " lse", lse, ref.attention_fwd_lse_ref(q, k, v, **kw)[1],
+                      2e-4)
+    got = fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    plain_out = ref.attention_ref(*leaves, **kw)
+    want = torch.autograd.grad(plain_out, leaves, dout, retain_graph=timed)
+    err = max(compare(f"{name} {n}", g, w, tol) for n, g, w in zip("qkv", got, want))
+    rec = dict(case=name, max_abs_err=err, tol=tol, lse_err=lse_err)
+    del want
+    if repeat:
+        again = fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name}: two calls on the same inputs differ")
+        rec["case"] = name + " twice, same bits"
+    if timed:
+        pairs = B * H * unmasked_pairs(Sq, Sk, causal, window)
+        flops = 10.0 * D * pairs        # S, dP, dV, dK, dQ: 2 D flops a pair each
+        peak = PEAK_TF32 if dtype == torch.float32 else PEAK_BF16
+        rec["bound_ms"], rec["bound_by"] = bound(
+            nbytes(q, k, v, out, dout, lse, *got), flops, peak)
+        rec["unmasked_pairs"] = pairs
+        rec["ms"] = time_ms(lambda: fab_mod.flash_attention_bwd(q, k, v, out, lse,
+                                                                dout, **kw))
+        rec["plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            plain_out, leaves, dout, retain_graph=True))
+        lib_out = sdpa_library(*leaves, causal, window, None)()
+        rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True))
+        rec["fwd_ms"] = time_ms(lambda: fa_mod.flash_attention(q, k, v, **kw))
+        rec["fwd_lse_ms"] = time_ms(lambda: fa_mod.flash_attention(
+            q, k, v, **kw, return_lse=True))
+        rec["tflops"] = flops / rec["ms"] / 1e9
+    return rec
+
+
 def mln_blocks(M, K, N):
     """The blocks ``search.lower`` gives a matmul_ln of these extents
     (with the search's default tiles, 64 rows and 128 columns)."""
@@ -1088,6 +1201,34 @@ def kernels_phase():
         wkv_case(4, 130, 64, 64, 64, decay="zero"),
         wkv_case(4, 130, 64, 64, 64, decay="tiny"),
         wkv_case(128, 512, 64, 64, 64, dtype=bf16, repeat=True),
+    ]
+    # flash_attention_bwd: the trained shape (h2o-danube-1.8b's 32 query
+    # heads over 8 KV heads of 80, 4 x 512, bf16, causal; 24 a train step, in
+    # the sums), then outside the sums the other trained heads: olmo-1b's
+    # 128, Seamless's 64 (non-causal, and its cross-attention with Sq != Sk),
+    # RecurrentGemma's MQA 256 under its window
+    for (B, H, Sq, Sk, D, causal, window, hk), n in (
+            ((4, 32, 512, 512, 80, True, None, 8),
+             transformer.kernel_launches_per_prefill(get_config(DENSE_ARCH))
+             ["flash_attention"]),
+            ((4, 16, 512, 512, 128, True, None, None), 0),
+            ((4, 16, 512, 512, 64, False, None, None), 0),
+            ((4, 16, 256, 512, 64, False, None, None), 0),
+            ((4, 10, 512, 512, 256, True, 2048, 1), 0)):
+        rec = bwd_case(B, H, Sq, Sk, D, causal=causal, window=window, kv_heads=hk,
+                       timed=True)
+        rec.update(per_forward=n, batch=B)
+        per_kernel["flash_attention_bwd"]["shapes"].append(rec)
+    per_kernel["flash_attention_bwd"]["extra"] = [
+        # float32: a ragged tile, the whole-row forward regime's lse (Sk <=
+        # 128), D over 64 columns under a window, Sq != Sk; two calls at the
+        # trained shape with the same bits
+        bwd_case(1, 4, 300, 300, 72, dtype=torch.float32),
+        bwd_case(2, 4, 100, 100, 64, dtype=torch.float32),
+        bwd_case(1, 2, 150, 150, 256, window=40, dtype=torch.float32),
+        bwd_case(1, 2, 70, 130, 80, causal=False, dtype=torch.float32),
+        bwd_case(1, 2, 200, 200, 128, causal=False, window=30),
+        bwd_case(4, 32, 512, 512, 80, kv_heads=8, repeat=True),
     ]
     return per_kernel
 
@@ -1431,7 +1572,8 @@ def summarise(per_kernel, launches):
             bound_ms=total("bound_ms"),
             bound_by=max(by, key=by.get), library_ms=total("library_ms"),
             launches_per_forward=sum(s["per_forward"] for s in shapes),
-            batch=RWKV_REQUESTS[0][0] if name == "wkv_chunked" else BATCH,
+            batch={"wkv_chunked": RWKV_REQUESTS[0][0],
+                   "flash_attention_bwd": TRAIN_BATCH[0]}.get(name, BATCH),
             shapes=shapes, extra=per_kernel[name]["extra"]))
     return rows
 
@@ -1945,7 +2087,8 @@ def dense_path():
     """``h2o-danube-1.8b`` uncut served through ``launch.serve``'s prefill
     and greedy decode, eager then captured, held to its plain model
     (``lm_phase``; module docstring, phase 5b).  Returns the launch counts
-    of the served requests and the numbers."""
+    of the served requests, the numbers and the weights (numpy, float32),
+    which the training phase takes up."""
     t0 = time.perf_counter()
     cfg = get_config(DENSE_ARCH)
     defs = transformer.param_defs(cfg)
@@ -1959,14 +2102,251 @@ def dense_path():
     tree = init_params(SEED, defs)              # numpy float32, on the host
     init_s = time.perf_counter() - t1
     params = transformer.load_params(cfg, tree)  # as served: bfloat16 compute
-    del tree
     rng = np.random.default_rng(SEED + 3)
     launches, result = lm_phase("dense", cfg, transformer, params, DENSE_REQUESTS, rng)
     del params
     torch.cuda.empty_cache()
     result.update(arch=DENSE_ARCH, parameters=DENSE_PARAMS, init_params_s=init_s,
                   wall_s=time.perf_counter() - t0)
-    return launches, result
+    return launches, result, tree
+
+
+def refusals() -> list:
+    """Each ``ops`` entry without a backward, on CUDA inputs one of which
+    (a weight) requires grad, under grad mode: a RuntimeError naming the
+    kernel before any launch, its counter unchanged."""
+    def ones(*shape):
+        return torch.full(shape, 0.5, device="cuda")
+
+    cases = {
+        "fused_ibn": (ops.fused_ibn, [ones(64, 48), ones(48, 160), ones(160, 48)]),
+        "matmul_ln": (ops.matmul_ln, [ones(64, 96), ones(96, 96), ones(96),
+                                      ones(96), ones(96)]),
+        "depthwise_conv2d": (ops.depthwise_conv2d,
+                             [ones(1, 8, 8, 16), ones(3, 3, 16), ones(16)]),
+        "wkv_chunked": (lambda *a: ops.wkv_chunked(*a, chunk=16),
+                        [ones(4, 32, 16), ones(4, 32, 16), ones(4, 32, 16),
+                         -ones(4, 32, 16), ones(4, 16)]),
+    }
+    out = []
+    for name, (fn, args) in cases.items():
+        args[1].requires_grad_()
+        before = read_counts()
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            if name not in str(e):
+                fail(f"refusal: {name} raised without naming its kernel: {e}")
+        else:
+            fail(f"refusal: {name} took a CUDA input that requires grad")
+        if read_counts() != before:
+            fail(f"refusal: {name} launched before it refused")
+        out.append(name)
+    return out
+
+
+def digest(tree) -> list:
+    """Each leaf's bits summed as integers and its values summed in float64:
+    equal digests of two runs' states mean the same bits, for a check that
+    keeps only one state on the card."""
+    def one(t):
+        bits = t.detach().view(torch.int32) if t.dtype == torch.float32 else t
+        return (int(bits.to(torch.int64).sum()), float(t.detach().double().sum()))
+    return [one(t) for t in tree_leaves(tree)]
+
+
+def leaf_names(tree) -> list:
+    names = []
+    tree_map(lambda leaf, path: names.append(path), tree)
+    return names
+
+
+def train_path(cfg, tree) -> tuple:
+    """Training ``h2o-danube-1.8b`` uncut on the card (module docstring,
+    phase 5f): float32 masters from ``tree`` (the dense phase's weights),
+    bfloat16 compute with remat, ``build_train_step`` as ``launch.train``
+    builds it.  Returns the launch counts of the timed run and the numbers."""
+    t0 = time.perf_counter()
+    B, T = TRAIN_BATCH
+    ds = make_dataset(cfg, ShapeConfig("train", "train", T, B), seed=SEED)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(s).items()}
+               for s in range(TRAIN_STEPS)]
+
+    def masters(src):
+        return tree_map(lambda a, path: torch.from_numpy(a).cuda().requires_grad_(),
+                        src)
+
+    res = dict(arch=DENSE_ARCH, parameters=DENSE_PARAMS, steps=TRAIN_STEPS,
+               batch=TRAIN_BATCH, lr=TRAIN_LR, warmup=TRAIN_WARMUP, clip=TRAIN_CLIP,
+               refused=refusals())
+    params = masters(tree)
+    names = leaf_names(params)
+
+    # the first step's gradients through the kernels and the plain versions
+    grad_k, grad_p = build_grad_fn(cfg), build_grad_fn(cfg, kernels=ref.PLAIN)
+    reset_counts()
+    loss_k, _, gk = grad_k(params, batches[0])
+    first = read_counts()
+    per_layer = transformer.kernel_launches_per_prefill(cfg)["flash_attention"]
+    want_first = {n: 0 for n in KERNELS}
+    want_first.update(flash_attention=2 * per_layer, flash_attention_bwd=per_layer)
+    if first != want_first:
+        fail(f"train: one step launched {first}, expected {want_first} (the "
+             f"forward, remat's recompute, the backward)")
+    loss_p, _, gp = grad_p(params, batches[0])
+    rel = {}
+    for n, a, b in zip(names, tree_leaves(gk), tree_leaves(gp)):
+        rel[n] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    norm_k = torch.sqrt(sum(torch.sum(g.square()) for g in tree_leaves(gk))).item()
+    norm_p = torch.sqrt(sum(torch.sum(g.square()) for g in tree_leaves(gp))).item()
+    del gp
+    worst = max(rel, key=rel.get)
+    if not (abs(loss_k.item() - loss_p.item()) <= TRAIN_LOSS_TOL
+            and rel[worst] <= TRAIN_GRAD_REL
+            and abs(norm_k - norm_p) <= TRAIN_NORM_REL * norm_p):
+        fail(f"train: the first step against the plain step: loss {loss_k.item():.5f} "
+             f"vs {loss_p.item():.5f}, worst leaf {worst} rel L2 {rel[worst]:.3e}, "
+             f"grad norm {norm_k:.5f} vs {norm_p:.5f}")
+    res.update(first_step_launches=first, loss_first=loss_k.item(),
+               loss_first_plain=loss_p.item(), grad_rel_l2_vs_plain=rel,
+               grad_rel_l2_worst=[worst, rel[worst]], grad_norm_first=norm_k,
+               grad_norm_first_plain=norm_p)
+
+    # the first step again: the same bits
+    loss_k2, _, gk2 = grad_k(params, batches[0])
+    same = torch.equal(loss_k, loss_k2) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(gk), tree_leaves(gk2)))
+    if not same:
+        fail("train: two runs of the first step differ")
+    del gk, gk2
+
+    # float32 on the first layers of the same weights, kernels against plain
+    L32 = TRAIN_F32_LAYERS
+    cfg32 = dataclasses.replace(cfg, num_layers=L32, dtype="float32")
+    p32 = masters(dict(tree, blocks=tree_map(lambda a, path: a[:L32], tree["blocks"])))
+    _, _, g32k = build_grad_fn(cfg32)(p32, batches[0])
+    _, _, g32p = build_grad_fn(cfg32, kernels=ref.PLAIN)(p32, batches[0])
+    res["f32_max_grad_err_vs_plain"] = max(
+        compare(f"train float32 {L32} layers grad {n}", a, b, 2e-3)
+        for n, a, b in zip(leaf_names(p32), tree_leaves(g32k), tree_leaves(g32p)))
+    del p32, g32k, g32p
+
+    # the run: TRAIN_STEPS steps; a checkpoint after TRAIN_CKPT of them
+    step_fn = build_train_step(cfg, lr_schedule=warmup_cosine(TRAIN_LR, TRAIN_WARMUP,
+                                                              TRAIN_STEPS),
+                               clip_norm=TRAIN_CLIP)
+    opt = adamw_init(params)
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    losses, gnorms, ev_ms, wall_ms = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()
+        for s in range(TRAIN_STEPS):
+            if s == TRAIN_CKPT:
+                t1 = time.perf_counter()
+                save_checkpoint(ckpt_dir, s, {"params": params, "opt": opt})
+                res["checkpoint_save_s"] = time.perf_counter() - t1
+            (params, opt, m), ev, wall = both_clocks(
+                lambda: step_fn(params, opt, batches[s]))
+            losses.append(m["loss"].item())
+            gnorms.append(m["grad_norm"].item())
+            ev_ms.append(ev)
+            wall_ms.append(wall)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        want = {n: 0 for n in KERNELS}
+        want.update(flash_attention=2 * per_layer * TRAIN_STEPS,
+                    flash_attention_bwd=per_layer * TRAIN_STEPS)
+        if launches != want:
+            fail(f"train: {TRAIN_STEPS} steps launched {launches}, expected {want}")
+        if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+            fail(f"train: losses {losses} grad norms {gnorms}")
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            fail(f"train: the loss did not fall: {losses}")
+        final = digest({"params": params, "m": opt.m, "v": opt.v})
+        del params, opt, m
+        torch.cuda.empty_cache()
+
+        # resume: the checkpoint into fresh tensors, the rest of the run again
+        fresh = masters(tree)
+        t1 = time.perf_counter()
+        step0, restored = restore(ckpt_dir, {"params": fresh, "opt": adamw_init(fresh)},
+                                  "cuda")
+        res["checkpoint_restore_s"] = time.perf_counter() - t1
+        del fresh
+        params, opt = restored["params"], restored["opt"]
+        del restored
+        resumed = []
+        for s in range(step0, TRAIN_STEPS):
+            params, opt, m = step_fn(params, opt, batches[s])
+            resumed.append((m["loss"].item(), m["grad_norm"].item()))
+        again = digest({"params": params, "m": opt.m, "v": opt.v})
+        first = list(zip(losses[step0:], gnorms[step0:]))
+        if step0 != TRAIN_CKPT or resumed != first or again != final:
+            moved = [n for n, a, b in zip(leaf_names({"params": params, "m": opt.m,
+                                                      "v": opt.v}), again, final)
+                     if a != b]
+            step = next((step0 + i for i, (a, b) in enumerate(zip(resumed, first))
+                         if a != b), None)
+            fail(f"train: resumed at step {step0}, steps {step0}-{TRAIN_STEPS - 1} "
+                 f"do not repeat the run bit for bit: first differing step {step} "
+                 f"(loss, grad norm {resumed[step - step0] if step is not None else '-'} "
+                 f"against {first[step - step0] if step is not None else '-'}), "
+                 f"{len(moved)} leaves differ at the end, first {moved[:3]}")
+        # where a step's time goes: two more steps traced
+        res["trace_steps"] = trace(lambda b: step_fn(params, opt, b), batches[0], 2,
+                                   inference=False)
+        del params, opt, m
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    tail = ev_ms[-10:]
+    step_ms = statistics.median(tail)
+    res.update(
+        launches=launches, losses=losses, grad_norms=gnorms, step_event_ms=ev_ms,
+        step_wall_ms=wall_ms, step_ms=step_ms, step_wall_ms_median=statistics.median(
+            wall_ms[-10:]), tokens_per_s=B * T / step_ms * 1e3, peak_memory_mib=peak,
+        resumed_from=TRAIN_CKPT, resumed_bitwise=True, wall_s=time.perf_counter() - t0)
+    return launches, res
+
+
+def print_train(res: dict) -> None:
+    """The lines of the training phase."""
+    B, T = res["batch"]
+    print(f"train {res['arch']} uncut, {res['parameters']} parameters, float32 "
+          f"masters, bfloat16 compute, remat; {res['steps']} steps of {B}x{T} "
+          f"tokens, lr {res['lr']} warmup {res['warmup']} clip {res['clip']}; "
+          f"launches {res['launches']} = (24 + 24 remat) flash_attention + 24 "
+          f"flash_attention_bwd a step; first step {res['first_step_launches']}")
+    w, r = res["grad_rel_l2_worst"]
+    print(f"train first step vs plain: loss {res['loss_first']:.5f} vs "
+          f"{res['loss_first_plain']:.5f} (limit {TRAIN_LOSS_TOL}), grad norm "
+          f"{res['grad_norm_first']:.5f} vs {res['grad_norm_first_plain']:.5f} "
+          f"(limit {100 * TRAIN_NORM_REL:.0f} %), worst leaf {w} rel L2 {r:.3e} "
+          f"(limit {TRAIN_GRAD_REL}); twice, same bits; float32 "
+          f"{TRAIN_F32_LAYERS} layers every grad within "
+          f"{res['f32_max_grad_err_vs_plain']:.2e} (limit 2e-3 (1+|b|))")
+    ls = res["losses"]
+    print(f"train losses {ls[0]:.4f} -> {ls[-1]:.4f} (mean of the first 5 "
+          f"{np.mean(ls[:5]):.4f}, last 5 {np.mean(ls[-5:]):.4f}), grad norms "
+          f"{res['grad_norms'][0]:.3f} -> {res['grad_norms'][-1]:.3f}, all finite")
+    print(f"train step ms (median of the last 10) events {res['step_ms']:.2f} wall "
+          f"{res['step_wall_ms_median']:.2f}; {res['tokens_per_s']:.0f} tokens/s; "
+          f"peak memory {res['peak_memory_mib']:.0f} MiB; checkpoint at step "
+          f"{res['resumed_from']} saved in {res['checkpoint_save_s']:.1f} s, restored "
+          f"in {res['checkpoint_restore_s']:.1f} s, steps {res['resumed_from']}-"
+          f"{res['steps'] - 1} again bit for bit; refusals {res['refused']}; phase "
+          f"wall {res['wall_s']:.1f} s")
+    tr = res["trace_steps"]
+    busy = tr["device_busy_share"]
+    top = ", ".join(f"{k['name'][:40]} {k['ms']:.1f}" for k in tr["top"][:6])
+    print(f"train traced x{tr['traced_requests']} steps: window {tr['window_ms']:.1f} "
+          f"ms, device busy {tr['device_busy_ms']:.1f} ms "
+          f"({'not measured' if busy is None else f'{100 * busy:.1f} %'}), own kernels "
+          f"{tr['own_kernels_ms']:.2f} ms, {tr['device_kernel_launches']} device "
+          f"kernels; top: {top}", flush=True)
 
 
 @contextlib.contextmanager
@@ -2421,9 +2801,11 @@ def main() -> None:
             lib = "none" if s["library_ms"] is None else f"{s['library_ms']:.4f}"
             split = split_text(s)
             pre = f" ({s['per_prefill']} a prefill)" if "per_prefill" in s else ""
+            fwd = (f" | forward ms {s['fwd_ms']:.4f}, with lse {s['fwd_lse_ms']:.4f}"
+                   if "fwd_ms" in s else "")
             print(f"kernel {s['case']} x{s['per_forward']}{pre}: err "
                   f"{s['max_abs_err']:.2e} ms {s['ms']:.4f} plain {s['plain_ms']:.4f} "
-                  f"library {lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}")
+                  f"library {lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}{fwd}")
         for s in rec["extra"]:
             split = split_text(s)
             print(f"kernel {s['case']}: err {s['max_abs_err']:.2e} (tol {s['tol']}){split}")
@@ -2506,8 +2888,14 @@ def main() -> None:
           f"{w['eager_ms']:.4f} graph {w['graph_ms']:.4f}", flush=True)
 
     # 5b. the dense path, h2o-danube-1.8b uncut
-    dense_launches, dense = dense_path()
+    dense_launches, dense, dense_tree = dense_path()
     print_lm("dense", dense, 24)
+
+    # 5f. training on the dense path's weights (run here, while they are
+    # on the host)
+    train_launches, train = train_path(get_config(DENSE_ARCH), dense_tree)
+    del dense_tree
+    print_train(train)
 
     # 5c. the MoE path, qwen2-moe-a2.7b at 8 of its 24 layers
     moe_launches, moe = moe_path()
@@ -2580,6 +2968,7 @@ def main() -> None:
     rows = summarise(per_kernel, {"edgenext_serve": launches,
                                   "rwkv6_serve": rwkv_launches,
                                   "dense_serve": dense_launches,
+                                  "dense_train": train_launches,
                                   "moe_serve": moe_launches,
                                   "audio_serve": audio_launches,
                                   "hybrid_serve": hybrid_launches,
@@ -2593,7 +2982,8 @@ def main() -> None:
         out.write_text(json.dumps(dict(
             device=device, nvidia_smi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
-            kernels=rows, main_path=served, rwkv6=rwkv, dense=dense, moe=moe,
+            kernels=rows, main_path=served, rwkv6=rwkv, dense=dense, train=train,
+            moe=moe,
             audio=audio, hybrid=hybrid, check=check,
             serve=store,
             lowered=dict(records=lowered, entries=entries,

@@ -4,7 +4,13 @@
                   intermediate kept in shared memory and registers
   flash_attention attention, the score matrix never stored: whole score
                   rows with D split over a thread-block cluster where the
-                  keys fit one block, else an online softmax over KV tiles
+                  keys fit one block, else an online softmax over KV tiles;
+                  each row's log-sum-exp where a backward needs it
+  flash_attention_bwd
+                  its backward: dK / dV a key tile a block, dQ a query tile
+                  a block, P recomputed from the log-sum-exp, no atomics
+                  (``flash_attention.FlashAttention`` is the autograd
+                  function around both)
   depthwise_conv  channels-last SAME depthwise convolution: halo tiles
                   staged in shared memory with zero fill, taps unrolled
                   per kernel size, the tile from ``plan``

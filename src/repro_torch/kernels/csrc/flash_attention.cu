@@ -155,8 +155,8 @@ __device__ __forceinline__ void store2(float a, float b, __nv_bfloat16* p, bool 
 template <typename T>
 __global__ void __launch_bounds__(NTR, 2)
 rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            T* __restrict__ out, int Sq, int Sk, int D, float scale, int causal,
-            int has_window, int window, int bq, int wmax) {
+            T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int D, float scale,
+            int causal, int has_window, int window, int bq, int wmax) {
   using MM = Mma<T>;
   using S = typename MM::S;
   using R = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;  // raw bits
@@ -310,6 +310,10 @@ rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 #pragma unroll
       for (int o = 4; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
       if (sub == 0) ls[r] = l;
+      // the row's log-sum-exp of the scaled scores, for the backward: every
+      // block of the cluster holds the whole row; rank 0 writes it
+      if (lse != nullptr && sub == 0 && z == 0 && r < r1 - r0)
+        lse[bh * Sq + r0 + r] = mx + logf(l == 0.f ? 1.f : l);
     }
   }
   cp_async_wait<0>();  // v has landed
@@ -374,6 +378,7 @@ constexpr int OQ = 64;    // query rows of a block: 16 a warp
 constexpr int OKT = 64;   // keys of a KV tile
 constexpr int NTO = 128;  // threads: 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ldmatrix: four 8x8 tiles of 16-bit elements, row addresses from lanes
 // 8i..8i+7 for tile i (`trans`: each tile transposed on the way)
@@ -444,8 +449,8 @@ __device__ __forceinline__ float ex2(float x) {
 template <typename T, int DC>
 __global__ void __launch_bounds__(NTO, online_min_blocks<T, DC>)
 online_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ out, int Sq, int Sk, int D, float scale, int causal,
-              int has_window, int window) {
+              T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int D,
+              float scale, int causal, int has_window, int window) {
   using MM = Mma<T>;
   using S = typename MM::S;
   using R = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;  // raw bits
@@ -720,6 +725,11 @@ online_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int r = q0 + warp * 16 + g + 8 * h;
     if (r >= Sq) continue;
     const float l = l_run[h] == 0.f ? 1.f : l_run[h];
+    // the row's log-sum-exp of the scaled scores (m_run is in the log2
+    // domain; a row with no key keeps NEG_INF, as the reference's does),
+    // for the backward: from the first output chunk's blocks
+    if (lse != nullptr && z == 0 && t == 0)
+      lse[bh * Sq + r] = (m_run[h] == NEG_INF ? NEG_INF : m_run[h] * LN2) + logf(l);
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       const int col = 8 * j + 2 * t;
@@ -733,9 +743,9 @@ online_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 constexpr int MAX_DEVICES = 64;
 
 template <typename T>
-int launch_rows(const void* q, const void* k, const void* v, void* out, long long BH, int Sq,
-                int Sk, int D, float scale, int causal, int has_window, int window, int splits,
-                int row_splits, cudaStream_t s) {
+int launch_rows(const void* q, const void* k, const void* v, void* out, float* lse, long long BH,
+                int Sq, int Sk, int D, float scale, int causal, int has_window, int window,
+                int splits, int row_splits, cudaStream_t s) {
   constexpr int U = Mma<T>::K;
   const int units = (D + U - 1) / U, tiles = (Sq + RT - 1) / RT;
   if (Sk > S_MAX || splits < 1 || splits > MAX_CLUSTER || splits > units || row_splits < 1 ||
@@ -770,16 +780,16 @@ int launch_rows(const void* q, const void* k, const void* v, void* out, long lon
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Sk, D,
-                           scale, causal, has_window, window, bq, wmax);
+  err = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Sq,
+                           Sk, D, scale, causal, has_window, window, bq, wmax);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DC>
-int launch_online_at(const void* q, const void* k, const void* v, void* out, long long BH,
-                     int Sq, int Sk, int D, float scale, int causal, int has_window, int window,
-                     cudaStream_t s) {
+int launch_online_at(const void* q, const void* k, const void* v, void* out, float* lse,
+                     long long BH, int Sq, int Sk, int D, float scale, int causal, int has_window,
+                     int window, cudaStream_t s) {
   const unsigned gy = (Sq + OQ - 1) / OQ, gz = (D + DC - 1) / DC;
   if (BH > 2147483647LL || gy > 65535u || gz > 65535u) return (int)cudaErrorInvalidValue;
   const size_t smem = online_smem<T>(D);
@@ -797,20 +807,20 @@ int launch_online_at(const void* q, const void* k, const void* v, void* out, lon
     if (dev < MAX_DEVICES) opted_in[dev] = true;
   }
   kern<<<dim3((unsigned)BH, gy, gz), NTO, smem, s>>>((const T*)q, (const T*)k, (const T*)v,
-                                                     (T*)out, Sq, Sk, D, scale, causal,
+                                                     (T*)out, lse, Sq, Sk, D, scale, causal,
                                                      has_window, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_online(const void* q, const void* k, const void* v, void* out, long long BH, int Sq,
-                  int Sk, int D, float scale, int causal, int has_window, int window,
-                  cudaStream_t s) {
+int launch_online(const void* q, const void* k, const void* v, void* out, float* lse,
+                  long long BH, int Sq, int Sk, int D, float scale, int causal, int has_window,
+                  int window, cudaStream_t s) {
   const int dc = online_chunk<T>(D);
 #define REPRO_ONLINE(DC)                                                                     \
   if (dc == DC)                                                                              \
-    return launch_online_at<T, DC>(q, k, v, out, BH, Sq, Sk, D, scale, causal, has_window, \
-                                   window, s);
+    return launch_online_at<T, DC>(q, k, v, out, lse, BH, Sq, Sk, D, scale, causal,       \
+                                   has_window, window, s);
   REPRO_ONLINE(64)
   REPRO_ONLINE(128)
   if constexpr (sizeof(T) == 2) {
@@ -825,28 +835,32 @@ int launch_online(const void* q, const void* k, const void* v, void* out, long l
 
 }  // namespace
 
-// q: [BH, Sq, D], k, v: [BH, Sk, D], out: [BH, Sq, D], all dense.  dtype:
-// 0 = float32, 1 = bfloat16.  regime 1: whole rows (Sk <= 128), D split
+// q: [BH, Sq, D], k, v: [BH, Sk, D], out: [BH, Sq, D], all dense; lse:
+// [BH, Sq] float32, each row's log-sum-exp of the scaled scores (m + log l,
+// as the reference's forward returns it for its backward), or nullptr (the
+// served forward: nothing written).  dtype: 0 = float32, 1 = bfloat16.  regime 1: whole rows (Sk <= 128), D split
 // over a cluster of `splits` blocks (1..8, at most the column units) and
 // the query rows over `row_splits` (at most the 16-row tiles), within the
 // shared-memory budget; regime 0: online softmax over KV tiles (splits and
 // row_splits unused).  Returns cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     long long BH, int Sq, int Sk, int D, float scale, int causal,
-                                     int has_window, int window, int regime, int splits,
-                                     int row_splits, int dtype, void* stream) {
+                                     void* lse, long long BH, int Sq, int Sk, int D, float scale,
+                                     int causal, int has_window, int window, int regime,
+                                     int splits, int row_splits, int dtype, void* stream) {
   if (BH <= 0 || Sq <= 0 || Sk <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (regime == 1 && dtype == 0)
-    return launch_rows<float>(q, k, v, out, BH, Sq, Sk, D, scale, causal, has_window, window,
+    return launch_rows<float>(q, k, v, out, l, BH, Sq, Sk, D, scale, causal, has_window, window,
                               splits, row_splits, s);
   if (regime == 1 && dtype == 1)
-    return launch_rows<__nv_bfloat16>(q, k, v, out, BH, Sq, Sk, D, scale, causal, has_window,
+    return launch_rows<__nv_bfloat16>(q, k, v, out, l, BH, Sq, Sk, D, scale, causal, has_window,
                                       window, splits, row_splits, s);
   if (regime == 0 && dtype == 0)
-    return launch_online<float>(q, k, v, out, BH, Sq, Sk, D, scale, causal, has_window, window, s);
+    return launch_online<float>(q, k, v, out, l, BH, Sq, Sk, D, scale, causal, has_window, window,
+                                s);
   if (regime == 0 && dtype == 1)
-    return launch_online<__nv_bfloat16>(q, k, v, out, BH, Sq, Sk, D, scale, causal, has_window,
+    return launch_online<__nv_bfloat16>(q, k, v, out, l, BH, Sq, Sk, D, scale, causal, has_window,
                                         window, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,11 @@
-"""Wrapper of the CUDA flash attention (``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash attention (``csrc/flash_attention.cu``) and its
+autograd ``FlashAttention``.
 
-Port of ``repro/kernels/flash_attention.py``, forward only.  ``plan``
+Port of ``repro/kernels/flash_attention.py``'s forward.  Asked for it
+(``return_lse``), the forward also writes each row's float32 log-sum-exp,
+which ``FlashAttention`` keeps for its backward, the kernel of
+``flash_attention_bwd`` (the port of ``repro/models/attention.py``'s
+``_flash_bwd``).  ``plan``
 picks one of the kernel's two regimes: whole score rows with D split over
 a thread-block cluster where the keys fit one block (Sk <= S_MAX), else
 the online softmax over KV tiles on the tensor cores (64 query rows a
@@ -15,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import flash_attention_bwd as _bwd
 from repro_torch.kernels._launch import check_cuda_dense, check_launch
 
 launches = 0
@@ -171,15 +177,18 @@ def _sms(device: torch.device) -> int:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _P, _L, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I,
-             _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _L, _I, _I, _I, ctypes.c_float, _I, _I, _I,
+             _I, _I, _I, _I, _P]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, return_lse: bool = False):
     """q: [B,H,Sq,D]; k, v: [B,H,Sk,D] (H = full query heads), all dense
-    and on one CUDA device -> [B,H,Sq,D].  Any Sq, Sk and D."""
+    and on one CUDA device -> [B,H,Sq,D].  Any Sq, Sk and D.  With
+    ``return_lse`` -> (out, lse [B,H,Sq] float32: each row's log-sum-exp of
+    the scaled, masked scores, as the reference's ``_flash_fwd`` returns
+    it); without, the kernel writes no lse."""
     global launches
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
@@ -189,8 +198,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk = k.shape[2]
     code = check_cuda_dense("flash_attention", q=q, k=k, v=v)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if Sk == 0:
         raise ValueError("flash_attention: no keys")
     scale_ = float(scale) if scale is not None else D ** -0.5
@@ -198,10 +209,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                               q.element_size())
     with torch.cuda.device(q.device):
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B * H, Sq, Sk, D, scale_, int(causal),
+                        out.data_ptr(), None if lse is None else lse.data_ptr(),
+                        B * H, Sq, Sk, D, scale_, int(causal),
                         int(window is not None), int(window or 0), regime,
                         splits, row_splits, code,
                         torch.cuda.current_stream().cuda_stream)
     check_launch("flash_attention", err)
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a backward, the port of the reference's
+    ``flash_attention`` custom_vjp: the forward keeps (q, k, v, out, lse),
+    the backward returns (dq, dk, dv).  On CUDA tensors both launch the
+    hand-written kernels (this module's forward with ``return_lse``, then
+    ``flash_attention_bwd``); on CPU tensors both run their plain versions,
+    ``ref.attention_fwd_lse_ref`` and ``ref.attention_bwd_ref``.  GQA: the
+    caller repeats the KV heads, and autograd sums their dk and dv over the
+    group, as ``jnp.repeat``'s VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        if q.is_cuda:
+            out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                       scale=scale, return_lse=True)
+        else:
+            out, lse = ref.attention_fwd_lse_ref(q, k, v, causal=causal,
+                                                 window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.masks
+        fn = _bwd.flash_attention_bwd if q.is_cuda else ref.attention_bwd_ref
+        dq, dk, dv = fn(q, k, v, out, lse, dout.contiguous(), causal=causal,
+                        window=window, scale=scale)
+        return dq, dk, dv, None, None, None

@@ -3,7 +3,9 @@
 Float32 math with the rounding points of the kernels: ``fused_ibn_ref``
 rounds the expanded intermediate T to the input dtype before the second
 product, ``attention_ref`` masks with a finite -1e30 so a fully masked
-row softmaxes to uniform, ``matmul_ln_ref`` rounds only its output,
+row softmaxes to uniform (``attention_fwd_lse_ref`` also returns each
+row's log-sum-exp, and ``attention_bwd_ref`` is the backward by the
+reference's formulas), ``matmul_ln_ref`` rounds only its output,
 ``wkv_ref`` is the per-token recurrence (no chunks) in float32.
 They run on any device; ``ops`` sends only CPU tensors here.
 """
@@ -55,10 +57,9 @@ def matmul_ln_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (yn * gamma.float() + beta.float()).to(x.dtype)
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: Optional[int] = None,
-                  scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B,H,Sq,D]; k, v: [B,H,Sk,D] -> [B,H,Sq,D]."""
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            window: Optional[int], scale: Optional[float]) -> torch.Tensor:
+    """The scaled float32 scores [B,H,Sq,Sk], NEG_INF where masked."""
     Sq, D = q.shape[2], q.shape[3]
     Sk = k.shape[2]
     scale_ = scale if scale is not None else D ** -0.5
@@ -70,9 +71,46 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= q_pos >= k_pos
     if window is not None:
         mask &= (q_pos - k_pos) < window
-    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    return torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,H,Sq,D]; k, v: [B,H,Sk,D] -> [B,H,Sq,D]."""
+    p = torch.softmax(_scores(q, k, causal, window, scale), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def attention_fwd_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: Optional[int] = None,
+                          scale: Optional[float] = None):
+    """``attention_ref`` and each row's float32 log-sum-exp of the scaled,
+    masked scores [B,H,Sq] (the reference's ``_flash_fwd`` returns both)."""
+    s = _scores(q, k, causal, window, scale)
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.float())
+    return out.to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                      *, causal: bool = True, window: Optional[int] = None,
+                      scale: Optional[float] = None):
+    """(dq, dk, dv) in the inputs' types by the reference's ``_flash_bwd``
+    formulas on the whole score matrix, in float32: delta = rowsum(dO . O),
+    P = exp(S - lse) (S scaled and masked to NEG_INF), dS = P (dP - delta),
+    dQ = dS K * scale, dK = dS^T Q * scale, dV = P^T dO."""
+    D = q.shape[3]
+    scale_ = scale if scale is not None else D ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    delta = (dof * out.float()).sum(-1)
+    p = torch.exp(_scores(q, k, causal, window, scale) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale_
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale_
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def depthwise_conv2d_ref(x: torch.Tensor, w: torch.Tensor,

@@ -1,1 +1,2 @@
-"""Launchers of the port (``serve``)."""
+"""Launchers of the port (``serve``, ``train``) and the shapes of their
+inputs (``specs``)."""

@@ -1,5 +1,4 @@
-"""Attention library of the LM stack, forward only: port of
-``repro/models/attention.py``.
+"""Attention library of the LM stack: port of ``repro/models/attention.py``.
 
 - ``flash_attention``        : causal / window masks over the full sequence
 - ``flash_attention_banded`` : causal sliding-window prefill, O(S*W)
@@ -21,8 +20,11 @@ it costs O(S*W) as the reference's band does.  The reference's ``block_q``
 / ``block_k`` are XLA blocking and are not passed on (the kernel runs its
 own tile, ``kernels.flash_attention.BLOCKS``).  Decode attention is plain
 tensor code in float32, as the reference computes it, and launches no
-kernel.  The hand-written backward (``custom_vjp``) belongs to training,
-ROADMAP queue 1 item 7.
+kernel.  The reference's ``custom_vjp`` is ``ops.flash_attention`` under
+autograd (``kernels.flash_attention.FlashAttention``): in training its
+backward is the hand-written kernel of ``csrc/flash_attention_bwd.cu`` on
+the card, ``ref.attention_bwd_ref`` on the CPU, both by ``_flash_bwd``'s
+formulas.
 """
 from __future__ import annotations
 

@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -72,6 +73,17 @@ def activation(name: str, x: torch.Tensor) -> torch.Tensor:
         r = F.relu(x)
         return r * r
     raise ValueError(name)
+
+
+def remat_call(fn, *args, remat: bool = False):
+    """``fn(*args)``; where ``remat`` and grad mode is on, under
+    ``torch.utils.checkpoint`` (non-reentrant): the block's activations are
+    dropped after its forward and recomputed in the backward, as the
+    reference's ``jax.checkpoint`` of each scanned block.  The values are
+    the same either way."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -421,10 +433,11 @@ def embedding_defs(cfg: ModelConfig) -> Params:
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """tokens: [B, S] integer -> [B, S, D] in ``dtype``."""
-    w = params["embedding"]
-    rows = torch.index_select(w, 0, tokens.reshape(-1))
-    return rows.reshape(*tokens.shape, w.shape[1]).to(dtype)
+    """tokens: [B, S] integer -> [B, S, D] in ``dtype``.  ``F.embedding``,
+    whose backward on the card sums a repeated token's rows in a fixed
+    order (``index_select``'s accumulates them by atomics, so that two
+    equal train steps could differ in the embedding's gradient bits)."""
+    return F.embedding(tokens, params["embedding"]).to(dtype)
 
 
 def lm_logits(params: Params, x: torch.Tensor) -> torch.Tensor:

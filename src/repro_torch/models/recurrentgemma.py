@@ -1,5 +1,5 @@
-"""RecurrentGemma / Griffin hybrid [arXiv:2402.19427], for inference: port
-of ``repro/models/recurrentgemma.py``.
+"""RecurrentGemma / Griffin hybrid [arXiv:2402.19427]: port of
+``repro/models/recurrentgemma.py``.
 
 Block pattern (recurrent, recurrent, attention): the RG-LRU diagonal
 linear recurrence after a causal temporal convolution (width 4) in the
@@ -215,11 +215,14 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            kernels=ops, **_) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden states [B,S,D] post-ln_f, aux 0)."""
+            kernels=ops, remat: bool = False,
+            **_) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (final hidden states [B,S,D] post-ln_f, aux 0).  ``remat``:
+    each block under ``layers.remat_call``."""
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
     positions = _positions(x)
-    for kind, bp in zip(cfg.block_pattern, params["blocks"]):
+
+    def block(kind, bp, x):
         h = L.norm_apply(cfg, bp["ln1"], x)
         if kind == "recurrent":
             h = _recurrent_block(cfg, bp["rec"], h)[0]
@@ -228,7 +231,10 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
                                   window=cfg.window, kernels=kernels)
         x = x + h
         h = L.norm_apply(cfg, bp["ln2"], x)
-        x = x + L.mlp_apply(cfg, bp["mlp"], h)
+        return x + L.mlp_apply(cfg, bp["mlp"], h)
+
+    for kind, bp in zip(cfg.block_pattern, params["blocks"]):
+        x = L.remat_call(block, kind, bp, x, remat=remat)
     x = L.norm_apply(cfg, params["ln_f"], x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

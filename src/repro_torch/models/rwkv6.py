@@ -286,9 +286,10 @@ def channel_mix(cm: Params, x: torch.Tensor, x_prev: torch.Tensor):
 
 
 def _blocks(cfg: ModelConfig, params: Params, x: torch.Tensor, kernels,
-            cache: Optional[RWKVCache] = None):
+            cache: Optional[RWKVCache] = None, remat: bool = False):
     """The residual stack; returns (x, per-layer states, shift_tm,
-    shift_cm).  Without a cache every layer starts from zeros."""
+    shift_cm).  Without a cache every layer starts from zeros.  ``remat``:
+    each layer under ``layers.remat_call``."""
     n = cfg.num_layers
     if cache is None:
         zeros = torch.zeros((x.shape[0], x.shape[2]), dtype=cfg.compute_dtype,
@@ -297,14 +298,19 @@ def _blocks(cfg: ModelConfig, params: Params, x: torch.Tensor, kernels,
     else:
         prev_tm, prev_cm, states = cache.shift_tm, cache.shift_cm, cache.state
     st, sh_tm, sh_cm = [], [], []
-    for i, bp in enumerate(per_layer(params["blocks"], n)):
+
+    def layer(bp, x, prev_tm, prev_cm, state):
         h = L.norm_apply(cfg, bp["ln1"], x)
-        h, s_tm, s = time_mix(cfg, bp["tm"], h, prev_tm[i], states[i],
-                              cfg.wkv_chunk, kernels)
+        h, s_tm, s = time_mix(cfg, bp["tm"], h, prev_tm, state, cfg.wkv_chunk,
+                              kernels)
         x = x + h
         h = L.norm_apply(cfg, bp["ln2"], x)
-        h, s_cm = channel_mix(bp["cm"], h, prev_cm[i])
-        x = x + h
+        h, s_cm = channel_mix(bp["cm"], h, prev_cm)
+        return x + h, s, s_tm, s_cm
+
+    for i, bp in enumerate(per_layer(params["blocks"], n)):
+        x, s, s_tm, s_cm = L.remat_call(layer, bp, x, prev_tm[i], prev_cm[i],
+                                        states[i], remat=remat)
         st.append(s)
         sh_tm.append(s_tm)
         sh_cm.append(s_cm)
@@ -312,11 +318,12 @@ def _blocks(cfg: ModelConfig, params: Params, x: torch.Tensor, kernels,
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            kernels=ops, **_) -> Tuple[torch.Tensor, torch.Tensor]:
+            kernels=ops, remat: bool = False,
+            **_) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch["tokens"]: [B, T] -> (hidden [B, T, D], aux loss 0)."""
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
     x = L.norm_apply(cfg, params["ln0"], x)
-    x, _, _, _ = _blocks(cfg, params, x, kernels)
+    x, _, _, _ = _blocks(cfg, params, x, kernels, remat=remat)
     x = L.norm_apply(cfg, params["ln_f"], x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

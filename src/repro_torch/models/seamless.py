@@ -132,17 +132,22 @@ def _mlp(cfg: ModelConfig, bp: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor, *,
-           kernels=ops) -> torch.Tensor:
-    """src_embeds: [B, T_src, D] precomputed frames -> encoder memory."""
+           kernels=ops, remat: bool = False) -> torch.Tensor:
+    """src_embeds: [B, T_src, D] precomputed frames -> encoder memory.
+    ``remat``: each block under ``layers.remat_call``."""
     B, S, _ = src_embeds.shape
     positions = torch.arange(S, device=src_embeds.device).expand(B, S)
     x = src_embeds.to(cfg.compute_dtype)
     x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
-    for bp in per_layer(params["enc_blocks"], cfg.num_encoder_layers):
+
+    def block(bp, x):
         h = L.norm_apply(cfg, bp["ln1"], x)
         x = x + L.attention_apply(cfg, bp["attn"], h, None, causal=False,
                                   kernels=kernels)
-        x = _mlp(cfg, bp, x)
+        return _mlp(cfg, bp, x)
+
+    for bp in per_layer(params["enc_blocks"], cfg.num_encoder_layers):
+        x = L.remat_call(block, bp, x, remat=remat)
     return L.norm_apply(cfg, params["enc_ln_f"], x)
 
 
@@ -152,18 +157,23 @@ def encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor, *,
 
 
 def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                 memory: torch.Tensor, *, kernels=ops) -> torch.Tensor:
+                 memory: torch.Tensor, *, kernels=ops,
+                 remat: bool = False) -> torch.Tensor:
     B, S = tokens.shape
     x = _embed(cfg, params, tokens,
                torch.arange(S, device=tokens.device).expand(B, S))
-    for bp in per_layer(params["dec_blocks"], cfg.num_layers):
+
+    def block(bp, x, memory):
         h = L.norm_apply(cfg, bp["ln1"], x)
         x = x + L.attention_apply(cfg, bp["attn"], h, None, causal=True,
                                   kernels=kernels)
         h = L.norm_apply(cfg, bp["ln_x"], x)
         x = x + L.attention_apply(cfg, bp["xattn"], h, None, causal=False,
                                   kernels=kernels, kv_x=memory)
-        x = _mlp(cfg, bp, x)
+        return _mlp(cfg, bp, x)
+
+    for bp in per_layer(params["dec_blocks"], cfg.num_layers):
+        x = L.remat_call(block, bp, x, memory, remat=remat)
     return L.norm_apply(cfg, params["ln_f"], x)
 
 
@@ -173,11 +183,14 @@ def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            kernels=ops, **_) -> Tuple[torch.Tensor, torch.Tensor]:
+            kernels=ops, remat: bool = False,
+            **_) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: {"inputs_embeds": [B,T_src,D], "tokens": [B,T_tgt]}.
     Returns (decoder hidden states [B,T_tgt,D], aux 0)."""
-    memory = encode(cfg, params, batch["inputs_embeds"], kernels=kernels)
-    x = decode_train(cfg, params, batch["tokens"], memory, kernels=kernels)
+    memory = encode(cfg, params, batch["inputs_embeds"], kernels=kernels,
+                    remat=remat)
+    x = decode_train(cfg, params, batch["tokens"], memory, kernels=kernels,
+                     remat=remat)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

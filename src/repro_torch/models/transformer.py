@@ -1,6 +1,5 @@
 """Decoder-only TransformerLM, dense, VLM (M-RoPE, embedding inputs) and
-MoE, with sliding-window attention: port of ``repro/models/transformer.py``
-for inference.
+MoE, with sliding-window attention: port of ``repro/models/transformer.py``.
 
 Names, the nested parameter tree and the stacked ``[L, ...]`` layouts are
 the JAX module's, so that ``params.from_jax_params`` carries its tree
@@ -126,15 +125,20 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            kernels=ops, ibn_chunks: int = 0, moe_capacity: float = 1.25,
-            **_) -> Tuple[torch.Tensor, torch.Tensor]:
+            kernels=ops, remat: bool = False, ibn_chunks: int = 0,
+            moe_capacity: float = 1.25, **_) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (final hidden states [B,S,D] post-ln_f, MoE aux loss: the
-    mean over the layers, 0 without MoE)."""
+    mean over the layers, 0 without MoE).  ``remat``: each block under
+    ``layers.remat_call`` (training)."""
     x, positions = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def block(bp, x):
+        return _block(cfg, bp, x, positions, kernels=kernels,
+                      ibn_chunks=ibn_chunks, moe_capacity=moe_capacity)
+
     for bp in per_layer(params["blocks"], cfg.num_layers):
-        x, aux_i = _block(cfg, bp, x, positions, kernels=kernels,
-                          ibn_chunks=ibn_chunks, moe_capacity=moe_capacity)
+        x, aux_i = L.remat_call(block, bp, x, remat=remat)
         aux = aux + aux_i
     x = L.norm_apply(cfg, params["ln_f"], x)
     return x, aux / cfg.num_layers

@@ -34,7 +34,8 @@ from repro_torch.serve_edgenext import serve
 # the hand-written kernels' names in csrc/*.cu
 OURS = ("ibn_kernel", "ibn_reduce_kernel", "dw_kernel", "rows_kernel",
         "online_kernel", "matmul_ln_kernel", "wkv_states_kernel",
-        "wkv_outputs_kernel")
+        "wkv_outputs_kernel", "attn_bwd_delta_kernel", "attn_bwd_dkv_kernel",
+        "attn_bwd_dq_kernel")
 SEED = 0
 
 
@@ -50,9 +51,13 @@ def host_ms(model, images, n: int) -> list[float]:
     return out
 
 
-def trace(model, images, n: int) -> dict:
+def trace(model, images, n: int, inference: bool = True) -> dict:
+    """``n`` calls of ``model(images)`` under ``torch.profiler``: the
+    window, the device's busy time and share, the port's own kernels' time
+    and the top kernels.  ``inference=False`` keeps autograd on (a train
+    step)."""
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode():
+    with torch.inference_mode(inference):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

@@ -159,7 +159,7 @@ def phases(lib: ctypes.CDLL, BH: int, S: int, D: int, flush: torch.Tensor,
         flush.zero_()
         if lib.profile_reset() != 0:
             raise RuntimeError("profile_flash_attention: reset failed")
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, BH, S,
                  S, D, 1.0, 0, 0, 0, 1, p["splits"], p["row_splits"], 0, stream)
         torch.cuda.synchronize()
         if err != 0:
@@ -217,8 +217,8 @@ def sweep(BH: int, S: int, D: int, flush: torch.Tensor, sms: int,
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(regime, splits, rows):
-        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
-                  S, S, D, 1.0, 0, 0, 0, regime, splits, rows, 0, stream)
+        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                  BH, S, S, D, 1.0, 0, 0, 0, regime, splits, rows, 0, stream)
 
     # the library call on [B, H, S, D] views, as chip_smoke.py times it
     q4, k4, v4 = (t.view(BH // heads, heads, S, D) for t in (q, k, v))

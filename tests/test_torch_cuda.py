@@ -384,7 +384,7 @@ def _fa_launch(q, k, v, out, splits, row_splits, causal=False, window=None):
     from repro_torch.kernels import flash_attention as t_fa
     B, H, Sq, D = q.shape
     return t_fa._kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), B * H, Sq, k.shape[2], D, D ** -0.5,
+                          out.data_ptr(), None, B * H, Sq, k.shape[2], D, D ** -0.5,
                           int(causal), int(window is not None), int(window or 0),
                           1, splits, row_splits, 0,
                           torch.cuda.current_stream().cuda_stream)
@@ -989,3 +989,136 @@ def test_spawned_warm_beside_a_live_context_serves_a_b64_fused_ibn_entry(tmp_pat
     torch.cuda.synchronize()
     _close(got.cpu().numpy(), want.cpu().numpy(), 3e-5)
     assert live.sum().item() == 1024
+
+
+# ---------------------------------------------------------------------------
+# training: the attention backward, and the kernels that have none
+# ---------------------------------------------------------------------------
+
+# (B, H, Sq, Sk, D, causal, window, dtype): the trained shape (h2o-danube's
+# 32 heads of 80, bf16, causal), a ragged float32 shape with D over 64 and a
+# window, and one of the whole-row forward regime (its lse)
+_FA_BWD_CASES = {
+    "trained_bf16": (4, 32, 512, 512, 80, True, None, torch.bfloat16),
+    "ragged_f32_window": (1, 4, 300, 260, 96, False, 70, torch.float32),
+    "rows_regime_f32": (2, 4, 100, 100, 64, True, None, torch.float32),
+}
+
+
+def _fa_bwd_inputs(case, seed):
+    B, H, Sq, Sk, D, causal, window, dtype = _FA_BWD_CASES[case]
+    q, k, v, dout = _normal(seed, (B, H, Sq, D), (B, H, Sk, D), (B, H, Sk, D),
+                            (B, H, Sq, D))
+    return [t.to(dtype) for t in (q, k, v, dout)], dict(causal=causal,
+                                                       window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_FA_BWD_CASES))
+def test_flash_attention_bwd_on_card_matches_plain_autograd(case):
+    """``ops.flash_attention`` under autograd on the card (the forward with
+    its lse, then the backward kernel, one launch each) against autograd of
+    ``ref.attention_ref``: dq, dk and dv within 2e-3 (1 + |b|) in float32,
+    the JAX test's tolerance, and 2e-2 in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.kernels import flash_attention_bwd as t_fb
+    (q, k, v, dout), kw = _fa_bwd_inputs(case, 41)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (t_fa.launches, t_fb.launches)
+    out = tops.flash_attention(*leaves, **kw)
+    assert isinstance(out.grad_fn, t_fa.FlashAttention._backward_cls)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (t_fa.launches, t_fb.launches) == (before[0] + 1, before[1] + 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(tref.attention_ref(*plain, **kw), plain, dout)
+    tol = 2e-3 if q.dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        _close(g.float().cpu().numpy(), w.float().cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_is_bitwise_repeatable():
+    """Each of dq, dk, dv is summed by one thread in a fixed order, without
+    atomics: two backward calls at the trained shape give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.kernels import flash_attention_bwd as t_fb
+    (q, k, v, dout), kw = _fa_bwd_inputs("trained_bf16", 42)
+    out, lse = t_fa.flash_attention(q, k, v, return_lse=True, **kw)
+    first = t_fb.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    second = t_fb.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_served_forward_writes_no_lse(monkeypatch):
+    """The C entry gets a null lse from a call with no gradient asked for
+    (no grad mode, or no input requiring grad) and an lse buffer only under
+    autograd; the output is the same either way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import flash_attention as t_fa
+    real, seen = t_fa._kernel(), []
+
+    def recording(*args):
+        seen.append(args[4])
+        return real(*args)
+
+    monkeypatch.setattr(t_fa, "_kernel", lambda: recording)
+    (q, k, v, _), kw = _fa_bwd_inputs("rows_regime_f32", 43)
+    with torch.inference_mode():
+        served = tops.flash_attention(q, k, v, **kw)
+    no_grad_input = tops.flash_attention(q, k, v, **kw)
+    trained = tops.flash_attention(q.clone().requires_grad_(), k, v, **kw)
+    torch.cuda.synchronize()
+    assert seen[0] is None and seen[1] is None and isinstance(seen[2], int)
+    assert torch.equal(served, no_grad_input)
+    assert torch.equal(served, trained.detach())
+
+
+def _refusal_inputs(kernel):
+    if kernel == "fused_ibn":
+        return tops.fused_ibn, _normal(44, (64, 48), (48, 160), (160, 48))
+    if kernel == "matmul_ln":
+        return tops.matmul_ln, _normal(45, (64, 96), (96, 96), (96,), (96,), (96,))
+    if kernel == "depthwise_conv2d":
+        return tops.depthwise_conv2d, _normal(46, (1, 8, 8, 16), (3, 3, 16), (16,))
+    r, k, v, w, u = _normal(47, (4, 32, 16), (4, 32, 16), (4, 32, 16),
+                            (4, 32, 16), (4, 16))
+    return (lambda *a: tops.wkv_chunked(*a, chunk=16)), [r, k, v, -torch.exp(w), u]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_ibn", "matmul_ln",
+                                    "depthwise_conv2d", "wkv_chunked"])
+def test_kernels_without_a_backward_refuse_a_gradient_on_card(kernel):
+    """A CUDA input (a weight here) that requires grad under grad mode: the
+    entry raises, naming the kernel, before anything launches (the counter
+    does not move); under no_grad the same call launches once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    import importlib
+    mod = importlib.import_module("repro_torch.kernels." + {
+        "fused_ibn": "fused_ibn", "matmul_ln": "matmul_ln",
+        "depthwise_conv2d": "depthwise_conv", "wkv_chunked": "rwkv_chunk"}[kernel])
+    fn, args = _refusal_inputs(kernel)
+    args[1].requires_grad_()
+    before = mod.launches
+    with pytest.raises(RuntimeError, match=kernel):
+        fn(*args)
+    torch.cuda.synchronize()
+    assert mod.launches == before
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1

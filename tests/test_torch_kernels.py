@@ -1245,8 +1245,9 @@ def test_plain_namespace_has_the_signatures_of_ops():
 
 def test_build_is_keyed_by_the_sources_and_lazy():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["depthwise_conv.cu", "flash_attention.cu", "fused_ibn.cu",
-                     "matmul_ln.cu", "wkv_chunked.cu"]
+    assert names == ["depthwise_conv.cu", "flash_attention.cu",
+                     "flash_attention_bwd.cu", "fused_ibn.cu", "matmul_ln.cu",
+                     "wkv_chunked.cu"]
     assert _build.build_dir() == _build.build_dir()
     assert _build.build_dir().parent.name == "repro_torch_kernels"
     assert "compute_90a" in " ".join(_build.NVCC_FLAGS)
