@@ -8,7 +8,7 @@ network.  Imports nothing of JAX or of the JAX package.  Phases, each of
 which ends the run with a non-zero exit code if it fails:
 
 1. device: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc versions;
-2. build: the six CUDA sources, from ``src/repro_torch/kernels/csrc``;
+2. build: the seven CUDA sources, from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape one EdgeNeXt-S forward gives it at batch 16 and at ragged /
    odd / bfloat16 cases (fused_ibn also at the four batch-1 shapes, at
@@ -133,6 +133,23 @@ which ends the run with a non-zero exit code if it fails:
    the graph's edges as the driver gives them (whether the outputs pass's
    programmatic dependent launch stays one in a graph), a replay on new
    inputs bit for bit the eager call, and both forms' time;
+5g. train RWKV-6 (``train_path``, run right after 5 on its weights while
+   they are on the host, no second ``init_params``): ``rwkv6-1.6b`` uncut,
+   float32 masters, bfloat16 compute with remat, the schedule, steps, batch
+   and limits of 5f.  The first step's gradients launch 24 + 24
+   wkv_chunked (the forward and remat's recompute, through ``WKVChunked``)
+   and 24 wkv_chunked_bwd and nothing else; against the same step under
+   ``kernels=ref.PLAIN`` (both bfloat16, differing in the WKV only; the
+   plain step's per-token ``wkv_ref`` under autograd holds ~3 GB a layer
+   while remat recomputes it, so the full batch runs): loss within 1e-2,
+   every gradient leaf within a relative L2 error of 5e-2, the global norm
+   within 1 %; run twice, the same bits; float32 on the first 2 layers:
+   every gradient leaf within 2e-3 (1 + |b|) of the plain step's.  Then 20
+   steps (20 x 48 and 20 x 24 launches): losses and norms finite, the mean
+   loss of the last 5 below that of the first 5, step ms by CUDA events and
+   the host's clock (median of the last 10), tokens/s, peak memory, two
+   more steps traced.  Resume is not repeated here: 5f shows it for the
+   checkpoint store, which does not depend on the arch;
 5b. dense (``dense_path``, ``lm_phase``): ``h2o-danube-1.8b`` uncut (24 layers, d 2560,
    32 query heads over 8 KV heads of 80, d_ff 6912 SwiGLU, vocab 32000,
    window 4096, 1,831,201,280 parameters), weights float32 from seed 0 made
@@ -196,9 +213,10 @@ which ends the run with a non-zero exit code if it fails:
    bfloat16 compute with remat, ``runtime.build_train_step`` as
    ``launch.train`` builds it (AdamW, warmup 5 then cosine from lr 3e-4,
    clip 1.0) over 20 batches of 4 x 512 tokens of ``data.synthetic`` (vocab
-   32000, seed 0).  First the four ``ops`` entries without a backward are
+   32000, seed 0).  First the three ``ops`` entries without a backward are
    each given a CUDA weight that requires grad: each must raise, naming its
-   kernel, with its counter unchanged.  The first step's gradients
+   kernel, with its counter unchanged (``wkv_chunked``, given the same, must
+   return ``WKVChunked``'s ``grad_fn`` after one launch).  The first step's gradients
    (``build_grad_fn``) launch 24 + 24 flash_attention (the forward and
    remat's recompute) and 24 flash_attention_bwd and nothing else; against
    the same step under ``kernels=ref.PLAIN`` (both bfloat16, so they
@@ -270,14 +288,25 @@ launches of that kernel (per-shape time x how often the shape occurs):
 a batch-16 EdgeNeXt-S forward for the first three, once each of the
 three EdgeNeXt-S shapes matmul_ln is lowered at, and one 4 x 512 RWKV-6
 prefill (24 launches at the served shape) for wkv_chunked, one train step
-(24 launches at 4 x 32 x 512 x 80) for flash_attention_bwd; ``shapes``
-holds the per-shape numbers.  ``launches`` is the count of the path the
-kernel is on: the EdgeNeXt-S requests for the first three, the lowered
-phase for matmul_ln, the RWKV-6 requests for wkv_chunked, the 20 train
-steps for flash_attention_bwd (``launches_by_path`` has all nine paths:
-the dense, MoE, encoder-decoder and hybrid requests as ``dense_serve``,
-``moe_serve``, ``audio_serve`` and ``hybrid_serve``, the train steps as
-``dense_train``, the serve phase's new launches as ``serve_store``).
+(24 launches at 4 x 32 x 512 x 80) for flash_attention_bwd and one RWKV-6
+train step (24 launches at 128 x 512 x 64 x 64, chunk 64) for
+wkv_chunked_bwd; ``shapes`` holds the per-shape numbers.  ``launches`` is
+the count of the path the kernel is on: the EdgeNeXt-S requests for the
+first three, the lowered phase for matmul_ln, the RWKV-6 requests for
+wkv_chunked, the 20 dense train steps for flash_attention_bwd, the 20
+RWKV-6 train steps for wkv_chunked_bwd (``launches_by_path`` has all ten
+paths: the dense, MoE, encoder-decoder and hybrid requests as
+``dense_serve``, ``moe_serve``, ``audio_serve`` and ``hybrid_serve``, the
+train steps as ``dense_train`` and ``rwkv_train``, the serve phase's new
+launches as ``serve_store``).  The WKV backward (``wkv_bwd_case``) is held
+to autograd of ``ref.wkv_ref`` (2e-4 (1 + |b|) float32, 1e-3 at the
+extreme decays, 2e-2 bfloat16 with a relative L2 of 2e-4 on the float32
+dlogw and du) at the trained shape (bf16), a ragged 32 x 200 at chunk 64,
+the extreme decays in float32 and bf16, a nonzero dS_T and two calls with
+the same bits; it is timed given the forward's workspace, its plain time
+is autograd of ``wkv_ref``'s backward, ``plain_chunked_ms`` autograd of
+``models.rwkv6.wkv_chunked`` (what ``jax.grad`` differentiates), no
+library call; its operations are ``wkv_bwd_macs``.
 The backward is held to autograd of ``ref.attention_ref`` (2e-3 (1 + |b|)
 float32, 2e-2 bfloat16) at the trained heads (h2o 80, olmo 128,
 Seamless 64 self and cross, RecurrentGemma 256), its ``library_ms`` is
@@ -334,6 +363,7 @@ from repro_torch.kernels import flash_attention_bwd as fab_mod  # noqa: E402
 from repro_torch.kernels import fused_ibn as ibn_mod  # noqa: E402
 from repro_torch.kernels import matmul_ln as mln_mod  # noqa: E402
 from repro_torch.kernels import rwkv_chunk as wkv_mod  # noqa: E402
+from repro_torch.kernels import rwkv_chunk_bwd as wkvb_mod  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import (edgenext, recurrentgemma, rwkv6,  # noqa: E402
                                 seamless, transformer)
@@ -379,14 +409,18 @@ KERNELS = {
     "flash_attention_bwd": dict(module=fab_mod,
                                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                                 replaces="src/repro/models/attention.py:111"),
+    "wkv_chunked_bwd": dict(module=wkvb_mod,
+                            source="src/repro_torch/kernels/csrc/wkv_chunked_bwd.cu",
+                            replaces="src/repro/models/rwkv6.py:100"),
 }
 # the path whose run gives each kernel's ``launches``: the EdgeNeXt-S
 # forward launches the first three, the RWKV-6 prefill wkv_chunked, and
 # matmul_ln runs only on the lowered path (flash_attention also runs on the
-# dense path: ``launches_by_path``), the attention backward only in training
+# dense path: ``launches_by_path``), the two backwards only in training
 MAIN_PATH = {"fused_ibn": "edgenext_serve", "depthwise_conv2d": "edgenext_serve",
              "flash_attention": "edgenext_serve", "matmul_ln": "lowered",
-             "wkv_chunked": "rwkv6_serve", "flash_attention_bwd": "dense_train"}
+             "wkv_chunked": "rwkv6_serve", "flash_attention_bwd": "dense_train",
+             "wkv_chunked_bwd": "rwkv_train"}
 # lowered kernel name -> the kernel that runs it
 LOWERED = {"fused_ibn": "fused_ibn", "flash_attention": "flash_attention",
            "matmul_ln": "matmul_ln", "rwkv_chunk": "wkv_chunked"}
@@ -450,6 +484,12 @@ TRAIN_LR, TRAIN_WARMUP, TRAIN_CLIP = 3e-4, 5, 1.0
 TRAIN_CKPT = 10
 TRAIN_F32_LAYERS = 2
 TRAIN_GRAD_REL, TRAIN_LOSS_TOL, TRAIN_NORM_REL = 5e-2, 1e-2, 1e-2
+# the second training phase: RWKV-6's served weights (rwkv6-1.6b uncut) as
+# float32 masters, the same schedule, steps, batch and limits as the first;
+# its plain step runs ``wkv_ref`` under autograd (about 512 saved [128, 64,
+# 64] float32 states a layer while remat recomputes it: ~3 GB, ~0.2 s of
+# backward a layer), so the full batch fits and no cut is needed
+RWKV_ARCH = "rwkv6-1.6b"
 # The served bfloat16 run against the plain bfloat16 model, teacher-forced
 # with the served tokens.  The two differ only in the WKV: the kernel and
 # ``wkv_ref`` take the same float32 sums in another order and round them to
@@ -969,6 +1009,102 @@ def wkv_case(BH, T, K, V, chunk, *, dtype=torch.float32, inputs=None,
     return rec
 
 
+def wkv_bwd_macs(BH: int, T: int, K: int, V: int, C: int) -> int:
+    """Multiply-adds of the chunked WKV backward, counted as
+    ``core.workload.scan_macs`` counts the forward's: per row, the reverse
+    states update and the three inter-chunk products (dr from S_c, dk and
+    dv from G'), 4 K V, and per pair of rows of a chunk dA, A and the
+    intra-chunk dr, dk (K each) and dv (V), C (3 K + 2 V)."""
+    return BH * T * (4 * K * V + C * (3 * K + 2 * V))
+
+
+def wkv_bwd_case(BH, T, K, V, chunk, *, dtype=torch.float32, decay="normal",
+                 with_dstate=False, timed=False, repeat=False):
+    """The WKV backward (``ops.wkv_chunked`` under autograd: the forward
+    kernel, whose workspace of entering states the backward reads, then
+    ``wkv_chunked_bwd``, one launch each) against autograd of
+    ``ref.wkv_ref`` on the same inputs and cotangents: dr, dk, dv, dlogw,
+    du within 2e-4 (1 + |b|) in float32 (the JAX tests' tolerance) and 1e-3
+    at the "extreme" decays (the float32 cumsum reaches a thousand or more
+    within a chunk: every exponent keeps less absolute precision, as in the
+    forward); in bfloat16 2e-2 on dr, dk, dv and a relative L2 error of 2e-4
+    on the float32 dlogw and du.  Timed: the kernel alone (given the
+    forward's workspace), the plain version's backward (autograd of
+    ``wkv_ref``) and, as a second yardstick, autograd of the port's chunked
+    torch ``models.rwkv6.wkv_chunked`` (what ``jax.grad`` differentiates)."""
+    r, k, v, logw, u = wkv_inputs(BH, T, K, V, dtype, decay)
+    dout = randn(BH, T, V, dtype=dtype)
+    ds = randn(BH, K, V) if with_dstate else None
+    name = f"wkv_chunked_bwd[{BH}x{T}x{K}->{V} chunk={chunk} " \
+           f"{str(dtype).split('.')[-1]}{'' if decay == 'normal' else ' ' + decay}" \
+           f"{' dS_T' if with_dstate else ''}]"
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-3 if decay == "extreme" else 2e-4
+    outs = (lambda o: o if with_dstate else o[:1])
+    cots = outs((dout, ds))
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, logw, u)]
+    before = (wkv_mod.launches, wkvb_mod.launches)
+    got = torch.autograd.grad(outs(ops.wkv_chunked(*leaves, chunk=chunk)), leaves, cots)
+    torch.cuda.synchronize()
+    if (wkv_mod.launches, wkvb_mod.launches) != (before[0] + 1, before[1] + 1):
+        fail(f"{name}: launched {wkv_mod.launches - before[0]} forward and "
+             f"{wkvb_mod.launches - before[1]} backward kernels, expected 1 and 1")
+    plain = [t.clone().requires_grad_() for t in (r, k, v, logw, u)]
+    plain_out = outs(ref.wkv_ref(*plain))
+    want = torch.autograd.grad(plain_out, plain, cots, retain_graph=timed)
+    err, rel_l2 = 0.0, 0.0
+    for n, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
+        if dtype == torch.bfloat16 and g.dtype == torch.float32:
+            rel = ((g - w).norm() / w.norm()).item()
+            if not (torch.isfinite(g).all() and rel <= 2e-4):
+                fail(f"{name} {n}: relative L2 error {rel:.3e} (limit 2e-4)")
+            rel_l2 = max(rel_l2, rel)
+        else:
+            err = max(err, compare(f"{name} {n}", g, w, tol))
+    rec = dict(case=name, max_abs_err=err, tol=tol)
+    if dtype == torch.bfloat16:
+        rec["rel_l2_f32_grads"] = rel_l2
+    C = min(chunk, T)
+    _, state, ws = wkv_mod.forward_with_states(r, k, v, logw, u, chunk=chunk)
+    kw = dict(chunk=chunk, dstate=ds, state=state if with_dstate else None)
+    if repeat:
+        first = wkvb_mod.wkv_chunked_bwd(r, k, v, logw, u, dout, ws, **kw)
+        again = wkvb_mod.wkv_chunked_bwd(r, k, v, logw, u, dout, ws, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"{name}: two calls on the same inputs differ")
+        rec["case"] = name + " twice, same bits"
+    if timed:
+        flops = 2.0 * wkv_bwd_macs(BH, T, K, V, C)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            nbytes(r, k, v, logw, u, dout, ds, *got), flops, PEAK_TF32)
+        rec["bound_fp32_cuda_core_ms"] = bound(
+            nbytes(r, k, v, logw, u, dout, ds, *got), flops, PEAK_FP32)[0]
+        # the float32 workspaces of the entering states (read) and of G'
+        # (written, then read): bytes the design adds to those of the bound
+        rec["workspace_bytes"] = 2 * BH * -(-T // C) * K * V * 4
+        rec["ms"] = time_ms(lambda: wkvb_mod.wkv_chunked_bwd(r, k, v, logw, u, dout,
+                                                             ws, **kw))
+        rec["plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            plain_out, plain, cots, retain_graph=True), reps=5, warmup=1)
+        del plain_out, want
+        # the port's chunked torch form ([B, T, H, K], u [H, K]) on the same
+        # values, a second yardstick: B x H = BH with H = 32 where it divides
+        H = 32 if BH % 32 == 0 else 1
+        chunked = [t.reshape(BH // H, H, T, -1).transpose(1, 2).contiguous()
+                   .requires_grad_() for t in (r, k, v, logw)]
+        cu = u[:H].clone().requires_grad_()
+        c_out = outs(rwkv6.wkv_chunked(*chunked, cu, torch.zeros(
+            (BH // H, H, K, V), device="cuda"), chunk))
+        c_cots = (dout.reshape(BH // H, H, T, V).transpose(1, 2),
+                  *((ds.reshape(BH // H, H, K, V),) if with_dstate else ()))
+        rec["plain_chunked_ms"] = time_ms(lambda: torch.autograd.grad(
+            c_out, chunked + [cu], c_cots, retain_graph=True), reps=5, warmup=1)
+        del c_out
+        rec["library_ms"] = None     # no single PyTorch call computes it
+        rec["gbytes_s"] = nbytes(r, k, v, logw, u, dout, ds, *got) / rec["ms"] / 1e6
+    return rec
+
+
 def path_shapes(cfg, batch):
     """(kernel, arguments, launches per forward) for every shape one
     forward of ``cfg`` at ``batch`` gives each kernel."""
@@ -1229,6 +1365,22 @@ def kernels_phase():
         bwd_case(1, 2, 70, 130, 80, causal=False, dtype=torch.float32),
         bwd_case(1, 2, 200, 200, 128, causal=False, window=30),
         bwd_case(4, 32, 512, 512, 80, kv_heads=8, repeat=True),
+    ]
+    # wkv_chunked_bwd: RWKV-6's trained shape (4 x 32 heads of 64, T 512,
+    # chunk 64, bf16 r/k/v/dout with float32 logw and u; 24 a train step, in
+    # the sums), then the B = 1 x 200 prompt (ragged at chunk 64), the
+    # extreme decays in float32 and bf16, a nonzero dS_T, and two calls at
+    # the trained shape with the same bits
+    rec = wkv_bwd_case(128, 512, 64, 64, 64, dtype=bf16, timed=True)
+    rec.update(per_forward=rwkv6.kernel_launches_per_prefill(
+        get_config(RWKV_ARCH))["wkv_chunked"], batch=TRAIN_BATCH[0])
+    per_kernel["wkv_chunked_bwd"]["shapes"].append(rec)
+    per_kernel["wkv_chunked_bwd"]["extra"] = [
+        wkv_bwd_case(32, 200, 64, 64, 64),
+        wkv_bwd_case(4, 200, 64, 64, 64, decay="extreme"),
+        wkv_bwd_case(4, 200, 64, 64, 64, dtype=bf16, decay="extreme"),
+        wkv_bwd_case(4, 130, 64, 64, 32, with_dstate=True),
+        wkv_bwd_case(128, 512, 64, 64, 64, dtype=bf16, with_dstate=True, repeat=True),
     ]
     return per_kernel
 
@@ -1573,7 +1725,8 @@ def summarise(per_kernel, launches):
             bound_by=max(by, key=by.get), library_ms=total("library_ms"),
             launches_per_forward=sum(s["per_forward"] for s in shapes),
             batch={"wkv_chunked": RWKV_REQUESTS[0][0],
-                   "flash_attention_bwd": TRAIN_BATCH[0]}.get(name, BATCH),
+                   "flash_attention_bwd": TRAIN_BATCH[0],
+                   "wkv_chunked_bwd": TRAIN_BATCH[0]}.get(name, BATCH),
             shapes=shapes, extra=per_kernel[name]["extra"]))
     return rows
 
@@ -1909,7 +2062,8 @@ def rwkv6_path():
     """RWKV-6 1.6B served through ``launch.serve``'s prefill and greedy
     decode at full width, then held against its plain versions (see the
     module docstring, phase 5).  Returns the launch counts of the served
-    requests and the numbers."""
+    requests, the numbers and the weights (numpy, float32), which the
+    training phase 5g takes up."""
     cfg = get_config("rwkv6-1.6b")
     defs = rwkv6.param_defs(cfg)
     if count_params(defs) != RWKV_PARAMS:
@@ -2049,7 +2203,6 @@ def rwkv6_path():
     del params32, cache_k, cache_p
     torch.cuda.empty_cache()
     params_cpu = rwkv6.load_params(cfg32, tree, device="cpu")
-    del tree
     pre_cpu, dec_cpu = build_prefill_step(cfg32), build_decode_step(cfg32)
     with torch.inference_mode():
         last_c, cache_c = pre_cpu(params_cpu, {"tokens": p64.cpu()})
@@ -2080,7 +2233,7 @@ def rwkv6_path():
         bf16_greedy_agreement=agreement,
         f32_max_err_vs_plain_on_card=f32_err, f32_max_err_vs_plain_on_cpu=cpu_err,
         first_tokens=served[0]["tokens"][0, :16].tolist(), captured=cap)
-    return launches, result
+    return launches, result, tree
 
 
 def dense_path():
@@ -2114,19 +2267,29 @@ def dense_path():
 def refusals() -> list:
     """Each ``ops`` entry without a backward, on CUDA inputs one of which
     (a weight) requires grad, under grad mode: a RuntimeError naming the
-    kernel before any launch, its counter unchanged."""
+    kernel before any launch, its counter unchanged.  ``wkv_chunked`` has a
+    backward (``WKVChunked``): the same call returns outputs with its
+    ``grad_fn`` after one launch."""
     def ones(*shape):
         return torch.full(shape, 0.5, device="cuda")
 
+    args = [ones(4, 32, 16), ones(4, 32, 16), ones(4, 32, 16), -ones(4, 32, 16),
+            ones(4, 16)]
+    args[1].requires_grad_()
+    before = read_counts()["wkv_chunked"]
+    out, state = ops.wkv_chunked(*args, chunk=16)
+    if not (isinstance(out.grad_fn, wkv_mod.WKVChunked._backward_cls)
+            and state.grad_fn is out.grad_fn
+            and read_counts()["wkv_chunked"] == before + 1):
+        fail(f"refusal: wkv_chunked under grad gave grad_fn {out.grad_fn} after "
+             f"{read_counts()['wkv_chunked'] - before} launches, expected "
+             f"WKVChunked's after 1")
     cases = {
         "fused_ibn": (ops.fused_ibn, [ones(64, 48), ones(48, 160), ones(160, 48)]),
         "matmul_ln": (ops.matmul_ln, [ones(64, 96), ones(96, 96), ones(96),
                                       ones(96), ones(96)]),
         "depthwise_conv2d": (ops.depthwise_conv2d,
                              [ones(1, 8, 8, 16), ones(3, 3, 16), ones(16)]),
-        "wkv_chunked": (lambda *a: ops.wkv_chunked(*a, chunk=16),
-                        [ones(4, 32, 16), ones(4, 32, 16), ones(4, 32, 16),
-                         -ones(4, 32, 16), ones(4, 16)]),
     }
     out = []
     for name, (fn, args) in cases.items():
@@ -2161,11 +2324,16 @@ def leaf_names(tree) -> list:
     return names
 
 
-def train_path(cfg, tree) -> tuple:
-    """Training ``h2o-danube-1.8b`` uncut on the card (module docstring,
-    phase 5f): float32 masters from ``tree`` (the dense phase's weights),
-    bfloat16 compute with remat, ``build_train_step`` as ``launch.train``
-    builds it.  Returns the launch counts of the timed run and the numbers."""
+def train_path(cfg, tree, *, parameters: int, per_step: dict,
+               resume: bool) -> tuple:
+    """Training ``cfg``'s arch uncut on the card (module docstring, phases 5f
+    and 5g): float32 masters from ``tree`` (the weights its serving phase
+    made), bfloat16 compute with remat, ``build_train_step`` as
+    ``launch.train`` builds it.  ``per_step``: the launches of one step by
+    kernel, each step exactly these.  ``resume``: a checkpoint after
+    TRAIN_CKPT steps, restored into fresh tensors, repeats the rest of the
+    run bit for bit (5f only: the store does not depend on the arch).
+    Returns the launch counts of the timed run and the numbers."""
     t0 = time.perf_counter()
     B, T = TRAIN_BATCH
     ds = make_dataset(cfg, ShapeConfig("train", "train", T, B), seed=SEED)
@@ -2176,9 +2344,9 @@ def train_path(cfg, tree) -> tuple:
         return tree_map(lambda a, path: torch.from_numpy(a).cuda().requires_grad_(),
                         src)
 
-    res = dict(arch=DENSE_ARCH, parameters=DENSE_PARAMS, steps=TRAIN_STEPS,
+    res = dict(arch=cfg.name, parameters=parameters, steps=TRAIN_STEPS,
                batch=TRAIN_BATCH, lr=TRAIN_LR, warmup=TRAIN_WARMUP, clip=TRAIN_CLIP,
-               refused=refusals())
+               refused=refusals(), per_step=per_step)
     params = masters(tree)
     names = leaf_names(params)
 
@@ -2187,9 +2355,8 @@ def train_path(cfg, tree) -> tuple:
     reset_counts()
     loss_k, _, gk = grad_k(params, batches[0])
     first = read_counts()
-    per_layer = transformer.kernel_launches_per_prefill(cfg)["flash_attention"]
     want_first = {n: 0 for n in KERNELS}
-    want_first.update(flash_attention=2 * per_layer, flash_attention_bwd=per_layer)
+    want_first.update(per_step)
     if first != want_first:
         fail(f"train: one step launched {first}, expected {want_first} (the "
              f"forward, remat's recompute, the backward)")
@@ -2231,12 +2398,13 @@ def train_path(cfg, tree) -> tuple:
         for n, a, b in zip(leaf_names(p32), tree_leaves(g32k), tree_leaves(g32p)))
     del p32, g32k, g32p
 
-    # the run: TRAIN_STEPS steps; a checkpoint after TRAIN_CKPT of them
+    # the run: TRAIN_STEPS steps; with ``resume`` a checkpoint after
+    # TRAIN_CKPT of them
     step_fn = build_train_step(cfg, lr_schedule=warmup_cosine(TRAIN_LR, TRAIN_WARMUP,
                                                               TRAIN_STEPS),
                                clip_norm=TRAIN_CLIP)
     opt = adamw_init(params)
-    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_")) if resume else None
     losses, gnorms, ev_ms, wall_ms = [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2244,7 +2412,7 @@ def train_path(cfg, tree) -> tuple:
     try:
         reset_counts()
         for s in range(TRAIN_STEPS):
-            if s == TRAIN_CKPT:
+            if s == TRAIN_CKPT and resume:
                 t1 = time.perf_counter()
                 save_checkpoint(ckpt_dir, s, {"params": params, "opt": opt})
                 res["checkpoint_save_s"] = time.perf_counter() - t1
@@ -2257,50 +2425,27 @@ def train_path(cfg, tree) -> tuple:
         launches = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         want = {n: 0 for n in KERNELS}
-        want.update(flash_attention=2 * per_layer * TRAIN_STEPS,
-                    flash_attention_bwd=per_layer * TRAIN_STEPS)
+        want.update({n: c * TRAIN_STEPS for n, c in per_step.items()})
         if launches != want:
             fail(f"train: {TRAIN_STEPS} steps launched {launches}, expected {want}")
         if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
             fail(f"train: losses {losses} grad norms {gnorms}")
         if not np.mean(losses[-5:]) < np.mean(losses[:5]):
             fail(f"train: the loss did not fall: {losses}")
-        final = digest({"params": params, "m": opt.m, "v": opt.v})
-        del params, opt, m
-        torch.cuda.empty_cache()
-
-        # resume: the checkpoint into fresh tensors, the rest of the run again
-        fresh = masters(tree)
-        t1 = time.perf_counter()
-        step0, restored = restore(ckpt_dir, {"params": fresh, "opt": adamw_init(fresh)},
-                                  "cuda")
-        res["checkpoint_restore_s"] = time.perf_counter() - t1
-        del fresh
-        params, opt = restored["params"], restored["opt"]
-        del restored
-        resumed = []
-        for s in range(step0, TRAIN_STEPS):
-            params, opt, m = step_fn(params, opt, batches[s])
-            resumed.append((m["loss"].item(), m["grad_norm"].item()))
-        again = digest({"params": params, "m": opt.m, "v": opt.v})
-        first = list(zip(losses[step0:], gnorms[step0:]))
-        if step0 != TRAIN_CKPT or resumed != first or again != final:
-            moved = [n for n, a, b in zip(leaf_names({"params": params, "m": opt.m,
-                                                      "v": opt.v}), again, final)
-                     if a != b]
-            step = next((step0 + i for i, (a, b) in enumerate(zip(resumed, first))
-                         if a != b), None)
-            fail(f"train: resumed at step {step0}, steps {step0}-{TRAIN_STEPS - 1} "
-                 f"do not repeat the run bit for bit: first differing step {step} "
-                 f"(loss, grad norm {resumed[step - step0] if step is not None else '-'} "
-                 f"against {first[step - step0] if step is not None else '-'}), "
-                 f"{len(moved)} leaves differ at the end, first {moved[:3]}")
+        del m
+        if resume:
+            final = digest({"params": params, "m": opt.m, "v": opt.v})
+            del params, opt
+            torch.cuda.empty_cache()
+            params, opt = resumed_run(res, masters(tree), step_fn, batches, losses,
+                                      gnorms, final, ckpt_dir)
         # where a step's time goes: two more steps traced
         res["trace_steps"] = trace(lambda b: step_fn(params, opt, b), batches[0], 2,
                                    inference=False)
-        del params, opt, m
+        del params, opt
     finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if ckpt_dir is not None:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     tail = ev_ms[-10:]
     step_ms = statistics.median(tail)
@@ -2308,20 +2453,55 @@ def train_path(cfg, tree) -> tuple:
         launches=launches, losses=losses, grad_norms=gnorms, step_event_ms=ev_ms,
         step_wall_ms=wall_ms, step_ms=step_ms, step_wall_ms_median=statistics.median(
             wall_ms[-10:]), tokens_per_s=B * T / step_ms * 1e3, peak_memory_mib=peak,
-        resumed_from=TRAIN_CKPT, resumed_bitwise=True, wall_s=time.perf_counter() - t0)
+        resumed_from=TRAIN_CKPT if resume else None, resumed_bitwise=resume,
+        wall_s=time.perf_counter() - t0)
     return launches, res
 
 
-def print_train(res: dict) -> None:
-    """The lines of the training phase."""
+def resumed_run(res, fresh, step_fn, batches, losses, gnorms, final,
+                ckpt_dir) -> tuple:
+    """Phase 5f's resume: the checkpoint restored into ``fresh`` tensors,
+    steps TRAIN_CKPT.. run again, which must repeat the run's losses,
+    gradient norms and final state (``final``, by digest) bit for bit.
+    Returns the resumed run's parameters and optimizer state."""
+    t1 = time.perf_counter()
+    step0, restored = restore(ckpt_dir, {"params": fresh, "opt": adamw_init(fresh)},
+                              "cuda")
+    res["checkpoint_restore_s"] = time.perf_counter() - t1
+    del fresh
+    params, opt = restored["params"], restored["opt"]
+    del restored
+    resumed = []
+    for s in range(step0, TRAIN_STEPS):
+        params, opt, m = step_fn(params, opt, batches[s])
+        resumed.append((m["loss"].item(), m["grad_norm"].item()))
+    again = digest({"params": params, "m": opt.m, "v": opt.v})
+    first = list(zip(losses[step0:], gnorms[step0:]))
+    if step0 != TRAIN_CKPT or resumed != first or again != final:
+        moved = [n for n, a, b in zip(leaf_names({"params": params, "m": opt.m,
+                                                  "v": opt.v}), again, final)
+                 if a != b]
+        step = next((step0 + i for i, (a, b) in enumerate(zip(resumed, first))
+                     if a != b), None)
+        fail(f"train: resumed at step {step0}, steps {step0}-{TRAIN_STEPS - 1} "
+             f"do not repeat the run bit for bit: first differing step {step} "
+             f"(loss, grad norm {resumed[step - step0] if step is not None else '-'} "
+             f"against {first[step - step0] if step is not None else '-'}), "
+             f"{len(moved)} leaves differ at the end, first {moved[:3]}")
+    return params, opt
+
+
+def print_train(res: dict, tag: str = "train") -> None:
+    """The lines of a training phase, each led by ``tag``."""
     B, T = res["batch"]
-    print(f"train {res['arch']} uncut, {res['parameters']} parameters, float32 "
+    step = " + ".join(f"{c} {n}" for n, c in res["per_step"].items())
+    print(f"{tag} {res['arch']} uncut, {res['parameters']} parameters, float32 "
           f"masters, bfloat16 compute, remat; {res['steps']} steps of {B}x{T} "
           f"tokens, lr {res['lr']} warmup {res['warmup']} clip {res['clip']}; "
-          f"launches {res['launches']} = (24 + 24 remat) flash_attention + 24 "
-          f"flash_attention_bwd a step; first step {res['first_step_launches']}")
+          f"launches {res['launches']} = {step} a step (forward, remat's "
+          f"recompute, backward); first step {res['first_step_launches']}")
     w, r = res["grad_rel_l2_worst"]
-    print(f"train first step vs plain: loss {res['loss_first']:.5f} vs "
+    print(f"{tag} first step vs plain: loss {res['loss_first']:.5f} vs "
           f"{res['loss_first_plain']:.5f} (limit {TRAIN_LOSS_TOL}), grad norm "
           f"{res['grad_norm_first']:.5f} vs {res['grad_norm_first_plain']:.5f} "
           f"(limit {100 * TRAIN_NORM_REL:.0f} %), worst leaf {w} rel L2 {r:.3e} "
@@ -2329,20 +2509,23 @@ def print_train(res: dict) -> None:
           f"{TRAIN_F32_LAYERS} layers every grad within "
           f"{res['f32_max_grad_err_vs_plain']:.2e} (limit 2e-3 (1+|b|))")
     ls = res["losses"]
-    print(f"train losses {ls[0]:.4f} -> {ls[-1]:.4f} (mean of the first 5 "
+    print(f"{tag} losses {ls[0]:.4f} -> {ls[-1]:.4f} (mean of the first 5 "
           f"{np.mean(ls[:5]):.4f}, last 5 {np.mean(ls[-5:]):.4f}), grad norms "
           f"{res['grad_norms'][0]:.3f} -> {res['grad_norms'][-1]:.3f}, all finite")
-    print(f"train step ms (median of the last 10) events {res['step_ms']:.2f} wall "
+    ck = res["resumed_from"]
+    resumed = (f"checkpoint at step {ck} saved in {res['checkpoint_save_s']:.1f} s, "
+               f"restored in {res['checkpoint_restore_s']:.1f} s, steps {ck}-"
+               f"{res['steps'] - 1} again bit for bit" if ck is not None
+               else "resume not repeated (phase 5f shows it; the store does not "
+               "depend on the arch)")
+    print(f"{tag} step ms (median of the last 10) events {res['step_ms']:.2f} wall "
           f"{res['step_wall_ms_median']:.2f}; {res['tokens_per_s']:.0f} tokens/s; "
-          f"peak memory {res['peak_memory_mib']:.0f} MiB; checkpoint at step "
-          f"{res['resumed_from']} saved in {res['checkpoint_save_s']:.1f} s, restored "
-          f"in {res['checkpoint_restore_s']:.1f} s, steps {res['resumed_from']}-"
-          f"{res['steps'] - 1} again bit for bit; refusals {res['refused']}; phase "
-          f"wall {res['wall_s']:.1f} s")
+          f"peak memory {res['peak_memory_mib']:.0f} MiB; {resumed}; refusals "
+          f"{res['refused']}; phase wall {res['wall_s']:.1f} s")
     tr = res["trace_steps"]
     busy = tr["device_busy_share"]
     top = ", ".join(f"{k['name'][:40]} {k['ms']:.1f}" for k in tr["top"][:6])
-    print(f"train traced x{tr['traced_requests']} steps: window {tr['window_ms']:.1f} "
+    print(f"{tag} traced x{tr['traced_requests']} steps: window {tr['window_ms']:.1f} "
           f"ms, device busy {tr['device_busy_ms']:.1f} ms "
           f"({'not measured' if busy is None else f'{100 * busy:.1f} %'}), own kernels "
           f"{tr['own_kernels_ms']:.2f} ms, {tr['device_kernel_launches']} device "
@@ -2841,7 +3024,7 @@ def main() -> None:
               f"reserved {cap['captures'][b]['reserved_mib']:.0f} MiB", flush=True)
 
     # 5. main path, RWKV-6 1.6B
-    rwkv_launches, rwkv = rwkv6_path()
+    rwkv_launches, rwkv, rwkv_tree = rwkv6_path()
     print(f"rwkv6 requests {rwkv['requests']} x {rwkv['gen']} tokens, "
           f"{rwkv['parameters']} parameters (init on the host "
           f"{rwkv['init_params_s']:.1f} s), launches {rwkv_launches} = "
@@ -2887,13 +3070,27 @@ def main() -> None:
           f"(1 = programmatic), replay follows new inputs bit for bit, ms eager "
           f"{w['eager_ms']:.4f} graph {w['graph_ms']:.4f}", flush=True)
 
+    # 5g. training RWKV-6 on its served weights (run here, while they are on
+    # the host): the WKV backward kernel
+    rwkv_cfg = get_config(RWKV_ARCH)
+    wkv_layers = rwkv6.kernel_launches_per_prefill(rwkv_cfg)["wkv_chunked"]
+    rwkv_train_launches, rwkv_train = train_path(
+        rwkv_cfg, rwkv_tree, parameters=RWKV_PARAMS, resume=False,
+        per_step=dict(wkv_chunked=2 * wkv_layers, wkv_chunked_bwd=wkv_layers))
+    del rwkv_tree
+    print_train(rwkv_train, "train_rwkv")
+
     # 5b. the dense path, h2o-danube-1.8b uncut
     dense_launches, dense, dense_tree = dense_path()
     print_lm("dense", dense, 24)
 
     # 5f. training on the dense path's weights (run here, while they are
     # on the host)
-    train_launches, train = train_path(get_config(DENSE_ARCH), dense_tree)
+    dense_cfg = get_config(DENSE_ARCH)
+    attn_layers = transformer.kernel_launches_per_prefill(dense_cfg)["flash_attention"]
+    train_launches, train = train_path(
+        dense_cfg, dense_tree, parameters=DENSE_PARAMS, resume=True,
+        per_step=dict(flash_attention=2 * attn_layers, flash_attention_bwd=attn_layers))
     del dense_tree
     print_train(train)
 
@@ -2969,6 +3166,7 @@ def main() -> None:
                                   "rwkv6_serve": rwkv_launches,
                                   "dense_serve": dense_launches,
                                   "dense_train": train_launches,
+                                  "rwkv_train": rwkv_train_launches,
                                   "moe_serve": moe_launches,
                                   "audio_serve": audio_launches,
                                   "hybrid_serve": hybrid_launches,
@@ -2983,6 +3181,7 @@ def main() -> None:
             device=device, nvidia_smi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
             kernels=rows, main_path=served, rwkv6=rwkv, dense=dense, train=train,
+            train_rwkv=rwkv_train,
             moe=moe,
             audio=audio, hybrid=hybrid, check=check,
             serve=store,

@@ -22,6 +22,12 @@
                   entering every chunk (a short serial pass), then every
                   chunk at once, tile-factored products on 3xTF32 tensor
                   cores
+  rwkv_chunk_bwd  its backward: a reverse states pass (the gradient of the
+                  state leaving every chunk), then every 16-row tile of
+                  every chunk at once, then dlogw's suffix sum and du, no
+                  atomics (``rwkv_chunk.WKVChunked`` is the autograd
+                  function around both; the backward reads the forward's
+                  entering states)
 
 ``ops`` holds the public entry points, ``ref`` the plain PyTorch versions
 each kernel is held against.  Sources are in ``csrc/``, built by

@@ -6,13 +6,15 @@ to the plain version in ``ref``, whatever ``block_*`` it is given; a CUDA
 tensor launches the hand-written kernel, or raises if it cannot be built
 or launched.  No flag, no fallback.
 
-Gradients: ``flash_attention`` goes through ``FlashAttention`` (its
-backward a hand-written kernel too) where grad mode is on and q, k or v
-requires grad.  The other four kernels have no backward yet: on a CUDA
-tensor under grad mode with any input (weights included) that requires
-grad, they raise ``RuntimeError`` before anything launches, where a fresh
+Gradients: ``flash_attention`` goes through ``FlashAttention`` where grad
+mode is on and q, k or v requires grad, and ``wkv_chunked`` through
+``WKVChunked`` where r, k, v, logw or u does; the backward of each is a
+hand-written kernel too on a CUDA tensor, and its plain version on a CPU
+one.  The other three kernels have no backward yet: on a CUDA tensor
+under grad mode with any input (weights included) that requires grad,
+they raise ``RuntimeError`` before anything launches, where a fresh
 output with no ``grad_fn`` would drop the gradient without a word.  On
-CPU tensors the plain versions stay differentiable.
+CPU tensors their plain versions stay differentiable.
 
 The ``block_*`` keywords are the launch parameters that
 ``repro_torch.search.lower`` emits, and on a CUDA tensor they are the
@@ -128,8 +130,13 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     C = min(chunk, T) at run time, any C, and the last chunk's rows past T
     are neither read nor written (masked by bounds, no pad copy), which
     equals the JAX kernel's zero-padded, recurrence-neutral tail.  A CPU
-    tensor goes to the per-token ``ref.wkv_ref``."""
+    tensor goes to the per-token ``ref.wkv_ref``.  Under grad mode with r,
+    k, v, logw or u requiring grad it is ``WKVChunked`` (its backward on
+    the device of the tensors, as its forward); otherwise the served call,
+    which keeps nothing for a backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, logw, u)):
+        return _wkv.WKVChunked.apply(r, k, v, logw, u, chunk)
     if not r.is_cuda:
         return ref.wkv_ref(r, k, v, logw, u)
-    _refuse_grad("wkv_chunked", r, k, v, logw, u)
     return _wkv.wkv_chunked(r, k, v, logw, u, chunk=chunk)

@@ -149,6 +149,104 @@ def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(outs, 1).to(r.dtype), S
 
 
+# rows of a tile of the WKV backward's gradients pass
+# (csrc/wkv_chunked_bwd.cu's TILE)
+WKV_BWD_TILE = 16
+
+
+def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                logw: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
+                dstate: Optional[torch.Tensor] = None, *, chunk: int):
+    """The backward of ``wkv_ref`` by the algorithm of
+    ``csrc/wkv_chunked_bwd.cu``, in float32: the states entering each chunk
+    of C = min(chunk, T) rows, the reverse pass G_c = e^{b_C} G' +
+    (r e^{b_prev})^T dout from G_n = dstate (None: zero), then per chunk
+    dr, dk, dv with the intra-chunk products factored about the first row
+    of the later tile of each pair of WKV_BWD_TILE-row tiles (every
+    exponent <= 0) and each tile's diagonal block exact, and dlogw by the
+    suffix identity sum_{t>j} r dr' - sum_{s>=j} k dk' + sum_v dS_T S_T
+    (dr', dk' without the u terms).  r, k, logw: [BH,T,K]; v, dout:
+    [BH,T,V]; u: [BH,K]; dstate: [BH,K,V].  Returns (dr, dk, dv, dlogw,
+    du), each in the dtype of its input."""
+    BH, T, K = r.shape
+    V = v.shape[-1]
+    C, TL = min(chunk, T), WKV_BWD_TILE
+    rf, kf, vf, wf, uf, df = (t.float() for t in (r, k, v, logw, u, dout))
+    spans = [(c0, min(T, c0 + C)) for c0 in range(0, T, C)]
+
+    def cumsums(c0, c1):   # b and b_prev of a chunk's rows
+        b = torch.cumsum(wf[:, c0:c1], 1)
+        return b, b - wf[:, c0:c1]
+
+    S = torch.zeros((BH, K, V), dtype=torch.float32, device=r.device)
+    entering = []
+    for c0, c1 in spans:
+        b, _ = cumsums(c0, c1)
+        entering.append(S)
+        S = torch.exp(b[:, -1])[..., None] * S + torch.einsum(
+            "btk,btv->bkv", kf[:, c0:c1] * torch.exp(b[:, -1:] - b), vf[:, c0:c1])
+    G = dstate.float() if dstate is not None else torch.zeros_like(S)
+    leaving = [None] * len(spans)
+    for i in reversed(range(len(spans))):
+        c0, c1 = spans[i]
+        leaving[i] = G
+        b, bp = cumsums(c0, c1)
+        G = torch.exp(b[:, -1])[..., None] * G + torch.einsum(
+            "btk,btv->bkv", rf[:, c0:c1] * torch.exp(bp), df[:, c0:c1])
+
+    drn, dkn, dvs = (torch.zeros_like(t) for t in (rf, kf, vf))
+    for (c0, c1), Sc, Gc in zip(spans, entering, leaving):
+        b, bp = cumsums(c0, c1)
+        bC = b[:, -1:]
+        rc, kc, vc, dc = (t[:, c0:c1] for t in (rf, kf, vf, df))
+        dr_c = torch.exp(bp) * torch.einsum("btv,bkv->btk", dc, Sc)
+        dk_c = torch.exp(bC - b) * torch.einsum("bsv,bkv->bsk", vc, Gc)
+        dv_c = torch.einsum("bsk,bkv->bsv", kc * torch.exp(bC - b), Gc)
+        for j0 in range(0, c1 - c0, TL):
+            J = slice(j0, min(c1 - c0, j0 + TL))
+            m = J.stop - j0
+            # the diagonal block, exact: e^{b_prev[t] - b[s]} for s < t
+            live = torch.tril(torch.ones((m, m), dtype=torch.bool,
+                                         device=r.device), diagonal=-1)
+            expo = (bp[:, J, None, :] - b[:, None, J, :]).masked_fill(
+                ~live[None, :, :, None], float("-inf"))
+            E = torch.exp(expo)                                    # [BH,t,s,K]
+            dA = torch.einsum("btv,bsv->bts", dc[:, J], vc[:, J])
+            dr_c[:, J] += torch.einsum("bts,bsk,btsk->btk", dA, kc[:, J], E)
+            dk_c[:, J] += torch.einsum("bts,btk,btsk->bsk", dA, rc[:, J], E)
+            A = torch.einsum("btk,bsk,btsk->bts", rc[:, J], kc[:, J], E)
+            dv_c[:, J] += torch.einsum("bts,btv->bsv", A, dc[:, J])
+            if j0 == 0:
+                continue
+            # the earlier rows s < j0 against this tile's rows t, about
+            # rho = b_prev of the tile's first row
+            rho = bp[:, j0:j0 + 1]
+            I = slice(0, j0)
+            kt = kc[:, I] * torch.exp(rho - b[:, I])
+            q = rc[:, J] * torch.exp(bp[:, J] - rho)
+            dA = torch.einsum("btv,bsv->bts", dc[:, J], vc[:, I])
+            dr_c[:, J] += torch.exp(bp[:, J] - rho) * torch.einsum(
+                "bts,bsk->btk", dA, kt)
+            A = torch.einsum("btk,bsk->bts", q, kt)
+            dv_c[:, I] += torch.einsum("bts,btv->bsv", A, dc[:, J])
+            dk_c[:, I] += torch.exp(rho - b[:, I]) * torch.einsum(
+                "bts,btk->bsk", dA, q)
+        drn[:, c0:c1], dkn[:, c0:c1], dvs[:, c0:c1] = dr_c, dk_c, dv_c
+
+    bonus = (df * vf).sum(-1, keepdim=True)                       # dout[t].v[t]
+    dr = drn + uf[:, None] * kf * bonus
+    dk = dkn + uf[:, None] * rf * bonus
+    dv = dvs + (rf * uf[:, None] * kf).sum(-1, keepdim=True) * df
+    du = (rf * kf * bonus).sum(1)
+    xr = rf * drn
+    x = xr - kf * dkn
+    dlogw = torch.flip(torch.cumsum(torch.flip(x, (1,)), 1), (1,)) - xr
+    if dstate is not None:
+        dlogw = dlogw + (dstate.float() * S).sum(-1)[:, None]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            dlogw.to(logw.dtype), du.to(u.dtype))
+
+
 # The plain versions under the names and signatures of ``ops``: a model
 # built with ``kernels=ref.PLAIN`` runs the same composition without any
 # kernel, on any device.

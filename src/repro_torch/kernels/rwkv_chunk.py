@@ -5,7 +5,9 @@ the current stream: the states pass (the state entering every chunk, into
 a float32 workspace, and the final state) and the outputs pass (every
 chunk at once).  ``plan`` picks how each runs for the shape and the card;
 the kernel refuses a plan it cannot run.  ``launches`` counts the calls
-that launched the kernels.
+that launched the kernels.  ``WKVChunked`` is the autograd function around
+the forward and its backward (``rwkv_chunk_bwd``, which reads the
+forward's workspace of entering states).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import rwkv_chunk_bwd as _bwd
 from repro_torch.kernels._launch import check_cuda_dense, check_launch
 
 launches = 0
@@ -190,6 +193,14 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the recurrence run from a zero state in chunks of ``min(chunk, T)``.
     r, k and v share one dtype (float32 or bfloat16); logw and u are each
     float32 or that dtype.  All dense and on one CUDA device."""
+    return forward_with_states(r, k, v, logw, u, chunk=chunk)[:2]
+
+
+def forward_with_states(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        logw: torch.Tensor, u: torch.Tensor, *, chunk: int):
+    """``wkv_chunked``'s launch -> (out, final state, the float32
+    ``workspace`` of the states entering each chunk, which the backward
+    reads)."""
     global launches
     if r.dim() != 3 or k.shape != r.shape or logw.shape != r.shape \
             or v.dim() != 3 or v.shape[:2] != r.shape[:2] \
@@ -231,4 +242,46 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         torch.cuda.current_stream().cuda_stream)
     check_launch("wkv_chunked", err)
     launches += 1
-    return out, state
+    return out, state, ws
+
+
+class WKVChunked(torch.autograd.Function):
+    """The chunked WKV with a backward: (r, k, v, logw, u, chunk) -> (out,
+    final state), as ``ops.wkv_chunked``; the backward takes the cotangents
+    of both (None for an unused one) and returns (dr, dk, dv, dlogw, du).
+    On CUDA tensors the forward is this module's kernel, whose workspace of
+    entering states (16.8 MB at 128 x 512 x 64 x 64, chunk 64) is saved for
+    ``rwkv_chunk_bwd.wkv_chunked_bwd``; on CPU tensors the forward is
+    ``ref.wkv_ref`` and the backward ``ref.wkv_bwd_ref``, the kernel's
+    algorithm in torch.  The model's ``u.repeat(B, 1)`` sums du over the
+    batch through autograd."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, chunk):
+        ctx.set_materialize_grads(False)
+        if r.is_cuda:
+            # refuse before the launch a chunk the backward cannot run
+            _bwd.check_chunk(min(chunk, r.shape[1]), r.shape[2], v.shape[2])
+            out, state, ws = forward_with_states(r, k, v, logw, u, chunk=chunk)
+        else:
+            (out, state), ws = ref.wkv_ref(r, k, v, logw, u), None
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, logw, u, state, ws)
+        return out, state
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, logw, u, state, ws = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(v.shape, dtype=r.dtype, device=r.device)
+        dout = dout.contiguous()
+        if dstate is not None:
+            dstate = dstate.float().contiguous()
+        if r.is_cuda:
+            grads = _bwd.wkv_chunked_bwd(r, k, v, logw, u, dout, ws,
+                                         chunk=ctx.chunk, dstate=dstate,
+                                         state=state)
+        else:
+            grads = ref.wkv_bwd_ref(r, k, v, logw, u, dout, dstate,
+                                    chunk=ctx.chunk)
+        return (*grads, None)

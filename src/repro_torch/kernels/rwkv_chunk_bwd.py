@@ -1,0 +1,145 @@
+"""Wrapper of the CUDA backward of the chunked WKV
+(``csrc/wkv_chunked_bwd.cu``).
+
+It replaces no Pallas kernel: it computes the VJP that ``jax.grad`` takes
+of the reference's jnp ``wkv_chunked`` (``repro/models/rwkv6.py:100``), the
+form the JAX package trains through.  Given r, k, v, logw, u, the output's
+cotangent, the forward kernel's float32 workspace of the states entering
+each chunk (``rwkv_chunk.forward_with_states``) and optionally the final
+state's cotangent, it returns dr, dk, dv, dlogw and du, each in its input's type.
+One call runs three kernels on the current stream (the reverse states
+pass, the gradients pass over every 16-row tile of every chunk, the
+finishing pass of dlogw and du) and counts one launch in ``launches``.
+``rwkv_chunk.WKVChunked`` calls it from autograd; nothing else on the
+main path does.  ``ref.wkv_bwd_ref`` is its plain version, by the same
+algorithm.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._launch import check_cuda_dense, check_launch
+
+launches = 0
+
+# facts of csrc/wkv_chunked_bwd.cu: the shared memory a block may have, the
+# rows of a gradients-pass tile and the warps of its block
+SMEM_LIMIT = 232448
+TILE = 16
+WARPS = 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def smem_bytes(C: int, K: int, V: int) -> int:
+    """Shared memory of a gradients-pass block (``grad_layout`` in the
+    source), all float32: the chunk's cumsum ((C rounded up to a TILE) + 1
+    rows of K rounded up to 8, plus 4), seven TILE-row arrays of that
+    width and four of V's, two TILE x (TILE + 4) blocks, two [K, V] tiles
+    (the entering state and the leaving state's gradient), u, two
+    TILE-vectors and the cumsum's partial totals.  The backward runs at
+    chunk C where this is within SMEM_LIMIT."""
+    kp, vp = _cdiv(K, 8) * 8, _cdiv(V, 8) * 8
+    ldk, ldv = kp + 4, vp + 4
+    cp = _cdiv(C, TILE) * TILE
+    floats = ((cp + 1) * ldk + 7 * TILE * ldk + 4 * TILE * ldv
+              + 2 * TILE * (TILE + 4) + 2 * kp * ldv + kp + 2 * TILE
+              + max(kp, 32 * WARPS))
+    return 4 * floats
+
+
+def check_chunk(C: int, K: int, V: int) -> None:
+    """Raises ValueError where the backward cannot run chunk C at K, V."""
+    if smem_bytes(C, K, V) > SMEM_LIMIT:
+        raise ValueError(f"wkv_chunked_bwd: chunk {C} at K={K}, V={V} needs "
+                         f"{smem_bytes(C, K, V)} bytes of shared memory, "
+                         f"over the {SMEM_LIMIT} a block may have")
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P] * 18 + [_L] + [_I] * 7 + [_P]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return _build.function("repro_wkv_chunked_bwd", _ARGTYPES)
+
+
+def wkv_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    logw: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
+                    states: torch.Tensor, *, chunk: int,
+                    dstate: Optional[torch.Tensor] = None,
+                    state: Optional[torch.Tensor] = None):
+    """r, k, logw: [BH,T,K]; v, dout: [BH,T,V]; u: [BH,K]; states: the
+    forward's float32 [BH, ceil(T / C), K, V] at C = min(chunk, T);
+    dstate (None: zero) and, with it, the forward's final ``state``:
+    float32 [BH,K,V].  r, k, v and dout share one dtype (float32 or
+    bfloat16); logw and u are each float32 or that dtype.  All dense on one
+    CUDA device -> (dr, dk, dv, dlogw, du)."""
+    global launches
+    if r.dim() != 3 or k.shape != r.shape or logw.shape != r.shape \
+            or v.dim() != 3 or v.shape[:2] != r.shape[:2] \
+            or dout.shape != v.shape or u.shape != (r.shape[0], r.shape[2]):
+        raise ValueError(f"wkv_chunked_bwd: shapes r {tuple(r.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, logw "
+                         f"{tuple(logw.shape)}, u {tuple(u.shape)}, dout "
+                         f"{tuple(dout.shape)}")
+    BH, T, K = r.shape
+    V = v.shape[2]
+    if min(BH, T, K, V) == 0 or chunk < 1:
+        raise ValueError(f"wkv_chunked_bwd: extents BH={BH} T={T} K={K} "
+                         f"V={V}, chunk={chunk}; all must be at least 1")
+    C = min(chunk, T)
+    check_chunk(C, K, V)
+    for key, t in (("logw", logw), ("u", u)):
+        if t.dtype not in (torch.float32, r.dtype):
+            raise TypeError(f"wkv_chunked_bwd: {key} is {t.dtype}; float32 "
+                            f"or {r.dtype} (the type of r)")
+    f32 = {"states": (states, (BH, _cdiv(T, C), K, V))}
+    if dstate is not None:
+        f32.update(dstate=(dstate, (BH, K, V)), state=(state, (BH, K, V)))
+    for key, (t, shape) in f32.items():
+        if t is None or t.shape != shape or t.dtype != torch.float32:
+            raise ValueError(f"wkv_chunked_bwd: {key} "
+                             f"{None if t is None else (tuple(t.shape), t.dtype)}"
+                             f", expected float32 {shape}")
+    code = check_cuda_dense("wkv_chunked_bwd", r=r, k=k, v=v, dout=dout)
+    side = {}
+    for key, t in (("logw", logw), ("u", u)):
+        side[key] = check_cuda_dense("wkv_chunked_bwd", **{key: t})
+    for key, (t, _) in f32.items():
+        check_cuda_dense("wkv_chunked_bwd", **{key: t})
+    for key, t in (("logw", logw), ("u", u), *((n, t) for n, (t, _) in f32.items())):
+        if t.device != r.device:
+            raise ValueError(f"wkv_chunked_bwd: {key} on {t.device}, "
+                             f"expected {r.device}")
+    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dlogw, du = torch.empty_like(logw), torch.empty_like(u)
+    f32kw = dict(dtype=torch.float32, device=r.device)
+    gws = torch.empty((BH, _cdiv(T, C), K, V), **f32kw)
+    # dlogw without the later tiles' totals: in place where it is float32
+    dlw = dlogw if logw.dtype == torch.float32 else torch.empty(
+        (BH, T, K), **f32kw)
+    n_tiles = _cdiv(T, C) * _cdiv(C, TILE)
+    xpart = torch.empty((BH, n_tiles, K), **f32kw)
+    upart = torch.empty((BH, n_tiles, K), **f32kw)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(r.device):
+        err = _kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        logw.data_ptr(), u.data_ptr(), dout.data_ptr(),
+                        ptr(dstate), ptr(state if dstate is not None else None),
+                        states.data_ptr(), gws.data_ptr(), dr.data_ptr(),
+                        dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
+                        du.data_ptr(), dlw.data_ptr(), xpart.data_ptr(),
+                        upart.data_ptr(), BH, T, K, V, C, code, side["logw"],
+                        side["u"], torch.cuda.current_stream().cuda_stream)
+    check_launch("wkv_chunked_bwd", err)
+    launches += 1
+    return dr, dk, dv, dlogw, du

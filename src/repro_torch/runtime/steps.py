@@ -10,7 +10,7 @@ least two dimensions of the stacked tree, as the reference's ``_cast``),
 the model's forward with ``remat`` (``torch.utils.checkpoint`` around each
 block), the cross entropy with the vocabulary's padding masked plus the
 MoE auxiliary loss, the gradients by autograd (on the card the attention
-backward is the hand-written kernel), clipping by the global norm, the
+and WKV backwards are hand-written kernels), clipping by the global norm, the
 schedule's rate at the optimizer's count and AdamW.  The update is written
 into the parameter and moment tensors it is given (``optim.adamw``), as
 the reference's launcher donates them.

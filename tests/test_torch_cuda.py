@@ -1103,7 +1103,9 @@ def _refusal_inputs(kernel):
 def test_kernels_without_a_backward_refuse_a_gradient_on_card(kernel):
     """A CUDA input (a weight here) that requires grad under grad mode: the
     entry raises, naming the kernel, before anything launches (the counter
-    does not move); under no_grad the same call launches once."""
+    does not move); under no_grad the same call launches once.
+    ``wkv_chunked`` has had a backward since item 7c: the same call returns
+    outputs with ``WKVChunked``'s ``grad_fn`` after one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
                     "card only")
@@ -1114,6 +1116,13 @@ def test_kernels_without_a_backward_refuse_a_gradient_on_card(kernel):
     fn, args = _refusal_inputs(kernel)
     args[1].requires_grad_()
     before = mod.launches
+    if kernel == "wkv_chunked":
+        out, state = fn(*args)
+        torch.cuda.synchronize()
+        assert isinstance(out.grad_fn, mod.WKVChunked._backward_cls)
+        assert state.grad_fn is out.grad_fn
+        assert mod.launches == before + 1
+        return
     with pytest.raises(RuntimeError, match=kernel):
         fn(*args)
     torch.cuda.synchronize()
@@ -1122,3 +1131,86 @@ def test_kernels_without_a_backward_refuse_a_gradient_on_card(kernel):
         fn(*args)
     torch.cuda.synchronize()
     assert mod.launches == before + 1
+
+
+# (BH, T, K, V, chunk, dtype, decay, with dS_T): RWKV-6's trained shape
+# (4 x 32 heads of 64, T 512, chunk 64, bf16 r/k/v/dout, float32 logw and
+# u), the B = 1 x 200 prompt (ragged at chunk 64), the extreme decays in
+# float32 and bf16, and a nonzero cotangent of the final state
+_WKV_BWD_CASES = {
+    "trained_bf16": (128, 512, 64, 64, 64, torch.bfloat16, "normal", False),
+    "ragged_1x200": (32, 200, 64, 64, 64, torch.float32, "normal", False),
+    "extreme_f32": (4, 200, 64, 64, 64, torch.float32, "extreme", False),
+    "extreme_bf16": (4, 200, 64, 64, 64, torch.bfloat16, "extreme", False),
+    "dstate_f32": (4, 130, 64, 64, 32, torch.float32, "normal", True),
+}
+
+
+def _wkv_bwd_inputs(case, seed):
+    BH, T, K, V, chunk, dt, decay, with_ds = _WKV_BWD_CASES[case]
+    r, k, v, w, u, dout, ds = _normal(seed, (BH, T, K), (BH, T, K), (BH, T, V),
+                                      (BH, T, K), (BH, K), (BH, T, V), (BH, K, V))
+    r, k, v, u = (t * 0.5 for t in (r, k, v, u))
+    logw = -torch.exp(0.5 * w) if decay == "normal" else -torch.exp(2.5 + w)
+    return ((r.to(dt), k.to(dt), v.to(dt), logw, u), dout.to(dt),
+            ds if with_ds else None, chunk, decay)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_WKV_BWD_CASES))
+def test_wkv_chunked_bwd_on_card_matches_plain_autograd(case):
+    """``ops.wkv_chunked`` under autograd on the card (the forward kernel,
+    whose workspace the backward reads, then the backward kernel, one
+    launch each) against autograd of ``ref.wkv_ref``: dr, dk, dv, dlogw
+    and du within 2e-4 (1 + |b|) in float32 and 1e-3 at the extreme decays
+    (the float32 cumsum reaches a thousand or more within a chunk, so every
+    exponent keeps less absolute precision); in bf16, 2e-2 on dr, dk, dv and
+    a relative L2 error of 2e-4 on the float32 dlogw and du."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import rwkv_chunk as t_wkv
+    from repro_torch.kernels import rwkv_chunk_bwd as t_bwd
+    args, dout, ds, chunk, decay = _wkv_bwd_inputs(case, 61)
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = (t_wkv.launches, t_bwd.launches)
+    out, state = tops.wkv_chunked(*leaves, chunk=chunk)
+    assert isinstance(out.grad_fn, t_wkv.WKVChunked._backward_cls)
+    got = torch.autograd.grad((out, state) if ds is not None else (out,), leaves,
+                              (dout, ds) if ds is not None else (dout,))
+    torch.cuda.synchronize()
+    assert (t_wkv.launches, t_bwd.launches) == (before[0] + 1, before[1] + 1)
+    plain = [t.clone().requires_grad_() for t in args]
+    p_out, p_state = tref.wkv_ref(*plain)
+    want = torch.autograd.grad((p_out, p_state) if ds is not None else (p_out,),
+                               plain, (dout, ds) if ds is not None else (dout,))
+    tol = 1e-3 if decay == "extreme" else 2e-4
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g.float()).all(), name
+        if g.dtype == torch.bfloat16:
+            _close(g.float().cpu().numpy(), w.float().cpu().numpy(), 2e-2)
+        elif args[0].dtype == torch.bfloat16:
+            rel = ((g - w).norm() / w.norm()).item()
+            assert rel <= 2e-4, (name, rel)
+        else:
+            _close(g.cpu().numpy(), w.cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+def test_wkv_chunked_bwd_is_bitwise_repeatable():
+    """Every sum of the backward runs in a fixed order, without atomics: two
+    calls at the trained shape with a nonzero dS_T give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import rwkv_chunk as t_wkv
+    from repro_torch.kernels import rwkv_chunk_bwd as t_bwd
+    args, dout, _, chunk, _ = _wkv_bwd_inputs("trained_bf16", 62)
+    ds = _normal(63, (128, 64, 64))[0]
+    _, state, ws = t_wkv.forward_with_states(*args, chunk=chunk)
+    first = t_bwd.wkv_chunked_bwd(*args, dout, ws, chunk=chunk, dstate=ds,
+                                  state=state)
+    second = t_bwd.wkv_chunked_bwd(*args, dout, ws, chunk=chunk, dstate=ds,
+                                   state=state)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
