@@ -311,7 +311,11 @@ The backward is held to autograd of ``ref.attention_ref`` (2e-3 (1 + |b|)
 float32, 2e-2 bfloat16) at the trained heads (h2o 80, olmo 128,
 Seamless 64 self and cross, RecurrentGemma 256), its ``library_ms`` is
 SDPA's backward and each of its records also times the forward with and
-without its lse; its operations are five products of 2 Sq Sk D over the
+without its lse and each of its three kernels (``kernel_ms``, by
+``torch.profiler``), and names the instance it ran (``plan``, from
+``flash_attention_bwd.instance``) with the ``ptxas`` registers and spill
+bytes of its two kernels (``ptxas``; each instance's are also printed after
+the build); its operations are five products of 2 Sq Sk D over the
 unmasked pairs.  ``bound_ms`` is the larger
 of bytes / 3.35 TB/s (each input read once, each output written once)
 and operations / peak: 495 TFLOP/s (TF32 tensor cores, the card's rate
@@ -351,6 +355,7 @@ import torch.nn.functional as F  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
+from repro_torch import profile_flash_attention_bwd as fab_prof  # noqa: E402
 from repro_torch.check import lint_doc, verify_schedule  # noqa: E402
 from repro_torch.check.mutations import MUTATIONS, run_corpus  # noqa: E402
 from repro_torch.checkpoint import restore, save_checkpoint  # noqa: E402
@@ -859,8 +864,11 @@ def bwd_case(B, H, Sq, Sk, D, *, causal=True, window=None, dtype=torch.bfloat16,
     test's tolerance) and 2e-2 in bfloat16; the forward's lse against
     ``ref.attention_fwd_lse_ref``'s within 2e-4.  Timed: the kernel, the
     plain version's backward (autograd of ``attention_ref``), SDPA's
-    backward (the library call: timed only), and the forward with and
-    without its lse."""
+    backward (the library call: timed only), the forward with and without
+    its lse, and each of the call's three kernels by ``torch.profiler``.
+    Every record names the compiled instance it ran (``plan``:
+    ``flash_attention_bwd.PLAN``'s row) with the registers and spill bytes
+    ``ptxas`` gave its two kernels."""
     q = randn(B, H, Sq, D, dtype=dtype)
     hk = kv_heads or H
     k = randn(B, hk, Sk, D, dtype=dtype).repeat_interleave(H // hk, dim=1)
@@ -879,7 +887,9 @@ def bwd_case(B, H, Sq, Sk, D, *, causal=True, window=None, dtype=torch.bfloat16,
     plain_out = ref.attention_ref(*leaves, **kw)
     want = torch.autograd.grad(plain_out, leaves, dout, retain_graph=timed)
     err = max(compare(f"{name} {n}", g, w, tol) for n, g, w in zip("qkv", got, want))
-    rec = dict(case=name, max_abs_err=err, tol=tol, lse_err=lse_err)
+    inst = fab_mod.instance(D, dtype)
+    rec = dict(case=name, max_abs_err=err, tol=tol, lse_err=lse_err, plan=inst,
+               ptxas=fab_mod.ptxas_of(inst, _build.ptxas_log()))
     del want
     if repeat:
         again = fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
@@ -905,7 +915,26 @@ def bwd_case(B, H, Sq, Sk, D, *, causal=True, window=None, dtype=torch.bfloat16,
         rec["fwd_lse_ms"] = time_ms(lambda: fa_mod.flash_attention(
             q, k, v, **kw, return_lse=True))
         rec["tflops"] = flops / rec["ms"] / 1e9
+        # each of its three kernels by torch.profiler, the L2 flushed
+        # before each call (as time_ms does)
+        rec["kernel_ms"] = fab_prof.kernel_ms(lambda: fab_mod.flash_attention_bwd(
+            q, k, v, out, lse, dout, **kw), _flush)
+        if sorted(rec["kernel_ms"]) != sorted(fab_prof.KINDS):
+            fail(f"{name}: the profiler saw the kernels {sorted(rec['kernel_ms'])}")
     return rec
+
+
+def bwd_text(rec: dict) -> str:
+    """`` | delta / dkv / dq ms a, b, c | keys K stages S chunk C | dkv R
+    registers, spill st / ld bytes; dq ...`` of a backward record."""
+    p, regs = rec["plan"], rec["ptxas"]
+    ms = (" | delta / dkv / dq ms " + ", ".join(
+        f"{rec['kernel_ms'][k]:.4f}" for k in ("delta", "dkv", "dq"))
+          if "kernel_ms" in rec else "")
+    ptx = "; ".join(f"{k} {v[0]} registers, spill {v[1]} / {v[2]} bytes" if v else
+                    f"{k} not in the ptxas log" for k, v in regs.items())
+    return (f"{ms} | keys {p['keys']} stages {p['stages']} chunk {p['chunk']} "
+            f"x{p['chunks']} | {ptx}")
 
 
 def mln_blocks(M, K, N):
@@ -2976,6 +3005,9 @@ def main() -> None:
     for inst, (n_regs, stores, loads) in online_ptxas(_build.ptxas_log()).items():
         print(f"ptxas online_kernel<{inst}>: {n_regs} registers a thread, spill "
               f"stores {stores} loads {loads} bytes")
+    for inst, (n_regs, stores, loads) in fab_mod.ptxas(_build.ptxas_log()).items():
+        print(f"ptxas attn_bwd {inst}: {n_regs} registers a thread, spill stores "
+              f"{stores} loads {loads} bytes")
 
     # 3. kernels against their plain versions
     per_kernel = kernels_phase()
@@ -2986,11 +3018,13 @@ def main() -> None:
             pre = f" ({s['per_prefill']} a prefill)" if "per_prefill" in s else ""
             fwd = (f" | forward ms {s['fwd_ms']:.4f}, with lse {s['fwd_lse_ms']:.4f}"
                    if "fwd_ms" in s else "")
+            bwd = bwd_text(s) if "plan" in s else ""
             print(f"kernel {s['case']} x{s['per_forward']}{pre}: err "
                   f"{s['max_abs_err']:.2e} ms {s['ms']:.4f} plain {s['plain_ms']:.4f} "
-                  f"library {lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}{fwd}")
+                  f"library {lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}{fwd}"
+                  f"{bwd}")
         for s in rec["extra"]:
-            split = split_text(s)
+            split = split_text(s) + (bwd_text(s) if "plan" in s else "")
             print(f"kernel {s['case']}: err {s['max_abs_err']:.2e} (tol {s['tol']}){split}")
     sys.stdout.flush()
 

@@ -86,6 +86,7 @@
 #include <type_traits>
 
 #include "cp_async.cuh"
+#include "ldmatrix.cuh"
 #include "mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -380,30 +381,6 @@ constexpr int NTO = 128;  // threads: 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// ldmatrix: four 8x8 tiles of 16-bit elements, row addresses from lanes
-// 8i..8i+7 for tile i (`trans`: each tile transposed on the way)
-// (a shared-memory address: a lane's base plus a constant offset, so that
-// the unrolled loops keep no address of their own in registers)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t a) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // Columns of D a block takes at once (a compiled instance each): a chunk of
 // the score product's depth, and the output columns a block owns
 // (blockIdx.z).  D <= 256 is one chunk (128 for float32, whose 3xTF32
@@ -437,13 +414,6 @@ __host__ __device__ inline size_t online_smem(int D) {
 // spill at D = 128 and were slower there.
 template <typename T, int DC>
 constexpr int online_min_blocks = sizeof(T) != 2 ? 1 : DC <= 80 ? 4 : DC <= 128 ? 3 : 1;
-// 2^x: one MUFU.EX2 (relative error ~2^-22; ex2(0) = 1 and ex2(-1e30) = 0
-// exactly, which the masks rely on)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // grid (BH, query tiles, output chunks); DC = online_chunk<T>(D)
 template <typename T, int DC>

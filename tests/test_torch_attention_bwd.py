@@ -7,8 +7,13 @@ their plain versions on the CPU (``ref.attention_fwd_lse_ref``,
 ``repro.models.attention.flash_attention`` (its ``custom_vjp``: the blocked
 ``_flash_fwd`` and ``_flash_bwd``).  Tolerances: 2e-3 for gradients, the JAX
 tests' own (``tests/test_attention_lib.py``); 2e-4 where the two compute the
-same formulas in float32 and differ only in the order of their sums.
+same formulas in float32 and differ only in the order of their sums.  The
+kernel's wrapper constant ``flash_attention_bwd.PLAN`` is held to the table
+the CUDA source is compiled for, read from the source (the kernel compiles
+only on the card).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +21,8 @@ import pytest
 import torch
 
 from repro.models import attention as JA
+from repro_torch import profile_flash_attention_bwd as t_prof
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import flash_attention_bwd as t_fb
 from repro_torch.kernels import ops, ref
@@ -195,3 +202,102 @@ def test_backward_wrapper_takes_cuda_tensors_and_d_up_to_256_only():
     with pytest.raises(ValueError, match=f"D <= {t_fb.D_MAX}"):
         t_fb.flash_attention_bwd(wide, wide, wide, wide, torch.zeros((1, 1, 4)),
                                  wide)
+
+
+_BWD_SRC = _build.CSRC / "flash_attention_bwd.cu"
+_DTYPE_CODES = {0: "float32", 1: "bfloat16"}
+
+
+def _cu_int(src, name):
+    """``constexpr int name = <a product of integers>;`` in a CUDA source."""
+    m = re.search(rf"constexpr int {name} = ([0-9 *]+);", src)
+    assert m, name
+    out = 1
+    for factor in m.group(1).split("*"):
+        out *= int(factor)
+    return out
+
+
+def _cu_plan(src):
+    body = src[src.index("constexpr PlanRow PLAN[] = {"):]
+    body = body[:body.index("};")]
+    return [tuple(int(x) for x in row) for row in
+            re.findall(r"\{(\d+), (\d+), (\d+), (\d+), (\d+)\}", body)]
+
+
+def test_bwd_plan_is_what_the_kernel_source_is_compiled_for():
+    """``flash_attention_bwd.PLAN`` equals the PLAN table of
+    csrc/flash_attention_bwd.cu row by row, and its tile and shared-memory
+    constants the kernel's TQ, TK, SMEM_OPT_IN and D_MAX; each dtype's rows
+    widen in order (the kernel takes the first row as wide as D), the last
+    at D_MAX."""
+    src = _BWD_SRC.read_text()
+    rows = _cu_plan(src)
+    assert len(rows) == len(t_fb.PLAN)
+    assert {(_DTYPE_CODES[d], w): (k, st, c) for d, w, k, st, c in rows} == t_fb.PLAN
+    for name in _DTYPE_CODES.values():
+        widths = [w for d, w, *_ in rows if _DTYPE_CODES[d] == name]
+        assert widths == sorted(widths) and widths[-1] == t_fb.D_MAX
+    assert (_cu_int(src, "TQ"), _cu_int(src, "TK"), _cu_int(src, "SMEM_OPT_IN"),
+            _cu_int(src, "D_MAX")) == (t_fb.TILE_Q, t_fb.TILE_K, t_fb.SMEM_BYTES,
+                                       t_fb.D_MAX)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_plan_gives_every_head_an_instance_within_shared_memory(dtype):
+    """Every D from 1 to D_MAX has a compiled instance whose two blocks fit
+    the dynamic shared memory a block may take; its keys are whole warps of
+    16, its ring at least two stages, its chunk whole mma steps (16 bf16, 8
+    float32) and its compile-time chunk count, where it has one, D's."""
+    step = 16 if dtype == torch.bfloat16 else 8
+    for D in range(1, t_fb.D_MAX + 1):
+        inst = t_fb.instance(D, dtype)
+        assert inst["d_max"] >= D
+        assert max(inst["smem_dkv"], inst["smem_dq"]) <= t_fb.SMEM_BYTES, (D, inst)
+        assert inst["keys"] % 16 == 0 and inst["stages"] >= 2
+        assert inst["chunk"] % step == 0
+        assert inst["chunks"] == -(-D // inst["chunk"])
+        assert inst["fixed_chunks"] in (0, inst["chunks"]), (D, inst)
+
+
+def test_bwd_profiler_variants_keep_every_row_within_shared_memory():
+    """The profiler's sweep: each (keys, stages) variant of the kernel
+    source changes only keys and stages, sets them in every row whose
+    shared memory fits and keeps the others, and parses back to its
+    rows."""
+    base = _cu_plan(_BWD_SRC.read_text())
+    for keys in t_prof.KEYS:
+        for stages in t_prof.STAGES:
+            src, rows = t_prof.variant_source(keys, stages)
+            assert _cu_plan(src) == rows and len(rows) == len(base)
+            for old, row in zip(base, rows):
+                d, w, _, _, c = old
+                dt = torch.float32 if d == 0 else torch.bfloat16
+                fits = max(t_fb.smem_bytes(w, dt, keys=keys, stages=stages,
+                                           chunk=c).values()) <= t_fb.SMEM_BYTES
+                assert row == ((d, w, keys, stages, c) if fits else old)
+
+
+def test_bwd_ptxas_reads_each_instance_of_the_two_kernels():
+    """``flash_attention_bwd.ptxas`` names each dK / dV and dQ instance of
+    a build log by its template arguments, with its registers and spill
+    bytes; ``ptxas_of`` finds an instance's two."""
+    name = "_ZN12_GLOBAL__N_119attn_bwd_{}_kernelI13__nv_bfloat16Li80E{}EEvPKT_S4_"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name.format('dkv', 'Li64ELi2ELi1E')}' "
+        "for 'sm_90a'",
+        f"ptxas info    : Function properties for {name.format('dkv', 'Li64ELi2ELi1E')}",
+        "    72 bytes stack frame, 72 bytes spill stores, 76 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 464 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{name.format('dq', 'Li2ELi1E')}' "
+        "for 'sm_90a'",
+        f"ptxas info    : Function properties for {name.format('dq', 'Li2ELi1E')}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 149 registers, used 1 barriers, 464 bytes cmem[0]",
+    ])
+    assert t_fb.ptxas(log) == {"dkv bfloat16 80 64 2 1": (255, 72, 76),
+                               "dq bfloat16 80 2 1": (149, 0, 0)}
+    inst = t_fb.instance(80, torch.bfloat16)
+    assert (inst["chunk"], inst["keys"], inst["stages"], inst["fixed_chunks"]) == \
+        (80, 64, 2, 1)
+    assert t_fb.ptxas_of(inst, log) == {"dkv": (255, 72, 76), "dq": (149, 0, 0)}

@@ -997,18 +997,38 @@ def test_spawned_warm_beside_a_live_context_serves_a_b64_fused_ibn_entry(tmp_pat
 
 # (B, H, Sq, Sk, D, causal, window, dtype): the trained shape (h2o-danube's
 # 32 heads of 80, bf16, causal), a ragged float32 shape with D over 64 and a
-# window, and one of the whole-row forward regime (its lse)
+# window, and one of the whole-row forward regime (its lse); then the edges
+# of the ring and of the 128-key dK / dV blocks (flash_attention_bwd.PLAN):
+# Sq and Sk not multiples of 128 under `causal` (bf16 D 80), olmo-1b's bf16
+# D 128, RecurrentGemma's bf16 D 256 (two output chunks) under a window with
+# one KV head repeated over ten, Seamless's non-causal cross shape 256 ->
+# 512, and a window under which rows past Sk + window - 1 see no key
 _FA_BWD_CASES = {
     "trained_bf16": (4, 32, 512, 512, 80, True, None, torch.bfloat16),
     "ragged_f32_window": (1, 4, 300, 260, 96, False, 70, torch.float32),
     "rows_regime_f32": (2, 4, 100, 100, 64, True, None, torch.float32),
+    "ragged_causal_bf16_d80": (2, 4, 333, 290, 80, True, None, torch.bfloat16),
+    "olmo_bf16_d128": (2, 16, 512, 512, 128, True, None, torch.bfloat16),
+    "mqa_window_bf16_d256": (1, 10, 512, 512, 256, True, 200, torch.bfloat16),
+    "cross_bf16_256_to_512": (4, 16, 256, 512, 64, False, None, torch.bfloat16),
+    "window_rows_with_no_key": (1, 2, 200, 100, 64, True, 30, torch.float32),
 }
+# cases whose K and V are made on fewer heads and repeated over the query
+# heads' groups, as the models hand them over
+_FA_BWD_KV_HEADS = {"mqa_window_bf16_d256": 1}
+# cases with rows that see no key: there the reference's formulas (P = 1 on
+# the masked keys, `_flash_bwd`) are not the softmax's derivative, so the
+# kernel is held to ``ref.attention_bwd_ref`` (which the CPU tests hold to
+# `_flash_bwd`) given the plain forward's out and lse
+_FA_BWD_EMPTY_ROWS = {"window_rows_with_no_key"}
 
 
 def _fa_bwd_inputs(case, seed):
     B, H, Sq, Sk, D, causal, window, dtype = _FA_BWD_CASES[case]
-    q, k, v, dout = _normal(seed, (B, H, Sq, D), (B, H, Sk, D), (B, H, Sk, D),
+    hk = _FA_BWD_KV_HEADS.get(case, H)
+    q, k, v, dout = _normal(seed, (B, H, Sq, D), (B, hk, Sk, D), (B, hk, Sk, D),
                             (B, H, Sq, D))
+    k, v = (t.repeat_interleave(H // hk, dim=1) for t in (k, v))
     return [t.to(dtype) for t in (q, k, v, dout)], dict(causal=causal,
                                                        window=window)
 
@@ -1019,7 +1039,8 @@ def test_flash_attention_bwd_on_card_matches_plain_autograd(case):
     """``ops.flash_attention`` under autograd on the card (the forward with
     its lse, then the backward kernel, one launch each) against autograd of
     ``ref.attention_ref``: dq, dk and dv within 2e-3 (1 + |b|) in float32,
-    the JAX test's tolerance, and 2e-2 in bf16."""
+    the JAX test's tolerance, and 2e-2 in bf16.  Where some row sees no
+    key, against the reference's formulas (``ref.attention_bwd_ref``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
                     "card only")
@@ -1033,8 +1054,12 @@ def test_flash_attention_bwd_on_card_matches_plain_autograd(case):
     got = torch.autograd.grad(out, leaves, dout)
     torch.cuda.synchronize()
     assert (t_fa.launches, t_fb.launches) == (before[0] + 1, before[1] + 1)
-    plain = [t.clone().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(tref.attention_ref(*plain, **kw), plain, dout)
+    if case in _FA_BWD_EMPTY_ROWS:
+        out_r, lse_r = tref.attention_fwd_lse_ref(q, k, v, **kw)
+        want = tref.attention_bwd_ref(q, k, v, out_r, lse_r, dout, **kw)
+    else:
+        plain = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(tref.attention_ref(*plain, **kw), plain, dout)
     tol = 2e-3 if q.dtype == torch.float32 else 2e-2
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
@@ -1051,6 +1076,23 @@ def test_flash_attention_bwd_is_bitwise_repeatable():
     from repro_torch.kernels import flash_attention as t_fa
     from repro_torch.kernels import flash_attention_bwd as t_fb
     (q, k, v, dout), kw = _fa_bwd_inputs("trained_bf16", 42)
+    out, lse = t_fa.flash_attention(q, k, v, return_lse=True, **kw)
+    first = t_fb.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    second = t_fb.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_is_bitwise_repeatable_at_d128():
+    """The same at olmo-1b's bf16 D 128, whose dK / dV blocks hold 128 keys
+    over a ring of (q, dO) tiles: two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.kernels import flash_attention_bwd as t_fb
+    (q, k, v, dout), kw = _fa_bwd_inputs("olmo_bf16_d128", 48)
     out, lse = t_fa.flash_attention(q, k, v, return_lse=True, **kw)
     first = t_fb.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     second = t_fb.flash_attention_bwd(q, k, v, out, lse, dout, **kw)

@@ -1263,7 +1263,8 @@ def test_build_dir_hashes_the_headers_too(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
-    assert [p.name for p in _build.headers()] == ["cp_async.cuh", "mma.cuh"]
+    assert [p.name for p in _build.headers()] == ["cp_async.cuh", "ldmatrix.cuh",
+                                                  "mma.cuh"]
     assert all(p.suffix == ".cu" for p in _build.sources())
     for header in _build.headers():
         before = _build.build_dir()
