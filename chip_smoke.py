@@ -302,8 +302,12 @@ launches as ``serve_store``).  The WKV backward (``wkv_bwd_case``) is held
 to autograd of ``ref.wkv_ref`` (2e-4 (1 + |b|) float32, 1e-3 at the
 extreme decays, 2e-2 bfloat16 with a relative L2 of 2e-4 on the float32
 dlogw and du) at the trained shape (bf16), a ragged 32 x 200 at chunk 64,
-the extreme decays in float32 and bf16, a nonzero dS_T and two calls with
-the same bits; it is timed given the forward's workspace, its plain time
+the extreme decays in float32 and bf16, a nonzero dS_T, two calls with
+the same bits, chunk 128 (twice, same bits), chunk 8 at K = V = 16 and
+K = V = 40 at T = 130; each record names the gradients-pass instance
+``rwkv_chunk_bwd.plan`` gave it (``instance``: chunk 128 the tile one, the
+others the chunk one) with its ``ptxas`` registers and spill bytes; it is
+timed given the forward's workspace, its plain time
 is autograd of ``wkv_ref``'s backward, ``plain_chunked_ms`` autograd of
 ``models.rwkv6.wkv_chunked`` (what ``jax.grad`` differentiates), no
 library call; its operations are ``wkv_bwd_macs``.
@@ -937,6 +941,16 @@ def bwd_text(rec: dict) -> str:
             f"x{p['chunks']} | {ptx}")
 
 
+def wkv_bwd_text(rec: dict) -> str:
+    """`` | instance chunk | R registers, spill st / ld bytes`` of a WKV
+    backward record: the gradients-pass instance ``rwkv_chunk_bwd.plan``
+    gave the shape and its ``ptxas`` numbers."""
+    regs = rec["ptxas"]
+    ptx = (f"{regs[0]} registers, spill {regs[1]} / {regs[2]} bytes" if regs else
+           "not in the ptxas log")
+    return f" | instance {rec['instance']} | {ptx}"
+
+
 def mln_blocks(M, K, N):
     """The blocks ``search.lower`` gives a matmul_ln of these extents
     (with the search's default tiles, 64 rows and 128 columns)."""
@@ -1089,10 +1103,13 @@ def wkv_bwd_case(BH, T, K, V, chunk, *, dtype=torch.float32, decay="normal",
             rel_l2 = max(rel_l2, rel)
         else:
             err = max(err, compare(f"{name} {n}", g, w, tol))
-    rec = dict(case=name, max_abs_err=err, tol=tol)
+    C = min(chunk, T)
+    inst = wkvb_mod.plan(C, K, V, r.element_size())
+    rec = dict(case=name, max_abs_err=err, tol=tol, instance=inst["instance"],
+               ptxas=wkvb_mod.ptxas(_build.ptxas_log()).get(
+                   f"{inst['instance']} {str(dtype).split('.')[-1]}"))
     if dtype == torch.bfloat16:
         rec["rel_l2_f32_grads"] = rel_l2
-    C = min(chunk, T)
     _, state, ws = wkv_mod.forward_with_states(r, k, v, logw, u, chunk=chunk)
     kw = dict(chunk=chunk, dstate=ds, state=state if with_dstate else None)
     if repeat:
@@ -1398,8 +1415,10 @@ def kernels_phase():
     # wkv_chunked_bwd: RWKV-6's trained shape (4 x 32 heads of 64, T 512,
     # chunk 64, bf16 r/k/v/dout with float32 logw and u; 24 a train step, in
     # the sums), then the B = 1 x 200 prompt (ragged at chunk 64), the
-    # extreme decays in float32 and bf16, a nonzero dS_T, and two calls at
-    # the trained shape with the same bits
+    # extreme decays in float32 and bf16, a nonzero dS_T, two calls at the
+    # trained shape with the same bits, chunk 128 (the tile instance; the
+    # others run the chunk instance) twice with the same bits, the reduced
+    # configs' chunk 8 at K = V = 16 and a ragged width, K = V = 40 at T = 130
     rec = wkv_bwd_case(128, 512, 64, 64, 64, dtype=bf16, timed=True)
     rec.update(per_forward=rwkv6.kernel_launches_per_prefill(
         get_config(RWKV_ARCH))["wkv_chunked"], batch=TRAIN_BATCH[0])
@@ -1410,6 +1429,9 @@ def kernels_phase():
         wkv_bwd_case(4, 200, 64, 64, 64, dtype=bf16, decay="extreme"),
         wkv_bwd_case(4, 130, 64, 64, 32, with_dstate=True),
         wkv_bwd_case(128, 512, 64, 64, 64, dtype=bf16, with_dstate=True, repeat=True),
+        wkv_bwd_case(4, 300, 64, 64, 128, with_dstate=True, repeat=True),
+        wkv_bwd_case(16, 100, 16, 16, 8, with_dstate=True),
+        wkv_bwd_case(4, 130, 40, 40, 64, with_dstate=True),
     ]
     return per_kernel
 
@@ -3008,6 +3030,9 @@ def main() -> None:
     for inst, (n_regs, stores, loads) in fab_mod.ptxas(_build.ptxas_log()).items():
         print(f"ptxas attn_bwd {inst}: {n_regs} registers a thread, spill stores "
               f"{stores} loads {loads} bytes")
+    for inst, (n_regs, stores, loads) in wkvb_mod.ptxas(_build.ptxas_log()).items():
+        print(f"ptxas wkv_grads {inst}: {n_regs} registers a thread, spill stores "
+              f"{stores} loads {loads} bytes")
 
     # 3. kernels against their plain versions
     per_kernel = kernels_phase()
@@ -3018,13 +3043,14 @@ def main() -> None:
             pre = f" ({s['per_prefill']} a prefill)" if "per_prefill" in s else ""
             fwd = (f" | forward ms {s['fwd_ms']:.4f}, with lse {s['fwd_lse_ms']:.4f}"
                    if "fwd_ms" in s else "")
-            bwd = bwd_text(s) if "plan" in s else ""
+            bwd = bwd_text(s) if "plan" in s else wkv_bwd_text(s) if "instance" in s else ""
             print(f"kernel {s['case']} x{s['per_forward']}{pre}: err "
                   f"{s['max_abs_err']:.2e} ms {s['ms']:.4f} plain {s['plain_ms']:.4f} "
                   f"library {lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}{fwd}"
                   f"{bwd}")
         for s in rec["extra"]:
-            split = split_text(s) + (bwd_text(s) if "plan" in s else "")
+            split = split_text(s) + (bwd_text(s) if "plan" in s else
+                                     wkv_bwd_text(s) if "instance" in s else "")
             print(f"kernel {s['case']}: err {s['max_abs_err']:.2e} (tol {s['tol']}){split}")
     sys.stdout.flush()
 

@@ -23,9 +23,10 @@
                   chunk at once, tile-factored products on 3xTF32 tensor
                   cores
   rwkv_chunk_bwd  its backward: a reverse states pass (the gradient of the
-                  state leaving every chunk), then every 16-row tile of
-                  every chunk at once, then dlogw's suffix sum and du, no
-                  atomics (``rwkv_chunk.WKVChunked`` is the autograd
+                  state leaving every chunk), then every chunk at once (a
+                  block a chunk with its tiles resident, or a block a
+                  16-row tile where that does not fit), then dlogw's
+                  suffix sum and du, no atomics (``rwkv_chunk.WKVChunked`` is the autograd
                   function around both; the backward reads the forward's
                   entering states)
 

@@ -149,28 +149,32 @@ def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(outs, 1).to(r.dtype), S
 
 
-# rows of a tile of the WKV backward's gradients pass
-# (csrc/wkv_chunked_bwd.cu's TILE)
+# rows of a tile of the WKV backward's gradients pass and of an exact
+# block of a tile's diagonal block (csrc/wkv_chunked_bwd.cu's TILE, SUB)
 WKV_BWD_TILE = 16
+WKV_BWD_SUB = 8
 
 
 def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 logw: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
                 dstate: Optional[torch.Tensor] = None, *, chunk: int):
     """The backward of ``wkv_ref`` by the algorithm of
-    ``csrc/wkv_chunked_bwd.cu``, in float32: the states entering each chunk
-    of C = min(chunk, T) rows, the reverse pass G_c = e^{b_C} G' +
-    (r e^{b_prev})^T dout from G_n = dstate (None: zero), then per chunk
-    dr, dk, dv with the intra-chunk products factored about the first row
-    of the later tile of each pair of WKV_BWD_TILE-row tiles (every
-    exponent <= 0) and each tile's diagonal block exact, and dlogw by the
-    suffix identity sum_{t>j} r dr' - sum_{s>=j} k dk' + sum_v dS_T S_T
-    (dr', dk' without the u terms).  r, k, logw: [BH,T,K]; v, dout:
-    [BH,T,V]; u: [BH,K]; dstate: [BH,K,V].  Returns (dr, dk, dv, dlogw,
-    du), each in the dtype of its input."""
+    ``csrc/wkv_chunked_bwd.cu``'s chunk instance, in float32: the states
+    entering each chunk of C = min(chunk, T) rows, the reverse pass G_c =
+    e^{b_C} G' + (r e^{b_prev})^T dout from G_n = dstate (None: zero), then
+    per chunk dr, dk, dv with the products of each WKV_BWD_TILE-row tile
+    against the rows before it factored about b_prev of the tile's first row
+    (every exponent <= 0), and each tile's diagonal block as two exact
+    WKV_BWD_SUB-row blocks and the block below the first factored about
+    b_prev of its row WKV_BWD_SUB; dlogw by the suffix identity sum_{t>j} r
+    dr' - sum_{s>=j} k dk' + sum_v dS_T S_T (dr', dk' without the u terms),
+    the suffix taken within each chunk, then the later chunks' totals and
+    the dS_T term added.  r, k, logw: [BH,T,K]; v, dout: [BH,T,V]; u:
+    [BH,K]; dstate: [BH,K,V].  Returns (dr, dk, dv, dlogw, du), each in the
+    dtype of its input."""
     BH, T, K = r.shape
     V = v.shape[-1]
-    C, TL = min(chunk, T), WKV_BWD_TILE
+    C, TL, SB = min(chunk, T), WKV_BWD_TILE, WKV_BWD_SUB
     rf, kf, vf, wf, uf, df = (t.float() for t in (r, k, v, logw, u, dout))
     spans = [(c0, min(T, c0 + C)) for c0 in range(0, T, C)]
 
@@ -205,17 +209,36 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for j0 in range(0, c1 - c0, TL):
             J = slice(j0, min(c1 - c0, j0 + TL))
             m = J.stop - j0
-            # the diagonal block, exact: e^{b_prev[t] - b[s]} for s < t
-            live = torch.tril(torch.ones((m, m), dtype=torch.bool,
-                                         device=r.device), diagonal=-1)
-            expo = (bp[:, J, None, :] - b[:, None, J, :]).masked_fill(
-                ~live[None, :, :, None], float("-inf"))
-            E = torch.exp(expo)                                    # [BH,t,s,K]
             dA = torch.einsum("btv,bsv->bts", dc[:, J], vc[:, J])
-            dr_c[:, J] += torch.einsum("bts,bsk,btsk->btk", dA, kc[:, J], E)
-            dk_c[:, J] += torch.einsum("bts,btk,btsk->bsk", dA, rc[:, J], E)
-            A = torch.einsum("btk,bsk,btsk->bts", rc[:, J], kc[:, J], E)
-            dv_c[:, J] += torch.einsum("bts,btv->bsv", A, dc[:, J])
+            # the diagonal block: two exact SB-row blocks, e^{b_prev[t] -
+            # b[s]} for s < t
+            for a0 in range(0, m, SB):
+                S_ = slice(j0 + a0, j0 + min(m, a0 + SB))
+                w = S_.stop - S_.start
+                live = torch.tril(torch.ones((w, w), dtype=torch.bool,
+                                             device=r.device), diagonal=-1)
+                expo = (bp[:, S_, None, :] - b[:, None, S_, :]).masked_fill(
+                    ~live[None, :, :, None], float("-inf"))
+                E = torch.exp(expo)                                # [BH,t,s,K]
+                dAs = dA[:, a0:a0 + w, a0:a0 + w]
+                dr_c[:, S_] += torch.einsum("bts,bsk,btsk->btk", dAs, kc[:, S_], E)
+                dk_c[:, S_] += torch.einsum("bts,btk,btsk->bsk", dAs, rc[:, S_], E)
+                A = torch.einsum("btk,bsk,btsk->bts", rc[:, S_], kc[:, S_], E)
+                dv_c[:, S_] += torch.einsum("bts,btv->bsv", A, dc[:, S_])
+            # ... and the block below the first, one product about rho8 =
+            # b_prev of row SB
+            if m > SB:
+                lo, hi = slice(j0, j0 + SB), slice(j0 + SB, J.stop)
+                rho8 = bp[:, j0 + SB:j0 + SB + 1]
+                q8 = rc[:, hi] * torch.exp(bp[:, hi] - rho8)
+                kd8 = kc[:, lo] * torch.exp(rho8 - b[:, lo])
+                dAl = dA[:, SB:, :SB]
+                dr_c[:, hi] += torch.exp(bp[:, hi] - rho8) * torch.einsum(
+                    "bts,bsk->btk", dAl, kd8)
+                dk_c[:, lo] += torch.exp(rho8 - b[:, lo]) * torch.einsum(
+                    "bts,btk->bsk", dAl, q8)
+                A = torch.einsum("btk,bsk->bts", q8, kd8)
+                dv_c[:, lo] += torch.einsum("bts,btv->bsv", A, dc[:, hi])
             if j0 == 0:
                 continue
             # the earlier rows s < j0 against this tile's rows t, about
@@ -240,9 +263,13 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     du = (rf * kf * bonus).sum(1)
     xr = rf * drn
     x = xr - kf * dkn
-    dlogw = torch.flip(torch.cumsum(torch.flip(x, (1,)), 1), (1,)) - xr
-    if dstate is not None:
-        dlogw = dlogw + (dstate.float() * S).sum(-1)[:, None]
+    dlogw = torch.empty_like(x)
+    carry = (dstate.float() * S).sum(-1) if dstate is not None else \
+        torch.zeros_like(uf)
+    for c0, c1 in reversed(spans):   # the suffix within the chunk, then the later ones
+        suffix = torch.flip(torch.cumsum(torch.flip(x[:, c0:c1], (1,)), 1), (1,))
+        dlogw[:, c0:c1] = (suffix - xr[:, c0:c1]) + carry[:, None]
+        carry = carry + suffix[:, 0]
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
             dlogw.to(logw.dtype), du.to(u.dtype))
 

@@ -1178,13 +1178,19 @@ def test_kernels_without_a_backward_refuse_a_gradient_on_card(kernel):
 # (BH, T, K, V, chunk, dtype, decay, with dS_T): RWKV-6's trained shape
 # (4 x 32 heads of 64, T 512, chunk 64, bf16 r/k/v/dout, float32 logw and
 # u), the B = 1 x 200 prompt (ragged at chunk 64), the extreme decays in
-# float32 and bf16, and a nonzero cotangent of the final state
+# float32 and bf16, a nonzero cotangent of the final state, chunk 128 (the
+# tile instance of ``rwkv_chunk_bwd.plan``; the others take the chunk
+# instance), the reduced configs' chunk 8 at K = V = 16, and a ragged
+# width, K = V = 40 at T = 130
 _WKV_BWD_CASES = {
     "trained_bf16": (128, 512, 64, 64, 64, torch.bfloat16, "normal", False),
     "ragged_1x200": (32, 200, 64, 64, 64, torch.float32, "normal", False),
     "extreme_f32": (4, 200, 64, 64, 64, torch.float32, "extreme", False),
     "extreme_bf16": (4, 200, 64, 64, 64, torch.bfloat16, "extreme", False),
     "dstate_f32": (4, 130, 64, 64, 32, torch.float32, "normal", True),
+    "chunk128_tiles": (4, 300, 64, 64, 128, torch.float32, "normal", True),
+    "chunk8_k16": (16, 100, 16, 16, 8, torch.float32, "normal", True),
+    "ragged_width_40": (4, 130, 40, 40, 64, torch.float32, "normal", True),
 }
 
 
@@ -1239,16 +1245,23 @@ def test_wkv_chunked_bwd_on_card_matches_plain_autograd(case):
 
 
 @pytest.mark.cuda
-def test_wkv_chunked_bwd_is_bitwise_repeatable():
+@pytest.mark.parametrize("case,instance", [("trained_bf16", "chunk"),
+                                           ("chunk128_tiles", "tiles")])
+def test_wkv_chunked_bwd_is_bitwise_repeatable(case, instance):
     """Every sum of the backward runs in a fixed order, without atomics: two
-    calls at the trained shape with a nonzero dS_T give the same bits."""
+    calls with a nonzero dS_T give the same bits, on each instance of
+    ``rwkv_chunk_bwd.plan`` (the trained shape: one block a chunk; chunk
+    128: one block a tile)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
                     "card only")
     from repro_torch.kernels import rwkv_chunk as t_wkv
     from repro_torch.kernels import rwkv_chunk_bwd as t_bwd
-    args, dout, _, chunk, _ = _wkv_bwd_inputs("trained_bf16", 62)
-    ds = _normal(63, (128, 64, 64))[0]
+    args, dout, _, chunk, _ = _wkv_bwd_inputs(case, 62)
+    BH, T, K = args[0].shape
+    assert t_bwd.plan(min(chunk, T), K, args[2].shape[2],
+                      args[0].element_size())["instance"] == instance
+    ds = _normal(63, (BH, K, args[2].shape[2]))[0]
     _, state, ws = t_wkv.forward_with_states(*args, chunk=chunk)
     first = t_bwd.wkv_chunked_bwd(*args, dout, ws, chunk=chunk, dstate=ds,
                                   state=state)

@@ -3,9 +3,10 @@
 ``ops.wkv_chunked`` on tensors that require grad goes through
 ``kernels.rwkv_chunk.WKVChunked``, whose forward is ``ref.wkv_ref`` and
 whose backward is ``ref.wkv_bwd_ref`` on CPU tensors: the algorithm of
-``csrc/wkv_chunked_bwd.cu`` in torch (states entering each chunk, the
-reverse states pass, tile-factored products, dlogw by the suffix
-identity).  The same numpy inputs go through ``jax.grad`` of
+``csrc/wkv_chunked_bwd.cu``'s chunk instance in torch (states entering
+each chunk, the reverse states pass, tile-factored products, each tile's
+diagonal block as two exact 8-row blocks and one factored product, dlogw
+by the suffix identity within each chunk, then across chunks).  The same numpy inputs go through ``jax.grad`` of
 ``repro.models.rwkv6.wkv_chunked`` (the jnp chunked form the reference
 trains through).  Tolerances, |a - b| <= tol (1 + |b|): 2e-4, the JAX WKV
 tests' own; 1e-3 at the "extreme" decays, where the float32 cumsum b
@@ -246,12 +247,87 @@ def test_backward_wrapper_refuses_cpu_tensors_shapes_and_types():
     assert t_bwd.smem_bytes(512, 64, 64) <= t_bwd.SMEM_LIMIT
 
 
+def _source_plan():
+    """The PLAN table of ``csrc/wkv_chunked_bwd.cu``: (instance, c_max,
+    k_max, v_max) rows, instance 0 the chunk and 1 the tile instance."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "wkv_chunked_bwd.cu").read_text()
+    body = src[src.index("constexpr PlanRow PLAN[] = {"):]
+    body = body[:body.index("};")]
+    return [tuple(int(x) for x in m)
+            for m in re.findall(r"\{(\d+), (\d+), (\d+), (\d+)\}", body)]
+
+
+def test_bwd_plan_is_what_the_kernel_source_is_compiled_for():
+    """``rwkv_chunk_bwd.PLAN`` equals the PLAN table the source picks its
+    gradients-pass instance by; ``plan`` gives RWKV-6's trained shape
+    (chunk 64, K = V = 64, bf16) the chunk instance, one block of 16 warps
+    a chunk with the new layout's 186384 bytes (219152 in float32) and one
+    partial row a chunk, and a chunk of 128 the tile instance with a
+    partial row a tile."""
+    rows = _source_plan()
+    assert [(("chunk", "tiles")[i], c, kk, vv) for i, c, kk, vv in rows] == list(t_bwd.PLAN)
+    got = t_bwd.plan(64, 64, 64, 2)
+    assert got == dict(instance="chunk", smem=186384, parts=1)
+    assert t_bwd.smem_bytes(64, 64, 64, instance="chunk", itemsize=4) == 219152
+    assert t_bwd.plan(128, 64, 64, 2) == dict(
+        instance="tiles", smem=t_bwd.smem_bytes(128, 64, 64), parts=8)
+    assert t_bwd.plan(8, 16, 16)["instance"] == "chunk"     # one tile, one group
+    assert t_bwd.plan(64, 65, 64)["instance"] == "tiles"    # wider than a warp's columns
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_bwd_plan_refuses_nothing_the_tile_layout_took(itemsize):
+    """``check_chunk`` accepts exactly the (C, K, V) the tile layout alone
+    accepted (its shared memory within the limit), and every chunk
+    instance it picks fits in shared memory."""
+    for C in (1, 7, 8, 16, 33, 48, 64, 65, 128, 256, 512, 1024, 2048):
+        for K in (1, 8, 16, 40, 64, 65, 128, 256):
+            for V in (1, 16, 40, 64, 65, 128, 512, 2560):
+                took = t_bwd.smem_bytes(C, K, V) <= t_bwd.SMEM_LIMIT
+                got = t_bwd.plan(C, K, V, itemsize)
+                assert (got is not None) == took, (C, K, V)
+                if took:
+                    assert t_bwd.check_chunk(C, K, V, itemsize) == got
+                    assert got["smem"] <= t_bwd.SMEM_LIMIT
+                else:
+                    with pytest.raises(ValueError, match="bytes of shared memory"):
+                        t_bwd.check_chunk(C, K, V, itemsize)
+
+
 def test_profile_wkv_bwd_instruments_the_kernel_without_a_card():
     """``python -m repro_torch.profile_wkv_bwd`` patches its stamps into a
-    copy of ``csrc/wkv_chunked_bwd.cu`` by anchor text: every anchor is
-    still there (one stamp at the end of each phase, one at the start).
-    Nothing is built on the CPU."""
+    copy of ``csrc/wkv_chunked_bwd.cu``'s chunk instance by anchor text:
+    every anchor is still there once (one stamp at the end of each phase,
+    one at the start, all in ``wkv_grads_chunk_kernel``).  Nothing is
+    built on the CPU."""
     from repro_torch import profile_wkv_bwd as prof
     src = prof.instrumented_source()
     assert src.count("clock64()") == len(prof.PHASES) + 1
+    assert prof.PHASES == ("loads", "cumsum", "blocks", "diagonal", "states",
+                           "visits", "suffix", "stores")
+    kernel = src[src.index("wkv_grads_chunk_kernel("):src.index("// 3. the finishing pass")]
+    assert kernel.count("clock64()") == len(prof.PHASES) + 1
     assert 'extern "C" int repro_wkv_bwd_stamps' in src
+
+
+def test_ptxas_reads_each_gradients_pass_instance():
+    """``rwkv_chunk_bwd.ptxas`` reads the registers and spill bytes of each
+    gradients-pass instance from an ``nvcc -Xptxas -v`` log (the lines it
+    prints for a kernel: its mangled name, then its frame, then its
+    registers), and a parent source's single ``wkv_grads_kernel`` as a tile
+    instance; other kernels are not read."""
+    def entry(name, regs, st=0, ld=0):
+        return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+                f"ptxas info    : Function properties for {name}\n"
+                f"    8 bytes stack frame, {st} bytes spill stores, {ld} bytes spill loads\n"
+                f"ptxas info    : Used {regs} registers, used 1 barriers\n")
+    log = (entry("_ZN12_GLOBAL__N_122wkv_grads_chunk_kernelI13__nv_bfloat16EEvPKT_", 124)
+           + entry("_ZN12_GLOBAL__N_122wkv_grads_chunk_kernelIfEEvPKT_", 117, 8, 12)
+           + entry("_ZN12_GLOBAL__N_121wkv_grads_tile_kernelIfEEvPKT_", 127)
+           + entry("_ZN12_GLOBAL__N_118wkv_rstates_kernelIfEEvPKT_", 40))
+    assert t_bwd.ptxas(log) == {"chunk bfloat16": (124, 0, 0), "chunk float32": (117, 8, 12),
+                                "tiles float32": (127, 0, 0)}
+    parent = entry("_ZN12_GLOBAL__N_116wkv_grads_kernelI13__nv_bfloat16EEvPKT_", 121)
+    assert t_bwd.ptxas(parent) == {"tiles bfloat16": (121, 0, 0)}
