@@ -170,12 +170,13 @@ which ends the run with a non-zero exit code if it fails:
    both clocks; peak memory; capture seconds; the device's busy share of
    one ``torch.profiler`` trace of three captured 4 x 512 prefills;
 5c. MoE (``moe_path``, ``lm_phase``): ``qwen2-moe-a2.7b`` at full width and
-   8 of its 24 layers (``reduced: num_layers 24 -> 8``: every layer has the
+   4 of its 24 layers (``reduced: num_layers 24 -> 4``: every layer has the
    same shapes, and the uncut 15.1 B parameters would be 60.6 GB of float32
-   made on the host; d 2048, 16 heads of 128, 60 routed experts padded to
-   64, top 4, 4 shared experts, vocab 151936; 5,463,656,448 parameters),
+   made on the host; 8 layers until phase 5h came, cut to 4 to keep the
+   script near 750 s; d 2048, 16 heads of 128, 60 routed experts padded to
+   64, top 4, 4 shared experts, vocab 151936; 3,042,994,176 parameters),
    served as ``launch.serve`` serves it: 2 requests of 4 x 512 with 32
-   greedy tokens, 1 of 1 x 200 with 16.  8 flash_attention a prefill, none
+   greedy tokens, 1 of 1 x 200 with 16.  4 flash_attention a prefill, none
    in decode; then the captured steps, held bit for bit to the eager ones
    (as in 5b, ``lm_captured``), a trace of three captured 4 x 512 prefills;
    the first and the last request held to the plain model teacher-forced
@@ -233,6 +234,45 @@ which ends the run with a non-zero exit code if it fails:
    give steps 10-19 again bit for bit (losses, gradient norms, and the
    final parameters and moments by digest).  Step ms is the median of the
    last 10; tokens/s = 2048 / step;
+5h. distributed (``dist_phase``), the port's distributed runtime in worlds
+   of ranks spawned on this host (``launch.mesh.spawn_local``, each world
+   with a time limit of DIST_WORLD_S), the parent's cached memory freed
+   first; inputs made on the host from the seed and written to a fresh
+   directory (``checkpoint.save_checkpoint``).  ``h2o-danube-1.8b`` runs at
+   full width and 4 of its 24 layers (``reduced: num_layers 24 -> 4``: two
+   processes share the card in (c)).  (a) a world of one rank under NCCL,
+   mesh (1, 1): 5 steps of 5f's schedule over 4 x 512 tokens through
+   ``build_train_step(mesh=...)`` and with no mesh, the same bits
+   (metrics, parameters, moments), and an NCCL all-reduce and all-gather
+   over each axis's group; it writes (c)'s references.  Then a world of two
+   ranks that share the card under gloo: (b) ``pipeline.data_parallel`` of
+   EdgeNeXt-S's forward over data = 2 at B = 16 (8 images a rank through
+   the three kernels) within 2e-3 (1 + |b|) of the one-process forward,
+   each rank's launches those of one B = 8 forward, B = 7 refused as not
+   divisible; (c) the sharded step on (data 2, model 1), profile '2d', 5
+   steps of 4 x 512 (2 x 512 a rank), its parameters restored onto the mesh
+   from the host arrays (``restore_sharded``): each step's loss within 1e-2
+   and gradient norm within 1 % of (a)'s one-process step, every leaf of
+   the first step's gradients within a relative L2 error of 5e-2, 8
+   flash_attention and 4 flash_attention_bwd a step a rank; float32 on the
+   first 2 layers, every parameter after 3 steps within 2e-3 (1 + |b|) of
+   the one-process float32 step and each leaf's change over the 3 steps
+   within a relative L2 error of 1e-2 of the one process's change (warmup
+   moves a parameter by less than the first limit); step ms by CUDA events (two processes
+   time-sharing one card with their collectives through the host: not a
+   scaling number), each rank's peak memory, the bytes staged through the
+   host a step; a checkpoint after step 3, restored onto a (1, 2) mesh in
+   the same ranks, each block equal bit for bit to its slice of the
+   gathered parameters; (d) one ``qwen2-moe-a2.7b`` MoE layer at full width
+   (d 2048, 64 padded experts, top 4, shared experts, bfloat16, 4 x 512
+   tokens) by ``moe_apply_sharded`` on (1, 2), 32 experts a rank, against
+   the plain ``moe_apply`` in rank 0 alone: output within 2e-2 (1 + |b|),
+   aux within 1e-4 relative, the router / wi / wo gradients (the mean over
+   the ranks) within a relative L2 error of 5e-2; (e) ``gpipe`` of an
+   8-layer tanh stack over 2 stages on CUDA tensors against the sequential
+   stack (2e-5 forward, 2e-4 gradients), and ``compressed_pod_allreduce``
+   on (pod 2, data 1, model 1) against its definition (1e-6).  One JSON
+   line ``{"dist": {...}}``;
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
    workload, each schedule verified by ``repro_torch.check.verify_schedule``
    (the static checker and the Hopper launch lint; any finding fails the
@@ -278,7 +318,7 @@ which ends the run with a non-zero exit code if it fails:
    over 24 EdgeNeXt-S requests at batches 1 and 4 on a store of its own:
    every request served, every answer verified (a degraded one with its
    marker), and no launch while it runs;
-8. one JSON line ``{"check": {...}}`` (findings by workload, the corpus
+8. the ``{"dist": {...}}`` line, one JSON line ``{"check": {...}}`` (findings by workload, the corpus
    caught, the agreement cases), one JSON line ``{"kernels": [...]}``,
    the device line, and last ``{"ok": true, "device": {...}}``.
 
@@ -294,11 +334,12 @@ wkv_chunked_bwd; ``shapes`` holds the per-shape numbers.  ``launches`` is
 the count of the path the kernel is on: the EdgeNeXt-S requests for the
 first three, the lowered phase for matmul_ln, the RWKV-6 requests for
 wkv_chunked, the 20 dense train steps for flash_attention_bwd, the 20
-RWKV-6 train steps for wkv_chunked_bwd (``launches_by_path`` has all ten
-paths: the dense, MoE, encoder-decoder and hybrid requests as
+RWKV-6 train steps for wkv_chunked_bwd (``launches_by_path`` has all
+twelve paths: the dense, MoE, encoder-decoder and hybrid requests as
 ``dense_serve``, ``moe_serve``, ``audio_serve`` and ``hybrid_serve``, the
 train steps as ``dense_train`` and ``rwkv_train``, the serve phase's new
-launches as ``serve_store``).  The WKV backward (``wkv_bwd_case``) is held
+launches as ``serve_store``, and phase 5h's rank 0 as ``dist_serve``, one
+B = 8 forward, and ``dist_train``, one sharded step).  The WKV backward (``wkv_bwd_case``) is held
 to autograd of ``ref.wkv_ref`` (2e-4 (1 + |b|) float32, 1e-3 at the
 extreme decays, 2e-2 bfloat16 with a relative L2 of 2e-4 on the float32
 dlogw and du) at the trained shape (bf16), a ragged 32 x 200 at chunk 64,
@@ -355,6 +396,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 
@@ -362,7 +404,8 @@ from repro_torch import obs  # noqa: E402
 from repro_torch import profile_flash_attention_bwd as fab_prof  # noqa: E402
 from repro_torch.check import lint_doc, verify_schedule  # noqa: E402
 from repro_torch.check.mutations import MUTATIONS, run_corpus  # noqa: E402
-from repro_torch.checkpoint import restore, save_checkpoint  # noqa: E402
+from repro_torch.checkpoint import (load_checkpoint, restore,  # noqa: E402
+                                    restore_sharded, save_checkpoint)
 from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.configs.edgenext_s import CONFIG  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -380,7 +423,13 @@ from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.data.synthetic import make_dataset  # noqa: E402
 from repro_torch.models.params import (count_params, init_params,  # noqa: E402
                                        tree_leaves, tree_map)
-from repro_torch.optim import adamw_init, warmup_cosine  # noqa: E402
+from repro_torch.optim import adamw_init, global_norm, warmup_cosine  # noqa: E402
+from repro_torch.optim.compression import (compressed_pod_allreduce,  # noqa: E402
+                                           dequantize_int8, quantize_with_feedback)
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.models import moe_sharded  # noqa: E402
+from repro_torch.runtime import collectives, sharding  # noqa: E402
+from repro_torch.runtime import pipeline as dist_pipeline  # noqa: E402
 from repro_torch.runtime import (build_decode_step, build_grad_fn,  # noqa: E402
                                  build_prefill_step, build_train_step)
 from repro_torch.runtime.capture import WARMUP, captured  # noqa: E402
@@ -457,12 +506,13 @@ DENSE_REQUESTS = [(4, 512, 32), (4, 512, 32), (1, 4608, 8)]
 DENSE_PARAMS = 1_831_201_280
 # the MoE phase: qwen2-moe-a2.7b at full width and MOE_LAYERS of its 24
 # layers (every layer has the same shapes; uncut, its 15.1 B parameters are
-# 60.6 GB of float32 made on the host); its float32 check: (layers, batch,
-# prompt tokens, greedy steps)
+# 60.6 GB of float32 made on the host; 8 layers until phase 5h, whose time
+# the cut to 4 pays for); its float32 check: (layers, batch, prompt tokens,
+# greedy steps)
 MOE_ARCH = "qwen2-moe-a2.7b"
-MOE_LAYERS = 8
+MOE_LAYERS = 4
 MOE_REQUESTS = [(4, 512, 32), (4, 512, 32), (1, 200, 16)]
-MOE_PARAMS = 5_463_656_448
+MOE_PARAMS = 3_042_994_176
 MOE_F32 = (2, 2, 256, 4)
 # the encoder-decoder phase: seamless-m4t-large-v2 uncut; (batch, source
 # frames, greedy tokens) per request, the decoder's prefix one token
@@ -510,6 +560,23 @@ RWKV_ARCH = "rwkv6-1.6b"
 # BF16_AGREEMENT asks for most, not all, of them.
 BF16_LOGITS_TOL = 0.25
 BF16_AGREEMENT = 0.75
+# the distributed phase (5h): h2o-danube-1.8b at full width and DIST_LAYERS
+# of its 24 layers (two processes share the card in part (c)), DIST_STEPS
+# steps of 5f's schedule and batch, the float32 check on (layers, steps)
+# DIST_F32, each leaf's change over them within a relative L2 error of
+# DIST_F32_MOVED_REL, a checkpoint after DIST_CKPT steps; EdgeNeXt-S at
+# DIST_EDGE_BATCH images over data = 2, and DIST_EDGE_ODD, which 2 does not
+# divide; one qwen2-moe-a2.7b MoE layer over (batch, tokens)
+# DIST_MOE_TOKENS; each world's time limit DIST_WORLD_S
+DIST_LAYERS = 4
+DIST_STEPS = 5
+DIST_F32 = (2, 3)
+DIST_F32_MOVED_REL = 1e-2
+DIST_CKPT = 3
+DIST_EDGE_BATCH, DIST_EDGE_ODD = 16, 7
+DIST_MOE_TOKENS = (4, 512)
+DIST_MOE_TOL = 2e-2
+DIST_WORLD_S = 300
 
 
 def fail(msg: str) -> None:
@@ -2803,7 +2870,7 @@ def moe_f32_check(cfg, tree, rng) -> tuple[float, float]:
 
 
 def moe_path():
-    """``qwen2-moe-a2.7b`` at full width and 8 of its 24 layers served
+    """``qwen2-moe-a2.7b`` at full width and MOE_LAYERS of its 24 layers served
     through ``launch.serve``'s steps, eager then captured, held to its
     plain model (module docstring, phase 5c).  Returns (launches, numbers)."""
     t0 = time.perf_counter()
@@ -2987,6 +3054,454 @@ def split_text(rec: dict) -> str:
     return f"{regime} splits {rec['splits']} ctas {rec['ctas']}"
 
 
+# ---------------------------------------------------------------------------
+# 5h. the distributed runtime: worlds of ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def dist_dense_cfg(layers: int = DIST_LAYERS, dtype=None):
+    """``h2o-danube-1.8b`` at full width and ``layers`` of its 24 layers."""
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), num_layers=layers)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def dist_batches(cfg, n: int) -> list:
+    """The first ``n`` global batches of 5f's data (TRAIN_BATCH tokens)."""
+    B, T = TRAIN_BATCH
+    ds = make_dataset(cfg, ShapeConfig("train", "train", T, B), seed=SEED)
+    return [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(s).items()}
+            for s in range(n)]
+
+
+def dist_step(cfg, mesh=None):
+    """5f's step (its schedule and clipping), on ``mesh`` where given."""
+    return build_train_step(cfg, lr_schedule=warmup_cosine(TRAIN_LR, TRAIN_WARMUP,
+                                                           TRAIN_STEPS),
+                            clip_norm=TRAIN_CLIP, mesh=mesh)
+
+
+def dist_masters(tree):
+    return tree_map(lambda a, path: torch.from_numpy(np.array(a)).cuda()
+                    .requires_grad_(), tree)
+
+
+def dist_f32_tree(tree):
+    return dict(tree, blocks=tree_map(lambda a, path: a[:DIST_F32[0]], tree["blocks"]))
+
+
+def dist_one_process(tmp: str) -> dict:
+    """Part (a), a world of one rank under NCCL: the cut dense model's
+    DIST_STEPS steps with no mesh and on the (1, 1) mesh must give the same
+    bits (metrics, parameters, moments).  It also writes part (c)'s
+    references to ``tmp``: the first step's gradients and the float32
+    model's parameters after DIST_F32[1] steps; the metrics of the no-mesh
+    steps are returned."""
+    tmp = Path(tmp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+    if mesh.backend != "nccl":
+        fail(f"dist (a): a world of one rank with a card runs {mesh.backend}")
+    cfg = dist_dense_cfg()
+    tree = load_checkpoint(tmp / "dense", 0, like=transformer.param_defs(cfg))[1]
+    batches = dist_batches(cfg, DIST_STEPS)
+
+    def run(m, config, src, steps):
+        params = dist_masters(src)
+        opt = adamw_init(params)
+        step = dist_step(config, m)
+        metrics = []
+        for b in batches[:steps]:
+            params, opt, mt = step(params, opt, b)
+            metrics.append(torch.stack([mt["loss"], mt["grad_norm"]]))
+        return torch.stack(metrics).cpu(), params, opt
+
+    def state(run_out):
+        return (tree_leaves(run_out[1]) + tree_leaves(run_out[2].m)
+                + tree_leaves(run_out[2].v))
+
+    plain = run(None, cfg, tree, DIST_STEPS)
+    meshed = run(mesh, cfg, tree, DIST_STEPS)
+    if not (torch.equal(plain[0], meshed[0]) and all(
+            torch.equal(a, b) for a, b in zip(state(plain), state(meshed)))):
+        fail("dist (a): the (1, 1) mesh's steps differ from the no-mesh steps")
+    metrics = plain[0].tolist()
+    del plain, meshed
+    # a collective over an axis of one rank sends nothing: NCCL itself is
+    # held here, an all-reduce and an all-gather over each axis's group
+    for axis, group in mesh.groups.items():
+        x = torch.arange(1024, dtype=torch.float32, device="cuda")
+        y, parts = x.clone(), [torch.empty_like(x)]
+        dist.all_reduce(y, group=group)
+        dist.all_gather(parts, x, group=group)
+        if not (torch.equal(y, x) and torch.equal(parts[0], x)):
+            fail(f"dist (a): NCCL's all-reduce or all-gather over {axis} changed its input")
+    _, _, grads = build_grad_fn(cfg)(dist_masters(tree), batches[0])
+    save_checkpoint(tmp / "grads", 0, grads)
+    del grads
+    cfg32 = dist_dense_cfg(DIST_F32[0], "float32")
+    save_checkpoint(tmp / "f32", 0, run(None, cfg32, dist_f32_tree(tree), DIST_F32[1])[1])
+    return dict(backend=mesh.backend, mesh=mesh.sizes, steps=DIST_STEPS,
+                nccl_collectives_checked=sorted(mesh.groups), losses=[m[0] for m in metrics], grad_norms=[m[1] for m in metrics],
+                peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                seconds=time.perf_counter() - t0)
+
+
+def dist_serve(tmp: Path) -> dict:
+    """Part (b): ``pipeline.data_parallel`` of EdgeNeXt-S's forward over
+    data = 2, each rank 8 of the 16 images through the kernels."""
+    mesh = mesh_lib.make_mesh((2, 1), ("data", "model"))
+    params = init_params(SEED, edgenext.param_defs(CONFIG), perturb=0.05)
+    model = edgenext.EdgeNeXt(CONFIG, params).eval()
+    images = torch.from_numpy(np.load(tmp / "images.npy")).cuda()
+    want = torch.from_numpy(np.load(tmp / "logits.npy")).cuda()
+    dp = dist_pipeline.data_parallel(lambda p, x: model(x), mesh=mesh)
+    with torch.inference_mode():
+        dp(None, images)                         # warm-up
+        reset_counts()
+        got = dp(None, images)
+        launches = read_counts()
+        try:
+            dp(None, images[:DIST_EDGE_ODD])
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+    per = edgenext.kernel_launches_per_forward(CONFIG)
+    if launches != {n: per.get(n, 0) for n in KERNELS}:
+        fail(f"dist (b): a rank launched {launches}, expected one forward's {per}")
+    if refused is None or "not divisible" not in refused:
+        fail(f"dist (b): a batch of {DIST_EDGE_ODD} over data=2 was not refused "
+             f"({refused})")
+    err = compare("dist (b) EdgeNeXt-S logits, data=2 against one process", got,
+                  want, 2e-3)
+    return dict(batch=images.shape[0], rows_a_rank=images.shape[0] // 2,
+                launches=launches, max_abs_err=err, refused=refused)
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def dist_train(tmp: Path, one: dict) -> dict:
+    """Part (c): the sharded step of the cut dense model on (data 2,
+    model 1), its parameters restored onto the mesh from the host arrays,
+    against part (a)'s one-process step; the float32 check; a checkpoint
+    after DIST_CKPT steps restored onto (1, 2)."""
+    rank = dist.get_rank()
+    cfg = dist_dense_cfg()
+    defs = transformer.param_defs(cfg)
+    mesh = mesh_lib.make_mesh((2, 1), ("data", "model"))
+    step = dist_step(cfg, mesh)
+    like = tree_map(lambda d, path: torch.empty(0).requires_grad_(), defs)
+    params = restore_sharded(tmp / "dense", like, step.pspecs, mesh)[1]
+    opt = adamw_init(params)
+    batches = dist_batches(cfg, DIST_STEPS)
+    layers = cfg.num_layers
+    per_step = {n: 0 for n in KERNELS}
+    per_step.update(flash_attention=2 * layers, flash_attention_bwd=layers)
+
+    # the first step's gradients against the one process's
+    reset_counts()
+    loss0, _, grads = step.grad_fn(params, batches[0])
+    first = read_counts()
+    if first != per_step:
+        fail(f"dist (c): the first step launched {first}, expected {per_step}")
+    rel, norm = {}, global_norm(grads).item()
+    if rank == 0:
+        want = load_checkpoint(tmp / "grads", 0, like=defs)[1]
+        tree_map(lambda g, w, path: rel.__setitem__(path, rel_l2(
+            g, torch.from_numpy(w).cuda())), grads, want)
+        del want
+    del grads
+    worst = max(rel, key=rel.get) if rel else None
+    if rank == 0 and rel[worst] > TRAIN_GRAD_REL:
+        fail(f"dist (c): first step's gradient {worst} rel L2 {rel[worst]:.3e} against "
+             f"one process (limit {TRAIN_GRAD_REL})")
+
+    times, staged, metrics, peak = [], [], [], 0.0
+    torch.cuda.reset_peak_memory_stats()
+    for s, b in enumerate(batches):
+        before = collectives.host_staged_bytes
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t_host = time.perf_counter()
+        start.record()
+        params, opt, m = step(params, opt, b)
+        end.record()
+        end.synchronize()
+        times.append(dict(event_ms=start.elapsed_time(end),
+                          wall_ms=1e3 * (time.perf_counter() - t_host)))
+        n = read_counts()
+        if n != per_step:
+            fail(f"dist (c): step {s} launched {n}, expected {per_step}")
+        staged.append(collectives.host_staged_bytes - before)
+        metrics.append([m["loss"].item(), m["grad_norm"].item()])
+        if s + 1 == DIST_CKPT:
+            full = sharding.tree_gather_full(params, step.pspecs, mesh)
+            if rank == 0:
+                save_checkpoint(tmp / "ckpt", DIST_CKPT, full)
+            dist.barrier()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    for s, (loss, gn) in enumerate(metrics):
+        if not (abs(loss - one["losses"][s]) <= TRAIN_LOSS_TOL
+                and abs(gn - one["grad_norms"][s]) <= TRAIN_NORM_REL * one["grad_norms"][s]):
+            fail(f"dist (c): step {s} loss {loss:.5f} grad norm {gn:.5f} against one "
+                 f"process's {one['losses'][s]:.5f} {one['grad_norms'][s]:.5f}")
+
+    # the checkpoint after DIST_CKPT steps onto a (1, 2) mesh in the same ranks
+    mesh12 = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    specs12 = sharding.model_param_pspecs(cfg, mesh12, defs)
+    got = restore_sharded(tmp / "ckpt", like, specs12, mesh12)[1]
+    leaves = tree_map(lambda r, f, spec, path: torch.equal(
+        r, sharding.local_shard(f, spec, mesh12)), got, full, specs12)
+    if not all(tree_leaves(leaves)):
+        fail("dist (c): a block restored onto (1, 2) differs from its slice of the "
+             "gathered parameters")
+    del got, full, params, opt
+
+    # float32 on the first layers: DIST_F32[1] sharded steps against one process
+    cfg32 = dist_dense_cfg(DIST_F32[0], "float32")
+    step32 = dist_step(cfg32, mesh)
+    tree32 = dist_f32_tree(load_checkpoint(tmp / "dense", 0, like=defs)[1])
+    p32 = tree_map(lambda a, spec, path: torch.from_numpy(np.array(
+        sharding.local_shard(a, spec, mesh))).cuda().requires_grad_(), tree32, step32.pspecs)
+    o32 = adamw_init(p32)
+    for b in batches[:DIST_F32[1]]:
+        p32, o32, _ = step32(p32, o32, b)
+    full32 = sharding.tree_gather_full(p32, step32.pspecs, mesh)
+    f32_err, f32_moved, moved_rel, worst32 = 0.0, 0.0, {}, None
+    if rank == 0:
+        want = load_checkpoint(tmp / "f32", 0, like=transformer.param_defs(cfg32))[1]
+        errs = []
+        tree_map(lambda g, w, path: errs.append(compare(
+            f"dist (c) float32 {path}", g, torch.from_numpy(w).cuda(), 2e-3)), full32, want)
+        f32_err = max(errs)
+        # warmup's first steps move a parameter by less than that limit, so
+        # each leaf's change over the steps is held to the one process's
+        # change too: an unchanged state reads 1 here
+        def moved(g, w, a, path):
+            nonlocal f32_moved
+            a = torch.from_numpy(np.array(a)).cuda()
+            one_change = torch.from_numpy(w).cuda() - a
+            f32_moved = max(f32_moved, one_change.abs().max().item())
+            moved_rel[path] = rel_l2(g - a, one_change)
+        tree_map(moved, full32, want, tree32)
+        worst32 = max(moved_rel, key=moved_rel.get)
+        if moved_rel[worst32] > DIST_F32_MOVED_REL:
+            fail(f"dist (c): float32 {worst32}'s change over {DIST_F32[1]} steps has rel L2 "
+                 f"{moved_rel[worst32]:.3e} against one process's (limit {DIST_F32_MOVED_REL})")
+    del tree32
+    return dict(mesh={"data": 2, "model": 1}, profile="2d", steps=DIST_STEPS,
+                batch=TRAIN_BATCH, rows_a_rank=TRAIN_BATCH[0] // 2, launches_per_step=n,
+                first_step_launches=first, losses=[m[0] for m in metrics],
+                grad_norms=[m[1] for m in metrics], grad_norm_first=norm,
+                grad_rel_l2_worst=[worst, rel.get(worst)], step_ms=times,
+                host_staged_bytes_per_step=staged, peak_mib=peak,
+                restored_onto={"data": 1, "model": 2}, restore_bitwise=True,
+                f32_max_err=f32_err, f32_max_change=f32_moved,
+                f32_change_rel_l2_worst=[worst32, moved_rel.get(worst32)],
+                f32_layers=DIST_F32[0], f32_steps=DIST_F32[1])
+
+
+def dist_moe(tmp: Path) -> dict:
+    """Part (d): one ``qwen2-moe-a2.7b`` MoE layer at full width on (data 1,
+    model 2), each rank 32 of the 64 padded experts, against the plain
+    ``moe_apply`` in rank 0 alone."""
+    rank = dist.get_rank()
+    cfg = get_config(MOE_ARCH)
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    params = tree_map(lambda a, path: torch.from_numpy(a).cuda(),
+                      load_checkpoint(tmp / "moe", 0, like=lm_layers.moe_defs(cfg))[1])
+    x = torch.from_numpy(np.load(tmp / "moe_x.npy")).cuda().to(cfg.compute_dtype)
+    w = torch.from_numpy(np.load(tmp / "moe_w.npy")).cuda()
+    names = ("router", "wi", "wo")
+
+    def run(fn):
+        leaves = [params[n].requires_grad_() for n in names]
+        out, aux = fn()
+        grads = torch.autograd.grad((out.float() * w).sum() + aux, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        return out.detach(), aux.detach(), grads
+
+    plain = run(lambda: lm_layers.moe_apply(cfg, params, x)) if rank == 0 else None
+    reset_counts()
+    out, aux, grads = run(lambda: moe_sharded.moe_apply_sharded(cfg, params, x, mesh=mesh))
+    grads = [collectives.mesh_mean(g, mesh) for g in grads]
+    res = dict(mesh={"data": 1, "model": 2}, tokens=x.shape[0],
+               experts_a_rank=cfg.moe.num_experts_padded // 2, launches=read_counts())
+    if rank == 0:
+        res["max_abs_err"] = compare("dist (d) MoE output against the plain layer",
+                                     out, plain[0], DIST_MOE_TOL)
+        res["aux_rel_err"] = abs(aux.item() - plain[1].item()) / abs(plain[1].item())
+        res["grad_rel_l2"] = {n: rel_l2(g, p) for n, g, p in zip(names, grads, plain[2])}
+        if res["aux_rel_err"] > 1e-4 or max(res["grad_rel_l2"].values()) > TRAIN_GRAD_REL:
+            fail(f"dist (d): aux rel err {res['aux_rel_err']:.3e} (limit 1e-4), "
+                 f"gradients rel L2 {res['grad_rel_l2']} (limit {TRAIN_GRAD_REL})")
+    return res
+
+
+def dist_rings() -> dict:
+    """Part (e): ``gpipe`` of tests/test_pipeline.py's 8-layer tanh stack
+    over 2 stages against the sequential stack, and
+    ``compressed_pod_allreduce`` on (pod 2, data 1, model 1) against its own
+    definition, on CUDA tensors."""
+    rng = np.random.default_rng(SEED + 8)
+    W = torch.from_numpy((rng.standard_normal((8, 16, 16)) * 0.5 / 4).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32)).cuda()
+
+    def stack(ws, h):
+        for w_ in ws:
+            h = torch.tanh(h @ w_) + h
+        return h
+
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    Wg = W.clone().requires_grad_()
+    out = dist_pipeline.gpipe(stack, dist_pipeline.split_stages(Wg, 2),
+                              dist_pipeline.microbatch(x, 4), mesh=mesh).reshape(8, 16)
+    g = collectives.mesh_mean(torch.autograd.grad((out ** 2).sum(), Wg)[0], mesh)
+    Wr = W.clone().requires_grad_()
+    ref_out = stack(Wr, x)
+    g_ref = torch.autograd.grad((ref_out ** 2).sum(), Wr)[0]
+    fwd = compare("dist (e) gpipe forward", out.detach(), ref_out.detach(), 2e-5)
+    bwd = compare("dist (e) gpipe gradient", g, g_ref, 2e-4)
+
+    pod = mesh_lib.make_mesh((2, 1, 1), ("pod", "data", "model"))
+    grads = torch.from_numpy(rng.standard_normal((2, 4096)).astype(np.float32)).cuda()
+    fb = torch.from_numpy((0.01 * rng.standard_normal((2, 4096))).astype(np.float32)).cuda()
+    p = pod.coords["pod"]
+    mean, new_fb = compressed_pod_allreduce({"g": grads[p:p + 1]}, {"g": fb[p:p + 1]}, pod)
+    parts = [quantize_with_feedback(grads[i], fb[i]) for i in range(2)]
+    want = sum(dequantize_int8(q, s) for q, s, _ in parts) / 2
+    mean_err = compare("dist (e) compressed pod all-reduce mean", mean["g"][0], want, 1e-6)
+    fb_err = compare("dist (e) compressed pod all-reduce feedback", new_fb["g"][0],
+                     parts[p][2], 1e-6)
+    return dict(gpipe=dict(stages=2, microbatches=4, layers=8, fwd_max_abs_err=fwd,
+                           grad_max_abs_err=bwd),
+                pod_allreduce=dict(pods=2, numel=4096, mean_max_abs_err=mean_err,
+                                   feedback_max_abs_err=fb_err))
+
+
+def dist_pair(tmp: str, one: dict) -> dict:
+    """Parts (b) to (e) on one rank of a world of two that share the card
+    (gloo)."""
+    tmp = Path(tmp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    collectives.host_staged_bytes = 0
+    out = dict(rank=dist.get_rank(), backend=dist.get_backend())
+    for part, fn in (("serve", lambda: dist_serve(tmp)), ("train", lambda: dist_train(tmp, one)),
+                     ("moe", lambda: dist_moe(tmp)), ("rings", dist_rings)):
+        t1 = time.perf_counter()
+        out[part] = fn()
+        out[part]["seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    out.update(host_staged_bytes=collectives.host_staged_bytes,
+               peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def dist_phase() -> tuple:
+    """Phase 5h (module docstring): the inputs made on the host and written
+    to a fresh directory, part (a) in a world of one rank under NCCL, parts
+    (b) to (e) in a world of two that share the card under gloo.  Returns
+    the launches of (b) and (c) by rank 0 and the numbers."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    try:
+        cfg, moe_cfg = dist_dense_cfg(), get_config(MOE_ARCH)
+        print(f"dist {DENSE_ARCH} reduced: num_layers {get_config(DENSE_ARCH).num_layers} "
+              f"-> {cfg.num_layers} (two processes share the card in (c)); "
+              f"{MOE_ARCH}: one MoE layer", flush=True)
+        save_checkpoint(tmp / "dense", 0, init_params(SEED, transformer.param_defs(cfg)))
+        save_checkpoint(tmp / "moe", 0, init_params(SEED, lm_layers.moe_defs(moe_cfg)))
+        rng = np.random.default_rng(SEED + 7)
+        n_tok = DIST_MOE_TOKENS[0] * DIST_MOE_TOKENS[1]
+        np.save(tmp / "moe_x.npy", rng.standard_normal((n_tok, moe_cfg.d_model),
+                                                       dtype=np.float32))
+        np.save(tmp / "moe_w.npy", rng.standard_normal((n_tok, moe_cfg.d_model),
+                                                       dtype=np.float32))
+        images = rng.standard_normal((DIST_EDGE_BATCH, CONFIG.img_size, CONFIG.img_size,
+                                      CONFIG.in_channels), dtype=np.float32)
+        model = edgenext.EdgeNeXt(CONFIG, init_params(SEED, edgenext.param_defs(CONFIG),
+                                                      perturb=0.05)).eval()
+        with torch.inference_mode():
+            logits = model(torch.from_numpy(images).cuda())
+        np.save(tmp / "images.npy", images)
+        np.save(tmp / "logits.npy", logits.cpu().numpy())
+        del model, logits
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        (one,) = mesh_lib.spawn_local(1, dist_one_process, str(tmp), timeout_s=DIST_WORLD_S)
+        one["world_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        pair = mesh_lib.spawn_local(2, dist_pair, str(tmp), one, timeout_s=DIST_WORLD_S)
+        pair_s = time.perf_counter() - t1
+    except RuntimeError as e:
+        fail(f"dist: {e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = pair[0]
+    if pair[1]["train"]["losses"] != r0["train"]["losses"]:
+        fail(f"dist (c): the two ranks' losses differ: {pair[1]['train']['losses']} "
+             f"vs {r0['train']['losses']}")
+    res = dict(one_process=one, ranks=pair, pair_world_s=pair_s, setup_s=setup_s,
+               layers=DIST_LAYERS, reduced=f"num_layers 24 -> {DIST_LAYERS}",
+               wall_s=time.perf_counter() - t0,
+               note="two processes time-share one card and cross the host for every "
+                    "collective: not a scaling number")
+    return r0["serve"]["launches"], r0["train"]["launches_per_step"], res
+
+
+def print_dist(d: dict) -> None:
+    one, r = d["one_process"], d["ranks"]
+    r0 = r[0]
+    print(f"dist (a) NCCL world of 1, mesh {one['mesh']}: {one['steps']} steps of "
+          f"{DENSE_ARCH} ({d['reduced']}) equal the no-mesh steps bit for bit "
+          f"(metrics, parameters, moments); losses {[round(x, 5) for x in one['losses']]}; "
+          f"{one['world_s']:.1f} s")
+    s = r0["serve"]
+    print(f"dist (b) gloo 2 ranks: EdgeNeXt-S data_parallel B={s['batch']} "
+          f"({s['rows_a_rank']} a rank), err vs one process {s['max_abs_err']:.2e} "
+          f"(limit 2e-3 (1+|b|)), launches a rank {s['launches']}, B={DIST_EDGE_ODD} refused")
+    t = r0["train"]
+    ev = [x["event_ms"] for x in t["step_ms"]]
+    print(f"dist (c) gloo 2 ranks, mesh {t['mesh']} profile {t['profile']}: "
+          f"{t['steps']} steps, losses {[round(x, 5) for x in t['losses']]} vs one process "
+          f"{[round(x, 5) for x in one['losses']]}, grad norms within 1 %, worst first-"
+          f"step gradient {t['grad_rel_l2_worst'][0]} rel L2 {t['grad_rel_l2_worst'][1]:.3e}; "
+          f"launches a step {t['launches_per_step']}; float32 {t['f32_layers']} layers x "
+          f"{t['f32_steps']} steps max err {t['f32_max_err']:.2e} (one process moved a "
+          f"parameter by at most {t['f32_max_change']:.2e}), worst change rel L2 "
+          f"{t['f32_change_rel_l2_worst'][0]} {t['f32_change_rel_l2_worst'][1]:.3e} "
+          f"(limit {DIST_F32_MOVED_REL}); restore onto "
+          f"{t['restored_onto']} bit for bit")
+    print(f"dist (c) step ms (CUDA events; two processes time-share the card, "
+          f"collectives through the host: not a scaling number) rank 0 {ev} "
+          f"median {statistics.median(ev):.1f}; host-staged MB a step "
+          f"{[round(b / 1e6, 1) for b in t['host_staged_bytes_per_step']]}; peak MiB "
+          f"by rank {[round(x['train']['peak_mib']) for x in r]}")
+    m = r0["moe"]
+    print(f"dist (d) gloo 2 ranks: {MOE_ARCH} MoE layer, {m['tokens']} tokens, "
+          f"{m['experts_a_rank']} experts a rank: err {m['max_abs_err']:.2e} (limit "
+          f"{DIST_MOE_TOL} (1+|b|)), aux rel {m['aux_rel_err']:.2e}, gradients rel L2 "
+          f"{ {k: round(v, 5) for k, v in m['grad_rel_l2'].items()} }")
+    e = r0["rings"]
+    print(f"dist (e) gloo 2 ranks: gpipe 2 stages err fwd {e['gpipe']['fwd_max_abs_err']:.2e} "
+          f"grad {e['gpipe']['grad_max_abs_err']:.2e}; pod all-reduce mean err "
+          f"{e['pod_allreduce']['mean_max_abs_err']:.2e} feedback "
+          f"{e['pod_allreduce']['feedback_max_abs_err']:.2e}")
+    print(f"dist: parts {[(k, round(r0[k]['seconds'], 1)) for k in ('serve', 'train', 'moe', 'rings')]} s "
+          f"rank 0; host-staged {r0['host_staged_bytes'] / 1e9:.2f} GB; worlds "
+          f"{one['world_s']:.1f} + {d['pair_world_s']:.1f} s; phase {d['wall_s']:.1f} s",
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -3154,7 +3669,7 @@ def main() -> None:
     del dense_tree
     print_train(train)
 
-    # 5c. the MoE path, qwen2-moe-a2.7b at 8 of its 24 layers
+    # 5c. the MoE path, qwen2-moe-a2.7b at MOE_LAYERS of its 24 layers
     moe_launches, moe = moe_path()
     print_lm("moe", moe, MOE_LAYERS)
     print(f"moe float32 ({MOE_F32[0]} layers, {MOE_F32[1]}x{MOE_F32[2]}, "
@@ -3173,6 +3688,11 @@ def main() -> None:
           f"{HYBRID_F32[1]}x{HYBRID_F32[2]}, {HYBRID_F32[3]} steps) err vs plain on "
           f"card {hybrid['f32_max_err_vs_plain_on_card']:.2e} (limit 2e-3 (1+|b|))",
           flush=True)
+
+    # 5h. the distributed runtime: a world of one rank under NCCL, then two
+    # ranks sharing the card under gloo
+    dist_serve_launches, dist_train_launches, distributed = dist_phase()
+    print_dist(distributed)
 
     # 6. the scheduler's path: every lowered entry onto its kernel
     lowered, entries, by_workload, lowered_launches, verified, samples, launched = \
@@ -3231,7 +3751,9 @@ def main() -> None:
                                   "audio_serve": audio_launches,
                                   "hybrid_serve": hybrid_launches,
                                   "lowered": lowered_launches,
-                                  "serve_store": serve_launches})
+                                  "serve_store": serve_launches,
+                                  "dist_serve": dist_serve_launches,
+                                  "dist_train": dist_train_launches})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     if args.out:
@@ -3243,11 +3765,12 @@ def main() -> None:
             kernels=rows, main_path=served, rwkv6=rwkv, dense=dense, train=train,
             train_rwkv=rwkv_train,
             moe=moe,
-            audio=audio, hybrid=hybrid, check=check,
+            audio=audio, hybrid=hybrid, check=check, dist=distributed,
             serve=store,
             lowered=dict(records=lowered, entries=entries,
                          by_workload=by_workload)), indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"dist": distributed}))
     print(json.dumps({"check": check}))
     print(json.dumps({"kernels": rows}))
     print(smi)

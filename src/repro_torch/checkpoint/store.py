@@ -9,11 +9,12 @@ and ``manifest.json`` with each leaf's shape and dtype.  Writes go to
 partial checkpoint, and a crash mid-write leaves the previous one intact.
 
 A tree is nested dicts, lists and NamedTuples (``optim.AdamWState``) of
-tensors, numpy arrays or scalars.  ``restore`` is the one-device form of
-the reference's ``restore_sharded``: each leaf is read and placed on the
-device in the dtype of the ``like`` leaf, with its ``requires_grad``; the
-resharded restore onto a mesh belongs to the distributed runtime
-(ROADMAP queue 1 item 8).
+tensors, numpy arrays or scalars.  ``restore`` places each leaf on one
+device in the dtype of the ``like`` leaf, with its ``requires_grad``;
+``restore_sharded`` is the reference's elastic restore: each rank of a mesh
+keeps its block of each leaf under the new mesh's specs, so that a
+checkpoint written by one device, or under any mesh, restores onto any
+mesh whose axes divide its leaves.
 """
 from __future__ import annotations
 
@@ -28,6 +29,9 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.params import PartitionSpec
+from repro_torch.runtime.sharding import local_shard
+
 Tree = Any
 
 _SEP = "__"
@@ -35,8 +39,10 @@ _SEP = "__"
 
 def _items(tree: Tree, path: tuple = ()):
     """(path parts, leaf) in order: dicts by key, NamedTuples by field name,
-    lists and tuples by index."""
-    if isinstance(tree, dict):
+    lists and tuples by index (a ``PartitionSpec`` is a leaf)."""
+    if isinstance(tree, PartitionSpec):
+        yield path, tree
+    elif isinstance(tree, dict):
         for k, v in tree.items():
             yield from _items(v, path + (str(k),))
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -139,6 +145,29 @@ def restore(ckpt_dir: str | Path, like: Tree,
 
     def place(key, leaf):
         t = torch.from_numpy(np.load(src / f"{key}.npy")).to(device)
+        if isinstance(leaf, torch.Tensor):
+            t = t.to(leaf.dtype).requires_grad_(leaf.requires_grad)
+        return t
+
+    return step, _rebuild(like, place)
+
+
+def restore_sharded(ckpt_dir: str | Path, like: Tree, specs: Tree, mesh,
+                    step: Optional[int] = None) -> Tuple[int, Tree]:
+    """Elastic restore onto ``mesh``: (step, tree in ``like``'s structure)
+    whose every leaf is this rank's block (``runtime.sharding.local_shard``)
+    under its spec in ``specs`` (``like``'s structure, a ``PartitionSpec`` a
+    leaf), on the mesh's device, in the dtype of its ``like`` leaf and with
+    its ``requires_grad``.  Each leaf is read from the host file as an
+    array mapped into memory, so the rank copies its block only."""
+    step, src, manifest = _source(Path(ckpt_dir), step)
+    _check_keys(like, manifest)
+    flat_specs = _flatten(specs)
+
+    def place(key, leaf):
+        block = local_shard(np.load(src / f"{key}.npy", mmap_mode="r"),
+                            flat_specs[key], mesh)
+        t = torch.from_numpy(np.array(block)).to(mesh.device)      # a copy
         if isinstance(leaf, torch.Tensor):
             t = t.to(leaf.dtype).requires_grad_(leaf.requires_grad)
         return t

@@ -25,8 +25,9 @@ the capture's host seconds are printed on a line of their own.  The
 printed prefill ms and ms/token are then the replays', timed with CUDA
 events.  This is one deliberate difference from the reference, whose
 ``t_prefill`` (and first decode step) include the compile.  On the CPU the
-eager steps run, timed by the host clock.  One device, no mesh: the
-distributed runtime is ROADMAP queue 1 item 8.
+eager steps run, timed by the host clock.  One device, no mesh: serving
+under a mesh (``runtime.pipeline.data_parallel``'s fan-out, the 'tp'
+profile's specs) is ROADMAP queue 1 item 8c.
 """
 from __future__ import annotations
 

@@ -91,7 +91,8 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def _ln_defs(c: int) -> Params:
-    return {"scale": ParamDef((c,), "ones"), "bias": ParamDef((c,), "zeros")}
+    return {"scale": ParamDef((c,), "ones", axes=("embed",)),
+            "bias": ParamDef((c,), "zeros", axes=("embed",))}
 
 
 # ---------------------------------------------------------------------------
@@ -101,37 +102,38 @@ def _ln_defs(c: int) -> Params:
 
 def _conv_block_defs(c: int, k: int, expan: int) -> Params:
     return {
-        "dw_w": ParamDef((k, k, c)),
-        "dw_b": ParamDef((c,), "zeros"),
+        "dw_w": ParamDef((k, k, c), axes=(None, None, "embed")),
+        "dw_b": ParamDef((c,), "zeros", axes=("embed",)),
         "ln": _ln_defs(c),
-        "pw1_w": ParamDef((c, expan * c)),
-        "pw1_b": ParamDef((expan * c,), "zeros"),
-        "pw2_w": ParamDef((expan * c, c)),
-        "pw2_b": ParamDef((c,), "zeros"),
-        "gamma": ParamDef((c,), "ones", scale=1e-6),
+        "pw1_w": ParamDef((c, expan * c), axes=("embed", "ff")),
+        "pw1_b": ParamDef((expan * c,), "zeros", axes=("ff",)),
+        "pw2_w": ParamDef((expan * c, c), axes=("ff", "embed")),
+        "pw2_b": ParamDef((c,), "zeros", axes=("embed",)),
+        "gamma": ParamDef((c,), "ones", scale=1e-6, axes=("embed",)),
     }
 
 
 def _sdta_defs(c: int, heads: int, scales: int, expan: int) -> Params:
     # hierarchical dw convs act on the (scales-1) later channel splits
     widths = _split_widths(c, scales)
-    dw = [{"w": ParamDef((3, 3, w)), "b": ParamDef((w,), "zeros")}
+    dw = [{"w": ParamDef((3, 3, w), axes=(None, None, "embed")),
+           "b": ParamDef((w,), "zeros", axes=("embed",))}
           for w in widths[1:]]
     return {
         "dw": dw,
         "ln_x": _ln_defs(c),
-        "qkv_w": ParamDef((c, 3 * c)),
-        "qkv_b": ParamDef((3 * c,), "zeros"),
-        "temp": ParamDef((heads, 1, 1), "ones"),
-        "proj_w": ParamDef((c, c)),
-        "proj_b": ParamDef((c,), "zeros"),
-        "gamma_x": ParamDef((c,), "ones", scale=1e-6),
+        "qkv_w": ParamDef((c, 3 * c), axes=("embed", "ff")),
+        "qkv_b": ParamDef((3 * c,), "zeros", axes=("ff",)),
+        "temp": ParamDef((heads, 1, 1), "ones", axes=(None, None, None)),
+        "proj_w": ParamDef((c, c), axes=("ff", "embed")),
+        "proj_b": ParamDef((c,), "zeros", axes=("embed",)),
+        "gamma_x": ParamDef((c,), "ones", scale=1e-6, axes=("embed",)),
         "ln_m": _ln_defs(c),
-        "pw1_w": ParamDef((c, expan * c)),
-        "pw1_b": ParamDef((expan * c,), "zeros"),
-        "pw2_w": ParamDef((expan * c, c)),
-        "pw2_b": ParamDef((c,), "zeros"),
-        "gamma_m": ParamDef((c,), "ones", scale=1e-6),
+        "pw1_w": ParamDef((c, expan * c), axes=("embed", "ff")),
+        "pw1_b": ParamDef((expan * c,), "zeros", axes=("ff",)),
+        "pw2_w": ParamDef((expan * c, c), axes=("ff", "embed")),
+        "pw2_b": ParamDef((c,), "zeros", axes=("embed",)),
+        "gamma_m": ParamDef((c,), "ones", scale=1e-6, axes=("embed",)),
     }
 
 
@@ -159,19 +161,20 @@ def param_defs(cfg: EdgeNeXtConfig) -> Params:
                             for _ in range(cfg.sdta_blocks[si])],
         }
         if si == 0:
-            stage["down_w"] = ParamDef((4, 4, cfg.in_channels, c))
-            stage["down_b"] = ParamDef((c,), "zeros")
+            stage["down_w"] = ParamDef((4, 4, cfg.in_channels, c),
+                                       axes=(None, None, None, "embed"))
+            stage["down_b"] = ParamDef((c,), "zeros", axes=("embed",))
         else:
             cp = cfg.dims[si - 1]
             stage["down_ln"] = _ln_defs(cp)
-            stage["down_w"] = ParamDef((2, 2, cp, c))
-            stage["down_b"] = ParamDef((c,), "zeros")
+            stage["down_w"] = ParamDef((2, 2, cp, c), axes=(None, None, "embed", "ff"))
+            stage["down_b"] = ParamDef((c,), "zeros", axes=("ff",))
         stages.append(stage)
     return {
         "stages": stages,
         "head_ln": _ln_defs(cfg.dims[-1]),
-        "head_w": ParamDef((cfg.dims[-1], cfg.num_classes)),
-        "head_b": ParamDef((cfg.num_classes,), "zeros"),
+        "head_w": ParamDef((cfg.dims[-1], cfg.num_classes), axes=("embed", "vocab")),
+        "head_b": ParamDef((cfg.num_classes,), "zeros", axes=("vocab",)),
     }
 
 

@@ -8,8 +8,10 @@ dtype, RoPE rotates in float32, the projections, the MLP and the experts
 are products in the compute dtype (``torch.matmul`` / ``torch.bmm``, as
 they are XLA's in the JAX package), the router's logits are cast to
 float32 after their product, ``lm_logits`` is a float32 product with the
-unembedding.  The reference's ``actshard`` anchors are left out:
-one device (the distributed runtime is item 8).  Prefill attention goes
+unembedding.  The reference's ``actshard`` anchors stand where it calls
+them (each returns its input: a rank holds its block already).
+``moe_apply_auto`` takes the expert-parallel MoE (``models.moe_sharded``)
+under a mesh, as the reference does.  Prefill attention goes
 through ``kernels.flash_attention`` (``models.attention``); decode
 attention is plain tensor code, as in the JAX package.
 """
@@ -23,6 +25,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import actshard
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.params import ParamDef
 
@@ -31,12 +34,13 @@ Params = Dict[str, Any]
 
 def norm_defs(cfg: ModelConfig, layers_dim: Tuple[int, ...] = ()) -> Params:
     d = cfg.d_model
+    ax = ("layers",) * len(layers_dim)
     if cfg.norm == "rmsnorm":
-        return {"scale": ParamDef(layers_dim + (d,), "ones")}
+        return {"scale": ParamDef(layers_dim + (d,), "ones", axes=ax + ("embed",))}
     if cfg.norm == "layernorm":
         return {
-            "scale": ParamDef(layers_dim + (d,), "ones"),
-            "bias": ParamDef(layers_dim + (d,), "zeros"),
+            "scale": ParamDef(layers_dim + (d,), "ones", axes=ax + ("embed",)),
+            "bias": ParamDef(layers_dim + (d,), "zeros", axes=ax + ("embed",)),
         }
     if cfg.norm == "nonparam_ln":  # OLMo: LN without learnable params
         return {}
@@ -96,10 +100,11 @@ def mlp_defs(cfg: ModelConfig, layers_dim: Tuple[int, ...] = (),
              d_ff: Optional[int] = None) -> Params:
     d = d_model or cfg.d_model
     f = d_ff or cfg.d_ff
-    defs: Params = {"wi": ParamDef(layers_dim + (d, f)),
-                    "wo": ParamDef(layers_dim + (f, d))}
+    ax = ("layers",) * len(layers_dim)
+    defs: Params = {"wi": ParamDef(layers_dim + (d, f), axes=ax + ("embed", "ff")),
+                    "wo": ParamDef(layers_dim + (f, d), axes=ax + ("ff", "embed"))}
     if cfg.mlp in ("swiglu", "geglu"):
-        defs["wg"] = ParamDef(layers_dim + (d, f))
+        defs["wg"] = ParamDef(layers_dim + (d, f), axes=ax + ("embed", "ff"))
     return defs
 
 
@@ -144,24 +149,37 @@ def mlp_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
 def moe_defs(cfg: ModelConfig, layers_dim: Tuple[int, ...] = ()) -> Params:
     m = cfg.moe
     d, e, f = cfg.d_model, m.num_experts_padded, m.d_ff_expert
-    defs: Params = {"router": ParamDef(layers_dim + (d, e)),
-                    "wi": ParamDef(layers_dim + (e, d, f)),
-                    "wo": ParamDef(layers_dim + (e, f, d))}
+    ax = ("layers",) * len(layers_dim)
+    defs: Params = {"router": ParamDef(layers_dim + (d, e), axes=ax + ("embed", "expert")),
+                    "wi": ParamDef(layers_dim + (e, d, f),
+                                   axes=ax + ("expert", "embed", "ff")),
+                    "wo": ParamDef(layers_dim + (e, f, d),
+                                   axes=ax + ("expert", "ff", "embed"))}
     if cfg.mlp in ("swiglu", "geglu"):
-        defs["wg"] = ParamDef(layers_dim + (e, d, f))
+        defs["wg"] = ParamDef(layers_dim + (e, d, f),
+                              axes=ax + ("expert", "embed", "ff"))
     if m.num_shared_experts:
         defs["shared"] = mlp_defs(cfg, layers_dim, d_model=d, d_ff=m.d_ff_shared)
-        defs["shared_gate"] = ParamDef(layers_dim + (d, 1))
+        defs["shared_gate"] = ParamDef(layers_dim + (d, 1), axes=ax + ("embed", None))
     return defs
 
 
 def moe_apply_auto(cfg: ModelConfig, params: Params, x: torch.Tensor,
                    capacity_factor: float = 1.25
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MoE block as the models call it.  The reference picks its
-    shard-local form under a production mesh; the port has no mesh until
-    the distributed runtime (ROADMAP queue 1 item 8), so this is always
-    the plain ``moe_apply``."""
+    """The MoE block as the models call it: the expert-parallel form
+    (``moe_sharded.moe_apply_sharded``) where a mesh with a 'model' axis is
+    installed (``actshard.set_mesh``) under the '2d' or 'tp' profile and
+    the padded experts divide that axis, else the plain ``moe_apply``, as
+    the reference picks."""
+    mesh = actshard.current_mesh()
+    if mesh is not None and "model" in mesh.axis_names \
+            and actshard.current_profile() in ("2d", "tp"):
+        sizes = dict(zip(mesh.axis_names, mesh.shape))
+        if cfg.moe.num_experts_padded % sizes["model"] == 0:
+            from repro_torch.models import moe_sharded
+            return moe_sharded.moe_apply_sharded(
+                cfg, params, x, mesh=mesh, capacity_factor=capacity_factor)
     return moe_apply(cfg, params, x, capacity_factor=capacity_factor)
 
 
@@ -307,15 +325,16 @@ def positional_rotate(cfg: ModelConfig, x: torch.Tensor,
 def attention_defs(cfg: ModelConfig, layers_dim: Tuple[int, ...] = ()) -> Params:
     d = cfg.d_model
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ax = ("layers",) * len(layers_dim)
     defs: Params = {
-        "wq": ParamDef(layers_dim + (d, h, hd)),
-        "wk": ParamDef(layers_dim + (d, hk, hd)),
-        "wv": ParamDef(layers_dim + (d, hk, hd)),
-        "wo": ParamDef(layers_dim + (h, hd, d)),
+        "wq": ParamDef(layers_dim + (d, h, hd), axes=ax + ("embed", "heads", None)),
+        "wk": ParamDef(layers_dim + (d, hk, hd), axes=ax + ("embed", "kv_heads", None)),
+        "wv": ParamDef(layers_dim + (d, hk, hd), axes=ax + ("embed", "kv_heads", None)),
+        "wo": ParamDef(layers_dim + (h, hd, d), axes=ax + ("heads", None, "embed")),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef(layers_dim + (hd,), "ones")
-        defs["k_norm"] = ParamDef(layers_dim + (hd,), "ones")
+        defs["q_norm"] = ParamDef(layers_dim + (hd,), "ones", axes=ax + (None,))
+        defs["k_norm"] = ParamDef(layers_dim + (hd,), "ones", axes=ax + (None,))
     return defs
 
 
@@ -384,7 +403,8 @@ def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
                           kv_positions=kv_positions)
     k, v = expand_kv(cfg, k, v)
     o = attn_lib.flash_attention(q, k, v, causal_, window_, kernels=kernels)
-    return out_project(params, o, x.dtype)
+    o = actshard.attn_out_sharded(o)
+    return actshard.batch_sharded(out_project(params, o, x.dtype))
 
 
 def attention_decode_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
@@ -426,9 +446,10 @@ def attention_decode_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
 def embedding_defs(cfg: ModelConfig) -> Params:
     v = cfg.padded_vocab
-    defs: Params = {"embedding": ParamDef((v, cfg.d_model), "embed", scale=1.0)}
+    defs: Params = {"embedding": ParamDef((v, cfg.d_model), "embed", scale=1.0,
+                                          axes=("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        defs["unembed"] = ParamDef((cfg.d_model, v))
+        defs["unembed"] = ParamDef((cfg.d_model, v), axes=("embed", "vocab"))
     return defs
 
 

@@ -1,0 +1,133 @@
+"""Expert-parallel MoE with shard-local dispatch: port of
+``repro/models/moe_sharded.py``.
+
+The JAX module runs the layer under ``shard_map`` so that the dispatch
+never crosses a device; here each rank runs that body itself:
+
+  per data shard (the rank's tokens):
+    router -> top k -> capacity scatter into a local [E, C_loc, d] buffer
+    (no collective)
+  per model shard (the rank's experts):
+    experts e0 ... e0 + E/tp of the rank's 'model' coordinate
+  combine:
+    each rank's partial output for its experts' claims, plus its ff slice
+    of the shared experts, then one ``psum`` over 'model'.
+
+The auxiliary loss is taken over the rank's tokens and averaged over the
+dp axes.  Gradients flow through the collectives' adjoints
+(``runtime.collectives``): the mean of the ranks' gradients over the mesh
+is autograd of the plain ``layers.moe_apply``.  The dispatch sums claims
+with ``index_add_`` and gathers with ``index_select``, as the plain layer
+does; on the card both sum by atomics in the backward, so two equal
+backward passes may differ in their last bits (ROADMAP queue 3).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.runtime import collectives as C
+
+Params = Dict[str, Any]
+
+
+def _local_moe(cfg: ModelConfig, capacity_factor: float, mesh,
+               dp_axes: Tuple[str, ...], x: torch.Tensor, params: Params
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's body.  x: [N_loc, d], the rank's tokens; ``params`` the
+    layer's whole tree, of which the rank reads its experts and its ff
+    slice of the shared experts.  Returns (out [N_loc, d] after the psum
+    over 'model', aux)."""
+    m = cfg.moe
+    tp = mesh.sizes["model"]
+    e_pad, e_real, k = m.num_experts_padded, m.num_experts, m.top_k
+    n, d = x.shape
+    dtype, dev = x.dtype, x.device
+    e_per = e_pad // tp
+    capacity = int(max(1, (k * n * capacity_factor) // e_pad))
+
+    # routing: the same on every model shard, local to the data shard
+    probs, gate_vals, expert_idx = L.moe_route(cfg, params["router"], x)
+
+    # aux loss over the local tokens, then averaged over dp
+    me = probs[:, :e_real].mean(0)
+    ce = torch.zeros(e_pad, dtype=torch.float32, device=dev).index_add_(
+        0, expert_idx.reshape(-1),
+        torch.full((n * k,), 1.0 / (n * k), dtype=torch.float32, device=dev))
+    aux = e_real * torch.sum(me * ce[:e_real])
+    for ax in dp_axes:
+        aux = C.pmean(aux, mesh, ax)
+
+    # capacity-bounded dispatch, all local (as ``layers.moe_apply``)
+    flat_e = expert_idx.reshape(-1)                               # [N*k]
+    onehot_t = flat_e[None, :] == torch.arange(e_pad, device=dev)[:, None]
+    pos = onehot_t.cumsum(1).gather(0, flat_e[None, :])[0] - 1
+    keep = pos < capacity
+    sentinel = e_pad * capacity
+    slot = torch.where(keep, flat_e * capacity + pos, sentinel)
+    token_idx = torch.arange(n, device=dev).repeat_interleave(k)
+    buf = torch.zeros(sentinel + 1, d, dtype=dtype, device=dev).index_copy(
+        0, slot, x[token_idx])[:sentinel].view(e_pad, capacity, d)
+
+    # the experts of this model shard
+    e0 = C.axis_index(mesh, "model") * e_per
+    experts = slice(e0, e0 + e_per)
+    buf_l = buf[experts]
+    h = torch.bmm(buf_l, params["wi"][experts].to(dtype))
+    if "wg" in params:
+        h = L.activation(cfg.mlp, torch.bmm(buf_l, params["wg"][experts].to(dtype))) * h
+    else:
+        h = L.activation(cfg.mlp, h)
+    eo_flat = torch.bmm(h, params["wo"][experts].to(dtype)).reshape(e_per * capacity, d)
+
+    # combine: the partials of the claims on this shard's experts, a choice
+    # at a time
+    flat_e, pos, keep = flat_e.view(n, k), pos.view(n, k), keep.view(n, k)
+    out = torch.zeros(n, d, dtype=dtype, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    for j in range(k):
+        in_shard = (flat_e[:, j] >= e0) & (flat_e[:, j] < e0 + e_per) & keep[:, j]
+        local_slot = torch.where(in_shard, (flat_e[:, j] - e0) * capacity + pos[:, j],
+                                 e_per * capacity - 1)
+        gathered = torch.where(in_shard[:, None], eo_flat.index_select(0, local_slot),
+                               zero)
+        out = out + gathered * gate_vals[:, j:j + 1].to(dtype)
+
+    # the shared experts' ff slice: its partial joins the same psum
+    if "shared" in params:
+        shared = params["shared"]
+        f_per = shared["wi"].shape[-1] // tp
+        ff = slice(C.axis_index(mesh, "model") * f_per,
+                   (C.axis_index(mesh, "model") + 1) * f_per)
+        hs = x @ shared["wi"][:, ff].to(dtype)
+        if "wg" in shared:
+            hs = L.activation(cfg.mlp, x @ shared["wg"][:, ff].to(dtype)) * hs
+        else:
+            hs = L.activation(cfg.mlp, hs)
+        so = hs @ shared["wo"][ff].to(dtype)
+        if "shared_gate" in params:
+            sg = torch.sigmoid((x @ params["shared_gate"].to(dtype)).float())
+            so = so * sg.to(dtype)
+        out = out + so
+
+    return C.psum(out, mesh, "model"), aux
+
+
+def moe_apply_sharded(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+                      mesh, capacity_factor: float = 1.25
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel MoE layer on this rank.  x: [..., N, d], the
+    rank's block of the batch (its dp shard); returns (out of x's shape,
+    aux averaged over the dp axes)."""
+    sizes = mesh.sizes
+    tp = sizes.get("model", 1)
+    dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    if cfg.moe.num_experts_padded % tp:
+        raise ValueError(f"moe_apply_sharded: {cfg.moe.num_experts_padded} "
+                         f"padded experts over model={tp}")
+    out, aux = _local_moe(cfg, capacity_factor, mesh, dp_axes,
+                          x.reshape(-1, x.shape[-1]), params)
+    return out.reshape(x.shape), aux

@@ -14,15 +14,25 @@ layouts as the JAX package (``stages[i].conv_blocks[j].dw_w`` is
                         into a tree of tensors (``load_cast``: and casts
                         a model's compute-dtype leaves once)
 - ``count_params``
+- ``param_pspecs``    : a ``PartitionSpec`` a leaf, from the leaf's logical
+                        axes and the logical -> mesh axis rules
 
-The logical-axis / ``PartitionSpec`` half of the JAX module belongs to
-the distributed runtime and is not ported yet.
+Logical axis names, as in the JAX package:
+
+  ``embed``    d_model rows of weight matrices         -> FSDP axis ("data")
+  ``ff``       FFN hidden / per-head fanout columns    -> TP axis ("model")
+  ``heads``    attention Q-head dim                    -> TP axis ("model")
+  ``kv_heads`` attention KV-head dim                   -> TP axis iff divisible
+  ``vocab``    vocabulary dim                          -> TP axis ("model")
+  ``expert``   MoE expert dim                          -> TP axis (expert parallel)
+  ``layers``   stacked-layer dim                       -> never sharded
+  ``null``     anything else                           -> never sharded
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +45,18 @@ class ParamDef:
     shape: Tuple[int, ...]
     init: str = "normal"           # normal | zeros | ones | embed | uniform_decay
     scale: Optional[float] = None  # stddev override; default fan-in scaling
+    axes: Optional[Tuple[Optional[str], ...]] = None   # logical axis a dim
+
+    def __post_init__(self):
+        if self.axes is not None and len(self.axes) != len(self.shape):
+            raise ValueError(f"ParamDef: axes {self.axes} for shape {self.shape}")
 
 
 def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree,
              path: str = "") -> Tree:
     """Maps ``fn(leaf, *rest_leaves, path=...)`` over nested dicts/lists;
-    ``rest`` must have the structure of ``tree``."""
+    ``rest`` must have the structure of ``tree``.  A ``PartitionSpec`` is a
+    leaf."""
     if isinstance(tree, dict):
         for r in rest:
             if not isinstance(r, dict) or set(r) != set(tree):
@@ -49,7 +65,7 @@ def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree,
         return {k: tree_map(fn, v, *[r[k] for r in rest],
                             path=f"{path}.{k}" if path else k)
                 for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PartitionSpec):
         for r in rest:
             if not isinstance(r, (list, tuple)) or len(r) != len(tree):
                 raise ValueError(f"structure differs at '{path}'")
@@ -155,3 +171,105 @@ def per_layer(blocks: Tree, n: int) -> list:
 
 def count_params(defs: Tree) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(defs))
+
+
+# ---------------------------------------------------------------------------
+# Logical axis -> mesh axis rules
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """A leaf's layout over a mesh: one entry a dim, each ``None``
+    (replicated), a mesh axis name, or a tuple of names (the dim split over
+    their product, the first name outermost).  Immutable; ``tuple(spec)``
+    equals ``tuple(...)`` of the JAX package's spec for the same layout."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+DEFAULT_RULES: Dict[str, Optional[str]] = {
+    "embed": "data",      # FSDP / ZeRO weight sharding
+    "ff": "model",        # tensor parallel
+    "heads": "model",
+    "kv_heads": "model",  # demoted to None when not divisible (resolve_rules)
+    "vocab": "model",
+    "expert": "model",    # expert parallel
+    "layers": None,
+    "null": None,
+    "seq": None,
+}
+
+
+def tree_map_defs(fn: Callable[[ParamDef], Any], defs: Tree) -> Tree:
+    return tree_map(lambda d, path: fn(d), defs)
+
+
+def resolve_rules(mesh_axis_sizes: Dict[str, int], *, kv_heads: int = 0,
+                  num_heads: int = 0, fsdp_axes: Any = "data",
+                  tp_axis: Optional[str] = "model") -> Dict[str, Any]:
+    """``DEFAULT_RULES`` specialised to a mesh and an arch.  ``fsdp_axes``
+    may be a tuple (the whole mesh as one ZeRO axis) or None (weights
+    replicated over the dp axes); ``tp_axis=None`` replicates heads, ff,
+    vocab and experts; a head count that the TP axis does not divide is
+    replicated."""
+    rules: Dict[str, Any] = dict(DEFAULT_RULES)
+    rules["embed"] = fsdp_axes
+    for k in ("ff", "heads", "kv_heads", "vocab", "expert"):
+        rules[k] = tp_axis
+    tp = mesh_axis_sizes.get(tp_axis, 1) if tp_axis else 1
+    if kv_heads and tp > 1 and kv_heads % tp != 0:
+        rules["kv_heads"] = None
+    if num_heads and tp > 1 and num_heads % tp != 0:
+        rules["heads"] = None
+    return rules
+
+
+def _rule_size(rule, sizes: Dict[str, int]) -> int:
+    if rule is None:
+        return 1
+    if isinstance(rule, tuple):
+        return math.prod(sizes.get(a, 1) for a in rule)
+    return sizes.get(rule, 1)
+
+
+def _axes(d: ParamDef) -> Tuple[Optional[str], ...]:
+    if d.axes is None:
+        raise ValueError(f"ParamDef {d.shape} has no logical axes")
+    return d.axes
+
+
+def _leaf_pspec(d: ParamDef, rules: Dict[str, Any]) -> PartitionSpec:
+    """A mesh axis shards at most one dim of a leaf: the first that asks."""
+    spec, used = [], set()
+    for ax in _axes(d):
+        mesh_ax = rules.get(ax or "null")
+        atoms = (mesh_ax if isinstance(mesh_ax, tuple)
+                 else (mesh_ax,) if mesh_ax else ())
+        if mesh_ax is None or used & set(atoms):
+            spec.append(None)
+        else:
+            spec.append(mesh_ax)
+            used |= set(atoms)
+    return PartitionSpec(*spec)
+
+
+def param_pspecs(defs: Tree, rules: Dict[str, Any]) -> Tree:
+    return tree_map_defs(lambda d: _leaf_pspec(d, rules), defs)
+
+
+def validate_pspecs(defs: Tree, rules: Dict[str, Any],
+                    mesh_axis_sizes: Dict[str, int]) -> None:
+    """Raises ``ValueError`` where a sharded dim is not divisible by the
+    size of its mesh axes."""
+    def check(d: ParamDef):
+        for dim, ax in zip(d.shape, _leaf_pspec(d, rules)):
+            n = _rule_size(ax, mesh_axis_sizes)
+            if ax is not None and dim % n != 0:
+                raise ValueError(
+                    f"param {d.shape} axis {ax} size {dim} not divisible "
+                    f"by mesh axes {ax} ({n})")
+    tree_map_defs(check, defs)

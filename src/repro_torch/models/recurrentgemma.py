@@ -66,16 +66,16 @@ def _recurrent_defs(cfg: ModelConfig) -> Params:
     d, w = cfg.d_model, cfg.lru_width
     cw = cfg.conv1d_width
     return {
-        "wy": ParamDef((d, w)),
-        "wx": ParamDef((d, w)),
-        "conv_w": ParamDef((cw, w)),
-        "conv_b": ParamDef((w,), "zeros"),
-        "gate_i": ParamDef((w, w)),
-        "gate_i_b": ParamDef((w,), "zeros"),
-        "gate_r": ParamDef((w, w)),
-        "gate_r_b": ParamDef((w,), "zeros"),
-        "lam": ParamDef((w,), "uniform_decay"),
-        "wo": ParamDef((w, d)),
+        "wy": ParamDef((d, w), axes=("embed", "ff")),
+        "wx": ParamDef((d, w), axes=("embed", "ff")),
+        "conv_w": ParamDef((cw, w), axes=(None, "ff")),
+        "conv_b": ParamDef((w,), "zeros", axes=("ff",)),
+        "gate_i": ParamDef((w, w), axes=(None, "ff")),
+        "gate_i_b": ParamDef((w,), "zeros", axes=("ff",)),
+        "gate_r": ParamDef((w, w), axes=(None, "ff")),
+        "gate_r_b": ParamDef((w,), "zeros", axes=("ff",)),
+        "lam": ParamDef((w,), "uniform_decay", axes=("ff",)),
+        "wo": ParamDef((w, d), axes=("ff", "embed")),
     }
 
 

@@ -68,32 +68,34 @@ def param_defs(cfg: ModelConfig) -> Params:
     h = d // cfg.wkv_head_dim
     k = cfg.wkv_head_dim
     ld = (cfg.num_layers,)
+    ax = ("layers",)
 
     def vec(init="zeros"):
-        return ParamDef(ld + (d,), init)
+        return ParamDef(ld + (d,), init, axes=ax + ("embed",))
 
     tm = {
         "maa_x": vec(), "maa_w": vec(), "maa_k": vec(), "maa_v": vec(),
         "maa_r": vec(), "maa_g": vec(),
-        "maa_w1": ParamDef(ld + (d, 5 * LORA_MIX)),
-        "maa_w2": ParamDef(ld + (5, LORA_MIX, d)),
-        "decay": ParamDef(ld + (d,), "uniform_decay"),
-        "td_w1": ParamDef(ld + (d, LORA_DECAY)),
-        "td_w2": ParamDef(ld + (LORA_DECAY, d)),
-        "faaaa": ParamDef(ld + (h, k)),
-        "wr": ParamDef(ld + (d, d)),
-        "wk": ParamDef(ld + (d, d)),
-        "wv": ParamDef(ld + (d, d)),
-        "wg": ParamDef(ld + (d, d)),
-        "wo": ParamDef(ld + (d, d)),
-        "lnx_scale": ParamDef(ld + (d,), "ones"),
-        "lnx_bias": ParamDef(ld + (d,), "zeros"),
+        "maa_w1": ParamDef(ld + (d, 5 * LORA_MIX), axes=ax + ("embed", None)),
+        "maa_w2": ParamDef(ld + (5, LORA_MIX, d), axes=ax + (None, None, "embed")),
+        "decay": ParamDef(ld + (d,), "uniform_decay", axes=ax + ("embed",)),
+        "td_w1": ParamDef(ld + (d, LORA_DECAY), axes=ax + ("embed", None)),
+        "td_w2": ParamDef(ld + (LORA_DECAY, d), axes=ax + (None, "embed")),
+        "faaaa": ParamDef(ld + (h, k), axes=ax + ("heads", None)),
+        "wr": ParamDef(ld + (d, d), axes=ax + ("embed", "ff")),
+        "wk": ParamDef(ld + (d, d), axes=ax + ("embed", "ff")),
+        "wv": ParamDef(ld + (d, d), axes=ax + ("embed", "ff")),
+        "wg": ParamDef(ld + (d, d), axes=ax + ("embed", "ff")),
+        "wo": ParamDef(ld + (d, d), axes=ax + ("ff", "embed")),
+        # ln_x acts on the head-grouped dim: sharded as the heads are
+        "lnx_scale": ParamDef(ld + (d,), "ones", axes=ax + ("ff",)),
+        "lnx_bias": ParamDef(ld + (d,), "zeros", axes=ax + ("ff",)),
     }
     cm = {
         "maa_k": vec(), "maa_r": vec(),
-        "wk": ParamDef(ld + (d, f)),
-        "wv": ParamDef(ld + (f, d)),
-        "wr": ParamDef(ld + (d, d)),
+        "wk": ParamDef(ld + (d, f), axes=ax + ("embed", "ff")),
+        "wv": ParamDef(ld + (f, d), axes=ax + ("ff", "embed")),
+        "wr": ParamDef(ld + (d, d), axes=ax + ("embed", "ff")),
     }
     block = {
         "ln1": L.norm_defs(cfg, ld), "tm": tm,

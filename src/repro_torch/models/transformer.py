@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import actshard
 from repro_torch.models import layers as L
 from repro_torch.models.params import load_cast, per_layer
 
@@ -131,21 +132,24 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     mean over the layers, 0 without MoE).  ``remat``: each block under
     ``layers.remat_call`` (training)."""
     x, positions = _embed_inputs(cfg, params, batch)
+    x = actshard.batch_sharded(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(bp, x):
+        x = actshard.batch_sharded(x)
         return _block(cfg, bp, x, positions, kernels=kernels,
                       ibn_chunks=ibn_chunks, moe_capacity=moe_capacity)
 
     for bp in per_layer(params["blocks"], cfg.num_layers):
         x, aux_i = L.remat_call(block, bp, x, remat=remat)
         aux = aux + aux_i
+    x = actshard.batch_sharded(x)
     x = L.norm_apply(cfg, params["ln_f"], x)
     return x, aux / cfg.num_layers
 
 
 def logits_fn(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    return L.lm_logits(params["embed"], hidden)
+    return actshard.logits_sharded(L.lm_logits(params["embed"], hidden))
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +182,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     banded = cfg.window is not None and cfg.window < S
     ks, vs = [], []
     for bp in per_layer(params["blocks"], cfg.num_layers):
+        x = actshard.batch_sharded(x)
         h = L.norm_apply(cfg, bp["ln1"], x)
         q, k, v = L.qkv_project(cfg, bp["attn"], h, positions)
         kr, vr = L.expand_kv(cfg, k, v)
@@ -187,7 +192,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         else:
             o = L.attn_lib.flash_attention(q, kr, vr, cfg.causal, cfg.window,
                                            kernels=kernels)
-        x = x + L.out_project(bp["attn"], o, x.dtype)
+        o = actshard.attn_out_sharded(o)
+        x = x + actshard.batch_sharded(L.out_project(bp["attn"], o, x.dtype))
         h = L.norm_apply(cfg, bp["ln2"], x)
         x = x + _ffn(cfg, bp, h)[0]
         if banded:

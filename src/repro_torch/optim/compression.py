@@ -1,9 +1,9 @@
-"""Int8 gradient compression with error feedback, the local half of
-``repro/optim/compression.py``: quantize, dequantize, quantize with the
+"""Int8 gradient compression with error feedback: port of
+``repro/optim/compression.py``.  Quantize, dequantize, quantize with the
 carried residual (so that compression error does not bias the gradient
-direction), and the zero residual tree.  The compressed all-reduce across
-pods (``compressed_pod_allreduce``) belongs to the distributed runtime,
-ROADMAP queue 1 item 8."""
+direction), the zero residual tree, and ``compressed_pod_allreduce``, the
+mean of the pods' partial gradients over the ``pod`` axis of a mesh, each
+pod's partial quantized with its residual."""
 from __future__ import annotations
 
 from typing import Any, Tuple
@@ -11,6 +11,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.models.params import tree_map
+from repro_torch.runtime import collectives
 
 Tree = Any
 
@@ -39,3 +40,32 @@ def quantize_with_feedback(x: torch.Tensor, residual: torch.Tensor
 def init_feedback(grads: Tree) -> Tree:
     return tree_map(lambda g, path: torch.zeros(g.shape, dtype=torch.float32,
                                                 device=g.device), grads)
+
+
+def compressed_pod_allreduce(pod_grads: Tree, feedback: Tree, mesh
+                             ) -> Tuple[Tree, Tree]:
+    """Mean-reduce the pods' partial gradients over the ``pod`` axis, int8
+    with error feedback, on this rank.
+
+    Each leaf is the rank's block of a [npods, ...] tree sharded over
+    ``pod`` (a leading dim of 1: ``runtime.sharding.local_shard`` under
+    ``P("pod", None, ...)``), and so is each residual.  The pod quantizes
+    its partial with its carried residual, and the dequantized partials are
+    summed over the axis (a float32 all-reduce, as the reference's
+    ``psum`` of the dequantized values).  Returns (the mean, in the
+    gradient's dtype, and the new residual), both [1, ...] blocks."""
+    if "pod" not in mesh.axis_names:
+        raise ValueError(f"compressed_pod_allreduce: no 'pod' axis in "
+                         f"{mesh.axis_names}")
+    npods = mesh.sizes["pod"]
+
+    out = {}
+
+    def leaf(g, r, path):
+        q, scale, new_r = quantize_with_feedback(g[0], r[0])
+        summed = collectives.psum(dequantize_int8(q, scale), mesh, "pod")
+        out[path] = ((summed / npods).to(g.dtype)[None], new_r[None])
+
+    tree_map(leaf, pod_grads, feedback)
+    return (tree_map(lambda g, path: out[path][0], pod_grads),
+            tree_map(lambda g, path: out[path][1], pod_grads))

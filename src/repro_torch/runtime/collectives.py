@@ -1,0 +1,169 @@
+"""Collectives over one axis of a ``launch.mesh.Mesh``: the port's
+counterparts of ``lax.psum``, ``lax.pmean``, ``lax.all_gather``,
+``lax.ppermute`` and ``lax.axis_index`` inside a ``shard_map`` body, over
+the axis's process group.
+
+Where a gradient flows through them they are ``torch.autograd.Function``s
+whose backward is the forward's adjoint: ``psum``'s is ``psum``,
+``all_gather``'s the sum of the gradients over the axis cut to this rank's
+slice, ``ppermute``'s the reverse permutation.  So the gradient each rank
+computes is that of the SUM over the ranks of each rank's loss, its share
+of it: the gradient of the ranks' mean loss is the mean of the ranks'
+gradients over every mesh axis (``mesh_mean``).  Ranks that hold the same
+value (a replicated result) count it once each, so the mean over them
+counts it once: the truth the sharded code is held to is autograd of the
+plain one-device function.
+
+A collective over an axis of one rank is its input: nothing is sent (a
+(1, 1) mesh's step is the one-device step, bit for bit).
+
+Under gloo a CUDA tensor goes through an explicit copy to the host for
+every collective (gloo takes CUDA tensors for ``all_reduce`` and
+``broadcast`` only, and stages those through the host itself), so that
+one path, the one the CPU runs, carries them all; ``host_staged_bytes``
+counts the bytes of those copies, both ways.  Under NCCL tensors stay on
+the card.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+host_staged_bytes = 0
+
+
+def _staged(x: torch.Tensor, mesh) -> bool:
+    return x.is_cuda and mesh.backend == "gloo"
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    global host_staged_bytes
+    host_staged_bytes += x.numel() * x.element_size()
+    return x.cpu()
+
+
+def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    global host_staged_bytes
+    host_staged_bytes += x.numel() * x.element_size()
+    return x.to(device)
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis`` (``lax.axis_index``)."""
+    return mesh.coords[axis]
+
+
+def _all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    staged = _staged(x, mesh)
+    out = (_to_host(x.detach().contiguous()) if staged
+           else x.detach().clone(memory_format=torch.contiguous_format))
+    dist.all_reduce(out, group=mesh.groups[axis])
+    return _to_device(out, x.device) if staged else out
+
+
+def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    src = x.detach().contiguous()
+    if _staged(src, mesh):
+        src = _to_host(src)
+    parts = [torch.empty_like(src) for _ in range(mesh.sizes[axis])]
+    dist.all_gather(parts, src, group=mesh.groups[axis])
+    out = torch.cat(parts, dim)
+    return _to_device(out, x.device) if _staged(x, mesh) else out
+
+
+def _permute(x: torch.Tensor, mesh, axis: str,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Sends this rank's ``x`` to the coordinate ``perm`` maps it to and
+    returns what arrives; zeros where nothing is sent to this rank."""
+    me = mesh.coords[axis]
+    ranks = mesh.axis_ranks[axis]
+    src = x.detach().contiguous()
+    out = torch.zeros_like(src)
+    staged = _staged(src, mesh)
+    send = src if not staged else _to_host(src)
+    recv = out if not staged else torch.zeros_like(send)
+    ops: List[dist.P2POp] = []
+    for s, d in perm:
+        if s == me and d == me:
+            recv.copy_(send)
+        elif s == me:
+            ops.append(dist.P2POp(dist.isend, send, ranks[d]))
+        elif d == me:
+            ops.append(dist.P2POp(dist.irecv, recv, ranks[s]))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return _to_device(recv, x.device) if staged else recv
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, x.shape[dim]
+        return _all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = _all_reduce(g, ctx.mesh, ctx.axis)
+        me = ctx.mesh.coords[ctx.axis]
+        return total.narrow(ctx.dim, me * ctx.n, ctx.n), None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        return _permute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(d, s) for s, d in ctx.perm]
+        return _permute(g, ctx.mesh, ctx.axis, back), None, None, None
+
+
+def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over the axis, on every rank of it."""
+    if mesh.sizes[axis] == 1:
+        return x
+    return _PSum.apply(x, mesh, axis)
+
+
+def pmean(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The mean of ``x`` over the axis, on every rank of it."""
+    return psum(x, mesh, axis) / mesh.sizes[axis]
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in the order of their
+    coordinate (``lax.all_gather(..., tiled=True)``)."""
+    if mesh.sizes[axis] == 1:
+        return x
+    return _AllGather.apply(x, mesh, axis, dim)
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute``: each (source, destination) pair of coordinates
+    sends the source's ``x`` to the destination; a rank that receives
+    nothing gets zeros."""
+    return _PPermute.apply(x, mesh, axis, tuple(perm))
+
+
+def mesh_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``x`` over every mesh axis, outermost first."""
+    for a in mesh.axis_names:
+        x = pmean(x, mesh, a)
+    return x

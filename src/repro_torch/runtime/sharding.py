@@ -1,0 +1,254 @@
+"""Mesh-aware sharding rules for parameters, batches and decode caches:
+port of ``repro/runtime/sharding.py``.
+
+Axis strategy, as in the JAX package:
+  - ``pod``   : pure data parallelism (batch only; weights replicated
+                across pods)
+  - ``data``  : batch DP + FSDP/ZeRO weight and optimizer sharding
+  - ``model`` : tensor parallel (heads / d_ff / vocab / experts) and
+                sequence-parallel KV caches for decode
+Divisibility fallbacks (a batch that dp does not divide, KV heads narrower
+than TP, ...) demote the dim to replicated.
+
+The specs are ``models.params.PartitionSpec``s, equal entry for entry to
+the JAX package's.  ``local_shard`` and ``gather_full`` take the place of
+``device_put(x, NamedSharding(mesh, spec))`` and of reading a sharded
+array whole: a rank holds the block of a tensor that JAX's
+``NamedSharding.devices_indices_map`` gives the device at its coordinates.
+``shard_map`` has no counterpart: each rank runs the body itself.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import params as param_lib
+from repro_torch.models.params import PartitionSpec as P
+from repro_torch.runtime import collectives
+
+Tree = Any
+
+PROFILES = ("2d", "fsdp", "tp", "cp")
+# '2d'  : FSDP over 'data' x TP over 'model' (the default)
+# 'fsdp': the whole mesh is one ZeRO/DP axis, no tensor parallelism
+# 'tp'  : serving layout: weights TP-sharded over 'model', replicated over
+#         'data'; batch on ('pod', 'data')
+# 'cp'  : FSDP over 'data', the sequence dim of the batch over 'model'
+
+
+def mesh_axis_sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def dp_axes(mesh, profile: str = "2d") -> Tuple[str, ...]:
+    """Data-parallel mesh axes, outermost first."""
+    names = ("pod", "data", "model") if profile == "fsdp" else ("pod", "data")
+    return tuple(a for a in names if a in mesh.axis_names)
+
+
+def dp_size(mesh, profile: str = "2d") -> int:
+    sizes = mesh_axis_sizes(mesh)
+    return math.prod(sizes[a] for a in dp_axes(mesh, profile))
+
+
+def _batch_axis(mesh, global_batch: int, profile: str = "2d"):
+    """The spec entry for the batch dim: the largest prefix of the dp axes
+    that divides the batch (None where none does)."""
+    sizes = mesh_axis_sizes(mesh)
+    chosen, prod = [], 1
+    for a in dp_axes(mesh, profile):
+        if global_batch % (prod * sizes[a]) == 0:
+            chosen.append(a)
+            prod *= sizes[a]
+    if not chosen:
+        return None
+    return tuple(chosen) if len(chosen) > 1 else chosen[0]
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def model_param_pspecs(cfg: ModelConfig, mesh, defs: Tree, *,
+                       profile: str = "2d") -> Tree:
+    """PartitionSpec tree for a model's ParamDef tree on this mesh."""
+    sizes = mesh_axis_sizes(mesh)
+    if profile == "fsdp":
+        fsdp_axes = tuple(a for a in ("data", "model") if a in mesh.axis_names)
+        fsdp_axes = fsdp_axes if len(fsdp_axes) > 1 else fsdp_axes[0]
+        tp_axis = None
+    elif profile == "tp":
+        fsdp_axes = None
+        tp_axis = "model" if "model" in mesh.axis_names else None
+    elif profile == "cp":
+        fsdp_axes = "data" if "data" in mesh.axis_names else None
+        tp_axis = None
+    else:
+        fsdp_axes = "data" if "data" in mesh.axis_names else None
+        tp_axis = "model" if "model" in mesh.axis_names else None
+    rules = param_lib.resolve_rules(
+        sizes, kv_heads=cfg.num_kv_heads, num_heads=cfg.num_heads,
+        fsdp_axes=fsdp_axes, tp_axis=tp_axis)
+
+    # divisibility demotions beyond heads: a rule that some leaf's dim
+    # does not divide is dropped for every leaf (odd d_ff, LRU widths)
+    def check_leaf(d: param_lib.ParamDef):
+        for ax, dim in zip(param_lib._axes(d), d.shape):
+            mesh_ax = rules.get(ax or "null")
+            if mesh_ax is not None and dim % param_lib._rule_size(mesh_ax, sizes):
+                rules[ax] = None
+    param_lib.tree_map_defs(check_leaf, defs)
+    return param_lib.param_pspecs(defs, rules)
+
+
+# ---------------------------------------------------------------------------
+# Batches
+# ---------------------------------------------------------------------------
+
+
+def batch_pspecs(cfg: ModelConfig, mesh, batch_struct: Dict[str, Any],
+                 profile: str = "2d") -> Dict[str, Any]:
+    """PartitionSpecs for an input batch dict keyed by entry name (its
+    values anything with ``shape`` and ``ndim``)."""
+    sizes = mesh_axis_sizes(mesh)
+    out: Dict[str, Any] = {}
+    for k, v in batch_struct.items():
+        ndim = len(v.shape)
+        nb = _batch_axis(mesh, v.shape[0] if k != "positions" or ndim == 2
+                         else v.shape[1], profile)
+        sq = "model" if (profile == "cp" and ndim >= 2
+                         and v.shape[1] % sizes.get("model", 1) == 0) else None
+        if k in ("tokens", "labels", "loss_mask"):
+            out[k] = P(nb, sq, *([None] * (ndim - 2))) if ndim >= 2 else P(nb)
+        elif k == "inputs_embeds":
+            out[k] = P(nb, sq, None)
+        elif k == "positions" and ndim == 3:         # M-RoPE [3, B, S]
+            out[k] = P(None, nb, sq)
+        elif k == "positions":
+            out[k] = P(nb, sq)
+        else:
+            out[k] = P(*([None] * ndim))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+
+def cache_pspecs(cfg: ModelConfig, mesh, cache_struct: Any,
+                 profile: str = "2d") -> Any:
+    """PartitionSpec tree for a decode cache (a family's NamedTuple).  KV
+    caches shard the batch over the dp axes and the sequence over TP;
+    attention-free state shards its head dim over TP.  Dispatch is by the
+    NamedTuple's field name."""
+    tp = mesh_axis_sizes(mesh).get("model", 1)
+
+    def tpax(dim: int):
+        if profile == "fsdp":      # 'model' belongs to the batch/dp group
+            return None
+        return "model" if dim % tp == 0 else None
+
+    def spec_leaf(field: str, leaf) -> P:
+        ndim = len(getattr(leaf, "shape", ()))
+        if ndim == 0:
+            return P()
+        shape = tuple(leaf.shape)
+        b_dim = 1 if ndim >= 4 or field.startswith("shift") else 0
+        nb = _batch_axis(mesh, shape[b_dim], profile)
+        if field in ("self_k", "self_v", "cross_k", "cross_v"):
+            # Seamless [L,B,H,S,D]: heads over TP where they divide, else
+            # the sequence
+            if profile != "fsdp" and shape[2] % tp == 0:
+                return P(None, nb, "model", None, None)
+            return P(None, nb, None, tpax(shape[3]), None)
+        if field in ("k", "v"):                   # transformer [L,B,Hkv,S,D]
+            return P(None, nb, None, tpax(shape[3]), None)
+        if field in ("attn_k", "attn_v"):         # RecurrentGemma [B,Hkv,W,D]
+            return P(_batch_axis(mesh, shape[0], profile), None,
+                     tpax(shape[2]), None)
+        if field == "state":                      # RWKV [L,B,H,K,V]
+            return P(None, nb, tpax(shape[2]), None, None)
+        if field.startswith("shift"):             # RWKV [L,B,D]
+            return P(None, nb, tpax(shape[2]))
+        if field == "rec_h":                      # RecurrentGemma [B,W]
+            return P(_batch_axis(mesh, shape[0], profile), tpax(shape[1]))
+        if field == "conv_state":                 # RecurrentGemma [B,cw-1,W]
+            return P(_batch_axis(mesh, shape[0], profile), None, tpax(shape[2]))
+        return P(*([None] * ndim))
+
+    if not hasattr(cache_struct, "_fields"):
+        raise TypeError(f"cache_pspecs: a cache NamedTuple, got {type(cache_struct)}")
+    out = {}
+    for field in cache_struct._fields:
+        sub = getattr(cache_struct, field)
+        if isinstance(sub, (list, tuple)):
+            out[field] = [spec_leaf(field, leaf) for leaf in sub]
+        else:
+            out[field] = spec_leaf(field, sub)
+    return type(cache_struct)(**out)
+
+
+# ---------------------------------------------------------------------------
+# A rank's block of a tensor
+# ---------------------------------------------------------------------------
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def shard_index(spec, mesh) -> Tuple[Tuple[int, int], ...]:
+    """(index, count) a dim of a rank's block: a dim split over the axes
+    of its entry is cut into their product of blocks, the first axis
+    outermost, and the rank takes the block at its coordinates."""
+    sizes = mesh_axis_sizes(mesh)
+    out = []
+    for entry in spec:
+        idx, n = 0, 1
+        for a in _entry_axes(entry):
+            idx = idx * sizes[a] + mesh.coords[a]
+            n *= sizes[a]
+        out.append((idx, n))
+    return tuple(out)
+
+
+def local_shard(full, spec, mesh):
+    """This rank's block of ``full`` (a tensor or a numpy array) under
+    ``spec``: a view where the layout allows."""
+    for dim, (idx, n) in enumerate(shard_index(spec, mesh)):
+        if n == 1:
+            continue
+        size = full.shape[dim]
+        if size % n:
+            raise ValueError(f"local_shard: dim {dim} of {tuple(full.shape)} "
+                             f"is not divisible by {n} ({spec})")
+        step = size // n
+        full = (full.narrow(dim, idx * step, step) if isinstance(full, torch.Tensor)
+                else full[(slice(None),) * dim + (slice(idx * step, (idx + 1) * step),)])
+    return full
+
+
+def gather_full(shard: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The inverse of ``local_shard``: the whole tensor on every rank, by an
+    all-gather over each sharded dim's axes (innermost first)."""
+    for dim, entry in enumerate(spec):
+        for a in reversed(_entry_axes(entry)):
+            shard = collectives.all_gather(shard, mesh, a, dim)
+    return shard
+
+
+def tree_local_shard(tree: Tree, specs: Tree, mesh) -> Tree:
+    return param_lib.tree_map(lambda x, s, path: local_shard(x, s, mesh), tree,
+                              specs)
+
+
+def tree_gather_full(tree: Tree, specs: Tree, mesh) -> Tree:
+    return param_lib.tree_map(lambda x, s, path: gather_full(x, s, mesh), tree,
+                              specs)

@@ -1269,3 +1269,86 @@ def test_wkv_chunked_bwd_is_bitwise_repeatable(case, instance):
                                    state=state)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# ---------------------------------------------------------------------------
+# the distributed runtime on the card
+# ---------------------------------------------------------------------------
+
+
+def _collectives_rank():
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import collectives as C
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    r = mesh.coords["model"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x = torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3) + 10 * r
+        before = C.host_staged_bytes
+        got = [C.psum(x, mesh, "model"), C.all_gather(x, mesh, "model", 1),
+               C.ppermute(x, mesh, "model", [(0, 1), (1, 0)])]
+        out[dev] = ([t.cpu().numpy() for t in got], [t.device.type for t in got],
+                    C.host_staged_bytes - before)
+    return out
+
+
+@pytest.mark.cuda
+def test_collectives_of_cuda_tensors_in_a_gloo_world_on_one_card():
+    """Two ranks share the card under gloo: ``psum``, ``all_gather`` and
+    ``ppermute`` of CUDA tensors give the CPU tensors' results, stay on
+    the card, and count their copies through the host (24 bytes a rank's
+    tensor, each way; the all-gather brings back both ranks' 48)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import mesh as mesh_lib
+    ranks = mesh_lib.spawn_local(2, _collectives_rank, device="cuda", timeout_s=120)
+    for r in ranks:
+        (cuda_vals, cuda_devs, cuda_staged), (cpu_vals, _, cpu_staged) = r["cuda"], r["cpu"]
+        for a, b in zip(cuda_vals, cpu_vals):
+            np.testing.assert_array_equal(a, b)
+        assert cuda_devs == ["cuda"] * 3
+        assert cpu_staged == 0 and cuda_staged == (24 + 24) + (24 + 48) + (24 + 24)
+
+
+def _one_by_one_nccl_rank():
+    from repro_torch import configs as TC
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.optim import adamw_init, warmup_cosine
+    from repro_torch.runtime import build_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TC.reduced(TC.get_config("h2o-danube-1.8b"))
+    mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+    tree = init_params(1, get_module(cfg).param_defs(cfg))
+    ds = make_dataset(cfg, TC.ShapeConfig("train_4k", "train", 64, 4), seed=3)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(s).items()}
+               for s in range(3)]
+    runs = []
+    for m in (mesh, None):
+        step = build_train_step(cfg, lr_schedule=warmup_cosine(1e-3, 2, 10), mesh=m)
+        params = tree_map(lambda a, path: torch.from_numpy(a.copy()).cuda()
+                          .requires_grad_(), tree)
+        opt = adamw_init(params)
+        metrics = []
+        for b in batches:
+            params, opt, mt = step(params, opt, b)
+            metrics.append(torch.stack([mt[k] for k in ("loss", "ce", "aux", "grad_norm")]))
+        runs.append((torch.stack(metrics), tree_leaves(params) + tree_leaves(opt.m)
+                     + tree_leaves(opt.v)))
+    (ma, sa), (mb, sb) = runs
+    return mesh.backend, torch.equal(ma, mb) and all(torch.equal(a, b)
+                                                     for a, b in zip(sa, sb))
+
+
+@pytest.mark.cuda
+def test_one_by_one_nccl_train_step_changes_no_bit():
+    """A world of one rank under NCCL: the (1, 1) mesh's train step gives
+    the no-mesh step bit for bit on the card (three steps of h2o-danube
+    reduced: metrics, parameters, both moments)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from repro_torch.launch import mesh as mesh_lib
+    assert mesh_lib.spawn_local(1, _one_by_one_nccl_rank, device="cuda",
+                                timeout_s=240) == [("nccl", True)]

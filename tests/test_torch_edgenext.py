@@ -382,9 +382,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
-    code = ("import sys; import repro_torch.models.edgenext, "
+    code = ("import sys, torch; import repro_torch.models.edgenext, "
             "repro_torch.serve_edgenext, repro_torch.kernels._build as b; "
+            "import repro_torch.launch.mesh, repro_torch.launch.train, "
+            "repro_torch.runtime.sharding, repro_torch.runtime.collectives, "
+            "repro_torch.runtime.pipeline, repro_torch.models.actshard, "
+            "repro_torch.models.moe_sharded, repro_torch.optim.compression, "
+            "repro_torch.checkpoint.store; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules; "
+            "assert not torch.cuda.is_initialized(); "
             "assert b._lib is None and b.build_seconds is None; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
