@@ -7,7 +7,11 @@
 Port of ``repro/launch/serve.py`` for every ported arch (``configs.ARCHS``:
 RWKV-6, the dense and MoE transformers, Qwen2-VL, the Seamless
 encoder-decoder and the RecurrentGemma hybrid).  Weights come from
-``--seed`` (``params.init_params``, numpy), prompts from
+``--seed``: on the card drawn there (the model's ``init_on_device``, as
+the reference jits its ``init_params`` onto the device: the uncut
+starcoder2-15b's 16 B parameters in seconds, and no float32 copy of a
+leaf made whole), on the CPU ``params.init_params`` (numpy); the two
+give other numbers.  Prompts come from
 ``np.random.default_rng(seed)`` (and, where the config takes embedding
 inputs, the prompt's ``inputs_embeds`` drawn after the tokens: for the
 encoder-decoder they are the source frames, the tokens' first column is
@@ -96,12 +100,16 @@ def call_prefill(prefill: Callable, batch: dict, decode_len: Optional[int] = Non
 
 def run_prefill(prefill: Callable, tokens: torch.Tensor,
                 inputs_embeds: Optional[torch.Tensor] = None,
-                decode_len: Optional[int] = None):
-    """``call_prefill`` on tokens [B, S] (and ``inputs_embeds`` [B, S, D]
-    where given) -> (last hidden [B, D], cache, ms)."""
+                decode_len: Optional[int] = None, *,
+                positions: Optional[torch.Tensor] = None):
+    """``call_prefill`` on tokens [B, S] (and ``inputs_embeds`` [B, S, D],
+    M-RoPE ``positions`` [3, B, S] where given) -> (last hidden [B, D],
+    cache, ms)."""
     batch = {"tokens": tokens}
     if inputs_embeds is not None:
         batch["inputs_embeds"] = inputs_embeds
+    if positions is not None:
+        batch["positions"] = positions
     with torch.inference_mode():
         (last, cache), ms = timed(lambda: call_prefill(prefill, batch, decode_len),
                                   tokens.device)
@@ -153,8 +161,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.reduced:
         cfg = reduced(cfg)
     mod = get_module(cfg)
-    params = mod.load_params(cfg, init_params(args.seed, mod.param_defs(cfg)),
-                             device=device)
+    tree = (mod.init_on_device(cfg, args.seed, device=device) if device.type == "cuda"
+            else init_params(args.seed, mod.param_defs(cfg)))
+    params = mod.load_params(cfg, tree, device=device)
+    del tree
 
     B, S = args.batch, args.prompt_len
     rng = np.random.default_rng(args.seed)

@@ -308,6 +308,22 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return _rotate(x, torch.cos(angles[:, None]), torch.sin(angles[:, None]))
 
 
+def image_text_positions(batch: int, seq: int, side: int,
+                         device: "torch.device | str" = "cpu") -> torch.Tensor:
+    """M-RoPE positions [3, batch, seq] (int32) of a prompt that opens with an
+    image of side x side patches, patch i at (t, h, w) = (0, i // side,
+    i % side), followed by text numbered from ``side`` on, the same on all
+    three axes (one past the image's largest position), as Qwen2-VL numbers
+    a text after an image: three streams that differ, where ``arange`` on
+    all three makes M-RoPE RoPE."""
+    i = torch.arange(seq, device=device)
+    text = side + i - side * side
+    image = i < side * side
+    pos = torch.stack([torch.where(image, 0, text), torch.where(image, i // side, text),
+                       torch.where(image, i % side, text)]).to(torch.int32)
+    return pos[:, None, :].expand(3, batch, seq).contiguous()
+
+
 def positional_rotate(cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
     if cfg.rope == "rope":

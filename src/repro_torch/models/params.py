@@ -9,6 +9,10 @@ layouts as the JAX package (``stages[i].conv_blocks[j].dw_w`` is
 - ``init_params``     : seeded numpy arrays, same shapes, initialisers and
                         scales as the JAX package's (not the same random
                         numbers: the two generators differ)
+- ``init_on_device``  : the same initialisers drawn on the device, one layer
+                        slice at a time into the served dtypes (the
+                        reference's launcher jits its ``init_params`` onto
+                        the device); each model's ``init_on_device`` wraps it
 - ``from_jax_params`` : carries a tree of numpy arrays, such as the JAX
                         package's ``init_params`` turned to numpy, across
                         into a tree of tensors (``load_cast``: and casts
@@ -31,6 +35,7 @@ Logical axis names, as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -119,23 +124,124 @@ def init_params(seed: int, defs: Tree, *, perturb: float = 0.0) -> Tree:
     return tree_map(lambda d, path: _init_leaf(rng, d, perturb), defs)
 
 
+def _check_device(device: torch.device, fn: str) -> None:
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{fn}: device='cuda' but no CUDA device is "
+                           f"available (pass device='cpu')")
+
+
+def _draw(d: ParamDef, shape: Tuple[int, ...], gen: torch.Generator,
+          device: torch.device) -> torch.Tensor:
+    """One float32 draw of ``d``'s initialiser at ``shape`` (a whole leaf or
+    one layer slice of it), with the scale of the whole leaf."""
+    if d.init in ("zeros", "ones"):
+        # as in the JAX package: ``scale`` does not apply to zeros/ones
+        fill = torch.zeros if d.init == "zeros" else torch.ones
+        return fill(shape, dtype=torch.float32, device=device)
+    if d.init == "uniform_decay":
+        u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+        return -6.0 + 3.0 * u
+    if d.init not in ("normal", "embed"):
+        raise ValueError(d.init)
+    scale = d.scale
+    if scale is None:
+        scale = 1.0 if d.init == "embed" else 1.0 / math.sqrt(_fan_in(d.shape))
+    return scale * torch.randn(shape, generator=gen, dtype=torch.float32,
+                               device=device)
+
+
+def _slice_seed(seed: int, leaf: int, layer: int) -> int:
+    """The generator's seed of one draw: (seed, the leaf's index in tree
+    order, the layer index; 0 for a leaf that is not stacked)."""
+    return int(np.random.SeedSequence([seed, leaf, layer]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+
+
+def init_on_device(seed: int, defs: Tree, *,
+                   device: "torch.device | str" = "cuda", cast_leaves=(),
+                   compute_dtype: Optional[torch.dtype] = None,
+                   layers: Optional[int] = None) -> Tree:
+    """Seeded parameters drawn on ``device`` by a ``torch.Generator`` there,
+    with the initialisers and scales of ``init_params`` (and of the JAX
+    package's ``init_params``, which the reference's launcher jits onto the
+    device): a tree of tensors, ready for a model's ``load_params``.
+
+    Each draw has a generator of its own, seeded by (``seed``, the leaf's
+    index in tree order, the layer index).  A stacked leaf (first axis
+    ``layers``) is drawn one layer slice at a time in float32 and copied
+    into a tensor made in its final dtype, so that the peak is the tree as
+    served plus one float32 slice.  The leaves at the paths ``cast_leaves``
+    get ``compute_dtype`` (the rounding of the float32 draw, as
+    ``load_cast`` rounds it), every other leaf float32.  ``layers=n`` draws
+    only the first n slices of each stacked leaf: the same float32 numbers
+    that the whole draw rounds.
+
+    The numbers are not ``init_params``': the card's generator (Philox),
+    the CPU's (Mersenne Twister) and numpy's all differ, and none of them
+    is the reference's ``jax.random`` stream.  ``device="cuda"`` raises
+    where there is no card."""
+    device = torch.device(device)
+    _check_device(device, "init_on_device")
+    gen = torch.Generator(device=device)
+    cast = set(cast_leaves)
+    index = itertools.count()
+
+    def leaf(d: ParamDef, path: str) -> torch.Tensor:
+        i = next(index)
+        dtype = compute_dtype if compute_dtype is not None and path in cast \
+            else torch.float32
+        if not d.axes or d.axes[0] != "layers":
+            gen.manual_seed(_slice_seed(seed, i, 0))
+            return _draw(d, d.shape, gen, device).to(dtype)
+        n = d.shape[0] if layers is None else min(layers, d.shape[0])
+        out = torch.empty((n,) + tuple(d.shape[1:]), dtype=dtype, device=device)
+        for j in range(n):
+            gen.manual_seed(_slice_seed(seed, i, j))
+            out[j].copy_(_draw(d, d.shape[1:], gen, device))
+        return out
+
+    return tree_map(leaf, defs)
+
+
+def cast_paths(cfg, cast_leaves) -> set:
+    """The paths of ``cast_leaves`` that a model holds in
+    ``cfg.compute_dtype``: all but a tied embedding, which stays float32
+    because the LM head reads it in float32."""
+    return set(cast_leaves) - ({"embed.embedding"} if cfg.tie_embeddings else set())
+
+
+def draw_cast(cfg, seed: int, defs: Tree, cast_leaves, *,
+              device: "torch.device | str" = "cuda",
+              layers: Optional[int] = None) -> Tree:
+    """A model's ``init_on_device``: ``init_on_device`` of its tree with the
+    leaves that ``load_cast`` casts drawn straight into
+    ``cfg.compute_dtype`` (a config of float32 compute gives the float32
+    draw)."""
+    return init_on_device(seed, defs, device=device,
+                          cast_leaves=cast_paths(cfg, cast_leaves),
+                          compute_dtype=cfg.compute_dtype, layers=layers)
+
+
 def from_jax_params(tree: Tree, defs: Optional[Tree] = None, *,
                     device: "torch.device | str" = "cuda",
                     dtype: torch.dtype = torch.float32) -> Tree:
     """A tree of numpy arrays (the JAX package's parameters, names and
-    layouts unchanged) -> the same tree of tensors on ``device``.  With
-    ``defs`` given, structure and every shape are checked against it."""
+    layouts unchanged) -> the same tree of tensors on ``device``, in
+    ``dtype``.  A leaf that is a tensor already (``init_on_device``) keeps
+    its dtype and is moved only where it lies elsewhere: no copy through
+    the host.  With ``defs`` given, structure and every shape are checked
+    against it."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("from_jax_params: device='cuda' but no CUDA "
-                           "device is available (pass device='cpu')")
+    _check_device(device, "from_jax_params")
 
     def leaf(a, path):
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
         return torch.tensor(np.asarray(a), device=device, dtype=dtype)  # a copy
 
     def check(d, a, path):
         if tuple(np.shape(a)) != tuple(d.shape):
-            raise ValueError(f"{path}: shape {np.shape(a)}, "
+            raise ValueError(f"{path}: shape {tuple(np.shape(a))}, "
                              f"expected {d.shape}")
 
     if defs is not None:
@@ -146,14 +252,16 @@ def from_jax_params(tree: Tree, defs: Optional[Tree] = None, *,
 def load_cast(cfg, tree: Tree, defs: Tree, cast_leaves, *,
               device: "torch.device | str" = "cuda") -> Tree:
     """A model's ``load_params``: a tree of numpy arrays (``init_params`` or
-    the JAX package's parameters) -> tensors on ``device`` (the card by
-    default; raises without one), float32, with the leaves at the paths
-    ``cast_leaves`` cast once to ``cfg.compute_dtype`` (the rounding of the
-    reference's cast at each use).  A tied embedding stays float32: the LM
-    head reads it in float32.  TF32 products are switched off, so that a
-    float32 product on the card is exact float32, as the reference's is."""
+    the JAX package's parameters) or of tensors (``init_on_device``) ->
+    tensors on ``device`` (the card by default; raises without one),
+    float32, with the leaves at the paths ``cast_leaves`` cast once to
+    ``cfg.compute_dtype`` (the rounding of the reference's cast at each
+    use; a leaf drawn in that dtype already is left as it is).  A tied
+    embedding stays float32: the LM head reads it in float32.  TF32
+    products are switched off, so that a float32 product on the card is
+    exact float32, as the reference's is."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cast = set(cast_leaves) - ({"embed.embedding"} if cfg.tie_embeddings else set())
+    cast = cast_paths(cfg, cast_leaves)
     return tree_map(lambda t, path: t.to(cfg.compute_dtype) if path in cast else t,
                     from_jax_params(tree, defs, device=device))
 

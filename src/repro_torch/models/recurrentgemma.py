@@ -40,7 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
-from repro_torch.models.params import ParamDef, load_cast
+from repro_torch.models.params import ParamDef, draw_cast, load_cast
 from repro_torch.models.transformer import _to_ring, cache_len
 
 Params = Dict[str, Any]
@@ -114,6 +114,15 @@ def load_params(cfg: ModelConfig, tree: Params, *,
     ``cfg.compute_dtype``."""
     return load_cast(cfg, tree, param_defs(cfg), compute_dtype_leaves(cfg),
                      device=device)
+
+
+def init_on_device(cfg: ModelConfig, seed: int, *,
+                   device: "torch.device | str" = "cuda") -> Params:
+    """``params.draw_cast`` of the hybrid's tree: its weights drawn on
+    ``device`` from ``seed``, the leaves ``load_params`` casts straight in
+    ``cfg.compute_dtype``; ``load_params`` takes the tree as it is (its
+    blocks are a list, not stacked, so each leaf is drawn whole)."""
+    return draw_cast(cfg, seed, param_defs(cfg), compute_dtype_leaves(cfg), device=device)
 
 
 # ---------------------------------------------------------------------------

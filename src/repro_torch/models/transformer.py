@@ -28,7 +28,7 @@ whole generation, as the reference's tests grow one.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,7 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import actshard
 from repro_torch.models import layers as L
-from repro_torch.models.params import load_cast, per_layer
+from repro_torch.models.params import draw_cast, load_cast, per_layer
 
 Params = Dict[str, Any]
 
@@ -84,6 +84,17 @@ def load_params(cfg: ModelConfig, tree: Params, *,
     ``device`` (the card by default), ``COMPUTE_DTYPE_LEAVES`` in
     ``cfg.compute_dtype``."""
     return load_cast(cfg, tree, param_defs(cfg), COMPUTE_DTYPE_LEAVES, device=device)
+
+
+def init_on_device(cfg: ModelConfig, seed: int, *,
+                   device: "torch.device | str" = "cuda",
+                   layers: Optional[int] = None) -> Params:
+    """``params.draw_cast`` of the transformer's tree: its weights drawn on
+    ``device`` from ``seed``, ``COMPUTE_DTYPE_LEAVES`` straight in
+    ``cfg.compute_dtype``; ``load_params`` takes the tree as it is.
+    ``layers=n``: the first n layer slices only, the same numbers."""
+    return draw_cast(cfg, seed, param_defs(cfg), COMPUTE_DTYPE_LEAVES, device=device,
+                     layers=layers)
 
 
 # ---------------------------------------------------------------------------

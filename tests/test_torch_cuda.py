@@ -335,6 +335,10 @@ _FA_ONLINE_CASES = {
     # a ragged KV tile of 28 keys); its cross-attention of one decoder token
     # (63 empty rows of the query tile) against 512 and 1500 frames
     "qwen3_gqa_4x512": (4, 32, 512, 512, 128, True, None, 4, torch.bfloat16),
+    # starcoder2-15b's 48 query heads over 4 KV heads (G 12) and
+    # qwen2-vl-2b's 12 over 2, D 128, at the served 4 x 512
+    "starcoder2_4x512": (4, 48, 512, 512, 128, True, None, 4, torch.bfloat16),
+    "qwen2vl_4x512": (4, 12, 512, 512, 128, True, None, 2, torch.bfloat16),
     "encoder_4x512": (4, 16, 512, 512, 64, False, None, None, torch.bfloat16),
     "encoder_1x1500": (1, 16, 1500, 1500, 64, False, None, None, torch.bfloat16),
     "cross_1_to_512": (4, 16, 1, 512, 64, False, None, None, torch.bfloat16),
@@ -915,6 +919,118 @@ def test_captured_moe_and_seamless_steps_replay_the_eager_steps(arch):
             for a, b in zip(got, eager, strict=True):
                 assert a.dtype == b.dtype and torch.equal(a, b)
     assert len(pre_c.graphs) == 2 and len(dec_c.graphs) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "minitron-4b", "olmo-1b",
+                                  "qwen2-vl-2b", "qwen3-moe-30b-a3b"])
+def test_captured_steps_on_weights_drawn_on_card_replay_eager_and_hold_to_plain(arch):
+    """The reduced config in bfloat16, its weights drawn on the card
+    (``init_on_device``), served through ``launch.serve``'s captured steps
+    at two shapes (qwen2-vl with ``inputs_embeds`` and image-then-text
+    M-RoPE positions), each with 5 donated decode steps: last hidden,
+    caches, tokens and logits equal to the eager steps' bit for bit,
+    flash_attention ticking at the capture only; the eager run held to the
+    plain model teacher-forced, as ``chip_smoke.py`` holds the served LMs:
+    logits within 0.25, at least 75 % of the greedy tokens agreeing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: CUDA graphs run on the "
+                    "card only")
+    import dataclasses
+    from repro_torch import configs as TC
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.runtime import build_decode_step, build_prefill_step
+    from repro_torch.runtime.capture import WARMUP
+
+    cfg = dataclasses.replace(TC.reduced(TC.get_config(arch)), dtype="bfloat16")
+    params = transformer.load_params(cfg, transformer.init_on_device(cfg, 0))
+    assert params["blocks"]["attn"]["wq"].dtype == torch.bfloat16
+    pre_e, dec_e = serve.eager_steps(cfg, params)
+    pre_c, dec_c = serve.captured_steps(cfg, params)
+    plain_pre = build_prefill_step(cfg, kernels=tref.PLAIN)
+    plain_dec = build_decode_step(cfg, kernels=tref.PLAIN)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(71)
+    err, agree, steps = 0.0, 0, 0
+    for S in (40, 20):
+        for i in range(2):
+            toks = _t(rng.integers(0, cfg.vocab_size, (2, S), dtype=np.int32)).cuda()
+            batch = {"tokens": toks}
+            if cfg.embedding_inputs:
+                batch["inputs_embeds"] = _t(rng.standard_normal(
+                    (2, S, cfg.d_model)).astype(np.float32)).cuda()
+                batch["positions"] = L.image_text_positions(
+                    2, S, 4 if S == 40 else 2, "cuda")
+
+            def request(prefill, decode):
+                last, cache, _ = serve.run_prefill(
+                    prefill, toks, batch.get("inputs_embeds"),
+                    positions=batch.get("positions"))
+                out = serve.run_decode(decode, cache, 2, 5, dev)
+                return [last, *cache, out[0], *out[1], *out[2]]
+
+            eager = request(pre_e, dec_e)
+            base = t_fa.launches
+            got = request(pre_c, dec_c)
+            assert t_fa.launches - base == ((WARMUP + 1) * cfg.num_layers
+                                            if i == 0 else 0)
+            for a, b in zip(got, eager, strict=True):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+            # the plain model fed the eager run's tokens: ``eager`` is last,
+            # the prefill cache (k, v, step), tokens, 5 logits, last cache
+            toks_out = eager[4]
+            logits = torch.stack(eager[5:10], 1)
+            with torch.inference_mode():
+                _, cache = plain_pre(params, batch)
+                forced = torch.cat([torch.zeros_like(toks_out[:, :1]),
+                                    toks_out[:, :-1]], 1)
+                plain = []
+                for j in range(5):
+                    _, lg, cache = plain_dec(params, cache,
+                                             {"tokens": forced[:, j:j + 1]})
+                    plain.append(lg)
+            plain = torch.stack(plain, 1)
+            V = cfg.vocab_size
+            err = max(err, (logits[..., :V] - plain[..., :V]).abs().max().item())
+            agree += int((plain[..., :V].argmax(-1) == toks_out).sum())
+            steps += toks_out.numel()
+    assert len(pre_c.graphs) == 2 and len(dec_c.graphs) == 2
+    assert err <= 0.25 and agree >= 0.75 * steps, (err, agree, steps)
+
+
+@pytest.mark.cuda
+def test_init_on_device_repeats_bit_for_bit_on_card():
+    """Two draws of one seed on the card give the same bits; ``layers=1``
+    is the first slice of the float32 draw and the bfloat16 leaves are that
+    draw rounded; the leaves are made on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch import configs as TC
+    from repro_torch.models import transformer
+    from repro_torch.models.params import cast_paths, tree_map
+
+    cfg = TC.reduced(TC.get_config("qwen3-moe-30b-a3b"))
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    cast = cast_paths(cfg, transformer.COMPUTE_DTYPE_LEAVES)
+
+    def leaves(tree):
+        out = {}
+        tree_map(lambda t, path: out.__setitem__(path, t), tree)
+        return out
+
+    a, b = (leaves(transformer.init_on_device(bf16, 5)) for _ in range(2))
+    f32 = leaves(transformer.init_on_device(cfg, 5))
+    one = leaves(transformer.init_on_device(cfg, 5, layers=1))
+    for path, t in a.items():
+        assert t.is_cuda and torch.equal(t, b[path]), path
+        want = f32[path].to(torch.bfloat16) if path in cast else f32[path]
+        assert t.dtype == want.dtype and torch.equal(t, want), path
+        first = f32[path][:1] if path.startswith("blocks.") else f32[path]
+        assert torch.equal(one[path], first), path
 
 
 @pytest.mark.cuda
