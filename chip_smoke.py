@@ -206,7 +206,8 @@ of which ends the run with a non-zero exit code if it fails (a
    layers in the pattern recurrent, recurrent, attention: 18 RG-LRU blocks
    and 8 local-attention blocks; d 2560, 10 query heads over 1 KV head of
    256, window 2048, GeGLU d_ff 7680, LRU width 2560, vocab 256000;
-   3,549,934,080 parameters): 2 requests of 4 x 512 with 32 greedy tokens,
+   3,549,934,080 parameters; weights from seed 0 drawn on the card,
+   ``init_on_device``): 2 requests of 4 x 512 with 32 greedy tokens,
    1 of 1 x 4608 with 8 (past the window: the banded prefill, a ring of
    2048, the RG-LRU's doubling scan over 4608 rows).  8 flash_attention a
    prefill, none in decode; the recurrent states of their shapes and types;
@@ -269,39 +270,56 @@ of which ends the run with a non-zero exit code if it fails (a
    first; inputs made on the host from the seed and written to a fresh
    directory (``checkpoint.save_checkpoint``).  ``h2o-danube-1.8b`` runs at
    full width and 4 of its 24 layers (``reduced: num_layers 24 -> 4``: two
-   processes share the card in (c)).  (a) a world of one rank under NCCL,
-   mesh (1, 1): 5 steps of 5f's schedule over 4 x 512 tokens through
+   processes share the card in (c) and (f)).  (a) a world of one rank under
+   NCCL, mesh (1, 1): 5 steps of 5f's schedule over 4 x 512 tokens through
    ``build_train_step(mesh=...)`` and with no mesh, the same bits
    (metrics, parameters, moments), and an NCCL all-reduce and all-gather
-   over each axis's group; it writes (c)'s references.  Then a world of two
-   ranks that share the card under gloo: (b) ``pipeline.data_parallel`` of
-   EdgeNeXt-S's forward over data = 2 at B = 16 (8 images a rank through
-   the three kernels) within 2e-3 (1 + |b|) of the one-process forward,
-   each rank's launches those of one B = 8 forward, B = 7 refused as not
-   divisible; (c) the sharded step on (data 2, model 1), profile '2d', 5
-   steps of 4 x 512 (2 x 512 a rank), its parameters restored onto the mesh
-   from the host arrays (``restore_sharded``): each step's loss within 1e-2
+   over each axis's group; it writes (c)'s and (f)'s references and counts
+   one ``grad_fn``'s FLOPs (``FlopCounterMode``: the aten products).  Then
+   a world of two ranks that share the card under gloo: (b)
+   ``pipeline.data_parallel`` of EdgeNeXt-S's forward over data = 2 at B =
+   16 (8 images a rank through the three kernels) within 2e-3 (1 + |b|) of
+   the one-process forward, each rank's launches those of one B = 8
+   forward, B = 7 refused as not divisible; (c) the sharded step on (data
+   2, model 1), profile '2d', 5 steps of 4 x 512 (2 x 512 a rank), its
+   parameters restored onto the mesh from the host arrays
+   (``restore_sharded``), each layer's leaves gathered at use and the
+   gradients reduced onto the rank's blocks: each step's loss within 1e-2
    and gradient norm within 1 % of (a)'s one-process step, every leaf of
-   the first step's gradients within a relative L2 error of 5e-2, 8
-   flash_attention and 4 flash_attention_bwd a step a rank; float32 on the
-   first 2 layers, every parameter after 3 steps within 2e-3 (1 + |b|) of
-   the one-process float32 step and each leaf's change over the 3 steps
-   within a relative L2 error of 1e-2 of the one process's change (warmup
-   moves a parameter by less than the first limit); step ms by CUDA events (two processes
-   time-sharing one card with their collectives through the host: not a
-   scaling number), each rank's peak memory, the bytes staged through the
-   host a step; a checkpoint after step 3, restored onto a (1, 2) mesh in
-   the same ranks, each block equal bit for bit to its slice of the
-   gathered parameters; (d) one ``qwen2-moe-a2.7b`` MoE layer at full width
-   (d 2048, 64 padded experts, top 4, shared experts, bfloat16, 4 x 512
-   tokens) by ``moe_apply_sharded`` on (1, 2), 32 experts a rank, against
-   the plain ``moe_apply`` in rank 0 alone: output within 2e-2 (1 + |b|),
-   aux within 1e-4 relative, the router / wi / wo gradients (the mean over
-   the ranks) within a relative L2 error of 5e-2; (e) ``gpipe`` of an
-   8-layer tanh stack over 2 stages on CUDA tensors against the sequential
-   stack (2e-5 forward, 2e-4 gradients), and ``compressed_pod_allreduce``
-   on (pod 2, data 1, model 1) against its definition (1e-6).  One JSON
-   line ``{"dist": {...}}``;
+   the first step's gradients (gathered) within a relative L2 error of
+   5e-2, 8 flash_attention and 4 flash_attention_bwd a step a rank; float32
+   on the first 2 layers, every parameter after 3 steps within 2e-3 (1 +
+   |b|) of the one-process float32 step and each leaf's change over the 3
+   steps within a relative L2 error of 1e-2 of the one process's change
+   (warmup moves a parameter by less than the first limit); step ms by CUDA
+   events (two processes time-sharing one card with their collectives
+   through the host: not a scaling number), each rank's peak memory, the
+   bytes staged through the host and gathered at use a step, the gathered
+   leaves alive at most; a checkpoint after step 3, restored onto a (1, 2)
+   mesh in the same ranks, each block equal bit for bit to its slice of the
+   gathered parameters; (f) the same step on (data 1, model 2): each rank
+   half of the heads (16 query heads, 4 KV heads held), d_ff and
+   vocabulary, the same checks as (c) but the checkpoint, the heads each
+   attention launch ran, and one ``grad_fn``'s FLOPs at most DIST_TP_FLOPS
+   of (a)'s; (d) one ``qwen2-moe-a2.7b`` MoE layer at full width (d 2048,
+   64 padded experts, top 4, shared experts, bfloat16, 4 x 512 tokens) by
+   ``moe_apply_sharded`` on (1, 2), 32 experts a rank, against the plain
+   ``moe_apply`` in rank 0 alone: output within 2e-2 (1 + |b|), aux within
+   1e-4 relative, the router / wi / wo gradients (the router's a rank's,
+   the experts' summed over 'model': the layer is tensor-parallel) within
+   a relative L2 error of 5e-2; (e) ``gpipe`` of an 8-layer tanh stack over
+   2 stages on CUDA tensors against the sequential stack (2e-5 forward,
+   2e-4 gradients), and ``compressed_pod_allreduce`` on (pod 2, data 1,
+   model 1) against its definition (1e-6); (g) ``rwkv6-1.6b`` at full width
+   and 2 of its 24 layers on (1, 2) in float32 (bfloat16's rounding alone
+   moves the ``faaaa`` gradient by most of its norm there: reported),
+   masters drawn on the card from the seed in each rank, 2 steps of 4 x 512
+   against one process's in rank 0 alone (losses 1e-2, norms 1 %, the first step's gradients 5e-2
+   relative L2), the WKV kernels on [4 x 16, 512, 64] (16 of 32 heads a
+   rank), 4 wkv_chunked and 2 wkv_chunked_bwd a step a rank.  One JSON line
+   ``{"dist": {...}}``.  ``--only 5h`` runs this phase alone after the
+   build; ``--dist-vs DIR`` runs (a) to (c) of it from the checkout DIR and
+   from this one, alternating (``dist_versus``);
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
    workload, each schedule verified by ``repro_torch.check.verify_schedule``
    (the static checker and the Hopper launch lint; any finding fails the
@@ -370,7 +388,8 @@ seventeen paths: the dense, MoE, encoder-decoder and hybrid requests as
 ``qwen2vl_serve`` and ``qwen3moe_serve``, the
 train steps as ``dense_train`` and ``rwkv_train``, the serve phase's new
 launches as ``serve_store``, and phase 5h's rank 0 as ``dist_serve``, one
-B = 8 forward, and ``dist_train``, one sharded step).  The WKV backward (``wkv_bwd_case``) is held
+B = 8 forward, ``dist_train``, one sharded step on (2, 1), ``dist_tp``, one
+on (1, 2), and ``dist_rwkv``, one RWKV-6 step on (1, 2)).  The WKV backward (``wkv_bwd_case``) is held
 to autograd of ``ref.wkv_ref`` (2e-4 (1 + |b|) float32, 1e-3 at the
 extreme decays, 2e-2 bfloat16 with a relative L2 of 2e-4 on the float32
 dlogw and du) at the trained shape (bf16), a ragged 32 x 200 at chunk 64,
@@ -414,6 +433,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -432,6 +452,7 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
 from repro_torch import profile_flash_attention_bwd as fab_prof  # noqa: E402
@@ -456,6 +477,7 @@ from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.data.synthetic import make_dataset  # noqa: E402
 from repro_torch.models.params import (count_params, init_params,  # noqa: E402
                                        per_layer, tree_leaves, tree_map)
+from repro_torch.models.params import init_on_device as draw_on_device  # noqa: E402
 from repro_torch.optim import adamw_init, global_norm, warmup_cosine  # noqa: E402
 from repro_torch.optim.compression import (compressed_pod_allreduce,  # noqa: E402
                                            dequantize_int8, quantize_with_feedback)
@@ -629,6 +651,13 @@ DIST_EDGE_BATCH, DIST_EDGE_ODD = 16, 7
 DIST_MOE_TOKENS = (4, 512)
 DIST_MOE_TOL = 2e-2
 DIST_WORLD_S = 300
+# part (f): the same cut dense model on (data 1, model 2), each rank half of
+# the heads, d_ff and vocabulary; its grad_fn's FLOPs (aten products, by
+# FlopCounterMode) at most DIST_TP_FLOPS of one process's; part (g):
+# rwkv6-1.6b at full width and DIST_RWKV_LAYERS layers on (1, 2),
+# DIST_RWKV_STEPS steps against one process's in rank 0
+DIST_TP_FLOPS = 0.55
+DIST_RWKV_LAYERS, DIST_RWKV_STEPS = 2, 2
 
 
 def fail(msg: str) -> None:
@@ -3112,9 +3141,9 @@ def hybrid_path():
         fail(f"hybrid: should launch flash_attention 8 times a prefill, model "
              f"says {want}")
     t1 = time.perf_counter()
-    tree = init_params(SEED, defs)              # numpy float32, on the host
+    # drawn on the card from the seed (``init_on_device``), as served
+    params = recurrentgemma.load_params(cfg, recurrentgemma.init_on_device(cfg, SEED))
     init_s = time.perf_counter() - t1
-    params = recurrentgemma.load_params(cfg, tree)  # as served: bfloat16 compute
     rng = np.random.default_rng(SEED + 6)
     launches, result = lm_phase("hybrid", cfg, recurrentgemma, params,
                                 HYBRID_REQUESTS, rng)
@@ -3126,13 +3155,15 @@ def hybrid_path():
     n = HYBRID_F32[0]
     cfg32 = dataclasses.replace(cfg, num_layers=n, block_pattern=cfg.block_pattern[:n],
                                 dtype="float32")
-    params32 = recurrentgemma.load_params(cfg32, dict(tree, blocks=tree["blocks"][:n]))
-    del tree
+    # the same draw cut to its first layers: each leaf's seed is its index in
+    # tree order (the embedding, then the blocks), and the final norm is a
+    # fill, so these are the served tree's float32 numbers
+    params32 = recurrentgemma.load_params(cfg32, recurrentgemma.init_on_device(cfg32, SEED))
     f32_err, _ = f32_check("hybrid", cfg32, recurrentgemma, params32, rng, HYBRID_F32)
     del params32
     torch.cuda.empty_cache()
-    result.update(arch=HYBRID_ARCH, parameters=HYBRID_PARAMS, init_params_s=init_s,
-                  f32_max_err_vs_plain_on_card=f32_err,
+    result.update(arch=HYBRID_ARCH, parameters=HYBRID_PARAMS, init_on="card",
+                  init_params_s=init_s, f32_max_err_vs_plain_on_card=f32_err,
                   wall_s=time.perf_counter() - t0)
     return launches, result
 
@@ -3357,11 +3388,11 @@ def dist_batches(cfg, n: int) -> list:
             for s in range(n)]
 
 
-def dist_step(cfg, mesh=None):
+def dist_step(cfg, mesh=None, profile: str = "2d"):
     """5f's step (its schedule and clipping), on ``mesh`` where given."""
     return build_train_step(cfg, lr_schedule=warmup_cosine(TRAIN_LR, TRAIN_WARMUP,
                                                            TRAIN_STEPS),
-                            clip_norm=TRAIN_CLIP, mesh=mesh)
+                            clip_norm=TRAIN_CLIP, mesh=mesh, profile=profile)
 
 
 def dist_masters(tree):
@@ -3420,13 +3451,15 @@ def dist_one_process(tmp: str) -> dict:
         dist.all_gather(parts, x, group=group)
         if not (torch.equal(y, x) and torch.equal(parts[0], x)):
             fail(f"dist (a): NCCL's all-reduce or all-gather over {axis} changed its input")
-    _, _, grads = build_grad_fn(cfg)(dist_masters(tree), batches[0])
+    with FlopCounterMode(display=False) as flops:
+        _, _, grads = build_grad_fn(cfg)(dist_masters(tree), batches[0])
     save_checkpoint(tmp / "grads", 0, grads)
     del grads
     cfg32 = dist_dense_cfg(DIST_F32[0], "float32")
     save_checkpoint(tmp / "f32", 0, run(None, cfg32, dist_f32_tree(tree), DIST_F32[1])[1])
     return dict(backend=mesh.backend, mesh=mesh.sizes, steps=DIST_STEPS,
                 nccl_collectives_checked=sorted(mesh.groups), losses=[m[0] for m in metrics], grad_norms=[m[1] for m in metrics],
+                grad_fn_flops=flops.get_total_flops(),
                 peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
                 seconds=time.perf_counter() - t0)
 
@@ -3466,15 +3499,29 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
 
 
-def dist_train(tmp: Path, one: dict) -> dict:
+def recorded(name: str, shapes: list):
+    """A stand-in for ``ops.<name>`` that appends the shapes of its first two
+    operands to ``shapes`` and calls the kernel's wrapper (which counts)."""
+    real = getattr(ops, name)
+
+    def rec(a, b, *args, **kw):
+        shapes.append((tuple(a.shape), tuple(b.shape)))
+        return real(a, b, *args, **kw)
+    return real, rec
+
+
+def dist_train(tmp: Path, one: dict, shape=(2, 1), part: str = "c") -> dict:
     """Part (c): the sharded step of the cut dense model on (data 2,
     model 1), its parameters restored onto the mesh from the host arrays,
     against part (a)'s one-process step; the float32 check; a checkpoint
-    after DIST_CKPT steps restored onto (1, 2)."""
+    after DIST_CKPT steps restored onto (1, 2).  Part (f) runs the same on
+    (data 1, model 2) with each rank's FLOPs of one ``grad_fn`` against
+    one process's and the heads its attention kernels run, and no
+    checkpoint."""
     rank = dist.get_rank()
     cfg = dist_dense_cfg()
     defs = transformer.param_defs(cfg)
-    mesh = mesh_lib.make_mesh((2, 1), ("data", "model"))
+    mesh = mesh_lib.make_mesh(shape, ("data", "model"))
     step = dist_step(cfg, mesh)
     like = tree_map(lambda d, path: torch.empty(0).requires_grad_(), defs)
     params = restore_sharded(tmp / "dense", like, step.pspecs, mesh)[1]
@@ -3483,13 +3530,29 @@ def dist_train(tmp: Path, one: dict) -> dict:
     layers = cfg.num_layers
     per_step = {n: 0 for n in KERNELS}
     per_step.update(flash_attention=2 * layers, flash_attention_bwd=layers)
+    tag = f"dist ({part})"
 
-    # the first step's gradients against the one process's
-    reset_counts()
-    loss0, _, grads = step.grad_fn(params, batches[0])
-    first = read_counts()
+    # the first step's gradients against the one process's, the heads the
+    # attention kernel runs on and (part f) the grad_fn's FLOPs
+    heads: list = []
+    real_fa, ops.flash_attention = recorded("flash_attention", heads)
+    try:
+        reset_counts()
+        loss0, _, grads = step.grad_fn(params, batches[0])
+        first = read_counts()
+    finally:
+        ops.flash_attention = real_fa
     if first != per_step:
-        fail(f"dist (c): the first step launched {first}, expected {per_step}")
+        fail(f"{tag}: the first step launched {first}, expected {per_step}")
+    flops = None
+    if part == "f":
+        with FlopCounterMode(display=False) as fc:
+            step.grad_fn(params, batches[0])
+        flops = fc.get_total_flops()
+        if flops > DIST_TP_FLOPS * one["grad_fn_flops"]:
+            fail(f"{tag}: a rank's grad_fn counts {flops:.4g} FLOPs, more than "
+                 f"{DIST_TP_FLOPS} of one process's {one['grad_fn_flops']:.4g}")
+    grads = sharding.tree_gather_full(grads, step.pspecs, mesh)
     rel, norm = {}, global_norm(grads).item()
     if rank == 0:
         want = load_checkpoint(tmp / "grads", 0, like=defs)[1]
@@ -3499,13 +3562,14 @@ def dist_train(tmp: Path, one: dict) -> dict:
     del grads
     worst = max(rel, key=rel.get) if rel else None
     if rank == 0 and rel[worst] > TRAIN_GRAD_REL:
-        fail(f"dist (c): first step's gradient {worst} rel L2 {rel[worst]:.3e} against "
+        fail(f"{tag}: first step's gradient {worst} rel L2 {rel[worst]:.3e} against "
              f"one process (limit {TRAIN_GRAD_REL})")
 
-    times, staged, metrics, peak = [], [], [], 0.0
+    times, staged, gathered, live, metrics = [], [], [], [], []
     torch.cuda.reset_peak_memory_stats()
     for s, b in enumerate(batches):
         before = collectives.host_staged_bytes
+        sharding.reset_gather_counts()
         reset_counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t_host = time.perf_counter()
@@ -3517,10 +3581,12 @@ def dist_train(tmp: Path, one: dict) -> dict:
                           wall_ms=1e3 * (time.perf_counter() - t_host)))
         n = read_counts()
         if n != per_step:
-            fail(f"dist (c): step {s} launched {n}, expected {per_step}")
+            fail(f"{tag}: step {s} launched {n}, expected {per_step}")
         staged.append(collectives.host_staged_bytes - before)
+        gathered.append(sharding.gathered_bytes)
+        live.append(sharding.peak_live_gathered_bytes)
         metrics.append([m["loss"].item(), m["grad_norm"].item()])
-        if s + 1 == DIST_CKPT:
+        if part == "c" and s + 1 == DIST_CKPT:
             full = sharding.tree_gather_full(params, step.pspecs, mesh)
             if rank == 0:
                 save_checkpoint(tmp / "ckpt", DIST_CKPT, full)
@@ -3529,19 +3595,34 @@ def dist_train(tmp: Path, one: dict) -> dict:
     for s, (loss, gn) in enumerate(metrics):
         if not (abs(loss - one["losses"][s]) <= TRAIN_LOSS_TOL
                 and abs(gn - one["grad_norms"][s]) <= TRAIN_NORM_REL * one["grad_norms"][s]):
-            fail(f"dist (c): step {s} loss {loss:.5f} grad norm {gn:.5f} against one "
+            fail(f"{tag}: step {s} loss {loss:.5f} grad norm {gn:.5f} against one "
                  f"process's {one['losses'][s]:.5f} {one['grad_norms'][s]:.5f}")
 
-    # the checkpoint after DIST_CKPT steps onto a (1, 2) mesh in the same ranks
-    mesh12 = mesh_lib.make_mesh((1, 2), ("data", "model"))
-    specs12 = sharding.model_param_pspecs(cfg, mesh12, defs)
-    got = restore_sharded(tmp / "ckpt", like, specs12, mesh12)[1]
-    leaves = tree_map(lambda r, f, spec, path: torch.equal(
-        r, sharding.local_shard(f, spec, mesh12)), got, full, specs12)
-    if not all(tree_leaves(leaves)):
-        fail("dist (c): a block restored onto (1, 2) differs from its slice of the "
-             "gathered parameters")
-    del got, full, params, opt
+    res = dict(mesh=mesh.sizes, profile="2d", steps=DIST_STEPS,
+               batch=TRAIN_BATCH, rows_a_rank=TRAIN_BATCH[0] // shape[0],
+               launches_per_step=n, first_step_launches=first,
+               attention_heads=sorted(set(heads)),
+               kv_heads_held=int(params["blocks"]["attn"]["wk"].shape[-2]),
+               losses=[m[0] for m in metrics], grad_norms=[m[1] for m in metrics],
+               loss_gap_max=max(abs(m[0] - one["losses"][s]) for s, m in enumerate(metrics)),
+               grad_norm_first=norm, grad_rel_l2_worst=[worst, rel.get(worst)],
+               step_ms=times, host_staged_bytes_per_step=staged,
+               gathered_bytes_per_step=gathered, peak_live_gathered_bytes=live,
+               peak_mib=peak, grad_fn_flops=flops,
+               one_process_grad_fn_flops=one["grad_fn_flops"])
+    if part == "c":
+        # the checkpoint after DIST_CKPT steps onto a (1, 2) mesh in the same ranks
+        mesh12 = mesh_lib.make_mesh((1, 2), ("data", "model"))
+        specs12 = sharding.model_param_pspecs(cfg, mesh12, defs)
+        got = restore_sharded(tmp / "ckpt", like, specs12, mesh12)[1]
+        leaves = tree_map(lambda r, f, spec, path: torch.equal(
+            r, sharding.local_shard(f, spec, mesh12)), got, full, specs12)
+        if not all(tree_leaves(leaves)):
+            fail("dist (c): a block restored onto (1, 2) differs from its slice of the "
+                 "gathered parameters")
+        del got, full
+        res.update(restored_onto={"data": 1, "model": 2}, restore_bitwise=True)
+    del params, opt
 
     # float32 on the first layers: DIST_F32[1] sharded steps against one process
     cfg32 = dist_dense_cfg(DIST_F32[0], "float32")
@@ -3558,7 +3639,7 @@ def dist_train(tmp: Path, one: dict) -> dict:
         want = load_checkpoint(tmp / "f32", 0, like=transformer.param_defs(cfg32))[1]
         errs = []
         tree_map(lambda g, w, path: errs.append(compare(
-            f"dist (c) float32 {path}", g, torch.from_numpy(w).cuda(), 2e-3)), full32, want)
+            f"{tag} float32 {path}", g, torch.from_numpy(w).cuda(), 2e-3)), full32, want)
         f32_err = max(errs)
         # warmup's first steps move a parameter by less than that limit, so
         # each leaf's change over the steps is held to the one process's
@@ -3572,25 +3653,115 @@ def dist_train(tmp: Path, one: dict) -> dict:
         tree_map(moved, full32, want, tree32)
         worst32 = max(moved_rel, key=moved_rel.get)
         if moved_rel[worst32] > DIST_F32_MOVED_REL:
-            fail(f"dist (c): float32 {worst32}'s change over {DIST_F32[1]} steps has rel L2 "
+            fail(f"{tag}: float32 {worst32}'s change over {DIST_F32[1]} steps has rel L2 "
                  f"{moved_rel[worst32]:.3e} against one process's (limit {DIST_F32_MOVED_REL})")
     del tree32
-    return dict(mesh={"data": 2, "model": 1}, profile="2d", steps=DIST_STEPS,
-                batch=TRAIN_BATCH, rows_a_rank=TRAIN_BATCH[0] // 2, launches_per_step=n,
-                first_step_launches=first, losses=[m[0] for m in metrics],
-                grad_norms=[m[1] for m in metrics], grad_norm_first=norm,
+    res.update(f32_max_err=f32_err, f32_max_change=f32_moved,
+               f32_change_rel_l2_worst=[worst32, moved_rel.get(worst32)],
+               f32_layers=DIST_F32[0], f32_steps=DIST_F32[1])
+    return res
+
+
+def dist_rwkv() -> dict:
+    """Part (g): rwkv6-1.6b at full width and DIST_RWKV_LAYERS layers on
+    (data 1, model 2), each rank half of the heads (the WKV kernels on
+    [B x 16, T, 64]), against one process's DIST_RWKV_STEPS steps in rank 0
+    alone; each rank draws the float32 masters on the card from the seed
+    (the same bits on both) and keeps its blocks.  It computes in float32:
+    at this width and init, bfloat16's rounding alone moves one process's
+    gradient of ``faaaa`` by most of its norm (``bf16_vs_f32_grad_rel_l2``,
+    measured here on rank 0), so a bfloat16 comparison of two orders of
+    summation could not tell a fault from rounding."""
+    rank = dist.get_rank()
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=DIST_RWKV_LAYERS,
+                              dtype="float32")
+    defs = rwkv6.param_defs(cfg)
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    batches = dist_batches(cfg, DIST_RWKV_STEPS)
+    layers = cfg.num_layers
+    per_step = {n: 0 for n in KERNELS}
+    per_step.update(wkv_chunked=2 * layers, wkv_chunked_bwd=layers)
+    tree = draw_on_device(SEED, defs, device="cuda")          # float32 masters
+    want, noise = None, {}
+    if rank == 0:
+        _, _, g_one = build_grad_fn(cfg)(tree, batches[0])
+        # why the part runs float32: one process's bfloat16 gradients against
+        # its float32 ones, leaf by leaf (not checked)
+        g16 = build_grad_fn(dataclasses.replace(cfg, dtype="bfloat16"))(tree, batches[0])[2]
+        tree_map(lambda a, b, path: noise.__setitem__(path, rel_l2(a, b)), g16, g_one)
+        del g16
+        params = tree_map(lambda t, path: t.clone().requires_grad_(), tree)
+        opt, step1, one = adamw_init(params), dist_step(cfg), []
+        for b in batches:
+            params, opt, m = step1(params, opt, b)
+            one.append([m["loss"].item(), m["grad_norm"].item()])
+        want = (one, g_one)
+        del params, opt
+    dist.barrier()
+    step = dist_step(cfg, mesh)
+    params = tree_map(lambda t, spec, path: sharding.local_shard(t, spec, mesh).clone()
+                      .requires_grad_(), tree, step.pspecs)
+    del tree
+    torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    shapes: list = []
+    real_wkv, ops.wkv_chunked = recorded("wkv_chunked", shapes)
+    try:
+        reset_counts()
+        _, _, grads = step.grad_fn(params, batches[0])
+        first = read_counts()
+    finally:
+        ops.wkv_chunked = real_wkv
+    if first != per_step:
+        fail(f"dist (g): the first step launched {first}, expected {per_step}")
+    grads = sharding.tree_gather_full(grads, step.pspecs, mesh)
+    rel = {}
+    if rank == 0:
+        tree_map(lambda g, w, path: rel.__setitem__(path, rel_l2(g, w)), grads, want[1])
+    del grads
+    worst = max(rel, key=rel.get) if rel else None
+    if rank == 0 and rel[worst] > TRAIN_GRAD_REL:
+        fail(f"dist (g): first step's gradient {worst} rel L2 {rel[worst]:.3e} against "
+             f"one process (limit {TRAIN_GRAD_REL})")
+    times, metrics = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for s, b in enumerate(batches):
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, b)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        n = read_counts()
+        if n != per_step:
+            fail(f"dist (g): step {s} launched {n}, expected {per_step}")
+        metrics.append([m["loss"].item(), m["grad_norm"].item()])
+    if rank == 0:
+        for s, ((loss, gn), (l1, g1)) in enumerate(zip(metrics, want[0])):
+            if not (abs(loss - l1) <= TRAIN_LOSS_TOL and abs(gn - g1) <= TRAIN_NORM_REL * g1):
+                fail(f"dist (g): step {s} loss {loss:.5f} grad norm {gn:.5f} against one "
+                     f"process's {l1:.5f} {g1:.5f}")
+    bh = sorted({a[0] for a, _ in shapes})
+    heads = [x // TRAIN_BATCH[0] for x in bh]
+    if heads != [cfg.d_model // cfg.wkv_head_dim // 2]:
+        fail(f"dist (g): the WKV kernel ran {heads} heads a rank, expected half of "
+             f"{cfg.d_model // cfg.wkv_head_dim}")
+    return dict(mesh=mesh.sizes, layers=layers, steps=DIST_RWKV_STEPS, batch=TRAIN_BATCH,
+                launches_per_step=n, first_step_launches=first, wkv_shapes=sorted(set(shapes)),
+                heads_a_rank=heads[0], losses=[m[0] for m in metrics],
+                grad_norms=[m[1] for m in metrics],
+                one_process=None if want is None else want[0],
                 grad_rel_l2_worst=[worst, rel.get(worst)], step_ms=times,
-                host_staged_bytes_per_step=staged, peak_mib=peak,
-                restored_onto={"data": 1, "model": 2}, restore_bitwise=True,
-                f32_max_err=f32_err, f32_max_change=f32_moved,
-                f32_change_rel_l2_worst=[worst32, moved_rel.get(worst32)],
-                f32_layers=DIST_F32[0], f32_steps=DIST_F32[1])
+                bf16_vs_f32_grad_rel_l2=noise,
+                peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
 
 
 def dist_moe(tmp: Path) -> dict:
     """Part (d): one ``qwen2-moe-a2.7b`` MoE layer at full width on (data 1,
     model 2), each rank 32 of the 64 padded experts, against the plain
-    ``moe_apply`` in rank 0 alone."""
+    ``moe_apply`` in rank 0 alone; the ranks' gradients combined as the
+    layer's tensor parallelism over 'model' hands them out."""
     rank = dist.get_rank()
     cfg = get_config(MOE_ARCH)
     mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
@@ -3611,7 +3782,10 @@ def dist_moe(tmp: Path) -> dict:
     plain = run(lambda: lm_layers.moe_apply(cfg, params, x)) if rank == 0 else None
     reset_counts()
     out, aux, grads = run(lambda: moe_sharded.moe_apply_sharded(cfg, params, x, mesh=mesh))
-    grads = [collectives.mesh_mean(g, mesh) for g in grads]
+    # tensor-parallel over 'model': each rank's router gradient is the whole
+    # one, its experts' the whole one of its block (zeros elsewhere)
+    grads = [g if n == "router" else collectives.psum(g, mesh, "model")
+             for n, g in zip(names, grads)]
     res = dict(mesh={"data": 1, "model": 2}, tokens=x.shape[0],
                experts_a_rank=cfg.moe.num_experts_padded // 2, launches=read_counts())
     if rank == 0:
@@ -3666,17 +3840,23 @@ def dist_rings() -> dict:
                                    feedback_max_abs_err=fb_err))
 
 
-def dist_pair(tmp: str, one: dict) -> dict:
-    """Parts (b) to (e) on one rank of a world of two that share the card
-    (gloo)."""
+DIST_PARTS = ("serve", "train", "tp", "moe", "rings", "rwkv")
+
+
+def dist_pair(tmp: str, one: dict, parts=DIST_PARTS) -> dict:
+    """Parts (b) to (g) (those of ``parts``) on one rank of a world of two
+    that share the card (gloo)."""
     tmp = Path(tmp)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     collectives.host_staged_bytes = 0
     out = dict(rank=dist.get_rank(), backend=dist.get_backend())
-    for part, fn in (("serve", lambda: dist_serve(tmp)), ("train", lambda: dist_train(tmp, one)),
-                     ("moe", lambda: dist_moe(tmp)), ("rings", dist_rings)):
+    fns = dict(serve=lambda: dist_serve(tmp), train=lambda: dist_train(tmp, one),
+               tp=lambda: dist_train(tmp, one, shape=(1, 2), part="f"),
+               moe=lambda: dist_moe(tmp), rings=dist_rings, rwkv=dist_rwkv)
+    for part in parts:
+        fn = fns[part]
         t1 = time.perf_counter()
         out[part] = fn()
         out[part]["seconds"] = time.perf_counter() - t1
@@ -3687,11 +3867,12 @@ def dist_pair(tmp: str, one: dict) -> dict:
     return out
 
 
-def dist_phase() -> tuple:
+def dist_phase(parts=DIST_PARTS) -> tuple:
     """Phase 5h (module docstring): the inputs made on the host and written
     to a fresh directory, part (a) in a world of one rank under NCCL, parts
-    (b) to (e) in a world of two that share the card under gloo.  Returns
-    the launches of (b) and (c) by rank 0 and the numbers."""
+    (b) to (g) (those of ``parts``) in a world of two that share the card
+    under gloo.  Returns the launches of each part's path by rank 0 and
+    the numbers."""
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3724,22 +3905,28 @@ def dist_phase() -> tuple:
         (one,) = mesh_lib.spawn_local(1, dist_one_process, str(tmp), timeout_s=DIST_WORLD_S)
         one["world_s"] = time.perf_counter() - t1
         t1 = time.perf_counter()
-        pair = mesh_lib.spawn_local(2, dist_pair, str(tmp), one, timeout_s=DIST_WORLD_S)
+        pair = mesh_lib.spawn_local(2, dist_pair, str(tmp), one, parts,
+                                    timeout_s=DIST_WORLD_S)
         pair_s = time.perf_counter() - t1
     except RuntimeError as e:
         fail(f"dist: {e}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = pair[0]
-    if pair[1]["train"]["losses"] != r0["train"]["losses"]:
-        fail(f"dist (c): the two ranks' losses differ: {pair[1]['train']['losses']} "
-             f"vs {r0['train']['losses']}")
+    for part, name in (("train", "c"), ("tp", "f"), ("rwkv", "g")):
+        if part in parts and pair[1][part]["losses"] != r0[part]["losses"]:
+            fail(f"dist ({name}): the two ranks' losses differ: "
+                 f"{pair[1][part]['losses']} vs {r0[part]['losses']}")
     res = dict(one_process=one, ranks=pair, pair_world_s=pair_s, setup_s=setup_s,
-               layers=DIST_LAYERS, reduced=f"num_layers 24 -> {DIST_LAYERS}",
-               wall_s=time.perf_counter() - t0,
+               layers=DIST_LAYERS, reduced=f"num_layers 24 -> {DIST_LAYERS}; "
+               f"{RWKV_ARCH} num_layers 24 -> {DIST_RWKV_LAYERS}",
+               wall_s=time.perf_counter() - t0, parts=list(parts),
                note="two processes time-share one card and cross the host for every "
                     "collective: not a scaling number")
-    return r0["serve"]["launches"], r0["train"]["launches_per_step"], res
+    paths = {"dist_serve": ("serve", "launches"), "dist_train": ("train", "launches_per_step"),
+             "dist_tp": ("tp", "launches_per_step"), "dist_rwkv": ("rwkv", "launches_per_step")}
+    launches = {path: r0[part][key] for path, (part, key) in paths.items() if part in parts}
+    return launches, res
 
 
 def print_dist(d: dict) -> None:
@@ -3770,6 +3957,37 @@ def print_dist(d: dict) -> None:
           f"median {statistics.median(ev):.1f}; host-staged MB a step "
           f"{[round(b / 1e6, 1) for b in t['host_staged_bytes_per_step']]}; peak MiB "
           f"by rank {[round(x['train']['peak_mib']) for x in r]}")
+    print(f"dist (c) 8e: bytes gathered at use a step and a rank "
+          f"{[round(b / 1e6, 1) for b in t['gathered_bytes_per_step']]} MB, gathered "
+          f"leaves alive at most {max(t['peak_live_gathered_bytes']) / 1e6:.1f} MB")
+    f = r0["tp"]
+    fev = [x["event_ms"] for x in f["step_ms"]]
+    print(f"dist (f) gloo 2 ranks, mesh {f['mesh']} profile {f['profile']}: "
+          f"{f['steps']} steps, losses {[round(x, 5) for x in f['losses']]} (largest gap to "
+          f"one process {f['loss_gap_max']:.2e}, limit {TRAIN_LOSS_TOL}), grad norms within "
+          f"1 %, worst first-step gradient {f['grad_rel_l2_worst'][0]} rel L2 "
+          f"{f['grad_rel_l2_worst'][1]:.3e}; float32 {f['f32_layers']} layers x "
+          f"{f['f32_steps']} steps max err {f['f32_max_err']:.2e}, worst change rel L2 "
+          f"{f['f32_change_rel_l2_worst'][0]} {f['f32_change_rel_l2_worst'][1]:.3e}")
+    print(f"dist (f) a rank: attention kernels on (q, k) shapes {f['attention_heads']} "
+          f"({f['kv_heads_held']} KV heads held), launches a step {f['launches_per_step']}; "
+          f"grad_fn FLOPs {f['grad_fn_flops']:.4g} = "
+          f"{f['grad_fn_flops'] / f['one_process_grad_fn_flops']:.3f} of one process's "
+          f"{f['one_process_grad_fn_flops']:.4g} (limit {DIST_TP_FLOPS}); step ms "
+          f"{fev} median {statistics.median(fev):.1f}; host-staged MB a step "
+          f"{[round(b / 1e6, 1) for b in f['host_staged_bytes_per_step']]}; peak MiB "
+          f"by rank {[round(x['tp']['peak_mib']) for x in r]}")
+    g = r0["rwkv"]
+    print(f"dist (g) gloo 2 ranks, mesh {g['mesh']}: {RWKV_ARCH} {g['layers']} layers, "
+          f"{g['steps']} steps, losses {[round(x, 5) for x in g['losses']]} vs one process "
+          f"{[round(x[0], 5) for x in g['one_process']]}, worst first-step gradient "
+          f"{g['grad_rel_l2_worst'][0]} rel L2 {g['grad_rel_l2_worst'][1]:.3e}; WKV on "
+          f"{g['wkv_shapes'][0]} ({g['heads_a_rank']} heads a rank), launches a step "
+          f"{g['launches_per_step']}; step ms {[round(x, 1) for x in g['step_ms']]}; "
+          f"peak MiB by rank {[round(x['rwkv']['peak_mib']) for x in r]}; one process's "
+          f"bfloat16 gradients against its float32 ones: faaaa rel L2 "
+          f"{g['bf16_vs_f32_grad_rel_l2'].get('blocks.tm.faaaa', float('nan')):.3e}, median "
+          f"leaf {statistics.median(g['bf16_vs_f32_grad_rel_l2'].values()):.3e}")
     m = r0["moe"]
     print(f"dist (d) gloo 2 ranks: {MOE_ARCH} MoE layer, {m['tokens']} tokens, "
           f"{m['experts_a_rank']} experts a rank: err {m['max_abs_err']:.2e} (limit "
@@ -3780,10 +3998,59 @@ def print_dist(d: dict) -> None:
           f"grad {e['gpipe']['grad_max_abs_err']:.2e}; pod all-reduce mean err "
           f"{e['pod_allreduce']['mean_max_abs_err']:.2e} feedback "
           f"{e['pod_allreduce']['feedback_max_abs_err']:.2e}")
-    print(f"dist: parts {[(k, round(r0[k]['seconds'], 1)) for k in ('serve', 'train', 'moe', 'rings')]} s "
+    print(f"dist: parts {[(k, round(r0[k]['seconds'], 1)) for k in d['parts']]} s "
           f"rank 0; host-staged {r0['host_staged_bytes'] / 1e9:.2f} GB; worlds "
           f"{one['world_s']:.1f} + {d['pair_world_s']:.1f} s; phase {d['wall_s']:.1f} s",
           flush=True)
+
+
+# one process of ``dist_versus``: the checkout's own phase 5h (its parts
+# (b) and (c) where it takes ``parts``, all of them where it does not, as a
+# parent of this commit does), printed as one line
+DIST_VS_CODE = """
+import inspect, json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as c
+c._build.library()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+kw = {"parts": ("serve", "train")} if "parts" in inspect.signature(c.dist_phase).parameters else {}
+res = c.dist_phase(**kw)[-1]
+t = [r["train"] for r in res["ranks"]]
+print("DIST_VS " + json.dumps(dict(
+    peak_mib=[x["peak_mib"] for x in t], staged=t[0]["host_staged_bytes_per_step"],
+    step_ms=[x["event_ms"] for x in t[0]["step_ms"]], losses=t[0]["losses"],
+    one_losses=res["one_process"]["losses"], phase_s=res["wall_s"])))
+"""
+
+
+def dist_versus(other: Path) -> list:
+    """Part (c) of phase 5h (the sharded step on (data 2, model 1)) in the
+    checkout ``other`` and in this one, alternating: other, this, this,
+    other, each in a fresh process that builds nothing new (the kernels'
+    sources are the same, so both read this checkout's build).  Prints each
+    round's peak MiB a rank, bytes staged a step and step ms."""
+    env = dict(os.environ, REPRO_TORCH_BUILD_DIR=str(ROOT / "build"))
+    rounds = []
+    for where in (other, ROOT, ROOT, other):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", DIST_VS_CODE], cwd=where, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        line = [x for x in out.stdout.splitlines() if x.startswith("DIST_VS ")]
+        if out.returncode != 0 or not line:
+            fail(f"dist-vs: {where} exited {out.returncode}:\n{out.stdout[-3000:]}")
+        rec = dict(json.loads(line[0][len("DIST_VS "):]), checkout=str(where),
+                   tree="this" if where == ROOT else "other",
+                   seconds=time.perf_counter() - t0)
+        rounds.append(rec)
+        print(f"dist-vs {rec['tree']} ({where}): peak MiB by rank "
+              f"{[round(x, 1) for x in rec['peak_mib']]}; staged MB a step "
+              f"{[round(b / 1e6, 1) for b in rec['staged']]}; step ms "
+              f"{[round(x, 1) for x in rec['step_ms']]} median "
+              f"{statistics.median(rec['step_ms']):.1f}; losses "
+              f"{[round(x, 5) for x in rec['losses']]}; {rec['seconds']:.1f} s", flush=True)
+    return rounds
 
 
 def write_out(path: str, numbers: dict) -> None:
@@ -3795,9 +4062,13 @@ def write_out(path: str, numbers: dict) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
-    ap.add_argument("--only", choices=["5i"],
+    ap.add_argument("--only", choices=["5i", "5h"],
                     help="device, build and this phase alone, then stop (no "
                          "result lines)")
+    ap.add_argument("--dist-vs", metavar="DIR",
+                    help="device, build, then part (c) of phase 5h in four fresh "
+                         "processes, alternating the checkout DIR (another commit) "
+                         "and this one: DIR, this, this, DIR; then stop")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3850,6 +4121,22 @@ def main() -> None:
         print(f"ptxas wkv_grads {inst}: {n_regs} registers a thread, spill stores "
               f"{stores} loads {loads} bytes")
     lap("1-2 device, build")
+
+    if args.only == "5h":
+        launches, distributed = dist_phase()
+        print_dist(distributed)
+        lap("5h distributed")
+        if args.out:
+            write_out(args.out, dict(dist=distributed, dist_launches=launches, walls=walls))
+        print(f"phase wall s {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+        print(f"total {time.perf_counter() - t_start:.1f} s (phase 5h alone)")
+        return
+    if args.dist_vs:
+        rounds = dist_versus(Path(args.dist_vs).resolve())
+        if args.out:
+            write_out(args.out, dict(dist_vs=rounds, walls=walls))
+        print(f"total {time.perf_counter() - t_start:.1f} s (--dist-vs)")
+        return
 
     if args.only == "5i":
         five_launches, five = five_phase()
@@ -4017,7 +4304,7 @@ def main() -> None:
 
     # 5h. the distributed runtime: a world of one rank under NCCL, then two
     # ranks sharing the card under gloo
-    dist_serve_launches, dist_train_launches, distributed = dist_phase()
+    dist_launches, distributed = dist_phase()
     print_dist(distributed)
     lap("5h distributed")
 
@@ -4081,8 +4368,7 @@ def main() -> None:
                                   "hybrid_serve": hybrid_launches,
                                   "lowered": lowered_launches,
                                   "serve_store": serve_launches,
-                                  "dist_serve": dist_serve_launches,
-                                  "dist_train": dist_train_launches,
+                                  **dist_launches,
                                   **five_launches})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -24,7 +24,14 @@ is no card); ``--device cpu`` runs the plain versions.
 (each rank calls ``main``).  Every rank makes the same global batch as the
 one-device launcher (``data.synthetic`` with one process: the reference's
 ``jax.process_index()`` counts hosts, not devices) and the step takes its
-block, so a mesh changes no value of the run.  Each rank initialises the
+block, so a mesh changes no value of the run.  ``--profile`` picks the
+layout (``runtime.sharding``): '2d' (the default) holds the weights as
+blocks over 'data' (FSDP, gathered a layer at a time where they are used)
+and splits heads, d_ff and vocabulary over 'model' (tensor parallelism: a
+rank of 'model' runs its share of the products); 'tp' splits over 'model'
+alike but keeps the weights whole over 'data' (plain data parallelism
+there); 'fsdp' makes the whole mesh one FSDP / data-parallel axis, no
+split products; 'cp' raises (ROADMAP item 8b).  Each rank initialises the
 whole tree from the seed and keeps its block; checkpoints are written
 once, from gathered leaves, by rank 0, and a resume reads each rank's
 block (``checkpoint.restore_sharded``), from a checkpoint written under
@@ -74,7 +81,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="DATAxMODEL: a mesh over the world's ranks")
     ap.add_argument("--production-mesh", action="store_true",
                     help="16x16 mesh (needs 256 ranks)")
-    ap.add_argument("--profile", default="2d", choices=sharding.PROFILES)
+    ap.add_argument("--profile", default="2d", choices=sharding.PROFILES,
+                    help="the mesh's layout: 2d (FSDP over data, TP over model), "
+                         "tp (TP over model, data-parallel over data), fsdp "
+                         "(the whole mesh FSDP); cp is not ported")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)

@@ -11,7 +11,21 @@ float32 after their product, ``lm_logits`` is a float32 product with the
 unembedding.  The reference's ``actshard`` anchors stand where it calls
 them (each returns its input: a rank holds its block already).
 ``moe_apply_auto`` takes the expert-parallel MoE (``models.moe_sharded``)
-under a mesh, as the reference does.  Prefill attention goes
+under a mesh, as the reference does.
+
+Under the sharded train step (``actshard.split``) the products are split
+over 'model' as the reference's GSPMD splits them: the q / k / v
+projections, the MLP's ``wi`` / ``wg`` and the head are column-parallel on
+the rank's block of heads, d_ff or vocabulary (their replicated input
+through ``collectives.copy_to``), ``out_project`` and the MLP's ``wo``
+row-parallel (their partial output summed by ``collectives.reduce_from``),
+the embedding a lookup of the rank's rows summed over 'model'.  A leaf
+replicated over 'model' but used on the rank's heads (QK-norm scales, KV
+heads replicated under GQA) goes through ``copy_to`` itself, so that each
+rank of 'model' gets the whole gradient.  Leaves are gathered over their
+fsdp axes where they are used (``actshard.gathered``).
+
+Prefill attention goes
 through ``kernels.flash_attention`` (``models.attention``); decode
 attention is plain tensor code, as in the JAX package.
 """
@@ -30,6 +44,13 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.params import ParamDef
 
 Params = Dict[str, Any]
+
+
+def coll():
+    """``runtime.collectives``, imported at the first use (the runtime
+    package imports the models)."""
+    from repro_torch.runtime import collectives
+    return collectives
 
 
 def norm_defs(cfg: ModelConfig, layers_dim: Tuple[int, ...] = ()) -> Params:
@@ -115,7 +136,18 @@ def mlp_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
     consumed one tile at a time, the output summed tile by tile in the
     compute dtype as the reference's unrolled scan sums it.  Plain products
     on every device (no LM MLP goes through ``ops.fused_ibn`` until it has
-    an LM-width tiling, ROADMAP queue 2 b)."""
+    an LM-width tiling, ROADMAP queue 2 b).  Under ``actshard.split("ff")``
+    the leaves are the rank's d_ff block: ``wi`` / ``wg`` column-parallel,
+    ``wo`` row-parallel, the output summed over 'model'."""
+    tp = actshard.split("ff")
+    if tp is not None:
+        x = coll().copy_to(x, tp, "model")
+        return coll().reduce_from(_mlp(cfg, params, x, ibn_chunks), tp, "model")
+    return _mlp(cfg, params, x, ibn_chunks)
+
+
+def _mlp(cfg: ModelConfig, params: Params, x: torch.Tensor,
+         ibn_chunks: int) -> torch.Tensor:
     dtype = x.dtype
     wi, wo = params["wi"].to(dtype), params["wo"].to(dtype)
     wg = params.get("wg")
@@ -203,6 +235,15 @@ def moe_route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor):
     return probs, gate_vals, expert_idx
 
 
+def _batch_rows():
+    """(mesh, axes) over which the sharded train step splits the batch's
+    rows where it splits them over more than one rank, else None."""
+    layout = actshard.current_layout()
+    if layout is None or not layout.batch_axes:
+        return None
+    return layout.mesh, layout.batch_axes
+
+
 def moe_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
               capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with capacity-bounded sort-free dispatch.
@@ -212,7 +253,15 @@ def moe_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
     the expert's ``capacity`` is dropped (its row of the dispatch buffer
     is a sentinel cut off after the scatter, as ``mode="drop"`` discards
     it, and its gathered output is zero).  Every step stays on the device
-    and the shapes depend on N alone, so the block can be captured."""
+    and the shapes depend on N alone, so the block can be captured.
+
+    Under the sharded train step with the rows split over ranks (the
+    'fsdp' profile, or a layout that keeps the experts whole) the layer is
+    the reference's GSPMD one over the global batch: the capacity is the
+    global batch's, a claim's place in its expert counts the claims of the
+    ranks before (the experts' claim counts all-gathered), the aux is
+    taken over the global batch (its mean of the router's probabilities
+    summed over the ranks); each rank runs its own tokens' claims."""
     m = cfg.moe
     orig_shape, d = x.shape, x.shape[-1]
     xt = x.reshape(-1, d)
@@ -220,24 +269,51 @@ def moe_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
     dtype, dev = x.dtype, x.device
 
     probs, gate_vals, expert_idx = moe_route(cfg, params["router"], xt)
+    flat_expert = expert_idx.reshape(-1)                          # [N*k]
+    rows = _batch_rows()
+    n_all, before = n, None
+    if rows is not None:            # the global batch's routing (see below)
+        mesh, axes = rows
+        C = coll()
+        for a in axes:
+            n_all *= mesh.sizes[a]
+        gathered = torch.zeros(1, e_pad, dtype=torch.float32, device=dev).index_add_(
+            1, flat_expert, torch.ones((1, n * k), dtype=torch.float32, device=dev))
+        for a in reversed(axes):
+            gathered = C.all_gather(gathered.detach(), mesh, a, 0)
+        me_idx = 0
+        for a in axes:
+            me_idx = me_idx * mesh.sizes[a] + mesh.coords[a]
+        before = gathered[:me_idx].sum(0)                         # [E]
+        counts = gathered.sum(0)
 
     # load-balancing aux loss (Switch-style), over real experts only
-    me = probs[:, :e_real].mean(0)
-    ce = torch.zeros(e_pad, dtype=torch.float32, device=dev).index_add_(
-        0, expert_idx.reshape(-1),
-        torch.full((n * k,), 1.0 / (n * k), dtype=torch.float32, device=dev))
+    if rows is None:
+        me = probs[:, :e_real].mean(0)
+        ce = torch.zeros(e_pad, dtype=torch.float32, device=dev).index_add_(
+            0, flat_expert,
+            torch.full((n * k,), 1.0 / (n * k), dtype=torch.float32, device=dev))
+    else:
+        me = probs[:, :e_real].sum(0)
+        for a in rows[1]:
+            me = coll().psum(me, rows[0], a)
+        me = me / n_all
+        ce = counts / (n_all * k)
     aux_loss = e_real * torch.sum(me * ce[:e_real])
 
     # capacity-bounded dispatch: slot = expert * C + position_in_expert
-    capacity = int(max(1, (k * n * capacity_factor) // e_pad))
-    flat_expert = expert_idx.reshape(-1)                          # [N*k]
+    capacity = int(max(1, (k * n_all * capacity_factor) // e_pad))
     # the reference's cumsum over the [N*k, E] one-hot, taken over its
     # transpose [E, N*k]: the same integers, but a scan along the inner
     # dimension, which the card runs in parallel (along the outer one,
     # PyTorch's scan took 1.5 ms at N*k = 8192 on the H100)
     onehot_t = flat_expert[None, :] == torch.arange(e_pad, device=dev)[:, None]
     pos_in_expert = onehot_t.cumsum(1).gather(0, flat_expert[None, :])[0] - 1
-    keep = pos_in_expert < capacity
+    if before is None:
+        keep = pos_in_expert < capacity
+    else:               # a claim's place among the global batch's claims
+        keep = pos_in_expert + before.long()[flat_expert] < capacity
+        capacity = min(capacity, n * k)
     sentinel = e_pad * capacity
     slot = torch.where(keep, flat_expert * capacity + pos_in_expert, sentinel)
     token_idx = torch.arange(n, device=dev).repeat_interleave(k)
@@ -396,6 +472,27 @@ def out_project(params: Params, o: torch.Tensor, dtype: torch.dtype) -> torch.Te
     return o.transpose(1, 2).reshape(B, S, H * e) @ w.reshape(H * e, w.shape[-1])
 
 
+def _split_heads(cfg: ModelConfig, params: Params, tp) -> Params:
+    """The attention leaves of a rank that computes its block of the query
+    heads: a replicated QK-norm scale through ``copy_to``; replicated KV
+    heads (``kv_heads`` demoted under GQA) through ``copy_to`` and cut to
+    the KV head of each of the rank's query heads, h_global // G, so that
+    ``expand_kv`` is not needed."""
+    C = coll()
+    out = dict(params)
+    for name in ("q_norm", "k_norm"):
+        if name in params:
+            out[name] = C.copy_to(params[name], tp, "model")
+    if actshard.split("kv_heads") is None:
+        hl = params["wq"].shape[-2]
+        first = C.axis_index(tp, "model") * hl
+        idx = torch.div(torch.arange(first, first + hl, device=params["wk"].device),
+                        cfg.q_per_kv, rounding_mode="floor")
+        for name in ("wk", "wv"):
+            out[name] = C.copy_to(params[name], tp, "model").index_select(-2, idx)
+    return out
+
+
 def expand_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
     """GQA: each KV head repeated for its ``q_per_kv`` query heads, so that
     query head h reads KV head h // G (``jnp.repeat(k, G, axis=1)``)."""
@@ -412,15 +509,27 @@ def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
                     kv_x: Optional[torch.Tensor] = None,
                     kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence attention (train / prefill); cross-attention into
-    ``kv_x`` where given."""
+    ``kv_x`` where given.  Under ``actshard.split("heads")`` the rank
+    computes its block of the heads (column-parallel q / k / v, the kernel
+    on H/tp heads, row-parallel ``out_project`` summed over 'model')."""
     causal_ = cfg.causal if causal is None else causal
     window_ = cfg.window if window is None else window
+    tp = actshard.split("heads")
+    if tp is not None:
+        C = coll()
+        x = C.copy_to(x, tp, "model")
+        kv_x = None if kv_x is None else C.copy_to(kv_x, tp, "model")
+        params = _split_heads(cfg, params, tp)
     q, k, v = qkv_project(cfg, params, x, positions, kv_x=kv_x,
                           kv_positions=kv_positions)
-    k, v = expand_kv(cfg, k, v)
+    if k.shape[1] != q.shape[1]:
+        k, v = expand_kv(cfg, k, v)
     o = attn_lib.flash_attention(q, k, v, causal_, window_, kernels=kernels)
     o = actshard.attn_out_sharded(o)
-    return actshard.batch_sharded(out_project(params, o, x.dtype))
+    out = out_project(params, o, x.dtype)
+    if tp is not None:
+        out = coll().reduce_from(out, tp, "model")
+    return actshard.batch_sharded(out)
 
 
 def attention_decode_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
@@ -473,12 +582,34 @@ def embed_tokens(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> to
     """tokens: [B, S] integer -> [B, S, D] in ``dtype``.  ``F.embedding``,
     whose backward on the card sums a repeated token's rows in a fixed
     order (``index_select``'s accumulates them by atomics, so that two
-    equal train steps could differ in the embedding's gradient bits)."""
-    return F.embedding(tokens, params["embedding"]).to(dtype)
+    equal train steps could differ in the embedding's gradient bits).
+    Under ``actshard.split("vocab")`` the rank holds rows v0 ... v0 + V/tp
+    of the table: it looks up the tokens among them, zeros the others, and
+    the rows are summed over 'model' (each token is found on one rank)."""
+    w = actshard.gathered(params["embedding"], "embed.embedding")
+    tp = actshard.split("vocab")
+    if tp is None:
+        return F.embedding(tokens, w).to(dtype)
+    C = coll()
+    rows = w.shape[0]
+    local = tokens.long() - C.axis_index(tp, "model") * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), w)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return C.reduce_from(x, tp, "model").to(dtype)
 
 
 def lm_logits(params: Params, x: torch.Tensor) -> torch.Tensor:
     """[B, S, D] -> [B, S, padded vocab], a float32 product (exact float32
-    on the card as long as TF32 matmul is off, which the models set)."""
-    w = params["unembed"] if "unembed" in params else params["embedding"].T
+    on the card as long as TF32 matmul is off, which the models set).
+    Under ``actshard.split("vocab")``: the rank's [B, S, V/tp] slice,
+    column-parallel (``runtime.steps.loss_from_logits`` takes the cross
+    entropy over 'model')."""
+    if "unembed" in params:
+        w = actshard.gathered(params["unembed"], "embed.unembed")
+    else:
+        w = actshard.gathered(params["embedding"], "embed.embedding").T
+    tp = actshard.split("vocab")
+    if tp is not None:
+        x = coll().copy_to(x, tp, "model")
     return torch.matmul(x.float(), w.float())

@@ -11,12 +11,20 @@ never crosses a device; here each rank runs that body itself:
     experts e0 ... e0 + E/tp of the rank's 'model' coordinate
   combine:
     each rank's partial output for its experts' claims, plus its ff slice
-    of the shared experts, then one ``psum`` over 'model'.
+    of the shared experts, then one sum over 'model'.
 
 The auxiliary loss is taken over the rank's tokens and averaged over the
-dp axes.  Gradients flow through the collectives' adjoints
-(``runtime.collectives``): the mean of the ranks' gradients over the mesh
-is autograd of the plain ``layers.moe_apply``.  The dispatch sums claims
+dp axes.  Over 'model' the layer is tensor-parallel (Megatron's split,
+``runtime.collectives``): the routing, the aux and the shared gate are
+computed whole on every rank of 'model'; the tokens, the gate values and
+the shared gate enter the rank's experts through ``copy_to``, and the
+partial output leaves through ``reduce_from``.  So each rank's gradient
+of the router and the shared gate is the whole one, and of the experts
+and the shared experts' ff slice it uses, the whole one of that block
+(zero outside it where the layer is given whole leaves); over the dp axes
+the aux's ``pmean`` hands each rank its share.  The layer takes either the
+whole leaves (it reads the rank's experts and ff slice) or, under the
+sharded train step, the rank's blocks of them.  The dispatch sums claims
 with ``index_add_`` and gathers with ``index_select``, as the plain layer
 does; on the card both sum by atomics in the backward, so two equal
 backward passes may differ in their last bits (ROADMAP queue 3).
@@ -39,8 +47,8 @@ def _local_moe(cfg: ModelConfig, capacity_factor: float, mesh,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One rank's body.  x: [N_loc, d], the rank's tokens; ``params`` the
     layer's whole tree, of which the rank reads its experts and its ff
-    slice of the shared experts.  Returns (out [N_loc, d] after the psum
-    over 'model', aux)."""
+    slice of the shared experts, or the rank's blocks of them.  Returns
+    (out [N_loc, d] summed over 'model', aux)."""
     m = cfg.moe
     tp = mesh.sizes["model"]
     e_pad, e_real, k = m.num_experts_padded, m.num_experts, m.top_k
@@ -49,8 +57,12 @@ def _local_moe(cfg: ModelConfig, capacity_factor: float, mesh,
     e_per = e_pad // tp
     capacity = int(max(1, (k * n * capacity_factor) // e_pad))
 
-    # routing: the same on every model shard, local to the data shard
-    probs, gate_vals, expert_idx = L.moe_route(cfg, params["router"], x)
+    # routing: the same on every model shard, local to the data shard (a
+    # router held as the rank's block of experts is gathered for it)
+    router = params["router"]
+    if router.shape[-1] != e_pad:
+        router = C.gather_from(router, mesh, "model", -1)
+    probs, gate_vals, expert_idx = L.moe_route(cfg, router, x)
 
     # aux loss over the local tokens, then averaged over dp
     me = probs[:, :e_real].mean(0)
@@ -61,6 +73,10 @@ def _local_moe(cfg: ModelConfig, capacity_factor: float, mesh,
     for ax in dp_axes:
         aux = C.pmean(aux, mesh, ax)
 
+    # the rank's experts take the replicated tokens and gate values
+    x_in = C.copy_to(x, mesh, "model")
+    gate_vals = C.copy_to(gate_vals, mesh, "model")
+
     # capacity-bounded dispatch, all local (as ``layers.moe_apply``)
     flat_e = expert_idx.reshape(-1)                               # [N*k]
     onehot_t = flat_e[None, :] == torch.arange(e_pad, device=dev)[:, None]
@@ -70,18 +86,23 @@ def _local_moe(cfg: ModelConfig, capacity_factor: float, mesh,
     slot = torch.where(keep, flat_e * capacity + pos, sentinel)
     token_idx = torch.arange(n, device=dev).repeat_interleave(k)
     buf = torch.zeros(sentinel + 1, d, dtype=dtype, device=dev).index_copy(
-        0, slot, x[token_idx])[:sentinel].view(e_pad, capacity, d)
+        0, slot, x_in[token_idx])[:sentinel].view(e_pad, capacity, d)
 
     # the experts of this model shard
     e0 = C.axis_index(mesh, "model") * e_per
     experts = slice(e0, e0 + e_per)
+    whole = params["wi"].shape[0] == e_pad
+
+    def mine(w):
+        return (w[experts] if whole else w).to(dtype)
+
     buf_l = buf[experts]
-    h = torch.bmm(buf_l, params["wi"][experts].to(dtype))
+    h = torch.bmm(buf_l, mine(params["wi"]))
     if "wg" in params:
-        h = L.activation(cfg.mlp, torch.bmm(buf_l, params["wg"][experts].to(dtype))) * h
+        h = L.activation(cfg.mlp, torch.bmm(buf_l, mine(params["wg"]))) * h
     else:
         h = L.activation(cfg.mlp, h)
-    eo_flat = torch.bmm(h, params["wo"][experts].to(dtype)).reshape(e_per * capacity, d)
+    eo_flat = torch.bmm(h, mine(params["wo"])).reshape(e_per * capacity, d)
 
     # combine: the partials of the claims on this shard's experts, a choice
     # at a time
@@ -96,24 +117,26 @@ def _local_moe(cfg: ModelConfig, capacity_factor: float, mesh,
                                zero)
         out = out + gathered * gate_vals[:, j:j + 1].to(dtype)
 
-    # the shared experts' ff slice: its partial joins the same psum
+    # the shared experts' ff slice: its partial joins the same sum
     if "shared" in params:
         shared = params["shared"]
-        f_per = shared["wi"].shape[-1] // tp
+        f_per = m.d_ff_shared // tp
         ff = slice(C.axis_index(mesh, "model") * f_per,
                    (C.axis_index(mesh, "model") + 1) * f_per)
-        hs = x @ shared["wi"][:, ff].to(dtype)
+        cut = shared["wo"].shape[0] == m.d_ff_shared
+        hs = x_in @ (shared["wi"][:, ff] if cut else shared["wi"]).to(dtype)
         if "wg" in shared:
-            hs = L.activation(cfg.mlp, x @ shared["wg"][:, ff].to(dtype)) * hs
+            hs = L.activation(cfg.mlp, x_in @ (shared["wg"][:, ff] if cut
+                                               else shared["wg"]).to(dtype)) * hs
         else:
             hs = L.activation(cfg.mlp, hs)
-        so = hs @ shared["wo"][ff].to(dtype)
+        so = hs @ (shared["wo"][ff] if cut else shared["wo"]).to(dtype)
         if "shared_gate" in params:
             sg = torch.sigmoid((x @ params["shared_gate"].to(dtype)).float())
-            so = so * sg.to(dtype)
+            so = so * C.copy_to(sg, mesh, "model").to(dtype)
         out = out + so
 
-    return C.psum(out, mesh, "model"), aux
+    return C.reduce_from(out, mesh, "model"), aux
 
 
 def moe_apply_sharded(cfg: ModelConfig, params: Params, x: torch.Tensor, *,

@@ -26,6 +26,12 @@ temporal convolution -> four shifted products, as in JAX; decode ->
 The RG-LRU's decay is one a channel, so the chunked WKV kernel (one
 decay a K row, shared by every V column) cannot compute it.
 
+Under the sharded train step each block gathers its leaves inside the
+remat'd function (``actshard.gathered``) and splits its heads, d_ff and
+recurrence width over 'model' (``_recurrent_block``, ``layers``); the MQA
+blocks' one KV head is replicated, and each rank projects it for its
+query heads.
+
 The cache is the reference's, quirks included: K/V of the prompt's length
 (a ring of ``window`` slots past it), and a decode step writes at ``step``
 (``step % S`` on a ring) clamped to S - 1.
@@ -38,8 +44,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import actshard
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models.layers import coll
 from repro_torch.models.params import ParamDef, draw_cast, load_cast
 from repro_torch.models.transformer import _to_ring, cache_len
 
@@ -130,12 +138,15 @@ def init_on_device(cfg: ModelConfig, seed: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _gates(rec: Params, u: torch.Tensor):
+def _gates(rec: Params, u: torch.Tensor, u_whole: Optional[torch.Tensor] = None):
     """(a, sqrt(1 - a^2) * i * u), float32, of the recurrence
-    h_t = a_t h_{t-1} + b_t."""
+    h_t = a_t h_{t-1} + b_t.  ``u_whole``: the whole width that the gates'
+    products read where ``u`` is the rank's block of channels (and the
+    gates' columns are the rank's)."""
     uf = u.float()
-    i_gate = torch.sigmoid(uf @ rec["gate_i"].float() + rec["gate_i_b"].float())
-    r_gate = torch.sigmoid(uf @ rec["gate_r"].float() + rec["gate_r_b"].float())
+    uw = uf if u_whole is None else u_whole.float()
+    i_gate = torch.sigmoid(uw @ rec["gate_i"].float() + rec["gate_i_b"].float())
+    r_gate = torch.sigmoid(uw @ rec["gate_r"].float() + rec["gate_r_b"].float())
     log_a = -LRU_C * torch.nn.functional.softplus(rec["lam"].float()) * r_gate
     a = torch.exp(log_a)                                      # (0, 1)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -159,9 +170,11 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rg_lru(rec: Params, u: torch.Tensor, h0: Optional[torch.Tensor] = None):
-    """u: [B,T,W].  Returns (y [B,T,W] in u's dtype, h_last [B,W] float32)."""
-    a, b = _gates(rec, u)
+def rg_lru(rec: Params, u: torch.Tensor, h0: Optional[torch.Tensor] = None,
+           u_whole: Optional[torch.Tensor] = None):
+    """u: [B,T,W].  Returns (y [B,T,W] in u's dtype, h_last [B,W] float32).
+    ``u_whole`` as ``_gates`` takes it."""
+    a, b = _gates(rec, u, u_whole)
     if h0 is not None:
         # the incoming state folded into the first step
         b[:, 0] += a[:, 0] * h0
@@ -208,13 +221,23 @@ def causal_conv1d(rec: Params, x: torch.Tensor,
 
 def _recurrent_block(cfg: ModelConfig, rec: Params, u: torch.Tensor):
     """Full-sequence recurrent mixing block (no incoming state) -> (out,
-    h_last, conv state)."""
+    h_last, conv state).  Under ``actshard.split("ff")`` a rank computes
+    its block of the W channels: ``wy`` / ``wx`` column-parallel, the
+    convolution and the RG-LRU scan on W/tp channels, the gates' products
+    on the convolution's output gathered over 'model' (their columns the
+    rank's), ``wo`` row-parallel and summed over 'model'."""
     dtype = u.dtype
+    tp = actshard.split("ff")
+    if tp is not None:
+        u = coll().copy_to(u, tp, "model")
     y_branch = L.activation("gelu", u @ rec["wy"].to(dtype))
     x_branch = u @ rec["wx"].to(dtype)
     x_branch, new_conv = causal_conv1d(rec, x_branch)
-    x_branch, h_last = rg_lru(rec, x_branch)
+    whole = None if tp is None else coll().all_gather(x_branch, tp, "model", -1)
+    x_branch, h_last = rg_lru(rec, x_branch, u_whole=whole)
     out = (y_branch * x_branch) @ rec["wo"].to(dtype)
+    if tp is not None:
+        out = coll().reduce_from(out, tp, "model")
     return out, h_last, new_conv
 
 
@@ -231,7 +254,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
     positions = _positions(x)
 
-    def block(kind, bp, x):
+    def block(kind, bp, i, x):
+        bp = actshard.gathered(bp, f"blocks.{i}")
         h = L.norm_apply(cfg, bp["ln1"], x)
         if kind == "recurrent":
             h = _recurrent_block(cfg, bp["rec"], h)[0]
@@ -242,9 +266,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         h = L.norm_apply(cfg, bp["ln2"], x)
         return x + L.mlp_apply(cfg, bp["mlp"], h)
 
-    for kind, bp in zip(cfg.block_pattern, params["blocks"]):
-        x = L.remat_call(block, kind, bp, x, remat=remat)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+    for i, (kind, bp) in enumerate(zip(cfg.block_pattern, params["blocks"])):
+        x = L.remat_call(block, kind, bp, i, x, remat=remat)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -20,6 +20,15 @@ Where the work goes:
 - ``channel_mix`` and every projection stay plain matrix products
   (``torch.matmul``), as they are XLA's in the JAX package.
 
+Under the sharded train step (``actshard.split("ff")``, which the layout
+gives only where the heads split too) a rank computes its block of the
+heads: the time mix's ``wr`` / ``wk`` / ``wv`` / ``wg`` column-parallel
+from the replicated token-shift mixes, the WKV kernel on [B*H/tp, T, K],
+``faaaa`` and the per-head group norm on the rank's heads, ``decay`` and
+``td_w2`` (replicated, on 'embed') cut to the rank's channels, ``wo``
+row-parallel and summed over 'model'; the channel mix as ``channel_mix``
+says.  The LoRA mixes and norms stay replicated.
+
 ``wkv_chunked`` here is the JAX module's XLA-level chunked form with a
 carried state, kept as a plain torch function that the tests hold against
 JAX; no path calls it when a card is present.
@@ -41,7 +50,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import actshard
 from repro_torch.models import layers as L
+from repro_torch.models.layers import coll
 from repro_torch.models.params import ParamDef, draw_cast, load_cast, per_layer
 
 Params = Dict[str, Any]
@@ -251,19 +262,29 @@ def time_mix(cfg: ModelConfig, tm: Params, x: torch.Tensor,
     """Returns (out [B,T,D], new_x_prev [B,D], new_state [B,H,K,V]).
     ``state=None`` is the zero state."""
     dtype = x.dtype
-    B, T, D = x.shape
-    H = D // cfg.wkv_head_dim
+    B, T, _ = x.shape
     K = cfg.wkv_head_dim
+    H = tm["faaaa"].shape[-2]               # the rank's heads under TP
+    D = H * K
     sx = _token_shift(x, x_prev) - x
     xw, xk, xv, xr, xg = _ddlerp(tm, x, sx)
+    lora = torch.tanh(xw @ tm["td_w1"].to(dtype))
+    decay, td_w2 = tm["decay"], tm["td_w2"]
+    tp = actshard.split("ff")
+    if tp is not None:
+        C = coll()
+        xk, xv, xr, xg = torch.unbind(C.copy_to(torch.stack([xk, xv, xr, xg]), tp, "model"))
+        lora = C.copy_to(lora, tp, "model")
+        c0 = C.axis_index(tp, "model") * D
+        decay = C.copy_to(decay, tp, "model").narrow(-1, c0, D)
+        td_w2 = C.copy_to(td_w2, tp, "model").narrow(-1, c0, D)
 
     r = (xr @ tm["wr"].to(dtype)).reshape(B, T, H, K)
     k = (xk @ tm["wk"].to(dtype)).reshape(B, T, H, K)
     v = (xv @ tm["wv"].to(dtype)).reshape(B, T, H, K)
     g = F.silu(xg @ tm["wg"].to(dtype))
 
-    ww = tm["decay"].float() + (
-        torch.tanh(xw @ tm["td_w1"].to(dtype)).float() @ tm["td_w2"].float())
+    ww = decay.float() + lora.float() @ td_w2.float()
     logw = -torch.exp(ww).reshape(B, T, H, K)                      # log decay <= 0
 
     if T == 1:
@@ -280,17 +301,30 @@ def time_mix(cfg: ModelConfig, tm: Params, x: torch.Tensor,
     out = out.reshape(B, T, D)
     out = _group_norm(out, tm["lnx_scale"], tm["lnx_bias"], H)
     out = (out * g) @ tm["wo"].to(dtype)
+    if tp is not None:
+        out = coll().reduce_from(out, tp, "model")
     return out, x[:, -1, :], state
 
 
 def channel_mix(cm: Params, x: torch.Tensor, x_prev: torch.Tensor):
+    """Returns (out [B,T,D], new x_prev).  Under ``actshard.split("ff")``:
+    ``wk`` column-parallel and ``wv`` row-parallel over the rank's d_ff
+    block, the gate ``wr`` column-parallel and gathered over 'model' to
+    gate the d-wide sum."""
     dtype = x.dtype
     sx = _token_shift(x, x_prev) - x
     xk = x + sx * cm["maa_k"].to(dtype)
     xr = x + sx * cm["maa_r"].to(dtype)
+    tp = actshard.split("ff")
+    if tp is not None:
+        xk, xr = torch.unbind(coll().copy_to(torch.stack([xk, xr]), tp, "model"))
     kk = F.relu(xk @ cm["wk"].to(dtype))
     kv = (kk * kk) @ cm["wv"].to(dtype)
-    return torch.sigmoid(xr @ cm["wr"].to(dtype)) * kv, x[:, -1, :]
+    r = torch.sigmoid(xr @ cm["wr"].to(dtype))
+    if tp is not None:
+        kv = coll().reduce_from(kv, tp, "model")
+        r = coll().gather_from(r, tp, "model", -1)
+    return r * kv, x[:, -1, :]
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +347,7 @@ def _blocks(cfg: ModelConfig, params: Params, x: torch.Tensor, kernels,
     st, sh_tm, sh_cm = [], [], []
 
     def layer(bp, x, prev_tm, prev_cm, state):
+        bp = actshard.gathered(bp, "blocks")
         h = L.norm_apply(cfg, bp["ln1"], x)
         h, s_tm, s = time_mix(cfg, bp["tm"], h, prev_tm, state, cfg.wkv_chunk,
                               kernels)
@@ -335,9 +370,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             **_) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch["tokens"]: [B, T] -> (hidden [B, T, D], aux loss 0)."""
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
-    x = L.norm_apply(cfg, params["ln0"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln0"], "ln0"), x)
     x, _, _, _ = _blocks(cfg, params, x, kernels, remat=remat)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

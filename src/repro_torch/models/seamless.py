@@ -22,7 +22,11 @@ flash_attention`` (on the card, one launch each: the encoder's non-causal
 self-attention, the decoder's causal self-attention over its prefix, the
 cross-attention into the memory: 3 x 24 a prefill); projections and MLPs
 -> plain products; decode attention, self and cross -> plain tensor code,
-no kernel (as in the JAX package).
+no kernel (as in the JAX package).  Under the sharded train step each
+block gathers its leaves inside the remat'd function
+(``actshard.gathered``) and splits its heads and d_ff over 'model'
+(``layers``), the cross-attention's K / V projected from the replicated
+memory on the rank's heads.
 
 The cache is the reference's: the decoder's self K/V padded with zeros to
 ``decode_len`` at prefill (the source length where it is not given), the
@@ -42,6 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import actshard
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.params import draw_cast, load_cast, per_layer
@@ -152,6 +157,7 @@ def encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor, *,
     x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
 
     def block(bp, x):
+        bp = actshard.gathered(bp, "enc_blocks")
         h = L.norm_apply(cfg, bp["ln1"], x)
         x = x + L.attention_apply(cfg, bp["attn"], h, None, causal=False,
                                   kernels=kernels)
@@ -159,7 +165,7 @@ def encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor, *,
 
     for bp in per_layer(params["enc_blocks"], cfg.num_encoder_layers):
         x = L.remat_call(block, bp, x, remat=remat)
-    return L.norm_apply(cfg, params["enc_ln_f"], x)
+    return L.norm_apply(cfg, actshard.gathered(params["enc_ln_f"], "enc_ln_f"), x)
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +181,7 @@ def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                torch.arange(S, device=tokens.device).expand(B, S))
 
     def block(bp, x, memory):
+        bp = actshard.gathered(bp, "dec_blocks")
         h = L.norm_apply(cfg, bp["ln1"], x)
         x = x + L.attention_apply(cfg, bp["attn"], h, None, causal=True,
                                   kernels=kernels)
@@ -185,7 +192,7 @@ def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
     for bp in per_layer(params["dec_blocks"], cfg.num_layers):
         x = L.remat_call(block, bp, x, memory, remat=remat)
-    return L.norm_apply(cfg, params["ln_f"], x)
+    return L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
 
 
 # ---------------------------------------------------------------------------

@@ -141,21 +141,24 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             moe_capacity: float = 1.25, **_) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (final hidden states [B,S,D] post-ln_f, MoE aux loss: the
     mean over the layers, 0 without MoE).  ``remat``: each block under
-    ``layers.remat_call`` (training)."""
+    ``layers.remat_call`` (training).  Under the sharded train step each
+    block gathers its leaves inside the remat'd function
+    (``actshard.gathered``), the final norm at its use."""
     x, positions = _embed_inputs(cfg, params, batch)
     x = actshard.batch_sharded(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(bp, x):
         x = actshard.batch_sharded(x)
-        return _block(cfg, bp, x, positions, kernels=kernels,
-                      ibn_chunks=ibn_chunks, moe_capacity=moe_capacity)
+        return _block(cfg, actshard.gathered(bp, "blocks"), x, positions,
+                      kernels=kernels, ibn_chunks=ibn_chunks,
+                      moe_capacity=moe_capacity)
 
     for bp in per_layer(params["blocks"], cfg.num_layers):
         x, aux_i = L.remat_call(block, bp, x, remat=remat)
         aux = aux + aux_i
     x = actshard.batch_sharded(x)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     return x, aux / cfg.num_layers
 
 

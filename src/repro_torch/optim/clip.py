@@ -1,7 +1,7 @@
 """Global-norm gradient clipping: port of ``repro/optim/clip.py``."""
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -17,12 +17,16 @@ def global_norm(tree: Tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float, *,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Tree, torch.Tensor]:
     """(grads * min(1, max_norm / (norm + 1e-9)), norm).  The leaves are
     scaled in place (autograd's fresh gradients; a copy of the whole tree
-    would cost as much memory as the parameters) and returned."""
-    norm = global_norm(grads)
+    would cost as much memory as the parameters) and returned.  ``norm``:
+    the global norm where the caller has it (a sharded step's, over the
+    mesh), else ``global_norm(grads)``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     with torch.no_grad():
         return tree_map(lambda g, path: g.mul_(scale.to(g.dtype)), grads), norm

@@ -12,7 +12,20 @@ of it: the gradient of the ranks' mean loss is the mean of the ranks'
 gradients over every mesh axis (``mesh_mean``).  Ranks that hold the same
 value (a replicated result) count it once each, so the mean over them
 counts it once: the truth the sharded code is held to is autograd of the
-plain one-device function.
+plain one-device function.  ``all_gather`` over a dp axis is the FSDP
+gather: its adjoint is the reduce-scatter of the ranks' partial gradients
+(an all-reduce, then the rank's narrow: gloo has no reduce-scatter).
+
+Tensor parallelism over an axis (Megatron's split) needs the conjugate
+pairs instead, because there every rank of the axis holds the same loss
+and the same cotangent of a replicated value, not a share of them:
+``copy_to`` (identity forward, sum backward) where a replicated value
+enters a column-parallel product, whose ranks each give only their
+columns' part of its gradient; ``reduce_from`` (sum forward, identity
+backward) at a row-parallel product's partial output; ``gather_from``
+(all-gather forward, the rank's slice backward) where a split value is
+used whole by replicated code.  ``pmax`` is a max over the axis with no
+gradient (the logsumexp's shift).
 
 A collective over an axis of one rank is its input: nothing is sent (a
 (1, 1) mesh's step is the one-device step, bit for bit).
@@ -134,11 +147,78 @@ class _PPermute(torch.autograd.Function):
         return _permute(g, ctx.mesh, ctx.axis, back), None, None, None
 
 
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.dim, ctx.n, ctx.me = dim, x.shape[dim], mesh.coords[axis]
+        return _all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.me * ctx.n, ctx.n), None, None, None
+
+
 def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The sum of ``x`` over the axis, on every rank of it."""
     if mesh.sizes[axis] == 1:
         return x
     return _PSum.apply(x, mesh, axis)
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` itself (a value every rank of the axis holds whole); its
+    gradient the sum of the ranks' gradients over the axis."""
+    if mesh.sizes[axis] == 1:
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over the axis; its gradient each
+    rank's own (the cotangent of a replicated value, the same on every
+    rank)."""
+    if mesh.sizes[axis] == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_from(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` for replicated code; its
+    gradient the rank's slice of the (replicated) cotangent."""
+    if mesh.sizes[axis] == 1:
+        return x
+    return _GatherFrom.apply(x, mesh, axis, dim % x.dim())
+
+
+def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The elementwise max of ``x`` over the axis, detached."""
+    if mesh.sizes[axis] == 1:
+        return x.detach()
+    staged = _staged(x, mesh)
+    out = _to_host(x.detach().contiguous()) if staged else x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.groups[axis])
+    return _to_device(out, x.device) if staged else out
 
 
 def pmean(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -16,10 +16,17 @@ the JAX package's.  ``local_shard`` and ``gather_full`` take the place of
 array whole: a rank holds the block of a tensor that JAX's
 ``NamedSharding.devices_indices_map`` gives the device at its coordinates.
 ``shard_map`` has no counterpart: each rank runs the body itself.
+
+The sharded train step's ``Layout`` says what a rank holds (its blocks)
+and which products it splits over 'model'; ``gather_at_use`` is the hook a
+layer calls on its leaves where it uses them (``models.actshard.gathered``),
+gathering each over its fsdp axes, and counts the bytes it gathers and the
+gathered bytes alive.
 """
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Any, Dict, Tuple
 
 import torch
@@ -73,9 +80,10 @@ def _batch_axis(mesh, global_batch: int, profile: str = "2d"):
 # ---------------------------------------------------------------------------
 
 
-def model_param_pspecs(cfg: ModelConfig, mesh, defs: Tree, *,
-                       profile: str = "2d") -> Tree:
-    """PartitionSpec tree for a model's ParamDef tree on this mesh."""
+def model_param_rules(cfg: ModelConfig, mesh, defs: Tree, *,
+                      profile: str = "2d") -> Dict[str, Any]:
+    """The logical -> mesh axis rules of ``model_param_pspecs``: the
+    profile's, with every demotion applied."""
     sizes = mesh_axis_sizes(mesh)
     if profile == "fsdp":
         fsdp_axes = tuple(a for a in ("data", "model") if a in mesh.axis_names)
@@ -102,7 +110,14 @@ def model_param_pspecs(cfg: ModelConfig, mesh, defs: Tree, *,
             if mesh_ax is not None and dim % param_lib._rule_size(mesh_ax, sizes):
                 rules[ax] = None
     param_lib.tree_map_defs(check_leaf, defs)
-    return param_lib.param_pspecs(defs, rules)
+    return rules
+
+
+def model_param_pspecs(cfg: ModelConfig, mesh, defs: Tree, *,
+                       profile: str = "2d") -> Tree:
+    """PartitionSpec tree for a model's ParamDef tree on this mesh."""
+    return param_lib.param_pspecs(
+        defs, model_param_rules(cfg, mesh, defs, profile=profile))
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +219,11 @@ def _entry_axes(entry) -> Tuple[str, ...]:
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
 
+def spec_axes(spec) -> set:
+    """The mesh axes a spec shards some dim over."""
+    return {a for entry in spec for a in _entry_axes(entry)}
+
+
 def shard_index(spec, mesh) -> Tuple[Tuple[int, int], ...]:
     """(index, count) a dim of a rank's block: a dim split over the axes
     of its entry is cut into their product of blocks, the first axis
@@ -252,3 +272,123 @@ def tree_local_shard(tree: Tree, specs: Tree, mesh) -> Tree:
 def tree_gather_full(tree: Tree, specs: Tree, mesh) -> Tree:
     return param_lib.tree_map(lambda x, s, path: gather_full(x, s, mesh), tree,
                               specs)
+
+
+# ---------------------------------------------------------------------------
+# The train step's layout: gathered at use, the rest kept as blocks
+# ---------------------------------------------------------------------------
+
+
+class Layout:
+    """What a rank of the sharded train step holds and splits.
+
+    ``pspecs`` / ``defs`` / ``rules`` as ``model_param_pspecs`` lays the
+    model out; ``tp`` the mesh where the profile splits products over
+    'model' ('2d' and 'tp' with a 'model' axis of more than one rank),
+    else None; ``whole`` the logical axes that stay on 'model' in the specs
+    but whose products the model cannot split (RWKV-6's 'ff' and 'heads'
+    where only one of them divides; d_ff where an MoE's experts do not),
+    gathered over 'model' at use instead (KV heads divide 'model' only where
+    the query heads do: their count divides the query heads'); ``dp`` the mesh's dp
+    axes under the profile; ``batch_axes`` those the current step's batch
+    rows are split over (``set_batch``)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, defs: Tree, profile: str = "2d"):
+        self.mesh, self.defs = mesh, defs
+        self.rules = model_param_rules(cfg, mesh, defs, profile=profile)
+        self.pspecs = param_lib.param_pspecs(defs, self.rules)
+        self.dp = dp_axes(mesh, profile)
+        self.dp_size = dp_size(mesh, profile)
+        sizes = mesh_axis_sizes(mesh)
+        self.tp = (mesh if profile in ("2d", "tp") and sizes.get("model", 1) > 1
+                   else None)
+        on = {k for k, v in self.rules.items() if v == "model"}
+        whole = set()
+        if cfg.family == "ssm" and ("ff" in on) != ("heads" in on):
+            whole |= {"ff", "heads"}
+        if cfg.moe.enabled and "expert" not in on and "ff" in on:
+            whole.add("ff")
+        self.whole = frozenset(whole & on)
+        self.batch_axes: Tuple[str, ...] = ()
+
+    def set_batch(self, spec) -> None:
+        """The axes over which a step's batch rows are split (its spec's
+        first entry), those of more than one rank."""
+        self.batch_axes = tuple(a for a in _entry_axes(spec[0])
+                                if self.mesh.sizes[a] > 1)
+
+    def split(self, logical: str):
+        """The mesh where the rank holds and computes its 'model' block of
+        the logical axis, else None."""
+        if self.tp is None or self.rules.get(logical) != "model" \
+                or logical in self.whole:
+            return None
+        return self.tp
+
+    def subtree(self, tree: Tree, path: str) -> Tree:
+        """The subtree of ``tree`` (laid out as the parameters) at the
+        dotted ``path``."""
+        for key in path.split("."):
+            tree = tree[int(key)] if isinstance(tree, list) else tree[key]
+        return tree
+
+
+# bytes gathered at use since the count was last set to 0, and the bytes of
+# gathered leaves alive now and at most (a leaf counts until its tensor is
+# freed, views and autograd's saved copies of it included)
+gathered_bytes = 0
+live_gathered_bytes = 0
+peak_live_gathered_bytes = 0
+
+
+def reset_gather_counts() -> None:
+    global gathered_bytes, peak_live_gathered_bytes
+    gathered_bytes, peak_live_gathered_bytes = 0, live_gathered_bytes
+
+
+def _freed(n: int) -> None:
+    global live_gathered_bytes
+    live_gathered_bytes -= n
+
+
+def _count_gathered(t: torch.Tensor) -> torch.Tensor:
+    global gathered_bytes, live_gathered_bytes, peak_live_gathered_bytes
+    n = t.numel() * t.element_size()
+    gathered_bytes += n
+    live_gathered_bytes += n
+    peak_live_gathered_bytes = max(peak_live_gathered_bytes, live_gathered_bytes)
+    weakref.finalize(t, _freed, n)
+    return t
+
+
+def gather_at_use(tree: Tree, path: str, layout: Layout) -> Tree:
+    """The leaves of ``tree`` (the subtree of the parameters at ``path``,
+    a stacked block tree's layer slice allowed) as the rank computes with
+    them: each dim gathered over its fsdp axes, innermost first, by
+    ``collectives.all_gather``, whose adjoint hands each rank the sum of
+    the ranks' gradients for its block; a dim on 'model' left as the
+    rank's block where ``layout`` splits its products, else gathered by
+    ``collectives.gather_from`` (the ranks of 'model' hold the same
+    cotangent).  Called inside the function that ``layers.remat_call``
+    wraps, so that the recompute gathers again and nothing whole outlives
+    its layer."""
+    specs, defs = layout.subtree(layout.pspecs, path), layout.subtree(layout.defs, path)
+    mesh = layout.mesh
+
+    def leaf(x: torch.Tensor, spec, d: param_lib.ParamDef, path: str) -> torch.Tensor:
+        spec, axes = tuple(spec), param_lib._axes(d)
+        if x.dim() == len(spec) - 1:             # a layer slice of a stacked leaf
+            spec, axes = spec[1:], axes[1:]
+        gathered = False
+        for dim, (entry, logical) in enumerate(zip(spec, axes)):
+            for a in reversed(_entry_axes(entry)):
+                if a == "model" and layout.tp is not None:
+                    if logical not in layout.whole:
+                        continue
+                    x = collectives.gather_from(x, mesh, a, dim)
+                else:
+                    x = collectives.all_gather(x, mesh, a, dim)
+                gathered = gathered or mesh.sizes[a] > 1
+        return _count_gathered(x) if gathered else x
+
+    return param_lib.tree_map(leaf, tree, specs, defs)

@@ -16,22 +16,29 @@ into the parameter and moment tensors it is given (``optim.adamw``), as
 the reference's launcher donates them.
 
 Under a mesh (``build_train_step(..., mesh=)``) the step is the per-rank
-program of the reference's ``jit(train_step, in_shardings=...)``: the
-parameters and both moments are held as each rank's block under
-``sharding.model_param_pspecs``; each step gathers the whole leaves
-(``sharding.gather_full``), runs forward and backward on the rank's
-``batch_pspecs`` block of the global batch, takes the mean of the
-gradients over the mesh (``collectives.mesh_mean``: over the dp axes the
-ranks ran different rows; over the others each rank's gradient is its
-share under the collectives' adjoints, and where they ran the same rows
-the mean changes no value), clips by the global norm of the whole
-gradients, and runs AdamW on the rank's block.  Under '2d' and 'tp' the
-ranks of one 'model' coordinate run the same rows: the state is sharded
-as the specs say, but the products are not split over 'model' (column /
-row-parallel projections are ROADMAP queue 1 item 8a).
+program of the reference's ``jit(train_step, in_shardings=...)``, and the
+rank computes and holds only its share (``sharding.Layout``).  The
+parameters and both moments are the rank's blocks under
+``sharding.model_param_pspecs``, and so are the gradients autograd gives
+it.  Each layer gathers its leaves over their fsdp axes where it is used
+(``actshard.gathered``, inside the function ``layers.remat_call`` wraps,
+so remat's recompute gathers again), and the gather's adjoint hands the
+rank the sum over those axes of the ranks' gradients of its block: the
+reduce-scatter.  Under '2d' and 'tp' the products are split over 'model'
+(column-parallel q / k / v, MLP input and head, row-parallel attention
+output and MLP output summed over 'model', the vocabulary's cross entropy
+taken over 'model': ``loss_from_logits``), so a rank of 'model' runs its
+heads, d_ff and vocabulary slice of the rank's rows.  Each rank's loss is
+its share of the global mean (its rows' mean over the dp size, or its
+masked sum over the mask's global count), so the sum of the ranks'
+gradients is the gradient of the global loss; a leaf that no hook gathers
+over a dp axis is summed over it explicitly.  The global norm for the
+clip sums the blocks' squares over the mesh, a replicated leaf counted
+once; AdamW runs on the blocks.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -40,9 +47,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import actshard, get_module
 from repro_torch.models.params import tree_leaves, tree_map
-from repro_torch.optim import adamw_update, clip_by_global_norm
+from repro_torch.optim import adamw_update, clip_by_global_norm, global_norm
 from repro_torch.runtime import sharding
-from repro_torch.runtime.collectives import mesh_mean
+from repro_torch.runtime.collectives import axis_index, pmax, psum, reduce_from
 
 MOE_AUX_WEIGHT = 0.01
 
@@ -55,7 +62,32 @@ MOE_AUX_WEIGHT = 0.01
 def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
                      loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy.  ``logits`` may be vocab-padded; the
-    pad region is masked to -1e30 before the logsumexp."""
+    pad region is masked to -1e30 before the logsumexp.
+
+    Under the sharded step's layout (``actshard.dp``) it is the rank's
+    share of the global mean: its rows' mean over the dp size, or with a
+    ``loss_mask`` its masked sum over the mask's sum over the dp axes (the
+    reference's global masked mean).  Where the layout splits the
+    vocabulary (``actshard.split("vocab")``) ``logits`` is the rank's
+    slice and the cross entropy is taken over 'model': the max over the
+    axis (no gradient), the sum of exponentials over it, the gold logit
+    from the rank that holds it, the padding by the global index."""
+    tp = actshard.split("vocab")
+    nll = (_nll(cfg, logits, labels) if tp is None
+           else _vocab_parallel_nll(cfg, logits, labels, tp))
+    share = actshard.dp()
+    if loss_mask is not None:
+        count = loss_mask.sum()
+        if share is not None:
+            for ax in share[1]:
+                count = psum(count.detach(), share[0], ax)
+        return (nll * loss_mask).sum() / torch.clamp(count, min=1.0)
+    if share is not None and share[2] > 1:
+        return nll.mean() / share[2]
+    return nll.mean()
+
+
+def _nll(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     vp = logits.shape[-1]
     if vp != cfg.vocab_size:
         pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
@@ -63,11 +95,24 @@ def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tenso
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)                        # [B,S]
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
-    if loss_mask is not None:
-        nll = nll * loss_mask
-        return nll.sum() / torch.clamp(loss_mask.sum(), min=1.0)
-    return nll.mean()
+    return lse - gold
+
+
+def _vocab_parallel_nll(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+                        mesh) -> torch.Tensor:
+    vl = logits.shape[-1]
+    v0 = axis_index(mesh, "model") * vl
+    vocab = torch.arange(v0, v0 + vl, device=logits.device)
+    logits = logits.float()
+    if v0 + vl > cfg.vocab_size:
+        logits = logits.masked_fill((vocab >= cfg.vocab_size)[None, None, :], -1e30)
+    m = pmax(logits.detach().amax(-1), mesh, "model")                  # [B,S]
+    sumexp = reduce_from(torch.exp(logits - m[..., None]).sum(-1), mesh, "model")
+    local = labels.long() - v0
+    mine = (local >= 0) & (local < vl)
+    gold = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = reduce_from(torch.where(mine, gold, torch.zeros_like(gold)), mesh, "model")
+    return m + torch.log(sumexp) - gold
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +147,9 @@ def build_grad_fn(cfg: ModelConfig, *, kernels=ops, remat: bool = True,
             logits = mod.logits_fn(cfg, cast, hidden)
             ce = loss_from_logits(cfg, logits, batch["labels"],
                                   batch.get("loss_mask"))
+            share = actshard.dp()
+            if share is not None and share[2] > 1:
+                aux = aux / share[2]         # the rank's share, as the ce's
             loss = ce + MOE_AUX_WEIGHT * aux
             del hidden, logits
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -139,20 +187,20 @@ def build_train_step(
                weight_decay=weight_decay)
     if mesh is not None:
         return _sharded_train_step(cfg, grad_fn, mesh, profile, **opt)
-    return _update_step(grad_fn, lambda grads: grads, **opt)
+    return _update_step(grad_fn, global_norm, **opt)
 
 
-def _update_step(grad_fn: Callable, to_blocks: Callable, *, lr_schedule: Callable,
+def _update_step(grad_fn: Callable, norm_fn: Callable, *, lr_schedule: Callable,
                  clip_norm: float, weight_decay: float) -> Callable:
-    """The step over ``grad_fn``'s whole gradients: clipping by their
-    global norm, the schedule's rate at the optimizer's count, and AdamW on
-    ``to_blocks`` of them (the gradients of the leaves the step holds)."""
+    """The step over ``grad_fn``'s gradients: clipping by ``norm_fn`` of
+    them (their global norm), the schedule's rate at the optimizer's
+    count, and AdamW."""
 
     def train_step(params, opt_state, batch):
         loss, parts, grads = grad_fn(params, batch)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, norm=norm_fn(grads))
         lr = lr_schedule(opt_state.count)
-        params, opt_state = adamw_update(to_blocks(grads), opt_state, params,
+        params, opt_state = adamw_update(grads, opt_state, params,
                                          lr=lr, weight_decay=weight_decay)
         metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"],
                    "grad_norm": gnorm, "lr": lr}
@@ -170,35 +218,57 @@ def _sharded_train_step(cfg: ModelConfig, grad_fn: Callable, mesh, profile: str,
             "queue 1 item 8b)")
     if profile not in sharding.PROFILES:
         raise ValueError(f"profile {profile!r}: one of {sharding.PROFILES}")
-    pspecs = sharding.model_param_pspecs(cfg, mesh, get_module(cfg).param_defs(cfg),
-                                         profile=profile)
+    layout = sharding.Layout(cfg, mesh, get_module(cfg).param_defs(cfg), profile)
+    sizes = mesh.sizes
+
+    # the dp axes a leaf's hook does not gather over (its gradient is summed
+    # over them here), and the ranks that hold each block (its square counted
+    # once in the norm)
+    unreduced = tree_map(lambda spec, path: tuple(
+        a for a in layout.dp if a not in sharding.spec_axes(spec) and sizes[a] > 1),
+        layout.pspecs)
+    holders = tree_map(lambda spec, path: math.prod(
+        n for a, n in sizes.items() if a not in sharding.spec_axes(spec)), layout.pspecs)
 
     def mesh_grad_fn(params, batch):
         """(the rank's blocks, the global batch) -> the mesh's (loss,
-        {"ce", "aux"}, whole gradients), the same on every rank."""
+        {"ce", "aux"}), the same on every rank, and the gradients of the
+        rank's blocks."""
         bspecs = sharding.batch_pspecs(cfg, mesh, batch, profile)
-        if "loss_mask" in batch and sharding.dp_size(mesh, profile) > 1:
-            raise ValueError("a sharded step averages the blocks' mean losses: "
-                             "a loss_mask would weigh them unequally")
         local = {k: sharding.local_shard(v, bspecs[k], mesh)
                  for k, v in batch.items()}
-        full = tree_map(lambda p, spec, path: sharding.gather_full(
-            p.detach(), spec, mesh), params, pspecs)
-        prev = actshard.current_mesh(), actshard.current_profile()
-        actshard.set_mesh(mesh, profile)
+        layout.set_batch(bspecs["labels"])
+        prev = actshard.current_mesh(), actshard.current_profile(), actshard.current_layout()
+        actshard.set_mesh(mesh, profile, layout)
         try:
-            loss, parts, grads = grad_fn(full, local)
+            loss, parts, grads = grad_fn(params, local)
         finally:
             actshard.set_mesh(*prev)
-        del full
-        return (mesh_mean(loss, mesh), {k: mesh_mean(v, mesh) for k, v in parts.items()},
-                tree_map(lambda g, path: mesh_mean(g, mesh), grads))
 
-    train_step = _update_step(
-        mesh_grad_fn, lambda grads: tree_map(
-            lambda g, spec, path: sharding.local_shard(g, spec, mesh), grads, pspecs),
-        **opt)
-    train_step.pspecs, train_step.grad_fn = pspecs, mesh_grad_fn
+        def dp_sum(x):
+            for a in layout.dp:
+                x = psum(x, mesh, a)
+            return x
+
+        def reduce(g, axes, path):
+            for a in axes:
+                g = psum(g, mesh, a)
+            return g
+
+        return (dp_sum(loss), {k: dp_sum(v) for k, v in parts.items()},
+                tree_map(reduce, grads, unreduced))
+
+    def norm_fn(grads):
+        def sq(g, n, path):
+            s = torch.sum(torch.square(g.float()))
+            return s / n if n > 1 else s
+        total = sum(tree_leaves(tree_map(sq, grads, holders)))
+        for a in mesh.axis_names:
+            total = psum(total, mesh, a)
+        return torch.sqrt(total)
+
+    train_step = _update_step(mesh_grad_fn, norm_fn, **opt)
+    train_step.pspecs, train_step.grad_fn = layout.pspecs, mesh_grad_fn
     return train_step
 
 

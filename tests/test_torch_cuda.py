@@ -1468,3 +1468,73 @@ def test_one_by_one_nccl_train_step_changes_no_bit():
     from repro_torch.launch import mesh as mesh_lib
     assert mesh_lib.spawn_local(1, _one_by_one_nccl_rank, device="cuda",
                                 timeout_s=240) == [("nccl", True)]
+
+
+def _tp_pair_rank():
+    from repro_torch import configs as TC
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.optim import adamw_init, warmup_cosine
+    from repro_torch.runtime import build_train_step, sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TC.reduced(TC.get_config("h2o-danube-1.8b"))
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    tree = init_params(1, get_module(cfg).param_defs(cfg))
+    ds = make_dataset(cfg, TC.ShapeConfig("train_4k", "train", 64, 4), seed=3)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(s).items()}
+               for s in range(3)]
+    runs = {}
+    for name, m in (("one", None), ("tp", mesh)):
+        step = build_train_step(cfg, lr_schedule=warmup_cosine(1e-3, 2, 10), mesh=m,
+                                profile="tp")
+        specs = step.pspecs if m is not None else tree_map(lambda a, path: None, tree)
+        params = tree_map(lambda a, s, path: torch.from_numpy(np.array(
+            a if s is None else sharding.local_shard(a, s, mesh))).cuda()
+            .requires_grad_(), tree, specs)
+        opt = adamw_init(params)
+        losses, launches = [], []
+        for b in batches:
+            before = fa_mod.launches
+            params, opt, mt = step(params, opt, b)
+            losses.append(float(mt["loss"]))
+            launches.append(fa_mod.launches - before)
+        if m is not None:
+            params = sharding.tree_gather_full(params, step.pspecs, mesh)
+        runs[name] = (losses, launches, {k: v.detach().cpu().numpy() for k, v in
+                                         zip(_paths(params), _leaves(params))})
+    return runs
+
+
+def _paths(tree):
+    from repro_torch.models.params import tree_map
+    out = []
+    tree_map(lambda t, path: out.append(path), tree)
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.models.params import tree_leaves
+    return tree_leaves(tree)
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_train_step_on_one_card_holds_one_process():
+    """Two gloo ranks share the card on (data 1, model 2) under 'tp': three
+    steps of h2o-danube reduced (float32), each rank on 2 of the 4 query
+    heads (the attention kernels launched 2 + 2 remat a step, as one
+    process's), the losses and every parameter within 2e-4 (1 + |b|) of
+    one process's step on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from repro_torch.launch import mesh as mesh_lib
+    ranks = mesh_lib.spawn_local(2, _tp_pair_rank, device="cuda", timeout_s=300)
+    for r in ranks:
+        (l1, n1, p1), (lt, nt, pt) = r["one"], r["tp"]
+        assert n1 == nt == [4, 4, 4]
+        np.testing.assert_allclose(lt, l1, rtol=2e-4, atol=2e-4)
+        assert sorted(pt) == sorted(p1)
+        for k, v in p1.items():
+            np.testing.assert_allclose(pt[k], v, rtol=2e-4, atol=2e-4, err_msg=k)

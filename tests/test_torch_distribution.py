@@ -15,7 +15,12 @@ The sharded train step is held to the JAX package's UNSHARDED
 (``tests/test_distribution.py::test_train_step_on_2d_mesh_multidevice``
 raises ``ShardingTypeError`` at ``repro/models/layers.py:438``, where JAX
 cannot resolve the output sharding of the embedding's gather), and GSPMD
-changes no value, so a mesh must change none either.
+changes no value, so a mesh must change none either.  The one exception is
+the MoE under '2d' / 'tp' with more than one data shard: there the
+reference's ``moe_apply_sharded`` routes each shard with its own capacity,
+so the MoE family is held to JAX's step with its mesh installed
+(``actshard.set_mesh`` on forced host devices, the parameters unsharded),
+which runs that layer under ``shard_map``.
 """
 import dataclasses
 import json
@@ -56,8 +61,8 @@ from repro_torch.models.params import PartitionSpec as P
 from repro_torch.models.params import from_jax_params, init_params, tree_map
 from repro_torch.optim import AdamWState, adamw_init, warmup_cosine
 from repro_torch.optim.compression import compressed_pod_allreduce
-from repro_torch.runtime import build_train_step, sharding
-from repro_torch.runtime.collectives import mesh_mean
+from repro_torch.runtime import build_grad_fn, build_train_step, sharding
+from repro_torch.runtime.collectives import psum
 
 ROOT = Path(__file__).resolve().parents[1]
 ENV = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu",
@@ -251,7 +256,11 @@ def forced(tmp_path_factory):
     ``NamedSharding.devices_indices_map`` gives each device of a (2, 4)
     mesh for every parameter of olmo-1b and qwen2-moe-a2.7b (reduced), by
     the device's mesh coordinates; ``moe_apply_sharded`` on (2, 2); and
-    ``compressed_pod_allreduce`` on a 2-device ("pod",) mesh."""
+    ``compressed_pod_allreduce`` on a 2-device ("pod",) mesh; and
+    qwen2-moe's three train steps of JAX's ``build_train_step`` with its
+    (2, 2) mesh installed (``actshard.set_mesh``), whose MoE layers run
+    ``moe_apply_sharded`` under ``shard_map`` (the parameters unsharded),
+    as the MoE family's reference under '2d' and 'tp'."""
     d = tmp_path_factory.mktemp("forced")
     arrays = {}
     for arch in MOE_ARCHS:
@@ -305,6 +314,29 @@ def forced(tmp_path_factory):
             tree, inp["moe/" + arch + "/x"])
         out["moe22/" + arch + "/out"] = np.asarray(o)
         out["moe22/" + arch + "/aux"] = np.asarray(a)
+    from repro.data.synthetic import make_dataset
+    from repro.configs import SHAPES_BY_NAME
+    from repro.models import actshard
+    from repro.optim import adamw_init, warmup_cosine
+    from repro.runtime import build_train_step
+    import dataclasses, jax.numpy as jnp
+    cfg = reduced(get_config("qwen2-moe-a2.7b"))
+    ds = make_dataset(cfg, dataclasses.replace(SHAPES_BY_NAME["train_4k"], seq_len=32,
+                                               global_batch=4), seed=11)
+    mp = jax.jit(lambda k: PL.init_params(k, get_module(cfg).param_defs(cfg)))(
+        jax.random.PRNGKey(0))
+    actshard.set_mesh(jax.make_mesh((2, 2), ("data", "model"), devices=jax.devices()[:4],
+                                    axis_types=(jax.sharding.AxisType.Auto,) * 2), "2d")
+    mstep = jax.jit(build_train_step(cfg, lr_schedule=warmup_cosine(1e-3, 2, 10)))
+    mopt, losses = adamw_init(mp), []
+    for s in range(3):
+        mp, mopt, mm = mstep(mp, mopt, {{k: jnp.asarray(v) for k, v in ds.batch(s).items()}})
+        losses.append(float(mm["loss"]))
+    actshard.set_mesh(None)
+    out["moestep/losses"] = np.array(losses)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(mp)[0]:
+        out["moestep/p/" + ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                                    for k in path)] = np.asarray(leaf, np.float32)
     pod = Mesh(np.array(jax.devices()[:2]), ("pod",))
     g = {{k[6:]: inp[k] for k in inp if k.startswith("pod/g/")}}
     r = {{k[6:]: inp[k] for k in inp if k.startswith("pod/r/")}}
@@ -374,16 +406,27 @@ def _moe_case(mesh, arch, tree, x, w, grads):
         g = torch.autograd.grad((out * wl).sum() + aux, leaves)
         it = iter(g)
         res["grads"] = _port_flat(tree_map(
-            lambda p, path: mesh_mean(next(it), mesh).numpy(), params))
+            lambda p, path: _whole_grad(next(it), path, mesh).numpy(), params))
     return res
+
+
+def _whole_grad(g, path, mesh):
+    """A tensor-parallel layer's gradient of a leaf it is given whole: the
+    sum over 'model' of the ranks' blocks (zeros outside them) for the
+    experts and the shared experts, which the ranks split; the rank's own
+    for the router and the shared gate, which each uses whole."""
+    if path.split(".")[-1] in ("wi", "wg", "wo"):
+        return psum(g, mesh, "model")
+    return g
 
 
 def test_sharded_moe_equals_the_plain_layer_on_1x4():
     """On (data 1, model 4) each rank runs one of the 4 padded experts: the
     output equals JAX's plain ``moe_apply`` within 3e-4 and the aux within
-    1e-4 relative (the capacity is the global one), and the mean of the
-    ranks' gradients equals autograd of the port's plain ``moe_apply``
-    within 3e-4, both reduced MoE configs."""
+    1e-4 relative (the capacity is the global one), and the ranks'
+    gradients (``_whole_grad``: the layer is tensor-parallel over 'model')
+    equal autograd of the port's plain ``moe_apply`` within 3e-4, both
+    reduced MoE configs."""
     cases = {}
     for arch in MOE_ARCHS:
         tree, x = _moe_inputs(arch)
@@ -431,57 +474,310 @@ def test_sharded_moe_equals_the_reference_sharded_on_2x2(forced):
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "h2o-danube-1.8b"
+# one reduced config a family: dense, tied head (olmo's non-parametric norm),
+# VLM (M-RoPE, inputs_embeds), MoE, encoder-decoder, RWKV-6, RecurrentGemma
+FAMILIES = ("h2o-danube-1.8b", "olmo-1b", "qwen2-vl-2b", "qwen2-moe-a2.7b",
+            "seamless-m4t-large-v2", "rwkv6-1.6b", "recurrentgemma-2b")
+TRAIN_PROFILES = ("2d", "tp", "fsdp")
+PARITY = 2e-4           # |port - JAX| <= PARITY (1 + |JAX|), losses and parameters
 
 
-def _train_rank(shape, profiles, tree, batches):
-    cfg = TC.reduced(TC.get_config(TRAIN_ARCH))
-    mesh = mesh_lib.make_mesh(shape, ("data", "model"), device="cpu")
-    out = {}
-    for profile in profiles:
-        step = build_train_step(cfg, lr_schedule=warmup_cosine(1e-3, 2, 10),
-                                mesh=mesh, profile=profile)
-        params = tree_map(lambda a, s, path: torch.from_numpy(np.array(   # a copy
-            sharding.local_shard(a, s, mesh))).requires_grad_(), tree, step.pspecs)
-        opt = adamw_init(params)
-        losses = []
-        for b in batches:
-            params, opt, m = step(params, opt, {k: torch.from_numpy(v) for k, v in b.items()})
-            losses.append(float(m["loss"]))
-        full = sharding.tree_gather_full(params, step.pspecs, mesh)
-        out[profile] = dict(losses=losses, params=_port_flat(tree_map(
-            lambda t, path: t.detach().numpy(), full)), count=int(opt.count))
+def _train_batches(jcfg, mask=False):
+    """Three global batches of 4 x 32 from the reference's dataset; with
+    ``mask`` a seeded loss_mask that drops about a third of the tokens."""
+    shape = dataclasses.replace(SHAPES_BY_NAME["train_4k"], seq_len=32, global_batch=4)
+    ds = j_make_dataset(jcfg, shape, seed=11)
+    out = [ds.batch(s) for s in range(3)]
+    if mask:
+        rng = np.random.default_rng(12)
+        for b in out:
+            b["loss_mask"] = (rng.random(b["labels"].shape) > 0.35).astype(np.float32)
     return out
 
 
-def test_sharded_train_step_equals_the_unsharded_reference():
-    """h2o-danube-1.8b reduced on a (2, 2) world, profiles '2d' and 'fsdp',
-    three steps of 4 x 32: the loss of each step and every parameter after
-    them within 2e-4 (1 + |b|) of JAX's unsharded step (module docstring:
-    the reference's own sharded step fails on the CPU)."""
-    jcfg = jreduced(jget(TRAIN_ARCH))
-    shape = dataclasses.replace(SHAPES_BY_NAME["train_4k"], seq_len=32, global_batch=4)
-    ds = j_make_dataset(jcfg, shape, seed=11)
-    batches = [ds.batch(s) for s in range(3)]
-    tree = _np_tree(jax.jit(lambda k: JP.init_params(
-        k, j_get_module(jcfg).param_defs(jcfg)))(jax.random.PRNGKey(0)))
-    jp, jopt = jax.tree.map(jnp.asarray, tree), None
+def _jax_steps(jcfg, tree, batches):
+    """JAX's unsharded ``build_train_step``: (losses, flat parameters)."""
+    jp = jax.tree.map(jnp.asarray, tree)
     jopt = j_adamw_init(jp)
     jstep = jax.jit(j_build_train_step(jcfg, lr_schedule=j_warmup_cosine(1e-3, 2, 10)))
-    jloss = []
+    losses = []
     for b in batches:
         jp, jopt, jm = jstep(jp, jopt, {k: jnp.asarray(v) for k, v in b.items()})
-        jloss.append(float(jm["loss"]))
-    want = _jax_flat(jp)
-    ranks = _spawn(4, _train_rank, (2, 2), ("2d", "fsdp"), tree, batches)
-    for r in ranks:
-        for profile in ("2d", "fsdp"):
-            got = r[profile]
-            assert got["count"] == 3
-            np.testing.assert_allclose(got["losses"], jloss, rtol=2e-4, atol=2e-4)
-            assert sorted(got["params"]) == sorted(want)
-            for k, v in got["params"].items():
-                np.testing.assert_allclose(v, np.asarray(want[k]), rtol=2e-4, atol=2e-4,
-                                           err_msg=f"{profile} {k}")
+        losses.append(float(jm["loss"]))
+    return losses, {k: np.asarray(v) for k, v in _jax_flat(jp).items()}
+
+
+def _jax_tree(jcfg):
+    return _np_tree(jax.jit(lambda k: JP.init_params(
+        k, j_get_module(jcfg).param_defs(jcfg)))(jax.random.PRNGKey(0)))
+
+
+@pytest.fixture(scope="module")
+def jax_train():
+    """Each family's tree, batches and JAX unsharded three steps; h2o's
+    masked batches and their JAX steps under "masked"."""
+    out = {}
+    for arch in FAMILIES:
+        jcfg = jreduced(jget(arch))
+        tree, batches = _jax_tree(jcfg), _train_batches(jcfg)
+        out[arch] = (tree, batches, _jax_steps(jcfg, tree, batches))
+    jcfg = jreduced(jget(TRAIN_ARCH))
+    masked = _train_batches(jcfg, mask=True)
+    out["masked"] = (out[TRAIN_ARCH][0], masked, _jax_steps(jcfg, out[TRAIN_ARCH][0], masked))
+    return out
+
+
+def _parity(losses, flat, ref):
+    """(the worst loss error, the worst parameter error, that leaf), each
+    error |port - JAX| / (1 + |JAX|)."""
+    want_l, want_p = ref
+    loss_err = float(np.max(np.abs(np.array(losses) - want_l) / (1 + np.abs(want_l))))
+    errs = {k: float(np.max(np.abs(v - want_p[k]) / (1 + np.abs(want_p[k]))))
+            for k, v in flat.items()}
+    assert sorted(flat) == sorted(want_p)
+    worst = max(errs, key=errs.get)
+    return loss_err, errs[worst], worst
+
+
+def _forbidden(*args, **kw):
+    raise AssertionError("a whole-tree gather inside the sharded step")
+
+
+def _sharded_run(arch, mesh, profile, tree, batches, probe=False):
+    """Three sharded steps of ``arch`` on the rank's blocks of ``tree``.
+    Returns (losses, the gathered parameters, the optimizer's count, what
+    the step showed): whether every gradient reached AdamW in its block's
+    shape, the peak of gathered leaves alive against one layer's leaves
+    plus the embedding, the head and the final norm; ``probe`` also counts
+    the FLOPs of one ``grad_fn`` against one process's on the whole
+    batch."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.runtime import steps as steps_mod
+    cfg = TC.reduced(TC.get_config(arch))
+    step = build_train_step(cfg, lr_schedule=warmup_cosine(1e-3, 2, 10), mesh=mesh,
+                            profile=profile)
+    params = tree_map(lambda a, s, path: torch.from_numpy(np.array(   # a copy
+        sharding.local_shard(a, s, mesh))).requires_grad_(), tree, step.pspecs)
+    opt = adamw_init(params)
+    shapes_ok = []
+    real_update = steps_mod.adamw_update
+
+    def checked_update(grads, state, ps, **kw):
+        shapes_ok.append(all(g.shape == p.shape for g, p in zip(
+            TP.tree_leaves(grads), TP.tree_leaves(ps))))
+        return real_update(grads, state, ps, **kw)
+
+    real_gathers = sharding.gather_full, sharding.tree_gather_full
+    steps_mod.adamw_update = checked_update
+    sharding.gather_full = sharding.tree_gather_full = _forbidden
+    sharding.reset_gather_counts()
+    losses, seen = [], {}
+    try:
+        for b in batches:
+            params, opt, m = step(params, opt, {k: torch.from_numpy(v) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        seen["peak_live"] = sharding.peak_live_gathered_bytes
+        seen["gathered"] = sharding.gathered_bytes
+        if probe:
+            tb = {k: torch.from_numpy(v) for k, v in batches[0].items()}
+            with FlopCounterMode(display=False) as fc:
+                step.grad_fn(params, tb)
+            mine = fc.get_total_flops()
+            whole = tree_map(lambda a, path: torch.from_numpy(a.copy()), tree)
+            with FlopCounterMode(display=False) as fc:
+                build_grad_fn(cfg)(whole, tb)
+            seen["flops"] = (mine, fc.get_total_flops())
+    finally:
+        steps_mod.adamw_update = real_update
+        sharding.gather_full, sharding.tree_gather_full = real_gathers
+    seen["shapes_ok"] = bool(shapes_ok) and all(shapes_ok)
+    seen["bound"] = _one_layer_and_the_rest(cfg)
+    full = sharding.tree_gather_full(params, step.pspecs, mesh)
+    return losses, _port_flat(tree_map(lambda t, path: t.detach().numpy(), full)), \
+        int(opt.count), seen
+
+
+def _one_layer_and_the_rest(cfg):
+    """Bytes of the largest layer's whole leaves (a stacked leaf's slice)
+    plus every leaf outside the blocks (embedding, head, final norms):
+    float32, as the reduced configs compute."""
+    layers, rest = {}, 0
+
+    def add(d, path):
+        nonlocal rest
+        parts = path.split(".")
+        n = 4 * int(np.prod(d.shape))
+        if not parts[0].endswith("blocks"):
+            rest += n
+        elif d.axes and d.axes[0] == "layers":
+            layers[parts[0]] = layers.get(parts[0], 0) + n // d.shape[0]
+        else:                                     # a list of blocks
+            key = ".".join(parts[:2])
+            layers[key] = layers.get(key, 0) + n
+    tree_map(add, get_module(cfg).param_defs(cfg))
+    return max(layers.values()) + rest
+
+
+def _family_rank(refs, moe_meshed):
+    """One rank of the (2, 2) and (1, 4) worlds: every family under every
+    profile on (2, 2), h2o's masked batches on (2, 2), h2o on (1, 4); each
+    run's parity with its reference computed here."""
+    out = {}
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
+    for arch in FAMILIES:
+        tree, batches, ref = refs[arch]
+        for profile in TRAIN_PROFILES:
+            want = moe_meshed if arch in MOE_ARCHS and profile != "fsdp" else ref
+            losses, flat, count, seen = _sharded_run(arch, mesh, profile, tree, batches,
+                                                     probe=arch == TRAIN_ARCH)
+            out[(arch, profile, (2, 2))] = (_parity(losses, flat, want), count, seen)
+    tree, batches, ref = refs["masked"]
+    losses, flat, count, seen = _sharded_run(TRAIN_ARCH, mesh, "2d", tree, batches)
+    out[("masked", "2d", (2, 2))] = (_parity(losses, flat, ref), count, seen)
+    mesh = mesh_lib.make_mesh((1, 4), ("data", "model"), device="cpu")
+    tree, batches, ref = refs[TRAIN_ARCH]
+    for profile in ("2d", "tp"):
+        losses, flat, count, seen = _sharded_run(TRAIN_ARCH, mesh, profile, tree, batches)
+        out[(TRAIN_ARCH, profile, (1, 4))] = (_parity(losses, flat, ref), count, seen)
+    return out
+
+
+def _pairs_of(mesh):
+    """Megatron's conjugate pairs on (1, 2), by rank r = 0, 1: forward values
+    and the gradients each rank gets."""
+    from repro_torch.runtime import collectives as C
+    r = mesh.coords["model"]
+    x = torch.tensor([1.0 + r, 3.0 - r], requires_grad=True)
+    out = {"copy": C.copy_to(x, mesh, "model").detach().numpy(),
+           "reduce": C.reduce_from(x, mesh, "model").detach().numpy(),
+           "gather": C.gather_from(x, mesh, "model", 0).detach().numpy(),
+           "max": C.pmax(x, mesh, "model").numpy()}
+    w = torch.tensor([10.0 + r, 20.0])
+    for name, fn in (("copy", C.copy_to), ("reduce", C.reduce_from)):
+        (g,) = torch.autograd.grad((fn(x, mesh, "model") * w).sum(), x)
+        out["d" + name] = g.numpy()
+    (g,) = torch.autograd.grad((C.gather_from(x, mesh, "model", 0)
+                                * torch.arange(4.0)).sum(), x)
+    out["dgather"] = g.numpy()
+    return r, out
+
+
+def _pair_rank(refs):
+    """One rank of the two-rank world: Megatron's pairs, h2o on (1, 2)
+    under 'tp' (with the FLOP count) and its masked batches on (2, 1)."""
+    out = {"pairs": _pairs_of(mesh_lib.make_mesh((1, 2), ("data", "model"),
+                                                  device="cpu"))}
+    tree, batches, ref = refs[TRAIN_ARCH]
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"), device="cpu")
+    losses, flat, count, seen = _sharded_run(TRAIN_ARCH, mesh, "tp", tree, batches, probe=True)
+    out["tp12"] = (_parity(losses, flat, ref), count, seen)
+    tree, batches, ref = refs["masked"]
+    mesh = mesh_lib.make_mesh((2, 1), ("data", "model"), device="cpu")
+    losses, flat, count, seen = _sharded_run(TRAIN_ARCH, mesh, "2d", tree, batches)
+    out["masked21"] = (_parity(losses, flat, ref), count, seen)
+    return out
+
+
+@pytest.fixture(scope="module")
+def family_worlds(jax_train, forced):
+    """The (2, 2) / (1, 4) world of four ranks and the two-rank world, each
+    spawned once for the module; every rank's results."""
+    out, _ = forced
+    refs = {k: (v[0], v[1], v[2]) for k, v in jax_train.items()}
+    moe_meshed = ([float(x) for x in out["moestep/losses"]],
+                  {k[len("moestep/p/"):]: v for k, v in out.items()
+                   if k.startswith("moestep/p/")})
+    four = mesh_lib.spawn_local(4, _family_rank, refs, moe_meshed, device="cpu",
+                                timeout_s=4 * WORLD_S)
+    two = _spawn(2, _pair_rank, refs)
+    return four, two
+
+
+def _held(result, what):
+    (loss_err, param_err, worst), count, seen = result
+    assert count == 3, what
+    assert loss_err <= PARITY, f"{what}: loss error {loss_err:.3e}"
+    assert param_err <= PARITY, f"{what}: {worst} error {param_err:.3e}"
+    assert seen["shapes_ok"], f"{what}: a gradient reached AdamW in another shape"
+    assert seen["peak_live"] <= seen["bound"], (what, seen)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_each_family_on_a_2x2_world_holds_the_unsharded_reference(family_worlds, arch):
+    """Each family's reduced config on (data 2, model 2) under '2d', 'tp'
+    and 'fsdp', three steps of 4 x 32 on every rank: the losses and every
+    parameter within 2e-4 (1 + |b|) of JAX's unsharded step (module
+    docstring), where the MoE under '2d' / 'tp' is held to JAX's step with
+    its (2, 2) mesh installed (forced host devices), whose shard_map MoE
+    routes each data shard with its own capacity as the port's does; every
+    gradient in its block's shape at AdamW, no whole-tree gather, and the
+    gathered leaves alive at once never more than one layer's plus the
+    embedding, the head and the final norm."""
+    four, _ = family_worlds
+    for r, rank in enumerate(four):
+        for profile in TRAIN_PROFILES:
+            result = rank[(arch, profile, (2, 2))]
+            _held(result, f"{arch} {profile} rank {r}")
+            # 'tp' keeps the weights replicated over 'data': nothing to gather
+            assert (result[2]["gathered"] > 0) == (profile != "tp"), (arch, profile)
+
+
+def test_sharded_train_step_equals_the_unsharded_reference(family_worlds):
+    """h2o-danube-1.8b reduced (heads 4, kv 2) on a (2, 2) world under '2d',
+    'tp' and 'fsdp', and on (1, 4) under '2d' and 'tp', where the KV heads
+    are replicated and each rank reads the one of its query head: three
+    steps of 4 x 32, the losses and every parameter within 2e-4 (1 + |b|)
+    of JAX's unsharded step (module docstring: the reference's own sharded
+    step fails on the CPU)."""
+    four, _ = family_worlds
+    for r, rank in enumerate(four):
+        for profile in TRAIN_PROFILES:
+            _held(rank[(TRAIN_ARCH, profile, (2, 2))], f"(2, 2) {profile} rank {r}")
+        for profile in ("2d", "tp"):
+            _held(rank[(TRAIN_ARCH, profile, (1, 4))], f"(1, 4) {profile} rank {r}")
+
+
+def test_a_loss_mask_under_data_parallelism_holds_the_masked_reference(family_worlds):
+    """h2o's batches with a seeded loss_mask on (2, 1) and (2, 2): the global
+    masked mean, each rank's masked sum over the mask's count summed over
+    the dp axes, within 2e-4 (1 + |b|) of JAX's unsharded masked step."""
+    four, two = family_worlds
+    for r, rank in enumerate(four):
+        _held(rank[("masked", "2d", (2, 2))], f"masked (2, 2) rank {r}")
+    for r, rank in enumerate(two):
+        _held(rank["masked21"], f"masked (2, 1) rank {r}")
+
+
+def test_the_conjugate_pairs_forward_and_backward(family_worlds):
+    """On (1, 2): ``copy_to`` is the identity whose gradient is the sum of
+    the ranks' (w0 + w1), ``reduce_from`` the sum whose gradient is the
+    rank's own, ``gather_from`` the concatenation whose gradient is the
+    rank's slice of the cotangent, ``pmax`` the elementwise max."""
+    _, two = family_worlds
+    xs = {0: np.array([1.0, 3.0]), 1: np.array([2.0, 2.0])}
+    ws = {0: np.array([10.0, 20.0]), 1: np.array([11.0, 20.0])}
+    for r, got in (rank["pairs"] for rank in two):
+        np.testing.assert_array_equal(got["copy"], xs[r])
+        np.testing.assert_array_equal(got["reduce"], xs[0] + xs[1])
+        np.testing.assert_array_equal(got["gather"], np.concatenate([xs[0], xs[1]]))
+        np.testing.assert_array_equal(got["max"], np.maximum(xs[0], xs[1]))
+        np.testing.assert_array_equal(got["dcopy"], ws[0] + ws[1])
+        np.testing.assert_array_equal(got["dreduce"], ws[r])
+        np.testing.assert_array_equal(got["dgather"], np.arange(4.0)[2 * r:2 * r + 2])
+
+
+def test_a_rank_computes_its_share_of_the_flops(family_worlds):
+    """``FlopCounterMode`` over one ``grad_fn`` of h2o reduced: each rank's
+    count at most 0.55 of one process's on the whole batch on (1, 2) under
+    'tp', and at most 0.30 of it on (2, 2) under '2d'."""
+    four, two = family_worlds
+    for rank in two:
+        _held(rank["tp12"], "tp (1, 2)")
+        mine, whole = rank["tp12"][2]["flops"]
+        assert 0 < mine <= 0.55 * whole, (mine, whole)
+    for rank in four:
+        mine, whole = rank[(TRAIN_ARCH, "2d", (2, 2))][2]["flops"]
+        assert 0 < mine <= 0.30 * whole, (mine, whole)
 
 
 def _one_by_one_rank(tree, batches):
