@@ -60,7 +60,14 @@ of which ends the run with a non-zero exit code if it fails (a
    a float32 causal 1 x 4 x 300 (ragged against the 64-row tile),
    minitron-4b's 24 / 8 heads at D 128, a causal bf16 prompt of the
    whole-row regime, D chunked over the grid, and twice at the served
-   shape, where the two calls must give the same bits; each record, here
+   shape, where the two calls must give the same bits; a sequence shard's
+   queries at their ``q_offset`` (the 'cp' step): RecurrentGemma's 1 x 4608
+   split in two (2304 queries at 2304 against 4608 keys, MQA expanded to
+   10 heads, D 256, bf16, its window of 2048 across the shard's edge) and
+   a whole-row shard (4 x 16 x 64 at 64 against 128 keys, window 96, bf16),
+   both timed beside the same call without the offset in turns
+   (``no_offset_ms``), and untimed float32 shards of the online and the
+   whole-row regime and a non-causal window at an offset; each record, here
    and in the lowered phase, carries ``regime``, ``splits``,
    ``row_splits`` and ``ctas`` from ``kernels.flash_attention.plan``.
    ``depthwise_conv2d`` runs at the nine shapes of a batch-16 forward (in
@@ -78,8 +85,10 @@ of which ends the run with a non-zero exit code if it fails (a
    every pow2 chunk 8..256 at T = 512, the JAX tests' ragged T / chunk
    50/16, 33/8, 100/64, T < chunk (50 / 64), RecurrentGemma's K = 1,
    V = 2560, T = 448 at chunks 64 and 256, decays at the extremes
-   (-exp(N(2.5, 1)), 0, -1e-6; float32 and bf16) and twice at the served
-   shape, where the two calls must give the same bits; each record
+   (-exp(N(2.5, 1)), 0, -1e-6; float32 and bf16), twice at the served
+   shape, where the two calls must give the same bits, and from a nonzero
+   initial state (a sequence shard's: 4 x 130 at chunk 32, and the served
+   shape timed beside the same call from zero in turns, ``no_state_ms``); each record
    carries the outputs pass's plan from ``kernels.rwkv_chunk.plan``
    (``wv``, ``warps``, ``rows``, ``ctas``) and the states pass's
    blocks (``states_ctas``), and, where timed, the bytes of the float32
@@ -243,8 +252,10 @@ of which ends the run with a non-zero exit code if it fails (a
    last 10; tokens/s = 2048 / step;
 5i. the five LM configs that had run at reduced size on the CPU only
    (``five_phase``, ``five_path`` over ``FIVE``, each through ``lm_phase``),
-   uncut at full width on weights drawn on the card from seed 0
-   (``init_on_device``, bfloat16 compute): ``starcoder2-15b`` (40 layers,
+   at full width on weights drawn on the card from seed 0
+   (``init_on_device``, bfloat16 compute), starcoder2-15b and qwen3-moe cut
+   to their first 20 and 24 layers (``reduced: num_layers``, for the
+   script's time), the other three uncut: ``starcoder2-15b`` (40 layers,
    d 6144, 48 / 4 heads of 128, LayerNorm and GELU, d_ff 24576),
    ``minitron-4b`` (32 layers, d 3072, 24 / 8 heads, squared ReLU, vocab
    256000), ``olmo-1b`` (16 layers, MHA, non-parametric LayerNorm, tied
@@ -316,8 +327,16 @@ of which ends the run with a non-zero exit code if it fails (a
    masters drawn on the card from the seed in each rank, 2 steps of 4 x 512
    against one process's in rank 0 alone (losses 1e-2, norms 1 %, the first step's gradients 5e-2
    relative L2), the WKV kernels on [4 x 16, 512, 64] (16 of 32 heads a
-   rank), 4 wkv_chunked and 2 wkv_chunked_bwd a step a rank.  One JSON line
-   ``{"dist": {...}}``.  ``--only 5h`` runs this phase alone after the
+   rank), 4 wkv_chunked and 2 wkv_chunked_bwd a step a rank; (h) the cut
+   dense model of (c) under 'cp' on (data 1, model 2): each rank 256 of a
+   row's 512 tokens, the parameters whole over 'model', K / V gathered over
+   'model' and each attention launch at the rank's query offset (0 and 256,
+   forward and backward, read from every launch), every gradient summed over
+   'model'; (c)'s checks but the checkpoint, the losses within 1e-4 of (a)'s,
+   (f)'s FLOP count, the bytes staged a step; (i) (g)'s model under 'cp' on
+   (1, 2): all 32 heads on 256 tokens a rank, rank 1's WKV launched from
+   the state rank 0 left (read from every launch), the losses within 1e-5
+   of one process's.  One JSON line ``{"dist": {...}}``.  ``--only 5h`` runs this phase alone after the
    build; ``--dist-vs DIR`` runs (a) to (c) of it from the checkout DIR and
    from this one, alternating (``dist_versus``);
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
@@ -382,20 +401,24 @@ the count of the path the kernel is on: the EdgeNeXt-S requests for the
 first three, the lowered phase for matmul_ln, the RWKV-6 requests for
 wkv_chunked, the 20 dense train steps for flash_attention_bwd, the 20
 RWKV-6 train steps for wkv_chunked_bwd (``launches_by_path`` has all
-seventeen paths: the dense, MoE, encoder-decoder and hybrid requests as
+nineteen paths: the dense, MoE, encoder-decoder and hybrid requests as
 ``dense_serve``, ``moe_serve``, ``audio_serve`` and ``hybrid_serve``, phase
 5i's as ``starcoder2_serve``, ``minitron_serve``, ``olmo_serve``,
 ``qwen2vl_serve`` and ``qwen3moe_serve``, the
 train steps as ``dense_train`` and ``rwkv_train``, the serve phase's new
 launches as ``serve_store``, and phase 5h's rank 0 as ``dist_serve``, one
 B = 8 forward, ``dist_train``, one sharded step on (2, 1), ``dist_tp``, one
-on (1, 2), and ``dist_rwkv``, one RWKV-6 step on (1, 2)).  The WKV backward (``wkv_bwd_case``) is held
+on (1, 2), ``dist_rwkv``, one RWKV-6 step on (1, 2), ``dist_cp`` and
+``dist_cp_rwkv``, one step of each under 'cp' on (1, 2)).  The WKV backward (``wkv_bwd_case``) is held
 to autograd of ``ref.wkv_ref`` (2e-4 (1 + |b|) float32, 1e-3 at the
 extreme decays, 2e-2 bfloat16 with a relative L2 of 2e-4 on the float32
 dlogw and du) at the trained shape (bf16), a ragged 32 x 200 at chunk 64,
 the extreme decays in float32 and bf16, a nonzero dS_T, two calls with
-the same bits, chunk 128 (twice, same bits), chunk 8 at K = V = 16 and
-K = V = 40 at T = 130; each record names the gradients-pass instance
+the same bits, chunk 128 (twice, same bits), chunk 8 at K = V = 16,
+K = V = 40 at T = 130, and from a nonzero initial state (its gradient dS0
+held as dlogw is: 4 x 130 at chunk 32, the tile instance at chunk 128, the
+trained shape timed beside the same call from zero in turns,
+``no_state_ms``); each record names the gradients-pass instance
 ``rwkv_chunk_bwd.plan`` gave it (``instance``: chunk 128 the tile one, the
 others the chunk one) with its ``ptxas`` registers and spill bytes; it is
 timed given the forward's workspace, its plain time
@@ -404,7 +427,10 @@ is autograd of ``wkv_ref``'s backward, ``plain_chunked_ms`` autograd of
 library call; its operations are ``wkv_bwd_macs``.
 The backward is held to autograd of ``ref.attention_ref`` (2e-3 (1 + |b|)
 float32, 2e-2 bfloat16) at the trained heads (h2o 80, olmo 128,
-Seamless 64 self and cross, RecurrentGemma 256), its ``library_ms`` is
+Seamless 64 self and cross, RecurrentGemma 256) and at a query offset
+(RecurrentGemma's 1 x 4608 split in two, timed beside the same call
+without the offset in turns, ``no_offset_ms``; the whole-row forward's lse
+and h2o's second 'cp' rank, 256 queries at 256, untimed), its ``library_ms`` is
 SDPA's backward and each of its records also times the forward with and
 without its lse and each of its three kernels (``kernel_ms``, by
 ``torch.profiler``), and names the instance it ran (``plan``, from
@@ -583,18 +609,22 @@ HYBRID_REQUESTS = [(4, 512, 32), (4, 512, 32), (1, 4608, 8)]
 HYBRID_PARAMS = 3_549_934_080
 HYBRID_F32 = (3, 2, 300, 4)
 # phase 5i: the five LM configs that had run only at reduced size on the CPU,
-# each uncut at full width (arch -> (tag, parameters)), weights drawn on the
-# card from the seed (``init_on_device``); (batch, prompt tokens, greedy
+# each at full width (arch -> (tag, parameters served, layers served: None
+# for all of them)), weights drawn on the card from the seed
+# (``init_on_device``; a cut config serves the first layers of the uncut
+# draw); starcoder2-15b and qwen3-moe-30b-a3b, the two slowest, cut to half
+# their layers since phases 5h (h) and (i) were added, to keep the script
+# within its time (every layer has the same shapes); (batch, prompt tokens, greedy
 # tokens) per request, the 1 x 200 prompt ragged against the 64-key tile;
 # the float32 check on the first layers of the same draw (``layers=``):
 # (layers, batch, prompt tokens, greedy steps).  A phase whose peak passes
 # FIVE_PEAK_GIB fails (qwen3-moe holds 61.7 GB of bf16 weights; every layer
 # has the same shapes, so such a peak would be met by cutting layers).
-FIVE = {"starcoder2-15b": ("starcoder2", 15_956_127_744),
-        "minitron-4b": ("minitron", 4_190_509_056),
-        "olmo-1b": ("olmo", 1_176_764_416),
-        "qwen2-vl-2b": ("qwen2vl", 1_777_030_656),
-        "qwen3-moe-30b-a3b": ("qwen3moe", 30_532_122_624)}
+FIVE = {"starcoder2-15b": ("starcoder2", 8_280_059_904, 20),
+        "minitron-4b": ("minitron", 4_190_509_056, None),
+        "olmo-1b": ("olmo", 1_176_764_416, None),
+        "qwen2-vl-2b": ("qwen2vl", 1_777_030_656, None),
+        "qwen3-moe-30b-a3b": ("qwen3moe", 15_577_227_264, 24)}
 FIVE_REQUESTS = [(4, 512, 32), (1, 200, 16)]
 FIVE_F32 = (2, 2, 256, 4)
 # rounds of prefill / decode timing, eager and captured in turns (5b-5e take
@@ -658,6 +688,12 @@ DIST_WORLD_S = 300
 # DIST_RWKV_STEPS steps against one process's in rank 0
 DIST_TP_FLOPS = 0.55
 DIST_RWKV_LAYERS, DIST_RWKV_STEPS = 2, 2
+# parts (h) and (i): the same two models under 'cp' on (data 1, model 2),
+# each rank 256 of a row's 512 tokens; the cut dense model's losses within
+# DIST_CP_LOSS_TOL of one process's (part (a)), RWKV-6's (float32) within
+# DIST_CP_RWKV_LOSS_TOL
+DIST_CP_LOSS_TOL = 1e-4
+DIST_CP_RWKV_LOSS_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -941,32 +977,46 @@ def dw_case(B, H, W, C, k, *, dtype=torch.float32, slice_of=None, timed=False,
     return rec
 
 
-def unmasked_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
-    """q.k pairs that no mask removes: what the operations bound counts."""
-    qp = np.arange(Sq)
+def unmasked_pairs(Sq: int, Sk: int, causal: bool, window, q_offset: int = 0) -> int:
+    """q.k pairs that no mask removes: what the operations bound counts
+    (query row i at position q_offset + i)."""
+    qp = np.arange(Sq) + q_offset
     hi = np.minimum(Sk - 1, qp) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(0, qp - window + 1) if window is not None else np.zeros(Sq, int)
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def sdpa_library(q, k, v, causal, window, scale):
+def sdpa_library(q, k, v, causal, window, scale, q_offset: int = 0):
     """The library call of the same function: SDPA causal, with a boolean
-    mask where a window is set, else unmasked."""
-    if window is None:
+    mask where a window or a query offset is set, else unmasked."""
+    if window is None and not q_offset:
         return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                       scale=scale)
     Sq, Sk = q.shape[2], k.shape[2]
-    qp = torch.arange(Sq, device=q.device)[:, None]
+    qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kp = torch.arange(Sk, device=q.device)[None, :]
-    mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+    mask = ((qp - kp < window) if window is not None else True) \
+        & ((qp >= kp) if causal else True)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
+def paired_ms(fn, other, rounds: int = 2) -> tuple[float, float]:
+    """``time_ms`` of two forms of a call in turns (fn, other, other, fn,
+    ...): the median of each form's readings."""
+    got = ([], [])
+    for r in range(rounds):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            got[i].append(time_ms((fn, other)[i]))
+    return statistics.median(got[0]), statistics.median(got[1])
 
 
 def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
             dtype=torch.float32, xca=False, timed=False, blocks=None,
-            repeat=False, kv_heads=None):
+            repeat=False, kv_heads=None, q_offset=0):
     """``kv_heads``: k and v made with that many heads and repeated over
-    the query heads' groups, as the LM's GQA hands them over."""
+    the query heads' groups, as the LM's GQA hands them over; ``q_offset``:
+    the queries of a sequence shard at that position (timed also beside
+    the same call without it, in turns: ``no_offset_ms``)."""
     q = randn(B, H, Sq, D, dtype=dtype)
     hk = kv_heads or H
     k = randn(B, hk, Sk, D, dtype=dtype).repeat_interleave(H // hk, dim=1)
@@ -976,9 +1026,11 @@ def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
         k = (k / k.norm(dim=-1, keepdim=True)).contiguous()
     name = f"flash_attention[{B}x{H}x{Sq}x{Sk}x{D} causal={causal} " \
            f"window={window} {str(dtype).split('.')[-1]}" \
-           f"{f' gqa {H}/{hk}' if kv_heads else ''}]"
+           f"{f' gqa {H}/{hk}' if kv_heads else ''}" \
+           f"{f' q_offset={q_offset}' if q_offset else ''}]"
     tol = 2e-4 if dtype == torch.float32 else 2e-2
-    kw = dict(causal=causal, window=window, scale=scale)
+    kw = dict(causal=causal, window=window, scale=scale,
+              **({"q_offset": q_offset} if q_offset else {}))
     plan = fa_mod.plan(B * H, Sq, Sk, D, torch.cuda.get_device_properties(0)
                        .multi_processor_count, itemsize=q.element_size())
     got = ops.flash_attention(q, k, v, **kw, **(blocks or {}))
@@ -995,21 +1047,28 @@ def fa_case(B, H, Sq, Sk, D, *, causal=True, window=None, scale=None,
                  f"(max {(got - again).abs().max().item():.3e})")
         rec["case"] = name + " twice, same bits"
     if timed:
-        pairs = B * H * unmasked_pairs(Sq, Sk, causal, window)
+        pairs = B * H * unmasked_pairs(Sq, Sk, causal, window, q_offset)
         flops = 4.0 * D * pairs
         peak = PEAK_TF32 if dtype == torch.float32 else PEAK_BF16
         rec["bound_ms"], rec["bound_by"] = bound(nbytes(q, k, v, got), flops, peak)
         rec["unmasked_pairs"] = pairs
-        rec["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        if q_offset:
+            rec["ms"], rec["no_offset_ms"] = paired_ms(
+                lambda: ops.flash_attention(q, k, v, **kw),
+                lambda: ops.flash_attention(q, k, v, causal=causal, window=window,
+                                            scale=scale))
+        else:
+            rec["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, **kw))
         rec["plain_ms"] = time_ms(lambda: ref.attention_ref(q, k, v, **kw))
-        rec["library_ms"] = time_ms(sdpa_library(q, k, v, causal, window, scale))
+        rec["library_ms"] = time_ms(sdpa_library(q, k, v, causal, window, scale,
+                                                 q_offset))
         rec["gbytes_s"] = nbytes(q, k, v, got) / rec["ms"] / 1e6
         rec["tflops"] = flops / rec["ms"] / 1e9
     return rec
 
 
 def bwd_case(B, H, Sq, Sk, D, *, causal=True, window=None, dtype=torch.bfloat16,
-             kv_heads=None, timed=False, repeat=False):
+             kv_heads=None, timed=False, repeat=False, q_offset=0):
     """The attention backward kernel (``flash_attention_bwd``, given the
     forward kernel's out and lse) against autograd of ``ref.attention_ref``
     on the same inputs: dq, dk, dv within 2e-3 (1 + |b|) in float32 (the JAX
@@ -1020,7 +1079,9 @@ def bwd_case(B, H, Sq, Sk, D, *, causal=True, window=None, dtype=torch.bfloat16,
     its lse, and each of the call's three kernels by ``torch.profiler``.
     Every record names the compiled instance it ran (``plan``:
     ``flash_attention_bwd.PLAN``'s row) with the registers and spill bytes
-    ``ptxas`` gave its two kernels."""
+    ``ptxas`` gave its two kernels.  ``q_offset``: the queries of a
+    sequence shard at that position, timed also beside the same call without
+    it (its own forward's out and lse), in turns: ``no_offset_ms``."""
     q = randn(B, H, Sq, D, dtype=dtype)
     hk = kv_heads or H
     k = randn(B, hk, Sk, D, dtype=dtype).repeat_interleave(H // hk, dim=1)
@@ -1028,9 +1089,10 @@ def bwd_case(B, H, Sq, Sk, D, *, causal=True, window=None, dtype=torch.bfloat16,
     dout = randn(B, H, Sq, D, dtype=dtype)
     name = f"flash_attention_bwd[{B}x{H}x{Sq}x{Sk}x{D} causal={causal} " \
            f"window={window} {str(dtype).split('.')[-1]}" \
-           f"{f' gqa {H}/{hk}' if kv_heads else ''}]"
+           f"{f' gqa {H}/{hk}' if kv_heads else ''}" \
+           f"{f' q_offset={q_offset}' if q_offset else ''}]"
     tol = 2e-3 if dtype == torch.float32 else 2e-2
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, **({"q_offset": q_offset} if q_offset else {}))
     out, lse = fa_mod.flash_attention(q, k, v, **kw, return_lse=True)
     lse_err = compare(name + " lse", lse, ref.attention_fwd_lse_ref(q, k, v, **kw)[1],
                       2e-4)
@@ -1050,17 +1112,23 @@ def bwd_case(B, H, Sq, Sk, D, *, causal=True, window=None, dtype=torch.bfloat16,
             fail(f"{name}: two calls on the same inputs differ")
         rec["case"] = name + " twice, same bits"
     if timed:
-        pairs = B * H * unmasked_pairs(Sq, Sk, causal, window)
+        pairs = B * H * unmasked_pairs(Sq, Sk, causal, window, q_offset)
         flops = 10.0 * D * pairs        # S, dP, dV, dK, dQ: 2 D flops a pair each
         peak = PEAK_TF32 if dtype == torch.float32 else PEAK_BF16
         rec["bound_ms"], rec["bound_by"] = bound(
             nbytes(q, k, v, out, dout, lse, *got), flops, peak)
         rec["unmasked_pairs"] = pairs
-        rec["ms"] = time_ms(lambda: fab_mod.flash_attention_bwd(q, k, v, out, lse,
-                                                                dout, **kw))
+        call = (lambda: fab_mod.flash_attention_bwd(q, k, v, out, lse, dout, **kw))
+        if q_offset:
+            plain_kw = dict(causal=causal, window=window)
+            out0, lse0 = fa_mod.flash_attention(q, k, v, **plain_kw, return_lse=True)
+            rec["ms"], rec["no_offset_ms"] = paired_ms(call, lambda: fab_mod.flash_attention_bwd(
+                q, k, v, out0, lse0, dout, **plain_kw))
+        else:
+            rec["ms"] = time_ms(call)
         rec["plain_ms"] = time_ms(lambda: torch.autograd.grad(
             plain_out, leaves, dout, retain_graph=True))
-        lib_out = sdpa_library(*leaves, causal, window, None)()
+        lib_out = sdpa_library(*leaves, causal, window, None, q_offset)()
         rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
             lib_out, leaves, dout, retain_graph=True))
         rec["fwd_ms"] = time_ms(lambda: fa_mod.flash_attention(q, k, v, **kw))
@@ -1161,14 +1229,20 @@ def wkv_inputs(BH, T, K, V, dtype=torch.float32, decay="normal"):
 
 
 def wkv_case(BH, T, K, V, chunk, *, dtype=torch.float32, inputs=None,
-             timed=False, decay="normal", repeat=False):
+             timed=False, decay="normal", repeat=False, from_state=False):
+    """``from_state``: from a nonzero float32 state [BH, K, V] (a sequence
+    shard's), timed also beside the same call from zero, in turns
+    (``no_state_ms``)."""
     r, k, v, logw, u = inputs or wkv_inputs(BH, T, K, V, dtype, decay)
+    s0 = randn(BH, K, V, scale=0.5) if from_state else None
     C = min(chunk, T)
     name = f"wkv_chunked[{BH}x{T}x{K}->{V} chunk={chunk} " \
-           f"{str(r.dtype).split('.')[-1]}{'' if decay == 'normal' else ' ' + decay}]"
+           f"{str(r.dtype).split('.')[-1]}{'' if decay == 'normal' else ' ' + decay}" \
+           f"{' from a state' if from_state else ''}]"
     tol = 2e-4 if r.dtype == torch.float32 else 2e-2
-    out, state = ops.wkv_chunked(r, k, v, logw, u, chunk=chunk)
-    want_out, want_state = ref.wkv_ref(r, k, v, logw, u)
+    skw = {"state": s0} if from_state else {}
+    out, state = ops.wkv_chunked(r, k, v, logw, u, chunk=chunk, **skw)
+    want_out, want_state = ref.wkv_ref(r, k, v, logw, u, s0)
     err = max(compare(name, out, want_out, tol),
               compare(name + " state", state, want_state, 2e-4))
     if repeat:
@@ -1185,15 +1259,20 @@ def wkv_case(BH, T, K, V, chunk, *, dtype=torch.float32, inputs=None,
                                           "states_ctas")})
     if timed:
         flops = 2.0 * scan_macs(Layer("wkv", SCAN, b=BH, ox=T, c=K, k=V), C)
-        moved = nbytes(r, k, v, logw, u, out, state)
+        moved = nbytes(r, k, v, logw, u, out, state, *skw.values())
         rec["bound_ms"], rec["bound_by"] = bound(moved, flops, PEAK_TF32)
         rec["bound_fp32_cuda_core_ms"] = bound(moved, flops, PEAK_FP32)[0]
         # the float32 workspace of the entering states, written once by the
         # states pass and read once by the outputs pass: bytes the design
         # adds to those of the bound
         rec["workspace_bytes"] = BH * -(-T // C) * K * V * 4
-        rec["ms"] = time_ms(lambda: ops.wkv_chunked(r, k, v, logw, u, chunk=chunk))
-        rec["plain_ms"] = time_ms(lambda: ref.wkv_ref(r, k, v, logw, u),
+        if from_state:
+            rec["ms"], rec["no_state_ms"] = paired_ms(
+                lambda: ops.wkv_chunked(r, k, v, logw, u, chunk=chunk, **skw),
+                lambda: ops.wkv_chunked(r, k, v, logw, u, chunk=chunk))
+        else:
+            rec["ms"] = time_ms(lambda: ops.wkv_chunked(r, k, v, logw, u, chunk=chunk))
+        rec["plain_ms"] = time_ms(lambda: ref.wkv_ref(r, k, v, logw, u, s0),
                                   reps=5, warmup=1)
         rec["library_ms"] = None     # no single PyTorch call computes WKV6
         rec["gbytes_s"] = moved / rec["ms"] / 1e6
@@ -1210,7 +1289,7 @@ def wkv_bwd_macs(BH: int, T: int, K: int, V: int, C: int) -> int:
 
 
 def wkv_bwd_case(BH, T, K, V, chunk, *, dtype=torch.float32, decay="normal",
-                 with_dstate=False, timed=False, repeat=False):
+                 with_dstate=False, timed=False, repeat=False, from_state=False):
     """The WKV backward (``ops.wkv_chunked`` under autograd: the forward
     kernel, whose workspace of entering states the backward reads, then
     ``wkv_chunked_bwd``, one launch each) against autograd of
@@ -1222,28 +1301,36 @@ def wkv_bwd_case(BH, T, K, V, chunk, *, dtype=torch.float32, decay="normal",
     on the float32 dlogw and du.  Timed: the kernel alone (given the
     forward's workspace), the plain version's backward (autograd of
     ``wkv_ref``) and, as a second yardstick, autograd of the port's chunked
-    torch ``models.rwkv6.wkv_chunked`` (what ``jax.grad`` differentiates)."""
+    torch ``models.rwkv6.wkv_chunked`` (what ``jax.grad`` differentiates).
+    ``from_state``: from a nonzero float32 state (a sequence shard's), its
+    gradient dS0 held as dlogw is, the kernel timed also beside the same
+    call from zero (its own forward's workspace), in turns
+    (``no_state_ms``)."""
     r, k, v, logw, u = wkv_inputs(BH, T, K, V, dtype, decay)
     dout = randn(BH, T, V, dtype=dtype)
     ds = randn(BH, K, V) if with_dstate else None
+    s0 = randn(BH, K, V, scale=0.5) if from_state else None
     name = f"wkv_chunked_bwd[{BH}x{T}x{K}->{V} chunk={chunk} " \
            f"{str(dtype).split('.')[-1]}{'' if decay == 'normal' else ' ' + decay}" \
-           f"{' dS_T' if with_dstate else ''}]"
+           f"{' dS_T' if with_dstate else ''}{' from a state' if from_state else ''}]"
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-3 if decay == "extreme" else 2e-4
     outs = (lambda o: o if with_dstate else o[:1])
     cots = outs((dout, ds))
-    leaves = [t.clone().requires_grad_() for t in (r, k, v, logw, u)]
+    inputs = (r, k, v, logw, u) + ((s0,) if from_state else ())
+    leaves = [t.clone().requires_grad_() for t in inputs]
     before = (wkv_mod.launches, wkvb_mod.launches)
-    got = torch.autograd.grad(outs(ops.wkv_chunked(*leaves, chunk=chunk)), leaves, cots)
+    got = torch.autograd.grad(outs(ops.wkv_chunked(
+        *leaves[:5], chunk=chunk, **({"state": leaves[5]} if from_state else {}))),
+        leaves, cots)
     torch.cuda.synchronize()
     if (wkv_mod.launches, wkvb_mod.launches) != (before[0] + 1, before[1] + 1):
         fail(f"{name}: launched {wkv_mod.launches - before[0]} forward and "
              f"{wkvb_mod.launches - before[1]} backward kernels, expected 1 and 1")
-    plain = [t.clone().requires_grad_() for t in (r, k, v, logw, u)]
-    plain_out = outs(ref.wkv_ref(*plain))
+    plain = [t.clone().requires_grad_() for t in inputs]
+    plain_out = outs(ref.wkv_ref(*plain[:5], *plain[5:]))
     want = torch.autograd.grad(plain_out, plain, cots, retain_graph=timed)
     err, rel_l2 = 0.0, 0.0
-    for n, g, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
+    for n, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "dS0"), got, want):
         if dtype == torch.bfloat16 and g.dtype == torch.float32:
             rel = ((g - w).norm() / w.norm()).item()
             if not (torch.isfinite(g).all() and rel <= 2e-4):
@@ -1258,8 +1345,9 @@ def wkv_bwd_case(BH, T, K, V, chunk, *, dtype=torch.float32, decay="normal",
                    f"{inst['instance']} {str(dtype).split('.')[-1]}"))
     if dtype == torch.bfloat16:
         rec["rel_l2_f32_grads"] = rel_l2
-    _, state, ws = wkv_mod.forward_with_states(r, k, v, logw, u, chunk=chunk)
-    kw = dict(chunk=chunk, dstate=ds, state=state if with_dstate else None)
+    _, state, ws = wkv_mod.forward_with_states(r, k, v, logw, u, chunk=chunk, state=s0)
+    kw = dict(chunk=chunk, dstate=ds, state=state if with_dstate else None,
+              ds0=from_state)
     if repeat:
         first = wkvb_mod.wkv_chunked_bwd(r, k, v, logw, u, dout, ws, **kw)
         again = wkvb_mod.wkv_chunked_bwd(r, k, v, logw, u, dout, ws, **kw)
@@ -1269,15 +1357,20 @@ def wkv_bwd_case(BH, T, K, V, chunk, *, dtype=torch.float32, decay="normal",
         rec["case"] = name + " twice, same bits"
     if timed:
         flops = 2.0 * wkv_bwd_macs(BH, T, K, V, C)
-        rec["bound_ms"], rec["bound_by"] = bound(
-            nbytes(r, k, v, logw, u, dout, ds, *got), flops, PEAK_TF32)
-        rec["bound_fp32_cuda_core_ms"] = bound(
-            nbytes(r, k, v, logw, u, dout, ds, *got), flops, PEAK_FP32)[0]
+        moved = nbytes(r, k, v, logw, u, dout, ds, s0, *got)
+        rec["bound_ms"], rec["bound_by"] = bound(moved, flops, PEAK_TF32)
+        rec["bound_fp32_cuda_core_ms"] = bound(moved, flops, PEAK_FP32)[0]
         # the float32 workspaces of the entering states (read) and of G'
         # (written, then read): bytes the design adds to those of the bound
         rec["workspace_bytes"] = 2 * BH * -(-T // C) * K * V * 4
-        rec["ms"] = time_ms(lambda: wkvb_mod.wkv_chunked_bwd(r, k, v, logw, u, dout,
-                                                             ws, **kw))
+        call = (lambda: wkvb_mod.wkv_chunked_bwd(r, k, v, logw, u, dout, ws, **kw))
+        if from_state:
+            _, state0, ws0 = wkv_mod.forward_with_states(r, k, v, logw, u, chunk=chunk)
+            kw0 = dict(kw, ds0=False, state=state0 if with_dstate else None)
+            rec["ms"], rec["no_state_ms"] = paired_ms(call, lambda: wkvb_mod.wkv_chunked_bwd(
+                r, k, v, logw, u, dout, ws0, **kw0))
+        else:
+            rec["ms"] = time_ms(call)
         rec["plain_ms"] = time_ms(lambda: torch.autograd.grad(
             plain_out, plain, cots, retain_graph=True), reps=5, warmup=1)
         del plain_out, want
@@ -1295,7 +1388,7 @@ def wkv_bwd_case(BH, T, K, V, chunk, *, dtype=torch.float32, decay="normal",
             c_out, chunked + [cu], c_cots, retain_graph=True), reps=5, warmup=1)
         del c_out
         rec["library_ms"] = None     # no single PyTorch call computes it
-        rec["gbytes_s"] = nbytes(r, k, v, logw, u, dout, ds, *got) / rec["ms"] / 1e6
+        rec["gbytes_s"] = moved / rec["ms"] / 1e6
     return rec
 
 
@@ -1401,6 +1494,18 @@ def kernels_phase():
         rec = fa_case(B, 10, S, S, 256, causal=True, window=window,
                       dtype=torch.bfloat16, kv_heads=1, timed=True)
         rec.update(per_forward=0, batch=B, per_prefill=rg_attn)
+        per_kernel["flash_attention"]["shapes"].append(rec)
+    # ... and a sequence shard's queries at their offset (the 'cp' step,
+    # outside the sums), each beside the same call without the offset:
+    # RecurrentGemma's 1 x 4608 split in two (the second rank's 2304 queries
+    # at 2304 against 4608 keys, its window of 2048 across the edge), and a
+    # shard of whole rows (Sk <= 128) with its window across the edge
+    for (B, H, Sq, Sk, D, window, hk, o, dtype) in (
+            (1, 10, 2304, 4608, 256, 2048, 1, 2304, torch.bfloat16),
+            (4, 16, 64, 128, 64, 96, None, 64, torch.bfloat16)):
+        rec = fa_case(B, H, Sq, Sk, D, causal=True, window=window, dtype=dtype,
+                      kv_heads=hk, timed=True, q_offset=o)
+        rec.update(per_forward=0, batch=B)
         per_kernel["flash_attention"]["shapes"].append(rec)
 
     # matmul_ln: the EdgeNeXt-S lowered shapes at batch 16 (once each), then
@@ -1515,6 +1620,12 @@ def kernels_phase():
         fa_case(4, 16, 1, 1, 64, causal=True, dtype=bf16),
         fa_case(2, 16, 1, 700, 64, causal=False),
         fa_case(1, 16, 1500, 1500, 64, causal=False, dtype=bf16, repeat=True),
+        # a sequence shard's queries at their offset: the online regime
+        # ragged in float32 with the window across the edge, the whole rows
+        # likewise, a non-causal window
+        fa_case(1, 2, 100, 300, 80, causal=True, window=64, q_offset=200),
+        fa_case(1, 2, 40, 100, 64, causal=True, window=30, q_offset=60),
+        fa_case(1, 2, 100, 300, 64, causal=False, window=50, q_offset=120),
     ]
     per_kernel["wkv_chunked"]["extra"] = [
         wkv_case(4, 50, 64, 64, 16),             # the JAX tests' ragged T
@@ -1531,7 +1642,14 @@ def kernels_phase():
         wkv_case(4, 130, 64, 64, 64, decay="zero"),
         wkv_case(4, 130, 64, 64, 64, decay="tiny"),
         wkv_case(128, 512, 64, 64, 64, dtype=bf16, repeat=True),
+        # from a nonzero state (a sequence shard's), ragged at chunk 32
+        wkv_case(4, 130, 64, 64, 32, from_state=True),
     ]
+    # ... and from a nonzero state at the served shape (outside the sums),
+    # beside the same call from zero
+    rec = wkv_case(128, 512, 64, 64, 64, dtype=bf16, timed=True, from_state=True)
+    rec["per_forward"] = 0
+    per_kernel["wkv_chunked"]["shapes"].append(rec)
     # flash_attention_bwd: the trained shape (h2o-danube-1.8b's 32 query
     # heads over 8 KV heads of 80, 4 x 512, bf16, causal; 24 a train step, in
     # the sums), then outside the sums the other trained heads: olmo-1b's
@@ -1559,7 +1677,18 @@ def kernels_phase():
         bwd_case(1, 2, 70, 130, 80, causal=False, dtype=torch.float32),
         bwd_case(1, 2, 200, 200, 128, causal=False, window=30),
         bwd_case(4, 32, 512, 512, 80, kv_heads=8, repeat=True),
+        # a sequence shard's queries at their offset: the whole-row forward's
+        # lse with the window across the edge, and the second rank's half of
+        # h2o's trained shape under 'cp' (256 queries at 256)
+        bwd_case(2, 4, 40, 100, 64, window=30, dtype=torch.float32, q_offset=60),
+        bwd_case(4, 32, 256, 512, 80, kv_heads=8, q_offset=256),
     ]
+    # ... and RecurrentGemma's 1 x 4608 split in two (outside the sums),
+    # beside the same call without the offset
+    rec = bwd_case(1, 10, 2304, 4608, 256, window=2048, kv_heads=1, timed=True,
+                   q_offset=2304)
+    rec.update(per_forward=0, batch=1)
+    per_kernel["flash_attention_bwd"]["shapes"].append(rec)
     # wkv_chunked_bwd: RWKV-6's trained shape (4 x 32 heads of 64, T 512,
     # chunk 64, bf16 r/k/v/dout with float32 logw and u; 24 a train step, in
     # the sums), then the B = 1 x 200 prompt (ragged at chunk 64), the
@@ -1580,7 +1709,15 @@ def kernels_phase():
         wkv_bwd_case(4, 300, 64, 64, 128, with_dstate=True, repeat=True),
         wkv_bwd_case(16, 100, 16, 16, 8, with_dstate=True),
         wkv_bwd_case(4, 130, 40, 40, 64, with_dstate=True),
+        # from a nonzero state: dS0, on the chunk and the tile instances
+        wkv_bwd_case(4, 130, 64, 64, 32, with_dstate=True, from_state=True),
+        wkv_bwd_case(4, 300, 64, 64, 128, from_state=True),
     ]
+    # ... and from a nonzero state at the trained shape (outside the sums),
+    # beside the same call from zero
+    rec = wkv_bwd_case(128, 512, 64, 64, 64, dtype=bf16, timed=True, from_state=True)
+    rec.update(per_forward=0, batch=TRAIN_BATCH[0])
+    per_kernel["wkv_chunked_bwd"]["shapes"].append(rec)
     # flash_attention, last (the inputs of the cases above unchanged):
     # phase 5i's 4 x 512 prefills (outside the sums; olmo-1b's is
     # above): starcoder2-15b's 48 query heads over 4 KV heads (G 12),
@@ -3210,14 +3347,16 @@ def lm_bounds(cfg, params, requests) -> dict:
 
 
 def five_path(arch: str, rng) -> tuple:
-    """``arch``, one of FIVE, served uncut through ``launch.serve``'s steps
-    (``lm_phase``: eager, captured, traced, held to its plain model) on
-    weights drawn on the card (``init_on_device``), then the float32 check
-    on its first FIVE_F32 layers of the same draw (module docstring, phase
-    5i).  Returns (launches, numbers)."""
+    """``arch``, one of FIVE, served at the layers FIVE gives it through
+    ``launch.serve``'s steps (``lm_phase``: eager, captured, traced, held to
+    its plain model) on weights drawn on the card (``init_on_device``: the
+    first layers of the uncut draw), then the float32 check on its first
+    FIVE_F32 layers of the same draw (module docstring, phase 5i).  Returns
+    (launches, numbers)."""
     t0 = time.perf_counter()
-    tag, n_params = FIVE[arch]
-    cfg = get_config(arch)
+    tag, n_params, cut = FIVE[arch]
+    full = get_config(arch)
+    cfg = full if cut is None else dataclasses.replace(full, num_layers=cut)
     if count_params(transformer.param_defs(cfg)) != n_params:
         fail(f"{tag}: {count_params(transformer.param_defs(cfg))} parameters, "
              f"expected {n_params}")
@@ -3229,7 +3368,8 @@ def five_path(arch: str, rng) -> tuple:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    params = transformer.load_params(cfg, transformer.init_on_device(cfg, SEED))
+    params = transformer.load_params(cfg, transformer.init_on_device(full, SEED,
+                                                                      layers=cut))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t1
     init_peak = torch.cuda.max_memory_allocated()
@@ -3252,7 +3392,8 @@ def five_path(arch: str, rng) -> tuple:
                                      transformer, params32, rng, FIVE_F32)
     del params32
     torch.cuda.empty_cache()
-    result.update(arch=arch, layers=cfg.num_layers, parameters=n_params,
+    result.update(arch=arch, layers=cfg.num_layers, layers_uncut=full.num_layers,
+                  parameters=n_params,
                   init_on="card", init_params_s=init_s, served_weights_mib=served_mib,
                   phase_peak_gib=phase_peak, bounds=bounds,
                   f32_max_err_vs_plain_on_card=f32_err,
@@ -3347,8 +3488,9 @@ def five_phase() -> tuple[dict, dict]:
               f"card {res['f32_max_err_vs_plain_on_card']:.2e} (limit 2e-3 "
               f"(1+|b|)){routing}; weights {res['served_weights_mib']:.0f} MiB as "
               f"served, phase peak {res['phase_peak_gib']:.2f} GiB (limit "
-              f"{FIVE_PEAK_GIB}), {res['layers']} layers uncut", flush=True)
-    print(f"five: {len(FIVE)} configs served uncut, phase wall "
+              f"{FIVE_PEAK_GIB}), {res['layers']} of {res['layers_uncut']} layers",
+              flush=True)
+    print(f"five: {len(FIVE)} configs served at full width, phase wall "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return launches, results
 
@@ -3499,30 +3641,39 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
 
 
-def recorded(name: str, shapes: list):
-    """A stand-in for ``ops.<name>`` that appends the shapes of its first two
-    operands to ``shapes`` and calls the kernel's wrapper (which counts)."""
-    real = getattr(ops, name)
+def recorded(name: str, shapes: list, keywords: list | None = None, module=ops):
+    """A stand-in for ``module.<name>`` that appends the shapes of its first
+    two operands to ``shapes`` (and its keyword arguments but tensors to
+    ``keywords``, a tensor's as its shape) and calls the kernel's wrapper
+    (which counts)."""
+    real = getattr(module, name)
 
     def rec(a, b, *args, **kw):
         shapes.append((tuple(a.shape), tuple(b.shape)))
+        if keywords is not None:
+            keywords.append({k: tuple(v.shape) if torch.is_tensor(v) else v
+                             for k, v in kw.items()})
         return real(a, b, *args, **kw)
     return real, rec
 
 
-def dist_train(tmp: Path, one: dict, shape=(2, 1), part: str = "c") -> dict:
+def dist_train(tmp: Path, one: dict, shape=(2, 1), part: str = "c",
+               profile: str = "2d") -> dict:
     """Part (c): the sharded step of the cut dense model on (data 2,
     model 1), its parameters restored onto the mesh from the host arrays,
     against part (a)'s one-process step; the float32 check; a checkpoint
     after DIST_CKPT steps restored onto (1, 2).  Part (f) runs the same on
     (data 1, model 2) with each rank's FLOPs of one ``grad_fn`` against
     one process's and the heads its attention kernels run, and no
-    checkpoint."""
+    checkpoint.  Part (h) runs (f)'s checks under ``profile`` 'cp': each
+    rank 256 of a row's 512 tokens, the losses within DIST_CP_LOSS_TOL of
+    one process's, the query offset of each attention launch, forward and
+    backward."""
     rank = dist.get_rank()
     cfg = dist_dense_cfg()
     defs = transformer.param_defs(cfg)
     mesh = mesh_lib.make_mesh(shape, ("data", "model"))
-    step = dist_step(cfg, mesh)
+    step = dist_step(cfg, mesh, profile)
     like = tree_map(lambda d, path: torch.empty(0).requires_grad_(), defs)
     params = restore_sharded(tmp / "dense", like, step.pspecs, mesh)[1]
     opt = adamw_init(params)
@@ -3534,18 +3685,27 @@ def dist_train(tmp: Path, one: dict, shape=(2, 1), part: str = "c") -> dict:
 
     # the first step's gradients against the one process's, the heads the
     # attention kernel runs on and (part f) the grad_fn's FLOPs
-    heads: list = []
-    real_fa, ops.flash_attention = recorded("flash_attention", heads)
+    heads, fwd_kw, bwd_kw = [], [], []
+    real_fa, ops.flash_attention = recorded("flash_attention", heads, fwd_kw)
+    real_bwd, fab_mod.flash_attention_bwd = recorded("flash_attention_bwd", [], bwd_kw,
+                                                     fab_mod)
     try:
         reset_counts()
         loss0, _, grads = step.grad_fn(params, batches[0])
         first = read_counts()
     finally:
-        ops.flash_attention = real_fa
+        ops.flash_attention, fab_mod.flash_attention_bwd = real_fa, real_bwd
     if first != per_step:
         fail(f"{tag}: the first step launched {first}, expected {per_step}")
+    offsets = dict(forward=sorted({k.get("q_offset", 0) for k in fwd_kw}),
+                   backward=sorted({k.get("q_offset", 0) for k in bwd_kw}))
+    if profile == "cp":
+        want_off = [mesh.coords["model"] * TRAIN_BATCH[1] // shape[1]]
+        if offsets != dict(forward=want_off, backward=want_off):
+            fail(f"{tag}: the attention launches ran at offsets {offsets}, expected "
+                 f"{want_off} on this rank")
     flops = None
-    if part == "f":
+    if part in ("f", "h"):
         with FlopCounterMode(display=False) as fc:
             step.grad_fn(params, batches[0])
         flops = fc.get_total_flops()
@@ -3592,16 +3752,18 @@ def dist_train(tmp: Path, one: dict, shape=(2, 1), part: str = "c") -> dict:
                 save_checkpoint(tmp / "ckpt", DIST_CKPT, full)
             dist.barrier()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    loss_tol = DIST_CP_LOSS_TOL if profile == "cp" else TRAIN_LOSS_TOL
     for s, (loss, gn) in enumerate(metrics):
-        if not (abs(loss - one["losses"][s]) <= TRAIN_LOSS_TOL
+        if not (abs(loss - one["losses"][s]) <= loss_tol
                 and abs(gn - one["grad_norms"][s]) <= TRAIN_NORM_REL * one["grad_norms"][s]):
             fail(f"{tag}: step {s} loss {loss:.5f} grad norm {gn:.5f} against one "
                  f"process's {one['losses'][s]:.5f} {one['grad_norms'][s]:.5f}")
 
-    res = dict(mesh=mesh.sizes, profile="2d", steps=DIST_STEPS,
+    res = dict(mesh=mesh.sizes, profile=profile, steps=DIST_STEPS,
                batch=TRAIN_BATCH, rows_a_rank=TRAIN_BATCH[0] // shape[0],
+               tokens_a_row=TRAIN_BATCH[1] // (shape[1] if profile == "cp" else 1),
                launches_per_step=n, first_step_launches=first,
-               attention_heads=sorted(set(heads)),
+               attention_heads=sorted(set(heads)), attention_offsets=offsets,
                kv_heads_held=int(params["blocks"]["attn"]["wk"].shape[-2]),
                losses=[m[0] for m in metrics], grad_norms=[m[1] for m in metrics],
                loss_gap_max=max(abs(m[0] - one["losses"][s]) for s, m in enumerate(metrics)),
@@ -3626,7 +3788,7 @@ def dist_train(tmp: Path, one: dict, shape=(2, 1), part: str = "c") -> dict:
 
     # float32 on the first layers: DIST_F32[1] sharded steps against one process
     cfg32 = dist_dense_cfg(DIST_F32[0], "float32")
-    step32 = dist_step(cfg32, mesh)
+    step32 = dist_step(cfg32, mesh, profile)
     tree32 = dist_f32_tree(load_checkpoint(tmp / "dense", 0, like=defs)[1])
     p32 = tree_map(lambda a, spec, path: torch.from_numpy(np.array(
         sharding.local_shard(a, spec, mesh))).cuda().requires_grad_(), tree32, step32.pspecs)
@@ -3662,7 +3824,7 @@ def dist_train(tmp: Path, one: dict, shape=(2, 1), part: str = "c") -> dict:
     return res
 
 
-def dist_rwkv() -> dict:
+def dist_rwkv(profile: str = "2d") -> dict:
     """Part (g): rwkv6-1.6b at full width and DIST_RWKV_LAYERS layers on
     (data 1, model 2), each rank half of the heads (the WKV kernels on
     [B x 16, T, 64]), against one process's DIST_RWKV_STEPS steps in rank 0
@@ -3671,8 +3833,13 @@ def dist_rwkv() -> dict:
     at this width and init, bfloat16's rounding alone moves one process's
     gradient of ``faaaa`` by most of its norm (``bf16_vs_f32_grad_rel_l2``,
     measured here on rank 0), so a bfloat16 comparison of two orders of
-    summation could not tell a fault from rounding."""
+    summation could not tell a fault from rounding.  Part (i) runs the same
+    under ``profile`` 'cp': each rank 256 of a row's 512 tokens and all
+    32 heads, rank 1's WKV launched from the state rank 0 left, the losses
+    within DIST_CP_RWKV_LOSS_TOL of one process's."""
     rank = dist.get_rank()
+    cp = profile == "cp"
+    tag = "dist (i)" if cp else "dist (g)"
     cfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=DIST_RWKV_LAYERS,
                               dtype="float32")
     defs = rwkv6.param_defs(cfg)
@@ -3685,11 +3852,13 @@ def dist_rwkv() -> dict:
     want, noise = None, {}
     if rank == 0:
         _, _, g_one = build_grad_fn(cfg)(tree, batches[0])
-        # why the part runs float32: one process's bfloat16 gradients against
-        # its float32 ones, leaf by leaf (not checked)
-        g16 = build_grad_fn(dataclasses.replace(cfg, dtype="bfloat16"))(tree, batches[0])[2]
-        tree_map(lambda a, b, path: noise.__setitem__(path, rel_l2(a, b)), g16, g_one)
-        del g16
+        if not cp:
+            # why the part runs float32: one process's bfloat16 gradients
+            # against its float32 ones, leaf by leaf (not checked)
+            g16 = build_grad_fn(dataclasses.replace(cfg, dtype="bfloat16"))(
+                tree, batches[0])[2]
+            tree_map(lambda a, b, path: noise.__setitem__(path, rel_l2(a, b)), g16, g_one)
+            del g16
         params = tree_map(lambda t, path: t.clone().requires_grad_(), tree)
         opt, step1, one = adamw_init(params), dist_step(cfg), []
         for b in batches:
@@ -3698,14 +3867,14 @@ def dist_rwkv() -> dict:
         want = (one, g_one)
         del params, opt
     dist.barrier()
-    step = dist_step(cfg, mesh)
+    step = dist_step(cfg, mesh, profile)
     params = tree_map(lambda t, spec, path: sharding.local_shard(t, spec, mesh).clone()
                       .requires_grad_(), tree, step.pspecs)
     del tree
     torch.cuda.empty_cache()
     opt = adamw_init(params)
-    shapes: list = []
-    real_wkv, ops.wkv_chunked = recorded("wkv_chunked", shapes)
+    shapes, wkv_kw = [], []
+    real_wkv, ops.wkv_chunked = recorded("wkv_chunked", shapes, wkv_kw)
     try:
         reset_counts()
         _, _, grads = step.grad_fn(params, batches[0])
@@ -3713,7 +3882,11 @@ def dist_rwkv() -> dict:
     finally:
         ops.wkv_chunked = real_wkv
     if first != per_step:
-        fail(f"dist (g): the first step launched {first}, expected {per_step}")
+        fail(f"{tag}: the first step launched {first}, expected {per_step}")
+    from_state = sorted({"state" in kw for kw in wkv_kw})
+    if from_state != [cp and mesh.coords["model"] > 0]:
+        fail(f"{tag}: the WKV launches took a state {from_state} on rank "
+             f"{mesh.coords['model']}")
     grads = sharding.tree_gather_full(grads, step.pspecs, mesh)
     rel = {}
     if rank == 0:
@@ -3721,7 +3894,7 @@ def dist_rwkv() -> dict:
     del grads
     worst = max(rel, key=rel.get) if rel else None
     if rank == 0 and rel[worst] > TRAIN_GRAD_REL:
-        fail(f"dist (g): first step's gradient {worst} rel L2 {rel[worst]:.3e} against "
+        fail(f"{tag}: first step's gradient {worst} rel L2 {rel[worst]:.3e} against "
              f"one process (limit {TRAIN_GRAD_REL})")
     times, metrics = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -3735,19 +3908,24 @@ def dist_rwkv() -> dict:
         times.append(start.elapsed_time(end))
         n = read_counts()
         if n != per_step:
-            fail(f"dist (g): step {s} launched {n}, expected {per_step}")
+            fail(f"{tag}: step {s} launched {n}, expected {per_step}")
         metrics.append([m["loss"].item(), m["grad_norm"].item()])
+    loss_tol = DIST_CP_RWKV_LOSS_TOL if cp else TRAIN_LOSS_TOL
     if rank == 0:
         for s, ((loss, gn), (l1, g1)) in enumerate(zip(metrics, want[0])):
-            if not (abs(loss - l1) <= TRAIN_LOSS_TOL and abs(gn - g1) <= TRAIN_NORM_REL * g1):
-                fail(f"dist (g): step {s} loss {loss:.5f} grad norm {gn:.5f} against one "
-                     f"process's {l1:.5f} {g1:.5f}")
+            if not (abs(loss - l1) <= loss_tol and abs(gn - g1) <= TRAIN_NORM_REL * g1):
+                fail(f"{tag}: step {s} loss {loss:.7f} grad norm {gn:.5f} against one "
+                     f"process's {l1:.7f} {g1:.5f}")
     bh = sorted({a[0] for a, _ in shapes})
     heads = [x // TRAIN_BATCH[0] for x in bh]
-    if heads != [cfg.d_model // cfg.wkv_head_dim // 2]:
-        fail(f"dist (g): the WKV kernel ran {heads} heads a rank, expected half of "
-             f"{cfg.d_model // cfg.wkv_head_dim}")
-    return dict(mesh=mesh.sizes, layers=layers, steps=DIST_RWKV_STEPS, batch=TRAIN_BATCH,
+    all_heads = cfg.d_model // cfg.wkv_head_dim
+    if heads != [all_heads if cp else all_heads // 2]:
+        fail(f"{tag}: the WKV kernel ran {heads} heads a rank, expected "
+             f"{'all' if cp else 'half'} of {all_heads}")
+    return dict(mesh=mesh.sizes, profile=profile, layers=layers, steps=DIST_RWKV_STEPS,
+                batch=TRAIN_BATCH, wkv_from_state=from_state,
+                loss_gap_max=None if want is None else max(
+                    abs(m[0] - w[0]) for m, w in zip(metrics, want[0])),
                 launches_per_step=n, first_step_launches=first, wkv_shapes=sorted(set(shapes)),
                 heads_a_rank=heads[0], losses=[m[0] for m in metrics],
                 grad_norms=[m[1] for m in metrics],
@@ -3840,7 +4018,7 @@ def dist_rings() -> dict:
                                    feedback_max_abs_err=fb_err))
 
 
-DIST_PARTS = ("serve", "train", "tp", "moe", "rings", "rwkv")
+DIST_PARTS = ("serve", "train", "tp", "moe", "rings", "rwkv", "cp", "cp_rwkv")
 
 
 def dist_pair(tmp: str, one: dict, parts=DIST_PARTS) -> dict:
@@ -3854,7 +4032,9 @@ def dist_pair(tmp: str, one: dict, parts=DIST_PARTS) -> dict:
     out = dict(rank=dist.get_rank(), backend=dist.get_backend())
     fns = dict(serve=lambda: dist_serve(tmp), train=lambda: dist_train(tmp, one),
                tp=lambda: dist_train(tmp, one, shape=(1, 2), part="f"),
-               moe=lambda: dist_moe(tmp), rings=dist_rings, rwkv=dist_rwkv)
+               moe=lambda: dist_moe(tmp), rings=dist_rings, rwkv=dist_rwkv,
+               cp=lambda: dist_train(tmp, one, shape=(1, 2), part="h", profile="cp"),
+               cp_rwkv=lambda: dist_rwkv("cp"))
     for part in parts:
         fn = fns[part]
         t1 = time.perf_counter()
@@ -3913,7 +4093,8 @@ def dist_phase(parts=DIST_PARTS) -> tuple:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = pair[0]
-    for part, name in (("train", "c"), ("tp", "f"), ("rwkv", "g")):
+    for part, name in (("train", "c"), ("tp", "f"), ("rwkv", "g"), ("cp", "h"),
+                       ("cp_rwkv", "i")):
         if part in parts and pair[1][part]["losses"] != r0[part]["losses"]:
             fail(f"dist ({name}): the two ranks' losses differ: "
                  f"{pair[1][part]['losses']} vs {r0[part]['losses']}")
@@ -3924,7 +4105,9 @@ def dist_phase(parts=DIST_PARTS) -> tuple:
                note="two processes time-share one card and cross the host for every "
                     "collective: not a scaling number")
     paths = {"dist_serve": ("serve", "launches"), "dist_train": ("train", "launches_per_step"),
-             "dist_tp": ("tp", "launches_per_step"), "dist_rwkv": ("rwkv", "launches_per_step")}
+             "dist_tp": ("tp", "launches_per_step"), "dist_rwkv": ("rwkv", "launches_per_step"),
+             "dist_cp": ("cp", "launches_per_step"),
+             "dist_cp_rwkv": ("cp_rwkv", "launches_per_step")}
     launches = {path: r0[part][key] for path, (part, key) in paths.items() if part in parts}
     return launches, res
 
@@ -3988,6 +4171,34 @@ def print_dist(d: dict) -> None:
           f"bfloat16 gradients against its float32 ones: faaaa rel L2 "
           f"{g['bf16_vs_f32_grad_rel_l2'].get('blocks.tm.faaaa', float('nan')):.3e}, median "
           f"leaf {statistics.median(g['bf16_vs_f32_grad_rel_l2'].values()):.3e}")
+    h = r0["cp"]
+    hev = [x["event_ms"] for x in h["step_ms"]]
+    print(f"dist (h) gloo 2 ranks, mesh {h['mesh']} profile {h['profile']}: "
+          f"{h['steps']} steps of {h['batch'][0]} x {h['batch'][1]}, {h['tokens_a_row']} "
+          f"tokens of a row a rank, losses {[round(x, 6) for x in h['losses']]} (largest "
+          f"gap to one process {h['loss_gap_max']:.2e}, limit {DIST_CP_LOSS_TOL}), grad "
+          f"norms within 1 %, worst first-step gradient {h['grad_rel_l2_worst'][0]} rel L2 "
+          f"{h['grad_rel_l2_worst'][1]:.3e}; float32 {h['f32_layers']} layers x "
+          f"{h['f32_steps']} steps max err {h['f32_max_err']:.2e}, worst change rel L2 "
+          f"{h['f32_change_rel_l2_worst'][0]} {h['f32_change_rel_l2_worst'][1]:.3e}")
+    print(f"dist (h) a rank: attention launches a step {h['launches_per_step']}, query "
+          f"offsets by rank {[x['cp']['attention_offsets'] for x in r]}, (q, k) shapes "
+          f"{h['attention_heads']}; grad_fn FLOPs {h['grad_fn_flops']:.4g} = "
+          f"{h['grad_fn_flops'] / h['one_process_grad_fn_flops']:.3f} of one process's "
+          f"(by rank {[round(x['cp']['grad_fn_flops'] / h['one_process_grad_fn_flops'], 3) for x in r]}); "
+          f"step ms {hev} median {statistics.median(hev):.1f}; host-staged MB a step "
+          f"{[round(b / 1e6, 1) for b in h['host_staged_bytes_per_step']]}; peak MiB "
+          f"by rank {[round(x['cp']['peak_mib']) for x in r]}")
+    i = r0["cp_rwkv"]
+    print(f"dist (i) gloo 2 ranks, mesh {i['mesh']} profile {i['profile']}: {RWKV_ARCH} "
+          f"{i['layers']} layers float32, {i['steps']} steps, losses "
+          f"{[round(x, 7) for x in i['losses']]} (largest gap to one process "
+          f"{i['loss_gap_max']:.2e}, limit {DIST_CP_RWKV_LOSS_TOL}), worst first-step "
+          f"gradient {i['grad_rel_l2_worst'][0]} rel L2 {i['grad_rel_l2_worst'][1]:.3e}; WKV "
+          f"on {i['wkv_shapes'][0]} ({i['heads_a_rank']} heads a rank), from a received "
+          f"state by rank {[x['cp_rwkv']['wkv_from_state'] for x in r]}, launches a step "
+          f"{i['launches_per_step']}; step ms {[round(x, 1) for x in i['step_ms']]}; peak "
+          f"MiB by rank {[round(x['cp_rwkv']['peak_mib']) for x in r]}")
     m = r0["moe"]
     print(f"dist (d) gloo 2 ranks: {MOE_ARCH} MoE layer, {m['tokens']} tokens, "
           f"{m['experts_a_rank']} experts a rank: err {m['max_abs_err']:.2e} (limit "
@@ -4158,10 +4369,13 @@ def main() -> None:
             fwd = (f" | forward ms {s['fwd_ms']:.4f}, with lse {s['fwd_lse_ms']:.4f}"
                    if "fwd_ms" in s else "")
             bwd = bwd_text(s) if "plan" in s else wkv_bwd_text(s) if "instance" in s else ""
+            beside = "".join(f" | {label} {s[key]:.4f}" for key, label in (
+                ("no_offset_ms", "without the offset ms"), ("no_state_ms", "from zero ms"))
+                if key in s)
             print(f"kernel {s['case']} x{s['per_forward']}{pre}: err "
                   f"{s['max_abs_err']:.2e} ms {s['ms']:.4f} plain {s['plain_ms']:.4f} "
-                  f"library {lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){split}{fwd}"
-                  f"{bwd}")
+                  f"library {lib} bound {s['bound_ms']:.4f} ({s['bound_by']}){beside}"
+                  f"{split}{fwd}{bwd}")
         for s in rec["extra"]:
             split = split_text(s) + (bwd_text(s) if "plan" in s else
                                      wkv_bwd_text(s) if "instance" in s else "")

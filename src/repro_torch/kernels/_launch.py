@@ -30,6 +30,15 @@ def check_cuda_dense(name: str, **tensors: torch.Tensor) -> int:
     return DTYPE_CODES[first.dtype]
 
 
+def check_offset(name: str, q_offset: int, Sq: int) -> int:
+    """An attention's ``q_offset`` as the kernels take it: an integer of at
+    least 0 whose last query position fits an int32."""
+    if int(q_offset) != q_offset or q_offset < 0 or q_offset + Sq >= 2 ** 31:
+        raise ValueError(f"{name}: q_offset {q_offset}; the kernel takes "
+                         f"0 <= q_offset and q_offset + Sq < 2**31")
+    return int(q_offset)
+
+
 def check_launch(name: str, err: int) -> None:
     """``err`` is the ``cudaGetLastError()`` the C function returned right
     after its launch; a refused launch never runs and no later

@@ -5,7 +5,9 @@
 // grid dimension and the running (m, l, acc) are three scratches that
 // survive from one grid step to the next.  Semantics, both regimes: scores
 // in float32 as (q . k) * scale; masks `causal` (q_pos >= k_pos), `window`
-// (q_pos - k_pos < window) and k_pos < Sk; NEG_INF = -1e30 is finite, so a
+// (q_pos - k_pos < window) and k_pos < Sk, where q_pos = q_offset + the
+// query's row (a sequence shard's queries against the keys from the
+// sequence's start; 0 otherwise) and k_pos the key's row; NEG_INF = -1e30 is finite, so a
 // row whose every key is masked averages uniformly over the Sk keys, as the
 // plain version does; p is rounded to v's type before P @ V; l == 0
 // divides by 1; any Sq, Sk and D; float32 and bfloat16.  The wrapper's
@@ -157,7 +159,7 @@ template <typename T>
 __global__ void __launch_bounds__(NTR, 2)
 rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int D, float scale,
-            int causal, int has_window, int window, int bq, int wmax) {
+            int causal, int has_window, int window, int q_offset, int bq, int wmax) {
   using MM = Mma<T>;
   using S = typename MM::S;
   using R = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;  // raw bits
@@ -287,7 +289,7 @@ rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     constexpr int NC = S_MAX / 8;
     const int sub = lane % 8;
     for (int r = warp * 4 + lane / 8; r < RT * mt; r += 4 * NWR) {
-      const int qp = r0 + r;
+      const int qp = q_offset + r0 + r;   // the row's position
       float s[NC], mx = NEG_INF;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
@@ -420,7 +422,7 @@ template <typename T, int DC>
 __global__ void __launch_bounds__(NTO, online_min_blocks<T, DC>)
 online_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int D,
-              float scale, int causal, int has_window, int window) {
+              float scale, int causal, int has_window, int window, int q_offset) {
   using MM = Mma<T>;
   using S = typename MM::S;
   using R = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;  // raw bits
@@ -468,16 +470,18 @@ online_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   };
 
   // KV range this query tile can see; all of it if some row sees nothing
-  // (that row then averages every key, as NEG_INF is finite).  Row qp sees
-  // keys [max(0, qp - window + 1), causal ? min(Sk - 1, qp) : Sk - 1]: with a
-  // window that is empty for qp >= Sk + window - 1, and for every row under
+  // (that row then averages every key, as NEG_INF is finite).  The row at
+  // position p = q_offset + its row (q_offset >= 0) sees keys
+  // [max(0, p - window + 1), causal ? min(Sk - 1, p) : Sk - 1]: with a
+  // window that is empty for p >= Sk + window - 1, and for every row under
   // `causal` with window <= 0; without one, never.
   const int q_last = min(q0 + OQ, Sq) - 1;
-  int k_begin = has_window ? max(0, q0 - window + 1) : 0;
-  int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const long long p0 = (long long)q_offset + q0, p_last = (long long)q_offset + q_last;
+  int k_begin = has_window ? (int)max(0LL, p0 - window + 1) : 0;
+  int k_end = causal ? (int)min((long long)Sk, p_last + 1) : Sk;
   const bool some_row_empty =
       k_begin >= k_end ||
-      (has_window && ((long long)q_last >= (long long)Sk + window - 1 || (causal && window <= 0)));
+      (has_window && (p_last >= (long long)Sk + window - 1 || (causal && window <= 0)));
   if (some_row_empty) { k_begin = 0; k_end = Sk; }
   const int kt0 = k_begin / OKT, kt1 = (k_end + OKT - 1) / OKT;
   const int parts = nc + 1;                  // nc q.k chunks, then V
@@ -578,7 +582,8 @@ online_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         //      scores lie on the 4 lanes of a quad ----
         // (only a tile that crosses Sk, the diagonal or the window's edge
         // for this warp's rows tests each score: the test is warp-uniform)
-        const int key0 = kt * OKT, r_lo = q0 + warp * 16;
+        // r_lo: the position of this warp's first row
+        const int key0 = kt * OKT, r_lo = q_offset + q0 + warp * 16;
         const bool tail = key0 + OKT > Sk;
         const bool edge = tail || (causal && key0 + OKT - 1 > r_lo) ||
                           (has_window && r_lo + 15 - key0 >= window);
@@ -715,7 +720,7 @@ constexpr int MAX_DEVICES = 64;
 template <typename T>
 int launch_rows(const void* q, const void* k, const void* v, void* out, float* lse, long long BH,
                 int Sq, int Sk, int D, float scale, int causal, int has_window, int window,
-                int splits, int row_splits, cudaStream_t s) {
+                int q_offset, int splits, int row_splits, cudaStream_t s) {
   constexpr int U = Mma<T>::K;
   const int units = (D + U - 1) / U, tiles = (Sq + RT - 1) / RT;
   if (Sk > S_MAX || splits < 1 || splits > MAX_CLUSTER || splits > units || row_splits < 1 ||
@@ -751,7 +756,7 @@ int launch_rows(const void* q, const void* k, const void* v, void* out, float* l
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Sq,
-                           Sk, D, scale, causal, has_window, window, bq, wmax);
+                           Sk, D, scale, causal, has_window, window, q_offset, bq, wmax);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -759,7 +764,7 @@ int launch_rows(const void* q, const void* k, const void* v, void* out, float* l
 template <typename T, int DC>
 int launch_online_at(const void* q, const void* k, const void* v, void* out, float* lse,
                      long long BH, int Sq, int Sk, int D, float scale, int causal, int has_window,
-                     int window, cudaStream_t s) {
+                     int window, int q_offset, cudaStream_t s) {
   const unsigned gy = (Sq + OQ - 1) / OQ, gz = (D + DC - 1) / DC;
   if (BH > 2147483647LL || gy > 65535u || gz > 65535u) return (int)cudaErrorInvalidValue;
   const size_t smem = online_smem<T>(D);
@@ -778,19 +783,19 @@ int launch_online_at(const void* q, const void* k, const void* v, void* out, flo
   }
   kern<<<dim3((unsigned)BH, gy, gz), NTO, smem, s>>>((const T*)q, (const T*)k, (const T*)v,
                                                      (T*)out, lse, Sq, Sk, D, scale, causal,
-                                                     has_window, window);
+                                                     has_window, window, q_offset);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_online(const void* q, const void* k, const void* v, void* out, float* lse,
                   long long BH, int Sq, int Sk, int D, float scale, int causal, int has_window,
-                  int window, cudaStream_t s) {
+                  int window, int q_offset, cudaStream_t s) {
   const int dc = online_chunk<T>(D);
 #define REPRO_ONLINE(DC)                                                                     \
   if (dc == DC)                                                                              \
     return launch_online_at<T, DC>(q, k, v, out, lse, BH, Sq, Sk, D, scale, causal,       \
-                                   has_window, window, s);
+                                   has_window, window, q_offset, s);
   REPRO_ONLINE(64)
   REPRO_ONLINE(128)
   if constexpr (sizeof(T) == 2) {
@@ -812,25 +817,29 @@ int launch_online(const void* q, const void* k, const void* v, void* out, float*
 // over a cluster of `splits` blocks (1..8, at most the column units) and
 // the query rows over `row_splits` (at most the 16-row tiles), within the
 // shared-memory budget; regime 0: online softmax over KV tiles (splits and
-// row_splits unused).  Returns cudaGetLastError().
+// row_splits unused).  q_offset (>= 0): the position of query row 0 less
+// that of key row 0, which the masks read.  Returns cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      void* lse, long long BH, int Sq, int Sk, int D, float scale,
-                                     int causal, int has_window, int window, int regime,
+                                     int causal, int has_window, int window, int q_offset,
+                                     int regime,
                                      int splits, int row_splits, int dtype, void* stream) {
-  if (BH <= 0 || Sq <= 0 || Sk <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  if (BH <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || q_offset < 0 ||
+      (long long)q_offset + Sq > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* l = (float*)lse;
   if (regime == 1 && dtype == 0)
     return launch_rows<float>(q, k, v, out, l, BH, Sq, Sk, D, scale, causal, has_window, window,
-                              splits, row_splits, s);
+                              q_offset, splits, row_splits, s);
   if (regime == 1 && dtype == 1)
     return launch_rows<__nv_bfloat16>(q, k, v, out, l, BH, Sq, Sk, D, scale, causal, has_window,
-                                      window, splits, row_splits, s);
+                                      window, q_offset, splits, row_splits, s);
   if (regime == 0 && dtype == 0)
     return launch_online<float>(q, k, v, out, l, BH, Sq, Sk, D, scale, causal, has_window, window,
-                                s);
+                                q_offset, s);
   if (regime == 0 && dtype == 1)
     return launch_online<__nv_bfloat16>(q, k, v, out, l, BH, Sq, Sk, D, scale, causal, has_window,
-                                        window, s);
+                                        window, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,9 @@
 //   dP = dO V^T;  dS = P (dP - delta);
 //   dQ = dS K * scale;  dK = dS^T Q * scale;  dV = P^T dO.
 // Masks `causal` (q_pos >= k_pos), `window` (q_pos - k_pos < window) and the
-// bounds, as the forward's.  A row with no unmasked key has lse = NEG_INF and
+// bounds, as the forward's, q_pos = q_offset + the query's row (q_offset >=
+// 0: a sequence shard's queries against the keys from the sequence's
+// start).  A row with no unmasked key has lse = NEG_INF and
 // so P = 1 on its masked keys, which is what the reference's formulas give.
 // P is computed as the forward computes it, in the log2 domain: ex2(S *
 // scale * log2(e) - lse * log2(e)).  Scores, P, dP, dS and every sum are
@@ -127,9 +129,12 @@ constexpr size_t dq_smem(int stages, int nc) {
 }
 
 // Whether some query row sees no key at all (its P is then 1 on the masked
-// keys, and no tile may be skipped): only under a window.
-__device__ __forceinline__ bool some_row_empty(int Sq, int Sk, int has_window, int window) {
-  return has_window && (window <= 0 || (long long)Sq - 1 >= (long long)Sk + window - 1);
+// keys, and no tile may be skipped): only under a window (q_offset >= 0, so
+// `causal` leaves every row key 0).
+__device__ __forceinline__ bool some_row_empty(int Sq, int Sk, int has_window, int window,
+                                               int q_offset) {
+  return has_window &&
+         (window <= 0 || (long long)q_offset + Sq - 1 >= (long long)Sk + window - 1);
 }
 
 __device__ __forceinline__ bool visible(int qp, int kp, int causal, int has_window, int window) {
@@ -309,7 +314,8 @@ __global__ void __launch_bounds__(2 * BK, 1)
 attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                    int Sq, int Sk, int D, float scale, int causal, int has_window, int window) {
+                    int Sq, int Sk, int D, float scale, int causal, int has_window, int window,
+                    int q_offset) {
   using MM = Mma<T>;
   using S = typename MM::S;
   static_assert(ST >= 2 && BK % 16 == 0, "a ring of two stages or more, 16 keys a warp");
@@ -338,12 +344,14 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                    (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
 
-  // the queries these keys are visible to: q >= k0 under `causal`, q <
-  // k_last + window under a window
+  // the queries these keys are visible to: q_offset + q >= k0 under
+  // `causal`, q_offset + q < k_last + window under a window
   const int k_last = min(k0 + BK, Sk) - 1;
-  int q_begin = causal ? k0 : 0;
-  int q_end = has_window ? (int)min((long long)Sq, (long long)k_last + window) : Sq;
-  const bool empty = some_row_empty(Sq, Sk, has_window, window);
+  int q_begin = causal ? max(0, k0 - q_offset) : 0;
+  int q_end = has_window
+                  ? (int)max(0LL, min((long long)Sq, (long long)k_last + window - q_offset))
+                  : Sq;
+  const bool empty = some_row_empty(Sq, Sk, has_window, window, q_offset);
   if (empty) { q_begin = 0; q_end = Sq; }
   const int qt0 = q_begin / TQ, qt1 = q_end > q_begin ? (q_end + TQ - 1) / TQ : qt0;
   // a unit: one chunk of one query tile's q and dO; chunk z comes last
@@ -381,10 +389,11 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float sl = scale * LOG2E, neg2 = __fmul_rn(NEG_INF, LOG2E);
   for (int i = 0, u = 0; i < tiles; ++i) {
     const int q0 = (qt0 + i) * TQ;
+    const long long p0 = (long long)q_offset + q0;   // the tile's first position
     // warp-uniform: the masks hide this tile from all of the warp's keys
     // (P = 0 there unless a row sees no key)
-    const bool hidden = !empty && (kw0 >= Sk || (causal && q0 + TQ - 1 < kw0) ||
-                                   (has_window && (long long)q0 - (kw0 + 15) >= window));
+    const bool hidden = !empty && (kw0 >= Sk || (causal && p0 + TQ - 1 < kw0) ||
+                                   (has_window && p0 - (kw0 + 15) >= window));
     // ---- S^T = K Q^T and dP^T = V dO^T, chunk by chunk ----
     float s[8][4], dp[8][4];
 #pragma unroll
@@ -407,8 +416,8 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const S* b = ring + slot * 2 * QT;
     const float* lr = ls + slot * TQ;
     const float* dr = dl + slot * TQ;
-    const bool inner = kw0 + 15 < Sk && q0 + TQ <= Sq && (!causal || q0 >= kw0 + 15) &&
-                       (!has_window || (long long)q0 + TQ - 1 - kw0 < window);
+    const bool inner = kw0 + 15 < Sk && q0 + TQ <= Sq && (!causal || p0 >= kw0 + 15) &&
+                       (!has_window || p0 + TQ - 1 - kw0 < window);
     if (inner) {
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
@@ -428,7 +437,8 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
           const int kp = kw0 + g + 8 * (e >> 1);
           float p = 0.f;
           if (qp < Sq && kp < Sk)
-            p = ex2((visible(qp, kp, causal, has_window, window) ? s[jj][e] * sl : neg2) -
+            p = ex2((visible(q_offset + qp, kp, causal, has_window, window) ? s[jj][e] * sl
+                                                                            : neg2) -
                     __fmul_rn(lr[qi], LOG2E));
           s[jj][e] = p;
           dp[jj][e] = p * (dp[jj][e] - dr[qi]);
@@ -474,7 +484,7 @@ __global__ void __launch_bounds__(NTQ, dq_min_blocks<T, DC>)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int D,
-                   float scale, int causal, int has_window, int window) {
+                   float scale, int causal, int has_window, int window, int q_offset) {
   using MM = Mma<T>;
   using S = typename MM::S;
   static_assert(ST >= 2, "a ring of two stages or more");
@@ -508,11 +518,13 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     lr[h] = qp < Sq ? __fmul_rn(lse[bh * Sq + qp], LOG2E) : 0.f;
     dr[h] = qp < Sq ? delta[bh * Sq + qp] : 0.f;
   }
-  // the keys these queries see (as the forward's KV loop bounds them)
+  // the keys these queries see (as the forward's KV loop bounds them), at
+  // positions q_offset + q0 ... q_offset + q_last
   const int q_last = min(q0 + TQ, Sq) - 1;
-  int k_begin = has_window ? max(0, q0 - window + 1) : 0;
-  int k_end = causal ? min(Sk, q_last + 1) : Sk;
-  const bool empty = some_row_empty(Sq, Sk, has_window, window);
+  const long long p0 = (long long)q_offset + q0, p_last = (long long)q_offset + q_last;
+  int k_begin = has_window ? (int)max(0LL, p0 - window + 1) : 0;
+  int k_end = causal ? (int)min((long long)Sk, p_last + 1) : Sk;
+  const bool empty = some_row_empty(Sq, Sk, has_window, window, q_offset);
   if (empty) { k_begin = 0; k_end = Sk; }
   const int kt0 = k_begin / TK, kt1 = k_end > k_begin ? (k_end + TK - 1) / TK : kt0;
   // a unit: one chunk of one key tile's K and V; chunk z comes last
@@ -544,8 +556,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const float sl = scale * LOG2E, neg2 = __fmul_rn(NEG_INF, LOG2E);
   for (int i = 0, u = 0; i < tiles; ++i) {
     const int key0 = (kt0 + i) * TK;
-    const bool hidden = !empty && (qw0 >= Sq || (causal && qw0 + 15 < key0) ||
-                                   (has_window && (long long)qw0 - (key0 + TK - 1) >= window));
+    const long long pw0 = (long long)q_offset + qw0;   // the warp's first position
+    const bool hidden = !empty && (qw0 >= Sq || (causal && pw0 + 15 < key0) ||
+                                   (has_window && pw0 - (key0 + TK - 1) >= window));
     // ---- S = Q K^T and dP = dO V^T, chunk by chunk ----
     float s[8][4], dp[8][4];
 #pragma unroll
@@ -563,8 +576,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     }
     if (hidden) continue;
     // ---- dS on the fragments: rows are queries, columns keys ----
-    const bool inner = key0 + TK <= Sk && qw0 + 15 < Sq && (!causal || qw0 >= key0 + TK - 1) &&
-                       (!has_window || (long long)qw0 + 15 - key0 < window);
+    const bool inner = key0 + TK <= Sk && qw0 + 15 < Sq && (!causal || pw0 >= key0 + TK - 1) &&
+                       (!has_window || pw0 + 15 - key0 < window);
     if (inner) {
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
@@ -582,7 +595,9 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
           const int qp = qw0 + g + 8 * h, kp = key0 + 8 * jj + 2 * t + (e & 1);
           float p = 0.f;
           if (qp < Sq && kp < Sk)
-            p = ex2((visible(qp, kp, causal, has_window, window) ? s[jj][e] * sl : neg2) - lr[h]);
+            p = ex2((visible(q_offset + qp, kp, causal, has_window, window) ? s[jj][e] * sl
+                                                                            : neg2) -
+                    lr[h]);
           s[jj][e] = p * (dp[jj][e] - dr[h]);
         }
     }
@@ -621,7 +636,8 @@ cudaError_t opt_in(K kern, bool (&done)[MAX_DEVICES]) {
 template <typename T, int DC, int BK, int ST, int NC>
 int launch_at(const void* q, const void* k, const void* v, const void* out, const void* dout,
               const float* lse, float* delta, void* dq, void* dk, void* dv, long long BH, int Sq,
-              int Sk, int D, float scale, int causal, int has_window, int window, cudaStream_t s) {
+              int Sk, int D, float scale, int causal, int has_window, int window, int q_offset,
+              cudaStream_t s) {
   const int nc = (D + DC - 1) / DC;
   const unsigned gq = (Sq + TQ - 1) / TQ, gk = (Sk + BK - 1) / BK, gz = nc;
   const long long rows = BH * Sq;
@@ -640,12 +656,12 @@ int launch_at(const void* q, const void* k, const void* v, const void* out, cons
   if (err != cudaSuccess) return (int)err;
   attn_bwd_dkv_kernel<T, DC, BK, ST, NC><<<dim3((unsigned)BH, gk, gz), 2 * BK, smem_kv, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, Sq, Sk,
-      D, scale, causal, has_window, window);
+      D, scale, causal, has_window, window, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attn_bwd_dq_kernel<T, DC, ST, NC><<<dim3((unsigned)BH, gq, gz), NTQ, smem_q, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, (T*)dq, Sq, Sk, D, scale,
-      causal, has_window, window);
+      causal, has_window, window, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -665,7 +681,8 @@ constexpr int row_chunks() {
 template <typename T, int I = 0>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv, long long BH, int Sq,
-           int Sk, int D, float scale, int causal, int has_window, int window, cudaStream_t s) {
+           int Sk, int D, float scale, int causal, int has_window, int window, int q_offset,
+           cudaStream_t s) {
   if constexpr (I == PLAN_ROWS) {
     return (int)cudaErrorInvalidValue;
   } else {
@@ -674,10 +691,10 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
       if (D <= p.d_max)
         return launch_at<T, p.chunk, p.keys, p.stages, row_chunks<I>()>(
             q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Sq, Sk, D, scale, causal, has_window,
-            window, s);
+            window, q_offset, s);
     }
     return launch<T, I + 1>(q, k, v, out, dout, lse, delta, dq, dk, dv, BH, Sq, Sk, D, scale,
-                            causal, has_window, window, s);
+                            causal, has_window, window, q_offset, s);
   }
 }
 
@@ -685,23 +702,27 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 
 // q, out, dout, dq: [BH, Sq, D]; k, v, dk, dv: [BH, Sk, D]; lse: [BH, Sq]
 // float32 (the forward's); delta: [BH, Sq] float32 scratch; all dense, D <=
-// 256.  dtype: 0 = float32, 1 = bfloat16.  Three launches on `stream` (delta,
+// 256.  q_offset (>= 0): the position of query row 0 less that of key row 0,
+// which the masks read.  dtype: 0 = float32, 1 = bfloat16.  Three launches on `stream` (delta,
 // dK / dV, dQ), nothing synchronised.  Returns the first CUDA error of the
 // launches, or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* out, const void* dout, const void* lse,
                                          void* delta, void* dq, void* dk, void* dv, long long BH,
                                          int Sq, int Sk, int D, float scale, int causal,
-                                         int has_window, int window, int dtype, void* stream) {
-  if (BH <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || D > D_MAX) return (int)cudaErrorInvalidValue;
+                                         int has_window, int window, int q_offset, int dtype,
+                                         void* stream) {
+  if (BH <= 0 || Sq <= 0 || Sk <= 0 || D <= 0 || D > D_MAX || q_offset < 0 ||
+      (long long)q_offset + Sq > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* l = (const float*)lse;
   float* dl = (float*)delta;
   if (dtype == 0)
     return launch<float>(q, k, v, out, dout, l, dl, dq, dk, dv, BH, Sq, Sk, D, scale, causal,
-                         has_window, window, s);
+                         has_window, window, q_offset, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, out, dout, l, dl, dq, dk, dv, BH, Sq, Sk, D, scale,
-                                 causal, has_window, window, s);
+                                 causal, has_window, window, q_offset, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-// Chunked RWKV-6 WKV recurrence from a zero state, for Hopper (sm_90a).
+// Chunked RWKV-6 WKV recurrence from a given state (or zero), for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel `wkv_chunked` (`_wkv_kernel`) of
 // src/repro/kernels/rwkv_chunk.py.  Per chunk of C tokens, with
@@ -17,7 +18,9 @@
 //    V tile of BVS = 32 columns), one warp a block.  Only the [K, V] state
 //    carries across chunks, and its rows and columns are independent, so a
 //    warp owns one 16 x BVS tile of it, in mma accumulators, and walks the
-//    sequence in order from a zero state, SLAB rows at a time, the next
+//    sequence in order from the initial state (zero where none is given:
+//    a sequence shard starts from the state its predecessor left), SLAB
+//    rows at a time, the next
 //    STAGES - 1 slabs' k, logw and v in flight by cp.async (zero-filled
 //    past T).  Per slab: b = cumsum(logw * log2 e) by a two-level warp
 //    scan; the slab is cut at chunk boundaries into segments; at each
@@ -227,7 +230,8 @@ __device__ __forceinline__ void store_state(float* dst, const float (&S)[NJ][4],
 template <typename Tin>
 __global__ void __launch_bounds__(32)
 wkv_states_kernel(const Tin* __restrict__ k, const Tin* __restrict__ v,
-                  const void* __restrict__ logw, int logw_code, float* __restrict__ ws,
+                  const void* __restrict__ logw, int logw_code,
+                  const float* __restrict__ state0, float* __restrict__ ws,
                   float* __restrict__ state, int T, int K, int V, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int isz = sizeof(Tin);
@@ -258,10 +262,19 @@ wkv_states_kernel(const Tin* __restrict__ k, const Tin* __restrict__ v,
                    SLAB, live, lane, 32);
   };
 
-  // the state from a zero start
+  // the state from state0, or from a zero start
   float S[NJ][4];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) S[j][0] = S[j][1] = S[j][2] = S[j][3] = 0.f;
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = k0 + g + 8 * h, col = v0 + 8 * j + 2 * tq + e;
+        S[j][2 * h + e] = state0 != nullptr && row < K && col < V
+                              ? state0[(bh * K + row) * (long long)V + col]
+                              : 0.f;
+      }
 
   for (int si = 0; si < STAGES - 1; ++si) {
     if (si < n_slabs) issue(si);
@@ -708,7 +721,7 @@ wkv_outputs_kernel(const Tin* __restrict__ r, const Tin* __restrict__ k,
 constexpr int MAX_DEVICES = 64;
 
 struct Args {
-  const void *r, *k, *v, *logw, *u;
+  const void *r, *k, *v, *logw, *u, *state0;
   void *out, *state, *ws;
   long long BH;
   int T, K, V, C, logw_code, u_code, warps, rows, wv, states_smem, outputs_smem;
@@ -736,7 +749,8 @@ cudaError_t launch_states(const Args& a, cudaStream_t s) {
   const dim3 grid((unsigned)a.BH, (unsigned)((a.K + KT - 1) / KT),
                   (unsigned)((a.V + BVS - 1) / BVS));
   kern<<<grid, 32, a.states_smem, s>>>((const Tin*)a.k, (const Tin*)a.v, a.logw, a.logw_code,
-                                       (float*)a.ws, (float*)a.state, a.T, a.K, a.V, a.C);
+                                       (const float*)a.state0, (float*)a.ws, (float*)a.state,
+                                       a.T, a.K, a.V, a.C);
   return cudaGetLastError();
 }
 
@@ -776,8 +790,10 @@ cudaError_t launch_all(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// r, k, logw: [BH, T, K]; v, out: [BH, T, V]; u: [BH, K]; state: [BH, K, V]
-// float32; ws: [BH, ceil(T / C), K, V] float32 scratch.  All dense.  dtype
+// r, k, logw: [BH, T, K]; v, out: [BH, T, V]; u: [BH, K]; state0 (the
+// initial state, null for zero) and state (the final one): [BH, K, V]
+// float32; ws: [BH, ceil(T / C), K, V] float32 scratch, chunk 0's entry
+// state0.  All dense.  dtype
 // is the type of r, k, v and out; logw_dtype and u_dtype are each 0 =
 // float32 or 1 = bfloat16.  1 <= C <= T.  The outputs pass's plan: `wv`
 // warps (1 or 2) sharing a tile, each with 32 columns of the V tile of
@@ -785,7 +801,8 @@ cudaError_t launch_all(const Args& a, cudaStream_t s) {
 // `rows` a block (a multiple of TILE, at most C rounded up to it).  Launches the states pass, then the outputs pass, on `stream`;
 // returns the first error.
 extern "C" int repro_wkv_chunked(const void* r, const void* k, const void* v, const void* logw,
-                                 const void* u, void* out, void* state, void* ws, long long BH,
+                                 const void* u, const void* state0, void* out, void* state,
+                                 void* ws, long long BH,
                                  int T, int K, int V, int C, int dtype, int logw_dtype,
                                  int u_dtype, int wv, int warps, int rows, void* stream) {
   if (BH <= 0 || BH > INT_MAX || T <= 0 || K <= 0 || V <= 0 || C <= 0 || C > T ||
@@ -803,7 +820,7 @@ extern "C" int repro_wkv_chunked(const void* r, const void* k, const void* v, co
       (V + BVS * wv - 1) / (BVS * wv) > 65535 || (V + BVS - 1) / BVS > 65535 ||
       outputs_smem > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  const Args a{r, k, v, logw, u, out, state, ws, BH, T, K, V, C, logw_dtype, u_dtype, warps,
+  const Args a{r, k, v, logw, u, state0, out, state, ws, BH, T, K, V, C, logw_dtype, u_dtype, warps,
                rows, wv, states_layout(isz, wsz).total, (int)outputs_smem};
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dtype == 0 ? launch_all<float>(a, s) : launch_all<__nv_bfloat16>(a, s));

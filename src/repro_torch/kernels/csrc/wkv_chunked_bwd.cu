@@ -1,15 +1,19 @@
-// Backward of the chunked RWKV-6 WKV recurrence from a zero state, for
-// Hopper (sm_90a).
+// Backward of the chunked RWKV-6 WKV recurrence from a given state (or
+// zero), for Hopper (sm_90a).
 //
 // Replaces no Pallas kernel: it is the VJP that `jax.grad` takes of the jnp
 // `wkv_chunked` of src/repro/models/rwkv6.py:100 (the reference trains
 // through that form, never through its Pallas kernel).  The forward is
-// csrc/wkv_chunked.cu; per token t, S_0 = 0:
+// csrc/wkv_chunked.cu; per token t, from S_0 (zero, or a given state):
 //
 //   out[t] = r[t]^T (S[t-1] + diag(u) k[t] v[t]^T),   S[t] = diag(e^{logw[t]}) S[t-1] + k[t] v[t]^T
 //
 // Given dout and an optional dS_T (null: zero), it returns dr, dk, dv (in
-// the type of r, k, v), dlogw (logw's type) and du (u's type).  Per chunk
+// the type of r, k, v), dlogw (logw's type), du (u's type) and, asked for
+// it, dS_0: the reverse pass's G entering chunk 0.  S_0 enters the
+// gradients only through the states entering each chunk (the forward's
+// workspace, chunk 0's entry S_0): dr' carries it, and the suffix identity
+// below needs no term of its own for it.  Per chunk
 // of C rows, with b the in-chunk cumsum of logw, b_prev = b - logw, b_C
 // the chunk's last b, S_c the state entering the chunk and G' the gradient
 // of the state leaving it, dA[t,s] = dout[t].v[s] and
@@ -184,8 +188,8 @@ template <typename Tin>
 __global__ void __launch_bounds__(32)
 wkv_rstates_kernel(const Tin* __restrict__ r, const Tin* __restrict__ dout,
                    const void* __restrict__ logw, int logw_code,
-                   const float* __restrict__ dstate, float* __restrict__ gws, int T, int K, int V,
-                   int C) {
+                   const float* __restrict__ dstate, float* __restrict__ gws,
+                   float* __restrict__ ds0, int T, int K, int V, int C) {
   __shared__ __align__(16) float rs[SLAB * KTP];   // r, the warp's 16 columns
   __shared__ __align__(16) float bs[SLAB * KTP];   // the slab's cumsum of logw * log2 e
   __shared__ __align__(16) float ds[SLAB * VSP];   // dout, the warp's 32 columns
@@ -301,6 +305,8 @@ wkv_rstates_kernel(const Tin* __restrict__ r, const Tin* __restrict__ dout,
       e = a;
     }
   }
+  // G entering chunk 0: the initial state's gradient
+  if (ds0 != nullptr) store_tile(ds0 + bh * K * (long long)V, G, K, V, k0, v0, g, tq);
 }
 
 // ---------------------------------------------------------------------------
@@ -1465,7 +1471,7 @@ int plan_instance(int C, int K, int V, int isz) {
 
 struct Args {
   const void *r, *k, *v, *logw, *u, *dout, *dstate, *state, *sws;
-  void *gws, *dr, *dk, *dv, *dlogw, *du, *dlw, *xpart, *upart;
+  void *gws, *dr, *dk, *dv, *dlogw, *du, *dlw, *xpart, *upart, *ds0;
   long long BH;
   int T, K, V, C, logw_code, u_code, instance, grads_smem;
 };
@@ -1499,7 +1505,8 @@ cudaError_t launch_all(const Args& a, cudaStream_t s) {
                    (unsigned)((a.V + BVS - 1) / BVS));
   wkv_rstates_kernel<Tin><<<sgrid, 32, 0, s>>>((const Tin*)a.r, (const Tin*)a.dout, a.logw,
                                                a.logw_code, (const float*)a.dstate,
-                                               (float*)a.gws, a.T, a.K, a.V, a.C);
+                                               (float*)a.gws, (float*)a.ds0, a.T, a.K, a.V,
+                                               a.C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n_chunks = (a.T + a.C - 1) / a.C, tpc = (a.C + TILE - 1) / TILE;
@@ -1544,14 +1551,16 @@ cudaError_t launch_all(const Args& a, cudaStream_t s) {
 // where PLAN gives the chunk instance, ceil(C / 16) where it gives the tile
 // one.  All dense.  dtype is the type of r, k, v, dout, dr, dk, dv;
 // logw_dtype (of logw and dlogw) and u_dtype (of u and du) are each 0 =
-// float32 or 1 = bfloat16.  1 <= C <= T.  Launches the reverse states, the
+// float32 or 1 = bfloat16.  ds0: [BH, K, V] float32, the initial state's
+// gradient, written where it is not null.  1 <= C <= T.  Launches the reverse states, the
 // gradients and the finishing pass on `stream`; returns the first error (an
 // invalid value where PLAN has no instance for (C, K, V)).
 extern "C" int repro_wkv_chunked_bwd(const void* r, const void* k, const void* v,
                                      const void* logw, const void* u, const void* dout,
                                      const void* dstate, const void* state, const void* sws,
                                      void* gws, void* dr, void* dk, void* dv, void* dlogw,
-                                     void* du, void* dlw, void* xpart, void* upart, long long BH,
+                                     void* du, void* dlw, void* xpart, void* upart, void* ds0,
+                                     long long BH,
                                      int T, int K, int V, int C, int dtype, int logw_dtype,
                                      int u_dtype, void* stream) {
   if (BH <= 0 || BH > INT_MAX || T <= 0 || K <= 0 || V <= 0 || C <= 0 || C > T ||
@@ -1565,7 +1574,7 @@ extern "C" int repro_wkv_chunked_bwd(const void* r, const void* k, const void* v
       (V + BVS - 1) / BVS > 65535)
     return (int)cudaErrorInvalidValue;
   const Args a{r,  k,  v,     logw, u,   dout,  dstate, state, sws,
-               gws, dr, dk, dv, dlogw, du, dlw, xpart, upart,
+               gws, dr, dk, dv, dlogw, du, dlw, xpart, upart, ds0,
                BH, T, K, V, C, logw_dtype, u_dtype, instance,
                grads_smem(instance, C, K, V, isz)};
   cudaStream_t s = (cudaStream_t)stream;

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import flash_attention_bwd as _bwd
-from repro_torch.kernels._launch import check_cuda_dense, check_launch
+from repro_torch.kernels._launch import check_cuda_dense, check_launch, check_offset
 
 launches = 0
 
@@ -178,14 +178,18 @@ def _sms(device: torch.device) -> int:
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _L, _I, _I, _I, ctypes.c_float, _I, _I, _I,
-             _I, _I, _I, _I, _P]
+             _I, _I, _I, _I, _I, _P]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None, return_lse: bool = False):
+                    scale: Optional[float] = None, return_lse: bool = False,
+                    q_offset: int = 0):
     """q: [B,H,Sq,D]; k, v: [B,H,Sk,D] (H = full query heads), all dense
-    and on one CUDA device -> [B,H,Sq,D].  Any Sq, Sk and D.  With
+    and on one CUDA device -> [B,H,Sq,D].  Any Sq, Sk and D.
+    ``q_offset`` (>= 0) is the position of query row 0 less that of key
+    row 0, which the causal and window masks read (a sequence shard's
+    queries against the keys from the sequence's start).  With
     ``return_lse`` -> (out, lse [B,H,Sq] float32: each row's log-sum-exp of
     the scaled, masked scores, as the reference's ``_flash_fwd`` returns
     it); without, the kernel writes no lse."""
@@ -196,6 +200,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
+    q_offset = check_offset("flash_attention", q_offset, Sq)
     code = check_cuda_dense("flash_attention", q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
@@ -211,8 +216,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), None if lse is None else lse.data_ptr(),
                         B * H, Sq, Sk, D, scale_, int(causal),
-                        int(window is not None), int(window or 0), regime,
-                        splits, row_splits, code,
+                        int(window is not None), int(window or 0), q_offset,
+                        regime, splits, row_splits, code,
                         torch.cuda.current_stream().cuda_stream)
     check_launch("flash_attention", err)
     launches += 1
@@ -221,8 +226,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 class FlashAttention(torch.autograd.Function):
     """Attention with a backward, the port of the reference's
-    ``flash_attention`` custom_vjp: the forward keeps (q, k, v, out, lse),
-    the backward returns (dq, dk, dv).  On CUDA tensors both launch the
+    ``flash_attention`` custom_vjp: the forward keeps (q, k, v, out, lse)
+    and the masks, ``q_offset`` among them; the backward returns (dq, dk,
+    dv).  On CUDA tensors both launch the
     hand-written kernels (this module's forward with ``return_lse``, then
     ``flash_attention_bwd``); on CPU tensors both run their plain versions,
     ``ref.attention_fwd_lse_ref`` and ``ref.attention_bwd_ref``.  GQA: the
@@ -230,22 +236,19 @@ class FlashAttention(torch.autograd.Function):
     group, as ``jnp.repeat``'s VJP does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, causal, window, scale, q_offset=0):
+        masks = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
         if q.is_cuda:
-            out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                       scale=scale, return_lse=True)
+            out, lse = flash_attention(q, k, v, return_lse=True, **masks)
         else:
-            out, lse = ref.attention_fwd_lse_ref(q, k, v, causal=causal,
-                                                 window=window, scale=scale)
+            out, lse = ref.attention_fwd_lse_ref(q, k, v, **masks)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.masks = (causal, window, scale)
+        ctx.masks = masks
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, scale = ctx.masks
         fn = _bwd.flash_attention_bwd if q.is_cuda else ref.attention_bwd_ref
-        dq, dk, dv = fn(q, k, v, out, lse, dout.contiguous(), causal=causal,
-                        window=window, scale=scale)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = fn(q, k, v, out, lse, dout.contiguous(), **ctx.masks)
+        return dq, dk, dv, None, None, None, None

@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_cuda_dense, check_launch
+from repro_torch.kernels._launch import check_cuda_dense, check_launch, check_offset
 
 launches = 0
 
@@ -96,7 +96,7 @@ def smem_bytes(D: int, dtype: torch.dtype, *, keys: int, stages: int,
                 smem_dq=item * ld * (2 * TILE_Q * nc + stages * 2 * TILE_K))
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 10 + [_L, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 10 + [_L, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P]
 
 
 def ptxas(log: str) -> dict:
@@ -145,9 +145,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
                         window: Optional[int] = None,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, q_offset: int = 0):
     """q, out, dout: [B,H,Sq,D]; k, v: [B,H,Sk,D]; lse: [B,H,Sq] float32;
-    all dense on one CUDA device, D <= D_MAX -> (dq, dk, dv)."""
+    all dense on one CUDA device, D <= D_MAX -> (dq, dk, dv).  The masks
+    as the forward's, ``q_offset`` among them."""
     global launches
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3] \
@@ -160,6 +161,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D > D_MAX:
         raise ValueError(f"flash_attention_bwd: head dim {D}, the kernel takes "
                          f"D <= {D_MAX}")
+    q_offset = check_offset("flash_attention_bwd", q_offset, Sq)
     code = check_cuda_dense("flash_attention_bwd", q=q, k=k, v=v, out=out,
                             dout=dout)
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32 \
@@ -177,7 +179,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, Sq,
                         Sk, D, scale_, int(causal), int(window is not None),
-                        int(window or 0), code,
+                        int(window or 0), q_offset, code,
                         torch.cuda.current_stream().cuda_stream)
     check_launch("flash_attention_bwd", err)
     launches += 1

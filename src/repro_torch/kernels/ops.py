@@ -90,10 +90,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None,
                     block_q: int = _fa.BLOCKS["block_q"],
-                    block_k: int = _fa.BLOCKS["block_k"]
-                    ) -> torch.Tensor:
+                    block_k: int = _fa.BLOCKS["block_k"],
+                    q_offset: int = 0) -> torch.Tensor:
     """Flash attention (whole score rows where Sk <= 128, else an online
-    softmax over KV tiles); q: [B,H,Sq,D], k, v: [B,H,Sk,D].  Under grad
+    softmax over KV tiles); q: [B,H,Sq,D], k, v: [B,H,Sk,D]; ``q_offset``
+    the position of query row 0 less that of key row 0, which the masks
+    read (a sequence shard's queries against the keys before them).  Under grad
     mode with q, k or v requiring grad it is ``FlashAttention`` (its
     backward on the device of the tensors, as its forward); otherwise the
     served call, which writes no log-sum-exp."""
@@ -102,12 +104,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       block_k=block_k)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _fa.FlashAttention.apply(q, k, v, causal, window, scale)
+        return _fa.FlashAttention.apply(q, k, v, causal, window, scale, q_offset)
     if not q.is_cuda:
         return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 scale=scale)
+                                 scale=scale, q_offset=q_offset)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale)
+                               scale=scale, q_offset=q_offset)
 
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
@@ -120,10 +122,12 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64):
-    """Chunked WKV6 from a zero state; r, k, logw: [BH,T,K], v: [BH,T,V],
-    u: [BH,K] (the per-head bonus expanded by the caller) -> (out
-    [BH,T,V] in r's dtype, final state [BH,K,V] float32).
+                logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
+                state: Optional[torch.Tensor] = None):
+    """Chunked WKV6 from ``state`` (float32 [BH,K,V]; None is the zero
+    state); r, k, logw: [BH,T,K], v: [BH,T,V], u: [BH,K] (the per-head
+    bonus expanded by the caller) -> (out [BH,T,V] in r's dtype, final
+    state [BH,K,V] float32).
 
     The requested chunk is honoured verbatim (it is the searched schedule
     parameter, never shrunk to a divisor of T): the kernel takes
@@ -131,12 +135,13 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are neither read nor written (masked by bounds, no pad copy), which
     equals the JAX kernel's zero-padded, recurrence-neutral tail.  A CPU
     tensor goes to the per-token ``ref.wkv_ref``.  Under grad mode with r,
-    k, v, logw or u requiring grad it is ``WKVChunked`` (its backward on
-    the device of the tensors, as its forward); otherwise the served call,
-    which keeps nothing for a backward."""
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (r, k, v, logw, u)):
-        return _wkv.WKVChunked.apply(r, k, v, logw, u, chunk)
+    k, v, logw, u or the state requiring grad it is ``WKVChunked`` (its
+    backward on the device of the tensors, as its forward, dS0 among its
+    gradients); otherwise the served call, which keeps nothing for a
+    backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (r, k, v, logw, u, state)):
+        return _wkv.WKVChunked.apply(r, k, v, logw, u, state, chunk)
     if not r.is_cuda:
-        return ref.wkv_ref(r, k, v, logw, u)
-    return _wkv.wkv_chunked(r, k, v, logw, u, chunk=chunk)
+        return ref.wkv_ref(r, k, v, logw, u, state)
+    return _wkv.wkv_chunked(r, k, v, logw, u, chunk=chunk, state=state)

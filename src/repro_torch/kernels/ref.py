@@ -58,13 +58,17 @@ def matmul_ln_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
-            window: Optional[int], scale: Optional[float]) -> torch.Tensor:
-    """The scaled float32 scores [B,H,Sq,Sk], NEG_INF where masked."""
+            window: Optional[int], scale: Optional[float],
+            q_offset: int = 0) -> torch.Tensor:
+    """The scaled float32 scores [B,H,Sq,Sk], NEG_INF where masked.
+    ``q_offset`` is the position of query row 0 less that of key row 0:
+    the masks are causal i + q_offset >= j and window i + q_offset - j <
+    window."""
     Sq, D = q.shape[2], q.shape[3]
     Sk = k.shape[2]
     scale_ = scale if scale is not None else D ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale_
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    q_pos = torch.arange(q_offset, q_offset + Sq, device=q.device)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -76,18 +80,19 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
-                  scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B,H,Sq,D]; k, v: [B,H,Sk,D] -> [B,H,Sq,D]."""
-    p = torch.softmax(_scores(q, k, causal, window, scale), dim=-1)
+                  scale: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
+    """q: [B,H,Sq,D]; k, v: [B,H,Sk,D] -> [B,H,Sq,D]; ``q_offset`` as
+    ``_scores`` takes it."""
+    p = torch.softmax(_scores(q, k, causal, window, scale, q_offset), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
 def attention_fwd_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: Optional[int] = None,
-                          scale: Optional[float] = None):
+                          scale: Optional[float] = None, q_offset: int = 0):
     """``attention_ref`` and each row's float32 log-sum-exp of the scaled,
     masked scores [B,H,Sq] (the reference's ``_flash_fwd`` returns both)."""
-    s = _scores(q, k, causal, window, scale)
+    s = _scores(q, k, causal, window, scale, q_offset)
     out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v.float())
     return out.to(q.dtype), torch.logsumexp(s, dim=-1)
 
@@ -95,7 +100,7 @@ def attention_fwd_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                       *, causal: bool = True, window: Optional[int] = None,
-                      scale: Optional[float] = None):
+                      scale: Optional[float] = None, q_offset: int = 0):
     """(dq, dk, dv) in the inputs' types by the reference's ``_flash_bwd``
     formulas on the whole score matrix, in float32: delta = rowsum(dO . O),
     P = exp(S - lse) (S scaled and masked to NEG_INF), dS = P (dP - delta),
@@ -104,7 +109,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale_ = scale if scale is not None else D ** -0.5
     qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
     delta = (dof * out.float()).sum(-1)
-    p = torch.exp(_scores(q, k, causal, window, scale) - lse[..., None])
+    p = torch.exp(_scores(q, k, causal, window, scale, q_offset) - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale_
@@ -132,15 +137,18 @@ def depthwise_conv2d_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            logw: torch.Tensor, u: torch.Tensor):
-    """Per-token WKV6 recurrence from a zero state.  r, k, logw: [BH,T,K];
-    v: [BH,T,V]; u: [BH,K].  Returns (out [BH,T,V] in r's dtype, final
-    state [BH,K,V] float32).  Products and sums are written out
-    elementwise, so they are exact float32 on any device."""
+            logw: torch.Tensor, u: torch.Tensor,
+            state: Optional[torch.Tensor] = None):
+    """Per-token WKV6 recurrence from ``state`` (float32 [BH,K,V]; None is
+    the zero state).  r, k, logw: [BH,T,K]; v: [BH,T,V]; u: [BH,K].
+    Returns (out [BH,T,V] in r's dtype, final state [BH,K,V] float32).
+    Products and sums are written out elementwise, so they are exact
+    float32 on any device."""
     BH, T, K = r.shape
     V = v.shape[-1]
     rf, kf, vf, wf, uf = (t.float() for t in (r, k, v, logw, u))
-    S = torch.zeros((BH, K, V), dtype=torch.float32, device=r.device)
+    S = (torch.zeros((BH, K, V), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
     outs = []
     for t in range(T):
         at = kf[:, t, :, None] * vf[:, t, None, :]            # [BH,K,V]
@@ -157,7 +165,8 @@ WKV_BWD_SUB = 8
 
 def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 logw: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
-                dstate: Optional[torch.Tensor] = None, *, chunk: int):
+                dstate: Optional[torch.Tensor] = None, *, chunk: int,
+                state: Optional[torch.Tensor] = None):
     """The backward of ``wkv_ref`` by the algorithm of
     ``csrc/wkv_chunked_bwd.cu``'s chunk instance, in float32: the states
     entering each chunk of C = min(chunk, T) rows, the reverse pass G_c =
@@ -169,9 +178,14 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b_prev of its row WKV_BWD_SUB; dlogw by the suffix identity sum_{t>j} r
     dr' - sum_{s>=j} k dk' + sum_v dS_T S_T (dr', dk' without the u terms),
     the suffix taken within each chunk, then the later chunks' totals and
-    the dS_T term added.  r, k, logw: [BH,T,K]; v, dout: [BH,T,V]; u:
-    [BH,K]; dstate: [BH,K,V].  Returns (dr, dk, dv, dlogw, du), each in the
-    dtype of its input."""
+    the dS_T term added.  ``state`` is the forward's initial state (None:
+    zero), which the entering states carry into dr'; the suffix identity
+    needs no term of its own for it (S_0 reaches out[t] through the decays
+    of the rows before t, as a pair (s, t) does through those between
+    them).  r, k, logw: [BH,T,K]; v, dout: [BH,T,V]; u: [BH,K]; dstate,
+    state: [BH,K,V].  Returns (dr, dk, dv, dlogw, du), each in the dtype of
+    its input, and where ``state`` is given dS0 too: the reverse pass's G
+    entering chunk 0, float32."""
     BH, T, K = r.shape
     V = v.shape[-1]
     C, TL, SB = min(chunk, T), WKV_BWD_TILE, WKV_BWD_SUB
@@ -182,7 +196,8 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b = torch.cumsum(wf[:, c0:c1], 1)
         return b, b - wf[:, c0:c1]
 
-    S = torch.zeros((BH, K, V), dtype=torch.float32, device=r.device)
+    S = (torch.zeros((BH, K, V), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
     entering = []
     for c0, c1 in spans:
         b, _ = cumsums(c0, c1)
@@ -270,8 +285,9 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         suffix = torch.flip(torch.cumsum(torch.flip(x[:, c0:c1], (1,)), 1), (1,))
         dlogw[:, c0:c1] = (suffix - xr[:, c0:c1]) + carry[:, None]
         carry = carry + suffix[:, 0]
-    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
-            dlogw.to(logw.dtype), du.to(u.dtype))
+    grads = (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
+             dlogw.to(logw.dtype), du.to(u.dtype))
+    return grads if state is None else (*grads, G)
 
 
 # The plain versions under the names and signatures of ``ops``: a model
@@ -281,10 +297,11 @@ PLAIN = types.SimpleNamespace(
     fused_ibn=lambda x, w1, w2, wg=None, *, activation="gelu", **_blocks:
         fused_ibn_ref(x, w1, w2, wg, activation=activation),
     flash_attention=lambda q, k, v, *, causal=True, window=None, scale=None,
-        **_blocks: attention_ref(q, k, v, causal=causal, window=window,
-                                 scale=scale),
+        q_offset=0, **_blocks: attention_ref(q, k, v, causal=causal, window=window,
+                                             scale=scale, q_offset=q_offset),
     depthwise_conv2d=lambda x, w, b, **_blocks: depthwise_conv2d_ref(x, w, b),
     matmul_ln=lambda x, w, b, gamma, beta, *, eps=1e-6, **_blocks:
         matmul_ln_ref(x, w, b, gamma, beta, eps=eps),
-    wkv_chunked=lambda r, k, v, logw, u, *, chunk=64: wkv_ref(r, k, v, logw, u),
+    wkv_chunked=lambda r, k, v, logw, u, *, chunk=64, state=None:
+        wkv_ref(r, k, v, logw, u, state),
 )

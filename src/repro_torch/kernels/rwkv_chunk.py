@@ -1,9 +1,9 @@
 """Wrapper of the CUDA chunked WKV kernel (``csrc/wkv_chunked.cu``).
 
 Port of ``repro/kernels/rwkv_chunk.py``.  One call launches two kernels on
-the current stream: the states pass (the state entering every chunk, into
-a float32 workspace, and the final state) and the outputs pass (every
-chunk at once).  ``plan`` picks how each runs for the shape and the card;
+the current stream: the states pass (from a given initial state or zero,
+the state entering every chunk, into a float32 workspace, and the final
+state) and the outputs pass (every chunk at once).  ``plan`` picks how each runs for the shape and the card;
 the kernel refuses a plan it cannot run.  ``launches`` counts the calls
 that launched the kernels.  ``WKVChunked`` is the autograd function around
 the forward and its backward (``rwkv_chunk_bwd``, which reads the
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -164,7 +164,7 @@ def _launch_plan(BH: int, T: int, K: int, V: int, C: int, itemsize: int,
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 8 + [_L] + [_I] * 10 + [_P]
+_ARGTYPES = [_P] * 9 + [_L] + [_I] * 10 + [_P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -186,21 +186,24 @@ def workspace(BH: int, T: int, K: int, V: int, C: int,
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                logw: torch.Tensor, u: torch.Tensor, *, chunk: int
+                logw: torch.Tensor, u: torch.Tensor, *, chunk: int,
+                state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r, k, logw: [BH, T, K]; v: [BH, T, V]; u: [BH, K]; logw <= 0.
+    """r, k, logw: [BH, T, K]; v: [BH, T, V]; u: [BH, K]; logw <= 0;
+    ``state`` the initial state, float32 [BH, K, V] (None: zero).
     Returns (out [BH, T, V] in r's dtype, final state [BH, K, V] float32),
-    the recurrence run from a zero state in chunks of ``min(chunk, T)``.
+    the recurrence run from ``state`` in chunks of ``min(chunk, T)``.
     r, k and v share one dtype (float32 or bfloat16); logw and u are each
     float32 or that dtype.  All dense and on one CUDA device."""
-    return forward_with_states(r, k, v, logw, u, chunk=chunk)[:2]
+    return forward_with_states(r, k, v, logw, u, chunk=chunk, state=state)[:2]
 
 
 def forward_with_states(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        logw: torch.Tensor, u: torch.Tensor, *, chunk: int):
+                        logw: torch.Tensor, u: torch.Tensor, *, chunk: int,
+                        state: Optional[torch.Tensor] = None):
     """``wkv_chunked``'s launch -> (out, final state, the float32
-    ``workspace`` of the states entering each chunk, which the backward
-    reads)."""
+    ``workspace`` of the states entering each chunk, ``state`` the first,
+    which the backward reads)."""
     global launches
     if r.dim() != 3 or k.shape != r.shape or logw.shape != r.shape \
             or v.dim() != 3 or v.shape[:2] != r.shape[:2] \
@@ -223,6 +226,13 @@ def forward_with_states(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise TypeError(f"wkv_chunked: {key} is {t.dtype}; float32 or "
                             f"{r.dtype} (the type of r)")
     code = check_cuda_dense("wkv_chunked", r=r, k=k, v=v)
+    if state is not None:
+        check_cuda_dense("wkv_chunked", state=state)
+        if state.shape != (BH, K, V) or state.dtype != torch.float32 \
+                or state.device != r.device:
+            raise ValueError(f"wkv_chunked: state {tuple(state.shape)} "
+                             f"{state.dtype} on {state.device}, expected "
+                             f"float32 {(BH, K, V)} on {r.device}")
     side = {}
     for key, t in (("logw", logw), ("u", u)):
         side[key] = check_cuda_dense("wkv_chunked", **{key: t})
@@ -230,25 +240,28 @@ def forward_with_states(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"wkv_chunked: {key} on {t.device}, expected "
                              f"{r.device}")
     out = torch.empty((BH, T, V), dtype=r.dtype, device=r.device)
-    state = torch.empty((BH, K, V), dtype=torch.float32, device=r.device)
+    final = torch.empty((BH, K, V), dtype=torch.float32, device=r.device)
     ws = workspace(BH, T, K, V, C, r.device)
     p = _launch_plan(BH, T, K, V, C, r.element_size(), logw.element_size(),
                      _sms(r.device))
     with torch.cuda.device(r.device):
         err = _kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        logw.data_ptr(), u.data_ptr(), out.data_ptr(),
-                        state.data_ptr(), ws.data_ptr(), BH, T, K, V, C,
+                        logw.data_ptr(), u.data_ptr(),
+                        None if state is None else state.data_ptr(),
+                        out.data_ptr(), final.data_ptr(), ws.data_ptr(), BH, T, K, V, C,
                         code, side["logw"], side["u"], *p,
                         torch.cuda.current_stream().cuda_stream)
     check_launch("wkv_chunked", err)
     launches += 1
-    return out, state, ws
+    return out, final, ws
 
 
 class WKVChunked(torch.autograd.Function):
-    """The chunked WKV with a backward: (r, k, v, logw, u, chunk) -> (out,
-    final state), as ``ops.wkv_chunked``; the backward takes the cotangents
-    of both (None for an unused one) and returns (dr, dk, dv, dlogw, du).
+    """The chunked WKV with a backward: (r, k, v, logw, u, state, chunk) ->
+    (out, final state), as ``ops.wkv_chunked`` (``state`` the initial
+    state or None); the backward takes the cotangents of both (None for an
+    unused one) and returns (dr, dk, dv, dlogw, du) and, where a state was
+    given, its gradient dS0.
     On CUDA tensors the forward is this module's kernel, whose workspace of
     entering states (16.8 MB at 128 x 512 x 64 x 64, chunk 64) is saved for
     ``rwkv_chunk_bwd.wkv_chunked_bwd``; on CPU tensors the forward is
@@ -257,21 +270,22 @@ class WKVChunked(torch.autograd.Function):
     batch through autograd."""
 
     @staticmethod
-    def forward(ctx, r, k, v, logw, u, chunk):
+    def forward(ctx, r, k, v, logw, u, state0, chunk):
         ctx.set_materialize_grads(False)
         if r.is_cuda:
             # refuse before the launch a chunk the backward cannot run
             _bwd.check_chunk(min(chunk, r.shape[1]), r.shape[2], v.shape[2])
-            out, state, ws = forward_with_states(r, k, v, logw, u, chunk=chunk)
+            out, state, ws = forward_with_states(r, k, v, logw, u, chunk=chunk,
+                                                 state=state0)
         else:
-            (out, state), ws = ref.wkv_ref(r, k, v, logw, u), None
+            (out, state), ws = ref.wkv_ref(r, k, v, logw, u, state0), None
         ctx.chunk = chunk
-        ctx.save_for_backward(r, k, v, logw, u, state, ws)
+        ctx.save_for_backward(r, k, v, logw, u, state, ws, state0)
         return out, state
 
     @staticmethod
     def backward(ctx, dout, dstate):
-        r, k, v, logw, u, state, ws = ctx.saved_tensors
+        r, k, v, logw, u, state, ws, state0 = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros(v.shape, dtype=r.dtype, device=r.device)
         dout = dout.contiguous()
@@ -280,8 +294,8 @@ class WKVChunked(torch.autograd.Function):
         if r.is_cuda:
             grads = _bwd.wkv_chunked_bwd(r, k, v, logw, u, dout, ws,
                                          chunk=ctx.chunk, dstate=dstate,
-                                         state=state)
+                                         state=state, ds0=state0 is not None)
         else:
             grads = ref.wkv_bwd_ref(r, k, v, logw, u, dout, dstate,
-                                    chunk=ctx.chunk)
-        return (*grads, None)
+                                    chunk=ctx.chunk, state=state0)
+        return (*grads[:5], grads[5] if state0 is not None else None, None)

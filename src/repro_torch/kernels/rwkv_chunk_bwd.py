@@ -6,7 +6,9 @@ of the reference's jnp ``wkv_chunked`` (``repro/models/rwkv6.py:100``), the
 form the JAX package trains through.  Given r, k, v, logw, u, the output's
 cotangent, the forward kernel's float32 workspace of the states entering
 each chunk (``rwkv_chunk.forward_with_states``) and optionally the final
-state's cotangent, it returns dr, dk, dv, dlogw and du, each in its input's type.
+state's cotangent, it returns dr, dk, dv, dlogw and du, each in its input's type,
+and, asked for it (a forward from a given initial state), dS0 in float32: the
+reverse states pass's gradient entering chunk 0.
 One call runs three kernels on the current stream (the reverse states
 pass; the gradients pass, one block a chunk with its tiles resident or,
 where that does not fit, one block a 16-row tile, as ``plan`` says; the
@@ -143,7 +145,7 @@ def ptxas(log: str) -> dict:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 18 + [_L] + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 19 + [_L] + [_I] * 7 + [_P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,13 +157,15 @@ def wkv_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     logw: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
                     states: torch.Tensor, *, chunk: int,
                     dstate: Optional[torch.Tensor] = None,
-                    state: Optional[torch.Tensor] = None):
+                    state: Optional[torch.Tensor] = None, ds0: bool = False):
     """r, k, logw: [BH,T,K]; v, dout: [BH,T,V]; u: [BH,K]; states: the
     forward's float32 [BH, ceil(T / C), K, V] at C = min(chunk, T);
     dstate (None: zero) and, with it, the forward's final ``state``:
     float32 [BH,K,V].  r, k, v and dout share one dtype (float32 or
     bfloat16); logw and u are each float32 or that dtype.  All dense on one
-    CUDA device -> (dr, dk, dv, dlogw, du)."""
+    CUDA device -> (dr, dk, dv, dlogw, du), and dS0 float32 [BH,K,V] with
+    ``ds0`` (the forward ran from a given state, which ``states`` holds
+    first)."""
     global launches
     if r.dim() != 3 or k.shape != r.shape or logw.shape != r.shape \
             or v.dim() != 3 or v.shape[:2] != r.shape[:2] \
@@ -210,6 +214,7 @@ def wkv_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_parts = _cdiv(T, C) * inst["parts"]
     xpart = torch.empty((BH, n_parts, K), **f32kw)
     upart = torch.empty((BH, n_parts, K), **f32kw)
+    dS0 = torch.empty((BH, K, V), **f32kw) if ds0 else None
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(r.device):
         err = _kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -218,8 +223,9 @@ def wkv_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         states.data_ptr(), gws.data_ptr(), dr.data_ptr(),
                         dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
                         du.data_ptr(), dlw.data_ptr(), xpart.data_ptr(),
-                        upart.data_ptr(), BH, T, K, V, C, code, side["logw"],
+                        upart.data_ptr(), ptr(dS0), BH, T, K, V, C, code, side["logw"],
                         side["u"], torch.cuda.current_stream().cuda_stream)
     check_launch("wkv_chunked_bwd", err)
     launches += 1
-    return dr, dk, dv, dlogw, du
+    grads = (dr, dk, dv, dlogw, du)
+    return grads if dS0 is None else (*grads, dS0)

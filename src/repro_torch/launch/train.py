@@ -5,7 +5,7 @@ mesh of ranks.
       --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--device cpu]
   PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
       -m repro_torch.launch.train --arch olmo-1b --reduced --mesh 2x2 \
-      [--profile 2d|fsdp|tp] [--device cpu]
+      [--profile 2d|fsdp|tp|cp] [--device cpu]
 
 Port of ``repro/launch/train.py``: config -> model -> float32 master
 weights (``requires_grad``) and AdamW state -> the deterministic synthetic
@@ -31,7 +31,11 @@ and splits heads, d_ff and vocabulary over 'model' (tensor parallelism: a
 rank of 'model' runs its share of the products); 'tp' splits over 'model'
 alike but keeps the weights whole over 'data' (plain data parallelism
 there); 'fsdp' makes the whole mesh one FSDP / data-parallel axis, no
-split products; 'cp' raises (ROADMAP item 8b).  Each rank initialises the
+split products; 'cp' holds the weights as blocks over 'data' and splits
+each row's sequence over 'model' (context parallelism: where 'model'
+divides ``--seq``, a rank of 'model' runs S / n consecutive tokens, the
+attention over K / V gathered from the ranks before it, a recurrence from
+the state the rank before left).  Each rank initialises the
 whole tree from the seed and keeps its block; checkpoints are written
 once, from gathered leaves, by rank 0, and a resume reads each rank's
 block (``checkpoint.restore_sharded``), from a checkpoint written under
@@ -84,7 +88,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--profile", default="2d", choices=sharding.PROFILES,
                     help="the mesh's layout: 2d (FSDP over data, TP over model), "
                          "tp (TP over model, data-parallel over data), fsdp "
-                         "(the whole mesh FSDP); cp is not ported")
+                         "(the whole mesh FSDP), cp (FSDP over data, each "
+                         "row's sequence split over model)")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)

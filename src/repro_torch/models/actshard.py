@@ -15,12 +15,15 @@ the JAX package calls them, so that a reader finds the counterpart.
 train step adds its ``runtime.sharding.Layout``.  ``layers.moe_apply_auto``
 reads the mesh to pick the expert-parallel MoE; the layers read the
 layout through ``split`` (which logical axes the rank computes its
-'model' block of) and ``gathered`` (the gather-at-use hook); the loss
-through ``dp``.  Without a mesh or a layout every helper is a no-op.  The
+'model' block of), ``gathered`` (the gather-at-use hook) and ``seq``
+(whether the batch's sequence is split over 'model', profile 'cp'); the
+loss through ``dp``.  Without a mesh or a layout every helper is a no-op.  The
 reference's ``_dp_entry`` (the batch dim's spec entry) is
 ``runtime.sharding._batch_axis``.
 """
 from __future__ import annotations
+
+import torch
 
 _MESH = None
 _PROFILE: str = "2d"
@@ -66,14 +69,41 @@ def gathered(tree, path: str):
 
 
 def dp():
-    """(mesh, dp axes, dp size) of the installed layout, else None."""
+    """(mesh, axes, count) of the installed layout over which a rank's loss
+    is its share of the global mean: the dp axes and their size, with
+    'model' and its size too where the batch's sequence is split over it
+    (``seq``); else None."""
     if _LAYOUT is None:
         return None
-    return _LAYOUT.mesh, _LAYOUT.dp, _LAYOUT.dp_size
+    if _LAYOUT.seq is None:
+        return _LAYOUT.mesh, _LAYOUT.dp, _LAYOUT.dp_size
+    n = _LAYOUT.mesh.sizes["model"]
+    return _LAYOUT.mesh, _LAYOUT.dp + ("model",), _LAYOUT.dp_size * n
+
+
+def seq(entry: str = "labels"):
+    """(mesh, this rank's coordinate r on 'model', the count n of 'model')
+    where the sharded step splits the sequence of the batch's ``entry``
+    over 'model' (profile 'cp'; ``runtime.sharding.Layout.set_batch``): the
+    rank holds positions r S/n ... (r + 1) S/n - 1 of its rows.  None
+    without a layout, and where the sequence is whole on every rank."""
+    if _LAYOUT is None or entry not in _LAYOUT.seq_split:
+        return None
+    mesh = _LAYOUT.mesh
+    return mesh, mesh.coords["model"], mesh.sizes["model"]
+
+
+def positions(S: int, device, entry: str = "labels"):
+    """The absolute positions [S] of the rank's S tokens of ``entry``:
+    ``arange(S)``, offset by r S under ``seq``."""
+    sq = seq(entry)
+    start = 0 if sq is None else sq[1] * S
+    return torch.arange(start, start + S, device=device)
 
 
 def batch_sharded(x):
-    """[B, ...]: batch over dp (and the sequence over 'model' under 'cp')."""
+    """[B, S, ...]: batch over dp (and the sequence over 'model' under
+    'cp'); the rank's program holds that block already (``seq``)."""
     return x
 
 

@@ -44,12 +44,15 @@ def reference_attention(q, k, v, causal: bool = True,
 
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None, *, kernels=ops) -> torch.Tensor:
+                    scale: Optional[float] = None, *, kernels=ops,
+                    q_offset: int = 0) -> torch.Tensor:
     """Fused-softmax attention.  q,k,v: [B, H, S, D] (H = full query heads);
     the operands are made dense for the kernel (a GQA-expanded or rotated
-    operand already is)."""
+    operand already is).  ``q_offset``: the position of query row 0 less
+    that of key row 0 (passed on only where it is not 0)."""
+    kw = {"q_offset": q_offset} if q_offset else {}
     return kernels.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=causal, window=window, scale=scale)
+                                   causal=causal, window=window, scale=scale, **kw)
 
 
 def flash_attention_banded(q, k, v, window: int, scale: Optional[float] = None,

@@ -25,6 +25,11 @@ heads replicated under GQA) goes through ``copy_to`` itself, so that each
 rank of 'model' gets the whole gradient.  Leaves are gathered over their
 fsdp axes where they are used (``actshard.gathered``).
 
+Under 'cp' (``actshard.seq``) a rank holds S / n consecutive tokens of its
+rows: ``attention_apply`` gathers K and V over 'model' and runs the
+kernel on its queries at their offset, and ``moe_apply`` routes the
+global batch in the reference's token order.
+
 Prefill attention goes
 through ``kernels.flash_attention`` (``models.attention``); decode
 attention is plain tensor code, as in the JAX package.
@@ -235,13 +240,15 @@ def moe_route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor):
     return probs, gate_vals, expert_idx
 
 
-def _batch_rows():
-    """(mesh, axes) over which the sharded train step splits the batch's
-    rows where it splits them over more than one rank, else None."""
+def _batch_split():
+    """(mesh, the axes over which the sharded train step splits the batch's
+    rows (those of more than one rank), ``actshard.seq()``) where it splits
+    the rows or their sequence, else None."""
     layout = actshard.current_layout()
-    if layout is None or not layout.batch_axes:
+    sq = actshard.seq()
+    if layout is None or not (layout.batch_axes or sq):
         return None
-    return layout.mesh, layout.batch_axes
+    return layout.mesh, layout.batch_axes, sq
 
 
 def moe_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
@@ -256,12 +263,17 @@ def moe_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
     and the shapes depend on N alone, so the block can be captured.
 
     Under the sharded train step with the rows split over ranks (the
-    'fsdp' profile, or a layout that keeps the experts whole) the layer is
-    the reference's GSPMD one over the global batch: the capacity is the
-    global batch's, a claim's place in its expert counts the claims of the
-    ranks before (the experts' claim counts all-gathered), the aux is
-    taken over the global batch (its mean of the router's probabilities
-    summed over the ranks); each rank runs its own tokens' claims."""
+    'fsdp' profile, or a layout that keeps the experts whole), or their
+    sequence ('cp', ``actshard.seq``), the layer is the reference's GSPMD
+    one over the global batch, in its flattened (row, position) token
+    order: the capacity is the global batch's; a claim's place in its
+    expert counts every earlier token's claims: those of every earlier
+    row, and of this row's positions on the lower ranks of 'model' (each
+    row's claim counts per expert all-gathered over 'model' and the rows'
+    axes: under 'cp' a rank's tokens are not one run of that order); the
+    aux is taken over the global batch (its mean of the router's
+    probabilities summed over the ranks); each rank runs its own tokens'
+    claims.  x: [..., S, d] (rows of S tokens) under a split."""
     m = cfg.moe
     orig_shape, d = x.shape, x.shape[-1]
     xt = x.reshape(-1, d)
@@ -270,33 +282,47 @@ def moe_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
 
     probs, gate_vals, expert_idx = moe_route(cfg, params["router"], xt)
     flat_expert = expert_idx.reshape(-1)                          # [N*k]
-    rows = _batch_rows()
+    split = _batch_split()
     n_all, before = n, None
-    if rows is not None:            # the global batch's routing (see below)
-        mesh, axes = rows
+    if split is not None:           # the global batch's routing (see below)
+        mesh, axes, sq = split
         C = coll()
-        for a in axes:
+        sums = axes + (("model",) if sq else ())
+        for a in sums:
             n_all *= mesh.sizes[a]
-        gathered = torch.zeros(1, e_pad, dtype=torch.float32, device=dev).index_add_(
-            1, flat_expert, torch.ones((1, n * k), dtype=torch.float32, device=dev))
+        rows = n // x.shape[-2] if x.dim() > 2 else 1
+        row_of = torch.arange(n * k, device=dev) // (n * k // rows)
+        mine = torch.zeros(rows * e_pad, dtype=torch.float32, device=dev).index_add_(
+            0, row_of * e_pad + flat_expert,
+            torch.ones(n * k, dtype=torch.float32, device=dev)).view(rows, 1, e_pad)
+        # [global rows, ranks of 'model', E]: each row's claims on each
+        # rank's positions, in the global token order
+        gathered = mine if not sq else C.all_gather(mine, mesh, "model", 1)
         for a in reversed(axes):
-            gathered = C.all_gather(gathered.detach(), mesh, a, 0)
+            gathered = C.all_gather(gathered, mesh, a, 0)
         me_idx = 0
         for a in axes:
             me_idx = me_idx * mesh.sizes[a] + mesh.coords[a]
-        before = gathered[:me_idx].sum(0)                         # [E]
-        counts = gathered.sum(0)
+        r, n_m = (sq[1], sq[2]) if sq else (0, 1)
+        flat = gathered.reshape(-1, e_pad)
+        earlier = torch.cumsum(flat, 0) - flat
+        at = (me_idx * rows + torch.arange(rows, device=dev)) * n_m + r
+        # the claims before each local row's first, less those of the
+        # rank's own earlier rows (which the local cumsum counts)
+        mine = mine[:, 0]
+        before = earlier[at] - (torch.cumsum(mine, 0) - mine)       # [rows, E]
+        counts = flat.sum(0)
 
     # load-balancing aux loss (Switch-style), over real experts only
-    if rows is None:
+    if split is None:
         me = probs[:, :e_real].mean(0)
         ce = torch.zeros(e_pad, dtype=torch.float32, device=dev).index_add_(
             0, flat_expert,
             torch.full((n * k,), 1.0 / (n * k), dtype=torch.float32, device=dev))
     else:
         me = probs[:, :e_real].sum(0)
-        for a in rows[1]:
-            me = coll().psum(me, rows[0], a)
+        for a in sums:
+            me = coll().psum(me, mesh, a)
         me = me / n_all
         ce = counts / (n_all * k)
     aux_loss = e_real * torch.sum(me * ce[:e_real])
@@ -312,7 +338,7 @@ def moe_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
     if before is None:
         keep = pos_in_expert < capacity
     else:               # a claim's place among the global batch's claims
-        keep = pos_in_expert + before.long()[flat_expert] < capacity
+        keep = pos_in_expert + before.long()[row_of, flat_expert] < capacity
         capacity = min(capacity, n * k)
     sentinel = e_pad * capacity
     slot = torch.where(keep, flat_expert * capacity + pos_in_expert, sentinel)
@@ -507,11 +533,23 @@ def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
                     causal: Optional[bool] = None,
                     window: Optional[int] = None, kernels=ops,
                     kv_x: Optional[torch.Tensor] = None,
-                    kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_positions: Optional[torch.Tensor] = None,
+                    kv_entry: str = "labels") -> torch.Tensor:
     """Full-sequence attention (train / prefill); cross-attention into
     ``kv_x`` where given.  Under ``actshard.split("heads")`` the rank
     computes its block of the heads (column-parallel q / k / v, the kernel
-    on H/tp heads, row-parallel ``out_project`` summed over 'model')."""
+    on H/tp heads, row-parallel ``out_project`` summed over 'model').
+
+    Under ``actshard.seq(kv_entry)`` (the batch entry whose sequence the
+    keys come from: the tokens', or the encoder's frames) the rank holds
+    S / n consecutive positions of the keys' sequence (RoPE already at
+    them): k and v are gathered over 'model' before the GQA expansion (the
+    wire carries the KV heads), the gather's adjoint handing each rank the
+    sum of dK / dV of its block.  Causal attention (self-attention, whose
+    queries are the rank's block of the same sequence) keeps the first
+    (r + 1) S / n keys and runs the kernel at ``q_offset`` r S / n, so that
+    the window holds across the shard's edge; non-causal attention takes
+    every key at offset 0."""
     causal_ = cfg.causal if causal is None else causal
     window_ = cfg.window if window is None else window
     tp = actshard.split("heads")
@@ -522,9 +560,19 @@ def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
         params = _split_heads(cfg, params, tp)
     q, k, v = qkv_project(cfg, params, x, positions, kv_x=kv_x,
                           kv_positions=kv_positions)
+    offset = 0
+    sq = actshard.seq(kv_entry)
+    if sq is not None:
+        mesh, r, _ = sq
+        S = k.shape[2]
+        k, v = torch.unbind(coll().all_gather(torch.stack([k, v]), mesh, "model", 3))
+        if causal_:
+            offset = r * S
+            k, v = k[:, :, :offset + S], v[:, :, :offset + S]
     if k.shape[1] != q.shape[1]:
         k, v = expand_kv(cfg, k, v)
-    o = attn_lib.flash_attention(q, k, v, causal_, window_, kernels=kernels)
+    o = attn_lib.flash_attention(q, k, v, causal_, window_, kernels=kernels,
+                                 q_offset=offset)
     o = actshard.attn_out_sharded(o)
     out = out_project(params, o, x.dtype)
     if tp is not None:

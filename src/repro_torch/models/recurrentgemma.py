@@ -30,7 +30,10 @@ Under the sharded train step each block gathers its leaves inside the
 remat'd function (``actshard.gathered``) and splits its heads, d_ff and
 recurrence width over 'model' (``_recurrent_block``, ``layers``); the MQA
 blocks' one KV head is replicated, and each rank projects it for its
-query heads.
+query heads.  Under 'cp' (``actshard.seq``) a rank holds S / n consecutive
+positions: the convolution reads the rank before's last cw - 1 inputs, the
+RG-LRU starts from the state it left (``collectives.chain``), and the
+attention blocks gather K / V (``layers.attention_apply``).
 
 The cache is the reference's, quirks included: K/V of the prompt's length
 (a ring of ``window`` slots past it), and a decode step writes at ``step``
@@ -225,16 +228,38 @@ def _recurrent_block(cfg: ModelConfig, rec: Params, u: torch.Tensor):
     its block of the W channels: ``wy`` / ``wx`` column-parallel, the
     convolution and the RG-LRU scan on W/tp channels, the gates' products
     on the convolution's output gathered over 'model' (their columns the
-    rank's), ``wo`` row-parallel and summed over 'model'."""
+    rank's), ``wo`` row-parallel and summed over 'model'.  Under
+    ``actshard.seq`` the rank's positions continue the rank before's: the
+    convolution's state is its last cw - 1 rows of ``x_branch`` (by
+    ``collectives.ppermute``, zeros on rank 0 as at the sequence's start),
+    and the RG-LRU's h0 its h_last (``collectives.chain``)."""
     dtype = u.dtype
     tp = actshard.split("ff")
     if tp is not None:
         u = coll().copy_to(u, tp, "model")
     y_branch = L.activation("gelu", u @ rec["wy"].to(dtype))
     x_branch = u @ rec["wx"].to(dtype)
-    x_branch, new_conv = causal_conv1d(rec, x_branch)
+    sq = actshard.seq()
+    conv_in = None
+    if sq is not None:
+        mesh, _, n = sq
+        cw = rec["conv_w"].shape[0]
+        if x_branch.shape[1] < cw - 1:
+            raise ValueError(f"recurrentgemma: {x_branch.shape[1]} positions a rank "
+                             f"under 'cp', fewer than the convolution's {cw - 1} "
+                             f"inputs from the rank before")
+        conv_in = coll().ppermute(x_branch[:, x_branch.shape[1] - (cw - 1):], mesh,
+                                  "model", [(i, i + 1) for i in range(n - 1)])
+    x_branch, new_conv = causal_conv1d(rec, x_branch, conv_in)
     whole = None if tp is None else coll().all_gather(x_branch, tp, "model", -1)
-    x_branch, h_last = rg_lru(rec, x_branch, u_whole=whole)
+    if sq is None:
+        x_branch, h_last = rg_lru(rec, x_branch, u_whole=whole)
+    else:
+        B, W = x_branch.shape[0], x_branch.shape[2]
+        x_branch, h_last = coll().chain(
+            lambda h0: rg_lru(rec, x_branch, h0, whole), mesh, "model",
+            like=torch.empty((B, W), dtype=torch.float32, device=u.device),
+            anchor=x_branch)
     out = (y_branch * x_branch) @ rec["wo"].to(dtype)
     if tp is not None:
         out = coll().reduce_from(out, tp, "model")
@@ -242,8 +267,9 @@ def _recurrent_block(cfg: ModelConfig, rec: Params, u: torch.Tensor):
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
+    """The rank's positions [B, S] (offset under 'cp')."""
     B, S = x.shape[0], x.shape[1]
-    return torch.arange(S, device=x.device).expand(B, S)
+    return actshard.positions(S, x.device).expand(B, S)
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,

@@ -11,10 +11,10 @@ Where the work goes:
   hand-written chunked kernel on a CUDA tensor (``ops``, the default) or
   the per-token ``ref.wkv_ref`` (``kernels=ref.PLAIN``, or any CPU
   tensor).  The layout goes [B,T,H,K] -> [B*H,T,K] and ``u = faaaa`` is
-  repeated over the batch.  Like the TPU kernel it runs from a zero
-  state: ``forward`` and ``prefill`` start there (``state=None``), and
-  ``time_mix`` raises if asked for T > 1 from a non-zero state, which no
-  caller does;
+  repeated over the batch.  ``forward`` and ``prefill`` start from the
+  zero state (``state=None``); ``time_mix`` at T > 1 from a given state
+  hands it to the kernel, as the reference's ``wkv_chunked(..., state,
+  chunk)`` starts from it;
 - one token (decode) -> ``wkv_recurrent_step``, plain tensor code, as in
   the JAX package, where decode reaches no kernel either;
 - ``channel_mix`` and every projection stay plain matrix products
@@ -27,7 +27,12 @@ from the replicated token-shift mixes, the WKV kernel on [B*H/tp, T, K],
 ``faaaa`` and the per-head group norm on the rank's heads, ``decay`` and
 ``td_w2`` (replicated, on 'embed') cut to the rank's channels, ``wo``
 row-parallel and summed over 'model'; the channel mix as ``channel_mix``
-says.  The LoRA mixes and norms stay replicated.
+says.  The LoRA mixes and norms stay replicated.  Under 'cp'
+(``actshard.seq``) a rank holds S / n consecutive tokens: each token
+shift's x_prev is the rank before's last row of the same normed input
+(``collectives.ppermute``; zeros on rank 0, the one-process x_prev), and
+each layer's WKV starts from the state the rank before left
+(``collectives.chain``: the ranks launch the kernel in turn).
 
 ``wkv_chunked`` here is the JAX module's XLA-level chunked form with a
 carried state, kept as a plain torch function that the tests hold against
@@ -207,17 +212,21 @@ def wkv_recurrent_step(r, k, v, logw, u, state):
     return out.to(r.dtype), state
 
 
-def _wkv_kernel(kernels, r, k, v, logw, u, chunk: int):
-    """[B,T,H,K] operands -> the [B*H,T,K] kernel layout and back, from a
-    zero state.  Returns (out [B,T,H,V], state [B,H,K,V])."""
+def _wkv_kernel(kernels, r, k, v, logw, u, chunk: int,
+                state: Optional[torch.Tensor] = None):
+    """[B,T,H,K] operands -> the [B*H,T,K] kernel layout and back, from
+    ``state`` [B,H,K,V] (None: zero).  Returns (out [B,T,H,V], state
+    [B,H,K,V])."""
     B, T, H, K = r.shape
     V = v.shape[-1]
 
     def flat(x):   # a dense copy: at B = 1 the reshape alone is a strided view
         return x.permute(0, 2, 1, 3).reshape(B * H, T, x.shape[-1]).contiguous()
 
+    kw = ({} if state is None else
+          {"state": state.float().reshape(B * H, K, V).contiguous()})
     out, state = kernels.wkv_chunked(flat(r), flat(k), flat(v), flat(logw),
-                                     u.repeat(B, 1), chunk=chunk)
+                                     u.repeat(B, 1), chunk=chunk, **kw)
     return (out.reshape(B, H, T, V).permute(0, 2, 1, 3),
             state.reshape(B, H, K, V))
 
@@ -260,7 +269,9 @@ def time_mix(cfg: ModelConfig, tm: Params, x: torch.Tensor,
              x_prev: torch.Tensor, state: Optional[torch.Tensor], chunk: int,
              kernels=ops):
     """Returns (out [B,T,D], new_x_prev [B,D], new_state [B,H,K,V]).
-    ``state=None`` is the zero state."""
+    ``state=None`` is the zero state; at T > 1 the kernel starts from the
+    given one.  Under ``actshard.seq`` the WKV starts from the state the
+    rank before on 'model' left (``collectives.chain``)."""
     dtype = x.dtype
     B, T, _ = x.shape
     K = cfg.wkv_head_dim
@@ -293,11 +304,15 @@ def time_mix(cfg: ModelConfig, tm: Params, x: torch.Tensor,
         out1, state = wkv_recurrent_step(
             r[:, 0], k[:, 0], v[:, 0], logw[:, 0], tm["faaaa"], state)
         out = out1[:, None]
-    else:
-        if state is not None and bool(state.any()):
-            raise ValueError("time_mix: T > 1 runs the chunked kernel, which "
-                             "starts from a zero state")
-        out, state = _wkv_kernel(kernels, r, k, v, logw, tm["faaaa"], chunk)
+    elif actshard.seq() is None:
+        out, state = _wkv_kernel(kernels, r, k, v, logw, tm["faaaa"], chunk, state)
+    else:       # from the state the rank before left (rank 0: ``state``)
+        mesh = actshard.seq()[0]
+        out, state = coll().chain(
+            lambda s0: _wkv_kernel(kernels, r, k, v, logw, tm["faaaa"], chunk,
+                                   state if s0 is None else s0),
+            mesh, "model", like=torch.empty((B, H, K, K), dtype=torch.float32,
+                                            device=x.device), anchor=r)
     out = out.reshape(B, T, D)
     out = _group_norm(out, tm["lnx_scale"], tm["lnx_bias"], H)
     out = (out * g) @ tm["wo"].to(dtype)
@@ -346,14 +361,25 @@ def _blocks(cfg: ModelConfig, params: Params, x: torch.Tensor, kernels,
         prev_tm, prev_cm, states = cache.shift_tm, cache.shift_cm, cache.state
     st, sh_tm, sh_cm = [], [], []
 
+    sq = actshard.seq()
+
+    def from_rank_before(h, prev):
+        """The rank before's last row of ``h`` under 'cp' (zeros on rank
+        0), else ``prev``."""
+        if sq is None:
+            return prev
+        mesh, _, n_m = sq
+        return coll().ppermute(h[:, -1, :], mesh, "model",
+                               [(i, i + 1) for i in range(n_m - 1)])
+
     def layer(bp, x, prev_tm, prev_cm, state):
         bp = actshard.gathered(bp, "blocks")
         h = L.norm_apply(cfg, bp["ln1"], x)
-        h, s_tm, s = time_mix(cfg, bp["tm"], h, prev_tm, state, cfg.wkv_chunk,
-                              kernels)
+        h, s_tm, s = time_mix(cfg, bp["tm"], h, from_rank_before(h, prev_tm),
+                              state, cfg.wkv_chunk, kernels)
         x = x + h
         h = L.norm_apply(cfg, bp["ln2"], x)
-        h, s_cm = channel_mix(bp["cm"], h, prev_cm)
+        h, s_cm = channel_mix(bp["cm"], h, from_rank_before(h, prev_cm))
         return x + h, s, s_tm, s_cm
 
     for i, bp in enumerate(per_layer(params["blocks"], n)):

@@ -26,7 +26,11 @@ no kernel (as in the JAX package).  Under the sharded train step each
 block gathers its leaves inside the remat'd function
 (``actshard.gathered``) and splits its heads and d_ff over 'model'
 (``layers``), the cross-attention's K / V projected from the replicated
-memory on the rank's heads.
+memory on the rank's heads.  Under 'cp' (``actshard.seq``) a rank holds
+S / n consecutive frames and tokens (each where 'model' divides its
+length): sinusoids at the rank's positions, the encoder's and the
+cross-attention's K / V gathered over 'model' (all keys, offset 0), the
+decoder's self-attention causal at the rank's offset.
 
 The cache is the reference's: the decoder's self K/V padded with zeros to
 ``decode_len`` at prefill (the source length where it is not given), the
@@ -152,7 +156,7 @@ def encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor, *,
     """src_embeds: [B, T_src, D] precomputed frames -> encoder memory.
     ``remat``: each block under ``layers.remat_call``."""
     B, S, _ = src_embeds.shape
-    positions = torch.arange(S, device=src_embeds.device).expand(B, S)
+    positions = actshard.positions(S, src_embeds.device, "inputs_embeds").expand(B, S)
     x = src_embeds.to(cfg.compute_dtype)
     x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
 
@@ -160,7 +164,7 @@ def encode(cfg: ModelConfig, params: Params, src_embeds: torch.Tensor, *,
         bp = actshard.gathered(bp, "enc_blocks")
         h = L.norm_apply(cfg, bp["ln1"], x)
         x = x + L.attention_apply(cfg, bp["attn"], h, None, causal=False,
-                                  kernels=kernels)
+                                  kernels=kernels, kv_entry="inputs_embeds")
         return _mlp(cfg, bp, x)
 
     for bp in per_layer(params["enc_blocks"], cfg.num_encoder_layers):
@@ -177,8 +181,7 @@ def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                  memory: torch.Tensor, *, kernels=ops,
                  remat: bool = False) -> torch.Tensor:
     B, S = tokens.shape
-    x = _embed(cfg, params, tokens,
-               torch.arange(S, device=tokens.device).expand(B, S))
+    x = _embed(cfg, params, tokens, actshard.positions(S, tokens.device).expand(B, S))
 
     def block(bp, x, memory):
         bp = actshard.gathered(bp, "dec_blocks")
@@ -187,7 +190,8 @@ def decode_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                   kernels=kernels)
         h = L.norm_apply(cfg, bp["ln_x"], x)
         x = x + L.attention_apply(cfg, bp["xattn"], h, None, causal=False,
-                                  kernels=kernels, kv_x=memory)
+                                  kernels=kernels, kv_x=memory,
+                                  kv_entry="inputs_embeds")
         return _mlp(cfg, bp, x)
 
     for bp in per_layer(params["dec_blocks"], cfg.num_layers):

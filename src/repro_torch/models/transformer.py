@@ -129,8 +129,8 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
     B, S = x.shape[0], x.shape[1]
     if "positions" in batch:
         positions = batch["positions"]
-    else:
-        pos = torch.arange(S, device=x.device)
+    else:                   # the rank's positions under 'cp'
+        pos = actshard.positions(S, x.device)
         positions = (pos.expand(3, B, S) if cfg.rope == "mrope"
                      else pos.expand(B, S))
     return x, positions

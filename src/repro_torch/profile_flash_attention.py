@@ -160,7 +160,7 @@ def phases(lib: ctypes.CDLL, BH: int, S: int, D: int, flush: torch.Tensor,
         if lib.profile_reset() != 0:
             raise RuntimeError("profile_flash_attention: reset failed")
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, BH, S,
-                 S, D, 1.0, 0, 0, 0, 1, p["splits"], p["row_splits"], 0, stream)
+                 S, D, 1.0, 0, 0, 0, 0, 1, p["splits"], p["row_splits"], 0, stream)
         torch.cuda.synchronize()
         if err != 0:
             raise RuntimeError(f"profile_flash_attention: launch failed, CUDA "

@@ -2,6 +2,7 @@
 ``PLAN`` rests on.
 
     python -m repro_torch.profile_flash_attention_bwd [--out FILE.json] [--source PATH ...]
+    PYTHONPATH=OTHER/src python src/repro_torch/profile_flash_attention_bwd.py --ops
 
 Needs one CUDA device and ``nvcc``.  At the five trained shapes (SHAPES:
 h2o-danube's 4 x 32 x 512 x 80 causal with K / V on 8 heads repeated over
@@ -34,6 +35,13 @@ For each variant at each shape:
 ``<- plan`` marks the variant whose instance the port's PLAN gives the
 shape.  A variant whose instance at a shape is the same as an earlier
 one's (its shared memory did not fit that row) is not timed again there.
+
+``--ops`` times only the wrapper ``flash_attention_bwd.flash_attention_bwd``
+(given the forward's out and lse) at SHAPES, ROUNDS medians of REPS calls,
+checked as above: run as a file with another checkout's ``src`` first on
+PYTHONPATH, it times that checkout's kernel (one whose C entry takes other
+arguments than this one's, which ``--source`` cannot load), so that two
+versions are compared in one call on one card.
 """
 from __future__ import annotations
 
@@ -246,12 +254,36 @@ def shape_run(name, shape, dtype, libs, rows, flush) -> dict:
                 dtype=plan["dtype"], plan=plan, variants=recs)
 
 
+def ops_times(flush: torch.Tensor) -> list[dict]:
+    """The wrapper of the package on the path at SHAPES: ms (the median of
+    ROUNDS rounds of REPS calls) and the max error against autograd of
+    ``ref.attention_ref``."""
+    rows = []
+    for name, shape, dtype in SHAPES:
+        q, k, v, dout, kw = inputs(*shape, dtype)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(ref.attention_ref(*leaves, **kw), leaves, dout)
+
+        def call():
+            return fb.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+
+        err = check(call(), want)
+        ms = statistics.median(event_ms(call, flush) for _ in range(ROUNDS))
+        rows.append(dict(name=name, shape=list(shape[:5]), dtype=str(dtype).split(".")[-1],
+                         ms=ms, max_abs_err=err))
+        print(f"ops flash_attention_bwd {name}: {ms:.4f} ms, err {err:.2e}", flush=True)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--source", action="append", default=[],
                     help="one more kernel source to build and time beside the variants "
                          "(the parent's, say); may be given more than once")
+    ap.add_argument("--ops", action="store_true",
+                    help="time only the wrapper of the package on the path at SHAPES")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_flash_attention_bwd: needs a CUDA device")
@@ -259,6 +291,17 @@ def main() -> None:
                           "--format=csv,noheader"], stdout=subprocess.PIPE,
                          text=True).stdout.strip()
     print(f"device {smi}")
+    if a.ops:
+        _build.library()
+        flush = torch.empty(256 * 1024 * 1024, dtype=torch.int8, device="cuda")
+        print(f"ops: the package at {Path(_build.__file__).parents[2]}", flush=True)
+        rows = ops_times(flush)
+        if a.out:
+            Path(a.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(a.out).write_text(json.dumps(dict(
+                device=smi, package=str(Path(_build.__file__).parents[2]), ops=rows),
+                indent=1))
+        return
     sources, rows = {}, {}
     for keys in KEYS:
         for stages in STAGES:

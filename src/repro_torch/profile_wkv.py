@@ -247,7 +247,7 @@ class Call:
         """A call of the C entry at plan ``p`` that launches ``passes`` (1
         the states pass, 2 the outputs pass, 3 both)."""
         ptrs = [t.data_ptr() for t in self.args] + [
-            self.out.data_ptr(), self.state.data_ptr(), self.ws.data_ptr()]
+            None, self.out.data_ptr(), self.state.data_ptr(), self.ws.data_ptr()]
         conf = [p[key] for key in ("wv", "warps", "rows")]
 
         def launch():

@@ -1,6 +1,7 @@
 """Where a call of the WKV backward kernel spends its time.
 
     python -m repro_torch.profile_wkv_bwd [--out FILE.json] [--source PATH ...]
+    PYTHONPATH=OTHER/src python src/repro_torch/profile_wkv_bwd.py --ops
 
 Needs one CUDA device and ``nvcc``.  At RWKV-6's trained shape (B*H =
 4*32, T = 512, K = V = 64, chunk 64, bfloat16 r/k/v/dout, float32 logw
@@ -36,6 +37,13 @@ diagonal block, the chunk's states, the other tiles, dlogw's suffix,
 stores); the median over the groups of each tile index (tile 0 visits the
 three later tiles, tile 3 multiplies against the 48 earlier rows) and over
 all groups.
+
+``--ops`` times only the wrapper ``rwkv_chunk_bwd.wkv_chunked_bwd`` (given
+the forward's workspace) at SHAPES, ROUNDS medians of REPS calls, checked
+as above: run as a file with another checkout's ``src`` first on
+PYTHONPATH, it times that checkout's kernel (one whose C entry takes other
+arguments than this one's, which ``--source`` cannot load), so that two
+versions are compared in one call on one card.
 """
 from __future__ import annotations
 
@@ -267,12 +275,36 @@ def phases(lib, shape) -> dict:
                 groups=int(len(rows)))
 
 
+def ops_times(flush: torch.Tensor) -> list[dict]:
+    """The wrapper of the package on the path at SHAPES: ms (the median of
+    ROUNDS rounds of REPS calls) and the worst relative L2 error against
+    autograd of ``wkv_ref``."""
+    rows = []
+    for BH, T, K, V, chunk in SHAPES:
+        args, dout = inputs(BH, T, K, V)
+        plain = [t.clone().requires_grad_() for t in args]
+        want = torch.autograd.grad(ref.wkv_ref(*plain)[0], plain, dout)
+        _, _, ws = wkv.forward_with_states(*args, chunk=chunk)
+
+        def call():
+            return wkv_bwd.wkv_chunked_bwd(*args, dout, ws, chunk=chunk)
+
+        rel = check(call, want)
+        ms = statistics.median(event_ms(call, flush) for _ in range(ROUNDS))
+        rows.append(dict(shape=[BH, T, K, V, chunk], ms=ms, rel_l2=rel))
+        print(f"ops wkv_chunked_bwd[{BH}x{T}x{K}->{V} chunk={chunk} bf16]: {ms:.4f} ms, "
+              f"rel L2 {rel:.2e}", flush=True)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--source", action="append", default=[],
                     help="one more kernel source to build and time beside this one "
                          "(the parent's, say); may be given more than once")
+    ap.add_argument("--ops", action="store_true",
+                    help="time only the wrapper of the package on the path at SHAPES")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_wkv_bwd: needs a CUDA device")
@@ -281,6 +313,16 @@ def main() -> None:
                          text=True).stdout.strip()
     print(f"device {smi}")
     _build.library()   # the forward kernel
+    if a.ops:
+        flush = torch.empty(256 * 1024 * 1024, dtype=torch.int8, device="cuda")
+        print(f"ops: the package at {Path(_build.__file__).parents[2]}", flush=True)
+        rows = ops_times(flush)
+        if a.out:
+            Path(a.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(a.out).write_text(json.dumps(dict(
+                device=smi, package=str(Path(_build.__file__).parents[2]), ops=rows),
+                indent=1))
+        return
     sources = {"kernel": (_build.CSRC / "wkv_chunked_bwd.cu").read_text(),
                "stamps": instrumented_source()}
     for path in a.source:

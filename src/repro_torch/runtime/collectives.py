@@ -6,7 +6,8 @@ the axis's process group.
 Where a gradient flows through them they are ``torch.autograd.Function``s
 whose backward is the forward's adjoint: ``psum``'s is ``psum``,
 ``all_gather``'s the sum of the gradients over the axis cut to this rank's
-slice, ``ppermute``'s the reverse permutation.  So the gradient each rank
+slice, ``ppermute``'s the reverse permutation, ``chain``'s sends the
+reverse way.  So the gradient each rank
 computes is that of the SUM over the ranks of each rank's loss, its share
 of it: the gradient of the ranks' mean loss is the mean of the ranks'
 gradients over every mesh axis (``mesh_mean``).  Ranks that hold the same
@@ -26,6 +27,15 @@ backward) at a row-parallel product's partial output; ``gather_from``
 (all-gather forward, the rank's slice backward) where a split value is
 used whole by replicated code.  ``pmax`` is a max over the axis with no
 gradient (the logsumexp's shift).
+
+``chain`` runs a step on each rank of an axis in coordinate order, each
+rank's starting from the state the one before it left (a recurrence over
+a sequence split across the axis): a send to the next rank and a receive
+from the one before, each an autograd node.  Both ends of a message must
+be nodes that the backward runs, or the one that waits for the gradient
+would wait for ever: the send returns the step's output through itself
+(a tensor the loss reads), and the receive hangs from a tensor of the
+rank's own graph (``anchor``, its gradient zero).
 
 A collective over an axis of one rank is its input: nothing is sent (a
 (1, 1) mesh's step is the one-device step, bit for bit).
@@ -61,6 +71,23 @@ def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     global host_staged_bytes
     host_staged_bytes += x.numel() * x.element_size()
     return x.to(device)
+
+
+def _send(x: torch.Tensor, mesh, axis: str, dst: int) -> None:
+    src = x.detach().contiguous()
+    if _staged(src, mesh):
+        src = _to_host(src)
+    dist.send(src, mesh.axis_ranks[axis][dst])
+
+
+def _recv(meta, mesh, axis: str, src: int) -> torch.Tensor:
+    """A tensor of ``meta`` = (shape, dtype, device) from coordinate
+    ``src``."""
+    shape, dtype, device = meta
+    staged = device.type == "cuda" and mesh.backend == "gloo"
+    buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else device)
+    dist.recv(buf, mesh.axis_ranks[axis][src])
+    return _to_device(buf, device) if staged else buf
 
 
 def axis_index(mesh, axis: str) -> int:
@@ -145,6 +172,38 @@ class _PPermute(torch.autograd.Function):
     def backward(ctx, g):
         back = [(d, s) for s, d in ctx.perm]
         return _permute(g, ctx.mesh, ctx.axis, back), None, None, None
+
+
+class _SendThrough(torch.autograd.Function):
+    """Sends ``x`` to coordinate ``dst`` and returns ``carrier``; the
+    backward receives x's gradient from ``dst``."""
+
+    @staticmethod
+    def forward(ctx, x, carrier, mesh, axis, dst):
+        ctx.mesh, ctx.axis, ctx.dst = mesh, axis, dst
+        ctx.meta = (x.shape, x.dtype, x.device)
+        _send(x, mesh, axis, dst)
+        return carrier.view_as(carrier)
+
+    @staticmethod
+    def backward(ctx, g):
+        dx = _recv(ctx.meta, ctx.mesh, ctx.axis, ctx.dst)
+        return dx, g, None, None, None
+
+
+class _RecvHung(torch.autograd.Function):
+    """A tensor like ``like`` received from coordinate ``src``; the backward
+    sends its gradient back to ``src`` (``anchor`` gets none)."""
+
+    @staticmethod
+    def forward(ctx, anchor, like, mesh, axis, src):
+        ctx.mesh, ctx.axis, ctx.src = mesh, axis, src
+        return _recv((like.shape, like.dtype, like.device), mesh, axis, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        _send(g, ctx.mesh, ctx.axis, ctx.src)
+        return None, None, None, None, None
 
 
 class _CopyTo(torch.autograd.Function):
@@ -240,6 +299,27 @@ def ppermute(x: torch.Tensor, mesh, axis: str,
     sends the source's ``x`` to the destination; a rank that receives
     nothing gets zeros."""
     return _PPermute.apply(x, mesh, axis, tuple(perm))
+
+
+def chain(step, mesh, axis: str, like: torch.Tensor, anchor: torch.Tensor):
+    """``step(state) -> (out, state_out)`` run by the ranks of ``axis`` one
+    after another in coordinate order, rank i's ``state`` rank i - 1's
+    ``state_out`` (None on rank 0, as on an axis of one rank), received
+    into a tensor like ``like``.  Returns this rank's (out, state_out).
+    Under autograd the states' gradients go back the other way, rank i + 1
+    to rank i: ``anchor`` is a tensor of this rank's graph that leads to
+    the leaves asked for (its gradient is zero), so that the backward runs
+    the receive, and the send goes through ``out``, which the loss must
+    read.  A rank's step starts when the one before it has sent: the ranks
+    run in turn."""
+    me, n = mesh.coords[axis], mesh.sizes[axis]
+    state = None
+    if me > 0:
+        state = _RecvHung.apply(anchor, like, mesh, axis, me - 1)
+    out, last = step(state)
+    if me < n - 1:
+        out = _SendThrough.apply(last, out, mesh, axis, me + 1)
+    return out, last
 
 
 def mesh_mean(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -291,12 +291,17 @@ class Layout:
     gathered over 'model' at use instead (KV heads divide 'model' only where
     the query heads do: their count divides the query heads'); ``dp`` the mesh's dp
     axes under the profile; ``batch_axes`` those the current step's batch
-    rows are split over (``set_batch``)."""
+    rows are split over, ``seq`` the mesh where its labels' sequence is
+    split over 'model' (profile 'cp', 'model' of more than one rank and
+    dividing the sequence), else None, ``seq_split`` the batch entries
+    whose sequence is, and ``batch_specs`` the specs the rank takes its
+    block of the batch by (``set_batch``)."""
 
     def __init__(self, cfg: ModelConfig, mesh, defs: Tree, profile: str = "2d"):
         self.mesh, self.defs = mesh, defs
         self.rules = model_param_rules(cfg, mesh, defs, profile=profile)
         self.pspecs = param_lib.param_pspecs(defs, self.rules)
+        self.profile = profile
         self.dp = dp_axes(mesh, profile)
         self.dp_size = dp_size(mesh, profile)
         sizes = mesh_axis_sizes(mesh)
@@ -310,12 +315,29 @@ class Layout:
             whole.add("ff")
         self.whole = frozenset(whole & on)
         self.batch_axes: Tuple[str, ...] = ()
+        self.seq = None
+        self.seq_split: frozenset = frozenset()
 
-    def set_batch(self, spec) -> None:
-        """The axes over which a step's batch rows are split (its spec's
-        first entry), those of more than one rank."""
-        self.batch_axes = tuple(a for a in _entry_axes(spec[0])
+    def set_batch(self, specs: Dict[str, Any]) -> None:
+        """A step's batch layout from its entries' specs
+        (``batch_pspecs``): the axes over which its rows are split (the
+        labels' first entry), those of more than one rank, and under 'cp'
+        the entries whose sequence is split over 'model' (no other entry of
+        a 'cp' batch spec names 'model'; ``batch_pspecs`` keeps a sequence
+        that 'model' does not divide whole).  Where the labels' sequence is
+        whole, so is every entry's: the ranks of 'model' then hold the same
+        tokens, frames included."""
+        self.batch_axes = tuple(a for a in _entry_axes(specs["labels"][0])
                                 if self.mesh.sizes[a] > 1)
+        cp = self.profile == "cp" and self.mesh.sizes.get("model", 1) > 1
+        split = cp and "model" in spec_axes(specs["labels"])
+        self.seq_split = frozenset(k for k, spec in specs.items()
+                                   if split and "model" in spec_axes(spec))
+        self.seq = self.mesh if split else None
+        self.batch_specs = {
+            k: spec if not cp or k in self.seq_split
+            else P(*(None if e == "model" else e for e in spec))
+            for k, spec in specs.items()}
 
     def split(self, logical: str):
         """The mesh where the rank holds and computes its 'model' block of

@@ -28,7 +28,15 @@ reduce-scatter.  Under '2d' and 'tp' the products are split over 'model'
 (column-parallel q / k / v, MLP input and head, row-parallel attention
 output and MLP output summed over 'model', the vocabulary's cross entropy
 taken over 'model': ``loss_from_logits``), so a rank of 'model' runs its
-heads, d_ff and vocabulary slice of the rank's rows.  Each rank's loss is
+heads, d_ff and vocabulary slice of the rank's rows.  Under 'cp' the
+parameters are blocks over 'data' and whole over 'model', and where 'model'
+divides the sequence (``sharding.Layout.seq``) a rank of 'model' holds and
+computes S / cp consecutive tokens of its rows: attention gathers K and V
+over 'model', a recurrence takes the state the rank before left
+(``collectives.chain``), each rank's loss is its share of the mean over
+every rank's tokens, and every gradient is summed over 'model' too.  Where
+'model' does not divide it, its ranks hold the same tokens and nothing is
+summed over 'model'.  Each rank's loss is
 its share of the global mean (its rows' mean over the dp size, or its
 masked sum over the mask's global count), so the sum of the ranks'
 gradients is the gradient of the global loss; a leaf that no hook gathers
@@ -65,9 +73,10 @@ def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tenso
     pad region is masked to -1e30 before the logsumexp.
 
     Under the sharded step's layout (``actshard.dp``) it is the rank's
-    share of the global mean: its rows' mean over the dp size, or with a
-    ``loss_mask`` its masked sum over the mask's sum over the dp axes (the
-    reference's global masked mean).  Where the layout splits the
+    share of the global mean: its tokens' mean over the dp size (times the
+    'model' size where 'cp' splits the sequence), or with a ``loss_mask``
+    its masked sum over the mask's sum over the dp axes (and 'model'), the
+    reference's global masked mean.  Where the layout splits the
     vocabulary (``actshard.split("vocab")``) ``logits`` is the rank's
     slice and the cross entropy is taken over 'model': the max over the
     axis (no gradient), the sum of exponentials over it, the gold logit
@@ -179,8 +188,7 @@ def build_train_step(
     {"loss", "ce", "aux", "grad_norm", "lr"} as 0-d float32 tensors on the
     parameters' device.  Under a ``mesh`` the parameters and moments are
     the rank's blocks, the batch the global one, and the metrics the
-    mesh's (module docstring); profile 'cp' raises
-    ``NotImplementedError``."""
+    mesh's, the same on every rank (module docstring)."""
     grad_fn = build_grad_fn(cfg, kernels=kernels, remat=remat,
                             ibn_chunks=ibn_chunks, cast_params=cast_params)
     opt = dict(lr_schedule=lr_schedule, clip_norm=clip_norm,
@@ -211,19 +219,14 @@ def _update_step(grad_fn: Callable, norm_fn: Callable, *, lr_schedule: Callable,
 
 def _sharded_train_step(cfg: ModelConfig, grad_fn: Callable, mesh, profile: str,
                         **opt) -> Callable:
-    if profile == "cp":
-        raise NotImplementedError(
-            "profile 'cp' shards the batch's sequence over 'model', which "
-            "needs attention across sequence shards: not ported (ROADMAP "
-            "queue 1 item 8b)")
     if profile not in sharding.PROFILES:
         raise ValueError(f"profile {profile!r}: one of {sharding.PROFILES}")
     layout = sharding.Layout(cfg, mesh, get_module(cfg).param_defs(cfg), profile)
     sizes = mesh.sizes
 
     # the dp axes a leaf's hook does not gather over (its gradient is summed
-    # over them here), and the ranks that hold each block (its square counted
-    # once in the norm)
+    # over them here, and over 'model' where 'cp' splits the sequence), and
+    # the ranks that hold each block (its square counted once in the norm)
     unreduced = tree_map(lambda spec, path: tuple(
         a for a in layout.dp if a not in sharding.spec_axes(spec) and sizes[a] > 1),
         layout.pspecs)
@@ -234,10 +237,10 @@ def _sharded_train_step(cfg: ModelConfig, grad_fn: Callable, mesh, profile: str,
         """(the rank's blocks, the global batch) -> the mesh's (loss,
         {"ce", "aux"}), the same on every rank, and the gradients of the
         rank's blocks."""
-        bspecs = sharding.batch_pspecs(cfg, mesh, batch, profile)
-        local = {k: sharding.local_shard(v, bspecs[k], mesh)
+        layout.set_batch(sharding.batch_pspecs(cfg, mesh, batch, profile))
+        local = {k: sharding.local_shard(v, layout.batch_specs[k], mesh)
                  for k, v in batch.items()}
-        layout.set_batch(bspecs["labels"])
+        seq = ("model",) if layout.seq is not None else ()
         prev = actshard.current_mesh(), actshard.current_profile(), actshard.current_layout()
         actshard.set_mesh(mesh, profile, layout)
         try:
@@ -246,12 +249,12 @@ def _sharded_train_step(cfg: ModelConfig, grad_fn: Callable, mesh, profile: str,
             actshard.set_mesh(*prev)
 
         def dp_sum(x):
-            for a in layout.dp:
+            for a in layout.dp + seq:
                 x = psum(x, mesh, a)
             return x
 
         def reduce(g, axes, path):
-            for a in axes:
+            for a in axes + seq:
                 g = psum(g, mesh, a)
             return g
 

@@ -390,7 +390,7 @@ def _fa_launch(q, k, v, out, splits, row_splits, causal=False, window=None):
     return t_fa._kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), None, B * H, Sq, k.shape[2], D, D ** -0.5,
                           int(causal), int(window is not None), int(window or 0),
-                          1, splits, row_splits, 0,
+                          0, 1, splits, row_splits, 0,
                           torch.cuda.current_stream().cuda_stream)
 
 
@@ -609,7 +609,7 @@ def _wkv_entry(args, chunk, warps, rows, wv=1):
     ws = t_wkv.workspace(BH, T, K, V, C, r.device)
     codes = [0 if t.dtype == torch.float32 else 1 for t in (r, logw, u)]
     err = t_wkv._kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          logw.data_ptr(), u.data_ptr(), out.data_ptr(),
+                          logw.data_ptr(), u.data_ptr(), None, out.data_ptr(),
                           state.data_ptr(), ws.data_ptr(), BH, T, K, V, C,
                           *codes, wv, warps, rows,
                           torch.cuda.current_stream().cuda_stream)
@@ -1385,6 +1385,144 @@ def test_wkv_chunked_bwd_is_bitwise_repeatable(case, instance):
                                    state=state)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# ---------------------------------------------------------------------------
+# a sequence shard: attention at a query offset, the WKV from a given state
+# ---------------------------------------------------------------------------
+
+# B, H, KV heads, the rank's queries, keys, D, causal, window, q_offset,
+# dtype: the online regime at RecurrentGemma's 1 x 4608 split in two (MQA,
+# D 256, its window of 2048 crossing the shard's edge) and at a ragged
+# float32 shard whose window crosses the edge, the whole-row regime (Sk <=
+# 128) with the window across the edge, and a non-causal window at an
+# offset
+_OFFSET_CASES = {
+    "rg_split_bf16_d256": (1, 10, 1, 2304, 4608, 256, True, 2048, 2304, torch.bfloat16),
+    "online_ragged_f32_window": (2, 4, 4, 150, 350, 80, True, 64, 200, torch.float32),
+    "rows_regime_f32_window": (2, 4, 4, 40, 100, 64, True, 30, 60, torch.float32),
+    "noncausal_window_f32": (1, 2, 2, 100, 300, 64, False, 50, 120, torch.float32),
+}
+
+
+def _offset_inputs(case, seed):
+    B, H, hk, Sq, Sk, D, causal, window, o, dtype = _OFFSET_CASES[case]
+    q, k, v, dout = _normal(seed, (B, H, Sq, D), (B, hk, Sk, D), (B, hk, Sk, D),
+                            (B, H, Sq, D))
+    k, v = (t.repeat_interleave(H // hk, dim=1) for t in (k, v))
+    return [t.to(dtype) for t in (q, k, v, dout)], dict(causal=causal, window=window,
+                                                       q_offset=o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_OFFSET_CASES))
+def test_flash_attention_at_a_query_offset_on_card_matches_plain(case):
+    """The forward kernel (both regimes: ``flash_attention.plan`` picks the
+    whole rows where Sk <= 128) and, under autograd, the backward kernel
+    with ``q_offset``, against ``ref.attention_ref`` at the same offset and
+    its autograd: the output within 2e-4 (1 + |b|) in float32 and 2e-2 in
+    bf16, dq, dk, dv within 2e-3 and 2e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.kernels import flash_attention_bwd as t_fb
+    (q, k, v, dout), kw = _offset_inputs(case, 81)
+    B, H, Sq, D = q.shape
+    regime = t_fa.plan(B * H, Sq, k.shape[2], D,
+                       torch.cuda.get_device_properties(0).multi_processor_count,
+                       itemsize=q.element_size())["regime"]
+    assert regime == ("rows" if case.startswith("rows") else "online")
+    f32 = q.dtype == torch.float32
+    with torch.no_grad():
+        got = tops.flash_attention(q, k, v, **kw)
+    _close(got.float().cpu().numpy(), tref.attention_ref(q, k, v, **kw).float().cpu().numpy(),
+           2e-4 if f32 else 2e-2)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (t_fa.launches, t_fb.launches)
+    grads = torch.autograd.grad(tops.flash_attention(*leaves, **kw), leaves, dout)
+    torch.cuda.synchronize()
+    assert (t_fa.launches, t_fb.launches) == (before[0] + 1, before[1] + 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(tref.attention_ref(*plain, **kw), plain, dout)
+    for g, w in zip(grads, want):
+        _close(g.float().cpu().numpy(), w.float().cpu().numpy(), 2e-3 if f32 else 2e-2)
+
+
+@pytest.mark.cuda
+def test_offset_zero_and_no_state_give_the_bits_of_a_call_without_them():
+    """``q_offset=0`` gives the bits of a call that does not pass it (the
+    forward in both regimes, its lse, the backward), and ``state=None`` those
+    of a WKV call without a state, forward and backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import flash_attention as t_fa
+    from repro_torch.kernels import flash_attention_bwd as t_fb
+    from repro_torch.kernels import rwkv_chunk as t_wkv
+    from repro_torch.kernels import rwkv_chunk_bwd as t_bwd
+    for case in ("rows_regime_f32_window", "online_ragged_f32_window"):
+        (q, k, v, dout), kw = _offset_inputs(case, 82)
+        kw.pop("q_offset")
+        a = t_fa.flash_attention(q, k, v, return_lse=True, **kw)
+        b = t_fa.flash_attention(q, k, v, return_lse=True, q_offset=0, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), case
+        ga = t_fb.flash_attention_bwd(q, k, v, *a, dout, **kw)
+        gb = t_fb.flash_attention_bwd(q, k, v, *a, dout, q_offset=0, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(ga, gb)), case
+    args, dout, _, chunk, _ = _wkv_bwd_inputs("trained_bf16", 83)
+    a = t_wkv.forward_with_states(*args, chunk=chunk)
+    b = t_wkv.forward_with_states(*args, chunk=chunk, state=None)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    ga = t_bwd.wkv_chunked_bwd(*args, dout, a[2], chunk=chunk)
+    gb = t_bwd.wkv_chunked_bwd(*args, dout, b[2], chunk=chunk, ds0=False)
+    assert len(ga) == 5 and all(torch.equal(x, y) for x, y in zip(ga, gb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["trained_bf16", "ragged_1x200", "dstate_f32",
+                                  "chunk128_tiles"])
+def test_wkv_chunked_from_a_state_on_card_matches_plain(case):
+    """The WKV forward and backward kernels from a nonzero initial state
+    (the state a sequence shard receives), under autograd, against
+    ``ref.wkv_ref`` from the same state and its autograd: the output and
+    the final state as ``test_wkv_chunked_on_card_matches_plain`` holds
+    them, dr, dk, dv, dlogw, du and dS0 as
+    ``test_wkv_chunked_bwd_on_card_matches_plain_autograd`` holds the
+    gradients (dS0 float32: 2e-4, relative L2 2e-4 in a bf16 run), on the
+    chunk instance and the tile instance (chunk 128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernel runs on the "
+                    "card only")
+    from repro_torch.kernels import rwkv_chunk as t_wkv
+    from repro_torch.kernels import rwkv_chunk_bwd as t_bwd
+    args, dout, ds, chunk, _ = _wkv_bwd_inputs(case, 84)
+    BH, T, K = args[0].shape
+    s0 = _normal(85, (BH, K, args[2].shape[2]), scale=0.5)[0]
+    bf = args[0].dtype == torch.bfloat16
+    leaves = [t.clone().requires_grad_() for t in (*args, s0)]
+    before = (t_wkv.launches, t_bwd.launches)
+    out, state = tops.wkv_chunked(*leaves[:5], chunk=chunk, state=leaves[5])
+    outs, cots = ((out, state), (dout, ds)) if ds is not None else ((out,), (dout,))
+    got = torch.autograd.grad(outs, leaves, cots)
+    torch.cuda.synchronize()
+    assert (t_wkv.launches, t_bwd.launches) == (before[0] + 1, before[1] + 1)
+    plain = [t.clone().requires_grad_() for t in (*args, s0)]
+    p_out, p_state = tref.wkv_ref(*plain[:5], plain[5])
+    _close(out.detach().float().cpu().numpy(), p_out.detach().float().cpu().numpy(),
+           2e-2 if bf else 2e-4)
+    _close(state.detach().cpu().numpy(), p_state.detach().cpu().numpy(), 2e-4)
+    want = torch.autograd.grad((p_out, p_state) if ds is not None else (p_out,), plain,
+                               cots)
+    for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "dS0"), got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g.float()).all(), name
+        if g.dtype == torch.bfloat16:
+            _close(g.float().cpu().numpy(), w.float().cpu().numpy(), 2e-2)
+        elif bf:
+            rel = ((g - w).norm() / w.norm()).item()
+            assert rel <= 2e-4, (name, rel)
+        else:
+            _close(g.cpu().numpy(), w.cpu().numpy(), 2e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -809,14 +809,6 @@ def test_one_by_one_mesh_changes_no_bit():
     assert _spawn(1, _one_by_one_rank, tree, [ds.batch(s) for s in range(3)]) == [True]
 
 
-def test_cp_profile_raises_and_names_its_item():
-    cfg = TC.reduced(TC.get_config(TRAIN_ARCH))
-    mesh = mesh_lib.abstract_mesh((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(cfg, lr_schedule=warmup_cosine(1e-3, 2, 10), mesh=mesh,
-                         profile="cp")
-
-
 def test_launcher_on_a_mesh_resumes_across_meshes_and_changes_no_value(tmp_path):
     """``launch.train --mesh 2x1`` on two ranks, checkpointed after step 2
     (its final checkpoint taken away), then resumed on a (1, 2) mesh for

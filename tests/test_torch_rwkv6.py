@@ -287,14 +287,27 @@ def test_prompts_go_through_the_kernel_once_a_layer_and_decode_never(red, B):
 
 
 def test_time_mix_refuses_a_prompt_from_a_nonzero_state(red):
+    """A prompt (T > 1) from a given state no longer raises: the chunked
+    kernel starts from it, as the reference's ``wkv_chunked(..., state,
+    chunk)`` does (``tests/test_torch_cp.py`` holds it to JAX).  Here: from
+    a nonzero state, the output and the final state equal four one-token
+    steps from the same state (the decode recurrence), and a zero state
+    gives what the zero start (None) gives."""
     cfg, p = red["tcfg"], red["tp"]
     tm = {k: v[0] for k, v in p["blocks"]["tm"].items()}
-    x = torch.zeros(1, 4, 64)
+    g = np.random.default_rng(9)
+    x = _t(g.standard_normal((1, 4, 64)).astype(np.float32))
     prev = torch.zeros(1, 64)
     out, _, _ = R.time_mix(cfg, tm, x, prev, torch.zeros(1, 4, 16, 16), 8)
-    assert out.shape == (1, 4, 64)
-    with pytest.raises(ValueError, match="zero state"):
-        R.time_mix(cfg, tm, x, prev, torch.ones(1, 4, 16, 16), 8)
+    _close(out.numpy(), R.time_mix(cfg, tm, x, prev, None, 8)[0].numpy())
+    s0 = _t(g.standard_normal((1, 4, 16, 16)).astype(np.float32))
+    out, _, state = R.time_mix(cfg, tm, x, prev, s0, 8)
+    steps, s, xp = [], s0, prev
+    for t in range(4):
+        o, xp, s = R.time_mix(cfg, tm, x[:, t:t + 1], xp, s, 8)
+        steps.append(o)
+    _close(out.numpy(), torch.cat(steps, 1).numpy())
+    _close(state.numpy(), s.numpy())
 
 
 # ---------------------------------------------------------------------------
