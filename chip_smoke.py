@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for an H100).
 
-    python3 chip_smoke.py [--out results.json] [--only 5i]
+    python3 chip_smoke.py [--out results.json] [--only 5i|5h|5j]
 
 Needs one CUDA device, ``nvcc`` and the checkout this file lies in; no
 network.  Imports nothing of JAX or of the JAX package.  ``--only 5i``
-runs phases 1, 2 and 5i alone and prints no result lines.  Phases, each
+(5h, 5j) runs phases 1, 2 and that phase alone and prints no result
+lines.  Phases, each
 of which ends the run with a non-zero exit code if it fails (a
 ``phase wall s`` line before ``total`` gives each one's wall seconds):
 
@@ -338,7 +339,43 @@ of which ends the run with a non-zero exit code if it fails (a
    the state rank 0 left (read from every launch), the losses within 1e-5
    of one process's.  One JSON line ``{"dist": {...}}``.  ``--only 5h`` runs this phase alone after the
    build; ``--dist-vs DIR`` runs (a) to (c) of it from the checkout DIR and
-   from this one, alternating (``dist_versus``);
+   from this one, alternating (``dist_versus``); part (a)'s world of one
+   rank also runs phase 5j's (1, 1) check;
+5j. sharded serving (``mesh_serve_phase``): the serving steps
+   (``build_prefill_step`` / ``build_decode_step`` with ``mesh=``) as a
+   rank's program, driven through ``launch.serve``'s step builders.  In 5h
+   (a)'s world of one rank under NCCL, a (1, 1) mesh serves
+   ``h2o-danube-1.8b`` cut to 4 layers (a 4 x 512 prefill, 16 greedy
+   tokens) with the no-mesh steps' bits, eager and captured
+   (``mesh_serve_one_rank``).  Then one world of two gloo ranks sharing the
+   card serves each part in turn, the weights drawn on the card from the
+   seed in each rank and cut to the rank's blocks; rank 0 alone also serves
+   one process's steps on the same draw (the yardstick).  Each part: a 4 x
+   512 prefill and 16 greedy tokens of one process, the sharded steps
+   teacher-forced on its tokens: the rank's cache exactly 1/n of one
+   process's, bfloat16 logits within BF16_LOGITS_TOL and greedy agreement
+   at least BF16_AGREEMENT, one prefill's kernel launches and none in
+   decode, each launch on H/tp heads; then float32 on the first 2 layers of
+   the same draw (the hybrid's 3), logits and last hidden within 2e-3 (1 +
+   |b|).  Printed rank by rank: prefill ms and decode ms a token by CUDA
+   events (eager: two ranks time-share the card, not a scaling number),
+   the bytes staged through the host a prefill and a token
+   (``collectives.host_staged_bytes``), the cache's bytes against one
+   process's, peak memory, the heads a launch ran on.  Parts (MESH_SERVE_
+   PARTS): (a) the cut h2o on (data 1, model 2) under 'tp', 16 of 32 query
+   heads a rank, the cache's slots split (256 of 512 a rank), and a 1 x
+   6140 prompt with 8 tokens: a ring of 4096 slots, 2048 a rank, whose
+   decode writes (slots 2044 ... 2051) cross from rank 0's block to rank
+   1's; (b) the same on (data 2, model 1) under '2d', the rows over 'data'
+   and the weights gathered at use; (c) ``rwkv6-1.6b`` at full width, 2
+   layers, on (1, 2): ``wkv_chunked`` on 16 of 32 heads a rank, the states
+   and token shifts half a rank; (d) ``recurrentgemma-2b``'s first 3 layers
+   (recurrent, recurrent, attention): the MQA ring split over slots,
+   ``rec_h`` / ``conv_state`` half a rank; (e) ``seamless-m4t-large-v2``
+   cut to 2 + 2 layers (its caches split over heads) and
+   ``qwen2-moe-a2.7b`` cut to 2 layers (the expert-parallel MoE in
+   prefill and decode).  ``--only 5j`` runs this phase alone after the
+   build, the (1, 1) check in a world of its own;
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
    workload, each schedule verified by ``repro_torch.check.verify_schedule``
    (the static checker and the Hopper launch lint; any finding fails the
@@ -401,7 +438,7 @@ the count of the path the kernel is on: the EdgeNeXt-S requests for the
 first three, the lowered phase for matmul_ln, the RWKV-6 requests for
 wkv_chunked, the 20 dense train steps for flash_attention_bwd, the 20
 RWKV-6 train steps for wkv_chunked_bwd (``launches_by_path`` has all
-nineteen paths: the dense, MoE, encoder-decoder and hybrid requests as
+twenty-seven paths: the dense, MoE, encoder-decoder and hybrid requests as
 ``dense_serve``, ``moe_serve``, ``audio_serve`` and ``hybrid_serve``, phase
 5i's as ``starcoder2_serve``, ``minitron_serve``, ``olmo_serve``,
 ``qwen2vl_serve`` and ``qwen3moe_serve``, the
@@ -409,7 +446,10 @@ train steps as ``dense_train`` and ``rwkv_train``, the serve phase's new
 launches as ``serve_store``, and phase 5h's rank 0 as ``dist_serve``, one
 B = 8 forward, ``dist_train``, one sharded step on (2, 1), ``dist_tp``, one
 on (1, 2), ``dist_rwkv``, one RWKV-6 step on (1, 2), ``dist_cp`` and
-``dist_cp_rwkv``, one step of each under 'cp' on (1, 2)).  The WKV backward (``wkv_bwd_case``) is held
+``dist_cp_rwkv``, one step of each under 'cp' on (1, 2), and phase 5j's
+rank 0 as ``mesh_serve_dense``, ``mesh_serve_dense_dp``,
+``mesh_serve_rwkv``, ``mesh_serve_hybrid``, ``mesh_serve_audio`` and
+``mesh_serve_moe``, each part's sharded prefills and decode steps).  The WKV backward (``wkv_bwd_case``) is held
 to autograd of ``ref.wkv_ref`` (2e-4 (1 + |b|) float32, 1e-3 at the
 extreme decays, 2e-2 bfloat16 with a relative L2 of 2e-4 on the float32
 dlogw and du) at the trained shape (bf16), a ragged 32 x 200 at chunk 64,
@@ -500,6 +540,7 @@ from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import (edgenext, recurrentgemma, rwkv6,  # noqa: E402
                                 seamless, transformer)
 from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import get_module  # noqa: E402
 from repro_torch.data.synthetic import make_dataset  # noqa: E402
 from repro_torch.models.params import (count_params, init_params,  # noqa: E402
                                        per_layer, tree_leaves, tree_map)
@@ -694,6 +735,25 @@ DIST_RWKV_LAYERS, DIST_RWKV_STEPS = 2, 2
 # DIST_CP_RWKV_LOSS_TOL
 DIST_CP_LOSS_TOL = 1e-4
 DIST_CP_RWKV_LOSS_TOL = 1e-5
+# phase 5j, sharded serving: each part's (part, path name, arch, layers,
+# mesh, profile); a MESH_SERVE_PROMPT prefill and MESH_SERVE_GEN greedy
+# tokens a part, part (a) also MESH_SERVE_RING (a ring of 4096 slots whose
+# decode writes cross from rank 0's block to rank 1's); float32 on
+# MESH_SERVE_F32 = (layers, decode steps) within MESH_SERVE_F32_TOL; each
+# world's time limit MESH_SERVE_WORLD_S
+MESH_SERVE_PARTS = (
+    ("a", "dense", DENSE_ARCH, DIST_LAYERS, (1, 2), "tp"),
+    ("b", "dense_dp", DENSE_ARCH, DIST_LAYERS, (2, 1), "2d"),
+    ("c", "rwkv", RWKV_ARCH, 2, (1, 2), "tp"),
+    ("d", "hybrid", HYBRID_ARCH, 3, (1, 2), "tp"),
+    ("e", "audio", AUDIO_ARCH, 2, (1, 2), "tp"),
+    ("e", "moe", MOE_ARCH, 2, (1, 2), "tp"))
+MESH_SERVE_PROMPT = (4, 512)
+MESH_SERVE_GEN = 16
+MESH_SERVE_RING = (1, 6140, 8)
+MESH_SERVE_F32 = (2, 4)
+MESH_SERVE_F32_TOL = 2e-3
+MESH_SERVE_WORLD_S = 400
 
 
 def fail(msg: str) -> None:
@@ -3546,13 +3606,14 @@ def dist_f32_tree(tree):
     return dict(tree, blocks=tree_map(lambda a, path: a[:DIST_F32[0]], tree["blocks"]))
 
 
-def dist_one_process(tmp: str) -> dict:
+def dist_one_process(tmp: str, serve_too: bool = True) -> dict:
     """Part (a), a world of one rank under NCCL: the cut dense model's
     DIST_STEPS steps with no mesh and on the (1, 1) mesh must give the same
     bits (metrics, parameters, moments).  It also writes part (c)'s
     references to ``tmp``: the first step's gradients and the float32
     model's parameters after DIST_F32[1] steps; the metrics of the no-mesh
-    steps are returned."""
+    steps are returned.  With ``serve_too`` the same world then runs phase
+    5j's (1, 1) serving check (``mesh_serve_one_rank``)."""
     tmp = Path(tmp)
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
@@ -3599,10 +3660,12 @@ def dist_one_process(tmp: str) -> dict:
     del grads
     cfg32 = dist_dense_cfg(DIST_F32[0], "float32")
     save_checkpoint(tmp / "f32", 0, run(None, cfg32, dist_f32_tree(tree), DIST_F32[1])[1])
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    serving = mesh_serve_one_rank() if serve_too else None
     return dict(backend=mesh.backend, mesh=mesh.sizes, steps=DIST_STEPS,
+                mesh_serve=serving,
                 nccl_collectives_checked=sorted(mesh.groups), losses=[m[0] for m in metrics], grad_norms=[m[1] for m in metrics],
-                grad_fn_flops=flops.get_total_flops(),
-                peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                grad_fn_flops=flops.get_total_flops(), peak_mib=peak_mib,
                 seconds=time.perf_counter() - t0)
 
 
@@ -4082,7 +4145,8 @@ def dist_phase(parts=DIST_PARTS) -> tuple:
         torch.cuda.empty_cache()
         setup_s = time.perf_counter() - t0
         t1 = time.perf_counter()
-        (one,) = mesh_lib.spawn_local(1, dist_one_process, str(tmp), timeout_s=DIST_WORLD_S)
+        (one,) = mesh_lib.spawn_local(1, dist_one_process, str(tmp), parts == DIST_PARTS,
+                                      timeout_s=DIST_WORLD_S)
         one["world_s"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         pair = mesh_lib.spawn_local(2, dist_pair, str(tmp), one, parts,
@@ -4264,6 +4328,312 @@ def dist_versus(other: Path) -> list:
     return rounds
 
 
+# ---------------------------------------------------------------------------
+# 5j. sharded serving: the serving steps as a rank's program on the one card
+# ---------------------------------------------------------------------------
+
+
+def mesh_cut_cfg(arch: str, layers: int, dtype=None):
+    """``arch`` at full width cut to its first ``layers`` layers (the
+    encoder-decoder's encoder too, the hybrid's block pattern with them)."""
+    cfg = get_config(arch)
+    kw = dict(num_layers=layers)
+    if cfg.family == "hybrid":
+        kw["block_pattern"] = cfg.block_pattern[:layers]
+    if cfg.family == "audio":
+        kw["num_encoder_layers"] = layers
+    if dtype is not None:
+        kw["dtype"] = dtype
+    return dataclasses.replace(cfg, **kw)
+
+
+def mesh_drawn(cfg):
+    """``cfg``'s weights drawn on the card from SEED, as ``launch.serve``
+    draws them."""
+    mod = get_module(cfg)
+    return mod.load_params(cfg, mod.init_on_device(cfg, SEED))
+
+
+def mesh_blocks(cfg, whole, mesh, profile: str):
+    """The rank's block of each leaf of ``whole`` (a copy, so that the whole
+    tree can be freed), as ``launch.serve`` keeps it."""
+    pspecs = sharding.model_param_pspecs(cfg, mesh, get_module(cfg).param_defs(cfg),
+                                         profile=profile)
+    return tree_map(lambda x, spec, path: sharding.local_shard(x, spec, mesh)
+                    .clone(memory_format=torch.contiguous_format), whole, pspecs)
+
+
+def cache_nbytes(cache) -> int:
+    """The bytes of a cache's leaves but its step counter (a replicated
+    scalar)."""
+    return nbytes(*[t for t in pytree.tree_leaves(cache) if t.dim() > 0])
+
+
+def mesh_one_process(cfg, whole, batch: dict, dlen, gen: int) -> dict:
+    """One process's eager prefill and ``gen`` greedy steps: the yardstick."""
+    pre, dec = lm_serve.eager_steps(cfg, whole)
+    last, cache, pre_ms = lm_prefill(pre, batch, dlen)
+    B = last.shape[0]
+    toks, logits, _, dec_ms = lm_serve.run_decode(dec, cache, B, gen, last.device)
+    return dict(last=last, tokens=toks, logits=torch.stack(logits, 1),
+                cache_bytes=cache_nbytes(cache), prefill_ms=pre_ms,
+                decode_ms_per_token=dec_ms / gen)
+
+
+def mesh_forced(cfg, params, mesh, profile: str, batch: dict, dlen, inputs):
+    """The sharded prefill of ``batch`` and its decode steps fed ``inputs``
+    [B, n] (teacher forcing), eager: (the gathered last hidden and logits
+    [B, n, Vp], the rank's cache, prefill ms, each step's ms, the bytes
+    staged through the host by the prefill and by the steps)."""
+    struct = lm_serve.prefill_cache_struct(cfg, batch, dlen)
+    pre, dec = lm_serve.eager_steps(cfg, params, mesh, profile, struct)
+    rows = sharding.batch_pspecs(cfg, mesh, batch, profile)[
+        "inputs_embeds" if "inputs_embeds" in batch else "tokens"][0]
+    vocab = sharding.P(rows, "model" if profile != "fsdp" else None)
+    collectives.host_staged_bytes = 0
+    last, cache, pre_ms = lm_prefill(pre, batch, dlen)
+    pre_bytes = collectives.host_staged_bytes
+    step_ms, step_bytes, logits = [], 0, []
+    with torch.inference_mode():
+        for i in range(inputs.shape[1]):
+            before = collectives.host_staged_bytes
+            (_, lg, cache), ms = lm_serve.timed(
+                lambda: dec(cache, {"tokens": inputs[:, i:i + 1]}), last.device)
+            step_bytes += collectives.host_staged_bytes - before
+            step_ms.append(ms)
+            logits.append(lg)
+        cache_bytes = cache_nbytes(cache)
+        logits = torch.stack([sharding.gather_full(lg, vocab, mesh) for lg in logits], 1)
+        last = sharding.gather_full(last, sharding.P(rows, None), mesh)
+    return last, logits, cache_bytes, pre_ms, step_ms, pre_bytes, step_bytes
+
+
+def mesh_broadcast(t: torch.Tensor | None, shape, dtype) -> torch.Tensor:
+    """Rank 0's ``t`` on every rank (through the host: gloo)."""
+    buf = (t.cpu() if dist.get_rank() == 0 else torch.zeros(shape, dtype=dtype))
+    dist.broadcast(buf, 0)
+    return buf.cuda()
+
+
+def mesh_serve_part(part: str, name: str, arch: str, layers: int, shape,
+                    profile: str) -> dict:
+    """One part of phase 5j on this rank (module docstring): ``arch`` cut
+    to ``layers`` layers on ``shape`` under ``profile``, bfloat16 requests
+    against one process's in rank 0, then float32 on its first layers."""
+    rank = dist.get_rank()
+    tag = f"mesh_serve ({part}) {name}"
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = mesh_cut_cfg(arch, layers)
+    mod = get_module(cfg)
+    mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+    tp = mesh.sizes["model"] if profile != "fsdp" else 1
+    whole = mesh_drawn(cfg)
+    params = mesh_blocks(cfg, whole, mesh, profile)
+    if rank != 0:
+        del whole
+    torch.cuda.empty_cache()
+    requests = [(*MESH_SERVE_PROMPT, MESH_SERVE_GEN)] + ([MESH_SERVE_RING]
+                                                         if part == "a" else [])
+    rng = np.random.default_rng(SEED + 11)
+    V = cfg.vocab_size
+    kernel = "wkv_chunked" if cfg.family == "ssm" else "flash_attention"
+    heads_of = (lambda a: a[0] // MESH_SERVE_PROMPT[0]) if kernel == "wkv_chunked" \
+        else (lambda a: a[1])
+    per_prefill = {k: mod.kernel_launches_per_prefill(cfg).get(k, 0) for k in KERNELS}
+    out = dict(part=part, name=name, arch=arch, layers=layers, mesh=mesh.sizes,
+               profile=profile, rank=rank, requests=[])
+    launches = {k: 0 for k in KERNELS}
+    for B, T, gen in requests:
+        batch = lm_batch(cfg, rng, B, T)
+        dlen = decode_len(cfg, T, gen)
+        one = mesh_one_process(cfg, whole, batch, dlen, gen) if rank == 0 else None
+        toks = mesh_broadcast(None if one is None else one["tokens"], (B, gen),
+                              torch.int32)
+        shapes = []
+        real, rec = recorded(kernel, shapes)
+        setattr(ops, kernel, rec)
+        try:
+            reset_counts()
+            last, logits, cache_bytes, pre_ms, step_ms, pre_bytes, step_bytes = \
+                mesh_forced(cfg, params, mesh, profile, batch, dlen, decode_inputs(toks))
+            got = read_counts()
+        finally:
+            setattr(ops, kernel, real)
+        if got != per_prefill:
+            fail(f"{tag} {B}x{T}: launches {got}, expected one prefill's "
+                 f"{per_prefill} and none in decode")
+        for k in launches:
+            launches[k] += got[k]
+        heads = sorted({heads_of(a) for a, _ in shapes})
+        full_heads = cfg.d_model // cfg.wkv_head_dim if kernel == "wkv_chunked" \
+            else cfg.num_heads
+        if heads != [full_heads // tp]:
+            fail(f"{tag} {B}x{T}: {kernel} ran on {heads} heads a launch, expected "
+                 f"{full_heads // tp} of {full_heads}")
+        req = dict(shape=[B, T, gen], prefill_ms=pre_ms,
+                   decode_ms_per_token=statistics.median(step_ms),
+                   host_staged_bytes_prefill=pre_bytes,
+                   host_staged_bytes_per_token=step_bytes / gen,
+                   cache_bytes=cache_bytes, heads_per_launch=heads,
+                   of_heads=full_heads, launches=got)
+        if rank == 0:
+            err = (logits[..., :V].float() - one["logits"][..., :V].float()).abs().max().item()
+            agree = (logits[..., :V].argmax(-1) == one["tokens"]).float().mean().item()
+            hidden = (last.float() - one["last"].float()).abs().max().item()
+            n = mesh.sizes["data"] * mesh.sizes["model"]
+            req.update(one_process_cache_bytes=one["cache_bytes"],
+                       one_process_prefill_ms=one["prefill_ms"],
+                       one_process_decode_ms_per_token=one["decode_ms_per_token"],
+                       bf16_max_logits_err=err, bf16_greedy_agreement=agree,
+                       bf16_max_last_hidden_err=hidden)
+            if cache_bytes * n != one["cache_bytes"]:
+                fail(f"{tag} {B}x{T}: the rank's cache is {cache_bytes} bytes, one "
+                     f"process's {one['cache_bytes']}: not 1/{n}")
+            if err > BF16_LOGITS_TOL or agree < BF16_AGREEMENT:
+                fail(f"{tag} {B}x{T} bfloat16: logits differ from one process's by "
+                     f"{err:.3e} (limit {BF16_LOGITS_TOL}), greedy agreement "
+                     f"{agree:.3f} (at least {BF16_AGREEMENT})")
+        out["requests"].append(req)
+        del logits, last, one
+    del params
+    if rank == 0:
+        del whole
+    torch.cuda.empty_cache()
+    # float32 on the first layers of the same draw
+    f32_layers = min(layers, MESH_SERVE_F32[0]) if cfg.family != "hybrid" else layers
+    cfg32 = mesh_cut_cfg(arch, f32_layers, "float32")
+    whole32 = mesh_drawn(cfg32)
+    params32 = mesh_blocks(cfg32, whole32, mesh, profile)
+    B, T = MESH_SERVE_PROMPT
+    batch = lm_batch(cfg32, rng, B, T)
+    dlen = decode_len(cfg32, T, MESH_SERVE_F32[1])
+    one = (mesh_one_process(cfg32, whole32, batch, dlen, MESH_SERVE_F32[1])
+           if rank == 0 else None)
+    del whole32
+    toks = mesh_broadcast(None if one is None else one["tokens"], (B, MESH_SERVE_F32[1]),
+                          torch.int32)
+    last, logits = mesh_forced(cfg32, params32, mesh, profile, batch, dlen,
+                               decode_inputs(toks))[:2]
+    if rank == 0:
+        out["f32_layers"] = f32_layers
+        out["f32_max_err"] = max(
+            compare(f"{tag} float32 last hidden", last, one["last"], MESH_SERVE_F32_TOL),
+            compare(f"{tag} float32 logits", logits[..., :V], one["logits"][..., :V],
+                    MESH_SERVE_F32_TOL))
+    del params32, last, logits, one
+    torch.cuda.empty_cache()
+    out.update(launches=launches, peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+               seconds=time.perf_counter() - t0)
+    return out
+
+
+def mesh_serve_pair() -> dict:
+    """Phase 5j's world of two gloo ranks sharing the card: every part in
+    turn."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = dict(rank=dist.get_rank(), backend=dist.get_backend(), parts={})
+    for part, name, arch, layers, shape, profile in MESH_SERVE_PARTS:
+        out["parts"][name] = mesh_serve_part(part, name, arch, layers, shape, profile)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_serve_one_rank() -> dict:
+    """A (1, 1) NCCL mesh serves the cut dense model with the same bits as
+    no mesh, eager and captured: a 4 x 512 prefill and MESH_SERVE_GEN
+    greedy steps (last hidden, tokens, logits, the last cache).  Run in
+    phase 5h part (a)'s world of one rank."""
+    t0 = time.perf_counter()
+    mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+    if mesh.backend != "nccl":
+        fail(f"mesh_serve (1, 1): a world of one rank with a card runs {mesh.backend}")
+    cfg = mesh_cut_cfg(DENSE_ARCH, DIST_LAYERS)
+    params = mesh_drawn(cfg)
+    B, T = MESH_SERVE_PROMPT
+    batch = lm_batch(cfg, np.random.default_rng(SEED + 12), B, T)
+    struct = lm_serve.prefill_cache_struct(cfg, batch)
+    rows = sharding.P("data")
+    gather = lambda t: sharding.gather_full(t, rows, mesh)   # noqa: E731
+    runs = {}
+    for form in ("eager", "captured"):
+        for m in (None, mesh):
+            steps = (lm_serve.captured_steps if form == "captured"
+                     else lm_serve.eager_steps)(cfg, params, m, "2d",
+                                                None if m is None else struct)
+            pre, dec = steps
+            last, cache, _ = lm_prefill(pre, batch)
+            toks, logits, cache, _ = lm_serve.run_decode(
+                dec, cache, B, MESH_SERVE_GEN, last.device, None if m is None else gather)
+            runs[(form, m is not None)] = [last, toks, *logits,
+                                           *pytree.tree_leaves(cache)]
+    equal = {form: all(torch.equal(a, b) for a, b in zip(runs[(form, False)],
+                                                         runs[(form, True)], strict=True))
+             for form in ("eager", "captured")}
+    if not all(equal.values()):
+        fail(f"mesh_serve (1, 1): the NCCL mesh's serving differs from no mesh: {equal}")
+    return dict(backend=mesh.backend, equal=equal, shape=[B, T, MESH_SERVE_GEN],
+                seconds=time.perf_counter() - t0)
+
+
+def mesh_serve_phase(one_rank: dict | None = None) -> tuple:
+    """Phase 5j (module docstring): the world of two gloo ranks serving
+    parts (a) to (e); ``one_rank`` the (1, 1) NCCL check that phase 5h part
+    (a)'s world made (a world of one of its own where it is None).  Returns
+    the launches of each part's path by rank 0 and the numbers."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    try:
+        if one_rank is None:
+            (one_rank,) = mesh_lib.spawn_local(1, mesh_serve_one_rank,
+                                               timeout_s=MESH_SERVE_WORLD_S)
+        pair = mesh_lib.spawn_local(2, mesh_serve_pair, timeout_s=MESH_SERVE_WORLD_S)
+    except RuntimeError as e:
+        fail(f"mesh_serve: {e}")
+    launches = {f"mesh_serve_{name}": pair[0]["parts"][name]["launches"]
+                for _, name, *_ in MESH_SERVE_PARTS}
+    return launches, dict(one_rank=one_rank, ranks=pair, wall_s=time.perf_counter() - t0,
+                          note="two processes time-share one card, eager, every "
+                               "collective through the host: not a scaling number")
+
+
+def print_mesh_serve(d: dict) -> None:
+    one = d["one_rank"]
+    print(f"mesh_serve (1, 1) {one['backend']} world of 1: {DENSE_ARCH} cut to "
+          f"{DIST_LAYERS} layers, {one['shape'][0]}x{one['shape'][1]} + "
+          f"{one['shape'][2]} tokens, the same bits as no mesh eager "
+          f"{one['equal']['eager']} and captured {one['equal']['captured']}")
+    for name in d["ranks"][0]["parts"]:
+        for r in d["ranks"]:
+            p = r["parts"][name]
+            for q in p["requests"]:
+                B, T, gen = q["shape"]
+                line = (f"mesh_serve ({p['part']}) {name} {p['arch']} {p['layers']} layers "
+                        f"mesh {p['mesh']} {p['profile']} rank {p['rank']} {B}x{T}+{gen}: "
+                        f"prefill {q['prefill_ms']:.1f} ms, decode "
+                        f"{q['decode_ms_per_token']:.2f} ms/token (events, eager); staged "
+                        f"{q['host_staged_bytes_prefill'] / 1e6:.2f} MB a prefill, "
+                        f"{q['host_staged_bytes_per_token'] / 1e6:.3f} MB a token; cache "
+                        f"{q['cache_bytes'] / 1e6:.2f} MB; {q['heads_per_launch']} of "
+                        f"{q['of_heads']} heads a launch; launches {q['launches']}")
+                if "one_process_cache_bytes" in q:
+                    line += (f"; one process: cache {q['one_process_cache_bytes'] / 1e6:.2f} "
+                             f"MB, prefill {q['one_process_prefill_ms']:.1f} ms, decode "
+                             f"{q['one_process_decode_ms_per_token']:.2f} ms/token; bf16 "
+                             f"logits err {q['bf16_max_logits_err']:.3e} (limit "
+                             f"{BF16_LOGITS_TOL}), agreement {q['bf16_greedy_agreement']:.3f}")
+                print(line)
+            extra = (f"; float32 on {p['f32_layers']} layers err {p['f32_max_err']:.2e} "
+                     f"(limit {MESH_SERVE_F32_TOL} (1+|b|))" if "f32_max_err" in p else "")
+            print(f"mesh_serve ({p['part']}) {name} rank {p['rank']}: peak "
+                  f"{p['peak_mib']:.0f} MiB, {p['seconds']:.1f} s{extra}")
+    print(f"mesh_serve wall {d['wall_s']:.1f} s", flush=True)
+
+
 def write_out(path: str, numbers: dict) -> None:
     out = Path(path)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -4273,7 +4643,7 @@ def write_out(path: str, numbers: dict) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
-    ap.add_argument("--only", choices=["5i", "5h"],
+    ap.add_argument("--only", choices=["5i", "5h", "5j"],
                     help="device, build and this phase alone, then stop (no "
                          "result lines)")
     ap.add_argument("--dist-vs", metavar="DIR",
@@ -4341,6 +4711,16 @@ def main() -> None:
             write_out(args.out, dict(dist=distributed, dist_launches=launches, walls=walls))
         print(f"phase wall s {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
         print(f"total {time.perf_counter() - t_start:.1f} s (phase 5h alone)")
+        return
+    if args.only == "5j":
+        mesh_launches, mesh_serving = mesh_serve_phase()
+        print_mesh_serve(mesh_serving)
+        lap("5j sharded serving")
+        if args.out:
+            write_out(args.out, dict(mesh_serve=mesh_serving, mesh_serve_launches=mesh_launches,
+                                     walls=walls))
+        print(f"phase wall s {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+        print(f"total {time.perf_counter() - t_start:.1f} s (phase 5j alone)")
         return
     if args.dist_vs:
         rounds = dist_versus(Path(args.dist_vs).resolve())
@@ -4522,6 +4902,12 @@ def main() -> None:
     print_dist(distributed)
     lap("5h distributed")
 
+    # 5j. sharded serving: the (1, 1) check from 5h (a)'s world, then two
+    # ranks sharing the card under gloo
+    mesh_launches, mesh_serving = mesh_serve_phase(distributed["one_process"]["mesh_serve"])
+    print_mesh_serve(mesh_serving)
+    lap("5j sharded serving")
+
     # 6. the scheduler's path: every lowered entry onto its kernel
     lowered, entries, by_workload, lowered_launches, verified, samples, launched = \
         lowered_phase()
@@ -4583,6 +4969,7 @@ def main() -> None:
                                   "lowered": lowered_launches,
                                   "serve_store": serve_launches,
                                   **dist_launches,
+                                  **mesh_launches,
                                   **five_launches})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -4594,6 +4981,7 @@ def main() -> None:
             train_rwkv=rwkv_train,
             moe=moe,
             audio=audio, hybrid=hybrid, five=five, check=check, dist=distributed,
+            mesh_serve=mesh_serving,
             serve=store, walls=walls,
             lowered=dict(records=lowered, entries=entries,
                          by_workload=by_workload)))

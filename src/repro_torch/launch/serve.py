@@ -3,6 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
       [--reduced] [--batch 4] [--prompt-len 64] [--gen 32] [--seed 0] \
       [--device cuda|cpu]
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve --arch h2o-danube-1.8b --reduced \
+      --mesh 1x2 [--profile 2d|tp|fsdp] [--device cpu]
 
 Port of ``repro/launch/serve.py`` for every ported arch (``configs.ARCHS``:
 RWKV-6, the dense and MoE transformers, Qwen2-VL, the Seamless
@@ -29,9 +32,24 @@ the capture's host seconds are printed on a line of their own.  The
 printed prefill ms and ms/token are then the replays', timed with CUDA
 events.  This is one deliberate difference from the reference, whose
 ``t_prefill`` (and first decode step) include the compile.  On the CPU the
-eager steps run, timed by the host clock.  One device, no mesh: serving
-under a mesh (``runtime.pipeline.data_parallel``'s fan-out, the 'tp'
-profile's specs) is ROADMAP queue 1 item 8c.
+eager steps run, timed by the host clock.
+
+``--mesh DATAxMODEL`` (``launch.mesh.make_mesh`` over the world) or
+``--production-mesh`` (16 x 16) serves under a mesh, as the reference's
+launcher always does, under ``torchrun --standalone --nproc-per-node N``
+or ``launch.mesh.spawn_local`` (each rank calls ``main``): the sharded
+prefill and decode steps (``runtime.build_prefill_step`` /
+``build_decode_step`` with ``mesh=`` and ``--profile``, '2d' by default as
+the reference's launcher lays its parameters out; 'tp' and 'fsdp' too;
+'cp' raises, ROADMAP queue 1 item 8g).  Each rank draws the whole tree
+from the seed as one device does and keeps a copy of its block of each
+leaf (``sharding.local_shard``), makes the same global prompt, and its
+steps take their block of it; each step's greedy tokens are gathered over
+the dp axes for the next step, and rank 0 prints them, so that a mesh
+changes no token.  On a mesh where no axis has more than one rank the
+steps are captured as without one; where a collective crosses ranks (gloo
+stages every one through the host) they run eager
+(``runtime.capture.capturable``), and the launcher prints which.
 """
 from __future__ import annotations
 
@@ -43,12 +61,16 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import get_module
-from repro_torch.models.params import init_params
-from repro_torch.runtime import build_decode_step, build_prefill_step
-from repro_torch.runtime.capture import captured, donating
+from repro_torch.models.params import PartitionSpec, init_params, tree_map
+from repro_torch.runtime import build_decode_step, build_prefill_step, sharding
+from repro_torch.runtime.capture import capturable, captured, donating
+from repro_torch.runtime.steps import prefill_cache_struct
 
 
 def timed(fn: Callable, device: torch.device):
@@ -66,28 +88,34 @@ def timed(fn: Callable, device: torch.device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _prefill(cfg: ModelConfig, params) -> Callable:
+def _prefill(cfg: ModelConfig, params, mesh=None, profile: str = "2d") -> Callable:
     """prefill(batch, decode_len=None) with ``params`` bound: the step
-    ``build_prefill_step(cfg, decode_len=decode_len)`` builds.  Captured,
-    it keeps one graph for each value of ``decode_len``, as it does for
-    each shape."""
+    ``build_prefill_step(cfg, decode_len=decode_len, mesh=mesh,
+    profile=profile)`` builds.  Captured, it keeps one graph for each value
+    of ``decode_len``, as it does for each shape."""
     def prefill(batch, decode_len=None):
-        return build_prefill_step(cfg, decode_len=decode_len)(params, batch)
+        return build_prefill_step(cfg, decode_len=decode_len, mesh=mesh,
+                                  profile=profile)(params, batch)
     return prefill
 
 
-def eager_steps(cfg: ModelConfig, params) -> Tuple[Callable, Callable]:
+def eager_steps(cfg: ModelConfig, params, mesh=None, profile: str = "2d",
+                cache_struct=None) -> Tuple[Callable, Callable]:
     """(prefill(batch, decode_len=None), decode(cache, batch)): the eager
-    steps with ``params`` bound."""
-    return _prefill(cfg, params), functools.partial(build_decode_step(cfg), params)
+    steps with ``params`` bound; under a ``mesh`` the sharded ones, the
+    decode step laying out a cache of ``cache_struct``'s shapes."""
+    decode = build_decode_step(cfg, mesh=mesh, profile=profile, cache_struct=cache_struct)
+    return _prefill(cfg, params, mesh, profile), functools.partial(decode, params)
 
 
-def captured_steps(cfg: ModelConfig, params) -> Tuple[Callable, Callable]:
+def captured_steps(cfg: ModelConfig, params, mesh=None, profile: str = "2d",
+                   cache_struct=None) -> Tuple[Callable, Callable]:
     """The same steps captured, as the reference jits them: the prefill,
     and the decode step with its cache donated; one graph pool."""
     pool = torch.cuda.graph_pool_handle()
-    decode = donating(build_decode_step(cfg), 1)
-    return (captured(_prefill(cfg, params), pool=pool),
+    decode = donating(build_decode_step(cfg, mesh=mesh, profile=profile,
+                                        cache_struct=cache_struct), 1)
+    return (captured(_prefill(cfg, params, mesh, profile), pool=pool),
             captured(functools.partial(decode, params), pool=pool))
 
 
@@ -117,16 +145,19 @@ def run_prefill(prefill: Callable, tokens: torch.Tensor,
 
 
 def run_decode(decode: Callable, cache, batch: int, gen: int,
-               device: torch.device
+               device: torch.device, gather: Optional[Callable] = None
                ) -> Tuple[torch.Tensor, List[torch.Tensor], object, float]:
     """``gen`` greedy steps of ``decode(cache, batch)`` from token 0 ->
     (tokens [B, gen] int32, logits of each step [B, Vp], the last cache, ms
-    for all steps)."""
+    for all steps).  ``gather``: the whole batch's tokens from a step's
+    (a sharded step's rank's block), each step's input."""
     def loop(cache):
         tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
         toks, logits = [], []
         for _ in range(gen):
             tok1, lg, cache = decode(cache, {"tokens": tok})
+            if gather is not None:
+                tok1 = gather(tok1)
             tok = tok1[:, None]
             toks.append(tok1)
             logits.append(lg)
@@ -150,8 +181,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="cuda (default: the hand-written kernels, steps "
                          "captured as CUDA graphs) or cpu (the plain "
                          "versions, eager)")
+    ap.add_argument("--mesh", default="",
+                    help="DATAxMODEL: serve on a mesh over the world's ranks")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="16x16 mesh (needs 256 ranks)")
+    ap.add_argument("--profile", default="2d", choices=sharding.PROFILES,
+                    help="the mesh's layout: 2d (FSDP over data, TP over "
+                         "model), tp (TP over model, data-parallel over data) "
+                         "or fsdp (the whole mesh FSDP / data-parallel); cp "
+                         "is ROADMAP item 8g")
     args = ap.parse_args(argv)
 
+    meshed = bool(args.mesh or args.production_mesh)
+    if meshed and args.profile == "cp":
+        raise ValueError("serve: --profile cp (the prompt's sequence over 'model') "
+                         "is ROADMAP queue 1 item 8g; use 2d, tp or fsdp")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serve: --device cuda (the default) but no CUDA "
@@ -161,10 +205,26 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.reduced:
         cfg = reduced(cfg)
     mod = get_module(cfg)
+
+    mesh = None
+    if meshed:
+        mesh_lib.init_from_env(device)
+        if args.production_mesh:
+            mesh = mesh_lib.make_production_mesh(device=device)
+        else:
+            data, model = (int(n) for n in args.mesh.lower().split("x"))
+            mesh = mesh_lib.make_mesh((data, model), ("data", "model"), device=device)
+        device = mesh.device
+    lead = mesh is None or dist.get_rank() == 0
     tree = (mod.init_on_device(cfg, args.seed, device=device) if device.type == "cuda"
             else init_params(args.seed, mod.param_defs(cfg)))
     params = mod.load_params(cfg, tree, device=device)
     del tree
+    if mesh is not None:           # the rank keeps its block of each leaf
+        pspecs = sharding.model_param_pspecs(cfg, mesh, mod.param_defs(cfg),
+                                             profile=args.profile)
+        params = tree_map(lambda x, spec, path: sharding.local_shard(x, spec, mesh)
+                          .clone(memory_format=torch.contiguous_format), params, pspecs)
 
     B, S = args.batch, args.prompt_len
     rng = np.random.default_rng(args.seed)
@@ -177,23 +237,40 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if cfg.family == "audio":
             tokens = tokens[:, :1]
     total = S + args.gen if cfg.family == "audio" else None
-    if device.type == "cuda":
-        prefill, decode = captured_steps(cfg, params)
+    struct, gather = None, None
+    if mesh is not None:
+        batch = {"tokens": tokens} if embeds is None else {"tokens": tokens,
+                                                           "inputs_embeds": embeds}
+        struct = prefill_cache_struct(cfg, batch, total)
+        rows = sharding.batch_pspecs(cfg, mesh, {"tokens": tokens[:, :1]},
+                                     args.profile)["tokens"][0]
+        gather = lambda t: sharding.gather_full(t, PartitionSpec(rows), mesh)  # noqa: E731
+    steps = (mesh, args.profile, struct)
+    if device.type == "cuda" and capturable(mesh):
+        prefill, decode = captured_steps(cfg, params, *steps)
         # capture both at the run's shapes (the first call at a signature
         # captures it) before the timed calls
         _, cache, _ = run_prefill(prefill, tokens, embeds, total)
-        run_decode(decode, cache, B, 1, device)
-        print(f"capture prefill[{B}x{S}]={prefill.capture_s[0]:.2f}s "
-              f"decode[{B}]={decode.capture_s[0]:.2f}s (host clock)")
+        run_decode(decode, cache, B, 1, device, gather)
+        if lead:
+            print(f"capture prefill[{B}x{S}]={prefill.capture_s[0]:.2f}s "
+                  f"decode[{B}]={decode.capture_s[0]:.2f}s (host clock)")
     else:
-        prefill, decode = eager_steps(cfg, params)
+        prefill, decode = eager_steps(cfg, params, *steps)
+    if mesh is not None and lead:
+        print(f"mesh={mesh.sizes} profile={args.profile}: steps "
+              + ("captured (no axis of the mesh has more than one rank)"
+                 if device.type == "cuda" and capturable(mesh) else
+                 "eager (a collective crosses ranks)" if not capturable(mesh)
+                 else "eager (the CPU)"))
     _, cache, t_prefill = run_prefill(prefill, tokens, embeds, total)
-    gen, _, _, t_decode = run_decode(decode, cache, B, args.gen, device)
+    gen, _, _, t_decode = run_decode(decode, cache, B, args.gen, device, gather)
     gen = gen.cpu().numpy()
-    print(f"arch={cfg.name} device={device} prefill[{B}x{S}]={t_prefill:.1f}ms "
-          f"decode {args.gen} steps={t_decode:.1f}ms "
-          f"({t_decode / max(args.gen, 1):.2f} ms/tok)")
-    print("generated (first seq):", gen[0][:16].tolist())
+    if lead:
+        print(f"arch={cfg.name} device={device} prefill[{B}x{S}]={t_prefill:.1f}ms "
+              f"decode {args.gen} steps={t_decode:.1f}ms "
+              f"({t_decode / max(args.gen, 1):.2f} ms/tok)")
+        print("generated (first seq):", gen[0][:16].tolist())
     return {"tokens": gen, "prefill_ms": t_prefill,
             "decode_ms_per_token": t_decode / max(args.gen, 1)}
 

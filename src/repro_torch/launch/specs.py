@@ -1,16 +1,18 @@
-"""Shapes and dtypes of a train cell's inputs, allocated nowhere: port of
-``repro/launch/specs.py``'s ``input_specs`` for ``kind == "train"`` (its
-``ShapeDtypeStruct``s are ``TensorSpec``s here).  Its other kinds,
-``cache_specs`` and ``param_specs`` serve the dry-run, ROADMAP queue 1
-item 9."""
+"""Shapes and dtypes of a cell's inputs and decode cache, allocated
+nowhere: port of ``repro/launch/specs.py``'s ``input_specs`` and
+``cache_specs`` (its ``ShapeDtypeStruct``s are ``TensorSpec``s here).  The
+sharded serving steps lay the cache out by ``cache_specs``
+(``runtime.steps.prefill_cache_struct``); ``param_specs`` serves the
+dry-run, ROADMAP queue 1 item 9."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import get_module
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,22 +22,51 @@ class TensorSpec:
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, TensorSpec]:
-    """The batch dict of a train cell: full-sequence tokens and labels
-    (teacher forcing); source frames and target tokens for the
-    encoder-decoder; ``inputs_embeds`` where the config takes embeddings;
-    M-RoPE positions.  The prefill and decode cells serve the dry-run
-    (ROADMAP queue 1 item 9)."""
-    if shape.kind != "train":
-        raise ValueError(f"input_specs: kind {shape.kind!r}; the port takes "
-                         f"'train' cells only (the dry-run's are item 9)")
+    """The batch dict for one (arch x shape) cell.
+
+    train   : full-sequence tokens and labels (teacher forcing); source
+              frames and target tokens for the encoder-decoder;
+              ``inputs_embeds`` where the config takes embeddings
+    prefill : the prompt batch (the encoder-decoder's frames and its
+              one-token decoder prefix)
+    decode  : one new token a sequence (the cache is a separate argument:
+              ``cache_specs``)
+    M-RoPE positions [3, B, S] with train and prefill batches."""
     B, S = shape.global_batch, shape.seq_len
     tok = torch.int32
+    kind = shape.kind
+    if kind == "decode":
+        return {"tokens": TensorSpec((B, 1), tok)}
+    if kind not in ("train", "prefill"):
+        raise ValueError(kind)
     batch: Dict[str, TensorSpec] = {}
     if cfg.family == "audio" or cfg.embedding_inputs:
         batch["inputs_embeds"] = TensorSpec((B, S, cfg.d_model), torch.bfloat16)
-    if cfg.family == "audio" or not cfg.embedding_inputs:
+    if cfg.family == "audio":
+        batch["tokens"] = TensorSpec((B, S if kind == "train" else 1), tok)
+    elif not cfg.embedding_inputs:
         batch["tokens"] = TensorSpec((B, S), tok)
     if cfg.rope == "mrope":
         batch["positions"] = TensorSpec((3, B, S), tok)
-    batch["labels"] = TensorSpec((B, S), tok)
+    if kind == "train":
+        batch["labels"] = TensorSpec((B, S), tok)
     return batch
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig,
+                src_len: Optional[int] = None) -> Any:
+    """The decode cache of a cell, each leaf a ``TensorSpec``: the family's
+    ``init_cache`` for the shape's batch and sequence on the ``meta``
+    device (no allocation).  ``src_len``: the encoder-decoder's cross cache
+    length where it is not the sequence's (a prefill's source)."""
+    mod = get_module(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    kw = {"src_len": src_len} if src_len is not None else {}
+    cache = mod.init_cache(cfg, B, S, device="meta", **kw)
+
+    def spec(x):
+        if isinstance(x, list):
+            return [spec(t) for t in x]
+        return TensorSpec(tuple(x.shape), x.dtype)
+
+    return type(cache)(**{f: spec(getattr(cache, f)) for f in cache._fields})

@@ -12,12 +12,20 @@ its input unchanged, as the JAX anchors change no value; they stand where
 the JAX package calls them, so that a reader finds the counterpart.
 
 ``set_mesh`` installs the mesh and profile of the ranks' program, and the
-train step adds its ``runtime.sharding.Layout``.  ``layers.moe_apply_auto``
+sharded steps add their ``runtime.sharding.Layout``: the train step, and
+the serving steps (``runtime.steps.build_prefill_step`` /
+``build_decode_step`` under a mesh), whose layout also lays out the decode
+cache.  ``layers.moe_apply_auto``
 reads the mesh to pick the expert-parallel MoE; the layers read the
 layout through ``split`` (which logical axes the rank computes its
 'model' block of), ``gathered`` (the gather-at-use hook) and ``seq``
 (whether the batch's sequence is split over 'model', profile 'cp'); the
-loss through ``dp``.  Without a mesh or a layout every helper is a no-op.  The
+loss through ``dp``; prefill and decode through ``cache_split`` (which dim
+of a cache leaf the rank holds its 'model' block of: an attention cache's
+slots or its KV heads, a recurrent state's heads or channels) and
+``to_cache`` / ``from_cache``, which carry a leaf between the block the
+rank computes and the one it holds.  Without a mesh or a layout every
+helper is a no-op.  The
 reference's ``_dp_entry`` (the batch dim's spec entry) is
 ``runtime.sharding._batch_axis``.
 """
@@ -99,6 +107,60 @@ def positions(S: int, device, entry: str = "labels"):
     sq = seq(entry)
     start = 0 if sq is None else sq[1] * S
     return torch.arange(start, start + S, device=device)
+
+
+def cache_split(field: str):
+    """(mesh, dim, r, n) where the installed serving layout holds the
+    rank's 'model' block of one layer's leaf of the decode cache's
+    ``field`` along ``dim`` (``runtime.sharding.Layout.set_cache``): block
+    r of n.  None without a layout, and where the leaf is whole over
+    'model'."""
+    if _LAYOUT is None:
+        return None
+    dim = _LAYOUT.cache_dim(field)
+    if dim is None:
+        return None
+    mesh = _LAYOUT.mesh
+    return mesh, dim, mesh.coords["model"], mesh.sizes["model"]
+
+
+def to_cache(field: str, x, split_dim=None):
+    """``x``, one layer's leaf of the cache ``field`` as the rank computed
+    it (whole, or its 'model' block along ``split_dim``), as the rank holds
+    it (``cache_split``): gathered over 'model' where the cache keeps that
+    dim whole, the rank's block cut where the cache splits a dim the rank
+    computed whole.  ``x`` itself without a layout."""
+    if _LAYOUT is None:
+        return x
+    from repro_torch.runtime import collectives as C
+    cs = cache_split(field)
+    if split_dim is not None and (cs is None or cs[1] != split_dim % x.dim()):
+        x = C.gather_from(x, _LAYOUT.mesh, "model", split_dim)
+        split_dim = None
+    if cs is not None and split_dim is None:
+        _, dim, r, n = cs
+        step = x.shape[dim] // n
+        x = x.narrow(dim, r * step, step).clone(memory_format=torch.contiguous_format)
+    return x
+
+
+def from_cache(field: str, x, split_dim=None):
+    """The inverse of ``to_cache``: one layer's leaf of the cache ``field``
+    as the rank holds it -> as the rank computes with it (whole, or its
+    'model' block along ``split_dim``)."""
+    if _LAYOUT is None:
+        return x
+    from repro_torch.runtime import collectives as C
+    cs = cache_split(field)
+    if cs is not None and (split_dim is None or cs[1] != split_dim % x.dim()):
+        x = C.gather_from(x, _LAYOUT.mesh, "model", cs[1])
+        cs = None
+    if split_dim is not None and cs is None:
+        mesh = _LAYOUT.mesh
+        n = mesh.sizes["model"]
+        step = x.shape[split_dim] // n
+        x = x.narrow(split_dim, mesh.coords["model"] * step, step)
+    return x
 
 
 def batch_sharded(x):

@@ -30,6 +30,13 @@ rows: ``attention_apply`` gathers K and V over 'model' and runs the
 kernel on its queries at their offset, and ``moe_apply`` routes the
 global batch in the reference's token order.
 
+Under the serving steps' layout (``actshard.cache_split``) the prefill's
+``attention_apply`` also returns the K / V that become the rank's cache
+block, and ``attention_decode_apply`` follows the cache's split: over its
+slots the new token's q / k / v are gathered over 'model', the write goes
+to the rank that owns the slot, and the partial softmaxes are merged over
+'model'; over its heads the rank attends locally.
+
 Prefill attention goes
 through ``kernels.flash_attention`` (``models.attention``); decode
 attention is plain tensor code, as in the JAX package.
@@ -498,25 +505,37 @@ def out_project(params: Params, o: torch.Tensor, dtype: torch.dtype) -> torch.Te
     return o.transpose(1, 2).reshape(B, S, H * e) @ w.reshape(H * e, w.shape[-1])
 
 
-def _split_heads(cfg: ModelConfig, params: Params, tp) -> Params:
+def _kv_of_rank_heads(cfg: ModelConfig, hl: int, tp, device) -> torch.Tensor:
+    """The KV head of each of the rank's ``hl`` query heads, h_global // G."""
+    first = coll().axis_index(tp, "model") * hl
+    return torch.div(torch.arange(first, first + hl, device=device), cfg.q_per_kv,
+                     rounding_mode="floor")
+
+
+def _split_heads(cfg: ModelConfig, params: Params, tp, cut_kv: bool = True) -> Params:
     """The attention leaves of a rank that computes its block of the query
     heads: a replicated QK-norm scale through ``copy_to``; replicated KV
-    heads (``kv_heads`` demoted under GQA) through ``copy_to`` and cut to
-    the KV head of each of the rank's query heads, h_global // G, so that
-    ``expand_kv`` is not needed."""
+    heads (``kv_heads`` demoted under GQA) through ``copy_to`` and, with
+    ``cut_kv``, cut to the KV head of each of the rank's query heads, so
+    that ``expand_kv`` is not needed."""
     C = coll()
     out = dict(params)
     for name in ("q_norm", "k_norm"):
         if name in params:
             out[name] = C.copy_to(params[name], tp, "model")
     if actshard.split("kv_heads") is None:
-        hl = params["wq"].shape[-2]
-        first = C.axis_index(tp, "model") * hl
-        idx = torch.div(torch.arange(first, first + hl, device=params["wk"].device),
-                        cfg.q_per_kv, rounding_mode="floor")
+        idx = _kv_of_rank_heads(cfg, params["wq"].shape[-2], tp, params["wk"].device)
         for name in ("wk", "wv"):
-            out[name] = C.copy_to(params[name], tp, "model").index_select(-2, idx)
+            out[name] = C.copy_to(params[name], tp, "model")
+            if cut_kv:
+                out[name] = out[name].index_select(-2, idx)
     return out
+
+
+def kv_heads_split() -> bool:
+    """Whether the rank computes its block of the KV heads (the heads split
+    over 'model' and the KV heads with them), not all of them."""
+    return actshard.split("heads") is not None and actshard.split("kv_heads") is not None
 
 
 def expand_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
@@ -534,11 +553,16 @@ def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
                     window: Optional[int] = None, kernels=ops,
                     kv_x: Optional[torch.Tensor] = None,
                     kv_positions: Optional[torch.Tensor] = None,
-                    kv_entry: str = "labels") -> torch.Tensor:
+                    kv_entry: str = "labels", return_kv: bool = False):
     """Full-sequence attention (train / prefill); cross-attention into
     ``kv_x`` where given.  Under ``actshard.split("heads")`` the rank
     computes its block of the heads (column-parallel q / k / v, the kernel
     on H/tp heads, row-parallel ``out_project`` summed over 'model').
+    ``return_kv`` (a prefill's cache): returns (out, k, v), k and v
+    [B,Hkv',S,D] before the GQA expansion, the rank's KV heads where it
+    computes its block of them (``kv_heads_split``), else all of them
+    (replicated KV heads projected whole and cut to the rank's query heads
+    for the kernel only).
 
     Under ``actshard.seq(kv_entry)`` (the batch entry whose sequence the
     keys come from: the tokens', or the encoder's frames) the rank holds
@@ -557,9 +581,13 @@ def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
         C = coll()
         x = C.copy_to(x, tp, "model")
         kv_x = None if kv_x is None else C.copy_to(kv_x, tp, "model")
-        params = _split_heads(cfg, params, tp)
+        params = _split_heads(cfg, params, tp, cut_kv=not return_kv)
     q, k, v = qkv_project(cfg, params, x, positions, kv_x=kv_x,
                           kv_positions=kv_positions)
+    kv = (k, v)
+    if tp is not None and return_kv and actshard.split("kv_heads") is None:
+        idx = _kv_of_rank_heads(cfg, q.shape[1], tp, q.device)
+        k, v = k.index_select(1, idx), v.index_select(1, idx)
     offset = 0
     sq = actshard.seq(kv_entry)
     if sq is not None:
@@ -577,13 +605,14 @@ def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
     out = out_project(params, o, x.dtype)
     if tp is not None:
         out = coll().reduce_from(out, tp, "model")
-    return actshard.batch_sharded(out)
+    out = actshard.batch_sharded(out)
+    return (out, *kv) if return_kv else out
 
 
 def attention_decode_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
                            position: torch.Tensor, cache_k: torch.Tensor,
                            cache_v: torch.Tensor, cache_index: torch.Tensor,
-                           window: Optional[int] = None):
+                           window: Optional[int] = None, *, field: str = "k"):
     """Single-token decode.  x: [B,1,d].  cache_k/v: [B,Hkv,S,D].
 
     Returns (out [B,1,d], new_cache_k, new_cache_v).  ``cache_index`` is the
@@ -593,23 +622,91 @@ def attention_decode_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
     index is clamped to S - 1, as ``lax.dynamic_update_slice_in_dim``
     clamps it: past a linear cache of the prompt's length every step
     overwrites its last slot, as the reference's does.
+
+    Under a serving layout the cache leaf is the rank's block of the cache
+    ``field`` (``actshard.cache_split``), and q / k / v are column-parallel
+    on the rank's heads under ``actshard.split("heads")`` (the KV heads
+    projected whole where they are replicated); the new token's k / v are
+    gathered over 'model' on the heads wherever the cache holds every KV
+    head.  Where 'model' splits the cache's slots (flash-decoding's split-S:
+    the rank holds slots r S/n ... (r + 1) S/n - 1 of every KV head) the
+    write goes to the rank that owns the global write index, decided on the
+    device (the others write back what the slot held), and ``attend_cache``
+    merges the ranks' partial softmaxes.  ``out_project`` is row-parallel on
+    the rank's heads, summed over 'model' (``reduce_from``).
     """
     B = x.shape[0]
-    S = cache_k.shape[2]
     if cfg.rope == "mrope":
         # text-token M-RoPE: all three streams advance with the step
         positions = position.reshape(1, 1, 1).expand(3, B, 1)
     else:
         positions = position.reshape(1, 1).expand(B, 1)
+    C = coll()
+    tp, cs = actshard.split("heads"), actshard.cache_split(field)
+    if tp is not None:
+        x = C.copy_to(x, tp, "model")
     q, k, v = qkv_project(cfg, params, x, positions)
+    by_slots = cs is not None and cs[1] == 2
+    by_heads = cs is not None and cs[1] == 1
+    if by_heads and not kv_heads_split():
+        raise ValueError("attention_decode_apply: the cache holds the rank's KV "
+                         "heads but the rank does not compute its block of them")
+    if not by_heads and kv_heads_split():          # the cache holds every KV head
+        k, v = torch.unbind(C.gather_from(torch.stack([k, v]), tp, "model", 2))
+    S_block = cache_k.shape[2]
+    S = S_block * cs[3] if by_slots else S_block
     write_idx = cache_index % S if window is not None else cache_index
-    write_idx = torch.clamp(write_idx, max=S - 1).long().reshape(1)
-    cache_k = cache_k.index_copy(2, write_idx, k.to(cache_k.dtype))
-    cache_v = cache_v.index_copy(2, write_idx, v.to(cache_v.dtype))
+    write_idx = torch.clamp(write_idx, max=S - 1)
+    k, v = k.to(cache_k.dtype), v.to(cache_v.dtype)
+    if by_slots:
+        local = write_idx - cs[2] * S_block
+        mine = (local >= 0) & (local < S_block)
+        idx = torch.clamp(local, 0, S_block - 1).long().reshape(1)
+        k = torch.where(mine, k, cache_k.index_select(2, idx))
+        v = torch.where(mine, v, cache_v.index_select(2, idx))
+    else:
+        idx = write_idx.long().reshape(1)
+    cache_k = cache_k.index_copy(2, idx, k)
+    cache_v = cache_v.index_copy(2, idx, v)
     valid = torch.clamp(cache_index + 1, max=S)
-    o = attn_lib.decode_attention(q, cache_k, cache_v, valid,
-                                  ring=window is not None)
-    return out_project(params, o, x.dtype), cache_k, cache_v
+    o = attend_cache(cfg, q, cache_k, cache_v, valid, tp, cs)
+    out = out_project(params, o, x.dtype)
+    if tp is not None:
+        out = C.reduce_from(out, tp, "model")
+    return out, cache_k, cache_v
+
+
+def attend_cache(cfg: ModelConfig, q: torch.Tensor, cache_k: torch.Tensor,
+                 cache_v: torch.Tensor, valid, tp, cs) -> torch.Tensor:
+    """One token's attention [B,Hq',1,D] of q [B,Hq',1,D] (the rank's query
+    heads under ``tp``, else all) against a cache block laid out by ``cs``
+    (``actshard.cache_split``), ``valid`` slots of the whole cache valid:
+    over its slots, q of every head gathered over 'model', the rank's
+    ``decode_attention_partial`` merged with the others'
+    (``merge_partials``) and the rank's heads of o kept; over its KV heads,
+    the rank's heads attended locally; whole, the rank's heads against
+    it, read at the KV head of each of them; ``decode_attention`` with
+    neither a split nor ``tp``."""
+    C = coll()
+    if cs is not None and cs[1] == 2:                       # slots over 'model'
+        mesh, _, r, _ = cs
+        hl = q.shape[1]
+        if tp is not None:
+            q = C.gather_from(q, tp, "model", 1)
+        S_block = cache_k.shape[2]
+        slots = r * S_block + torch.arange(S_block, device=q.device)
+        part = attn_lib.decode_attention_partial(q, cache_k, cache_v, slots, valid)
+        o = attn_lib.merge_partials([part], mesh, "model").to(q.dtype)
+        return o if tp is None else o.narrow(1, r * hl, hl)
+    if tp is not None and (cs is None or cs[1] != 1):       # the whole cache
+        if actshard.split("kv_heads") is not None:
+            hk = cache_k.shape[1] // tp.sizes["model"]
+            r = C.axis_index(tp, "model")
+            cache_k, cache_v = (c.narrow(1, r * hk, hk) for c in (cache_k, cache_v))
+        else:
+            idx = _kv_of_rank_heads(cfg, q.shape[1], tp, q.device)
+            cache_k, cache_v = (c.index_select(1, idx) for c in (cache_k, cache_v))
+    return attn_lib.decode_attention(q, cache_k, cache_v, valid)
 
 
 # ---------------------------------------------------------------------------

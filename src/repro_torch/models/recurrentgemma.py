@@ -48,7 +48,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import actshard
-from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.layers import coll
 from repro_torch.models.params import ParamDef, draw_cast, load_cast
@@ -185,10 +184,11 @@ def rg_lru(rec: Params, u: torch.Tensor, h0: Optional[torch.Tensor] = None,
     return h.to(u.dtype), h[:, -1]
 
 
-def rg_lru_step(rec: Params, u: torch.Tensor, h: torch.Tensor):
+def rg_lru_step(rec: Params, u: torch.Tensor, h: torch.Tensor,
+                u_whole: Optional[torch.Tensor] = None):
     """One decode step.  u: [B,W]; h: [B,W] float32 -> (y in u's dtype,
-    new h float32)."""
-    a, b = _gates(rec, u)
+    new h float32).  ``u_whole`` as ``_gates`` takes it."""
+    a, b = _gates(rec, u, u_whole)
     h_new = a * h + b
     return h_new.to(u.dtype), h_new
 
@@ -327,34 +327,38 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             kernels=ops, **_) -> Tuple[torch.Tensor, RGCache]:
     """Run the full prompt, return (last hidden [B,D], cache).  One
-    ``kernels.flash_attention`` an attention block."""
+    ``kernels.flash_attention`` an attention block (``layers.
+    attention_apply``).  Under a serving layout each block gathers its
+    leaves at use and splits its products as in training, and the rank
+    keeps its blocks of the cache (``actshard.to_cache``): ``rec_h`` and
+    ``conv_state`` its W/tp channels, the MQA ring its slots."""
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
     S = x.shape[1]
     W = cache_len(cfg, S)
     positions = _positions(x)
+    ch = 1 if actshard.split("ff") is not None else None
     rec_h, conv_state, attn_k, attn_v = [], [], [], []
-    for kind, bp in zip(cfg.block_pattern, params["blocks"]):
+    for i, (kind, bp) in enumerate(zip(cfg.block_pattern, params["blocks"])):
+        bp = actshard.gathered(bp, f"blocks.{i}")
         h = L.norm_apply(cfg, bp["ln1"], x)
         if kind == "recurrent":
             h, h_last, cst = _recurrent_block(cfg, bp["rec"], h)
-            rec_h.append(h_last)
-            conv_state.append(cst)
+            rec_h.append(actshard.to_cache("rec_h", h_last, ch))
+            conv_state.append(actshard.to_cache("conv_state", cst,
+                                                None if ch is None else 2))
         else:
-            q, k, v = L.qkv_project(cfg, bp["attn"], h, positions)
-            kr, vr = L.expand_kv(cfg, k, v)
-            if cfg.window is not None and cfg.window < S:
-                o = attn_lib.flash_attention_banded(q, kr, vr, cfg.window,
-                                                    kernels=kernels)
-            else:
-                o = attn_lib.flash_attention(q, kr, vr, True, cfg.window,
-                                             kernels=kernels)
-            h = L.out_project(bp["attn"], o, x.dtype)
-            attn_k.append(_to_ring(k, W) if W < S else k)
-            attn_v.append(_to_ring(v, W) if W < S else v)
+            h, k, v = L.attention_apply(cfg, bp["attn"], h, positions,
+                                        window=cfg.window, kernels=kernels,
+                                        return_kv=True)
+            kv_dim = 1 if L.kv_heads_split() else None
+            attn_k.append(actshard.to_cache("attn_k", _to_ring(k, W) if W < S else k,
+                                            kv_dim))
+            attn_v.append(actshard.to_cache("attn_v", _to_ring(v, W) if W < S else v,
+                                            kv_dim))
         x = x + h
         h = L.norm_apply(cfg, bp["ln2"], x)
         x = x + L.mlp_apply(cfg, bp["mlp"], h)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     # step is filled on the device, so that the prefill can be captured
     cache = RGCache(rec_h=rec_h, conv_state=conv_state, attn_k=attn_k,
                     attn_v=attn_v,
@@ -362,37 +366,65 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     return x[:, -1, :], cache
 
 
+def _recurrent_step(cfg: ModelConfig, rec: Params, h: torch.Tensor,
+                    conv_state: torch.Tensor, rec_h: torch.Tensor):
+    """One token through a recurrent block -> (out [B,1,D], conv state,
+    h).  Under ``actshard.split("ff")`` the products are
+    ``_recurrent_block``'s: ``wy`` / ``wx`` column-parallel, the
+    convolution and the RG-LRU step on the rank's W/tp channels with the
+    gates on the convolution's output gathered over 'model', ``wo``
+    row-parallel and summed over 'model'.  The cache's blocks are carried
+    to those channels and back (``actshard.from_cache`` / ``to_cache``)."""
+    dtype = h.dtype
+    tp = actshard.split("ff")
+    ch = None if tp is None else 1
+    conv_state = actshard.from_cache("conv_state", conv_state, None if ch is None else 2)
+    rec_h = actshard.from_cache("rec_h", rec_h, ch)
+    if tp is not None:
+        h = coll().copy_to(h, tp, "model")
+    y_branch = L.activation("gelu", h @ rec["wy"].to(dtype))
+    x_branch = h @ rec["wx"].to(dtype)
+    x_branch, conv_state = causal_conv1d(rec, x_branch, conv_state)
+    whole = None if tp is None else coll().all_gather(x_branch[:, 0], tp, "model", -1)
+    x_step, rec_h = rg_lru_step(rec, x_branch[:, 0], rec_h, u_whole=whole)
+    out = (y_branch * x_step[:, None]) @ rec["wo"].to(dtype)
+    if tp is not None:
+        out = coll().reduce_from(out, tp, "model")
+    return (out, actshard.to_cache("conv_state", conv_state, None if ch is None else 2),
+            actshard.to_cache("rec_h", rec_h, ch))
+
+
 def decode_step(cfg: ModelConfig, params: Params, cache: RGCache,
                 batch: Dict[str, Any], *, kernels=ops,
                 **_) -> Tuple[torch.Tensor, RGCache]:
     """batch: {"tokens": [B,1]}.  Returns (logits [B,V] for the new token,
     updated cache).  No kernel: ``kernels`` is taken for the common step
-    signature."""
+    signature.  Under a serving layout each block gathers its leaves at
+    use, the recurrent blocks split as ``_recurrent_step`` says, the
+    attention blocks follow the ring's split over slots
+    (``layers.attention_decode_apply``)."""
     del kernels
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
     step = cache.step
     rec_h, conv_state = list(cache.rec_h), list(cache.conv_state)
     attn_k, attn_v = list(cache.attn_k), list(cache.attn_v)
     ri = ai = 0
-    for kind, bp in zip(cfg.block_pattern, params["blocks"]):
+    for i, (kind, bp) in enumerate(zip(cfg.block_pattern, params["blocks"])):
+        bp = actshard.gathered(bp, f"blocks.{i}")
         h = L.norm_apply(cfg, bp["ln1"], x)
         if kind == "recurrent":
-            rec, dtype = bp["rec"], h.dtype
-            y_branch = L.activation("gelu", h @ rec["wy"].to(dtype))
-            x_branch = h @ rec["wx"].to(dtype)
-            x_branch, conv_state[ri] = causal_conv1d(rec, x_branch, conv_state[ri])
-            x_step, rec_h[ri] = rg_lru_step(rec, x_branch[:, 0], rec_h[ri])
-            h = (y_branch * x_step[:, None]) @ rec["wo"].to(dtype)
+            h, conv_state[ri], rec_h[ri] = _recurrent_step(
+                cfg, bp["rec"], h, conv_state[ri], rec_h[ri])
             ri += 1
         else:
             h, attn_k[ai], attn_v[ai] = L.attention_decode_apply(
                 cfg, bp["attn"], h, step, attn_k[ai], attn_v[ai], step,
-                window=cfg.window)
+                window=cfg.window, field="attn_k")
             ai += 1
         x = x + h
         h = L.norm_apply(cfg, bp["ln2"], x)
         x = x + L.mlp_apply(cfg, bp["mlp"], h)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     logits = L.lm_logits(params["embed"], x)[:, 0, :]
     return logits, RGCache(rec_h=rec_h, conv_state=conv_state, attn_k=attn_k,
                            attn_v=attn_v, step=step + 1)

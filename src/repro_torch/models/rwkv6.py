@@ -425,32 +425,61 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             kernels=ops, **_) -> Tuple[torch.Tensor, RWKVCache]:
     """batch["tokens"]: [B, T] -> (last hidden [B, D], cache).  Every
     layer's recurrence runs from the zero state through
-    ``kernels.wkv_chunked``: one launch a layer on the card."""
+    ``kernels.wkv_chunked``: one launch a layer on the card (on the rank's
+    H/tp heads under a serving layout, whose cache blocks
+    ``_to_cache_blocks`` makes)."""
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
-    x = L.norm_apply(cfg, params["ln0"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln0"], "ln0"), x)
     T = x.shape[1]
     x, st, sh_tm, sh_cm = _blocks(cfg, params, x, kernels)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     # step is filled on the device: a copy from the host's pageable memory
     # (torch.tensor(T, device=...)) cannot be captured into a CUDA graph
-    cache = RWKVCache(state=torch.stack(st), shift_tm=torch.stack(sh_tm),
-                      shift_cm=torch.stack(sh_cm),
-                      step=torch.full((), T, dtype=torch.int32,
-                                      device=x.device))
+    cache = _to_cache_blocks(st, sh_tm, sh_cm,
+                             torch.full((), T, dtype=torch.int32, device=x.device))
     return x[:, -1, :], cache
+
+
+def _state_dim():
+    """The dim of a layer's state [B,H,K,V] that the rank computes its
+    'model' block of (its heads, where the time mix splits them), else
+    None."""
+    return 1 if actshard.split("ff") is not None else None
+
+
+def _to_cache_blocks(st, sh_tm, sh_cm, step) -> RWKVCache:
+    """The layers' states and token shifts as the rank computed them (the
+    states on its heads where the time mix splits them, the shifts whole)
+    -> the rank's blocks of the cache (``actshard.to_cache``): the states'
+    heads and the shifts' d_model over 'model' where ``cache_pspecs``
+    splits them."""
+    sd = _state_dim()
+    return RWKVCache(
+        state=torch.stack([actshard.to_cache("state", s, sd) for s in st]),
+        shift_tm=torch.stack([actshard.to_cache("shift_tm", s) for s in sh_tm]),
+        shift_cm=torch.stack([actshard.to_cache("shift_cm", s) for s in sh_cm]),
+        step=step)
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: RWKVCache,
                 batch: Dict[str, Any], *, kernels=ops,
                 **_) -> Tuple[torch.Tensor, RWKVCache]:
-    """batch["tokens"]: [B, 1] -> (logits [B, padded vocab], cache)."""
+    """batch["tokens"]: [B, 1] -> (logits [B, padded vocab], cache).  Under
+    a serving layout the rank's blocks of the cache are carried to what the
+    layers compute with (``actshard.from_cache``: the token shifts gathered
+    over 'model', the states as the time mix splits its heads) and back."""
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
-    x = L.norm_apply(cfg, params["ln0"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln0"], "ln0"), x)
+    sd = _state_dim()
+    cache = RWKVCache(
+        state=[actshard.from_cache("state", s, sd) for s in cache.state],
+        shift_tm=[actshard.from_cache("shift_tm", s) for s in cache.shift_tm],
+        shift_cm=[actshard.from_cache("shift_cm", s) for s in cache.shift_cm],
+        step=cache.step)
     x, st, sh_tm, sh_cm = _blocks(cfg, params, x, kernels, cache)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     logits = L.lm_logits(params["embed"], x)[:, 0, :]
-    return logits, RWKVCache(state=torch.stack(st), shift_tm=torch.stack(sh_tm),
-                             shift_cm=torch.stack(sh_cm), step=cache.step + 1)
+    return logits, _to_cache_blocks(st, sh_tm, sh_cm, cache.step + 1)
 
 
 def kernel_launches_per_prefill(cfg: ModelConfig) -> Dict[str, int]:

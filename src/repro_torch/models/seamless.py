@@ -51,7 +51,6 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import actshard
-from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.params import draw_cast, load_cast, per_layer
 
@@ -242,32 +241,37 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
 
     batch: {"inputs_embeds": [B,T_src,D], "tokens": [B,T0]}: T0 is the
     decoder prefix already consumed (>= 1, usually the BOS token).  The
-    self K/V are padded to ``decode_len`` (the source length by default)."""
+    self K/V are padded to ``decode_len`` (the source length by default).
+    Under a serving layout every attention (the encoder's, the decoder's
+    self and cross) runs on the rank's heads (``layers.attention_apply``),
+    each block gathers its leaves at use, and the rank keeps its blocks of
+    the self and cross caches (``actshard.to_cache``: its heads where they
+    divide 'model')."""
     memory = encode(cfg, params, batch["inputs_embeds"], kernels=kernels)
     tokens = batch["tokens"]
     B, T0 = tokens.shape
     S_dec = decode_len or batch["inputs_embeds"].shape[1]
     x = _embed(cfg, params, tokens,
                torch.arange(T0, device=tokens.device).expand(B, T0))
+    kv_dim = 1 if L.kv_heads_split() else None
     sk, sv, xks, xvs = [], [], [], []
     for bp in per_layer(params["dec_blocks"], cfg.num_layers):
+        bp = actshard.gathered(bp, "dec_blocks")
         h = L.norm_apply(cfg, bp["ln1"], x)
-        q, k, v = L.qkv_project(cfg, bp["attn"], h, None)
-        kr, vr = L.expand_kv(cfg, k, v)
-        o = attn_lib.flash_attention(q, kr, vr, True, kernels=kernels)
-        x = x + L.out_project(bp["attn"], o, x.dtype)
+        o, k, v = L.attention_apply(cfg, bp["attn"], h, None, causal=True,
+                                    kernels=kernels, return_kv=True)
+        x = x + o
         # the self K/V padded out to the whole decode budget
-        sk.append(F.pad(k, (0, 0, 0, S_dec - T0)))
-        sv.append(F.pad(v, (0, 0, 0, S_dec - T0)))
+        sk.append(actshard.to_cache("self_k", F.pad(k, (0, 0, 0, S_dec - T0)), kv_dim))
+        sv.append(actshard.to_cache("self_v", F.pad(v, (0, 0, 0, S_dec - T0)), kv_dim))
         h = L.norm_apply(cfg, bp["ln_x"], x)
-        xq, xk, xv = L.qkv_project(cfg, bp["xattn"], h, None, kv_x=memory)
-        xkr, xvr = L.expand_kv(cfg, xk, xv)
-        o = attn_lib.flash_attention(xq, xkr, xvr, False, kernels=kernels)
-        x = x + L.out_project(bp["xattn"], o, x.dtype)
+        o, xk, xv = L.attention_apply(cfg, bp["xattn"], h, None, causal=False,
+                                      kernels=kernels, kv_x=memory, return_kv=True)
+        x = x + o
         x = _mlp(cfg, bp, x)
-        xks.append(xk)
-        xvs.append(xv)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+        xks.append(actshard.to_cache("cross_k", xk, kv_dim))
+        xvs.append(actshard.to_cache("cross_v", xv, kv_dim))
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     # step is filled on the device: a copy from the host's pageable memory
     # cannot be captured into a CUDA graph
     cache = SeamlessCache(self_k=torch.stack(sk), self_v=torch.stack(sv),
@@ -281,28 +285,37 @@ def decode_step(cfg: ModelConfig, params: Params, cache: SeamlessCache,
                 batch: Dict[str, Any], *, kernels=ops,
                 **_) -> Tuple[torch.Tensor, SeamlessCache]:
     """batch: {"tokens": [B,1]}: one decoder step against the caches.  No
-    kernel: ``kernels`` is taken for the common step signature."""
+    kernel: ``kernels`` is taken for the common step signature.  Under a
+    serving layout each block gathers its leaves at use and attends on the
+    rank's heads, its blocks of the self and cross caches
+    (``layers.attention_decode_apply``, ``layers.attend_cache``)."""
     del kernels
     tokens = batch["tokens"]
     B = tokens.shape[0]
     step = cache.step
     x = _embed(cfg, params, tokens, step.reshape(1, 1).expand(B, 1))
-    S_src = cache.cross_k.shape[3]
+    cs = actshard.cache_split("cross_k")
+    S_src = cache.cross_k.shape[3] * (cs[3] if cs is not None and cs[1] == 2 else 1)
     sks, svs = [], []
     for i, bp in enumerate(per_layer(params["dec_blocks"], cfg.num_layers)):
+        bp = actshard.gathered(bp, "dec_blocks")
         h = L.norm_apply(cfg, bp["ln1"], x)
         h, sk, sv = L.attention_decode_apply(cfg, bp["attn"], h, step,
                                              cache.self_k[i], cache.self_v[i],
-                                             step)
+                                             step, field="self_k")
         x = x + h
         h = L.norm_apply(cfg, bp["ln_x"], x)
+        tp = actshard.split("heads")
+        if tp is not None:
+            h = L.coll().copy_to(h, tp, "model")
         q = L.query_project(cfg, bp["xattn"], h, None)
-        o = attn_lib.decode_attention(q, cache.cross_k[i], cache.cross_v[i], S_src)
-        x = x + L.out_project(bp["xattn"], o, x.dtype)
+        o = L.attend_cache(cfg, q, cache.cross_k[i], cache.cross_v[i], S_src, tp, cs)
+        o = L.out_project(bp["xattn"], o, x.dtype)
+        x = x + (o if tp is None else L.coll().reduce_from(o, tp, "model"))
         x = _mlp(cfg, bp, x)
         sks.append(sk)
         svs.append(sv)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     logits = L.lm_logits(params["embed"], x)[:, 0, :]
     return logits, SeamlessCache(self_k=torch.stack(sks), self_v=torch.stack(svs),
                                  cross_k=cache.cross_k, cross_v=cache.cross_v,

@@ -188,33 +188,32 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             kernels=ops, **_) -> Tuple[torch.Tensor, Cache]:
     """Run the full prompt, return (last hidden [B,D], cache).  One
-    ``kernels.flash_attention`` a layer: the banded form where the prompt
-    is longer than the window, whose K/V then go to a ring of ``window``."""
+    ``kernels.flash_attention`` a layer (``layers.attention_apply``): the
+    banded form where the prompt is longer than the window, whose K/V then
+    go to a ring of ``window``.  Under a serving layout each layer gathers
+    its leaves at use and runs the kernel on the rank's heads, and the
+    rank keeps its block of the cache (``actshard.to_cache``: its slots of
+    every KV head where 'model' splits them, after the ring)."""
     x, positions = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
     W = cache_len(cfg, S)
     banded = cfg.window is not None and cfg.window < S
+    kv_dim = 1 if L.kv_heads_split() else None
     ks, vs = [], []
     for bp in per_layer(params["blocks"], cfg.num_layers):
+        bp = actshard.gathered(bp, "blocks")
         x = actshard.batch_sharded(x)
         h = L.norm_apply(cfg, bp["ln1"], x)
-        q, k, v = L.qkv_project(cfg, bp["attn"], h, positions)
-        kr, vr = L.expand_kv(cfg, k, v)
-        if banded:
-            o = L.attn_lib.flash_attention_banded(q, kr, vr, cfg.window,
-                                                  kernels=kernels)
-        else:
-            o = L.attn_lib.flash_attention(q, kr, vr, cfg.causal, cfg.window,
-                                           kernels=kernels)
-        o = actshard.attn_out_sharded(o)
-        x = x + actshard.batch_sharded(L.out_project(bp["attn"], o, x.dtype))
+        o, k, v = L.attention_apply(cfg, bp["attn"], h, positions, kernels=kernels,
+                                    return_kv=True)
+        x = x + o
         h = L.norm_apply(cfg, bp["ln2"], x)
         x = x + _ffn(cfg, bp, h)[0]
         if banded:
             k, v = _to_ring(k, W), _to_ring(v, W)
-        ks.append(k)
-        vs.append(v)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+        ks.append(actshard.to_cache("k", k, kv_dim))
+        vs.append(actshard.to_cache("v", v, kv_dim))
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     # step is filled on the device: a copy from the host's pageable memory
     # cannot be captured into a CUDA graph
     cache = Cache(k=torch.stack(ks), v=torch.stack(vs),
@@ -241,7 +240,10 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 **_) -> Tuple[torch.Tensor, Cache]:
     """batch: {"tokens": [B,1]} (or {"inputs_embeds": [B,1,D]}).
     Returns (logits [B,V] for the new token, updated cache).  No kernel:
-    ``kernels`` is taken for the common step signature."""
+    ``kernels`` is taken for the common step signature.  Under a serving
+    layout each layer gathers its leaves at use, the attention follows the
+    cache's split (``layers.attention_decode_apply``) and the logits are
+    the rank's vocabulary slice (``layers.lm_logits``)."""
     del kernels
     if cfg.embedding_inputs and "inputs_embeds" in batch:
         x = batch["inputs_embeds"].to(cfg.compute_dtype)
@@ -250,6 +252,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     step = cache.step
     ks, vs = [], []
     for i, bp in enumerate(per_layer(params["blocks"], cfg.num_layers)):
+        bp = actshard.gathered(bp, "blocks")
         h = L.norm_apply(cfg, bp["ln1"], x)
         h, ck, cv = L.attention_decode_apply(cfg, bp["attn"], h, step,
                                              cache.k[i], cache.v[i], step,
@@ -259,7 +262,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         x = x + _ffn(cfg, bp, h)[0]
         ks.append(ck)
         vs.append(cv)
-    x = L.norm_apply(cfg, params["ln_f"], x)
+    x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     logits = L.lm_logits(params["embed"], x)[:, 0, :]
     return logits, Cache(k=torch.stack(ks), v=torch.stack(vs), step=step + 1)
 

@@ -34,7 +34,9 @@ and one graph launch a step, however many kernels the step runs.
 
 No fallback: CPU tensors raise ``ValueError`` (the CPU has no graphs; the
 caller picks the eager step by device, as ``kernels.ops`` routes by
-device), and a capture that fails raises.
+device), and a capture that fails raises.  A sharded serving step is
+captured where its mesh has no axis of more than one rank, and runs eager
+where a collective crosses ranks (``capturable``).
 """
 from __future__ import annotations
 
@@ -138,6 +140,15 @@ def captured(fn: Callable, *, pool=None) -> Captured:
     ``torch.cuda.graph_pool_handle()`` to share with other graphs of the
     same model; by default the graphs of this callable share their own."""
     return Captured(fn, pool=pool)
+
+
+def capturable(mesh) -> bool:
+    """Whether a step on ``mesh`` (None: one device) is captured: on a
+    mesh where no axis has more than one rank every collective is its
+    input and the step is the one-device step, captured as it is.  Where a
+    collective crosses ranks the step runs eager: gloo stages every one
+    through the host, which a graph cannot hold."""
+    return mesh is None or all(n == 1 for n in mesh.shape)
 
 
 def donating(step: Callable, argnum: int) -> Callable:

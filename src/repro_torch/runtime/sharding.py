@@ -17,8 +17,9 @@ array whole: a rank holds the block of a tensor that JAX's
 ``NamedSharding.devices_indices_map`` gives the device at its coordinates.
 ``shard_map`` has no counterpart: each rank runs the body itself.
 
-The sharded train step's ``Layout`` says what a rank holds (its blocks)
-and which products it splits over 'model'; ``gather_at_use`` is the hook a
+The sharded steps' ``Layout`` says what a rank holds (its blocks of the
+parameters, of the batch and, serving, of the decode cache) and which
+products it splits over 'model'; ``gather_at_use`` is the hook a
 layer calls on its leaves where it uses them (``models.actshard.gathered``),
 gathering each over its fsdp axes, and counts the bytes it gathers and the
 gathered bytes alive.
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import math
 import weakref
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -155,56 +156,64 @@ def batch_pspecs(cfg: ModelConfig, mesh, batch_struct: Dict[str, Any],
 # ---------------------------------------------------------------------------
 
 
+def _tpax(mesh, dim: int, profile: str):
+    """'model' where the profile splits a cache dim over TP and the axis
+    divides it, else None."""
+    if profile == "fsdp":          # 'model' belongs to the batch/dp group
+        return None
+    return "model" if dim % mesh_axis_sizes(mesh).get("model", 1) == 0 else None
+
+
+def cache_leaf_pspec(mesh, field: str, shape, profile: str = "2d") -> P:
+    """The PartitionSpec of one leaf of a decode cache, by its NamedTuple
+    field name and its (global) shape: ``cache_pspecs``' rule for a leaf."""
+    ndim = len(shape)
+    if ndim == 0:
+        return P()
+    shape = tuple(shape)
+    tp = mesh_axis_sizes(mesh).get("model", 1)
+    b_dim = 1 if ndim >= 4 or field.startswith("shift") else 0
+    nb = _batch_axis(mesh, shape[b_dim], profile)
+    if field in ("self_k", "self_v", "cross_k", "cross_v"):
+        # Seamless [L,B,H,S,D]: heads over TP where they divide, else the
+        # sequence
+        if profile != "fsdp" and shape[2] % tp == 0:
+            return P(None, nb, "model", None, None)
+        return P(None, nb, None, _tpax(mesh, shape[3], profile), None)
+    if field in ("k", "v"):                   # transformer [L,B,Hkv,S,D]
+        return P(None, nb, None, _tpax(mesh, shape[3], profile), None)
+    if field in ("attn_k", "attn_v"):         # RecurrentGemma [B,Hkv,W,D]
+        return P(_batch_axis(mesh, shape[0], profile), None,
+                 _tpax(mesh, shape[2], profile), None)
+    if field == "state":                      # RWKV [L,B,H,K,V]
+        return P(None, nb, _tpax(mesh, shape[2], profile), None, None)
+    if field.startswith("shift"):             # RWKV [L,B,D]
+        return P(None, nb, _tpax(mesh, shape[2], profile))
+    if field == "rec_h":                      # RecurrentGemma [B,W]
+        return P(_batch_axis(mesh, shape[0], profile), _tpax(mesh, shape[1], profile))
+    if field == "conv_state":                 # RecurrentGemma [B,cw-1,W]
+        return P(_batch_axis(mesh, shape[0], profile), None,
+                 _tpax(mesh, shape[2], profile))
+    return P(*([None] * ndim))
+
+
 def cache_pspecs(cfg: ModelConfig, mesh, cache_struct: Any,
                  profile: str = "2d") -> Any:
     """PartitionSpec tree for a decode cache (a family's NamedTuple).  KV
     caches shard the batch over the dp axes and the sequence over TP;
     attention-free state shards its head dim over TP.  Dispatch is by the
-    NamedTuple's field name."""
-    tp = mesh_axis_sizes(mesh).get("model", 1)
-
-    def tpax(dim: int):
-        if profile == "fsdp":      # 'model' belongs to the batch/dp group
-            return None
-        return "model" if dim % tp == 0 else None
-
-    def spec_leaf(field: str, leaf) -> P:
-        ndim = len(getattr(leaf, "shape", ()))
-        if ndim == 0:
-            return P()
-        shape = tuple(leaf.shape)
-        b_dim = 1 if ndim >= 4 or field.startswith("shift") else 0
-        nb = _batch_axis(mesh, shape[b_dim], profile)
-        if field in ("self_k", "self_v", "cross_k", "cross_v"):
-            # Seamless [L,B,H,S,D]: heads over TP where they divide, else
-            # the sequence
-            if profile != "fsdp" and shape[2] % tp == 0:
-                return P(None, nb, "model", None, None)
-            return P(None, nb, None, tpax(shape[3]), None)
-        if field in ("k", "v"):                   # transformer [L,B,Hkv,S,D]
-            return P(None, nb, None, tpax(shape[3]), None)
-        if field in ("attn_k", "attn_v"):         # RecurrentGemma [B,Hkv,W,D]
-            return P(_batch_axis(mesh, shape[0], profile), None,
-                     tpax(shape[2]), None)
-        if field == "state":                      # RWKV [L,B,H,K,V]
-            return P(None, nb, tpax(shape[2]), None, None)
-        if field.startswith("shift"):             # RWKV [L,B,D]
-            return P(None, nb, tpax(shape[2]))
-        if field == "rec_h":                      # RecurrentGemma [B,W]
-            return P(_batch_axis(mesh, shape[0], profile), tpax(shape[1]))
-        if field == "conv_state":                 # RecurrentGemma [B,cw-1,W]
-            return P(_batch_axis(mesh, shape[0], profile), None, tpax(shape[2]))
-        return P(*([None] * ndim))
-
+    NamedTuple's field name (``cache_leaf_pspec``)."""
     if not hasattr(cache_struct, "_fields"):
         raise TypeError(f"cache_pspecs: a cache NamedTuple, got {type(cache_struct)}")
     out = {}
     for field in cache_struct._fields:
         sub = getattr(cache_struct, field)
         if isinstance(sub, (list, tuple)):
-            out[field] = [spec_leaf(field, leaf) for leaf in sub]
+            out[field] = [cache_leaf_pspec(mesh, field, getattr(leaf, "shape", ()),
+                                           profile) for leaf in sub]
         else:
-            out[field] = spec_leaf(field, sub)
+            out[field] = cache_leaf_pspec(mesh, field, getattr(sub, "shape", ()),
+                                          profile)
     return type(cache_struct)(**out)
 
 
@@ -280,7 +289,7 @@ def tree_gather_full(tree: Tree, specs: Tree, mesh) -> Tree:
 
 
 class Layout:
-    """What a rank of the sharded train step holds and splits.
+    """What a rank of a sharded train or serving step holds and splits.
 
     ``pspecs`` / ``defs`` / ``rules`` as ``model_param_pspecs`` lays the
     model out; ``tp`` the mesh where the profile splits products over
@@ -295,7 +304,9 @@ class Layout:
     split over 'model' (profile 'cp', 'model' of more than one rank and
     dividing the sequence), else None, ``seq_split`` the batch entries
     whose sequence is, and ``batch_specs`` the specs the rank takes its
-    block of the batch by (``set_batch``)."""
+    block of the batch by (``set_batch``); ``cache_dims`` the dim of each
+    decode cache field that the rank holds its 'model' block of
+    (``set_cache``, the serving steps)."""
 
     def __init__(self, cfg: ModelConfig, mesh, defs: Tree, profile: str = "2d"):
         self.mesh, self.defs = mesh, defs
@@ -317,20 +328,25 @@ class Layout:
         self.batch_axes: Tuple[str, ...] = ()
         self.seq = None
         self.seq_split: frozenset = frozenset()
+        self.cache_dims: Dict[str, Optional[int]] = {}
 
     def set_batch(self, specs: Dict[str, Any]) -> None:
         """A step's batch layout from its entries' specs
         (``batch_pspecs``): the axes over which its rows are split (the
-        labels' first entry), those of more than one rank, and under 'cp'
-        the entries whose sequence is split over 'model' (no other entry of
-        a 'cp' batch spec names 'model'; ``batch_pspecs`` keeps a sequence
-        that 'model' does not divide whole).  Where the labels' sequence is
-        whole, so is every entry's: the ranks of 'model' then hold the same
-        tokens, frames included."""
-        self.batch_axes = tuple(a for a in _entry_axes(specs["labels"][0])
+        first entry of the first of ``labels``, ``tokens`` and
+        ``inputs_embeds`` that the batch has: a prefill or decode batch has
+        no labels), those of more than one rank, and under 'cp' the entries
+        whose sequence is split over 'model' (no other entry of a 'cp'
+        batch spec names 'model'; ``batch_pspecs`` keeps a sequence that
+        'model' does not divide whole).  Where the rows' entry's sequence
+        is whole, so is every entry's: the ranks of 'model' then hold the
+        same tokens, frames included."""
+        rows = specs[next(k for k in ("labels", "tokens", "inputs_embeds")
+                          if k in specs)]
+        self.batch_axes = tuple(a for a in _entry_axes(rows[0])
                                 if self.mesh.sizes[a] > 1)
         cp = self.profile == "cp" and self.mesh.sizes.get("model", 1) > 1
-        split = cp and "model" in spec_axes(specs["labels"])
+        split = cp and "model" in spec_axes(rows)
         self.seq_split = frozenset(k for k, spec in specs.items()
                                    if split and "model" in spec_axes(spec))
         self.seq = self.mesh if split else None
@@ -338,6 +354,34 @@ class Layout:
             k: spec if not cp or k in self.seq_split
             else P(*(None if e == "model" else e for e in spec))
             for k, spec in specs.items()}
+
+    def set_cache(self, specs: Any) -> None:
+        """A serving step's cache layout from its specs (``cache_pspecs``):
+        for each field, the dim of one layer's leaf (a stacked leaf's slice,
+        a list's element) past its rows (dim 0) that 'model' splits, where
+        it has more than one rank, else None.  An attention cache's dim 1 is its KV heads, dim 2
+        its slots (the sequence, or a ring's window): a prompt length that
+        'model' does not divide leaves the slots whole."""
+        self.cache_dims = {}
+        if self.mesh.sizes.get("model", 1) == 1:
+            return
+        for field in specs._fields:
+            spec = getattr(specs, field)
+            spec = spec[0] if isinstance(spec, list) and spec else spec
+            if not isinstance(spec, P):
+                continue
+            if not isinstance(getattr(specs, field), list):
+                spec = spec[1:]                 # a stacked leaf's layer slice
+            # dim 0 is the rows, which the batch's layout splits ('model'
+            # among the rows' axes under 'fsdp')
+            self.cache_dims[field] = next(
+                (d for d, entry in enumerate(spec)
+                 if d > 0 and "model" in _entry_axes(entry)), None)
+
+    def cache_dim(self, field: str) -> Optional[int]:
+        """The dim of one layer's leaf of the cache field that the rank
+        holds its 'model' block of (``set_cache``), else None."""
+        return self.cache_dims.get(field)
 
     def split(self, logical: str):
         """The mesh where the rank holds and computes its 'model' block of

@@ -43,11 +43,33 @@ gradients is the gradient of the global loss; a leaf that no hook gathers
 over a dp axis is summed over it explicitly.  The global norm for the
 clip sums the blocks' squares over the mesh, a replicated leaf counted
 once; AdamW runs on the blocks.
+
+The inference steps take a mesh too (``build_prefill_step(...,
+mesh=, profile=)`` / ``build_decode_step(..., mesh=, profile=,
+cache_struct=)``): each is the per-rank program of the reference
+dry-run's serving jit (``repro/launch/dryrun.py``), and a rank takes and
+returns exactly its device's blocks there: the parameters by
+``sharding.model_param_pspecs``, the global prompt or token taken by
+``sharding.batch_pspecs``, the last hidden state by P(batch, None), the
+cache by ``sharding.cache_pspecs``, the token by P(batch), the logits by
+P(batch, 'model') (P(batch, None) under 'fsdp').  The layout is the train
+step's (weights gathered over their fsdp axes at use, heads, d_ff and
+vocabulary split over 'model' under '2d' and 'tp', the expert-parallel MoE
+there) plus the cache's (``sharding.Layout.set_cache``): a transformer's
+KV cache split over its slots on 'model' (flash-decoding's split-S: decode
+attends the rank's slots of every head and merges the partial softmaxes
+by their log-sum-exp, ``attention.merge_partials``), Seamless's over its
+heads, RWKV-6's state over its heads and its token shifts over d_model,
+RecurrentGemma's recurrent state and convolution window over its
+channels.  The greedy token is taken over the vocabulary's slices
+(``greedy_token``), the same on every rank of 'model'.  'cp' serving is
+ROADMAP item 8g and raises.  A mesh changes no value: every output equals
+the unsharded step's up to the order of sums.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -217,6 +239,24 @@ def _update_step(grad_fn: Callable, norm_fn: Callable, *, lr_schedule: Callable,
     return train_step
 
 
+def _rank_call(layout: sharding.Layout, cfg: ModelConfig, mesh, profile: str,
+               batch: dict, fn: Callable, cache_struct=None):
+    """``fn(the rank's block of batch)`` with ``layout`` installed
+    (``actshard.set_mesh``), the batch laid out first, and the cache of
+    ``cache_struct``'s shapes where given (the serving steps)."""
+    layout.set_batch(sharding.batch_pspecs(cfg, mesh, batch, profile))
+    if cache_struct is not None:
+        layout.set_cache(sharding.cache_pspecs(cfg, mesh, cache_struct, profile))
+    local = {k: sharding.local_shard(v, layout.batch_specs[k], mesh)
+             for k, v in batch.items()}
+    prev = actshard.current_mesh(), actshard.current_profile(), actshard.current_layout()
+    actshard.set_mesh(mesh, profile, layout)
+    try:
+        return fn(local)
+    finally:
+        actshard.set_mesh(*prev)
+
+
 def _sharded_train_step(cfg: ModelConfig, grad_fn: Callable, mesh, profile: str,
                         **opt) -> Callable:
     if profile not in sharding.PROFILES:
@@ -237,16 +277,9 @@ def _sharded_train_step(cfg: ModelConfig, grad_fn: Callable, mesh, profile: str,
         """(the rank's blocks, the global batch) -> the mesh's (loss,
         {"ce", "aux"}), the same on every rank, and the gradients of the
         rank's blocks."""
-        layout.set_batch(sharding.batch_pspecs(cfg, mesh, batch, profile))
-        local = {k: sharding.local_shard(v, layout.batch_specs[k], mesh)
-                 for k, v in batch.items()}
+        loss, parts, grads = _rank_call(layout, cfg, mesh, profile, batch,
+                                        lambda local: grad_fn(params, local))
         seq = ("model",) if layout.seq is not None else ()
-        prev = actshard.current_mesh(), actshard.current_profile(), actshard.current_layout()
-        actshard.set_mesh(mesh, profile, layout)
-        try:
-            loss, parts, grads = grad_fn(params, local)
-        finally:
-            actshard.set_mesh(*prev)
 
         def dp_sum(x):
             for a in layout.dp + seq:
@@ -280,11 +313,44 @@ def _sharded_train_step(cfg: ModelConfig, grad_fn: Callable, mesh, profile: str,
 # ---------------------------------------------------------------------------
 
 
+def _serving_layout(cfg: ModelConfig, mesh, profile: str) -> sharding.Layout:
+    if profile == "cp":
+        raise ValueError("serving under 'cp' (the prompt's sequence over 'model', "
+                         "the recurrent states handed into the cache's blocks) is "
+                         "ROADMAP queue 1 item 8g; use '2d', 'tp' or 'fsdp'")
+    if profile not in sharding.PROFILES:
+        raise ValueError(f"profile {profile!r}: one of {sharding.PROFILES}")
+    return sharding.Layout(cfg, mesh, get_module(cfg).param_defs(cfg), profile)
+
+
+def prefill_cache_struct(cfg: ModelConfig, batch: dict,
+                         decode_len: Optional[int] = None):
+    """The shapes and dtypes of the cache that a prefill of the (global)
+    ``batch`` makes, on the ``meta`` device (``launch.specs.cache_specs``
+    of its rows and prompt length; the encoder-decoder's self cache
+    ``decode_len`` long, its cross cache the source's length)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import cache_specs
+    ref = batch["inputs_embeds"] if "inputs_embeds" in batch else batch["tokens"]
+    B, S = ref.shape[0], ref.shape[1]
+    if cfg.family == "audio":
+        return cache_specs(cfg, ShapeConfig("prefill", "decode", decode_len or S, B),
+                           src_len=S)
+    return cache_specs(cfg, ShapeConfig("prefill", "decode", S, B))
+
+
 def build_prefill_step(cfg: ModelConfig, *, decode_len: Optional[int] = None,
-                       kernels=ops) -> Callable:
+                       kernels=ops, mesh=None, profile: str = "2d") -> Callable:
     """(params, batch) -> (last_hidden [B,D], cache).  ``decode_len`` sizes
     the encoder-decoder's self-attention cache (the audio family only, as
-    in the reference)."""
+    in the reference).
+
+    Under a ``mesh`` (module docstring) ``params`` are the rank's blocks
+    under ``sharding.model_param_pspecs``, ``batch`` the global prompt,
+    and the step returns the rank's blocks of the reference's serving
+    outputs: the last hidden state by P(batch, None), the cache by
+    ``sharding.cache_pspecs`` of ``prefill_cache_struct``.  'cp' raises
+    (ROADMAP item 8g)."""
     mod = get_module(cfg)
     kw = {"decode_len": decode_len} if cfg.family == "audio" \
         and decode_len is not None else {}
@@ -292,22 +358,73 @@ def build_prefill_step(cfg: ModelConfig, *, decode_len: Optional[int] = None,
     def prefill_step(params, batch):
         return mod.prefill(cfg, params, batch, kernels=kernels, **kw)
 
-    return prefill_step
+    if mesh is None:
+        return prefill_step
+    layout = _serving_layout(cfg, mesh, profile)
+
+    def sharded_prefill_step(params, batch):
+        return _rank_call(layout, cfg, mesh, profile, batch,
+                          lambda local: prefill_step(params, local),
+                          prefill_cache_struct(cfg, batch, decode_len))
+
+    return sharded_prefill_step
 
 
-def build_decode_step(cfg: ModelConfig, *, kernels=ops) -> Callable:
+def greedy_token(cfg: ModelConfig, logits: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``logits`` [B,Vp] with the padded vocabulary masked to -inf, their
+    argmax [B] int32), the lowest index among equal maxima
+    (``torch.argmax``'s rule, as ``jnp.argmax``'s).  Where the installed layout splits the
+    vocabulary over 'model' (``actshard.split("vocab")``) ``logits`` is the
+    rank's slice: the padding is masked by global index, the maxima taken
+    over 'model' (``pmax``), and the token is the lowest global index among
+    the ranks that hold the maximum, the same on every rank of 'model'."""
+    tp = actshard.split("vocab")
+    vl = logits.shape[-1]
+    v0 = 0 if tp is None else axis_index(tp, "model") * vl
+    if v0 + vl > cfg.vocab_size:
+        pad = torch.arange(v0, v0 + vl, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad[None, :], float("-inf"))
+    if tp is None:
+        return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+    m_local, i_local = torch.max(logits, dim=-1)
+    m = pmax(m_local, tp, "model")
+    cand = torch.where(m_local == m, v0 + i_local.long(),
+                       torch.full_like(i_local.long(), vl * tp.sizes["model"]))
+    return logits, (-pmax(-cand, tp, "model")).to(torch.int32)
+
+
+def build_decode_step(cfg: ModelConfig, *, kernels=ops, mesh=None,
+                      profile: str = "2d", cache_struct=None) -> Callable:
     """(params, cache, batch) -> (token [B] int32, logits [B,Vp], cache):
-    greedy, with the padded vocabulary masked before the argmax."""
+    greedy, with the padded vocabulary masked before the argmax.
+
+    Under a ``mesh`` (module docstring) ``params`` and ``cache`` are the
+    rank's blocks (by ``sharding.model_param_pspecs`` and by
+    ``sharding.cache_pspecs`` of ``cache_struct``, the whole cache's
+    shapes, as the reference's jit takes the cache's shardings: e.g.
+    ``prefill_cache_struct`` of the prompt), ``batch`` the global token
+    [B, 1]; the step returns the rank's blocks of the token by P(batch),
+    of the logits by P(batch, 'model') (P(batch, None) under 'fsdp') and
+    of the cache.  Every rank of 'model' returns the same token
+    (``greedy_token``).  'cp' raises (ROADMAP item 8g)."""
     mod = get_module(cfg)
 
     def decode_step(params, cache, batch):
         logits, cache = mod.decode_step(cfg, params, cache, batch,
                                         kernels=kernels)
-        vp = logits.shape[-1]
-        if vp != cfg.vocab_size:
-            pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
-            logits = logits.masked_fill(pad[None, :], float("-inf"))
-        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        logits, token = greedy_token(cfg, logits)
         return token, logits, cache
 
-    return decode_step
+    if mesh is None:
+        return decode_step
+    if cache_struct is None:
+        raise ValueError("build_decode_step: a mesh needs the whole cache's "
+                         "shapes (cache_struct), from which its blocks are laid out")
+    layout = _serving_layout(cfg, mesh, profile)
+
+    def sharded_decode_step(params, cache, batch):
+        return _rank_call(layout, cfg, mesh, profile, batch,
+                          lambda local: decode_step(params, cache, local), cache_struct)
+
+    return sharded_decode_step

@@ -1676,3 +1676,77 @@ def test_tensor_parallel_train_step_on_one_card_holds_one_process():
         assert sorted(pt) == sorted(p1)
         for k, v in p1.items():
             np.testing.assert_allclose(pt[k], v, rtol=2e-4, atol=2e-4, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# serving under a mesh on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [(300, 212), (100, 256, 156)])
+def test_merge_partials_of_bf16_blocks_equals_decode_attention(blocks):
+    """``decode_attention_partial`` over 2 and 3 blocks of a bf16 CUDA cache
+    [4, 8, 512, 80] (GQA 32 / 8, h2o's heads), 290 slots valid so that the
+    last block is all masked, merged by ``merge_partials``: the whole
+    cache's ``decode_attention`` within 2e-2 (both round o to bf16 once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models import attention as attn
+    q, k, v = (t.to(torch.bfloat16) for t in _normal(
+        41, (4, 32, 1, 80), (4, 8, 512, 80), (4, 8, 512, 80)))
+    valid = torch.tensor(290, device="cuda")
+    parts, start = [], 0
+    for n in blocks:
+        slots = torch.arange(start, start + n, device="cuda")
+        parts.append(attn.decode_attention_partial(q, k[:, :, start:start + n],
+                                                   v[:, :, start:start + n], slots, valid))
+        start += n
+    assert float(parts[-1][2].max()) == 0.0
+    got = attn.merge_partials(parts).to(torch.bfloat16)
+    want = attn.decode_attention(q, k, v, valid)
+    _close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+
+
+def _one_by_one_serve_rank():
+    from repro_torch import configs as TC
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_params
+    from repro_torch.runtime import sharding
+    from torch.utils import _pytree as pytree
+    cfg = TC.reduced(TC.get_config("h2o-danube-1.8b"))
+    mod = get_module(cfg)
+    params = mod.load_params(cfg, init_params(1, mod.param_defs(cfg)))
+    mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 48)).astype(np.int32)).cuda()
+    struct = lm_serve.prefill_cache_struct(cfg, {"tokens": tokens})
+    gather = lambda t: sharding.gather_full(t, sharding.P("data"), mesh)   # noqa: E731
+    runs = {}
+    for form in ("eager", "captured"):
+        for m in (None, mesh):
+            steps = lm_serve.captured_steps if form == "captured" else lm_serve.eager_steps
+            prefill, decode = steps(cfg, params, m, "2d", None if m is None else struct)
+            last, cache, _ = lm_serve.run_prefill(prefill, tokens)
+            toks, logits, cache, _ = lm_serve.run_decode(
+                decode, cache, 4, 6, tokens.device, None if m is None else gather)
+            runs[(form, m is None)] = [last, toks, *logits, *pytree.tree_leaves(cache)]
+    return mesh.backend, {form: all(torch.equal(a, b) for a, b in zip(
+        runs[(form, True)], runs[(form, False)], strict=True))
+        for form in ("eager", "captured")}
+
+
+@pytest.mark.cuda
+def test_one_by_one_nccl_serving_changes_no_bit():
+    """A world of one rank under NCCL: the (1, 1) mesh's sharded prefill
+    (4 x 48, one flash_attention a layer) and 6 greedy decode steps of
+    h2o-danube reduced give the no-mesh steps' last hidden, tokens, logits
+    and cache bit for bit, eager and captured."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from repro_torch.launch import mesh as mesh_lib
+    assert mesh_lib.spawn_local(1, _one_by_one_serve_rank, device="cuda",
+                                timeout_s=240) == [("nccl", {"eager": True,
+                                                             "captured": True})]
