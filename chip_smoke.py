@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for an H100).
 
-    python3 chip_smoke.py [--out results.json] [--only 5i|5h|5j]
+    python3 chip_smoke.py [--out results.json] [--only 5i|5h|5j|5k]
 
 Needs one CUDA device, ``nvcc`` and the checkout this file lies in; no
 network.  Imports nothing of JAX or of the JAX package.  ``--only 5i``
-(5h, 5j) runs phases 1, 2 and that phase alone and prints no result
+(5h, 5j, 5k) runs phases 1, 2 and that phase alone and prints no result
 lines.  Phases, each
 of which ends the run with a non-zero exit code if it fails (a
 ``phase wall s`` line before ``total`` gives each one's wall seconds):
@@ -376,6 +376,28 @@ of which ends the run with a non-zero exit code if it fails (a
    ``qwen2-moe-a2.7b`` cut to 2 layers (the expert-parallel MoE in
    prefill and decode).  ``--only 5j`` runs this phase alone after the
    build, the (1, 1) check in a world of its own;
+5k. counts (``count_phase``): the dry-run's counter (``core.opcount``,
+   ``launch.dryrun``) held to the real program on the card.  (a) In this
+   process, on a (1, 1) mesh: the cut ``h2o-danube-1.8b`` (4 layers) of
+   phase 5j part (a), its 4 x 512 prefill and one decode token on a cache
+   of 512 slots (bf16 matrices, the dry-run's serving layout), and one
+   train step of the uncut model at phase 5f's 4 x 512, each built by
+   ``dryrun.build_cell`` and run once under the counter on the card and
+   traced once on the meta device: FLOPs, bytes accessed, transcendentals,
+   each kernel's calls and counts, argument, output and donated bytes
+   must be equal.  Printed: the trace's peak of live bytes beside
+   ``torch.cuda.max_memory_allocated`` (reset before the run) with their
+   ratio, and beside that less what the process held before the run beside
+   the step's arguments (earlier phases' tensors), and the step's time (CUDA events, median of 5 after 2 warm-up
+   runs, without the counter) beside ``hloanalysis.Roofline.step_s`` of the
+   counts at the H100 datasheet's peaks, as a share.  (b) A world of two
+   gloo ranks sharing the card on phase 5j's (1, 2) mesh under 'tp': the
+   cut h2o, ``rwkv6-1.6b`` (2 layers) and ``qwen2-moe-a2.7b`` (2 layers),
+   each rank's prefill and decode run for real and traced on meta: the
+   collectives record (``runtime.collectives.record``) kind by kind, in
+   count and bytes, and the FLOPs must be equal.  Every line carries the
+   card's name and power limit.  No kernel is added and no launch counts
+   on a main path.  ``--only 5k`` runs this phase alone after the build;
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
    workload, each schedule verified by ``repro_torch.check.verify_schedule``
    (the static checker and the Hopper launch lint; any finding fails the
@@ -548,6 +570,7 @@ from repro_torch.models.params import init_on_device as draw_on_device  # noqa: 
 from repro_torch.optim import adamw_init, global_norm, warmup_cosine  # noqa: E402
 from repro_torch.optim.compression import (compressed_pod_allreduce,  # noqa: E402
                                            dequantize_int8, quantize_with_feedback)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import moe_sharded  # noqa: E402
 from repro_torch.runtime import collectives, sharding  # noqa: E402
@@ -558,6 +581,8 @@ from repro_torch.runtime.capture import WARMUP, captured  # noqa: E402
 from repro_torch.search import (WORKLOADS, auto_schedule,  # noqa: E402
                                 get_workload, lower)
 from repro_torch.core.workload import NORM, PWCONV, SCAN, Layer, scan_macs  # noqa: E402
+from repro_torch.core import hloanalysis, opcount  # noqa: E402
+from repro_torch.core.opcount import unmasked_pairs, wkv_bwd_macs  # noqa: E402
 from repro_torch.serve import (BATCH_LEVELS, ChaosPlan, ServeStore,  # noqa: E402
                                chaos_session)
 from repro_torch.serve_edgenext import serve  # noqa: E402
@@ -754,6 +779,18 @@ MESH_SERVE_RING = (1, 6140, 8)
 MESH_SERVE_F32 = (2, 4)
 MESH_SERVE_F32_TOL = 2e-3
 MESH_SERVE_WORLD_S = 400
+# phase 5k, the counter (``core.opcount``) held to the real program: (a) in
+# this process, the cut dense model's MESH_SERVE_PROMPT prefill and one
+# decode token (phase 5j part (a)'s model and prompt; the decode on bf16
+# matrices, the dry-run's serving layout) and one train step of the uncut
+# dense model at TRAIN_BATCH (phase 5f's shape), each counted in a real run
+# on the card and in a trace on the meta device; (b) a world of two gloo
+# ranks sharing the card, phase 5j's (1, 2) mesh under 'tp', each rank's
+# collectives in its real prefill and decode against its meta trace's, for
+# COUNT_PAIR's (arch, layers); COUNT_REPS timed runs after COUNT_WARMUP
+COUNT_PAIR = ((DENSE_ARCH, DIST_LAYERS), (RWKV_ARCH, 2), (MOE_ARCH, 2))
+COUNT_REPS, COUNT_WARMUP = 5, 2
+COUNT_WORLD_S = 180
 
 
 def fail(msg: str) -> None:
@@ -1035,15 +1072,6 @@ def dw_case(B, H, W, C, k, *, dtype=torch.float32, slice_of=None, timed=False,
             lambda: F.conv2d(x_nchw, w_oihw, b, padding=(fy // 2, fx // 2), groups=C))
         rec["gbytes_s"] = nbytes(x, w, b, got) / rec["ms"] / 1e6
     return rec
-
-
-def unmasked_pairs(Sq: int, Sk: int, causal: bool, window, q_offset: int = 0) -> int:
-    """q.k pairs that no mask removes: what the operations bound counts
-    (query row i at position q_offset + i)."""
-    qp = np.arange(Sq) + q_offset
-    hi = np.minimum(Sk - 1, qp) if causal else np.full(Sq, Sk - 1)
-    lo = np.maximum(0, qp - window + 1) if window is not None else np.zeros(Sq, int)
-    return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def sdpa_library(q, k, v, causal, window, scale, q_offset: int = 0):
@@ -1337,15 +1365,6 @@ def wkv_case(BH, T, K, V, chunk, *, dtype=torch.float32, inputs=None,
         rec["library_ms"] = None     # no single PyTorch call computes WKV6
         rec["gbytes_s"] = moved / rec["ms"] / 1e6
     return rec
-
-
-def wkv_bwd_macs(BH: int, T: int, K: int, V: int, C: int) -> int:
-    """Multiply-adds of the chunked WKV backward, counted as
-    ``core.workload.scan_macs`` counts the forward's: per row, the reverse
-    states update and the three inter-chunk products (dr from S_c, dk and
-    dv from G'), 4 K V, and per pair of rows of a chunk dA, A and the
-    intra-chunk dr, dk (K each) and dv (V), C (3 K + 2 V)."""
-    return BH * T * (4 * K * V + C * (3 * K + 2 * V))
 
 
 def wkv_bwd_case(BH, T, K, V, chunk, *, dtype=torch.float32, decay="normal",
@@ -4634,6 +4653,137 @@ def print_mesh_serve(d: dict) -> None:
     print(f"mesh_serve wall {d['wall_s']:.1f} s", flush=True)
 
 
+def count_shapes() -> dict:
+    """Phase 5k (a)'s programs: name -> (config, shape, serve_bf16)."""
+    B, T = MESH_SERVE_PROMPT
+    cut = mesh_cut_cfg(DENSE_ARCH, DIST_LAYERS)
+    tb, tt = TRAIN_BATCH
+    return {
+        f"prefill {DENSE_ARCH} {DIST_LAYERS} layers {B}x{T}":
+            (cut, ShapeConfig("prefill", "prefill", T, B), False),
+        f"decode {DENSE_ARCH} {DIST_LAYERS} layers {B}x1 on {T} slots, bf16 matrices":
+            (cut, ShapeConfig("decode", "decode", T, B), True),
+        f"train {DENSE_ARCH} {tb}x{tt}":
+            (get_config(DENSE_ARCH), ShapeConfig("train", "train", tt, tb), False)}
+
+
+def count_one(cfg, shape, serve_bf16: bool) -> dict:
+    """One program (``launch.dryrun.build_cell`` on a (1, 1) mesh) counted
+    twice: traced on meta, and run on the card under the counter with the
+    peak reset before; then timed (CUDA events, warmed up) without it.  The
+    counts, the kernels' breakdown and the argument / output / donated
+    bytes must be equal."""
+    axes = ("data", "model")
+    coords = {"data": 0, "model": 0}
+    train = shape.kind == "train"
+    meta = dryrun.trace(cfg, shape, mesh_lib.abstract_mesh((1, 1), axes, coords,
+                                                           device="meta"),
+                        serve_bf16=serve_bf16)
+    cell = dryrun.build_cell(cfg, shape, mesh_lib.abstract_mesh(
+        (1, 1), axes, coords, device="cuda"), serve_bf16=serve_bf16, seed=SEED)
+    torch.cuda.synchronize()
+    # what the process holds beside the step's arguments (earlier phases'
+    # tensors, the L2 flush buffer) is in max_memory_allocated but not in
+    # the trace's peak
+    residue = torch.cuda.memory_allocated() - opcount.nbytes(*opcount.tensors(cell[1][:-1]))
+    torch.cuda.reset_peak_memory_stats()
+    real = dryrun.count(*cell, train=train)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    for key in ("cost_analysis", "kernels"):
+        if real[key] != meta[key]:
+            fail(f"count {shape.kind}: the card's {key} {real[key]} differs from "
+                 f"the meta trace's {meta[key]}")
+    for key in ("argument_bytes", "output_bytes", "alias_bytes"):
+        if real["memory_analysis"][key] != meta["memory_analysis"][key]:
+            fail(f"count {shape.kind}: the card's {key} "
+                 f"{real['memory_analysis'][key]} differs from the meta trace's "
+                 f"{meta['memory_analysis'][key]}")
+    step, args = cell[0], cell[1]
+    with torch.set_grad_enabled(train):
+        ms = time_ms(lambda: step(*args), reps=COUNT_REPS, warmup=COUNT_WARMUP)
+    del cell, step, args
+    torch.cuda.empty_cache()
+    ca = meta["cost_analysis"]
+    roof = hloanalysis.Roofline(ca["flops"], ca["bytes accessed"], 0.0)
+    return dict(counts=ca, kernels=meta["kernels"], memory=meta["memory_analysis"],
+                trace_peak_bytes=meta["peak_bytes"], card_peak_bytes=peak,
+                residue_bytes=residue,
+                card_trace_s=real["trace_s"], meta_trace_s=meta["trace_s"], ms=ms,
+                step_s=roof.step_s, bound=roof.bound,
+                roofline_share=roof.step_s * 1e3 / ms)
+
+
+def count_pair() -> dict:
+    """Phase 5k (b)'s world of two gloo ranks sharing the card: each
+    rank's collectives record in its real prefill and decode and in its
+    meta trace of the same step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    meta_mesh = mesh_lib.abstract_mesh(mesh.shape, mesh.axis_names, mesh.coords,
+                                       device="meta")
+    B, T = MESH_SERVE_PROMPT
+    out = dict(rank=dist.get_rank(), backend=mesh.backend, coords=mesh.coords, runs={})
+    for arch, layers in COUNT_PAIR:
+        cfg = mesh_cut_cfg(arch, layers)
+        for kind in ("prefill", "decode"):
+            shape = ShapeConfig(kind, kind, T, B)
+            kw = dict(profile="tp", serve_bf16=kind == "decode")
+            real = dryrun.trace(cfg, shape, mesh, seed=SEED, **kw)
+            meta = dryrun.trace(cfg, shape, meta_mesh, **kw)
+            out["runs"][f"{kind} {arch} {layers} layers"] = dict(
+                real=real["collectives"], meta=meta["collectives"],
+                real_flops=real["cost_analysis"]["flops"],
+                meta_flops=meta["cost_analysis"]["flops"])
+            torch.cuda.empty_cache()
+    return out
+
+
+def count_phase(smi: str) -> dict:
+    """Phase 5k: (a) ``count_one`` for each of ``count_shapes``, (b)
+    ``count_pair``'s world; any difference fails the run.  Prints each
+    program's counts, the trace's peak beside the card's, and its time
+    beside the roofline's, with the card's name and power limit."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    one = {name: count_one(*spec) for name, spec in count_shapes().items()}
+    for name, r in one.items():
+        c = r["counts"]
+        kern = ", ".join(f"{k} {v['calls']} calls {v['flops']:.4e} flops"
+                         for k, v in r["kernels"].items()) or "no kernel"
+        print(f"count (a) {name}: the card's run equals the meta trace: flops "
+              f"{c['flops']} bytes accessed {c['bytes accessed']} transcendentals "
+              f"{c['transcendentals']}; kernels {kern} [{smi}]")
+        own = r["card_peak_bytes"] - r["residue_bytes"]
+        print(f"count (a) {name}: peak trace {r['trace_peak_bytes'] / 2 ** 20:.1f} MiB, "
+              f"card max_memory_allocated {r['card_peak_bytes'] / 2 ** 20:.1f} MiB "
+              f"(card / trace {r['card_peak_bytes'] / r['trace_peak_bytes']:.3f}), "
+              f"{r['residue_bytes'] / 2 ** 20:.1f} MiB of it held before the step "
+              f"beside its arguments: the step's own {own / 2 ** 20:.1f} MiB "
+              f"(/ trace {own / r['trace_peak_bytes']:.3f}); "
+              f"{r['ms']:.3f} ms (events, median of {COUNT_REPS}) against the "
+              f"roofline's {r['step_s'] * 1e3:.3f} ms ({r['bound']}, H100 datasheet "
+              f"peaks): {100 * r['roofline_share']:.1f} % [{smi}]", flush=True)
+    try:
+        pair = mesh_lib.spawn_local(2, count_pair, timeout_s=COUNT_WORLD_S)
+    except RuntimeError as e:
+        fail(f"count (b): {e}")
+    for r in pair:
+        for name, run in r["runs"].items():
+            if run["real"] != run["meta"] or run["real_flops"] != run["meta_flops"]:
+                fail(f"count (b) rank {r['rank']} {name}: the collectives of the real "
+                     f"run {run['real']} (flops {run['real_flops']}) differ from the "
+                     f"meta trace's {run['meta']} (flops {run['meta_flops']})")
+            kinds = ", ".join(f"{k} x{v['count']} {v['result_bytes']} B"
+                              for k, v in run["real"].items())
+            print(f"count (b) rank {r['rank']} {r['coords']} {r['backend']} {name}: "
+                  f"collectives equal the meta trace's: {kinds} [{smi}]")
+    out = dict(one=one, pair=pair, wall_s=time.perf_counter() - t0, device=smi)
+    print(f"count wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def write_out(path: str, numbers: dict) -> None:
     out = Path(path)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -4643,7 +4793,7 @@ def write_out(path: str, numbers: dict) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
-    ap.add_argument("--only", choices=["5i", "5h", "5j"],
+    ap.add_argument("--only", choices=["5i", "5h", "5j", "5k"],
                     help="device, build and this phase alone, then stop (no "
                          "result lines)")
     ap.add_argument("--dist-vs", metavar="DIR",
@@ -4721,6 +4871,14 @@ def main() -> None:
                                      walls=walls))
         print(f"phase wall s {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
         print(f"total {time.perf_counter() - t_start:.1f} s (phase 5j alone)")
+        return
+    if args.only == "5k":
+        counted = count_phase(smi)
+        lap("5k counts")
+        if args.out:
+            write_out(args.out, dict(count=counted, walls=walls))
+        print(f"phase wall s {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+        print(f"total {time.perf_counter() - t_start:.1f} s (phase 5k alone)")
         return
     if args.dist_vs:
         rounds = dist_versus(Path(args.dist_vs).resolve())
@@ -4908,6 +5066,10 @@ def main() -> None:
     print_mesh_serve(mesh_serving)
     lap("5j sharded serving")
 
+    # 5k. the counter of the dry-run held to the real program on the card
+    counted = count_phase(smi)
+    lap("5k counts")
+
     # 6. the scheduler's path: every lowered entry onto its kernel
     lowered, entries, by_workload, lowered_launches, verified, samples, launched = \
         lowered_phase()
@@ -4981,7 +5143,7 @@ def main() -> None:
             train_rwkv=rwkv_train,
             moe=moe,
             audio=audio, hybrid=hybrid, five=five, check=check, dist=distributed,
-            mesh_serve=mesh_serving,
+            mesh_serve=mesh_serving, count=counted,
             serve=store, walls=walls,
             lowered=dict(records=lowered, entries=entries,
                          by_workload=by_workload)))

@@ -16,8 +16,10 @@ from repro_torch.configs import (h2o_danube_1_8b, minitron_4b, olmo_1b,
                                  qwen3_moe_30b_a3b, recurrentgemma_2b,
                                  rwkv6_1_6b, seamless_m4t_large_v2,
                                  starcoder2_15b)
-from repro_torch.configs.base import (ModelConfig, MoEConfig, ShapeConfig,
-                                      reduced, reduced_shape)
+from repro_torch.configs.base import (ALL_SHAPES, DECODE_32K, LONG_500K,
+                                      PREFILL_32K, SHAPES_BY_NAME, TRAIN_4K,
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      applicable_shapes, reduced, reduced_shape)
 
 ARCHS = {
     "starcoder2-15b": starcoder2_15b.CONFIG,
@@ -46,5 +48,7 @@ def get_config(arch: str) -> ModelConfig:
     return cfg
 
 
-__all__ = ["ARCHS", "NOT_PORTED", "ModelConfig", "MoEConfig", "ShapeConfig",
-           "get_config", "reduced", "reduced_shape"]
+__all__ = ["ALL_SHAPES", "ARCHS", "DECODE_32K", "LONG_500K", "NOT_PORTED",
+           "PREFILL_32K", "SHAPES_BY_NAME", "TRAIN_4K", "ModelConfig", "MoEConfig",
+           "ShapeConfig", "applicable_shapes", "get_config", "reduced",
+           "reduced_shape"]

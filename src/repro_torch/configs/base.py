@@ -6,9 +6,8 @@ launchers and the dry-run all consume them.  ``reduced()`` derives the small
 smoke-test variant of any config (same family, tiny dims).
 
 Copied from the JAX package with one change: ``compute_dtype`` and
-``params_dtype`` are ``torch.dtype``s.  The shape cells
-(``TRAIN_4K`` ... ``applicable_shapes``) belong to the dry-run and the
-training launcher and are not copied yet.
+``params_dtype`` are ``torch.dtype``s.  The shape cells (``TRAIN_4K`` ...
+``applicable_shapes``) are the dry-run's (``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -156,6 +155,27 @@ class ShapeConfig:
     kind: str
     seq_len: int
     global_batch: int
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[ShapeConfig, ...]:
+    """The shape cells that are well-defined for this architecture.
+
+    ``long_500k`` needs sub-quadratic attention; it is skipped for pure
+    full-attention archs.
+    """
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.subquadratic:
+        shapes.append(LONG_500K)
+    return tuple(shapes)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import opcount
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import flash_attention_bwd as _bwd
 from repro_torch.kernels._launch import check_cuda_dense, check_launch, check_offset
@@ -224,6 +225,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
+def counted(q, k, v, *, causal: bool, window, q_offset: int = 0, lse: bool = False,
+            dout: Optional[torch.Tensor] = None) -> opcount.kernel:
+    """``opcount.kernel`` of one call: the forward (with ``lse``, the
+    float32 log-sum-exp written too), or with ``dout`` the backward,
+    which reads q, k, v, out, lse and dout and writes dq, dk, dv."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    pairs = B * H * opcount.unmasked_pairs(Sq, Sk, causal, window, q_offset) \
+        if opcount.counting() else 0
+    lse_bytes = B * H * Sq * 4
+    if dout is None:
+        return opcount.kernel(
+            "flash_attention", flops=4 * D * pairs, transcendentals=pairs,
+            bytes_accessed=opcount.nbytes(q, k, v) + opcount.nbytes(q)
+            + (lse_bytes if lse else 0), reads=(q, k, v))
+    return opcount.kernel(
+        "flash_attention_bwd", flops=10 * D * pairs, transcendentals=pairs,
+        bytes_accessed=2 * opcount.nbytes(q, k, v) + opcount.nbytes(q, dout)
+        + lse_bytes, reads=(q, k, v, dout))
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention with a backward, the port of the reference's
     ``flash_attention`` custom_vjp: the forward keeps (q, k, v, out, lse)
@@ -231,17 +253,24 @@ class FlashAttention(torch.autograd.Function):
     dv).  On CUDA tensors both launch the
     hand-written kernels (this module's forward with ``return_lse``, then
     ``flash_attention_bwd``); on CPU tensors both run their plain versions,
-    ``ref.attention_fwd_lse_ref`` and ``ref.attention_bwd_ref``.  GQA: the
+    ``ref.attention_fwd_lse_ref`` and ``ref.attention_bwd_ref``; on meta
+    tensors both return empty tensors of the kernels' shapes (the forward
+    keeps an lse of the kernel's).  GQA: the
     caller repeats the KV heads, and autograd sums their dk and dv over the
     group, as ``jnp.repeat``'s VJP does."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, q_offset=0):
         masks = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
-        if q.is_cuda:
-            out, lse = flash_attention(q, k, v, return_lse=True, **masks)
-        else:
-            out, lse = ref.attention_fwd_lse_ref(q, k, v, **masks)
+        with counted(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                     lse=True):
+            if q.is_cpu:
+                out, lse = ref.attention_fwd_lse_ref(q, k, v, **masks)
+            elif q.is_meta:
+                out = torch.empty_like(q)
+                lse = q.new_empty(q.shape[:3], dtype=torch.float32)
+            else:
+                out, lse = flash_attention(q, k, v, return_lse=True, **masks)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.masks = masks
         return out
@@ -249,6 +278,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        fn = _bwd.flash_attention_bwd if q.is_cuda else ref.attention_bwd_ref
-        dq, dk, dv = fn(q, k, v, out, lse, dout.contiguous(), **ctx.masks)
+        m = ctx.masks
+        with counted(q, k, v, causal=m["causal"], window=m["window"],
+                     q_offset=m["q_offset"], dout=dout):
+            if q.is_meta:
+                dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            else:
+                fn = ref.attention_bwd_ref if q.is_cpu else _bwd.flash_attention_bwd
+                dq, dk, dv = fn(q, k, v, out, lse, dout.contiguous(), **m)
         return dq, dk, dv, None, None, None, None

@@ -4,7 +4,14 @@ package's ``repro.kernels.ops``.
 Routing is by the tensor's device and by nothing else: a CPU tensor goes
 to the plain version in ``ref``, whatever ``block_*`` it is given; a CUDA
 tensor launches the hand-written kernel, or raises if it cannot be built
-or launched.  No flag, no fallback.
+or launched; a ``meta`` tensor gets empty outputs of the kernel's shapes
+and dtypes, nothing launched and no plain version run (the dry-run's
+trace, ``launch.dryrun``).  No flag, no fallback.
+
+Under a ``core.opcount.OpCounter`` each call adds its function's work by
+formula (``opcount.kernel``: the FLOPs, each operand read once and each
+output written once), and no aten op inside it counts, so the three
+routes give one count.
 
 Gradients: ``flash_attention`` goes through ``FlashAttention`` where grad
 mode is on and q, k or v requires grad, and ``wkv_chunked`` through
@@ -33,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import opcount
 from repro_torch.kernels import depthwise_conv as _dw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_ibn as _ibn
@@ -62,16 +70,24 @@ def fused_ibn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
               block_m: int = _ibn.BLOCKS["block_m"],
               block_f: int = _ibn.BLOCKS["block_f"]) -> torch.Tensor:
     """act(x @ w1 [* gate]) @ w2 for x of any leading shape [..., D]."""
-    if not x.is_cuda:
-        return ref.fused_ibn_ref(x, w1, w2, wg, activation=activation)
-    _refuse_grad("fused_ibn", x, w1, w2, wg)
-    _check_blocks("fused_ibn", _ibn.BLOCKS, block_m=block_m,
-                  block_f=block_f)
     lead = x.shape[:-1]
-    # view, not reshape: a layout that would need a copy raises here
-    out = _ibn.fused_ibn(x.view(-1, x.shape[-1]), w1, w2, wg,
-                         activation=activation)
-    return out.reshape(*lead, w2.shape[1])
+    M, (D, Fd), Do = x.numel() // x.shape[-1], w1.shape, w2.shape[1]
+    with opcount.kernel(
+            "fused_ibn", flops=2 * M * (D * Fd * (2 if wg is not None else 1) + Fd * Do),
+            bytes_accessed=opcount.nbytes(x, w1, w2, wg) + M * Do * x.element_size(),
+            transcendentals=M * Fd if activation in ("gelu", "silu") else 0,
+            reads=(x, w1, w2, wg)):
+        if x.is_cpu:
+            return ref.fused_ibn_ref(x, w1, w2, wg, activation=activation)
+        _refuse_grad("fused_ibn", x, w1, w2, wg)
+        _check_blocks("fused_ibn", _ibn.BLOCKS, block_m=block_m,
+                      block_f=block_f)
+        if x.is_meta:
+            return x.new_empty((*lead, Do))
+        # view, not reshape: a layout that would need a copy raises here
+        out = _ibn.fused_ibn(x.view(-1, x.shape[-1]), w1, w2, wg,
+                             activation=activation)
+        return out.reshape(*lead, Do)
 
 
 def matmul_ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -79,11 +95,18 @@ def matmul_ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               block_k: int = 64, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm(x @ w + b) * gamma + beta with the statistics taken
     before the one store; x: [M, K], w: [K, N]."""
-    if not x.is_cuda:
-        return ref.matmul_ln_ref(x, w, b, gamma, beta, eps=eps)
-    _refuse_grad("matmul_ln", x, w, b, gamma, beta)
-    return _mln.matmul_ln(x, w, b, gamma, beta, block_m=block_m,
-                          block_k=block_k, eps=eps)
+    (M, K), N = x.shape, w.shape[1]
+    with opcount.kernel("matmul_ln", flops=2 * M * N * K,
+                        bytes_accessed=opcount.nbytes(x, w, b, gamma, beta)
+                        + M * N * x.element_size(), transcendentals=M,
+                        reads=(x, w, b, gamma, beta)):
+        if x.is_cpu:
+            return ref.matmul_ln_ref(x, w, b, gamma, beta, eps=eps)
+        _refuse_grad("matmul_ln", x, w, b, gamma, beta)
+        if x.is_meta:
+            return x.new_empty((M, N))
+        return _mln.matmul_ln(x, w, b, gamma, beta, block_m=block_m,
+                              block_k=block_k, eps=eps)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -105,20 +128,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _fa.FlashAttention.apply(q, k, v, causal, window, scale, q_offset)
-    if not q.is_cuda:
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 scale=scale, q_offset=q_offset)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale, q_offset=q_offset)
+    with _fa.counted(q, k, v, causal=causal, window=window, q_offset=q_offset):
+        if q.is_cpu:
+            return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                     scale=scale, q_offset=q_offset)
+        if q.is_meta:
+            return torch.empty_like(q)
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale, q_offset=q_offset)
 
 
 def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                      block_c: int = 128) -> torch.Tensor:
     """Channels-last SAME depthwise conv; x: [B,H,W,C], w: [fy,fx,C]."""
-    if not x.is_cuda:
-        return ref.depthwise_conv2d_ref(x, w, b)
-    _refuse_grad("depthwise_conv2d", x, w, b)
-    return _dw.depthwise_conv2d(x, w, b)
+    with opcount.kernel("depthwise_conv2d", flops=2 * x.numel() * w.shape[0] * w.shape[1],
+                        bytes_accessed=2 * opcount.nbytes(x) + opcount.nbytes(w, b),
+                        reads=(x, w, b)):
+        if x.is_cpu:
+            return ref.depthwise_conv2d_ref(x, w, b)
+        _refuse_grad("depthwise_conv2d", x, w, b)
+        if x.is_meta:
+            return torch.empty_like(x)
+        return _dw.depthwise_conv2d(x, w, b)
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -142,6 +173,9 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (r, k, v, logw, u, state)):
         return _wkv.WKVChunked.apply(r, k, v, logw, u, state, chunk)
-    if not r.is_cuda:
-        return ref.wkv_ref(r, k, v, logw, u, state)
-    return _wkv.wkv_chunked(r, k, v, logw, u, chunk=chunk, state=state)
+    with _wkv.counted(r, k, v, logw, u, state, chunk):
+        if r.is_cpu:
+            return ref.wkv_ref(r, k, v, logw, u, state)
+        if r.is_meta:
+            return _wkv.meta_outputs(r, v)
+        return _wkv.wkv_chunked(r, k, v, logw, u, chunk=chunk, state=state)

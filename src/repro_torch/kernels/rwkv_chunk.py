@@ -17,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import opcount
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import rwkv_chunk_bwd as _bwd
 from repro_torch.kernels._launch import check_cuda_dense, check_launch
@@ -256,6 +257,34 @@ def forward_with_states(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, final, ws
 
 
+def counted(r, k, v, logw, u, state, chunk: int, *, dout=None, dstate=None
+            ) -> opcount.kernel:
+    """``opcount.kernel`` of one call: the forward (reads r, k, v, logw,
+    u and the initial state where given, writes out and the float32 final
+    state; one exp a decay), or with ``dout`` the backward (reads those,
+    dout and dstate, writes dr, dk, dv, dlogw, du and dS0 where a state
+    was given)."""
+    BH, T, K = r.shape
+    V = v.shape[2]
+    ins = opcount.nbytes(r, k, v, logw, u, state)
+    if dout is None:
+        return opcount.kernel(
+            "wkv_chunked", flops=opcount.wkv_flops(BH, T, K, V, chunk),
+            transcendentals=BH * T * K, reads=(r, k, v, logw, u, state),
+            bytes_accessed=ins + BH * T * V * r.element_size() + BH * K * V * 4)
+    return opcount.kernel(
+        "wkv_chunked_bwd", flops=opcount.wkv_bwd_flops(BH, T, K, V, chunk),
+        transcendentals=BH * T * K, reads=(r, k, v, logw, u, state, dout, dstate),
+        bytes_accessed=2 * ins + opcount.nbytes(dout, dstate))
+
+
+def meta_outputs(r: torch.Tensor, v: torch.Tensor):
+    """(out, final state) of the kernel's shapes on the meta device."""
+    BH, T, K = r.shape
+    return (r.new_empty((BH, T, v.shape[2])),
+            r.new_empty((BH, K, v.shape[2]), dtype=torch.float32))
+
+
 class WKVChunked(torch.autograd.Function):
     """The chunked WKV with a backward: (r, k, v, logw, u, state, chunk) ->
     (out, final state), as ``ops.wkv_chunked`` (``state`` the initial
@@ -266,19 +295,25 @@ class WKVChunked(torch.autograd.Function):
     entering states (16.8 MB at 128 x 512 x 64 x 64, chunk 64) is saved for
     ``rwkv_chunk_bwd.wkv_chunked_bwd``; on CPU tensors the forward is
     ``ref.wkv_ref`` and the backward ``ref.wkv_bwd_ref``, the kernel's
-    algorithm in torch.  The model's ``u.repeat(B, 1)`` sums du over the
+    algorithm in torch; on meta tensors both return empty tensors of the
+    kernels' shapes, the forward keeping a workspace of the kernel's.  The model's ``u.repeat(B, 1)`` sums du over the
     batch through autograd."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, state0, chunk):
         ctx.set_materialize_grads(False)
-        if r.is_cuda:
-            # refuse before the launch a chunk the backward cannot run
-            _bwd.check_chunk(min(chunk, r.shape[1]), r.shape[2], v.shape[2])
-            out, state, ws = forward_with_states(r, k, v, logw, u, chunk=chunk,
-                                                 state=state0)
-        else:
-            (out, state), ws = ref.wkv_ref(r, k, v, logw, u, state0), None
+        with counted(r, k, v, logw, u, state0, chunk):
+            if r.is_cpu:
+                (out, state), ws = ref.wkv_ref(r, k, v, logw, u, state0), None
+            elif r.is_meta:
+                (out, state), ws = meta_outputs(r, v), workspace(
+                    r.shape[0], r.shape[1], r.shape[2], v.shape[2],
+                    min(chunk, r.shape[1]), r.device)
+            else:
+                # refuse before the launch a chunk the backward cannot run
+                _bwd.check_chunk(min(chunk, r.shape[1]), r.shape[2], v.shape[2])
+                out, state, ws = forward_with_states(r, k, v, logw, u, chunk=chunk,
+                                                     state=state0)
         ctx.chunk = chunk
         ctx.save_for_backward(r, k, v, logw, u, state, ws, state0)
         return out, state
@@ -286,16 +321,21 @@ class WKVChunked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, dstate):
         r, k, v, logw, u, state, ws, state0 = ctx.saved_tensors
-        if dout is None:
-            dout = torch.zeros(v.shape, dtype=r.dtype, device=r.device)
-        dout = dout.contiguous()
-        if dstate is not None:
-            dstate = dstate.float().contiguous()
-        if r.is_cuda:
-            grads = _bwd.wkv_chunked_bwd(r, k, v, logw, u, dout, ws,
-                                         chunk=ctx.chunk, dstate=dstate,
-                                         state=state, ds0=state0 is not None)
-        else:
-            grads = ref.wkv_bwd_ref(r, k, v, logw, u, dout, dstate,
-                                    chunk=ctx.chunk, state=state0)
+        with counted(r, k, v, logw, u, state0, ctx.chunk,
+                     dout=v if dout is None else dout, dstate=dstate):
+            if dout is None:
+                dout = torch.zeros(v.shape, dtype=r.dtype, device=r.device)
+            dout = dout.contiguous()
+            if dstate is not None:
+                dstate = dstate.float().contiguous()
+            if r.is_cpu:
+                grads = ref.wkv_bwd_ref(r, k, v, logw, u, dout, dstate,
+                                        chunk=ctx.chunk, state=state0)
+            elif r.is_meta:
+                grads = (*(torch.empty_like(t) for t in (r, k, v, logw, u)),
+                         None if state0 is None else torch.empty_like(state0))
+            else:
+                grads = _bwd.wkv_chunked_bwd(r, k, v, logw, u, dout, ws,
+                                             chunk=ctx.chunk, dstate=dstate,
+                                             state=state, ds0=state0 is not None)
         return (*grads[:5], grads[5] if state0 is not None else None, None)

@@ -75,10 +75,22 @@ class Mesh:
 
 
 def abstract_mesh(shape: Sequence[int], axis_names: Sequence[str],
-                  coords: Optional[Dict[str, int]] = None) -> Mesh:
+                  coords: Optional[Dict[str, int]] = None, *,
+                  device: "torch.device | str" = "cpu") -> Mesh:
     """A mesh with no process group: the sizes that specs are laid out
-    over, and optionally the coordinates that ``local_shard`` slices by."""
-    return Mesh(shape, axis_names, coords=coords)
+    over, and optionally the coordinates that ``local_shard`` slices by.
+    On ``device="meta"`` it is the dry-run's mesh: a rank's program runs
+    over it on meta tensors, its collectives sending nothing
+    (``runtime.collectives``), and no world is started."""
+    return Mesh(shape, axis_names, coords=coords, device=device)
+
+
+def production_shape(multi_pod: bool = False) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(shape, axis names) of the production mesh: (data=16, model=16), or
+    (pod=2, data=16, model=16) across two pods."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
 
 
 def _resolve_device(device: "torch.device | str") -> torch.device:
@@ -128,8 +140,7 @@ def make_production_mesh(*, multi_pod: bool = False,
                          device: "torch.device | str" = "cuda") -> Mesh:
     """Single pod: (data=16, model=16) = 256 ranks.
     Multi-pod:  (pod=2, data=16, model=16) = 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_shape(multi_pod)
     n = math.prod(shape)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world < n:

@@ -1,9 +1,9 @@
-"""Shapes and dtypes of a cell's inputs and decode cache, allocated
-nowhere: port of ``repro/launch/specs.py``'s ``input_specs`` and
-``cache_specs`` (its ``ShapeDtypeStruct``s are ``TensorSpec``s here).  The
-sharded serving steps lay the cache out by ``cache_specs``
-(``runtime.steps.prefill_cache_struct``); ``param_specs`` serves the
-dry-run, ROADMAP queue 1 item 9."""
+"""Shapes and dtypes of a cell's parameters, inputs and decode cache,
+allocated nowhere: port of ``repro/launch/specs.py`` (its
+``ShapeDtypeStruct``s are ``TensorSpec``s here).  The sharded serving
+steps lay the cache out by ``cache_specs``
+(``runtime.steps.prefill_cache_struct``); the dry-run (``launch.dryrun``)
+makes a rank's blocks of all three on the meta device."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +12,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core import opcount
 from repro_torch.models import get_module
+from repro_torch.models.params import tree_map_defs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,12 +59,14 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig,
                 src_len: Optional[int] = None) -> Any:
     """The decode cache of a cell, each leaf a ``TensorSpec``: the family's
     ``init_cache`` for the shape's batch and sequence on the ``meta``
-    device (no allocation).  ``src_len``: the encoder-decoder's cross cache
+    device (no allocation, and no count of a ``core.opcount.OpCounter``
+    around it).  ``src_len``: the encoder-decoder's cross cache
     length where it is not the sequence's (a prefill's source)."""
     mod = get_module(cfg)
     B, S = shape.global_batch, shape.seq_len
     kw = {"src_len": src_len} if src_len is not None else {}
-    cache = mod.init_cache(cfg, B, S, device="meta", **kw)
+    with opcount.ignored():
+        cache = mod.init_cache(cfg, B, S, device="meta", **kw)
 
     def spec(x):
         if isinstance(x, list):
@@ -70,3 +74,15 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig,
         return TensorSpec(tuple(x.shape), x.dtype)
 
     return type(cache)(**{f: spec(getattr(cache, f)) for f in cache._fields})
+
+
+def param_specs(cfg: ModelConfig, *, serve_bf16: bool = False) -> Any:
+    """The parameters' shapes and dtypes, a ``TensorSpec`` a leaf of the
+    family's ``param_defs`` tree (float32, as every leaf is made).
+    ``serve_bf16``: matrices held in bf16, the serving layout (weights are
+    read every decode step; bf16 halves the dominant HBM term); vectors and
+    scalars stay float32."""
+    defs = get_module(cfg).param_defs(cfg)
+    return tree_map_defs(lambda d: TensorSpec(
+        tuple(d.shape), torch.bfloat16 if serve_bf16 and len(d.shape) >= 2
+        else torch.float32), defs)

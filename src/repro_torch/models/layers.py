@@ -117,9 +117,12 @@ def remat_call(fn, *args, remat: bool = False):
     ``torch.utils.checkpoint`` (non-reentrant): the block's activations are
     dropped after its forward and recomputed in the backward, as the
     reference's ``jax.checkpoint`` of each scanned block.  The values are
-    the same either way."""
+    the same either way.  No block draws a random number, so no generator's
+    state is kept for the recompute (on the card keeping it would copy the
+    state: work that is not the program's)."""
     if remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
     return fn(*args)
 
 

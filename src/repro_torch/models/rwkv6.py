@@ -202,12 +202,13 @@ def wkv_chunked(r, k, v, logw, u, state, chunk: int):
 
 def wkv_recurrent_step(r, k, v, logw, u, state):
     """Single-token recurrence.  r, k, logw: [B,H,K]; v: [B,H,V]; u: [H,K];
-    state: [B,H,K,V] float32 -> (out [B,H,V], new_state).  Written out
-    elementwise: exact float32 on any device."""
+    state: [B,H,K,V] float32 -> (out [B,H,V], new_state).  In float32,
+    the read-out the reference's einsum (a float32 product on the card is
+    exact float32: TF32 is off, ``params.load_cast``)."""
     rf, kf, vf = r.float(), k.float(), v.float()
     at = kf[..., :, None] * vf[..., None, :]                      # [B,H,K,V]
     full = state + u.float()[None, :, :, None] * at
-    out = (rf[..., :, None] * full).sum(-2)
+    out = torch.einsum("bhk,bhkv->bhv", rf, full)
     state = torch.exp(logw.float())[..., None] * state + at
     return out.to(r.dtype), state
 

@@ -46,15 +46,46 @@ every collective (gloo takes CUDA tensors for ``all_reduce`` and
 one path, the one the CPU runs, carries them all; ``host_staged_bytes``
 counts the bytes of those copies, both ways.  Under NCCL tensors stay on
 the card.
+
+On ``meta`` tensors (the dry-run's trace of a rank's program over
+``launch.mesh.abstract_mesh``) every collective returns a meta tensor of
+its result's shape and touches no process group: nothing is sent and no
+world exists.
+
+Every collective that crosses ranks, real or meta, adds to ``record`` under
+the names XLA gives the collective the program asks for (``all-reduce``,
+``all-gather``, ``reduce-scatter``, ``all-to-all``,
+``collective-permute``): its count, its result's bytes and its operand's,
+as ``core.hloanalysis.CollectiveStats`` holds them.  The FSDP gather's
+adjoint is recorded as the ``reduce-scatter`` it is (its operand the
+unreduced gradient), though gloo runs it as an all-reduce and the rank's
+narrow; ``chain``'s send is a ``collective-permute`` whose operand is the
+message, its receive one whose result is.  Their copies count no bytes
+accessed under a ``core.opcount.OpCounter``: the traffic is the record's.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import opcount
+
 host_staged_bytes = 0
+# kind -> [count, result bytes, operand bytes] since the last reset_record()
+record: Dict[str, List[int]] = {}
+
+
+def reset_record() -> None:
+    record.clear()
+
+
+def _record(kind: str, result: int, operand: int) -> None:
+    entry = record.setdefault(kind, [0, 0, 0])
+    entry[0] += 1
+    entry[1] += result
+    entry[2] += operand
 
 
 def _staged(x: torch.Tensor, mesh) -> bool:
@@ -74,10 +105,14 @@ def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def _send(x: torch.Tensor, mesh, axis: str, dst: int) -> None:
-    src = x.detach().contiguous()
-    if _staged(src, mesh):
-        src = _to_host(src)
-    dist.send(src, mesh.axis_ranks[axis][dst])
+    _record("collective-permute", 0, opcount.nbytes(x))
+    if x.is_meta:
+        return
+    with opcount.suspended():
+        src = x.detach().contiguous()
+        if _staged(src, mesh):
+            src = _to_host(src)
+        dist.send(src, mesh.axis_ranks[axis][dst])
 
 
 def _recv(meta, mesh, axis: str, src: int) -> torch.Tensor:
@@ -85,9 +120,13 @@ def _recv(meta, mesh, axis: str, src: int) -> torch.Tensor:
     ``src``."""
     shape, dtype, device = meta
     staged = device.type == "cuda" and mesh.backend == "gloo"
-    buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else device)
-    dist.recv(buf, mesh.axis_ranks[axis][src])
-    return _to_device(buf, device) if staged else buf
+    with opcount.suspended():
+        buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else device)
+        _record("collective-permute", opcount.nbytes(buf), 0)
+        if device.type == "meta":
+            return buf
+        dist.recv(buf, mesh.axis_ranks[axis][src])
+        return _to_device(buf, device) if staged else buf
 
 
 def axis_index(mesh, axis: str) -> int:
@@ -95,47 +134,67 @@ def axis_index(mesh, axis: str) -> int:
     return mesh.coords[axis]
 
 
-def _all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    staged = _staged(x, mesh)
-    out = (_to_host(x.detach().contiguous()) if staged
-           else x.detach().clone(memory_format=torch.contiguous_format))
-    dist.all_reduce(out, group=mesh.groups[axis])
-    return _to_device(out, x.device) if staged else out
+def _all_reduce(x: torch.Tensor, mesh, axis: str, op=None,
+                kind: str = "all-reduce") -> torch.Tensor:
+    """The sum (``op``: another ``dist.ReduceOp``) of ``x`` over the axis;
+    recorded as ``kind`` where it is not None."""
+    if kind is not None:
+        _record(kind, opcount.nbytes(x), opcount.nbytes(x))
+    with opcount.suspended():
+        if x.is_meta:
+            return torch.empty_like(x, memory_format=torch.contiguous_format)
+        staged = _staged(x, mesh)
+        out = (_to_host(x.detach().contiguous()) if staged
+               else x.detach().clone(memory_format=torch.contiguous_format))
+        dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=mesh.groups[axis])
+        return _to_device(out, x.device) if staged else out
 
 
 def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    src = x.detach().contiguous()
-    if _staged(src, mesh):
-        src = _to_host(src)
-    parts = [torch.empty_like(src) for _ in range(mesh.sizes[axis])]
-    dist.all_gather(parts, src, group=mesh.groups[axis])
-    out = torch.cat(parts, dim)
-    return _to_device(out, x.device) if _staged(x, mesh) else out
+    n = mesh.sizes[axis]
+    _record("all-gather", n * opcount.nbytes(x), opcount.nbytes(x))
+    with opcount.suspended():
+        if x.is_meta:
+            shape = list(x.shape)
+            shape[dim] *= n
+            return x.new_empty(shape)
+        src = x.detach().contiguous()
+        if _staged(src, mesh):
+            src = _to_host(src)
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=mesh.groups[axis])
+        out = torch.cat(parts, dim)
+        return _to_device(out, x.device) if _staged(x, mesh) else out
 
 
 def _permute(x: torch.Tensor, mesh, axis: str,
              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """Sends this rank's ``x`` to the coordinate ``perm`` maps it to and
     returns what arrives; zeros where nothing is sent to this rank."""
-    me = mesh.coords[axis]
-    ranks = mesh.axis_ranks[axis]
-    src = x.detach().contiguous()
-    out = torch.zeros_like(src)
-    staged = _staged(src, mesh)
-    send = src if not staged else _to_host(src)
-    recv = out if not staged else torch.zeros_like(send)
-    ops: List[dist.P2POp] = []
-    for s, d in perm:
-        if s == me and d == me:
-            recv.copy_(send)
-        elif s == me:
-            ops.append(dist.P2POp(dist.isend, send, ranks[d]))
-        elif d == me:
-            ops.append(dist.P2POp(dist.irecv, recv, ranks[s]))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    return _to_device(recv, x.device) if staged else recv
+    if mesh.sizes[axis] > 1:
+        _record("collective-permute", opcount.nbytes(x), opcount.nbytes(x))
+    with opcount.suspended():
+        if x.is_meta:
+            return torch.empty_like(x, memory_format=torch.contiguous_format)
+        me = mesh.coords[axis]
+        ranks = mesh.axis_ranks[axis]
+        src = x.detach().contiguous()
+        out = torch.zeros_like(src)
+        staged = _staged(src, mesh)
+        send = src if not staged else _to_host(src)
+        recv = out if not staged else torch.zeros_like(send)
+        ops: List[dist.P2POp] = []
+        for s, d in perm:
+            if s == me and d == me:
+                recv.copy_(send)
+            elif s == me:
+                ops.append(dist.P2POp(dist.isend, send, ranks[d]))
+            elif d == me:
+                ops.append(dist.P2POp(dist.irecv, recv, ranks[s]))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return _to_device(recv, x.device) if staged else recv
 
 
 class _PSum(torch.autograd.Function):
@@ -157,8 +216,10 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        total = _all_reduce(g, ctx.mesh, ctx.axis)
         me = ctx.mesh.coords[ctx.axis]
+        _record("reduce-scatter", opcount.nbytes(g) // ctx.mesh.sizes[ctx.axis],
+                opcount.nbytes(g))
+        total = _all_reduce(g, ctx.mesh, ctx.axis, kind=None)
         return total.narrow(ctx.dim, me * ctx.n, ctx.n), None, None, None
 
 
@@ -274,10 +335,7 @@ def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The elementwise max of ``x`` over the axis, detached."""
     if mesh.sizes[axis] == 1:
         return x.detach()
-    staged = _staged(x, mesh)
-    out = _to_host(x.detach().contiguous()) if staged else x.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.groups[axis])
-    return _to_device(out, x.device) if staged else out
+    return _all_reduce(x, mesh, axis, op=dist.ReduceOp.MAX)
 
 
 def pmean(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
