@@ -374,8 +374,21 @@ of which ends the run with a non-zero exit code if it fails (a
    ``rec_h`` / ``conv_state`` half a rank; (e) ``seamless-m4t-large-v2``
    cut to 2 + 2 layers (its caches split over heads) and
    ``qwen2-moe-a2.7b`` cut to 2 layers (the expert-parallel MoE in
-   prefill and decode).  ``--only 5j`` runs this phase alone after the
-   build, the (1, 1) check in a world of its own;
+   prefill and decode); (f) the same five models on (1, 2) under 'cp'
+   (``dense_cp`` ... ``moe_cp``): each rank prefills 256 of a row's 512
+   positions with every head (the encoder-decoder its 256 of the frames,
+   its one-token decoder prefix whole), each attention launch read at its
+   query offset (0 on rank 0, T / 2 on rank 1; 0 for the encoder-decoder's)
+   and each WKV launch at whether it started from a received state (rank
+   1's), the last rank's states and last hidden state moved into the
+   cache's blocks; the cut h2o also takes the 1 x 6140 ring request (its
+   4096 slots from both ranks' positions) and the hybrid a 1 x 3072 one
+   past its window of 2048 (MESH_SERVE_HYBRID_RING); each 'cp' part is
+   printed beside the same model's 'tp' part from the same call (prefill
+   ms, decode ms a token, bytes staged a prefill and a token, cache
+   bytes), and the (1, 1) NCCL check runs under 'cp' too.  ``--only 5j``
+   runs this phase alone after the build, the (1, 1) check in a world of
+   its own;
 5k. counts (``count_phase``): the dry-run's counter (``core.opcount``,
    ``launch.dryrun``) held to the real program on the card.  (a) In this
    process, on a (1, 1) mesh: the cut ``h2o-danube-1.8b`` (4 layers) of
@@ -393,7 +406,9 @@ of which ends the run with a non-zero exit code if it fails (a
    counts at the H100 datasheet's peaks, as a share.  (b) A world of two
    gloo ranks sharing the card on phase 5j's (1, 2) mesh under 'tp': the
    cut h2o, ``rwkv6-1.6b`` (2 layers) and ``qwen2-moe-a2.7b`` (2 layers),
-   each rank's prefill and decode run for real and traced on meta: the
+   and the cut h2o and RWKV-6 under 'cp' too (COUNT_PAIR_CP: the moves out
+   of the last rank of 'model' among them), each rank's prefill and decode
+   run for real and traced on meta: the
    collectives record (``runtime.collectives.record``) kind by kind, in
    count and bytes, and the FLOPs must be equal.  Every line carries the
    card's name and power limit.  No kernel is added and no launch counts
@@ -460,7 +475,7 @@ the count of the path the kernel is on: the EdgeNeXt-S requests for the
 first three, the lowered phase for matmul_ln, the RWKV-6 requests for
 wkv_chunked, the 20 dense train steps for flash_attention_bwd, the 20
 RWKV-6 train steps for wkv_chunked_bwd (``launches_by_path`` has all
-twenty-seven paths: the dense, MoE, encoder-decoder and hybrid requests as
+thirty-two paths: the dense, MoE, encoder-decoder and hybrid requests as
 ``dense_serve``, ``moe_serve``, ``audio_serve`` and ``hybrid_serve``, phase
 5i's as ``starcoder2_serve``, ``minitron_serve``, ``olmo_serve``,
 ``qwen2vl_serve`` and ``qwen3moe_serve``, the
@@ -470,8 +485,11 @@ B = 8 forward, ``dist_train``, one sharded step on (2, 1), ``dist_tp``, one
 on (1, 2), ``dist_rwkv``, one RWKV-6 step on (1, 2), ``dist_cp`` and
 ``dist_cp_rwkv``, one step of each under 'cp' on (1, 2), and phase 5j's
 rank 0 as ``mesh_serve_dense``, ``mesh_serve_dense_dp``,
-``mesh_serve_rwkv``, ``mesh_serve_hybrid``, ``mesh_serve_audio`` and
-``mesh_serve_moe``, each part's sharded prefills and decode steps).  The WKV backward (``wkv_bwd_case``) is held
+``mesh_serve_rwkv``, ``mesh_serve_hybrid``, ``mesh_serve_audio``,
+``mesh_serve_moe`` and the 'cp' parts' ``mesh_serve_dense_cp``,
+``mesh_serve_rwkv_cp``, ``mesh_serve_hybrid_cp``, ``mesh_serve_audio_cp``
+and ``mesh_serve_moe_cp``, each part's sharded prefills and decode
+steps).  The WKV backward (``wkv_bwd_case``) is held
 to autograd of ``ref.wkv_ref`` (2e-4 (1 + |b|) float32, 1e-3 at the
 extreme decays, 2e-2 bfloat16 with a relative L2 of 2e-4 on the float32
 dlogw and du) at the trained shape (bf16), a ragged 32 x 200 at chunk 64,
@@ -772,10 +790,20 @@ MESH_SERVE_PARTS = (
     ("c", "rwkv", RWKV_ARCH, 2, (1, 2), "tp"),
     ("d", "hybrid", HYBRID_ARCH, 3, (1, 2), "tp"),
     ("e", "audio", AUDIO_ARCH, 2, (1, 2), "tp"),
-    ("e", "moe", MOE_ARCH, 2, (1, 2), "tp"))
+    ("e", "moe", MOE_ARCH, 2, (1, 2), "tp"),
+    ("f", "dense_cp", DENSE_ARCH, DIST_LAYERS, (1, 2), "cp"),
+    ("f", "rwkv_cp", RWKV_ARCH, 2, (1, 2), "cp"),
+    ("f", "hybrid_cp", HYBRID_ARCH, 3, (1, 2), "cp"),
+    ("f", "audio_cp", AUDIO_ARCH, 2, (1, 2), "cp"),
+    ("f", "moe_cp", MOE_ARCH, 2, (1, 2), "cp"))
 MESH_SERVE_PROMPT = (4, 512)
 MESH_SERVE_GEN = 16
 MESH_SERVE_RING = (1, 6140, 8)
+# the hybrid's request past its window of 2048 under 'cp': 1536 positions a
+# rank, the ring's positions 1024 ... 3071 from both ranks
+MESH_SERVE_HYBRID_RING = (1, 3072, 8)
+MESH_SERVE_EXTRA = {"dense": [MESH_SERVE_RING], "dense_cp": [MESH_SERVE_RING],
+                    "hybrid_cp": [MESH_SERVE_HYBRID_RING]}
 MESH_SERVE_F32 = (2, 4)
 MESH_SERVE_F32_TOL = 2e-3
 MESH_SERVE_WORLD_S = 400
@@ -789,6 +817,8 @@ MESH_SERVE_WORLD_S = 400
 # collectives in its real prefill and decode against its meta trace's, for
 # COUNT_PAIR's (arch, layers); COUNT_REPS timed runs after COUNT_WARMUP
 COUNT_PAIR = ((DENSE_ARCH, DIST_LAYERS), (RWKV_ARCH, 2), (MOE_ARCH, 2))
+# the archs of COUNT_PAIR counted under 'cp' too
+COUNT_PAIR_CP = (DENSE_ARCH, RWKV_ARCH)
 COUNT_REPS, COUNT_WARMUP = 5, 2
 COUNT_WORLD_S = 180
 
@@ -4447,14 +4477,14 @@ def mesh_serve_part(part: str, name: str, arch: str, layers: int, shape,
     cfg = mesh_cut_cfg(arch, layers)
     mod = get_module(cfg)
     mesh = mesh_lib.make_mesh(shape, ("data", "model"))
-    tp = mesh.sizes["model"] if profile != "fsdp" else 1
+    tp = mesh.sizes["model"] if profile in ("2d", "tp") else 1
+    cp = profile == "cp"
     whole = mesh_drawn(cfg)
     params = mesh_blocks(cfg, whole, mesh, profile)
     if rank != 0:
         del whole
     torch.cuda.empty_cache()
-    requests = [(*MESH_SERVE_PROMPT, MESH_SERVE_GEN)] + ([MESH_SERVE_RING]
-                                                         if part == "a" else [])
+    requests = [(*MESH_SERVE_PROMPT, MESH_SERVE_GEN)] + MESH_SERVE_EXTRA.get(name, [])
     rng = np.random.default_rng(SEED + 11)
     V = cfg.vocab_size
     kernel = "wkv_chunked" if cfg.family == "ssm" else "flash_attention"
@@ -4470,8 +4500,8 @@ def mesh_serve_part(part: str, name: str, arch: str, layers: int, shape,
         one = mesh_one_process(cfg, whole, batch, dlen, gen) if rank == 0 else None
         toks = mesh_broadcast(None if one is None else one["tokens"], (B, gen),
                               torch.int32)
-        shapes = []
-        real, rec = recorded(kernel, shapes)
+        shapes, keywords = [], []
+        real, rec = recorded(kernel, shapes, keywords)
         setattr(ops, kernel, rec)
         try:
             reset_counts()
@@ -4497,6 +4527,23 @@ def mesh_serve_part(part: str, name: str, arch: str, layers: int, shape,
                    host_staged_bytes_per_token=step_bytes / gen,
                    cache_bytes=cache_bytes, heads_per_launch=heads,
                    of_heads=full_heads, launches=got)
+        if cp:      # the rank's positions: the kernels' offsets, the states
+            r_m = mesh.coords["model"]
+            if kernel == "wkv_chunked":
+                req["from_received_state"] = sorted({"state" in kw for kw in keywords})
+                want = [r_m > 0]
+                seen = req["from_received_state"]
+            else:
+                req["q_offsets"] = sorted({kw.get("q_offset", 0) for kw in keywords})
+                # the encoder-decoder's attentions take every key (offset 0);
+                # a causal self-attention's queries sit at r T / n
+                want = [0] if cfg.family == "audio" else [r_m * T // mesh.sizes["model"]]
+                seen = req["q_offsets"]
+            what = ("started from a received state" if kernel == "wkv_chunked"
+                    else "the query offset")
+            if seen != want:
+                fail(f"{tag} {B}x{T}: rank {rank}'s {kernel} launches saw {seen}, "
+                     f"expected {want} ({what})")
         if rank == 0:
             err = (logits[..., :V].float() - one["logits"][..., :V].float()).abs().max().item()
             agree = (logits[..., :V].argmax(-1) == one["tokens"]).float().mean().item()
@@ -4579,19 +4626,19 @@ def mesh_serve_one_rank() -> dict:
     gather = lambda t: sharding.gather_full(t, rows, mesh)   # noqa: E731
     runs = {}
     for form in ("eager", "captured"):
-        for m in (None, mesh):
+        for m, profile in ((None, None), (mesh, "2d"), (mesh, "cp")):
             steps = (lm_serve.captured_steps if form == "captured"
-                     else lm_serve.eager_steps)(cfg, params, m, "2d",
+                     else lm_serve.eager_steps)(cfg, params, m, profile or "2d",
                                                 None if m is None else struct)
             pre, dec = steps
             last, cache, _ = lm_prefill(pre, batch)
             toks, logits, cache, _ = lm_serve.run_decode(
                 dec, cache, B, MESH_SERVE_GEN, last.device, None if m is None else gather)
-            runs[(form, m is not None)] = [last, toks, *logits,
-                                           *pytree.tree_leaves(cache)]
-    equal = {form: all(torch.equal(a, b) for a, b in zip(runs[(form, False)],
-                                                         runs[(form, True)], strict=True))
-             for form in ("eager", "captured")}
+            runs[(form, profile)] = [last, toks, *logits, *pytree.tree_leaves(cache)]
+    equal = {f"{form} {profile}": all(
+        torch.equal(a, b) for a, b in zip(runs[(form, None)], runs[(form, profile)],
+                                          strict=True))
+        for form in ("eager", "captured") for profile in ("2d", "cp")}
     if not all(equal.values()):
         fail(f"mesh_serve (1, 1): the NCCL mesh's serving differs from no mesh: {equal}")
     return dict(backend=mesh.backend, equal=equal, shape=[B, T, MESH_SERVE_GEN],
@@ -4624,8 +4671,8 @@ def print_mesh_serve(d: dict) -> None:
     one = d["one_rank"]
     print(f"mesh_serve (1, 1) {one['backend']} world of 1: {DENSE_ARCH} cut to "
           f"{DIST_LAYERS} layers, {one['shape'][0]}x{one['shape'][1]} + "
-          f"{one['shape'][2]} tokens, the same bits as no mesh eager "
-          f"{one['equal']['eager']} and captured {one['equal']['captured']}")
+          f"{one['shape'][2]} tokens, the same bits as no mesh under '2d' and "
+          f"'cp', eager and captured: {one['equal']}")
     for name in d["ranks"][0]["parts"]:
         for r in d["ranks"]:
             p = r["parts"][name]
@@ -4639,6 +4686,10 @@ def print_mesh_serve(d: dict) -> None:
                         f"{q['host_staged_bytes_per_token'] / 1e6:.3f} MB a token; cache "
                         f"{q['cache_bytes'] / 1e6:.2f} MB; {q['heads_per_launch']} of "
                         f"{q['of_heads']} heads a launch; launches {q['launches']}")
+                if "q_offsets" in q:
+                    line += f"; attention q_offset {q['q_offsets']}"
+                if "from_received_state" in q:
+                    line += f"; WKV from a received state {q['from_received_state']}"
                 if "one_process_cache_bytes" in q:
                     line += (f"; one process: cache {q['one_process_cache_bytes'] / 1e6:.2f} "
                              f"MB, prefill {q['one_process_prefill_ms']:.1f} ms, decode "
@@ -4650,6 +4701,22 @@ def print_mesh_serve(d: dict) -> None:
                      f"(limit {MESH_SERVE_F32_TOL} (1+|b|))" if "f32_max_err" in p else "")
             print(f"mesh_serve ({p['part']}) {name} rank {p['rank']}: peak "
                   f"{p['peak_mib']:.0f} MiB, {p['seconds']:.1f} s{extra}")
+    parts = d["ranks"][0]["parts"]
+    for name, p in parts.items():
+        if p["profile"] != "cp" or name[:-3] not in parts:
+            continue
+        tp = parts[name[:-3]]
+        for q, t in zip(p["requests"], tp["requests"]):
+            B, T, gen = q["shape"]
+            print(f"mesh_serve {p['arch']} rank 0 {B}x{T}+{gen} cp | tp: prefill "
+                  f"{q['prefill_ms']:.1f} | {t['prefill_ms']:.1f} ms, decode "
+                  f"{q['decode_ms_per_token']:.2f} | {t['decode_ms_per_token']:.2f} "
+                  f"ms/token; staged {q['host_staged_bytes_prefill'] / 1e6:.2f} | "
+                  f"{t['host_staged_bytes_prefill'] / 1e6:.2f} MB a prefill, "
+                  f"{q['host_staged_bytes_per_token'] / 1e6:.3f} | "
+                  f"{t['host_staged_bytes_per_token'] / 1e6:.3f} MB a token; cache "
+                  f"{q['cache_bytes'] / 1e6:.2f} | {t['cache_bytes'] / 1e6:.2f} MB "
+                  f"(one process {q['one_process_cache_bytes'] / 1e6:.2f} MB)")
     print(f"mesh_serve wall {d['wall_s']:.1f} s", flush=True)
 
 
@@ -4726,12 +4793,13 @@ def count_pair() -> dict:
     out = dict(rank=dist.get_rank(), backend=mesh.backend, coords=mesh.coords, runs={})
     for arch, layers in COUNT_PAIR:
         cfg = mesh_cut_cfg(arch, layers)
-        for kind in ("prefill", "decode"):
+        for kind, profile in [(k, p) for p in ("tp", "cp") for k in ("prefill", "decode")
+                              if p == "tp" or arch in COUNT_PAIR_CP]:
             shape = ShapeConfig(kind, kind, T, B)
-            kw = dict(profile="tp", serve_bf16=kind == "decode")
+            kw = dict(profile=profile, serve_bf16=kind == "decode")
             real = dryrun.trace(cfg, shape, mesh, seed=SEED, **kw)
             meta = dryrun.trace(cfg, shape, meta_mesh, **kw)
-            out["runs"][f"{kind} {arch} {layers} layers"] = dict(
+            out["runs"][f"{kind} {arch} {layers} layers {profile}"] = dict(
                 real=real["collectives"], meta=meta["collectives"],
                 real_flops=real["cost_analysis"]["flops"],
                 meta_flops=meta["cost_analysis"]["flops"])

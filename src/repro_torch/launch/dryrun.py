@@ -35,8 +35,11 @@ each kernel's share (``OpCounter.kernels``).
 The rank counted is the one at coordinate 0 on every axis; under 'cp'
 also the last rank of 'model', whose share of a sequence differs.  The
 record keeps the larger of each count and ``rank_of`` names the rank each
-came from where they differ.  Serving under 'cp' is ROADMAP item 8g: a
-prefill or decode cell under ``--profile cp`` raises.
+came from where they differ: under 'cp' the last rank of 'model' holds
+the sequence's end and hands the states it leaves to the others
+(``runtime.collectives.from_last`` / ``scatter_from_last``), and a
+train or prefill rank's attention reads more keys the later its
+positions.
 
 Records go to ``experiments/dryrun_torch/`` (never the reference's
 ``experiments/dryrun/``).

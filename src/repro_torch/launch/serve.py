@@ -5,7 +5,7 @@
       [--device cuda|cpu]
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
       -m repro_torch.launch.serve --arch h2o-danube-1.8b --reduced \
-      --mesh 1x2 [--profile 2d|tp|fsdp] [--device cpu]
+      --mesh 1x2 [--profile 2d|tp|fsdp|cp] [--device cpu]
 
 Port of ``repro/launch/serve.py`` for every ported arch (``configs.ARCHS``:
 RWKV-6, the dense and MoE transformers, Qwen2-VL, the Seamless
@@ -40,8 +40,9 @@ launcher always does, under ``torchrun --standalone --nproc-per-node N``
 or ``launch.mesh.spawn_local`` (each rank calls ``main``): the sharded
 prefill and decode steps (``runtime.build_prefill_step`` /
 ``build_decode_step`` with ``mesh=`` and ``--profile``, '2d' by default as
-the reference's launcher lays its parameters out; 'tp' and 'fsdp' too;
-'cp' raises, ROADMAP queue 1 item 8g).  Each rank draws the whole tree
+the reference's launcher lays its parameters out; 'tp', 'fsdp' and 'cp'
+too, 'cp' splitting the prompt's sequence over 'model').  Each rank draws
+the whole tree
 from the seed as one device does and keeps a copy of its block of each
 leaf (``sharding.local_shard``), makes the same global prompt, and its
 steps take their block of it; each step's greedy tokens are gathered over
@@ -187,15 +188,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="16x16 mesh (needs 256 ranks)")
     ap.add_argument("--profile", default="2d", choices=sharding.PROFILES,
                     help="the mesh's layout: 2d (FSDP over data, TP over "
-                         "model), tp (TP over model, data-parallel over data) "
-                         "or fsdp (the whole mesh FSDP / data-parallel); cp "
-                         "is ROADMAP item 8g")
+                         "model), tp (TP over model, data-parallel over data), "
+                         "fsdp (the whole mesh FSDP / data-parallel) or cp "
+                         "(FSDP over data, the prompt's sequence over model)")
     args = ap.parse_args(argv)
 
     meshed = bool(args.mesh or args.production_mesh)
-    if meshed and args.profile == "cp":
-        raise ValueError("serve: --profile cp (the prompt's sequence over 'model') "
-                         "is ROADMAP queue 1 item 8g; use 2d, tp or fsdp")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serve: --device cuda (the default) but no CUDA "

@@ -24,7 +24,9 @@ loss through ``dp``; prefill and decode through ``cache_split`` (which dim
 of a cache leaf the rank holds its 'model' block of: an attention cache's
 slots or its KV heads, a recurrent state's heads or channels) and
 ``to_cache`` / ``from_cache``, which carry a leaf between the block the
-rank computes and the one it holds.  Without a mesh or a layout every
+rank computes and the one it holds; a 'cp' prefill through ``seq_len``
+and ``seq_last`` (what the last rank's block leaves, moved into the
+cache's blocks).  Without a mesh or a layout every
 helper is a no-op.  The
 reference's ``_dp_entry`` (the batch dim's spec entry) is
 ``runtime.sharding._batch_axis``.
@@ -89,24 +91,33 @@ def dp():
     return _LAYOUT.mesh, _LAYOUT.dp + ("model",), _LAYOUT.dp_size * n
 
 
-def seq(entry: str = "labels"):
+def seq(entry: str | None = None):
     """(mesh, this rank's coordinate r on 'model', the count n of 'model')
     where the sharded step splits the sequence of the batch's ``entry``
-    over 'model' (profile 'cp'; ``runtime.sharding.Layout.set_batch``): the
-    rank holds positions r S/n ... (r + 1) S/n - 1 of its rows.  None
-    without a layout, and where the sequence is whole on every rank."""
-    if _LAYOUT is None or entry not in _LAYOUT.seq_split:
+    (by default the entry of its rows: ``labels`` in training, the
+    prompt's ``tokens`` or ``inputs_embeds`` serving) over 'model' (profile
+    'cp'; ``runtime.sharding.Layout.set_batch``): the rank holds positions
+    r S/n ... (r + 1) S/n - 1 of its rows.  None without a layout, and
+    where the sequence is whole on every rank."""
+    if _LAYOUT is None or (entry or _LAYOUT.rows_entry) not in _LAYOUT.seq_split:
         return None
     mesh = _LAYOUT.mesh
     return mesh, mesh.coords["model"], mesh.sizes["model"]
 
 
-def positions(S: int, device, entry: str = "labels"):
+def positions(S: int, device, entry: str | None = None):
     """The absolute positions [S] of the rank's S tokens of ``entry``:
     ``arange(S)``, offset by r S under ``seq``."""
     sq = seq(entry)
     start = 0 if sq is None else sq[1] * S
     return torch.arange(start, start + S, device=device)
+
+
+def seq_len(S: int, entry: str | None = None) -> int:
+    """The whole sequence's length of which the rank holds ``S`` positions
+    (n S under ``seq``)."""
+    sq = seq(entry)
+    return S if sq is None else S * sq[2]
 
 
 def cache_split(field: str):
@@ -126,10 +137,14 @@ def cache_split(field: str):
 
 def to_cache(field: str, x, split_dim=None):
     """``x``, one layer's leaf of the cache ``field`` as the rank computed
-    it (whole, or its 'model' block along ``split_dim``), as the rank holds
-    it (``cache_split``): gathered over 'model' where the cache keeps that
-    dim whole, the rank's block cut where the cache splits a dim the rank
-    computed whole.  ``x`` itself without a layout."""
+    it (whole, or its 'model' block along ``split_dim``: of the heads or
+    channels, or under 'cp' of the sequence, an attention cache's slots),
+    as the rank holds it (``cache_split``): nothing moves where the cache
+    splits the same dim (a linear attention cache of the prompt's length
+    takes each rank's block of the sequence as its block of slots),
+    gathered over 'model' where the cache keeps that dim whole, the rank's
+    block cut where the cache splits a dim the rank computed whole.  ``x``
+    itself without a layout."""
     if _LAYOUT is None:
         return x
     from repro_torch.runtime import collectives as C
@@ -161,6 +176,25 @@ def from_cache(field: str, x, split_dim=None):
         step = x.shape[split_dim] // n
         x = x.narrow(split_dim, mesh.coords["model"] * step, step)
     return x
+
+
+def seq_last(x, field: str | None = None, split_dim=None):
+    """``x``, a value that the sequence leaves at its end (the last hidden
+    state, a recurrence's final state, a token shift), as the rank holds
+    it: ``to_cache(field, x, split_dim)``, or ``x`` itself without a
+    ``field``.  Under ``seq`` ``x`` is what the rank's own block of the
+    sequence left, and the sequence's is the last rank of 'model''s: it
+    goes whole to every rank (``collectives.from_last``), or where the
+    cache splits the ``field`` over 'model', to rank r only its block r
+    (``collectives.scatter_from_last``)."""
+    sq = seq()
+    if sq is None:
+        return x if field is None else to_cache(field, x, split_dim)
+    from repro_torch.runtime import collectives as C
+    cs = None if field is None else cache_split(field)
+    if cs is None:
+        return C.from_last(x, sq[0], "model")
+    return C.scatter_from_last(x, sq[0], "model", cs[1])
 
 
 def batch_sharded(x):

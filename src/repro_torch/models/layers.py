@@ -556,7 +556,7 @@ def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
                     window: Optional[int] = None, kernels=ops,
                     kv_x: Optional[torch.Tensor] = None,
                     kv_positions: Optional[torch.Tensor] = None,
-                    kv_entry: str = "labels", return_kv: bool = False):
+                    kv_entry: Optional[str] = None, return_kv: bool = False):
     """Full-sequence attention (train / prefill); cross-attention into
     ``kv_x`` where given.  Under ``actshard.split("heads")`` the rank
     computes its block of the heads (column-parallel q / k / v, the kernel
@@ -568,15 +568,16 @@ def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
     for the kernel only).
 
     Under ``actshard.seq(kv_entry)`` (the batch entry whose sequence the
-    keys come from: the tokens', or the encoder's frames) the rank holds
-    S / n consecutive positions of the keys' sequence (RoPE already at
-    them): k and v are gathered over 'model' before the GQA expansion (the
-    wire carries the KV heads), the gather's adjoint handing each rank the
-    sum of dK / dV of its block.  Causal attention (self-attention, whose
+    keys come from: the rows' by default, or the encoder's frames) the
+    rank holds S / n consecutive positions of the keys' sequence (RoPE
+    already at them): k and v are gathered over 'model' before the GQA
+    expansion (the wire carries the KV heads), the gather's adjoint handing
+    each rank the sum of dK / dV of its block.  Causal attention (self-attention, whose
     queries are the rank's block of the same sequence) keeps the first
     (r + 1) S / n keys and runs the kernel at ``q_offset`` r S / n, so that
     the window holds across the shard's edge; non-causal attention takes
-    every key at offset 0."""
+    every key at offset 0.  ``return_kv`` returns the gathered sequence's K
+    and V, of which ``actshard.to_cache`` keeps the rank's block."""
     causal_ = cfg.causal if causal is None else causal
     window_ = cfg.window if window is None else window
     tp = actshard.split("heads")
@@ -597,6 +598,7 @@ def attention_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
         mesh, r, _ = sq
         S = k.shape[2]
         k, v = torch.unbind(coll().all_gather(torch.stack([k, v]), mesh, "model", 3))
+        kv = (k, v)
         if causal_:
             offset = r * S
             k, v = k[:, :, :offset + S], v[:, :, :offset + S]
@@ -631,12 +633,15 @@ def attention_decode_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
     on the rank's heads under ``actshard.split("heads")`` (the KV heads
     projected whole where they are replicated); the new token's k / v are
     gathered over 'model' on the heads wherever the cache holds every KV
-    head.  Where 'model' splits the cache's slots (flash-decoding's split-S:
+    head; where the cache holds the rank's KV heads and the rank computes
+    every head ('cp'), the new token's k / v are cut to them.  Where 'model'
+    splits the cache's slots (flash-decoding's split-S:
     the rank holds slots r S/n ... (r + 1) S/n - 1 of every KV head) the
     write goes to the rank that owns the global write index, decided on the
     device (the others write back what the slot held), and ``attend_cache``
     merges the ranks' partial softmaxes.  ``out_project`` is row-parallel on
-    the rank's heads, summed over 'model' (``reduce_from``).
+    the rank's heads, summed over 'model' (``reduce_from``); without
+    ``tp`` it takes every head.
     """
     B = x.shape[0]
     if cfg.rope == "mrope":
@@ -651,7 +656,10 @@ def attention_decode_apply(cfg: ModelConfig, params: Params, x: torch.Tensor,
     q, k, v = qkv_project(cfg, params, x, positions)
     by_slots = cs is not None and cs[1] == 2
     by_heads = cs is not None and cs[1] == 1
-    if by_heads and not kv_heads_split():
+    if by_heads and tp is None:                    # 'cp': q / k / v on every head
+        hk = cache_k.shape[1]
+        k, v = k.narrow(1, cs[2] * hk, hk), v.narrow(1, cs[2] * hk, hk)
+    elif by_heads and not kv_heads_split():
         raise ValueError("attention_decode_apply: the cache holds the rank's KV "
                          "heads but the rank does not compute its block of them")
     if not by_heads and kv_heads_split():          # the cache holds every KV head
@@ -687,10 +695,17 @@ def attend_cache(cfg: ModelConfig, q: torch.Tensor, cache_k: torch.Tensor,
     over its slots, q of every head gathered over 'model', the rank's
     ``decode_attention_partial`` merged with the others'
     (``merge_partials``) and the rank's heads of o kept; over its KV heads,
-    the rank's heads attended locally; whole, the rank's heads against
-    it, read at the KV head of each of them; ``decode_attention`` with
-    neither a split nor ``tp``."""
+    the rank's heads attended locally, and where q holds every head ('cp':
+    no ``tp``) the query heads of the rank's KV heads, their o gathered
+    over 'model' on the heads; whole, the rank's heads against it, read at
+    the KV head of each of them; ``decode_attention`` with neither a split
+    nor ``tp``."""
     C = coll()
+    if cs is not None and cs[1] == 1 and tp is None:        # heads over 'model'
+        mesh, _, r, n = cs
+        hq = q.shape[1] // n
+        o = attn_lib.decode_attention(q.narrow(1, r * hq, hq), cache_k, cache_v, valid)
+        return C.gather_from(o, mesh, "model", 1)
     if cs is not None and cs[1] == 2:                       # slots over 'model'
         mesh, _, r, _ = cs
         hl = q.shape[1]

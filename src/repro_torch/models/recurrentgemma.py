@@ -31,9 +31,11 @@ remat'd function (``actshard.gathered``) and splits its heads, d_ff and
 recurrence width over 'model' (``_recurrent_block``, ``layers``); the MQA
 blocks' one KV head is replicated, and each rank projects it for its
 query heads.  Under 'cp' (``actshard.seq``) a rank holds S / n consecutive
-positions: the convolution reads the rank before's last cw - 1 inputs, the
-RG-LRU starts from the state it left (``collectives.chain``), and the
-attention blocks gather K / V (``layers.attention_apply``).
+positions: the convolution reads the cw - 1 inputs before the rank's
+block, the RG-LRU starts from the state the rank before left
+(``collectives.chain``), and the attention blocks gather K / V
+(``layers.attention_apply``); a serving prefill hands the last rank's
+states into the cache's blocks.
 
 The cache is the reference's, quirks included: K/V of the prompt's length
 (a ring of ``window`` slots past it), and a decode step writes at ``step``
@@ -230,9 +232,11 @@ def _recurrent_block(cfg: ModelConfig, rec: Params, u: torch.Tensor):
     on the convolution's output gathered over 'model' (their columns the
     rank's), ``wo`` row-parallel and summed over 'model'.  Under
     ``actshard.seq`` the rank's positions continue the rank before's: the
-    convolution's state is its last cw - 1 rows of ``x_branch`` (by
-    ``collectives.ppermute``, zeros on rank 0 as at the sequence's start),
-    and the RG-LRU's h0 its h_last (``collectives.chain``)."""
+    convolution's state is the cw - 1 rows of ``x_branch`` before the
+    rank's block, from as many ranks before it as hold them (one
+    ``collectives.ppermute`` of each rank's last min(cw - 1, S/n) rows a
+    rank back; zeros before the sequence's start), and the RG-LRU's h0 the
+    rank before's h_last (``collectives.chain``)."""
     dtype = u.dtype
     tp = actshard.split("ff")
     if tp is not None:
@@ -243,13 +247,13 @@ def _recurrent_block(cfg: ModelConfig, rec: Params, u: torch.Tensor):
     conv_in = None
     if sq is not None:
         mesh, _, n = sq
-        cw = rec["conv_w"].shape[0]
-        if x_branch.shape[1] < cw - 1:
-            raise ValueError(f"recurrentgemma: {x_branch.shape[1]} positions a rank "
-                             f"under 'cp', fewer than the convolution's {cw - 1} "
-                             f"inputs from the rank before")
-        conv_in = coll().ppermute(x_branch[:, x_branch.shape[1] - (cw - 1):], mesh,
-                                  "model", [(i, i + 1) for i in range(n - 1)])
+        cw, T = rec["conv_w"].shape[0], x_branch.shape[1]
+        m = min(cw - 1, T)
+        hops = -(-(cw - 1) // m)
+        tail = x_branch[:, T - m:]
+        back = [coll().ppermute(tail, mesh, "model", [(i, i + j) for i in range(n - j)])
+                if j < n else torch.zeros_like(tail) for j in range(hops, 0, -1)]
+        conv_in = back[0] if hops == 1 else torch.cat(back, 1)[:, hops * m - (cw - 1):]
     x_branch, new_conv = causal_conv1d(rec, x_branch, conv_in)
     whole = None if tp is None else coll().all_gather(x_branch, tp, "model", -1)
     if sq is None:
@@ -331,9 +335,13 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     attention_apply``).  Under a serving layout each block gathers its
     leaves at use and splits its products as in training, and the rank
     keeps its blocks of the cache (``actshard.to_cache``): ``rec_h`` and
-    ``conv_state`` its W/tp channels, the MQA ring its slots."""
+    ``conv_state`` its W/tp channels, the MQA ring its slots.  Under 'cp'
+    the rank runs its S / n positions: the MQA cache (a ring past the
+    window) is built from the K / V the attention gathered and cut to the
+    rank's slots, and ``rec_h``, ``conv_state`` and the last hidden state
+    are the last rank's (``actshard.seq_last``)."""
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
-    S = x.shape[1]
+    S = actshard.seq_len(x.shape[1])
     W = cache_len(cfg, S)
     positions = _positions(x)
     ch = 1 if actshard.split("ff") is not None else None
@@ -343,8 +351,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         h = L.norm_apply(cfg, bp["ln1"], x)
         if kind == "recurrent":
             h, h_last, cst = _recurrent_block(cfg, bp["rec"], h)
-            rec_h.append(actshard.to_cache("rec_h", h_last, ch))
-            conv_state.append(actshard.to_cache("conv_state", cst,
+            rec_h.append(actshard.seq_last(h_last, "rec_h", ch))
+            conv_state.append(actshard.seq_last(cst, "conv_state",
                                                 None if ch is None else 2))
         else:
             h, k, v = L.attention_apply(cfg, bp["attn"], h, positions,
@@ -363,7 +371,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     cache = RGCache(rec_h=rec_h, conv_state=conv_state, attn_k=attn_k,
                     attn_v=attn_v,
                     step=torch.full((), S, dtype=torch.int32, device=x.device))
-    return x[:, -1, :], cache
+    return actshard.seq_last(x[:, -1, :]), cache
 
 
 def _recurrent_step(cfg: ModelConfig, rec: Params, h: torch.Tensor,

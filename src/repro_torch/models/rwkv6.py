@@ -32,7 +32,12 @@ says.  The LoRA mixes and norms stay replicated.  Under 'cp'
 shift's x_prev is the rank before's last row of the same normed input
 (``collectives.ppermute``; zeros on rank 0, the one-process x_prev), and
 each layer's WKV starts from the state the rank before left
-(``collectives.chain``: the ranks launch the kernel in turn).
+(``collectives.chain``: the ranks launch the kernel in turn).  Serving
+under 'cp', the prefill hands the last rank's states and token shifts
+into the cache's blocks (their heads and d_model over 'model'), and a
+decode step, its one token whole on every rank of 'model' and the weights
+whole, gathers the states' heads over 'model' and runs every head
+(``actshard.from_cache``).
 
 ``wkv_chunked`` here is the JAX module's XLA-level chunked form with a
 carried state, kept as a plain torch function that the tests hold against
@@ -428,17 +433,20 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     layer's recurrence runs from the zero state through
     ``kernels.wkv_chunked``: one launch a layer on the card (on the rank's
     H/tp heads under a serving layout, whose cache blocks
-    ``_to_cache_blocks`` makes)."""
+    ``_to_cache_blocks`` makes).  Under 'cp' the rank runs its T / n
+    tokens from the state the rank before left, and the states, token
+    shifts and last hidden state are the last rank's
+    (``actshard.seq_last``)."""
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
     x = L.norm_apply(cfg, actshard.gathered(params["ln0"], "ln0"), x)
-    T = x.shape[1]
+    T = actshard.seq_len(x.shape[1])
     x, st, sh_tm, sh_cm = _blocks(cfg, params, x, kernels)
     x = L.norm_apply(cfg, actshard.gathered(params["ln_f"], "ln_f"), x)
     # step is filled on the device: a copy from the host's pageable memory
     # (torch.tensor(T, device=...)) cannot be captured into a CUDA graph
     cache = _to_cache_blocks(st, sh_tm, sh_cm,
                              torch.full((), T, dtype=torch.int32, device=x.device))
-    return x[:, -1, :], cache
+    return actshard.seq_last(x[:, -1, :]), cache
 
 
 def _state_dim():
@@ -453,12 +461,13 @@ def _to_cache_blocks(st, sh_tm, sh_cm, step) -> RWKVCache:
     states on its heads where the time mix splits them, the shifts whole)
     -> the rank's blocks of the cache (``actshard.to_cache``): the states'
     heads and the shifts' d_model over 'model' where ``cache_pspecs``
-    splits them."""
+    splits them; under a 'cp' prefill the last rank's, block r sent to
+    rank r (``actshard.seq_last``)."""
     sd = _state_dim()
     return RWKVCache(
-        state=torch.stack([actshard.to_cache("state", s, sd) for s in st]),
-        shift_tm=torch.stack([actshard.to_cache("shift_tm", s) for s in sh_tm]),
-        shift_cm=torch.stack([actshard.to_cache("shift_cm", s) for s in sh_cm]),
+        state=torch.stack([actshard.seq_last(s, "state", sd) for s in st]),
+        shift_tm=torch.stack([actshard.seq_last(s, "shift_tm") for s in sh_tm]),
+        shift_cm=torch.stack([actshard.seq_last(s, "shift_cm") for s in sh_cm]),
         step=step)
 
 
@@ -468,7 +477,8 @@ def decode_step(cfg: ModelConfig, params: Params, cache: RWKVCache,
     """batch["tokens"]: [B, 1] -> (logits [B, padded vocab], cache).  Under
     a serving layout the rank's blocks of the cache are carried to what the
     layers compute with (``actshard.from_cache``: the token shifts gathered
-    over 'model', the states as the time mix splits its heads) and back."""
+    over 'model', the states as the time mix splits its heads, gathered
+    whole under 'cp') and back."""
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg.compute_dtype)
     x = L.norm_apply(cfg, actshard.gathered(params["ln0"], "ln0"), x)
     sd = _state_dim()

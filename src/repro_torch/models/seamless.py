@@ -246,11 +246,17 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     self and cross) runs on the rank's heads (``layers.attention_apply``),
     each block gathers its leaves at use, and the rank keeps its blocks of
     the self and cross caches (``actshard.to_cache``: its heads where they
-    divide 'model')."""
+    divide 'model').  Under 'cp' the rank encodes its block of the frames
+    (``actshard.seq("inputs_embeds")``), the decoder's cross-attention
+    gathers the memory's K / V over 'model', and the cross cache is cut to
+    the rank's heads from that gathered sequence; the self cache is
+    ``decode_len`` or the whole source long, and the one-token prefix and
+    the decoder run whole on every rank."""
     memory = encode(cfg, params, batch["inputs_embeds"], kernels=kernels)
     tokens = batch["tokens"]
     B, T0 = tokens.shape
-    S_dec = decode_len or batch["inputs_embeds"].shape[1]
+    S_dec = decode_len or actshard.seq_len(batch["inputs_embeds"].shape[1],
+                                           "inputs_embeds")
     x = _embed(cfg, params, tokens,
                torch.arange(T0, device=tokens.device).expand(B, T0))
     kv_dim = 1 if L.kv_heads_split() else None
@@ -266,7 +272,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         sv.append(actshard.to_cache("self_v", F.pad(v, (0, 0, 0, S_dec - T0)), kv_dim))
         h = L.norm_apply(cfg, bp["ln_x"], x)
         o, xk, xv = L.attention_apply(cfg, bp["xattn"], h, None, causal=False,
-                                      kernels=kernels, kv_x=memory, return_kv=True)
+                                      kernels=kernels, kv_x=memory,
+                                      kv_entry="inputs_embeds", return_kv=True)
         x = x + o
         x = _mlp(cfg, bp, x)
         xks.append(actshard.to_cache("cross_k", xk, kv_dim))

@@ -193,9 +193,14 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     go to a ring of ``window``.  Under a serving layout each layer gathers
     its leaves at use and runs the kernel on the rank's heads, and the
     rank keeps its block of the cache (``actshard.to_cache``: its slots of
-    every KV head where 'model' splits them, after the ring)."""
+    every KV head where 'model' splits them, after the ring).  Under 'cp'
+    the rank runs its S / n positions: the cache, linear or a ring, is
+    built from the whole sequence's K / V that the attention gathered
+    (positions S - W ... S - 1 from whichever ranks hold them, no further
+    move) and cut to the rank's slots, and the last hidden state is the
+    last rank's (``actshard.seq_last``)."""
     x, positions = _embed_inputs(cfg, params, batch)
-    S = x.shape[1]
+    S = actshard.seq_len(x.shape[1])
     W = cache_len(cfg, S)
     banded = cfg.window is not None and cfg.window < S
     kv_dim = 1 if L.kv_heads_split() else None
@@ -218,7 +223,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     # cannot be captured into a CUDA graph
     cache = Cache(k=torch.stack(ks), v=torch.stack(vs),
                   step=torch.full((), S, dtype=torch.int32, device=x.device))
-    return x[:, -1, :], cache
+    return actshard.seq_last(x[:, -1, :]), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,

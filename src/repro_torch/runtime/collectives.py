@@ -62,6 +62,14 @@ unreduced gradient), though gloo runs it as an all-reduce and the rank's
 narrow; ``chain``'s send is a ``collective-permute`` whose operand is the
 message, its receive one whose result is.  Their copies count no bytes
 accessed under a ``core.opcount.OpCounter``: the traffic is the record's.
+
+The serving steps under 'cp' move what the last rank of an axis holds at
+the end of a sequence split over it: ``from_last`` hands a value to every
+rank (recorded as the ``all-reduce`` of the others' zeros it runs), and
+``scatter_from_last`` hands rank r only block r of it, one
+``collective-permute`` of a block for each rank before the last (every
+rank's record counts all of them, as each device's program holds every
+permute of the partitioned HLO).  Neither carries a gradient.
 """
 from __future__ import annotations
 
@@ -378,6 +386,52 @@ def chain(step, mesh, axis: str, like: torch.Tensor, anchor: torch.Tensor):
     if me < n - 1:
         out = _SendThrough.apply(last, out, mesh, axis, me + 1)
     return out, last
+
+
+def from_last(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The last coordinate's ``x`` on every rank of the axis: the others'
+    zeroed and summed over it (an ``all-reduce``).  No gradient."""
+    n = mesh.sizes[axis]
+    if n == 1:
+        return x
+    if mesh.coords[axis] != n - 1:
+        with opcount.suspended():
+            x = torch.zeros_like(x)
+    return _all_reduce(x, mesh, axis)
+
+
+def scatter_from_last(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Block r of n along ``dim`` of the last coordinate's ``x`` on rank r
+    of the axis: the last rank keeps its own block and sends rank r < n - 1
+    its block r, one ``collective-permute`` of a block each (recorded on
+    every rank), each rank receiving only its own.  No gradient."""
+    n, me = mesh.sizes[axis], mesh.coords[axis]
+    if n == 1:
+        return x
+    dim = dim % x.dim()
+    step = x.shape[dim] // n
+    with opcount.suspended():
+        block = x.narrow(dim, me * step, step)
+        for _ in range(n - 1):
+            _record("collective-permute", opcount.nbytes(block), opcount.nbytes(block))
+        if x.is_meta:
+            return block.contiguous()
+        staged = _staged(x, mesh)
+        ranks = mesh.axis_ranks[axis]
+        if me == n - 1:
+            sends = [x.narrow(dim, r * step, step).contiguous() for r in range(n - 1)]
+            sends = [_to_host(b) if staged else b for b in sends]
+            ops = [dist.P2POp(dist.isend, b, ranks[r]) for r, b in enumerate(sends)]
+            out = block.contiguous()
+        else:
+            recv = torch.empty(block.shape, dtype=x.dtype,
+                               device="cpu" if staged else x.device)
+            ops = [dist.P2POp(dist.irecv, recv, ranks[n - 1])]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if me != n - 1:
+            out = _to_device(recv, x.device) if staged else recv
+    return out
 
 
 def mesh_mean(x: torch.Tensor, mesh) -> torch.Tensor:

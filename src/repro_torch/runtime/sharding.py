@@ -299,12 +299,13 @@ class Layout:
     where only one of them divides; d_ff where an MoE's experts do not),
     gathered over 'model' at use instead (KV heads divide 'model' only where
     the query heads do: their count divides the query heads'); ``dp`` the mesh's dp
-    axes under the profile; ``batch_axes`` those the current step's batch
-    rows are split over, ``seq`` the mesh where its labels' sequence is
-    split over 'model' (profile 'cp', 'model' of more than one rank and
-    dividing the sequence), else None, ``seq_split`` the batch entries
-    whose sequence is, and ``batch_specs`` the specs the rank takes its
-    block of the batch by (``set_batch``); ``cache_dims`` the dim of each
+    axes under the profile; ``rows_entry`` the current step's batch entry
+    of its rows, ``batch_axes`` the axes they are split over, ``seq`` the
+    mesh where the rows' sequence is split over 'model' (profile 'cp',
+    'model' of more than one rank and dividing the sequence), else None,
+    ``seq_split`` the batch entries whose sequence is, and ``batch_specs``
+    the specs the rank takes its block of the batch by (``set_batch``);
+    ``cache_dims`` the dim of each
     decode cache field that the rank holds its 'model' block of
     (``set_cache``, the serving steps)."""
 
@@ -326,30 +327,38 @@ class Layout:
             whole.add("ff")
         self.whole = frozenset(whole & on)
         self.batch_axes: Tuple[str, ...] = ()
+        self.rows_entry = "labels"
         self.seq = None
         self.seq_split: frozenset = frozenset()
         self.cache_dims: Dict[str, Optional[int]] = {}
 
     def set_batch(self, specs: Dict[str, Any]) -> None:
         """A step's batch layout from its entries' specs
-        (``batch_pspecs``): the axes over which its rows are split (the
-        first entry of the first of ``labels``, ``tokens`` and
-        ``inputs_embeds`` that the batch has: a prefill or decode batch has
-        no labels), those of more than one rank, and under 'cp' the entries
-        whose sequence is split over 'model' (no other entry of a 'cp'
-        batch spec names 'model'; ``batch_pspecs`` keeps a sequence that
-        'model' does not divide whole).  Where the rows' entry's sequence
-        is whole, so is every entry's: the ranks of 'model' then hold the
-        same tokens, frames included."""
-        rows = specs[next(k for k in ("labels", "tokens", "inputs_embeds")
-                          if k in specs)]
+        (``batch_pspecs``): the entry of its rows (``rows_entry``, the
+        first of ``labels``, ``tokens`` and ``inputs_embeds`` that the batch
+        has: a prefill or decode batch has no labels), the axes over which
+        they are split (its first spec entry's), those of more than one
+        rank, and under 'cp' the entries whose sequence is split over
+        'model' (no other entry of a 'cp' batch spec names 'model';
+        ``batch_pspecs`` keeps a sequence that 'model' does not divide
+        whole).  Serving (no labels), the encoder-decoder's frames are split
+        where their length divides 'model' though its rows' entry, a
+        one-token decoder prefix, stays whole: each rank encodes its block
+        of the frames.  In a train batch every entry's sequence is whole
+        where the rows' is: the ranks of 'model' then hold the same
+        tokens, frames included."""
+        self.rows_entry = next(k for k in ("labels", "tokens", "inputs_embeds")
+                               if k in specs)
+        rows = specs[self.rows_entry]
         self.batch_axes = tuple(a for a in _entry_axes(rows[0])
                                 if self.mesh.sizes[a] > 1)
         cp = self.profile == "cp" and self.mesh.sizes.get("model", 1) > 1
-        split = cp and "model" in spec_axes(rows)
-        self.seq_split = frozenset(k for k, spec in specs.items()
-                                   if split and "model" in spec_axes(spec))
-        self.seq = self.mesh if split else None
+        split = frozenset(k for k, spec in specs.items()
+                          if cp and "model" in spec_axes(spec))
+        if "labels" in specs and self.rows_entry not in split:
+            split = frozenset()         # a train step's loss is the rows'
+        self.seq_split = split
+        self.seq = self.mesh if self.rows_entry in split else None
         self.batch_specs = {
             k: spec if not cp or k in self.seq_split
             else P(*(None if e == "model" else e for e in spec))

@@ -62,9 +62,21 @@ by their log-sum-exp, ``attention.merge_partials``), Seamless's over its
 heads, RWKV-6's state over its heads and its token shifts over d_model,
 RecurrentGemma's recurrent state and convolution window over its
 channels.  The greedy token is taken over the vocabulary's slices
-(``greedy_token``), the same on every rank of 'model'.  'cp' serving is
-ROADMAP item 8g and raises.  A mesh changes no value: every output equals
-the unsharded step's up to the order of sums.
+(``greedy_token``), the same on every rank of 'model'.  Under 'cp' the
+parameters are blocks over 'data' and whole over 'model', and no product
+is split over 'model': a prefill's rank holds S / n positions of the
+prompt (``sharding.Layout.set_batch``; the encoder-decoder's frames, its
+decoder prefix whole), its attention gathers K / V and its recurrences
+take the state the rank before left, as the 'cp' train step's; the cache's
+blocks are ``cache_pspecs``' as under '2d' (a linear KV cache's slots are
+the rank's own positions, a ring's are cut from the whole sequence's K / V
+that the attention gathers), and what the sequence leaves at its end
+(the last hidden state, the recurrent states, the token shifts) is the
+last rank's, handed to the others (``actshard.seq_last``).  A 'cp' decode
+step computes its token whole on every rank of 'model' against the
+cache's blocks and returns its block of the logits.  A mesh changes no
+value: every output equals the unsharded step's up to the order of
+sums.
 """
 from __future__ import annotations
 
@@ -314,10 +326,6 @@ def _sharded_train_step(cfg: ModelConfig, grad_fn: Callable, mesh, profile: str,
 
 
 def _serving_layout(cfg: ModelConfig, mesh, profile: str) -> sharding.Layout:
-    if profile == "cp":
-        raise ValueError("serving under 'cp' (the prompt's sequence over 'model', "
-                         "the recurrent states handed into the cache's blocks) is "
-                         "ROADMAP queue 1 item 8g; use '2d', 'tp' or 'fsdp'")
     if profile not in sharding.PROFILES:
         raise ValueError(f"profile {profile!r}: one of {sharding.PROFILES}")
     return sharding.Layout(cfg, mesh, get_module(cfg).param_defs(cfg), profile)
@@ -349,8 +357,9 @@ def build_prefill_step(cfg: ModelConfig, *, decode_len: Optional[int] = None,
     under ``sharding.model_param_pspecs``, ``batch`` the global prompt,
     and the step returns the rank's blocks of the reference's serving
     outputs: the last hidden state by P(batch, None), the cache by
-    ``sharding.cache_pspecs`` of ``prefill_cache_struct``.  'cp' raises
-    (ROADMAP item 8g)."""
+    ``sharding.cache_pspecs`` of ``prefill_cache_struct``; under 'cp' the
+    last hidden state is the sequence's last position's on every rank of
+    'model'."""
     mod = get_module(cfg)
     kw = {"decode_len": decode_len} if cfg.family == "audio" \
         and decode_len is not None else {}
@@ -407,7 +416,8 @@ def build_decode_step(cfg: ModelConfig, *, kernels=ops, mesh=None,
     [B, 1]; the step returns the rank's blocks of the token by P(batch),
     of the logits by P(batch, 'model') (P(batch, None) under 'fsdp') and
     of the cache.  Every rank of 'model' returns the same token
-    (``greedy_token``).  'cp' raises (ROADMAP item 8g)."""
+    (``greedy_token``); under 'cp' each computes the whole logits and
+    returns its block of the vocabulary."""
     mod = get_module(cfg)
 
     def decode_step(params, cache, batch):
@@ -424,7 +434,12 @@ def build_decode_step(cfg: ModelConfig, *, kernels=ops, mesh=None,
     layout = _serving_layout(cfg, mesh, profile)
 
     def sharded_decode_step(params, cache, batch):
-        return _rank_call(layout, cfg, mesh, profile, batch,
-                          lambda local: decode_step(params, cache, local), cache_struct)
+        token, logits, cache = _rank_call(
+            layout, cfg, mesh, profile, batch,
+            lambda local: decode_step(params, cache, local), cache_struct)
+        if profile == "cp":
+            logits = sharding.local_shard(logits, sharding.P(None, "model"), mesh
+                                          ).contiguous()
+        return token, logits, cache
 
     return sharded_decode_step

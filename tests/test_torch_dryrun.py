@@ -296,7 +296,9 @@ def test_a_rank_counts_half_the_flops(arch, shape_name):
 
 MEMORY_CELLS = [(a, s, p) for a in ("h2o-danube-1.8b", "rwkv6-1.6b", "qwen2-moe-a2.7b")
                 for s, p in (("train_4k", "2d"), ("prefill_32k", "tp"),
-                             ("decode_32k", "tp"))]
+                             ("decode_32k", "tp"))] + [
+    (a, s, "cp") for a in ("h2o-danube-1.8b", "rwkv6-1.6b")
+    for s in ("prefill_32k", "decode_32k")]
 
 _JAX_MEMORY = """
 import json, sys
@@ -352,9 +354,10 @@ for arch, sname, profile in json.loads(sys.argv[1]):
         c_ps = cache_pspecs(cfg, mesh, c_struct, profile)
         tok = b_pspecs["tokens"][0]
         outs = jax.eval_shape(step, p_struct, c_struct, b_struct)
+        logits = P(tok, "model" if profile != "fsdp" else None)
         jitted = jax.jit(step, in_shardings=(named(mesh, pspecs), named(mesh, c_ps),
                                              named(mesh, b_pspecs)),
-                         out_shardings=named(mesh, (P(tok), P(tok, "model"), c_ps)),
+                         out_shardings=named(mesh, (P(tok), logits, c_ps)),
                          donate_argnums=(1,))
         args = (p_struct, c_struct, b_struct)
     ma = jitted.lower(*args).compile().memory_analysis()
@@ -406,7 +409,8 @@ def test_meta_trace_counts_equal_a_real_cpu_run(arch, shape_name):
 
 WORLD_RUNS = [("h2o-danube-1.8b", "train_4k", "2d"), ("rwkv6-1.6b", "train_4k", "2d"),
               ("qwen2-moe-a2.7b", "train_4k", "2d"), ("rwkv6-1.6b", "train_4k", "cp"),
-              ("h2o-danube-1.8b", "prefill_32k", "tp"), ("h2o-danube-1.8b", "decode_32k", "tp")]
+              ("h2o-danube-1.8b", "prefill_32k", "tp"), ("h2o-danube-1.8b", "decode_32k", "tp"),
+              ("h2o-danube-1.8b", "prefill_32k", "cp"), ("rwkv6-1.6b", "prefill_32k", "cp")]
 
 
 def _world_rank(runs):
@@ -441,8 +445,10 @@ def test_meta_collectives_equal_a_gloo_world(run, world_records):
     kinds = set(world_records[0][1][run]["real"])
     if run.endswith("train_4k 2d"):
         assert {"all-gather", "reduce-scatter", "all-reduce"} <= kinds
-    if run.endswith("cp"):
+    if run.endswith("train_4k cp") or run.startswith("rwkv6-1.6b prefill_32k cp"):
         assert "collective-permute" in kinds
+    if run.endswith("prefill_32k cp"):           # the last hidden from the last rank
+        assert "all-reduce" in kinds
 
 
 # ---------------------------------------------------------------------------
@@ -492,10 +498,61 @@ def test_cp_counts_the_last_rank_of_model_too():
 
 
 @pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k"])
-def test_cp_serving_raises_naming_8g(shape_name):
-    with pytest.raises(ValueError, match="8g"):
-        dryrun.analyse_cell("h2o-danube-1.8b", shape_name, multi_pod=False,
-                            profile="cp")
+def test_cp_serving_cells_count_rank_0_and_the_last_rank(shape_name):
+    """h2o's 'cp' serving cells on 16 x 16: rank 0's program and the last
+    rank of 'model''s are both counted.  A prefill rank holds 2 rows of 2048
+    of the 32768 positions: beside the FSDP gathers over 'data' it gathers
+    K / V over 'model' a layer, and takes the last hidden state from the
+    last rank (one all-reduce of its [2, 2560] bf16 block); the last rank's
+    attention reads every key, so its FLOPs are the record's.  A decode
+    step's token is whole on every rank of 'model': it attends its 2048
+    slots of each layer's cache and merges the softmaxes over 'model' (a
+    max and a sum a layer), the same program on both ranks."""
+    rec = dryrun.analyse_cell("h2o-danube-1.8b", shape_name, multi_pod=False,
+                              profile="cp")
+    assert rec["ranks"] == [{"data": 0, "model": 0}, {"data": 0, "model": 15}]
+    reduce = rec["collectives"]["all-reduce"]
+    if shape_name == "prefill_32k":
+        assert (reduce["count"], reduce["result_bytes"]) == (1, 2 * 2560 * 2)
+        assert rec["rank_of"]["cost_analysis.flops"] == {"data": 0, "model": 15}
+        assert rec["kernels"]["flash_attention"]["calls"] == 24
+    else:
+        assert reduce["count"] == 2 * 24 and not rec["rank_of"]
+        assert not rec["kernels"]
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "rwkv6-1.6b"])
+def test_cp_prefill_ranks_sum_to_the_unsharded_flops(arch):
+    """The reduced prefill_32k cell (2 x 64) on a (1, 2) meta mesh under
+    'cp': the two ranks' aten product FLOPs sum exactly to the unsharded
+    program's, and so do their kernels' (RWKV-6's ``wkv_chunked``: 32
+    tokens a rank from a handed-on state; h2o's causal ``flash_attention``
+    over its window of 32: rank r counts ``opcount.attention_flops(2, H,
+    32, 32 (r + 1), D, causal=True, window=32, q_offset=32 r)`` a layer,
+    and the two sum to the unsharded 64 x 64 count, the pairs no mask
+    removes).  Rank 1 also takes the last hidden state and, for RWKV-6,
+    hands rank 0 its half of every state and token shift."""
+    cfg, shape = _cell(arch, "prefill_32k")
+    one = _flops(cfg, shape)
+    ranks = [_flops(cfg, shape, (1, 2), {"data": 0, "model": r}, "cp") for r in range(2)]
+
+    def aten(rec):
+        return rec["cost_analysis"]["flops"] - sum(k["flops"] for k in rec["kernels"].values())
+
+    assert sum(aten(r) for r in ranks) == aten(one)
+    for name, k in one["kernels"].items():
+        assert sum(r["kernels"][name]["flops"] for r in ranks) == k["flops"], name
+    if arch == "h2o-danube-1.8b":
+        S, H, D = shape.seq_len // 2, cfg.num_heads, cfg.head_dim
+        for r, rec in enumerate(ranks):
+            assert rec["kernels"]["flash_attention"]["flops"] == cfg.num_layers * \
+                opcount.attention_flops(shape.global_batch, H, S, S * (r + 1), D,
+                                        causal=True, window=cfg.window, q_offset=S * r)
+    else:
+        permutes = [r["collectives"]["collective-permute"]["count"] for r in ranks]
+        # a layer: the WKV state handed on, two token shifts, three blocks of
+        # what rank 1 leaves (state, shift_tm, shift_cm) sent to rank 0
+        assert permutes == [cfg.num_layers * 6] * 2
 
 
 def _meta(*tensors):

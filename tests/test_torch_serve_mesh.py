@@ -15,6 +15,14 @@ held to JAX's steps with its (2, 2) mesh installed (``actshard.set_mesh``
 on forced host devices, one subprocess), which run that layer under
 ``shard_map``.  Decode is teacher-forced on JAX's tokens; the port's own
 greedy tokens must equal JAX's.
+
+Under 'cp' the prompt's sequence is split over 'model' (the
+encoder-decoder's frames, its one-token decoder prefix whole): each rank
+prefills its positions, the ring of a banded prefill is built from the
+ranks that hold its positions, and the states the sequence leaves are the
+last rank's, moved into the cache's blocks.  Every family is held to
+JAX's unsharded steps (the MoE routes the global batch in the reference's
+token order, so its capacity is the unsharded one).
 """
 import dataclasses
 import os
@@ -59,9 +67,15 @@ WORLD_S = 240           # each spawned world's time limit
 FAMILIES = ("h2o-danube-1.8b", "olmo-1b", "qwen2-vl-2b", "qwen2-moe-a2.7b",
             "seamless-m4t-large-v2", "rwkv6-1.6b", "recurrentgemma-2b")
 PROFILES = ("2d", "tp", "fsdp")
+CP = "cp"
 MOE = "qwen2-moe-a2.7b"
 DENSE = "h2o-danube-1.8b"
+HYBRID = "recurrentgemma-2b"
+AUDIO = "seamless-m4t-large-v2"
+EDGE = {"window8": 8, "prompt31": None, "window24": 24}   # h2o's window a case
 PARITY = 2e-4           # |port - JAX| <= PARITY (1 + |JAX|)
+# the cache fields a recurrence's prefill leaves at the sequence's end
+LEFT = ("state", "shift_tm", "shift_cm", "rec_h", "conv_state")
 B, S, GEN = 4, 32, 8    # prompt rows and length, decode steps
 
 
@@ -135,10 +149,16 @@ def _edge_cfgs():
     """(name, JAX config, prompt length) of the (1, 2) edge cases: h2o with
     an 8-slot window (a banded prefill into a ring whose writes wrap across
     both ranks' slots), and a prompt of 31, which 'model' does not divide
-    (the cache stays whole)."""
+    (the cache stays whole); for 'cp' also h2o with a 24-slot window (the
+    ring's positions 8 ... 31 held by both ranks of a 32-token prompt) and
+    RecurrentGemma on a 1 x 4 prompt (2 positions a rank: the
+    convolution's 3 inputs from before a rank's block come from more than
+    one rank)."""
     j = jreduced(jget(DENSE))
     return (("window8", dataclasses.replace(j, window=8), S),
-            ("prompt31", j, S - 1))
+            ("prompt31", j, S - 1),
+            ("window24", dataclasses.replace(j, window=24), S),
+            ("rg1x4", jreduced(jget(HYBRID)), 4))
 
 
 _MESHED_MOE = f"""
@@ -212,9 +232,10 @@ def jax_serve(tmp_path_factory):
         tree, batch = _jax_tree(jcfg), _prompt(jcfg, B, S)
         out[arch] = (arch, tree, batch, _jax_serve(jcfg, tree, batch))
     for name, jcfg, length in _edge_cfgs():
-        tree = out[DENSE][1]
-        batch = _prompt(jcfg, B, length)
-        out[name] = (DENSE, tree, batch, _jax_serve(jcfg, tree, batch))
+        arch = DENSE if name in EDGE else HYBRID
+        tree = out[arch][1]
+        batch = _prompt(jcfg, 1 if name == "rg1x4" else B, length)
+        out[name] = (arch, tree, batch, _jax_serve(jcfg, tree, batch))
     stdout, stderr = proc.communicate(timeout=300)
     assert proc.returncode == 0 and "meshed OK 8" in stdout, stderr[-3000:]
     meshed = _meshed_refs(d)
@@ -229,8 +250,10 @@ def jax_serve(tmp_path_factory):
 
 
 def _port_cfg(case: str):
-    cfg = TC.reduced(TC.get_config(DENSE if case in ("window8", "prompt31") else case))
-    return dataclasses.replace(cfg, window=8) if case == "window8" else cfg
+    if case == "rg1x4":
+        return TC.reduced(TC.get_config(HYBRID))
+    cfg = TC.reduced(TC.get_config(DENSE if case in EDGE else case))
+    return dataclasses.replace(cfg, window=EDGE[case]) if EDGE.get(case) else cfg
 
 
 def _err(got: np.ndarray, want: np.ndarray) -> float:
@@ -289,6 +312,7 @@ def _serve_rank(case: str, ref, mesh, profile: str) -> dict:
     res = {}
     with torch.inference_mode():
         last, cache = prefill(params, tb)
+        prefill_cache = cache
         res["last"] = _err(sharding.gather_full(last, P(rows, None), mesh).numpy(),
                            want["last"])
         res["prefill_cache"] = _cache_err(cache, specs, want["prefill_cache"], mesh)
@@ -303,6 +327,15 @@ def _serve_rank(case: str, ref, mesh, profile: str) -> dict:
                 sharding.gather_full(t, P(rows), mesh).numpy(), t_want))
         res["cache"] = _cache_err(cache, specs, want["cache"], mesh)
         res["shapes_ok"] &= _shapes_ok(cache, specs, struct, mesh)
+        if profile == CP:                 # what the sequence leaves, gathered
+            res["left"] = [last.numpy()]
+            for f in LEFT:
+                if f not in prefill_cache._fields:
+                    continue
+                got, spec = getattr(prefill_cache, f), getattr(specs, f)
+                pairs = zip(got, spec) if isinstance(got, list) else [(got, spec)]
+                res["left"] += [sharding.gather_full(g, sp, mesh).float().numpy()
+                                for g, sp in pairs]
     return res
 
 
@@ -312,8 +345,8 @@ def _four_rank(refs: dict) -> dict:
     mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), device="cpu")
     out = {}
     for arch in FAMILIES:
-        for profile in PROFILES:
-            meshed = arch == MOE and profile != "fsdp"
+        for profile in PROFILES + (CP,):
+            meshed = arch == MOE and profile in ("2d", "tp")
             ref = refs[("meshed", profile)] if meshed else refs[arch]
             out[(arch, profile)] = _serve_rank(arch, ref, mesh, profile)
     return out
@@ -396,10 +429,37 @@ def _one_one(refs) -> dict:
     return {"equal": all(torch.equal(a, b) for a, b in zip(*outs))}
 
 
-def _launcher_rank() -> dict:
+def _audio_default_len(refs, mesh) -> dict:
+    """Seamless's 'cp' prefill built without ``decode_len``: every cache
+    block exactly its ``local_shard`` shape under ``cache_pspecs`` of the
+    default struct (the self cache the whole source long, not the rank's
+    block of the frames), and the last hidden and the caches within 2e-4
+    (1 + |b|) of JAX's (its self cache, ``decode_len`` long, zero-padded:
+    the slots past the one-token prefix hold zeros)."""
+    _, tree, batch, want = refs[AUDIO]
+    cfg = _port_cfg(AUDIO)
+    defs = get_module(cfg).param_defs(cfg)
+    pspecs = sharding.model_param_pspecs(cfg, mesh, defs, profile=CP)
+    params = sharding.tree_local_shard(from_jax_params(tree, device="cpu"), pspecs, mesh)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    struct = prefill_cache_struct(cfg, tb)
+    specs = sharding.cache_pspecs(cfg, mesh, struct, CP)
+    with torch.inference_mode():
+        last, cache = build_prefill_step(cfg, mesh=mesh, profile=CP)(params, tb)
+    err = _err(last.numpy(), want["last"])
+    for f in ("self_k", "self_v", "cross_k", "cross_v"):
+        got = sharding.gather_full(getattr(cache, f), getattr(specs, f), mesh)
+        ref, w = np.zeros(got.shape, np.float32), want["prefill_cache"][f]
+        common = tuple(slice(0, min(m, n)) for m, n in zip(got.shape, w.shape))
+        ref[common] = w[common]            # JAX's self cache is decode_len long
+        err = max(err, _err(got.float().numpy(), ref))
+    return {"shapes_ok": _shapes_ok(cache, specs, struct, mesh), "err": err}
+
+
+def _launcher_rank(profile: str = "tp") -> dict:
     return tserve.main(["--arch", DENSE, "--reduced", "--batch", "2", "--prompt-len",
                         "16", "--gen", "6", "--device", "cpu", "--mesh", "1x2",
-                        "--profile", "tp"])
+                        "--profile", profile])
 
 
 def _two_rank(refs: dict) -> dict:
@@ -411,11 +471,15 @@ def _two_rank(refs: dict) -> dict:
     out = {(MOE, p): _serve_rank(MOE, refs[MOE], mesh, p) for p in ("2d", "tp")}
     for name in ("window8", "prompt31"):
         out[name] = _serve_rank(name, refs[name], mesh, "tp")
+    for name in ("window8", "prompt31", "window24", "rg1x4", "rwkv6-1.6b", HYBRID):
+        out[(name, CP)] = _serve_rank(name, refs[name], mesh, CP)
+    out["audio_default_len"] = _audio_default_len(refs, mesh)
     out["tie"] = _tie_case(mesh)
     out["merge"] = _merge_case(mesh)
     if mesh.coords["model"] == 0:
         out["one_one"] = _one_one(refs)
     out["launcher"] = _launcher_rank()
+    out["launcher_cp"] = _launcher_rank(CP)
     return out
 
 
@@ -540,19 +604,73 @@ def test_the_launcher_on_a_mesh_prints_the_one_device_tokens(worlds):
         np.testing.assert_array_equal(rank["launcher"]["tokens"], want)
 
 
-def test_serving_under_cp_raises_and_names_item_8g():
-    """'cp' serving is ROADMAP item 8g: the launcher and both step builders
-    refuse it."""
-    with pytest.raises(ValueError, match="8g"):
-        tserve.main(["--arch", DENSE, "--reduced", "--device", "cpu", "--mesh", "1x2",
-                     "--profile", "cp"])
-    cfg = TC.reduced(TC.get_config(DENSE))
-    mesh = mesh_lib.abstract_mesh((1, 2), ("data", "model"), coords={"data": 0, "model": 0})
-    with pytest.raises(ValueError, match="8g"):
-        build_prefill_step(cfg, mesh=mesh, profile="cp")
-    with pytest.raises(ValueError, match="8g"):
-        build_decode_step(cfg, mesh=mesh, profile="cp", cache_struct=cache_specs(
-            cfg, TC.ShapeConfig("d", "decode", 16, 2)))
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_each_family_serves_under_cp_on_a_2x2_world_as_the_reference(worlds, arch):
+    """Each family's reduced config on (data 2, model 2) under 'cp': the
+    4 x 32 prompt's rows over 'data' and its sequence over 'model' (16
+    positions a rank; the encoder-decoder's frames, its one-token decoder
+    prefix whole), the parameters whole over 'model'; on every rank the
+    gathered last hidden, both caches and every step's logits within 2e-4
+    (1 + |b|) of JAX's unsharded steps (the MoE's too: it routes the global
+    batch), the greedy tokens JAX's, and every cache block exactly the
+    shape ``local_shard`` gives it under ``cache_pspecs(..., "cp")``."""
+    four, _ = worlds
+    for r, rank in enumerate(four):
+        _held(rank[(arch, CP)], f"{arch} cp rank {r}")
+
+
+@pytest.mark.parametrize("case", ["window8", "prompt31", "window24", "rg1x4"])
+def test_cp_edge_cases_on_1x2(worlds, case):
+    """On (data 1, model 2) under 'cp': h2o at window 8 (the ring's 8
+    positions all on rank 1, its slots 4 a rank), at a prompt of 31 (which
+    'model' does not divide: the prompt and the cache stay whole), at
+    window 24 (the ring's positions 8 ... 31 from both ranks), and
+    RecurrentGemma on a 1 x 4 prompt (2 positions a rank: rank 1's
+    convolution reads 3 inputs, 2 of rank 0's and a zero before the
+    sequence); each held to JAX's unsharded steps as above."""
+    _, two = worlds
+    for r, rank in enumerate(two):
+        _held(rank[(case, CP)], f"{case} cp rank {r}")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", HYBRID])
+def test_cp_states_and_last_hidden_are_the_same_on_both_ranks(worlds, arch):
+    """RWKV-6's and RecurrentGemma's prefill under 'cp' on (1, 2): the last
+    hidden state (replicated over 'model') and every state the sequence
+    leaves (RWKV-6's ``state`` / ``shift_tm`` / ``shift_cm``,
+    RecurrentGemma's ``rec_h`` / ``conv_state``), gathered from the ranks'
+    blocks, have the same bits on both ranks, and the serving holds to JAX
+    as above."""
+    _, two = worlds
+    a, b = (rank[(arch, CP)] for rank in two)
+    _held(a, f"{arch} cp rank 0")
+    _held(b, f"{arch} cp rank 1")
+    assert len(a["left"]) == len(b["left"]) > 1
+    for x, y in zip(a["left"], b["left"]):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_the_encoder_decoders_cp_prefill_without_decode_len(worlds):
+    """Seamless on (1, 2) under 'cp' with no ``decode_len``: the frames
+    split over 'model' (16 a rank), the self cache sized by the whole
+    source (32 slots, ``prefill_cache_struct``'s default), each block its
+    ``local_shard`` shape and held to JAX's prefill on both ranks."""
+    _, two = worlds
+    for r, rank in enumerate(two):
+        res = rank["audio_default_len"]
+        assert res["shapes_ok"], f"rank {r}: a cache block is not its local_shard shape"
+        assert res["err"] <= PARITY, f"rank {r}: error {res['err']:.3e}"
+
+
+def test_the_launcher_under_cp_prints_the_one_device_tokens(worlds):
+    """``launch.serve --mesh 1x2 --profile cp --device cpu``: each rank
+    prefills 8 of the 16 prompt positions and both return the one-device
+    launcher's greedy tokens."""
+    _, two = worlds
+    want = tserve.main(["--arch", DENSE, "--reduced", "--batch", "2", "--prompt-len",
+                        "16", "--gen", "6", "--device", "cpu"])["tokens"]
+    for rank in two:
+        np.testing.assert_array_equal(rank["launcher_cp"]["tokens"], want)
 
 
 # ---------------------------------------------------------------------------
