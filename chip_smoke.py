@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for an H100).
 
-    python3 chip_smoke.py [--out results.json] [--only 5i|5h|5j|5k]
+    python3 chip_smoke.py [--out results.json] [--only 5i|5h|5j|5k|5l]
 
 Needs one CUDA device, ``nvcc`` and the checkout this file lies in; no
 network.  Imports nothing of JAX or of the JAX package.  ``--only 5i``
-(5h, 5j, 5k) runs phases 1, 2 and that phase alone and prints no result
+(5h, 5j, 5k, 5l) runs phases 1, 2 and that phase alone and prints no result
 lines.  Phases, each
 of which ends the run with a non-zero exit code if it fails (a
 ``phase wall s`` line before ``total`` gives each one's wall seconds):
@@ -148,8 +148,9 @@ of which ends the run with a non-zero exit code if it fails (a
    the graph's edges as the driver gives them (whether the outputs pass's
    programmatic dependent launch stays one in a graph), a replay on new
    inputs bit for bit the eager call, and both forms' time;
-5g. train RWKV-6 (``train_path``, run right after 5 on the float32 draw that
-   its served weights round): ``rwkv6-1.6b`` uncut,
+5g. train RWKV-6 (``train_path``, run right after 5, its masters the float32
+   draw that its served weights round, drawn on the card again and taken
+   over with no copy): ``rwkv6-1.6b`` uncut,
    float32 masters, bfloat16 compute with remat, the schedule, steps, batch
    and limits of 5f.  The first step's gradients launch 24 + 24
    wkv_chunked (the forward and remat's recompute, through ``WKVChunked``)
@@ -162,8 +163,9 @@ of which ends the run with a non-zero exit code if it fails (a
    every gradient leaf within 2e-3 (1 + |b|) of the plain step's.  Then 20
    steps (20 x 48 and 20 x 24 launches): losses and norms finite, the mean
    loss of the last 5 below that of the first 5, step ms by CUDA events and
-   the host's clock (median of the last 10), tokens/s, peak memory, two
-   more steps traced.  Resume is not repeated here: 5f shows it for the
+   the host's clock (median of the last 10), tokens/s, peak memory, one
+   more step traced (two until phase 5l came).  Resume is not repeated here: 5f
+   shows it for the
    checkpoint store, which does not depend on the arch;
 5b. dense (``dense_path``, ``lm_phase``): ``h2o-danube-1.8b`` uncut (24 layers, d 2560,
    32 query heads over 8 KV heads of 80, d_ff 6912 SwiGLU, vocab 32000,
@@ -226,8 +228,10 @@ of which ends the run with a non-zero exit code if it fails (a
    weights: a 2 x 300 prefill and 4 greedy steps through the kernels within
    2e-3 (1 + |b|) of the plain model fed the same tokens, every cache leaf
    included;
-5f. train (``train_path``, run right after 5b on the float32 draw that its
-   served weights round): ``h2o-danube-1.8b`` uncut, float32 master weights,
+5f. train (``train_path``, run right after 5b, its masters the float32 draw
+   that its served weights round, drawn on the card again and taken over
+   with no copy; the float32 check's layers drawn afresh with ``layers=2``,
+   the same numbers): ``h2o-danube-1.8b`` uncut, float32 master weights,
    bfloat16 compute with remat, ``runtime.build_train_step`` as
    ``launch.train`` builds it (AdamW, warmup 5 then cosine from lr 3e-4,
    clip 1.0) over 20 batches of 4 x 512 tokens of ``data.synthetic`` (vocab
@@ -247,16 +251,47 @@ of which ends the run with a non-zero exit code if it fails (a
    every loss and gradient norm finite, the mean loss of the last 5 steps
    below that of the first 5, peak memory; a checkpoint
    (``checkpoint.save_checkpoint``) after step 10, restored
-   (``checkpoint.restore``) into fresh tensors once the run is over, must
-   give steps 10-19 again bit for bit (losses, gradient norms, and the
-   final parameters and moments by digest).  Step ms is the median of the
-   last 10; tokens/s = 2048 / step;
+   (``checkpoint.restore``, its template a tree on the meta device) into
+   fresh tensors once the run is over, must give steps 10-19 again bit for
+   bit (losses, gradient norms, and the final parameters and moments by
+   digest); one more step traced.  Step ms is the median of the last 10;
+   tokens/s = 2048 / step;
+5l. the encoder-decoder, the hybrid and the MoE trained (``family_phase``,
+   ``train_path`` over FAMILIES): ``seamless-m4t-large-v2`` and
+   ``recurrentgemma-2b`` uncut, ``qwen2-moe-a2.7b`` at 4 of its 24 layers
+   (as 5c serves it), each on float32 masters drawn on the card from seed
+   0 (the model's ``init_on_device``, taken over with no copy), bfloat16
+   compute with remat, 5f's schedule, steps, batch and limits (20 steps of
+   ``data.synthetic``; Seamless: 512 frames of ``inputs_embeds`` and 512
+   decoder tokens).  The checks of 5f but the resume: each step launches
+   exactly 144 + 72 / 16 + 8 / 8 + 4 flash_attention + flash_attention_bwd
+   (twice and once ``kernel_launches_per_prefill``); the first step's
+   gradients against the plain step (for the MoE also its cross entropy
+   and aux loss, and the share of (token, choice) routings the two steps
+   agree on, printed where a limit is missed); the same bits twice;
+   float32 on the first layers drawn afresh (``f32_cut``: Seamless 2
+   encoder and 2 decoder layers, RecurrentGemma 3, recurrent, recurrent,
+   attention, the MoE 2), every gradient within 2e-3 (1 + |b|) of the
+   plain step's; the mean loss of the last 5 steps below that of the first
+   5; step ms (median of the last 10, events and host clock), tokens/s,
+   peak memory (a run whose peak passes FIVE_PEAK_GIB fails, as one of 5f
+   or 5g would); one more step traced.  For RecurrentGemma also
+   ``rg_lru_cost``: one recurrent layer's RG-LRU (gates and scan) timed
+   alone at the step's shape, forward and backward, and 18 x (2 forwards
+   + 1 backward) as a share of the step.  Then ``multiarch_phase``:
+   ``train_multiarch.run`` for each of the ten archs at reduced size on
+   the card (12 steps of 4 x 48 tokens, float32, the attention kernels and
+   their backward at D 16, RWKV-6's WKV kernels at K = V = 16, chunk 8),
+   the counters set to 0 before each and read after: exactly
+   ``per_train_step`` a step, the losses finite and the last below the
+   first.  Lines ``train_audio ...``, ``train_hybrid ...``, ``train_moe
+   ...`` and ``train_multiarch <arch> ...``;
 5i. the five LM configs that had run at reduced size on the CPU only
    (``five_phase``, ``five_path`` over ``FIVE``, each through ``lm_phase``),
    at full width on weights drawn on the card from seed 0
    (``init_on_device``, bfloat16 compute), starcoder2-15b and qwen3-moe cut
-   to their first 20 and 24 layers (``reduced: num_layers``, for the
-   script's time), the other three uncut: ``starcoder2-15b`` (40 layers,
+   to their first 10 and 12 layers (``reduced: num_layers``, for the
+   script's time: 20 and 24 until phase 5l came), the other three uncut: ``starcoder2-15b`` (40 layers,
    d 6144, 48 / 4 heads of 128, LayerNorm and GELU, d_ff 24576),
    ``minitron-4b`` (32 layers, d 3072, 24 / 8 heads, squared ReLU, vocab
    256000), ``olmo-1b`` (16 layers, MHA, non-parametric LayerNorm, tied
@@ -281,10 +316,11 @@ of which ends the run with a non-zero exit code if it fails (a
    with a time limit of DIST_WORLD_S), the parent's cached memory freed
    first; inputs made on the host from the seed and written to a fresh
    directory (``checkpoint.save_checkpoint``).  ``h2o-danube-1.8b`` runs at
-   full width and 4 of its 24 layers (``reduced: num_layers 24 -> 4``: two
-   processes share the card in (c) and (f)).  (a) a world of one rank under
-   NCCL, mesh (1, 1): 5 steps of 5f's schedule over 4 x 512 tokens through
-   ``build_train_step(mesh=...)`` and with no mesh, the same bits
+   full width and 2 of its 24 layers (``reduced: num_layers 24 -> 2``: two
+   processes share the card in (c) and (f); 4 layers until phase 5l
+   came).  (a) a world of one rank under NCCL, mesh (1, 1): 3 steps of
+   5f's schedule over 4 x 512 tokens through ``build_train_step(mesh=...)``
+   and with no mesh, the same bits
    (metrics, parameters, moments), and an NCCL all-reduce and all-gather
    over each axis's group; it writes (c)'s and (f)'s references and counts
    one ``grad_fn``'s FLOPs (``FlopCounterMode``: the aten products).  Then
@@ -293,13 +329,13 @@ of which ends the run with a non-zero exit code if it fails (a
    16 (8 images a rank through the three kernels) within 2e-3 (1 + |b|) of
    the one-process forward, each rank's launches those of one B = 8
    forward, B = 7 refused as not divisible; (c) the sharded step on (data
-   2, model 1), profile '2d', 5 steps of 4 x 512 (2 x 512 a rank), its
+   2, model 1), profile '2d', 3 steps of 4 x 512 (2 x 512 a rank), its
    parameters restored onto the mesh from the host arrays
    (``restore_sharded``), each layer's leaves gathered at use and the
    gradients reduced onto the rank's blocks: each step's loss within 1e-2
    and gradient norm within 1 % of (a)'s one-process step, every leaf of
    the first step's gradients (gathered) within a relative L2 error of
-   5e-2, 8 flash_attention and 4 flash_attention_bwd a step a rank; float32
+   5e-2, 4 flash_attention and 2 flash_attention_bwd a step a rank; float32
    on the first 2 layers, every parameter after 3 steps within 2e-3 (1 +
    |b|) of the one-process float32 step and each leaf's change over the 3
    steps within a relative L2 error of 1e-2 of the one process's change
@@ -345,13 +381,13 @@ of which ends the run with a non-zero exit code if it fails (a
    (``build_prefill_step`` / ``build_decode_step`` with ``mesh=``) as a
    rank's program, driven through ``launch.serve``'s step builders.  In 5h
    (a)'s world of one rank under NCCL, a (1, 1) mesh serves
-   ``h2o-danube-1.8b`` cut to 4 layers (a 4 x 512 prefill, 16 greedy
+   ``h2o-danube-1.8b`` cut to 2 layers (a 4 x 512 prefill, 8 greedy
    tokens) with the no-mesh steps' bits, eager and captured
    (``mesh_serve_one_rank``).  Then one world of two gloo ranks sharing the
    card serves each part in turn, the weights drawn on the card from the
    seed in each rank and cut to the rank's blocks; rank 0 alone also serves
    one process's steps on the same draw (the yardstick).  Each part: a 4 x
-   512 prefill and 16 greedy tokens of one process, the sharded steps
+   512 prefill and 8 greedy tokens of one process, the sharded steps
    teacher-forced on its tokens: the rank's cache exactly 1/n of one
    process's, bfloat16 logits within BF16_LOGITS_TOL and greedy agreement
    at least BF16_AGREEMENT, one prefill's kernel launches and none in
@@ -391,7 +427,7 @@ of which ends the run with a non-zero exit code if it fails (a
    its own;
 5k. counts (``count_phase``): the dry-run's counter (``core.opcount``,
    ``launch.dryrun``) held to the real program on the card.  (a) In this
-   process, on a (1, 1) mesh: the cut ``h2o-danube-1.8b`` (4 layers) of
+   process, on a (1, 1) mesh: the cut ``h2o-danube-1.8b`` (2 layers) of
    phase 5j part (a), its 4 x 512 prefill and one decode token on a cache
    of 512 slots (bf16 matrices, the dry-run's serving layout), and one
    train step of the uncut model at phase 5f's 4 x 512, each built by
@@ -475,11 +511,13 @@ the count of the path the kernel is on: the EdgeNeXt-S requests for the
 first three, the lowered phase for matmul_ln, the RWKV-6 requests for
 wkv_chunked, the 20 dense train steps for flash_attention_bwd, the 20
 RWKV-6 train steps for wkv_chunked_bwd (``launches_by_path`` has all
-thirty-two paths: the dense, MoE, encoder-decoder and hybrid requests as
+thirty-six paths: the dense, MoE, encoder-decoder and hybrid requests as
 ``dense_serve``, ``moe_serve``, ``audio_serve`` and ``hybrid_serve``, phase
 5i's as ``starcoder2_serve``, ``minitron_serve``, ``olmo_serve``,
 ``qwen2vl_serve`` and ``qwen3moe_serve``, the
-train steps as ``dense_train`` and ``rwkv_train``, the serve phase's new
+train steps as ``dense_train`` and ``rwkv_train``, phase 5l's as
+``audio_train``, ``hybrid_train``, ``moe_train`` and ``multiarch_train`` (the
+ten reduced archs' 12 steps each), the serve phase's new
 launches as ``serve_store``, and phase 5h's rank 0 as ``dist_serve``, one
 B = 8 forward, ``dist_train``, one sharded step on (2, 1), ``dist_tp``, one
 on (1, 2), ``dist_rwkv``, one RWKV-6 step on (1, 2), ``dist_cp`` and
@@ -507,7 +545,9 @@ is autograd of ``wkv_ref``'s backward, ``plain_chunked_ms`` autograd of
 library call; its operations are ``wkv_bwd_macs``.
 The backward is held to autograd of ``ref.attention_ref`` (2e-3 (1 + |b|)
 float32, 2e-2 bfloat16) at the trained heads (h2o 80, olmo 128,
-Seamless 64 self and cross, RecurrentGemma 256) and at a query offset
+Seamless 64 self and cross, RecurrentGemma 256; untimed, the reduced
+configs' float32 D 16 at 4 x 48 that phase 5l's ``train_multiarch``
+trains, causal, non-causal and under a window of 32) and at a query offset
 (RecurrentGemma's 1 x 4608 split in two, timed beside the same call
 without the offset in turns, ``no_offset_ms``; the whole-row forward's lse
 and h2o's second 'cp' rank, 256 queries at 256, untimed), its ``library_ms`` is
@@ -566,7 +606,8 @@ from repro_torch.check import lint_doc, verify_schedule  # noqa: E402
 from repro_torch.check.mutations import MUTATIONS, run_corpus  # noqa: E402
 from repro_torch.checkpoint import (load_checkpoint, restore,  # noqa: E402
                                     restore_sharded, save_checkpoint)
-from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
+from repro_torch import train_multiarch  # noqa: E402
+from repro_torch.configs import ARCHS, ShapeConfig, get_config, reduced  # noqa: E402
 from repro_torch.configs.edgenext_s import CONFIG  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import depthwise_conv as dw_mod  # noqa: E402
@@ -696,19 +737,20 @@ HYBRID_F32 = (3, 2, 300, 4)
 # each at full width (arch -> (tag, parameters served, layers served: None
 # for all of them)), weights drawn on the card from the seed
 # (``init_on_device``; a cut config serves the first layers of the uncut
-# draw); starcoder2-15b and qwen3-moe-30b-a3b, the two slowest, cut to half
-# their layers since phases 5h (h) and (i) were added, to keep the script
-# within its time (every layer has the same shapes); (batch, prompt tokens, greedy
+# draw); starcoder2-15b and qwen3-moe-30b-a3b, the two slowest, cut to a
+# quarter of their layers (half since phases 5h (h) and (i) were added, a
+# quarter since 5l), to keep the script within its time (every layer has
+# the same shapes); (batch, prompt tokens, greedy
 # tokens) per request, the 1 x 200 prompt ragged against the 64-key tile;
 # the float32 check on the first layers of the same draw (``layers=``):
 # (layers, batch, prompt tokens, greedy steps).  A phase whose peak passes
 # FIVE_PEAK_GIB fails (qwen3-moe holds 61.7 GB of bf16 weights; every layer
 # has the same shapes, so such a peak would be met by cutting layers).
-FIVE = {"starcoder2-15b": ("starcoder2", 8_280_059_904, 20),
+FIVE = {"starcoder2-15b": ("starcoder2", 4_442_025_984, 10),
         "minitron-4b": ("minitron", 4_190_509_056, None),
         "olmo-1b": ("olmo", 1_176_764_416, None),
         "qwen2-vl-2b": ("qwen2vl", 1_777_030_656, None),
-        "qwen3-moe-30b-a3b": ("qwen3moe", 15_577_227_264, 24)}
+        "qwen3-moe-30b-a3b": ("qwen3moe", 8_099_779_584, 12)}
 FIVE_REQUESTS = [(4, 512, 32), (1, 200, 16)]
 FIVE_F32 = (2, 2, 256, 4)
 # rounds of prefill / decode timing, eager and captured in turns (5b-5e take
@@ -721,7 +763,9 @@ FIVE_PEAK_GIB = 76
 # ``build_train_step`` as ``launch.train`` builds it over (batch, tokens)
 # from ``data.synthetic``; a checkpoint after TRAIN_CKPT steps, restored
 # into fresh tensors, must give the rest of the run bit for bit; the float32
-# check on the first TRAIN_F32_LAYERS layers.  The first step's gradients
+# check on the first TRAIN_F32_LAYERS layers (RecurrentGemma's up to its
+# first attention layer, 3).  A training run whose peak passes
+# FIVE_PEAK_GIB fails.  The first step's gradients
 # against the plain step's (both bfloat16; they differ in the 24 attention
 # calls only): each leaf within a relative L2 error of TRAIN_GRAD_REL, the
 # loss within TRAIN_LOSS_TOL, the global norm within TRAIN_NORM_REL.
@@ -731,6 +775,16 @@ TRAIN_LR, TRAIN_WARMUP, TRAIN_CLIP = 3e-4, 5, 1.0
 TRAIN_CKPT = 10
 TRAIN_F32_LAYERS = 2
 TRAIN_GRAD_REL, TRAIN_LOSS_TOL, TRAIN_NORM_REL = 5e-2, 1e-2, 1e-2
+# phase 5l: the encoder-decoder, the hybrid and the MoE trained on the card
+# (``train_path``) with 5f's schedule, steps, batch and limits (over 10
+# steps the 4-layer MoE's loss did not fall: 20 steps show it); each part
+# (tag, arch, layers: None for all of them, flash_attention launches a
+# prefill, parameters trained), the MoE at 4 of its 24 layers as 5c serves
+# it.  Then ``train_multiarch`` on the card: every arch of
+# ``configs.ARCHS`` at reduced size, the example's 12 steps
+FAMILIES = (("train_audio", AUDIO_ARCH, None, 72, AUDIO_PARAMS),
+            ("train_hybrid", HYBRID_ARCH, None, 8, HYBRID_PARAMS),
+            ("train_moe", MOE_ARCH, MOE_LAYERS, MOE_LAYERS, MOE_PARAMS))
 # the second training phase: RWKV-6's served weights (rwkv6-1.6b uncut) as
 # float32 masters, the same schedule, steps, batch and limits as the first;
 # its plain step runs ``wkv_ref`` under autograd (about 512 saved [128, 64,
@@ -749,15 +803,17 @@ RWKV_ARCH = "rwkv6-1.6b"
 BF16_LOGITS_TOL = 0.25
 BF16_AGREEMENT = 0.75
 # the distributed phase (5h): h2o-danube-1.8b at full width and DIST_LAYERS
-# of its 24 layers (two processes share the card in part (c)), DIST_STEPS
+# of its 24 layers (two processes share the card in part (c); phases 5j and
+# 5k cut it alike; 4 layers until phase 5l's time was paid by this cut
+# from 5h's and 5j's, the largest phases), DIST_STEPS (5 until then)
 # steps of 5f's schedule and batch, the float32 check on (layers, steps)
 # DIST_F32, each leaf's change over them within a relative L2 error of
 # DIST_F32_MOVED_REL, a checkpoint after DIST_CKPT steps; EdgeNeXt-S at
 # DIST_EDGE_BATCH images over data = 2, and DIST_EDGE_ODD, which 2 does not
 # divide; one qwen2-moe-a2.7b MoE layer over (batch, tokens)
 # DIST_MOE_TOKENS; each world's time limit DIST_WORLD_S
-DIST_LAYERS = 4
-DIST_STEPS = 5
+DIST_LAYERS = 2
+DIST_STEPS = 3
 DIST_F32 = (2, 3)
 DIST_F32_MOVED_REL = 1e-2
 DIST_CKPT = 3
@@ -797,7 +853,7 @@ MESH_SERVE_PARTS = (
     ("f", "audio_cp", AUDIO_ARCH, 2, (1, 2), "cp"),
     ("f", "moe_cp", MOE_ARCH, 2, (1, 2), "cp"))
 MESH_SERVE_PROMPT = (4, 512)
-MESH_SERVE_GEN = 16
+MESH_SERVE_GEN = 8
 MESH_SERVE_RING = (1, 6140, 8)
 # the hybrid's request past its window of 2048 under 'cp': 1536 positions a
 # rank, the ring's positions 1024 ... 3071 from both ranks
@@ -1694,6 +1750,7 @@ def kernels_phase():
     ]
     per_kernel["flash_attention"]["extra"] = [
         fa_case(2, 2, 64, 64, 16, causal=True),
+        fa_case(4, 4, 48, 48, 16, causal=True, kv_heads=2),  # train_multiarch's
         fa_case(2, 2, 64, 128, 16, causal=True, window=24),
         fa_case(1, 2, 160, 304, 16, causal=True, window=48),
         fa_case(1, 2, 197, 197, 16, causal=False),
@@ -1791,6 +1848,12 @@ def kernels_phase():
         # h2o's trained shape under 'cp' (256 queries at 256)
         bwd_case(2, 4, 40, 100, 64, window=30, dtype=torch.float32, q_offset=60),
         bwd_case(4, 32, 256, 512, 80, kv_heads=8, q_offset=256),
+        # train_multiarch's reduced configs (phase 5l): 4 x 48 tokens, D 16
+        # in float32 (PLAN's D <= 64 row), causal over 2 KV heads,
+        # non-causal (Seamless's encoder and cross) and under the window of 32
+        bwd_case(4, 4, 48, 48, 16, dtype=torch.float32, kv_heads=2),
+        bwd_case(4, 4, 48, 48, 16, causal=False, dtype=torch.float32),
+        bwd_case(4, 4, 48, 48, 16, window=32, dtype=torch.float32),
     ]
     # ... and RecurrentGemma's 1 x 4608 split in two (outside the sums),
     # beside the same call without the offset
@@ -2525,8 +2588,7 @@ def rwkv6_path():
     """RWKV-6 1.6B served through ``launch.serve``'s prefill and greedy
     decode at full width, then held against its plain versions (see the
     module docstring, phase 5).  Returns the launch counts of the served
-    requests, the numbers and the weights (float32, on the card), which the
-    training phase 5g takes up."""
+    requests and the numbers."""
     cfg = get_config("rwkv6-1.6b")
     defs = rwkv6.param_defs(cfg)
     if count_params(defs) != RWKV_PARAMS:
@@ -2698,15 +2760,14 @@ def rwkv6_path():
         bf16_greedy_agreement=agreement,
         f32_max_err_vs_plain_on_card=f32_err, f32_max_err_vs_plain_on_cpu=cpu_err,
         first_tokens=served[0]["tokens"][0, :16].tolist(), captured=cap)
-    return launches, result, tree
+    return launches, result
 
 
 def dense_path():
     """``h2o-danube-1.8b`` uncut served through ``launch.serve``'s prefill
     and greedy decode, eager then captured, held to its plain model
     (``lm_phase``; module docstring, phase 5b).  Returns the launch counts
-    of the served requests, the numbers and the weights (float32, on the
-    card), which the training phase takes up."""
+    of the served requests and the numbers."""
     t0 = time.perf_counter()
     cfg = get_config(DENSE_ARCH)
     defs = transformer.param_defs(cfg)
@@ -2726,9 +2787,7 @@ def dense_path():
     torch.cuda.empty_cache()
     result.update(arch=DENSE_ARCH, parameters=DENSE_PARAMS, init_on="card",
                   init_params_s=init_s, wall_s=time.perf_counter() - t0)
-    # the float32 draw that the served weights round: 5f's masters
-    return launches, result, transformer.init_on_device(
-        dataclasses.replace(cfg, dtype="float32"), SEED)
+    return launches, result
 
 
 def refusals() -> list:
@@ -2791,43 +2850,84 @@ def leaf_names(tree) -> list:
     return names
 
 
-def train_path(cfg, tree, *, parameters: int, per_step: dict,
-               resume: bool) -> tuple:
-    """Training ``cfg``'s arch uncut on the card (module docstring, phases 5f
-    and 5g): float32 masters from ``tree`` (the weights its serving phase
-    made), bfloat16 compute with remat, ``build_train_step`` as
-    ``launch.train`` builds it.  ``per_step``: the launches of one step by
-    kernel, each step exactly these.  ``resume``: a checkpoint after
-    TRAIN_CKPT steps, restored into fresh tensors, repeats the rest of the
-    run bit for bit (5f only: the store does not depend on the arch).
-    Returns the launch counts of the timed run and the numbers."""
+def per_train_step(cfg) -> dict:
+    """The kernel launches of one train step of ``cfg`` (remat): each
+    kernel of a prefill twice (the forward and remat's recompute) and its
+    backward once."""
+    fwd = get_module(cfg).kernel_launches_per_prefill(cfg)
+    return dict({k: 2 * n for k, n in fwd.items()},
+                **{f"{k}_bwd": n for k, n in fwd.items()})
+
+
+def f32_cut(cfg) -> tuple:
+    """(``cfg``'s first layers in float32, their weights drawn on the
+    card): the same float32 numbers as the first layers of
+    ``init_on_device(float32 cfg, SEED)``, the masters' draw.  A stacked
+    tree takes TRAIN_F32_LAYERS, drawn with ``layers=`` from the uncut
+    config (an encoder-decoder's encoder and decoder each cut to as many);
+    RecurrentGemma's blocks are a list, each leaf drawn whole in tree
+    order, so its config is cut with its ``block_pattern``, up to its first
+    attention layer (recurrent, recurrent, attention), so that the
+    attention and its backward are in the check."""
+    mod = get_module(cfg)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if cfg.block_pattern:
+        n = cfg.block_pattern.index("attention") + 1
+        cut = dataclasses.replace(cfg32, num_layers=n, block_pattern=cfg.block_pattern[:n])
+        return cut, mod.init_on_device(cut, SEED)
+    n = TRAIN_F32_LAYERS
+    cut = dataclasses.replace(cfg32, num_layers=n, num_encoder_layers=min(
+        n, cfg.num_encoder_layers))
+    return cut, mod.init_on_device(cfg32, SEED, layers=n)
+
+
+def train_path(cfg, *, parameters: int, resume: bool) -> tuple:
+    """Training ``cfg`` on the card (module docstring, phases 5f, 5g and
+    5l): float32 masters drawn on the card from the seed (the model's
+    ``init_on_device``, the draw its served weights round) and taken over
+    as they are, bfloat16 compute with remat, ``build_train_step`` as
+    ``launch.train`` builds it, TRAIN_STEPS steps; each step launches
+    exactly ``per_train_step(cfg)``.  ``resume``: a checkpoint after TRAIN_CKPT
+    steps, restored into fresh tensors, repeats the rest of the run bit for
+    bit (5f only: the store does not depend on the arch).  The float32
+    check runs on the first layers (``f32_cut``), one step is traced after
+    the run.  Returns the launch counts of the timed run and the
+    numbers."""
     t0 = time.perf_counter()
     B, T = TRAIN_BATCH
+    mod = get_module(cfg)
+    per_step = per_train_step(cfg)
     ds = make_dataset(cfg, ShapeConfig("train", "train", T, B), seed=SEED)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(s).items()}
                for s in range(TRAIN_STEPS)]
-
-    def masters(src):
-        return tree_map(lambda a, path: torch.as_tensor(a).to(
-            "cuda", copy=True).requires_grad_(), src)
-
-    res = dict(arch=cfg.name, parameters=parameters, steps=TRAIN_STEPS,
-               batch=TRAIN_BATCH, lr=TRAIN_LR, warmup=TRAIN_WARMUP, clip=TRAIN_CLIP,
-               refused=refusals(), per_step=per_step)
-    params = masters(tree)
+    res = dict(arch=cfg.name, layers=cfg.num_layers,
+               layers_uncut=get_config(cfg.name).num_layers, parameters=parameters,
+               steps=TRAIN_STEPS, batch=TRAIN_BATCH, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+               clip=TRAIN_CLIP, refused=refusals(), per_step=per_step)
+    if count_params(mod.param_defs(cfg)) != parameters:
+        fail(f"train {cfg.name}: {count_params(mod.param_defs(cfg))} parameters, "
+             f"expected {parameters}")
+    t1 = time.perf_counter()
+    params = tree_map(lambda t, path: t.requires_grad_(), mod.init_on_device(
+        dataclasses.replace(cfg, dtype="float32"), SEED))
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t1
     names = leaf_names(params)
 
     # the first step's gradients through the kernels and the plain versions
+    # (the expert choices of both recorded: the forward's, then remat's)
     grad_k, grad_p = build_grad_fn(cfg), build_grad_fn(cfg, kernels=ref.PLAIN)
-    reset_counts()
-    loss_k, _, gk = grad_k(params, batches[0])
-    first = read_counts()
+    with recording_routes() as routes_k:
+        reset_counts()
+        loss_k, parts_k, gk = grad_k(params, batches[0])
+        first = read_counts()
     want_first = {n: 0 for n in KERNELS}
     want_first.update(per_step)
     if first != want_first:
-        fail(f"train: one step launched {first}, expected {want_first} (the "
-             f"forward, remat's recompute, the backward)")
-    loss_p, _, gp = grad_p(params, batches[0])
+        fail(f"train {cfg.name}: one step launched {first}, expected {want_first} "
+             f"(the forward, remat's recompute, the backward)")
+    with recording_routes() as routes_p:
+        loss_p, parts_p, gp = grad_p(params, batches[0])
     rel = {}
     for n, a, b in zip(names, tree_leaves(gk), tree_leaves(gp)):
         rel[n] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
@@ -2835,35 +2935,46 @@ def train_path(cfg, tree, *, parameters: int, per_step: dict,
     norm_p = torch.sqrt(sum(torch.sum(g.square()) for g in tree_leaves(gp))).item()
     del gp
     worst = max(rel, key=rel.get)
+    routing = None
+    if routes_k:
+        same, claims = routing_agreement(routes_k, routes_p)
+        routing = same / claims
+    res.update(first_step_launches=first, loss_first=loss_k.item(),
+               loss_first_plain=loss_p.item(), ce_first=parts_k["ce"].item(),
+               aux_first=parts_k["aux"].item(), aux_first_plain=parts_p["aux"].item(),
+               grad_rel_l2_vs_plain=rel, grad_rel_l2_worst=[worst, rel[worst]],
+               grad_norm_first=norm_k, grad_norm_first_plain=norm_p,
+               routing_agreement_first=routing)
     if not (abs(loss_k.item() - loss_p.item()) <= TRAIN_LOSS_TOL
             and rel[worst] <= TRAIN_GRAD_REL
             and abs(norm_k - norm_p) <= TRAIN_NORM_REL * norm_p):
-        fail(f"train: the first step against the plain step: loss {loss_k.item():.5f} "
-             f"vs {loss_p.item():.5f}, worst leaf {worst} rel L2 {rel[worst]:.3e}, "
-             f"grad norm {norm_k:.5f} vs {norm_p:.5f}")
-    res.update(first_step_launches=first, loss_first=loss_k.item(),
-               loss_first_plain=loss_p.item(), grad_rel_l2_vs_plain=rel,
-               grad_rel_l2_worst=[worst, rel[worst]], grad_norm_first=norm_k,
-               grad_norm_first_plain=norm_p)
+        fail(f"train {cfg.name}: the first step against the plain step: loss "
+             f"{loss_k.item():.5f} vs {loss_p.item():.5f}, worst leaf {worst} rel L2 "
+             f"{rel[worst]:.3e}, grad norm {norm_k:.5f} vs {norm_p:.5f}"
+             + ("" if routing is None else f"; the two steps' expert choices "
+                f"agree on {routing:.4f} of the claims"))
 
     # the first step again: the same bits
     loss_k2, _, gk2 = grad_k(params, batches[0])
     same = torch.equal(loss_k, loss_k2) and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(gk), tree_leaves(gk2)))
     if not same:
-        fail("train: two runs of the first step differ")
+        diff = first_difference(tree_leaves(gk2), tree_leaves(gk))
+        fail(f"train {cfg.name}: two runs of the first step differ: loss "
+             f"{loss_k2.item()!r} vs {loss_k.item()!r}, gradients {diff}")
     del gk, gk2
 
-    # float32 on the first layers of the same weights, kernels against plain
-    L32 = TRAIN_F32_LAYERS
-    cfg32 = dataclasses.replace(cfg, num_layers=L32, dtype="float32")
-    p32 = masters(dict(tree, blocks=tree_map(lambda a, path: a[:L32], tree["blocks"])))
-    _, _, g32k = build_grad_fn(cfg32)(p32, batches[0])
-    _, _, g32p = build_grad_fn(cfg32, kernels=ref.PLAIN)(p32, batches[0])
+    # float32 on the first layers of the same draw, kernels against plain
+    cfg32, tree32 = f32_cut(cfg)
+    _, _, g32k = build_grad_fn(cfg32)(tree32, batches[0])
+    _, _, g32p = build_grad_fn(cfg32, kernels=ref.PLAIN)(tree32, batches[0])
+    res["f32_layers"] = cfg32.num_layers
+    res["f32_pattern"] = list(cfg32.block_pattern) or None
     res["f32_max_grad_err_vs_plain"] = max(
-        compare(f"train float32 {L32} layers grad {n}", a, b, 2e-3)
-        for n, a, b in zip(leaf_names(p32), tree_leaves(g32k), tree_leaves(g32p)))
-    del p32, g32k, g32p
+        compare(f"train {cfg.name} float32 {cfg32.num_layers} layers grad {n}", a, b,
+                2e-3)
+        for n, a, b in zip(leaf_names(tree32), tree_leaves(g32k), tree_leaves(g32p)))
+    del tree32, g32k, g32p
 
     # the run: TRAIN_STEPS steps; with ``resume`` a checkpoint after
     # TRAIN_CKPT of them
@@ -2872,7 +2983,7 @@ def train_path(cfg, tree, *, parameters: int, per_step: dict,
                                clip_norm=TRAIN_CLIP)
     opt = adamw_init(params)
     ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_")) if resume else None
-    losses, gnorms, ev_ms, wall_ms = [], [], [], []
+    losses, gnorms, auxes, ev_ms, wall_ms = [], [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2887,6 +2998,7 @@ def train_path(cfg, tree, *, parameters: int, per_step: dict,
                 lambda: step_fn(params, opt, batches[s]))
             losses.append(m["loss"].item())
             gnorms.append(m["grad_norm"].item())
+            auxes.append(m["aux"].item())
             ev_ms.append(ev)
             wall_ms.append(wall)
         launches = read_counts()
@@ -2894,32 +3006,39 @@ def train_path(cfg, tree, *, parameters: int, per_step: dict,
         want = {n: 0 for n in KERNELS}
         want.update({n: c * TRAIN_STEPS for n, c in per_step.items()})
         if launches != want:
-            fail(f"train: {TRAIN_STEPS} steps launched {launches}, expected {want}")
+            fail(f"train {cfg.name}: {TRAIN_STEPS} steps launched {launches}, "
+                 f"expected {want}")
         if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
-            fail(f"train: losses {losses} grad norms {gnorms}")
+            fail(f"train {cfg.name}: losses {losses} grad norms {gnorms}")
         if not np.mean(losses[-5:]) < np.mean(losses[:5]):
-            fail(f"train: the loss did not fall: {losses}")
+            fail(f"train {cfg.name}: the loss did not fall: {losses}")
+        if peak > FIVE_PEAK_GIB * 1024:
+            fail(f"train {cfg.name}: peak {peak:.0f} MiB passes {FIVE_PEAK_GIB} GiB")
         del m
         if resume:
             final = digest({"params": params, "m": opt.m, "v": opt.v})
+            like = tree_map(lambda t, path: torch.empty_like(
+                t, device="meta").requires_grad_(), params)
             del params, opt
             torch.cuda.empty_cache()
-            params, opt = resumed_run(res, masters(tree), step_fn, batches, losses,
+            params, opt = resumed_run(res, like, step_fn, batches, losses,
                                       gnorms, final, ckpt_dir)
-        # where a step's time goes: two more steps traced
-        res["trace_steps"] = trace(lambda b: step_fn(params, opt, b), batches[0], 2,
+        # where a step's time goes: one more step traced (the profiler's
+        # reading of a step's ~10,000-40,000 kernels takes longer than the
+        # step)
+        res["trace_steps"] = trace(lambda b: step_fn(params, opt, b), batches[0], 1,
                                    inference=False)
         del params, opt
     finally:
         if ckpt_dir is not None:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    tail = ev_ms[-10:]
-    step_ms = statistics.median(tail)
+    step_ms = statistics.median(ev_ms[-10:])
     res.update(
-        launches=launches, losses=losses, grad_norms=gnorms, step_event_ms=ev_ms,
-        step_wall_ms=wall_ms, step_ms=step_ms, step_wall_ms_median=statistics.median(
-            wall_ms[-10:]), tokens_per_s=B * T / step_ms * 1e3, peak_memory_mib=peak,
+        launches=launches, losses=losses, grad_norms=gnorms, aux_losses=auxes,
+        step_event_ms=ev_ms, step_wall_ms=wall_ms, step_ms=step_ms,
+        step_wall_ms_median=statistics.median(wall_ms[-10:]),
+        tokens_per_s=B * T / step_ms * 1e3, peak_memory_mib=peak,
         resumed_from=TRAIN_CKPT if resume else None, resumed_bitwise=resume,
         wall_s=time.perf_counter() - t0)
     return launches, res
@@ -2927,8 +3046,9 @@ def train_path(cfg, tree, *, parameters: int, per_step: dict,
 
 def resumed_run(res, fresh, step_fn, batches, losses, gnorms, final,
                 ckpt_dir) -> tuple:
-    """Phase 5f's resume: the checkpoint restored into ``fresh`` tensors,
-    steps TRAIN_CKPT.. run again, which must repeat the run's losses,
+    """Phase 5f's resume: the checkpoint restored into fresh tensors in the
+    structure, dtypes and ``requires_grad`` of ``fresh`` (a tree on the meta
+    device), steps TRAIN_CKPT.. run again, which must repeat the run's losses,
     gradient norms and final state (``final``, by digest) bit for bit.
     Returns the resumed run's parameters and optimizer state."""
     t1 = time.perf_counter()
@@ -2962,22 +3082,33 @@ def print_train(res: dict, tag: str = "train") -> None:
     """The lines of a training phase, each led by ``tag``."""
     B, T = res["batch"]
     step = " + ".join(f"{c} {n}" for n, c in res["per_step"].items())
-    print(f"{tag} {res['arch']} uncut, {res['parameters']} parameters, float32 "
-          f"masters, bfloat16 compute, remat; {res['steps']} steps of {B}x{T} "
-          f"tokens, lr {res['lr']} warmup {res['warmup']} clip {res['clip']}; "
-          f"launches {res['launches']} = {step} a step (forward, remat's "
-          f"recompute, backward); first step {res['first_step_launches']}")
+    depth = ("uncut" if res["layers"] == res["layers_uncut"] else
+             f"cut to {res['layers']} of {res['layers_uncut']} layers")
+    print(f"{tag} {res['arch']} {depth}, {res['parameters']} parameters, float32 "
+          f"masters drawn on the card in {res['init_s']:.1f} s, bfloat16 compute, "
+          f"remat; {res['steps']} steps of {B}x{T} tokens, lr {res['lr']} warmup "
+          f"{res['warmup']} clip {res['clip']}; launches {res['launches']} = {step} "
+          f"a step (forward, remat's recompute, backward); first step "
+          f"{res['first_step_launches']}")
     w, r = res["grad_rel_l2_worst"]
+    routing = res["routing_agreement_first"]
+    moe = ("" if routing is None else
+           f"; ce {res['ce_first']:.5f} aux {res['aux_first']:.5f} (plain "
+           f"{res['aux_first_plain']:.5f}), expert choices agree on {routing:.4f} "
+           f"of the claims")
+    pattern = "" if res["f32_pattern"] is None else f" ({'/'.join(res['f32_pattern'])})"
     print(f"{tag} first step vs plain: loss {res['loss_first']:.5f} vs "
           f"{res['loss_first_plain']:.5f} (limit {TRAIN_LOSS_TOL}), grad norm "
           f"{res['grad_norm_first']:.5f} vs {res['grad_norm_first_plain']:.5f} "
           f"(limit {100 * TRAIN_NORM_REL:.0f} %), worst leaf {w} rel L2 {r:.3e} "
-          f"(limit {TRAIN_GRAD_REL}); twice, same bits; float32 "
-          f"{TRAIN_F32_LAYERS} layers every grad within "
+          f"(limit {TRAIN_GRAD_REL}){moe}; twice, same bits; float32 "
+          f"{res['f32_layers']} layers{pattern} every grad within "
           f"{res['f32_max_grad_err_vs_plain']:.2e} (limit 2e-3 (1+|b|))")
     ls = res["losses"]
+    aux = ("" if routing is None else
+           f", aux {res['aux_losses'][0]:.5f} -> {res['aux_losses'][-1]:.5f}")
     print(f"{tag} losses {ls[0]:.4f} -> {ls[-1]:.4f} (mean of the first 5 "
-          f"{np.mean(ls[:5]):.4f}, last 5 {np.mean(ls[-5:]):.4f}), grad norms "
+          f"{np.mean(ls[:5]):.4f}, last 5 {np.mean(ls[-5:]):.4f}){aux}, grad norms "
           f"{res['grad_norms'][0]:.3f} -> {res['grad_norms'][-1]:.3f}, all finite")
     ck = res["resumed_from"]
     resumed = (f"checkpoint at step {ck} saved in {res['checkpoint_save_s']:.1f} s, "
@@ -2985,9 +3116,10 @@ def print_train(res: dict, tag: str = "train") -> None:
                f"{res['steps'] - 1} again bit for bit" if ck is not None
                else "resume not repeated (phase 5f shows it; the store does not "
                "depend on the arch)")
-    print(f"{tag} step ms (median of the last 10) events {res['step_ms']:.2f} wall "
-          f"{res['step_wall_ms_median']:.2f}; {res['tokens_per_s']:.0f} tokens/s; "
-          f"peak memory {res['peak_memory_mib']:.0f} MiB; {resumed}; refusals "
+    print(f"{tag} step ms (median of the last 10) events "
+          f"{res['step_ms']:.2f} wall {res['step_wall_ms_median']:.2f}; "
+          f"{res['tokens_per_s']:.0f} tokens/s; peak memory "
+          f"{res['peak_memory_mib']:.0f} MiB; {resumed}; refusals "
           f"{res['refused']}; phase wall {res['wall_s']:.1f} s")
     tr = res["trace_steps"]
     busy = tr["device_busy_share"]
@@ -2997,6 +3129,13 @@ def print_train(res: dict, tag: str = "train") -> None:
           f"({'not measured' if busy is None else f'{100 * busy:.1f} %'}), own kernels "
           f"{tr['own_kernels_ms']:.2f} ms, {tr['device_kernel_launches']} device "
           f"kernels; top: {top}", flush=True)
+    lru = res.get("rg_lru")
+    if lru is not None:
+        print(f"{tag} RG-LRU (gates and scan) alone at {B}x{T}x{lru['width']}, one "
+              f"layer: forward {lru['fwd_ms']:.3f} ms, backward {lru['bwd_ms']:.3f} "
+              f"ms; {lru['layers']} layers x (2 forwards + 1 backward) = "
+              f"{lru['step_ms']:.1f} ms, {100 * lru['share']:.1f} % of the step",
+              flush=True)
 
 
 @contextlib.contextmanager
@@ -3412,6 +3551,90 @@ def hybrid_path():
                   init_params_s=init_s, f32_max_err_vs_plain_on_card=f32_err,
                   wall_s=time.perf_counter() - t0)
     return launches, result
+
+
+def rg_lru_cost(cfg, step_ms: float) -> dict:
+    """What the RG-LRU (``recurrentgemma.rg_lru``: ``_gates``' float32
+    products and the doubling ``linear_scan``) costs a train step of
+    ``cfg``: one recurrent layer's, at the step's B x T and the LRU width,
+    timed alone by CUDA events on inputs of its own (the gates' matrices in
+    bfloat16 as the step casts them): the forward under autograd, and the
+    backward (the gradients of u and of every gate leaf).  A step runs each
+    recurrent layer's forward twice (the forward, in which remat saves
+    nothing, and its recompute) and its backward once; the share is that
+    sum over the step's median ms."""
+    B, T = TRAIN_BATCH
+    W = cfg.lru_width
+    layers = sum(k == "recurrent" for k in cfg.block_pattern)
+    lam = randn(W)
+    rec = dict(gate_i=randn(W, W, scale=W ** -0.5, dtype=torch.bfloat16),
+               gate_i_b=torch.zeros_like(lam),
+               gate_r=randn(W, W, scale=W ** -0.5, dtype=torch.bfloat16),
+               gate_r_b=torch.zeros_like(lam), lam=lam)
+    leaves = [t.requires_grad_() for t in rec.values()]
+    u = randn(B, T, W, dtype=torch.bfloat16).requires_grad_()
+    dy = randn(B, T, W, dtype=torch.bfloat16)
+    fwd = time_ms(lambda: recurrentgemma.rg_lru(rec, u)[0])
+    y = recurrentgemma.rg_lru(rec, u)[0]
+    bwd = time_ms(lambda: torch.autograd.grad(y, [u] + leaves, dy, retain_graph=True))
+    total = layers * (2 * fwd + bwd)
+    return dict(width=W, layers=layers, fwd_ms=fwd, bwd_ms=bwd, step_ms=total,
+                share=total / step_ms)
+
+
+def family_phase() -> tuple[dict, dict]:
+    """Phase 5l's three parts (FAMILIES, module docstring): each trained on
+    the card by ``train_path`` and printed.  Returns the launch counts of
+    each timed run by path (``audio_train``, ``hybrid_train``,
+    ``moe_train``) and the numbers by tag."""
+    launches, out = {}, {}
+    for tag, arch, layers, per_prefill, parameters in FAMILIES:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        got = get_module(cfg).kernel_launches_per_prefill(cfg)
+        if got != {"flash_attention": per_prefill}:
+            fail(f"{tag}: should launch flash_attention {per_prefill} times a "
+                 f"prefill, model says {got}")
+        n, res = train_path(cfg, parameters=parameters, resume=False)
+        if cfg.block_pattern:
+            res["rg_lru"] = rg_lru_cost(cfg, res["step_ms"])
+        print_train(res, tag)
+        launches[tag.split("_")[1] + "_train"], out[tag] = n, res
+    return launches, out
+
+
+def multiarch_phase() -> tuple[dict, dict]:
+    """Phase 5l's ``train_multiarch`` on the card: every arch of
+    ``configs.ARCHS`` at reduced size through ``train_multiarch.run`` (the
+    example's 12 steps of 4 x 48 tokens, float32, the kernels at D 16), the
+    counters set to 0 before each and read after: exactly
+    ``per_train_step`` a step; the losses finite and the last below the
+    first.  Returns the launches summed over the archs (path
+    ``multiarch_train``) and the numbers by arch."""
+    out, counts = {}, []
+    steps = train_multiarch.STEPS
+    for arch in sorted(ARCHS):
+        cfg = reduced(get_config(arch))
+        t0 = time.perf_counter()
+        reset_counts()
+        losses = train_multiarch.run(arch, device="cuda")
+        got = read_counts()
+        want = {n: 0 for n in KERNELS}
+        want.update({n: c * steps for n, c in per_train_step(cfg).items()})
+        if got != want:
+            fail(f"train_multiarch {arch}: {steps} steps launched {got}, expected {want}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"train_multiarch {arch}: losses {losses}")
+        out[arch] = dict(family=cfg.family, losses=losses, launches=got,
+                         wall_s=time.perf_counter() - t0)
+        counts.append(got)
+        shape = train_multiarch.SHAPE
+        print(f"train_multiarch {arch:24s} [{cfg.family:6s}] loss {losses[0]:7.3f} -> "
+              f"{losses[-1]:7.3f} (reduced, {steps} steps of {shape.global_batch}x"
+              f"{shape.seq_len}); launches "
+              f"{ {n: c for n, c in got.items() if c} } in "
+              f"{out[arch]['wall_s']:.1f} s", flush=True)
+    return {"multiarch_train": {n: sum(c[n] for c in counts) for n in KERNELS}}, out
 
 
 def lm_bounds(cfg, params, requests) -> dict:
@@ -4861,7 +5084,7 @@ def write_out(path: str, numbers: dict) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
-    ap.add_argument("--only", choices=["5i", "5h", "5j", "5k"],
+    ap.add_argument("--only", choices=["5i", "5h", "5j", "5k", "5l"],
                     help="device, build and this phase alone, then stop (no "
                          "result lines)")
     ap.add_argument("--dist-vs", metavar="DIR",
@@ -4955,6 +5178,17 @@ def main() -> None:
         print(f"total {time.perf_counter() - t_start:.1f} s (--dist-vs)")
         return
 
+    if args.only == "5l":
+        family_launches, families = family_phase()
+        multi_launches, multiarch = multiarch_phase()
+        lap("5l train three families, train_multiarch")
+        if args.out:
+            write_out(args.out, dict(families=families, multiarch=multiarch,
+                                     launches=dict(family_launches, **multi_launches),
+                                     walls=walls))
+        print(f"phase wall s {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+        print(f"total {time.perf_counter() - t_start:.1f} s (phase 5l alone)")
+        return
     if args.only == "5i":
         five_launches, five = five_phase()
         lap("5i five configs")
@@ -5020,7 +5254,7 @@ def main() -> None:
     lap("4 EdgeNeXt-S")
 
     # 5. main path, RWKV-6 1.6B
-    rwkv_launches, rwkv, rwkv_tree = rwkv6_path()
+    rwkv_launches, rwkv = rwkv6_path()
     print(f"rwkv6 requests {rwkv['requests']} x {rwkv['gen']} tokens, "
           f"{rwkv['parameters']} parameters (init on the card "
           f"{rwkv['init_params_s']:.1f} s), launches {rwkv_launches} = "
@@ -5067,30 +5301,21 @@ def main() -> None:
           f"{w['eager_ms']:.4f} graph {w['graph_ms']:.4f}", flush=True)
     lap("5 RWKV-6")
 
-    # 5g. training RWKV-6 on its served weights (the float32 draw that phase
-    # 5 returns): the WKV backward kernel
-    rwkv_cfg = get_config(RWKV_ARCH)
-    wkv_layers = rwkv6.kernel_launches_per_prefill(rwkv_cfg)["wkv_chunked"]
-    rwkv_train_launches, rwkv_train = train_path(
-        rwkv_cfg, rwkv_tree, parameters=RWKV_PARAMS, resume=False,
-        per_step=dict(wkv_chunked=2 * wkv_layers, wkv_chunked_bwd=wkv_layers))
-    del rwkv_tree
+    # 5g. training RWKV-6 on the float32 draw that its served weights
+    # round: the WKV backward kernel
+    rwkv_train_launches, rwkv_train = train_path(get_config(RWKV_ARCH),
+                                                 parameters=RWKV_PARAMS, resume=False)
     print_train(rwkv_train, "train_rwkv")
     lap("5g train RWKV-6")
 
     # 5b. the dense path, h2o-danube-1.8b uncut
-    dense_launches, dense, dense_tree = dense_path()
+    dense_launches, dense = dense_path()
     print_lm("dense", dense, 24)
     lap("5b dense")
 
-    # 5f. training on the dense path's weights (the float32 draw that 5b
-    # returns)
-    dense_cfg = get_config(DENSE_ARCH)
-    attn_layers = transformer.kernel_launches_per_prefill(dense_cfg)["flash_attention"]
-    train_launches, train = train_path(
-        dense_cfg, dense_tree, parameters=DENSE_PARAMS, resume=True,
-        per_step=dict(flash_attention=2 * attn_layers, flash_attention_bwd=attn_layers))
-    del dense_tree
+    # 5f. training on the float32 draw that the dense path's weights round
+    train_launches, train = train_path(get_config(DENSE_ARCH), parameters=DENSE_PARAMS,
+                                       resume=True)
     print_train(train)
     lap("5f train dense")
 
@@ -5116,6 +5341,12 @@ def main() -> None:
           f"card {hybrid['f32_max_err_vs_plain_on_card']:.2e} (limit 2e-3 (1+|b|))",
           flush=True)
     lap("5e hybrid")
+
+    # 5l. the encoder-decoder, the hybrid and the MoE trained on the card,
+    # then train_multiarch's ten reduced archs
+    family_launches, families = family_phase()
+    multi_launches, multiarch = multiarch_phase()
+    lap("5l train three families, train_multiarch")
 
     # 5i. the five configs that had run on the CPU only, uncut, on weights
     # drawn on the card
@@ -5196,6 +5427,8 @@ def main() -> None:
                                   "moe_serve": moe_launches,
                                   "audio_serve": audio_launches,
                                   "hybrid_serve": hybrid_launches,
+                                  **family_launches,
+                                  **multi_launches,
                                   "lowered": lowered_launches,
                                   "serve_store": serve_launches,
                                   **dist_launches,
@@ -5208,7 +5441,7 @@ def main() -> None:
             device=device, nvidia_smi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
             kernels=rows, main_path=served, rwkv6=rwkv, dense=dense, train=train,
-            train_rwkv=rwkv_train,
+            train_rwkv=rwkv_train, families=families, multiarch=multiarch,
             moe=moe,
             audio=audio, hybrid=hybrid, five=five, check=check, dist=distributed,
             mesh_serve=mesh_serving, count=counted,

@@ -24,10 +24,14 @@ and the shared experts' ff slice it uses, the whole one of that block
 (zero outside it where the layer is given whole leaves); over the dp axes
 the aux's ``pmean`` hands each rank its share.  The layer takes either the
 whole leaves (it reads the rank's experts and ff slice) or, under the
-sharded train step, the rank's blocks of them.  The dispatch sums claims
-with ``index_add_`` and gathers with ``index_select``, as the plain layer
-does; on the card both sum by atomics in the backward, so two equal
-backward passes may differ in their last bits (ROADMAP queue 3).
+sharded train step, the rank's blocks of them.  The dispatch copies a
+token's k claims by an advanced index and gathers the experts' outputs
+with ``index_select``, as the plain layer does.  In the backward the
+first sums each token's copies by PyTorch's sorted index backward, and
+the second's repeated (clamped) index receives only exact zeros beside
+the one claim it holds, so the plain layer's forward and backward repeat
+bit for bit on the card (``tests/test_torch_cuda.py``); this layer's card
+run waits for its sharded train step (ROADMAP item 8d).
 """
 from __future__ import annotations
 

@@ -1128,10 +1128,24 @@ _FA_BWD_CASES = {
     "mqa_window_bf16_d256": (1, 10, 512, 512, 256, True, 200, torch.bfloat16),
     "cross_bf16_256_to_512": (4, 16, 256, 512, 64, False, None, torch.bfloat16),
     "window_rows_with_no_key": (1, 2, 200, 100, 64, True, 30, torch.float32),
+    # the shapes phase 5l of chip_smoke.py trains: Seamless's encoder and
+    # cross-attention (non-causal) and decoder (causal) at 4 x 16 x 512 -> 512,
+    # D 64; RecurrentGemma's MQA D 256 under its window of 2048; qwen2-moe's
+    # MHA D 128; then the reduced configs' float32 D 16 (train_multiarch: 4 x
+    # 48 tokens, the whole-row forward regime), causal, non-causal and under
+    # the reduced window of 32
+    "seamless_noncausal_bf16_d64": (4, 16, 512, 512, 64, False, None, torch.bfloat16),
+    "seamless_causal_bf16_d64": (4, 16, 512, 512, 64, True, None, torch.bfloat16),
+    "rg_trained_bf16_d256": (4, 10, 512, 512, 256, True, 2048, torch.bfloat16),
+    "moe_trained_bf16_d128": (4, 16, 512, 512, 128, True, None, torch.bfloat16),
+    "reduced_f32_d16": (4, 4, 48, 48, 16, True, None, torch.float32),
+    "reduced_f32_d16_noncausal": (4, 4, 48, 48, 16, False, None, torch.float32),
+    "reduced_f32_d16_window": (4, 4, 48, 48, 16, True, 32, torch.float32),
 }
 # cases whose K and V are made on fewer heads and repeated over the query
 # heads' groups, as the models hand them over
-_FA_BWD_KV_HEADS = {"mqa_window_bf16_d256": 1}
+_FA_BWD_KV_HEADS = {"mqa_window_bf16_d256": 1, "rg_trained_bf16_d256": 1,
+                    "reduced_f32_d16": 2}
 # cases with rows that see no key: there the reference's formulas (P = 1 on
 # the masked keys, `_flash_bwd`) are not the softmax's derivative, so the
 # kernel is held to ``ref.attention_bwd_ref`` (which the CPU tests hold to
@@ -1214,6 +1228,48 @@ def test_flash_attention_bwd_is_bitwise_repeatable_at_d128():
     second = t_fb.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_moe_layer_forward_and_backward_repeat_bit_for_bit():
+    """One ``layers.moe_apply`` at qwen2-moe's width (d 2048, 60 experts
+    padded to 64, top 4, 4 shared experts), 4 x 512 tokens in bf16 with its
+    matrices cast to bf16 as the train step casts them, capacity factor
+    1.25 (some claims dropped): the output, the aux loss and the gradients
+    of sum(out * w) + aux with respect to x and every leaf, twice on the
+    same inputs, bit for bit.  The backward sums each token's k copies and
+    each expert row's gradient on the card; this shows those sums are taken
+    in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch import configs as TC
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_on_device, tree_leaves, tree_map
+
+    cfg = TC.get_config("qwen2-moe-a2.7b")
+    tree = tree_map(lambda t, path: t.to(torch.bfloat16) if t.dim() >= 2 else t,
+                    init_on_device(3, L.moe_defs(cfg)))
+    x, w = _normal(61, (4, 512, cfg.d_model), (4, 512, cfg.d_model))
+    x = x.to(torch.bfloat16)
+
+    def once():
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(tree)]
+        it = iter(leaves)
+        p = tree_map(lambda t, path: next(it), tree)
+        xt = x.detach().requires_grad_()
+        out, aux = L.moe_apply(cfg, p, xt, capacity_factor=1.25)
+        loss = torch.sum(out.float() * w) + aux
+        return [out.detach(), aux.detach()] + list(
+            torch.autograd.grad(loss, [xt] + leaves))
+
+    first, second = once(), once()
+    torch.cuda.synchronize()
+    names = ["out", "aux", "x"]
+    tree_map(lambda t, path: names.append(path), tree)
+    assert len(first) == len(names)
+    assert torch.isfinite(first[0].float()).all()
+    for n, a, b in zip(names, first, second):
+        assert torch.equal(a, b), n
 
 
 @pytest.mark.cuda

@@ -64,17 +64,16 @@ def _to_torch(batch):
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
-@pytest.mark.parametrize("arch", STEP_ARCHS)
-def test_train_steps_match_the_reference(arch):
-    """Three train steps of either package from the same parameters and
-    batches: the metrics of each step, then every parameter and both
-    moments, within 2e-4 (1 + |b|)."""
+def _steps_match(arch, steps, seq, batch=2):
+    """``steps`` train steps of either package from the same parameters and
+    batches of ``batch`` x ``seq`` tokens: the metrics of each step, then
+    every parameter and both moments, within 2e-4 (1 + |b|)."""
     jcfg = jreduced(jget(arch))
     tcfg = TC.reduced(TC.get_config(arch))
-    shape = dataclasses.replace(SHAPES_BY_NAME["train_4k"], seq_len=32,
-                                global_batch=2)
+    shape = dataclasses.replace(SHAPES_BY_NAME["train_4k"], seq_len=seq,
+                                global_batch=batch)
     jds = j_make_dataset(jcfg, shape, seed=11)
-    tds = make_dataset(tcfg, _shape(32, 2), seed=11)
+    tds = make_dataset(tcfg, _shape(seq, batch), seed=11)
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jax.jit(
         lambda key: JP.init_params(key, j_get_module(jcfg).param_defs(jcfg)))(
             jax.random.PRNGKey(0)))
@@ -85,7 +84,7 @@ def test_train_steps_match_the_reference(arch):
     tp = from_jax_params(tree, get_module(tcfg).param_defs(tcfg), device="cpu")
     topt = adamw_init(tp)
     tstep = build_train_step(tcfg, lr_schedule=warmup_cosine(1e-3, 2, 10))
-    for s in range(3):
+    for s in range(steps):
         nb = jds.batch(s)
         for key in nb:
             np.testing.assert_array_equal(nb[key], tds.batch(s)[key])
@@ -93,7 +92,8 @@ def test_train_steps_match_the_reference(arch):
         tp, topt, tm = tstep(tp, topt, _to_torch(nb))
         for key in ("loss", "ce", "aux", "grad_norm", "lr"):
             _close(tm[key], jm[key])
-    assert int(topt.count) == int(jopt.count) == 3
+    assert int(topt.count) == int(jopt.count) == steps
+
     def part(k):      # a dict key, a NamedTuple field or a list index
         return str(next(getattr(k, a) for a in ("key", "name", "idx")
                         if hasattr(k, a)))
@@ -108,6 +108,25 @@ def test_train_steps_match_the_reference(arch):
     assert sorted(flat_t) == sorted(flat_j)
     for key, leaf in flat_t.items():
         _close(leaf.numpy(), flat_j[key])
+
+
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+def test_train_steps_match_the_reference(arch):
+    """Three train steps of either package from the same parameters and
+    batches (2 x 32 tokens): the metrics of each step, then every parameter
+    and both moments, within 2e-4 (1 + |b|)."""
+    _steps_match(arch, 3, 32)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "recurrentgemma-2b",
+                                  "qwen2-moe-a2.7b"])
+def test_one_step_of_each_family_trained_on_the_card_matches_the_reference(arch):
+    """The three families that ``chip_smoke.py`` phase 5l trains on the
+    card, at ``reduced`` size: Seamless at 2 + 2 layers, RecurrentGemma at
+    3 (recurrent, recurrent, attention), qwen2-moe at 2; one step of 2 x 16
+    tokens of either package: loss, gradient norm, every parameter and both
+    moments within 2e-4 (1 + |b|)."""
+    _steps_match(arch, 1, 16)
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "seamless-m4t-large-v2",
