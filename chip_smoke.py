@@ -141,7 +141,7 @@ of which ends the run with a non-zero exit code if it fails (a
    cache bit for bit; the bfloat16 check above on the captured requests
    too, and the float32 request through the float32 model's captured
    steps (bit for bit its eager run, within 2e-3 of the plain model);
-   prefill ms (10 rounds) and decode ms a token (5 loops of 32 steps) of
+   prefill ms (10 rounds) and decode ms a token (3 loops of 32 steps) of
    both forms in turns, both clocks; peak memory of a 4 x 512 request in
    each form, and each capture's host seconds and reserved memory.  Last,
    ``wkv_graph_edge``: one ``wkv_chunked`` call captured alone, the types of
@@ -284,8 +284,21 @@ of which ends the run with a non-zero exit code if it fails (a
    their backward at D 16, RWKV-6's WKV kernels at K = V = 16, chunk 8),
    the counters set to 0 before each and read after: exactly
    ``per_train_step`` a step, the losses finite and the last below the
-   first.  Lines ``train_audio ...``, ``train_hybrid ...``, ``train_moe
-   ...`` and ``train_multiarch <arch> ...``;
+   first.  Then ``quickstart_phase``: ``quickstart.run`` on the card at the
+   example's 120 steps (reduced h2o-danube-1.8b, 8 x 64 tokens, a save
+   every 60 steps, the last restored, 16 greedy tokens), exactly 120 train
+   steps' and one prefill's launches, the mean loss of the last 20 steps
+   below that of the first 20, the restored tree equal to the run's last
+   state bit for bit, the tokens teacher-forced through the plain steps
+   (``kernels=ref.PLAIN``) on the restored weights: the last hidden state
+   and every step's logits within 2e-3 (1 + |b|), the greedy agreement
+   reported; and ``serve_lm_phase``: ``serve_lm.serve`` for each of the
+   example's five archs (olmo-1b, qwen3-moe, RWKV-6, RecurrentGemma,
+   Seamless, reduced; 4 x 48 prompts, 24 tokens from token 0), exactly one
+   prefill's launches, the tokens in the vocabulary, the same checks
+   against the plain steps on the same seed's weights.  Lines
+   ``train_audio ...``, ``train_hybrid ...``, ``train_moe ...``,
+   ``train_multiarch <arch> ...``, ``quickstart ...`` and ``serve_lm ...``;
 5i. the five LM configs that had run at reduced size on the CPU only
    (``five_phase``, ``five_path`` over ``FIVE``, each through ``lm_phase``),
    at full width on weights drawn on the card from seed 0
@@ -373,7 +386,19 @@ of which ends the run with a non-zero exit code if it fails (a
    (f)'s FLOP count, the bytes staged a step; (i) (g)'s model under 'cp' on
    (1, 2): all 32 heads on 256 tokens a rank, rank 1's WKV launched from
    the state rank 0 left (read from every launch), the losses within 1e-5
-   of one process's.  One JSON line ``{"dist": {...}}``.  ``--only 5h`` runs this phase alone after the
+   of one process's; (j) ``qwen2-moe-a2.7b`` at full width (d 2048, 16
+   heads of 128, 60 experts padded to 64, top 4, 4 shared experts of d_ff
+   5632 and the shared gate, vocab 151936) and 2 of its 24 layers
+   (``reduced: num_layers 24 -> 2``) on (1, 2) under '2d' in float32, 2
+   steps of 4 x 512: every MoE block through ``moe_apply_sharded`` (32
+   experts a rank, half the shared experts' ff, every token on both ranks;
+   recorded, and the plain ``moe_apply`` never called), the attention on 8
+   of 16 heads, 4 flash_attention and 2 flash_attention_bwd a step a rank;
+   held to one process's plain step in rank 0 alone (losses 1e-2, norms 1
+   %, every first-step gradient leaf gathered one at a time within 5e-2
+   relative L2), the first step twice the same bits on each rank, a rank's
+   ``grad_fn`` FLOPs at most DIST_TP_FLOPS of one process's; one process's
+   bfloat16 gradients against its float32 ones reported, not checked.  One JSON line ``{"dist": {...}}``.  ``--only 5h`` runs this phase alone after the
    build; ``--dist-vs DIR`` runs (a) to (c) of it from the checkout DIR and
    from this one, alternating (``dist_versus``); part (a)'s world of one
    rank also runs phase 5j's (1, 1) check;
@@ -511,17 +536,19 @@ the count of the path the kernel is on: the EdgeNeXt-S requests for the
 first three, the lowered phase for matmul_ln, the RWKV-6 requests for
 wkv_chunked, the 20 dense train steps for flash_attention_bwd, the 20
 RWKV-6 train steps for wkv_chunked_bwd (``launches_by_path`` has all
-thirty-six paths: the dense, MoE, encoder-decoder and hybrid requests as
+thirty-nine paths: the dense, MoE, encoder-decoder and hybrid requests as
 ``dense_serve``, ``moe_serve``, ``audio_serve`` and ``hybrid_serve``, phase
 5i's as ``starcoder2_serve``, ``minitron_serve``, ``olmo_serve``,
 ``qwen2vl_serve`` and ``qwen3moe_serve``, the
 train steps as ``dense_train`` and ``rwkv_train``, phase 5l's as
 ``audio_train``, ``hybrid_train``, ``moe_train`` and ``multiarch_train`` (the
-ten reduced archs' 12 steps each), the serve phase's new
+ten reduced archs' 12 steps each), ``quickstart`` (its 120 steps and its
+prefill) and ``serve_lm`` (the five archs' prefills), the serve phase's new
 launches as ``serve_store``, and phase 5h's rank 0 as ``dist_serve``, one
 B = 8 forward, ``dist_train``, one sharded step on (2, 1), ``dist_tp``, one
 on (1, 2), ``dist_rwkv``, one RWKV-6 step on (1, 2), ``dist_cp`` and
-``dist_cp_rwkv``, one step of each under 'cp' on (1, 2), and phase 5j's
+``dist_cp_rwkv``, one step of each under 'cp' on (1, 2), ``dist_moe_train``,
+one qwen2-moe step on (1, 2), and phase 5j's
 rank 0 as ``mesh_serve_dense``, ``mesh_serve_dense_dp``,
 ``mesh_serve_rwkv``, ``mesh_serve_hybrid``, ``mesh_serve_audio``,
 ``mesh_serve_moe`` and the 'cp' parts' ``mesh_serve_dense_cp``,
@@ -606,7 +633,8 @@ from repro_torch.check import lint_doc, verify_schedule  # noqa: E402
 from repro_torch.check.mutations import MUTATIONS, run_corpus  # noqa: E402
 from repro_torch.checkpoint import (load_checkpoint, restore,  # noqa: E402
                                     restore_sharded, save_checkpoint)
-from repro_torch import train_multiarch  # noqa: E402
+from repro_torch import quickstart, train_multiarch  # noqa: E402
+from repro_torch import serve_lm as serve_lm_example  # noqa: E402
 from repro_torch.configs import ARCHS, ShapeConfig, get_config, reduced  # noqa: E402
 from repro_torch.configs.edgenext_s import CONFIG  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -703,6 +731,10 @@ CHAOS_REQUESTS = 24
 CHAOS_BATCHES = (1, 4)
 RWKV_REQUESTS = [(4, 512)] * 3 + [(1, 200)]
 RWKV_GEN = 32
+# rounds of prefill / decode timing of its first and last request, eager
+# and captured in turns ((10, 5) until phase 5h's part (j) came: eager
+# decode is ~52 ms a token here)
+RWKV_ROUNDS = (10, 3)
 RWKV_PARAMS = 1_599_873_024
 # the dense phase: h2o-danube-1.8b uncut, (batch, prompt tokens, greedy
 # tokens) per request; the 1 x 4608 prompt is longer than the window (4096):
@@ -754,9 +786,10 @@ FIVE = {"starcoder2-15b": ("starcoder2", 4_442_025_984, 10),
 FIVE_REQUESTS = [(4, 512, 32), (1, 200, 16)]
 FIVE_F32 = (2, 2, 256, 4)
 # rounds of prefill / decode timing, eager and captured in turns (5b-5e take
-# (6, 4)): eager decode is bound by the host at 40-230 ms a token here, and
-# two rounds of it keep the script within its time
-FIVE_ROUNDS = (6, 2)
+# (6, 3)): eager decode is bound by the host at 40-230 ms a token here, and
+# one round of it (each a request's 32 or 16 tokens; two until phase 5h's
+# part (j) came) keeps the script within its time
+FIVE_ROUNDS = (6, 1)
 FIVE_PEAK_GIB = 76
 # the training phase: the dense phase's weights (h2o-danube-1.8b uncut) as
 # float32 masters, bfloat16 compute with remat, TRAIN_STEPS steps of
@@ -834,6 +867,12 @@ DIST_RWKV_LAYERS, DIST_RWKV_STEPS = 2, 2
 # DIST_CP_RWKV_LOSS_TOL
 DIST_CP_LOSS_TOL = 1e-4
 DIST_CP_RWKV_LOSS_TOL = 1e-5
+# part (j): qwen2-moe-a2.7b at full width and DIST_MOE_TRAIN_LAYERS of its
+# 24 layers on (data 1, model 2) under '2d' (the MoE expert-parallel by
+# ``moe_apply_sharded``), float32, DIST_MOE_TRAIN_STEPS steps of 5f's
+# schedule and batch against one process's in rank 0 (part (f)'s limits
+# and FLOP share)
+DIST_MOE_TRAIN_LAYERS, DIST_MOE_TRAIN_STEPS = 2, 2
 # phase 5j, sharded serving: each part's (part, path name, arch, layers,
 # mesh, profile); a MESH_SERVE_PROMPT prefill and MESH_SERVE_GEN greedy
 # tokens a part, part (a) also MESH_SERVE_RING (a ring of 4096 slots whose
@@ -2573,7 +2612,7 @@ def rwkv6_captured(cfg, params, prompts, served, rng) -> tuple[dict, list]:
     requests = [(b, t, RWKV_GEN) for b, t in RWKV_REQUESTS]
     cap, records, (pre_e, dec_e, pre_c, dec_c) = lm_captured(
         cfg, rwkv6, params, [{"tokens": p} for p in prompts], served, rng,
-        requests, rounds=(10, 5))
+        requests, rounds=RWKV_ROUNDS)
     dev = torch.device("cuda")
     p = prompts[0]
     cap["peak_allocated_mib_b4_t512"] = {
@@ -3385,9 +3424,10 @@ def lm_result(served, requests, launches, peak, cap, vocab: int) -> dict:
 
 
 def lm_phase(tag: str, cfg, mod, params, requests, rng, floor: bool = False,
-             rounds: tuple = (6, 4)) -> tuple:
+             rounds: tuple = (6, 3)) -> tuple:
     """Serve ``requests`` eager (``serve_lm``), then captured
-    (``lm_captured``, ``rounds`` of prefill / decode timing, and a trace of
+    (``lm_captured``, ``rounds`` of prefill / decode timing (three of decode
+    since phase 5h's part (j) came, four before), and a trace of
     three captured prefills at the first request's shape), then hold the
     eager records to the plain model (``hold_to_plain``, ``floor``).
     Returns (launches, numbers)."""
@@ -3635,6 +3675,115 @@ def multiarch_phase() -> tuple[dict, dict]:
               f"{ {n: c for n, c in got.items() if c} } in "
               f"{out[arch]['wall_s']:.1f} s", flush=True)
     return {"multiarch_train": {n: sum(c[n] for c in counts) for n in KERNELS}}, out
+
+
+def logits_gap(tag: str, got: list, want: list, vocab: int) -> float:
+    """The largest gap between two runs' decode logits, step by step, over
+    the vocabulary (its padding is -inf in both), held to 2e-3 (1 + |b|)."""
+    return max(compare(f"{tag} decode step {i} logits", a[:, :vocab], b[:, :vocab], 2e-3)
+               for i, (a, b) in enumerate(zip(got, want)))
+
+
+def quickstart_phase() -> tuple[dict, dict]:
+    """Phase 5l's ``quickstart`` on the card: ``quickstart.run`` at the
+    example's 120 steps, the counters set to 0 before and read after:
+    exactly ``per_train_step`` a step and one prefill's launches (none in
+    decode).  The losses finite and the mean of the last 20 below that of
+    the first 20; the restored checkpoint (the save after step 120) equal to
+    the run's last parameters and moments bit for bit; the 16 generated
+    tokens teacher-forced through the plain steps (``kernels=ref.PLAIN``) on
+    the restored weights: the last hidden state and every step's logits
+    within 2e-3 (1 + |b|), the greedy agreement reported.  Returns the
+    launches (path ``quickstart``) and the numbers."""
+    t0 = time.perf_counter()
+    reset_counts()
+    res = quickstart.run(device="cuda",
+                         out=lambda s: print(f"quickstart {s}", flush=True))
+    got = read_counts()
+    cfg, steps, losses = res["cfg"], quickstart.STEPS, res["losses"]
+    want = {n: 0 for n in KERNELS}
+    want.update({n: c * steps for n, c in per_train_step(cfg).items()})
+    for n, c in get_module(cfg).kernel_launches_per_prefill(cfg).items():
+        want[n] += c
+    if got != want:
+        fail(f"quickstart: {steps} steps and the generation launched {got}, expected {want}")
+    if not (np.isfinite(losses).all() and np.mean(losses[-20:]) < np.mean(losses[:20])):
+        fail(f"quickstart: the loss did not fall: {losses}")
+    restored, opt = res["restored"], res["opt"]
+    pairs = (list(zip(tree_leaves(restored["params"]), tree_leaves(res["params"])))
+             + list(zip(tree_leaves(restored["opt"].m), tree_leaves(opt.m)))
+             + list(zip(tree_leaves(restored["opt"].v), tree_leaves(opt.v)))
+             + [(restored["opt"].count, opt.count)])
+    if res["restored_step"] != steps or not all(torch.equal(a, b.detach()) for a, b in pairs):
+        fail(f"quickstart: the checkpoint restored at step {res['restored_step']} differs "
+             f"from the run's state after step {steps}")
+    last, toks, logits = quickstart.generate(cfg, restored["params"], res["prompt"],
+                                             kernels=ref.PLAIN, tokens_in=res["generated"])
+    hidden_err = compare("quickstart last hidden against plain", res["last_hidden"], last, 2e-3)
+    err = logits_gap("quickstart", res["logits"], logits, cfg.vocab_size)
+    agree = (toks == res["generated"]).float().mean().item()
+    out = dict(arch=cfg.name, steps=steps, batch=[quickstart.SHAPE.global_batch,
+                                                  quickstart.SHAPE.seq_len],
+               losses=losses, launches=got, restored_step=res["restored_step"],
+               restored_bitwise=True, generated=res["generated"].tolist(),
+               bigram_hits=res["bigram_hits"], last_hidden_err_vs_plain=hidden_err,
+               logits_err_vs_plain=err, greedy_agreement=agree,
+               wall_s=time.perf_counter() - t0)
+    print(f"quickstart on the card: {steps} steps of {quickstart.SHAPE.global_batch}x"
+          f"{quickstart.SHAPE.seq_len}, loss {np.mean(losses[:20]):.4f} -> "
+          f"{np.mean(losses[-20:]):.4f} (mean of the first / last 20); launches "
+          f"{ {n: c for n, c in got.items() if c} }; checkpoint at step "
+          f"{res['restored_step']} restored bit for bit; {quickstart.GEN} tokens "
+          f"teacher-forced through the plain steps: last hidden {hidden_err:.2e}, logits "
+          f"{err:.2e} (limit 2e-3 (1+|b|)), greedy agreement {agree:.3f}; "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return {"quickstart": got}, out
+
+
+def serve_lm_phase() -> tuple[dict, dict]:
+    """Phase 5l's ``serve_lm`` on the card: ``serve_lm.serve`` for each of
+    the example's five archs at reduced size (4 x 48 prompts, 24 greedy
+    tokens), the counters set to 0 before and read after: exactly one
+    prefill's launches (``kernel_launches_per_prefill``), none in decode;
+    the tokens in the vocabulary; the same prompts teacher-forced with the
+    served tokens through the plain steps (``kernels=ref.PLAIN``) on the
+    same seed's weights: the last hidden state and every step's logits
+    within 2e-3 (1 + |b|), the greedy agreement reported.  Returns the
+    launches summed over the archs (path ``serve_lm``) and the numbers by
+    arch."""
+    out, counts = {}, []
+    for arch in serve_lm_example.ARCHS:
+        t0 = time.perf_counter()
+        reset_counts()
+        res = serve_lm_example.serve(arch, device="cuda",
+                                     out=lambda s: print(f"serve_lm {s}", flush=True))
+        got = read_counts()
+        cfg, toks = res["cfg"], res["tokens"]
+        want = {n: 0 for n in KERNELS}
+        want.update(get_module(cfg).kernel_launches_per_prefill(cfg))
+        if got != want:
+            fail(f"serve_lm {arch}: a prefill and {serve_lm_example.GEN} decode steps "
+                 f"launched {got}, expected one prefill's {want}")
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"serve_lm {arch}: tokens outside the vocabulary: {toks.tolist()}")
+        plain = serve_lm_example.serve(arch, device="cuda", kernels=ref.PLAIN,
+                                       tokens_in=toks, out=None)
+        hidden_err = compare(f"serve_lm {arch} last hidden against plain",
+                             res["last_hidden"], plain["last_hidden"], 2e-3)
+        err = logits_gap(f"serve_lm {arch}", res["logits"], plain["logits"], cfg.vocab_size)
+        agree = (plain["tokens"] == toks).float().mean().item()
+        out[arch] = dict(family=cfg.family, tokens_first_seq=toks[0].tolist(),
+                         prefill_ms=res["prefill_ms"],
+                         decode_ms_per_token=res["decode_ms_per_token"], launches=got,
+                         last_hidden_err_vs_plain=hidden_err, logits_err_vs_plain=err,
+                         greedy_agreement=agree, wall_s=time.perf_counter() - t0)
+        counts.append(got)
+        print(f"serve_lm {arch}: launches {got.get('flash_attention', 0)} flash_attention "
+              f"+ {got.get('wkv_chunked', 0)} wkv_chunked = one prefill's, 0 in decode; "
+              f"tokens in the vocabulary; teacher-forced through the plain steps: last "
+              f"hidden {hidden_err:.2e}, logits {err:.2e} (limit 2e-3 (1+|b|)), greedy "
+              f"agreement {agree:.3f}; {out[arch]['wall_s']:.1f} s", flush=True)
+    return {"serve_lm": {n: sum(c[n] for c in counts) for n in KERNELS}}, out
 
 
 def lm_bounds(cfg, params, requests) -> dict:
@@ -4270,6 +4419,192 @@ def dist_rwkv(profile: str = "2d") -> dict:
                 peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
 
 
+def whole_on_rank0(g: torch.Tensor, spec, mesh):
+    """A leaf's whole tensor on rank 0 of a (data 1, model 2) mesh, None on
+    rank 1: rank 1 sends its block through the host (gloo) and rank 0
+    joins it after its own along the dim that ``spec`` splits over 'model';
+    a leaf not split over 'model' is rank 0's own.  Half the bytes of an
+    all-gather, which would hand both ranks the whole leaf."""
+    rank = mesh.coords["model"]
+    dim = next((d for d, e in enumerate(spec)
+                if "model" in ((e,) if isinstance(e, str) else (e or ()))), None)
+    if dim is None:
+        return g if rank == 0 else None
+    if rank == 1:
+        dist.send(g.cpu(), dst=0)
+        return None
+    other = torch.empty(g.shape, dtype=g.dtype)
+    dist.recv(other, src=1)
+    return torch.cat([g, other.to(g.device)], dim)
+
+
+def dist_moe_train() -> dict:
+    """Part (j): qwen2-moe-a2.7b at full width and DIST_MOE_TRAIN_LAYERS of
+    its 24 layers on (data 1, model 2) under '2d', the MoE blocks through
+    ``moe_sharded.moe_apply_sharded`` (each rank 32 of the 64 padded
+    experts and half of the shared experts' ff, every token on both ranks,
+    so one process's capacity), against one process's DIST_MOE_TRAIN_STEPS
+    steps (the plain ``moe_apply``) in rank 0 alone, run before the ranks
+    draw their blocks and freed after; each rank draws the float32 masters
+    on the card from the seed (the same bits on both) and keeps its blocks.
+    It computes in float32, as part (g) does: phase 5l's bfloat16 MoE
+    already puts the router's first-step leaf near TRAIN_GRAD_REL, so a
+    bfloat16 comparison of two orders of summation could not tell a fault
+    from rounding (``bf16_vs_f32_grad_rel_l2``, one process's bfloat16
+    gradients against its float32 ones, measured in rank 0, not checked).
+    The first step twice gives the same bits on each rank; a third call
+    counts the rank's ``grad_fn`` FLOPs, at most DIST_TP_FLOPS of one
+    process's (each count a call of its own: ``FlopCounterMode``'s dispatch
+    changes roundings)."""
+    rank = dist.get_rank()
+    tag = "dist (j)"
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=DIST_MOE_TRAIN_LAYERS,
+                              dtype="float32")
+    defs = get_module(cfg).param_defs(cfg)
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    batches = dist_batches(cfg, DIST_MOE_TRAIN_STEPS)
+    layers = cfg.num_layers
+    per_step = {n: 0 for n in KERNELS}
+    per_step.update(flash_attention=2 * layers, flash_attention_bwd=layers)
+    one, want, noise = [None, None, None, None], None, {}
+    if rank == 0:
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        tree = draw_on_device(SEED, defs, device="cuda")           # float32 masters
+        want = build_grad_fn(cfg)(tree, batches[0])[2]
+        with FlopCounterMode(display=False) as fc:       # a call of its own: the
+            build_grad_fn(cfg)(tree, batches[0])         # counter changes roundings
+        g16 = build_grad_fn(dataclasses.replace(cfg, dtype="bfloat16"))(tree, batches[0])[2]
+        tree_map(lambda a, b, path: noise.__setitem__(path, rel_l2(a, b)), g16, want)
+        del g16
+        params = tree_map(lambda t, path: t.requires_grad_(), tree)
+        opt, step1, metrics = adamw_init(params), dist_step(cfg), []
+        for b in batches:
+            params, opt, m = step1(params, opt, b)
+            metrics.append([m["loss"].item(), m["grad_norm"].item()])
+        del tree, params, opt, m
+        torch.cuda.empty_cache()
+        one = [fc.get_total_flops(), metrics, torch.cuda.max_memory_allocated() / 2 ** 20,
+               time.perf_counter() - t1]
+    dist.broadcast_object_list(one, src=0)
+    one_flops, one_metrics, one_peak, one_s = one
+
+    step = dist_step(cfg, mesh)
+    tree = draw_on_device(SEED, defs, device="cuda")
+    params = tree_map(lambda t, spec, path: sharding.local_shard(t, spec, mesh).clone()
+                      .requires_grad_(), tree, step.pspecs)
+    del tree
+    torch.cuda.empty_cache()
+    opt = adamw_init(params)
+
+    # the first step: its launches, the heads its attention ran, and which
+    # MoE form each block took (the sharded one, on the rank's experts)
+    heads, moe_calls, plain_calls = [], [], []
+    real_fa, ops.flash_attention = recorded("flash_attention", heads)
+    real_sharded, real_plain = moe_sharded.moe_apply_sharded, lm_layers.moe_apply
+
+    def rec_sharded(cfg_, p, x, **kw):
+        moe_calls.append((math.prod(x.shape[:-1]), int(p["wi"].shape[-3])))
+        return real_sharded(cfg_, p, x, **kw)
+
+    def rec_plain(*args, **kw):
+        plain_calls.append(1)
+        return real_plain(*args, **kw)
+
+    moe_sharded.moe_apply_sharded, lm_layers.moe_apply = rec_sharded, rec_plain
+    try:
+        reset_counts()
+        loss1, _, grads = step.grad_fn(params, batches[0])
+        first = read_counts()
+    finally:
+        ops.flash_attention = real_fa
+        moe_sharded.moe_apply_sharded, lm_layers.moe_apply = real_sharded, real_plain
+    if first != per_step:
+        fail(f"{tag}: the first step launched {first}, expected {per_step}")
+    q_heads = sorted({q[1] for q, _ in heads})
+    if q_heads != [cfg.num_heads // 2]:
+        fail(f"{tag}: the attention kernels ran {q_heads} heads a rank, expected "
+             f"{cfg.num_heads // 2} of {cfg.num_heads}")
+    e_rank = cfg.moe.num_experts_padded // 2
+    tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    if plain_calls or moe_calls != [(tokens, e_rank)] * (2 * layers):
+        fail(f"{tag}: the MoE blocks took moe_apply_sharded {moe_calls} (tokens, "
+             f"experts held) and moe_apply {len(plain_calls)} times; expected "
+             f"{2 * layers} sharded calls on {tokens} tokens and {e_rank} experts")
+    first_bits = [loss1.item()] + digest(grads)
+
+    # every leaf of the first step's gradients, gathered one at a time onto
+    # rank 0, against one process's
+    if mesh.coords["model"] != rank:
+        fail(f"{tag}: rank {rank} holds block {mesh.coords['model']} of 'model'")
+    t1 = time.perf_counter()
+    rel, names = {}, leaf_names(grads)
+    wants = tree_leaves(want) if rank == 0 else [None] * len(names)
+    if rank == 0 and leaf_names(want) != names:
+        fail(f"{tag}: the sharded gradients' leaves differ from one process's")
+    for n, g, spec, w in zip(names, tree_leaves(grads), tree_leaves(step.pspecs), wants):
+        full = whole_on_rank0(g, spec, mesh)
+        if rank == 0:
+            rel[n] = rel_l2(full, w)
+        del full
+    gather_s = time.perf_counter() - t1
+    del grads, want, wants
+    worst = max(rel, key=rel.get) if rel else None
+    if rank == 0 and rel[worst] > TRAIN_GRAD_REL:
+        fail(f"{tag}: first step's gradient {worst} rel L2 {rel[worst]:.3e} against "
+             f"one process (limit {TRAIN_GRAD_REL})")
+
+    # the first step again: the same bits; then once more under the FLOP
+    # counter (its dispatch changes roundings)
+    loss2, _, grads = step.grad_fn(params, batches[0])
+    again = [loss2.item()] + digest(grads)
+    del grads
+    if again != first_bits:
+        diff = [n for n, a, b in zip(["loss"] + names, again, first_bits) if a != b]
+        fail(f"{tag}: two runs of the first step differ on rank {rank}: {diff[:5]}")
+    with FlopCounterMode(display=False) as fc:
+        step.grad_fn(params, batches[0])
+    flops = fc.get_total_flops()
+    if flops > DIST_TP_FLOPS * one_flops:
+        fail(f"{tag}: a rank's grad_fn counts {flops:.4g} FLOPs, more than "
+             f"{DIST_TP_FLOPS} of one process's {one_flops:.4g}")
+
+    times, staged, metrics = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for s, b in enumerate(batches):
+        before = collectives.host_staged_bytes
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, b)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        n = read_counts()
+        if n != per_step:
+            fail(f"{tag}: step {s} launched {n}, expected {per_step}")
+        staged.append(collectives.host_staged_bytes - before)
+        metrics.append([m["loss"].item(), m["grad_norm"].item()])
+    for s, ((loss, gn), (l1, g1)) in enumerate(zip(metrics, one_metrics)):
+        if not (abs(loss - l1) <= TRAIN_LOSS_TOL and abs(gn - g1) <= TRAIN_NORM_REL * g1):
+            fail(f"{tag}: step {s} loss {loss:.6f} grad norm {gn:.5f} against one "
+                 f"process's {l1:.6f} {g1:.5f}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    del params, opt
+    return dict(mesh=mesh.sizes, profile="2d", layers=layers, steps=DIST_MOE_TRAIN_STEPS,
+                batch=TRAIN_BATCH, parameters=count_params(defs), experts_a_rank=e_rank,
+                moe_sharded_calls_first_step=len(moe_calls), moe_plain_calls=len(plain_calls),
+                attention_heads=q_heads, launches_per_step=n, first_step_launches=first,
+                losses=[m[0] for m in metrics], grad_norms=[m[1] for m in metrics],
+                one_process=one_metrics,
+                loss_gap_max=max(abs(m[0] - w[0]) for m, w in zip(metrics, one_metrics)),
+                grad_rel_l2_worst=[worst, rel.get(worst)], grad_gather_s=gather_s,
+                same_bits_twice=True, grad_fn_flops=flops, one_process_grad_fn_flops=one_flops,
+                step_ms=times, host_staged_bytes_per_step=staged, peak_mib=peak,
+                one_process_peak_mib=one_peak, one_process_s=one_s,
+                bf16_vs_f32_grad_rel_l2=noise)
+
+
 def dist_moe(tmp: Path) -> dict:
     """Part (d): one ``qwen2-moe-a2.7b`` MoE layer at full width on (data 1,
     model 2), each rank 32 of the 64 padded experts, against the plain
@@ -4353,11 +4688,12 @@ def dist_rings() -> dict:
                                    feedback_max_abs_err=fb_err))
 
 
-DIST_PARTS = ("serve", "train", "tp", "moe", "rings", "rwkv", "cp", "cp_rwkv")
+DIST_PARTS = ("serve", "train", "tp", "moe", "rings", "rwkv", "cp", "cp_rwkv",
+              "moe_train")
 
 
 def dist_pair(tmp: str, one: dict, parts=DIST_PARTS) -> dict:
-    """Parts (b) to (g) (those of ``parts``) on one rank of a world of two
+    """Parts (b) to (j) (those of ``parts``) on one rank of a world of two
     that share the card (gloo)."""
     tmp = Path(tmp)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4369,7 +4705,7 @@ def dist_pair(tmp: str, one: dict, parts=DIST_PARTS) -> dict:
                tp=lambda: dist_train(tmp, one, shape=(1, 2), part="f"),
                moe=lambda: dist_moe(tmp), rings=dist_rings, rwkv=dist_rwkv,
                cp=lambda: dist_train(tmp, one, shape=(1, 2), part="h", profile="cp"),
-               cp_rwkv=lambda: dist_rwkv("cp"))
+               cp_rwkv=lambda: dist_rwkv("cp"), moe_train=dist_moe_train)
     for part in parts:
         fn = fns[part]
         t1 = time.perf_counter()
@@ -4385,7 +4721,7 @@ def dist_pair(tmp: str, one: dict, parts=DIST_PARTS) -> dict:
 def dist_phase(parts=DIST_PARTS) -> tuple:
     """Phase 5h (module docstring): the inputs made on the host and written
     to a fresh directory, part (a) in a world of one rank under NCCL, parts
-    (b) to (g) (those of ``parts``) in a world of two that share the card
+    (b) to (j) (those of ``parts``) in a world of two that share the card
     under gloo.  Returns the launches of each part's path by rank 0 and
     the numbers."""
     t0 = time.perf_counter()
@@ -4396,7 +4732,8 @@ def dist_phase(parts=DIST_PARTS) -> tuple:
         cfg, moe_cfg = dist_dense_cfg(), get_config(MOE_ARCH)
         print(f"dist {DENSE_ARCH} reduced: num_layers {get_config(DENSE_ARCH).num_layers} "
               f"-> {cfg.num_layers} (two processes share the card in (c)); "
-              f"{MOE_ARCH}: one MoE layer", flush=True)
+              f"{MOE_ARCH}: one MoE layer (d), {DIST_MOE_TRAIN_LAYERS} of its 24 "
+              f"layers (j)", flush=True)
         save_checkpoint(tmp / "dense", 0, init_params(SEED, transformer.param_defs(cfg)))
         save_checkpoint(tmp / "moe", 0, init_params(SEED, lm_layers.moe_defs(moe_cfg)))
         rng = np.random.default_rng(SEED + 7)
@@ -4430,20 +4767,22 @@ def dist_phase(parts=DIST_PARTS) -> tuple:
         shutil.rmtree(tmp, ignore_errors=True)
     r0 = pair[0]
     for part, name in (("train", "c"), ("tp", "f"), ("rwkv", "g"), ("cp", "h"),
-                       ("cp_rwkv", "i")):
+                       ("cp_rwkv", "i"), ("moe_train", "j")):
         if part in parts and pair[1][part]["losses"] != r0[part]["losses"]:
             fail(f"dist ({name}): the two ranks' losses differ: "
                  f"{pair[1][part]['losses']} vs {r0[part]['losses']}")
     res = dict(one_process=one, ranks=pair, pair_world_s=pair_s, setup_s=setup_s,
                layers=DIST_LAYERS, reduced=f"num_layers 24 -> {DIST_LAYERS}; "
-               f"{RWKV_ARCH} num_layers 24 -> {DIST_RWKV_LAYERS}",
+               f"{RWKV_ARCH} num_layers 24 -> {DIST_RWKV_LAYERS}; {MOE_ARCH} "
+               f"num_layers 24 -> {DIST_MOE_TRAIN_LAYERS}",
                wall_s=time.perf_counter() - t0, parts=list(parts),
                note="two processes time-share one card and cross the host for every "
                     "collective: not a scaling number")
     paths = {"dist_serve": ("serve", "launches"), "dist_train": ("train", "launches_per_step"),
              "dist_tp": ("tp", "launches_per_step"), "dist_rwkv": ("rwkv", "launches_per_step"),
              "dist_cp": ("cp", "launches_per_step"),
-             "dist_cp_rwkv": ("cp_rwkv", "launches_per_step")}
+             "dist_cp_rwkv": ("cp_rwkv", "launches_per_step"),
+             "dist_moe_train": ("moe_train", "launches_per_step")}
     launches = {path: r0[part][key] for path, (part, key) in paths.items() if part in parts}
     return launches, res
 
@@ -4535,6 +4874,32 @@ def print_dist(d: dict) -> None:
           f"state by rank {[x['cp_rwkv']['wkv_from_state'] for x in r]}, launches a step "
           f"{i['launches_per_step']}; step ms {[round(x, 1) for x in i['step_ms']]}; peak "
           f"MiB by rank {[round(x['cp_rwkv']['peak_mib']) for x in r]}")
+    j = r0["moe_train"]
+    noise = j["bf16_vs_f32_grad_rel_l2"]
+    loud = max(noise, key=noise.get)
+    print(f"dist (j) gloo 2 ranks, mesh {j['mesh']} profile {j['profile']}: {MOE_ARCH} "
+          f"{j['layers']} layers float32 ({j['parameters']} parameters), {j['steps']} steps "
+          f"of {j['batch'][0]} x {j['batch'][1]}, losses {[round(x, 6) for x in j['losses']]} "
+          f"(largest gap to one process {j['loss_gap_max']:.2e}, limit {TRAIN_LOSS_TOL}), "
+          f"grad norms within 1 %, worst first-step gradient {j['grad_rel_l2_worst'][0]} "
+          f"rel L2 {j['grad_rel_l2_worst'][1]:.3e} (limit {TRAIN_GRAD_REL}; gathered onto "
+          f"rank 0 leaf by leaf in {j['grad_gather_s']:.1f} s); the first step twice the "
+          f"same bits on each rank")
+    print(f"dist (j) a rank: {j['moe_sharded_calls_first_step']} moe_apply_sharded calls "
+          f"a step (forward and remat) on {j['experts_a_rank']} experts, moe_apply "
+          f"{j['moe_plain_calls']}; attention on {j['attention_heads']} heads, launches a "
+          f"step {j['launches_per_step']}; grad_fn FLOPs {j['grad_fn_flops']:.4g} = "
+          f"{j['grad_fn_flops'] / j['one_process_grad_fn_flops']:.4f} of one process's "
+          f"{j['one_process_grad_fn_flops']:.4g} (by rank "
+          f"{[round(x['moe_train']['grad_fn_flops'] / j['one_process_grad_fn_flops'], 4) for x in r]}"
+          f", limit {DIST_TP_FLOPS}); step ms (CUDA events; two processes time-share the "
+          f"card: not a scaling number) {[round(x, 1) for x in j['step_ms']]}; host-staged "
+          f"MB a step {[round(b / 1e6, 1) for b in j['host_staged_bytes_per_step']]}; peak "
+          f"MiB by rank {[round(x['moe_train']['peak_mib']) for x in r]} (one process "
+          f"{j['one_process_peak_mib']:.0f}, {j['one_process_s']:.1f} s); one process's "
+          f"bfloat16 gradients against its float32 ones (not checked): worst {loud} rel L2 "
+          f"{noise[loud]:.3e}, router {noise.get('blocks.moe.router', float('nan')):.3e}, "
+          f"median leaf {statistics.median(noise.values()):.3e}")
     m = r0["moe"]
     print(f"dist (d) gloo 2 ranks: {MOE_ARCH} MoE layer, {m['tokens']} tokens, "
           f"{m['experts_a_rank']} experts a rank: err {m['max_abs_err']:.2e} (limit "
@@ -5182,9 +5547,14 @@ def main() -> None:
         family_launches, families = family_phase()
         multi_launches, multiarch = multiarch_phase()
         lap("5l train three families, train_multiarch")
+        quick_launches, quick = quickstart_phase()
+        lm_launches, served_lm = serve_lm_phase()
+        lap("5l quickstart, serve_lm")
         if args.out:
             write_out(args.out, dict(families=families, multiarch=multiarch,
-                                     launches=dict(family_launches, **multi_launches),
+                                     quickstart=quick, serve_lm=served_lm,
+                                     launches=dict(family_launches, **multi_launches,
+                                                   **quick_launches, **lm_launches),
                                      walls=walls))
         print(f"phase wall s {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
         print(f"total {time.perf_counter() - t_start:.1f} s (phase 5l alone)")
@@ -5347,6 +5717,9 @@ def main() -> None:
     family_launches, families = family_phase()
     multi_launches, multiarch = multiarch_phase()
     lap("5l train three families, train_multiarch")
+    quick_launches, quick = quickstart_phase()
+    lm_launches, served_lm = serve_lm_phase()
+    lap("5l quickstart, serve_lm")
 
     # 5i. the five configs that had run on the CPU only, uncut, on weights
     # drawn on the card
@@ -5429,6 +5802,8 @@ def main() -> None:
                                   "hybrid_serve": hybrid_launches,
                                   **family_launches,
                                   **multi_launches,
+                                  **quick_launches,
+                                  **lm_launches,
                                   "lowered": lowered_launches,
                                   "serve_store": serve_launches,
                                   **dist_launches,
@@ -5442,7 +5817,7 @@ def main() -> None:
             cuda=torch.version.cuda, nvcc=nvcc, build_seconds=built,
             kernels=rows, main_path=served, rwkv6=rwkv, dense=dense, train=train,
             train_rwkv=rwkv_train, families=families, multiarch=multiarch,
-            moe=moe,
+            quickstart=quick, serve_lm=served_lm, moe=moe,
             audio=audio, hybrid=hybrid, five=five, check=check, dist=distributed,
             mesh_serve=mesh_serving, count=counted,
             serve=store, walls=walls,

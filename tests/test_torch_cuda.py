@@ -1272,6 +1272,60 @@ def test_moe_layer_forward_and_backward_repeat_bit_for_bit():
         assert torch.equal(a, b), n
 
 
+def _sharded_moe_rank():
+    from repro_torch import configs as TC
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe_sharded
+    from repro_torch.models.params import init_on_device, tree_leaves, tree_map
+    cfg = TC.get_config("qwen2-moe-a2.7b")
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"))
+    tree = tree_map(lambda t, path: t.to(torch.bfloat16) if t.dim() >= 2 else t,
+                    init_on_device(3, L.moe_defs(cfg)))
+    x, w = _normal(61, (4, 512, cfg.d_model), (4, 512, cfg.d_model))
+    x = x.to(torch.bfloat16)
+
+    def once():
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(tree)]
+        it = iter(leaves)
+        p = tree_map(lambda t, path: next(it), tree)
+        xt = x.detach().requires_grad_()
+        out, aux = moe_sharded.moe_apply_sharded(cfg, p, xt, mesh=mesh,
+                                                 capacity_factor=1.25)
+        loss = torch.sum(out.float() * w) + aux
+        return [out.detach(), aux.detach()] + list(
+            torch.autograd.grad(loss, [xt] + leaves))
+
+    first, second = once(), once()
+    torch.cuda.synchronize()
+    names = ["out", "aux", "x"]
+    tree_map(lambda t, path: names.append(path), tree)
+    return (names, [torch.equal(a, b) for a, b in zip(first, second)],
+            bool(torch.isfinite(first[0].float()).all()))
+
+
+@pytest.mark.cuda
+def test_sharded_moe_forward_and_backward_repeat_bit_for_bit():
+    """``moe_sharded.moe_apply_sharded`` in a gloo world of two ranks sharing
+    the card, (data 1, model 2): each rank 32 of qwen2-moe's 64 padded
+    experts and half of the shared experts' ff, every token on both ranks
+    (4 x 512, bf16, the matrices cast to bf16, capacity factor 1.25: some
+    claims dropped).  Forward and backward twice on each rank: the output,
+    the aux loss and the gradients of sum(out * w) + aux with respect to x
+    and every leaf, bit for bit.  The combine clamps a claim off the rank
+    to the rank's last slot and zeroes it; this shows that the gather's
+    backward there receives only exact zeros, and that the index sums and
+    the sum over 'model' are taken in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import mesh as mesh_lib
+    ranks = mesh_lib.spawn_local(2, _sharded_moe_rank, device="cuda", timeout_s=300)
+    for names, same, finite in ranks:
+        assert finite
+        assert len(names) == len(same)
+        assert [n for n, s in zip(names, same) if not s] == []
+
+
 @pytest.mark.cuda
 def test_served_forward_writes_no_lse(monkeypatch):
     """The C entry gets a null lse from a call with no gradient asked for
