@@ -11,7 +11,7 @@ of which ends the run with a non-zero exit code if it fails (a
 ``phase wall s`` line before ``total`` gives each one's wall seconds):
 
 1. device: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc versions;
-2. build: the seven CUDA sources, from ``src/repro_torch/kernels/csrc``;
+2. build: the eight CUDA sources, from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    every shape one EdgeNeXt-S forward gives it at batch 16 and at ragged /
    odd / bfloat16 cases (fused_ibn also at the four batch-1 shapes, at
@@ -97,7 +97,16 @@ of which ends the run with a non-zero exit code if it fails (a
    is timed with CUDA events, one pair around each call, the L2 cache
    flushed before each, median of the repeats: the kernel, the plain
    version, and a library call of the same function as a yardstick the
-   port never uses (none for WKV: no single PyTorch call computes it);
+   port never uses (none for WKV: no single PyTorch call computes it).
+   ``adamw`` (no Pallas kernel: the loop XLA fuses out of the reference's
+   ``upd`` under its launcher's jit) runs at every leaf shape of
+   h2o-danube-1.8b uncut (in the sums: one train step's update, a launch a
+   leaf), then at an odd length, a leaf one element off 16-byte alignment,
+   three elements and with no clip: three steps each against
+   ``ref.adamw_ref`` on the same inputs, p, m and v the same bits (tol 0);
+   its bound 28 bytes a parameter at 3.35 TB/s, its library call
+   ``torch._fused_adamw_`` (which applies the decay in another order:
+   timed only);
 4. main path, EdgeNeXt-S: full width and depth (256x256x3, dims
    48/96/160/304, depths 3/3/9/3, 1000 classes, float32, seeded random
    weights) answers 4 requests of 16 images and 2 of 1 through
@@ -160,13 +169,16 @@ of which ends the run with a non-zero exit code if it fails (a
    while remat recomputes it, so the full batch runs): loss within 1e-2,
    every gradient leaf within a relative L2 error of 5e-2, the global norm
    within 1 %; run twice, the same bits; float32 on the first 2 layers:
-   every gradient leaf within 2e-3 (1 + |b|) of the plain step's.  Then 20
-   steps (20 x 48 and 20 x 24 launches): losses and norms finite, the mean
-   loss of the last 5 below that of the first 5, step ms by CUDA events and
-   the host's clock (median of the last 10), tokens/s, peak memory, one
-   more step traced (two until phase 5l came).  Resume is not repeated here: 5f
-   shows it for the
-   checkpoint store, which does not depend on the arch;
+   every gradient leaf within 2e-3 (1 + |b|) of the plain step's.  Then,
+   as 5f: TRAIN_EAGER_STEPS eager steps (48 + 24 + 34 AdamW launches a step)
+   and the 20 captured steps from the same draw, the first held to them bit
+   for bit, (1 + WARMUP) x (48 + 24 + 34) launches over the run: losses and
+   norms finite, the mean loss of the last 5 below that of the first 5,
+   step ms by CUDA events and the host's clock (captured: median of the
+   last 10; eager: of its steps), capture seconds and graph pool, tokens/s,
+   peak memory, one more captured step traced (two until phase 5l came).
+   Resume is not repeated here: 5f shows it for the checkpoint store, which
+   does not depend on the arch;
 5b. dense (``dense_path``, ``lm_phase``): ``h2o-danube-1.8b`` uncut (24 layers, d 2560,
    32 query heads over 8 KV heads of 80, d_ff 6912 SwiGLU, vocab 32000,
    window 4096, 1,831,201,280 parameters), weights from seed 0 drawn on the
@@ -246,16 +258,27 @@ of which ends the run with a non-zero exit code if it fails (a
    gradient leaf within a relative L2 error of 5e-2, the global norm
    within 1 %; run twice, the same bits; float32 on the first 2 layers of
    the same weights: every gradient leaf within 2e-3 (1 + |b|) of the plain
-   step's.  Then the 20 steps, the counters set to 0 before and read after
-   (20 x 48 and 20 x 24), each timed by CUDA events and the host's clock:
-   every loss and gradient norm finite, the mean loss of the last 5 steps
-   below that of the first 5, peak memory; a checkpoint
-   (``checkpoint.save_checkpoint``) after step 10, restored
-   (``checkpoint.restore``, its template a tree on the meta device) into
-   fresh tensors once the run is over, must give steps 10-19 again bit for
-   bit (losses, gradient norms, and the final parameters and moments by
-   digest); one more step traced.  Step ms is the median of the last 10;
-   tokens/s = 2048 / step;
+   step's.  Then TRAIN_EAGER_STEPS (WARMUP + 2) eager steps from the
+   draw, each launching exactly 48 + 24 and 12 AdamW (one a leaf: the
+   hand-written kernel, the clip's factor folded in), their state digested
+   and freed; the draw again and the 20 steps through
+   ``runtime.capture.captured_train_step`` (the port of the launcher's
+   ``jit(train_step, donate_argnums=(0, 1))``: the first WARMUP steps
+   eager, the next captured, the rest replayed), the counters set to 0
+   before and read after ((1 + WARMUP) x (48 + 24 + 12): none at a replay),
+   each timed by CUDA events and the host's clock: the first
+   TRAIN_EAGER_STEPS losses, gradient norms and the state's digest equal
+   the eager run's bit for bit; every loss and gradient norm finite, the
+   mean loss of the last 5 steps below that of the first 5, peak memory of
+   both runs; a checkpoint (``checkpoint.save_checkpoint``) after step 10,
+   restored (``checkpoint.restore``, its template a tree on the meta
+   device) into fresh tensors once the run is over and handed to the
+   captured step, which copies them into its donated buffers, must give
+   steps 10-19 again bit for bit with no launch (losses, gradient norms,
+   and the final parameters and moments by digest); one more captured step
+   traced (busy share, kernels a step); the capture's host seconds and the
+   MiB its graph pool reserved.  Step ms is the median of the last 10
+   (captured), beside the eager steps' median; tokens/s = 2048 / step;
 5l. the encoder-decoder, the hybrid and the MoE trained (``family_phase``,
    ``train_path`` over FAMILIES): ``seamless-m4t-large-v2`` and
    ``recurrentgemma-2b`` uncut, ``qwen2-moe-a2.7b`` at 4 of its 24 layers
@@ -263,9 +286,10 @@ of which ends the run with a non-zero exit code if it fails (a
    0 (the model's ``init_on_device``, taken over with no copy), bfloat16
    compute with remat, 5f's schedule, steps, batch and limits (20 steps of
    ``data.synthetic``; Seamless: 512 frames of ``inputs_embeds`` and 512
-   decoder tokens).  The checks of 5f but the resume: each step launches
-   exactly 144 + 72 / 16 + 8 / 8 + 4 flash_attention + flash_attention_bwd
-   (twice and once ``kernel_launches_per_prefill``); the first step's
+   decoder tokens).  The checks of 5f but the resume, the captured run
+   held to its eager steps alike: each eager step launches exactly 144 +
+   72 / 16 + 8 / 8 + 4 flash_attention + flash_attention_bwd (twice and
+   once ``kernel_launches_per_prefill``) and 32 / 345 / 17 AdamW; the first step's
    gradients against the plain step (for the MoE also its cross entropy
    and aux loss, and the share of (token, choice) routings the two steps
    agree on, printed where a limit is missed); the same bits twice;
@@ -282,20 +306,24 @@ of which ends the run with a non-zero exit code if it fails (a
    ``train_multiarch.run`` for each of the ten archs at reduced size on
    the card (12 steps of 4 x 48 tokens, float32, the attention kernels and
    their backward at D 16, RWKV-6's WKV kernels at K = V = 16, chunk 8),
-   the counters set to 0 before each and read after: exactly
-   ``per_train_step`` a step, the losses finite and the last below the
-   first.  Then ``quickstart_phase``: ``quickstart.run`` on the card at the
-   example's 120 steps (reduced h2o-danube-1.8b, 8 x 64 tokens, a save
-   every 60 steps, the last restored, 16 greedy tokens), exactly 120 train
-   steps' and one prefill's launches, the mean loss of the last 20 steps
+   the counters set to 0 before each and read after: exactly (1 +
+   WARMUP) x ``per_train_step`` (the example's steps captured; none at a
+   replay), the losses finite and the last below the first.  Then
+   ``quickstart_phase``: ``quickstart.run`` on the card at the example's
+   120 steps (reduced h2o-danube-1.8b, 8 x 64 tokens, a save every 60
+   steps, the last restored, 16 greedy tokens; the train step, the prefill
+   and the decode step captured), exactly (1 + WARMUP) x a train step's and
+   (1 + WARMUP) x one prefill's launches, 118 replays of the train step,
+   the mean loss of the last 20 steps
    below that of the first 20, the restored tree equal to the run's last
    state bit for bit, the tokens teacher-forced through the plain steps
    (``kernels=ref.PLAIN``) on the restored weights: the last hidden state
    and every step's logits within 2e-3 (1 + |b|), the greedy agreement
    reported; and ``serve_lm_phase``: ``serve_lm.serve`` for each of the
    example's five archs (olmo-1b, qwen3-moe, RWKV-6, RecurrentGemma,
-   Seamless, reduced; 4 x 48 prompts, 24 tokens from token 0), exactly one
-   prefill's launches, the tokens in the vocabulary, the same checks
+   Seamless, reduced; 4 x 48 prompts, 24 tokens from token 0; the steps
+   captured), exactly (1 + WARMUP) x one prefill's launches, the tokens in
+   the vocabulary, the same checks
    against the plain steps on the same seed's weights.  Lines
    ``train_audio ...``, ``train_hybrid ...``, ``train_moe ...``,
    ``train_multiarch <arch> ...``, ``quickstart ...`` and ``serve_lm ...``;
@@ -337,7 +365,9 @@ of which ends the run with a non-zero exit code if it fails (a
    (metrics, parameters, moments), and an NCCL all-reduce and all-gather
    over each axis's group; it writes (c)'s and (f)'s references and counts
    one ``grad_fn``'s FLOPs (``FlopCounterMode``: the aten products).  Then
-   a world of two ranks that share the card under gloo: (b)
+   a world of two ranks that share the card under gloo (every train step
+   eager, as ``launch.train`` runs a mesh whose collectives cross ranks,
+   AdamW's kernel on the rank's blocks, a launch a leaf): (b)
    ``pipeline.data_parallel`` of EdgeNeXt-S's forward over data = 2 at B =
    16 (8 images a rank through the three kernels) within 2e-3 (1 + |b|) of
    the one-process forward, each rank's launches those of one B = 8
@@ -464,7 +494,10 @@ of which ends the run with a non-zero exit code if it fails (a
    ratio, and beside that less what the process held before the run beside
    the step's arguments (earlier phases' tensors), and the step's time (CUDA events, median of 5 after 2 warm-up
    runs, without the counter) beside ``hloanalysis.Roofline.step_s`` of the
-   counts at the H100 datasheet's peaks, as a share.  (b) A world of two
+   counts at the H100 datasheet's peaks, as a share (AdamW counted by its
+   formula on both routes, 28 bytes a parameter); the train step also
+   captured (``captured_train_step``, its replays timed alike) beside the
+   same roofline.  (b) A world of two
    gloo ranks sharing the card on phase 5j's (1, 2) mesh under 'tp': the
    cut h2o, ``rwkv6-1.6b`` (2 layers) and ``qwen2-moe-a2.7b`` (2 layers),
    and the cut h2o and RWKV-6 under 'cp' too (COUNT_PAIR_CP: the moves out
@@ -472,8 +505,7 @@ of which ends the run with a non-zero exit code if it fails (a
    run for real and traced on meta: the
    collectives record (``runtime.collectives.record``) kind by kind, in
    count and bytes, and the FLOPs must be equal.  Every line carries the
-   card's name and power limit.  No kernel is added and no launch counts
-   on a main path.  ``--only 5k`` runs this phase alone after the build;
+   card's name and power limit.  No launch counts on a main path.  ``--only 5k`` runs this phase alone after the build;
 6. lowered (the scheduler's path): ``auto_schedule`` of every registered
    workload, each schedule verified by ``repro_torch.check.verify_schedule``
    (the static checker and the Hopper launch lint; any finding fails the
@@ -638,6 +670,7 @@ from repro_torch import serve_lm as serve_lm_example  # noqa: E402
 from repro_torch.configs import ARCHS, ShapeConfig, get_config, reduced  # noqa: E402
 from repro_torch.configs.edgenext_s import CONFIG  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import adamw as adamw_mod  # noqa: E402
 from repro_torch.kernels import depthwise_conv as dw_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fab_mod  # noqa: E402
@@ -664,7 +697,7 @@ from repro_torch.runtime import collectives, sharding  # noqa: E402
 from repro_torch.runtime import pipeline as dist_pipeline  # noqa: E402
 from repro_torch.runtime import (build_decode_step, build_grad_fn,  # noqa: E402
                                  build_prefill_step, build_train_step)
-from repro_torch.runtime.capture import WARMUP, captured  # noqa: E402
+from repro_torch.runtime.capture import WARMUP, captured, captured_train_step  # noqa: E402
 from repro_torch.search import (WORKLOADS, auto_schedule,  # noqa: E402
                                 get_workload, lower)
 from repro_torch.core.workload import NORM, PWCONV, SCAN, Layer, scan_macs  # noqa: E402
@@ -704,15 +737,19 @@ KERNELS = {
     "wkv_chunked_bwd": dict(module=wkvb_mod,
                             source="src/repro_torch/kernels/csrc/wkv_chunked_bwd.cu",
                             replaces="src/repro/models/rwkv6.py:100"),
+    "adamw": dict(module=adamw_mod, source="src/repro_torch/kernels/csrc/adamw.cu",
+                  replaces="src/repro/optim/adamw.py:47 (upd, which XLA fuses under the "
+                           "launcher's jit; it replaces no Pallas kernel)"),
 }
 # the path whose run gives each kernel's ``launches``: the EdgeNeXt-S
 # forward launches the first three, the RWKV-6 prefill wkv_chunked, and
 # matmul_ln runs only on the lowered path (flash_attention also runs on the
-# dense path: ``launches_by_path``), the two backwards only in training
+# dense path: ``launches_by_path``), the two backwards and AdamW only in
+# training
 MAIN_PATH = {"fused_ibn": "edgenext_serve", "depthwise_conv2d": "edgenext_serve",
              "flash_attention": "edgenext_serve", "matmul_ln": "lowered",
              "wkv_chunked": "rwkv6_serve", "flash_attention_bwd": "dense_train",
-             "wkv_chunked_bwd": "rwkv_train"}
+             "wkv_chunked_bwd": "rwkv_train", "adamw": "dense_train"}
 # lowered kernel name -> the kernel that runs it
 LOWERED = {"fused_ibn": "fused_ibn", "flash_attention": "flash_attention",
            "matmul_ln": "matmul_ln", "rwkv_chunk": "wkv_chunked"}
@@ -803,6 +840,10 @@ FIVE_PEAK_GIB = 76
 # calls only): each leaf within a relative L2 error of TRAIN_GRAD_REL, the
 # loss within TRAIN_LOSS_TOL, the global norm within TRAIN_NORM_REL.
 TRAIN_STEPS = 20
+# the first TRAIN_EAGER_STEPS steps run eagerly from the same draw before the
+# captured run, which must repeat them bit for bit: the WARMUP eager steps,
+# the capture and at least one more replay
+TRAIN_EAGER_STEPS = WARMUP + 2
 TRAIN_BATCH = (4, 512)
 TRAIN_LR, TRAIN_WARMUP, TRAIN_CLIP = 3e-4, 5, 1.0
 TRAIN_CKPT = 10
@@ -919,7 +960,11 @@ COUNT_WORLD_S = 180
 
 
 def fail(msg: str) -> None:
+    """Ends the run with code 1, the reason on standard output and on
+    standard error (where a caller that keeps only the error stream sees
+    which check failed)."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -1596,6 +1641,62 @@ def wkv_bwd_case(BH, T, K, V, chunk, *, dtype=torch.float32, decay="normal",
     return rec
 
 
+def adamw_case(shape, *, offset: int = 0, scaled: bool = True, timed: bool = False,
+               seed: int = 0) -> dict:
+    """AdamW of one float32 leaf of ``shape``, each of its four arrays
+    ``offset`` elements into its buffer (1: not 16-byte aligned, the scalar
+    head before the float4 body), drawn on the card: three steps of the
+    kernel against three of ``ref.adamw_ref`` on the same inputs, p, m and v
+    the same bits (``scaled``: with the clip's factor 0.37).  Timed: the
+    kernel, the plain update and ``torch._fused_adamw_`` (the call behind
+    ``torch.optim.AdamW(fused=True)``, which applies the decay in another
+    order: timed only) on the leaf, each by ``time_ms``; the bound is 28
+    bytes a parameter at 3.35 TB/s (its ``opcount.ADAMW_OPS`` operations at
+    67 TFLOP/s take less)."""
+    n = math.prod(shape)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def leaf(scale, square=False):
+        t = torch.randn(n + offset, generator=gen, device="cuda").mul_(scale)
+        return (t.square_() if square else t)[offset:].view(shape)
+
+    p, g, m, v = leaf(0.02), leaf(1e-2), leaf(1e-3), leaf(1e-3, square=True)
+    scale = torch.tensor(0.37, device="cuda") if scaled else None
+    want = [t.clone() for t in (p, m, v)]
+    for step in (1, 2, 3):
+        c = torch.tensor(float(step), device="cuda")
+        kw = dict(lr=torch.tensor(3e-4 * step, device="cuda"), bc1=1.0 - torch.pow(0.9, c),
+                  bc2=1.0 - torch.pow(0.95, c), scale=scale)
+        ops.adamw_update(p, g, m, v, **kw)
+        ref.adamw_ref(want[0], g, want[1], want[2], **kw)
+    name = (f"adamw[{'x'.join(map(str, shape))}{f' +{offset}' if offset else ''}"
+            f"{'' if scaled else ' no clip'}]")
+    diff = first_difference([p, m, v], want)
+    if diff is not None:
+        fail(f"{name}: the kernel's p, m, v differ from the plain update's: {diff}")
+    rec = dict(case=name, max_abs_err=0.0, tol=0.0, offset=offset)
+    if timed:
+        moved = 28 * n + 16
+        rec["bound_ms"], rec["bound_by"] = bound(moved, opcount.ADAMW_OPS * n, PEAK_FP32)
+        rec["ms"] = time_ms(lambda: ops.adamw_update(p, g, m, v, **kw))
+        rec["plain_ms"] = time_ms(lambda: ref.adamw_ref(want[0], g, want[1], want[2], **kw))
+        steps = [torch.tensor(3.0, device="cuda")]
+        rec["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+            [want[0]], [g], [want[1]], [want[2]], [], steps, lr=3e-4, beta1=0.9,
+            beta2=0.95, weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False))
+        rec["gb_per_s"] = moved / rec["ms"] / 1e6
+    return rec
+
+
+def update_leaves(cfg) -> list:
+    """(shape, leaves of that shape) of ``cfg``'s parameter tree: what one
+    train step's AdamW runs, a launch a leaf."""
+    shapes: dict = {}
+    for d in tree_leaves(get_module(cfg).param_defs(cfg)):
+        shapes[tuple(d.shape)] = shapes.get(tuple(d.shape), 0) + 1
+    return list(shapes.items())
+
+
 def path_shapes(cfg, batch):
     """(kernel, arguments, launches per forward) for every shape one
     forward of ``cfg`` at ``batch`` gives each kernel."""
@@ -1939,6 +2040,17 @@ def kernels_phase():
                       kv_heads=hk, timed=True)
         rec.update(per_forward=0, batch=4, per_prefill=get_config(arch).num_layers)
         per_kernel["flash_attention"]["shapes"].append(rec)
+    # adamw: every leaf shape of h2o-danube-1.8b uncut (the sums: one train
+    # step's update, a launch a leaf), then an odd length, a leaf not
+    # 16-byte aligned, leaves of three elements and one with no clip
+    for i, (shape, n) in enumerate(update_leaves(get_config(DENSE_ARCH))):
+        rec = adamw_case(shape, timed=True, seed=i)
+        rec.update(per_forward=n, batch=TRAIN_BATCH[0])
+        per_kernel["adamw"]["shapes"].append(rec)
+    per_kernel["adamw"]["extra"] = [
+        adamw_case((1_000_003,), seed=20), adamw_case((100_001,), offset=1, seed=21),
+        adamw_case((3,), offset=2, seed=22), adamw_case((4_099,), scaled=False, seed=23)]
+    torch.cuda.empty_cache()
     return per_kernel
 
 
@@ -2283,7 +2395,8 @@ def summarise(per_kernel, launches):
             launches_per_forward=sum(s["per_forward"] for s in shapes),
             batch={"wkv_chunked": RWKV_REQUESTS[0][0],
                    "flash_attention_bwd": TRAIN_BATCH[0],
-                   "wkv_chunked_bwd": TRAIN_BATCH[0]}.get(name, BATCH),
+                   "wkv_chunked_bwd": TRAIN_BATCH[0],
+                   "adamw": TRAIN_BATCH[0]}.get(name, BATCH),
             shapes=shapes, extra=per_kernel[name]["extra"]))
     return rows
 
@@ -2889,13 +3002,25 @@ def leaf_names(tree) -> list:
     return names
 
 
-def per_train_step(cfg) -> dict:
-    """The kernel launches of one train step of ``cfg`` (remat): each
-    kernel of a prefill twice (the forward and remat's recompute) and its
-    backward once."""
+def per_grads(cfg) -> dict:
+    """The kernel launches of one train step's gradients of ``cfg``
+    (remat): each kernel of a prefill twice (the forward and remat's
+    recompute) and its backward once."""
     fwd = get_module(cfg).kernel_launches_per_prefill(cfg)
     return dict({k: 2 * n for k, n in fwd.items()},
                 **{f"{k}_bwd": n for k, n in fwd.items()})
+
+
+def per_train_step(cfg) -> dict:
+    """The kernel launches of one train step of ``cfg``: its gradients'
+    (``per_grads``) and AdamW's, one a leaf."""
+    return dict(per_grads(cfg), adamw=len(tree_leaves(get_module(cfg).param_defs(cfg))))
+
+
+def with_update(per_step: dict, defs) -> dict:
+    """A sharded step's launches: its gradients' (``per_step``) and AdamW's,
+    one a leaf of the rank's blocks of ``defs``."""
+    return dict(per_step, adamw=len(tree_leaves(defs)))
 
 
 def f32_cut(cfg) -> tuple:
@@ -2925,11 +3050,19 @@ def train_path(cfg, *, parameters: int, resume: bool) -> tuple:
     5l): float32 masters drawn on the card from the seed (the model's
     ``init_on_device``, the draw its served weights round) and taken over
     as they are, bfloat16 compute with remat, ``build_train_step`` as
-    ``launch.train`` builds it, TRAIN_STEPS steps; each step launches
-    exactly ``per_train_step(cfg)``.  ``resume``: a checkpoint after TRAIN_CKPT
-    steps, restored into fresh tensors, repeats the rest of the run bit for
-    bit (5f only: the store does not depend on the arch).  The float32
-    check runs on the first layers (``f32_cut``), one step is traced after
+    ``launch.train`` builds it and captures it on the card
+    (``captured_train_step``), TRAIN_STEPS steps.  First TRAIN_EAGER_STEPS
+    eager steps from the draw (each launching exactly
+    ``per_train_step(cfg)``), their state digested and freed; then the draw
+    again and the captured run, whose first TRAIN_EAGER_STEPS steps must
+    repeat the eager ones bit for bit (every loss and grad norm, the state's
+    digest) and whose launches over the run are (WARMUP + 1) x
+    ``per_train_step(cfg)``: the eager warm-up steps and the capture, none
+    at a replay.  ``resume``: a checkpoint after TRAIN_CKPT steps, restored
+    into fresh tensors and handed to the captured step (which copies them
+    into its donated buffers), repeats the rest of the run bit for bit (5f
+    only: the store does not depend on the arch).  The float32 check runs
+    on the first layers (``f32_cut``), one captured step is traced after
     the run.  Returns the launch counts of the timed run and the
     numbers."""
     t0 = time.perf_counter()
@@ -2961,7 +3094,7 @@ def train_path(cfg, *, parameters: int, resume: bool) -> tuple:
         loss_k, parts_k, gk = grad_k(params, batches[0])
         first = read_counts()
     want_first = {n: 0 for n in KERNELS}
-    want_first.update(per_step)
+    want_first.update(per_grads(cfg))
     if first != want_first:
         fail(f"train {cfg.name}: one step launched {first}, expected {want_first} "
              f"(the forward, remat's recompute, the backward)")
@@ -3015,17 +3148,49 @@ def train_path(cfg, *, parameters: int, resume: bool) -> tuple:
         for n, a, b in zip(leaf_names(tree32), tree_leaves(g32k), tree_leaves(g32p)))
     del tree32, g32k, g32p
 
-    # the run: TRAIN_STEPS steps; with ``resume`` a checkpoint after
-    # TRAIN_CKPT of them
-    step_fn = build_train_step(cfg, lr_schedule=warmup_cosine(TRAIN_LR, TRAIN_WARMUP,
-                                                              TRAIN_STEPS),
-                               clip_norm=TRAIN_CLIP)
+    # the eager steps: TRAIN_EAGER_STEPS of them from the draw, launches
+    # checked a step, then the state digested and freed
+    K = TRAIN_EAGER_STEPS
+    sched = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    eager_fn = build_train_step(cfg, lr_schedule=sched, clip_norm=TRAIN_CLIP)
+    opt = adamw_init(params)
+    eager = dict(losses=[], grad_norms=[], event_ms=[], wall_ms=[])
+    want = {n: 0 for n in KERNELS}
+    want.update(per_step)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(K):
+        reset_counts()
+        (params, opt, m), ev, wall = both_clocks(lambda: eager_fn(params, opt, batches[s]))
+        got = read_counts()
+        if got != want:
+            fail(f"train {cfg.name}: eager step {s} launched {got}, expected {want}")
+        eager["losses"].append(m["loss"].item())
+        eager["grad_norms"].append(m["grad_norm"].item())
+        eager["event_ms"].append(ev)
+        eager["wall_ms"].append(wall)
+    eager["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    eager_digest = digest({"params": params, "m": opt.m, "v": opt.v})
+    del params, opt, m
+    torch.cuda.empty_cache()
+
+    # the captured run from the same draw: TRAIN_STEPS steps; with
+    # ``resume`` a checkpoint after TRAIN_CKPT of them
+    t1 = time.perf_counter()
+    params = tree_map(lambda t, path: t.requires_grad_(), mod.init_on_device(
+        dataclasses.replace(cfg, dtype="float32"), SEED))
+    torch.cuda.synchronize()
+    res["redraw_s"] = time.perf_counter() - t1
+    step_fn = captured_train_step(build_train_step(cfg, lr_schedule=sched,
+                                                   clip_norm=TRAIN_CLIP))
     opt = adamw_init(params)
     ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_")) if resume else None
     losses, gnorms, auxes, ev_ms, wall_ms = [], [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    peak = 0.0
     try:
         reset_counts()
         for s in range(TRAIN_STEPS):
@@ -3040,34 +3205,54 @@ def train_path(cfg, *, parameters: int, resume: bool) -> tuple:
             auxes.append(m["aux"].item())
             ev_ms.append(ev)
             wall_ms.append(wall)
+            if s == K - 1:
+                # the state after K steps against the eager run's (the
+                # digest's temporaries kept out of the run's peak)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 20
+                captured_digest = digest({"params": params, "m": opt.m, "v": opt.v})
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
         launches = read_counts()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 20)
         want = {n: 0 for n in KERNELS}
-        want.update({n: c * TRAIN_STEPS for n, c in per_step.items()})
+        want.update({n: c * (WARMUP + 1) for n, c in per_step.items()})
         if launches != want:
-            fail(f"train {cfg.name}: {TRAIN_STEPS} steps launched {launches}, "
-                 f"expected {want}")
+            fail(f"train {cfg.name}: {TRAIN_STEPS} captured steps launched {launches}, "
+                 f"expected {want} (the {WARMUP} eager steps and the capture)")
+        if (losses[:K] != eager["losses"] or gnorms[:K] != eager["grad_norms"]
+                or captured_digest != eager_digest):
+            moved = [n for n, a, b in zip(leaf_names({"params": params, "m": opt.m,
+                                                      "v": opt.v}),
+                                          captured_digest, eager_digest) if a != b]
+            fail(f"train {cfg.name}: the captured run's first {K} steps differ from the "
+                 f"eager run's: losses {losses[:K]} against {eager['losses']}, grad norms "
+                 f"{gnorms[:K]} against {eager['grad_norms']}, {len(moved)} leaves of the "
+                 f"state differ, first {moved[:3]}")
         if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
             fail(f"train {cfg.name}: losses {losses} grad norms {gnorms}")
         if not np.mean(losses[-5:]) < np.mean(losses[:5]):
             fail(f"train {cfg.name}: the loss did not fall: {losses}")
-        if peak > FIVE_PEAK_GIB * 1024:
-            fail(f"train {cfg.name}: peak {peak:.0f} MiB passes {FIVE_PEAK_GIB} GiB")
+        worst_peak = max(peak, eager["peak_mib"])
+        if worst_peak > FIVE_PEAK_GIB * 1024:
+            fail(f"train {cfg.name}: peak {worst_peak:.0f} MiB passes {FIVE_PEAK_GIB} GiB")
         del m
         if resume:
             final = digest({"params": params, "m": opt.m, "v": opt.v})
             like = tree_map(lambda t, path: torch.empty_like(
                 t, device="meta").requires_grad_(), params)
-            del params, opt
-            torch.cuda.empty_cache()
+            reset_counts()
             params, opt = resumed_run(res, like, step_fn, batches, losses,
                                       gnorms, final, ckpt_dir)
-        # where a step's time goes: one more step traced (the profiler's
-        # reading of a step's ~10,000-40,000 kernels takes longer than the
-        # step)
+            if any(read_counts().values()):
+                fail(f"train {cfg.name}: the resumed replays launched {read_counts()}")
+        # where a step's time goes: one more captured step traced (the
+        # profiler's reading of a step's ~10,000-40,000 kernels takes longer
+        # than the step)
         res["trace_steps"] = trace(lambda b: step_fn(params, opt, b), batches[0], 1,
                                    inference=False)
-        del params, opt
+        capture = dict(capture_s=step_fn.capture_s, pool_mib=step_fn.pool_mib,
+                       replays=step_fn.replays, calls=step_fn.calls)
+        del params, opt, step_fn
     finally:
         if ckpt_dir is not None:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -3078,6 +3263,9 @@ def train_path(cfg, *, parameters: int, resume: bool) -> tuple:
         step_event_ms=ev_ms, step_wall_ms=wall_ms, step_ms=step_ms,
         step_wall_ms_median=statistics.median(wall_ms[-10:]),
         tokens_per_s=B * T / step_ms * 1e3, peak_memory_mib=peak,
+        eager=dict(eager, step_ms=statistics.median(eager["event_ms"]),
+                   step_wall_ms=statistics.median(eager["wall_ms"])),
+        held_to_eager_steps=K, capture=capture,
         resumed_from=TRAIN_CKPT if resume else None, resumed_bitwise=resume,
         wall_s=time.perf_counter() - t0)
     return launches, res
@@ -3087,9 +3275,11 @@ def resumed_run(res, fresh, step_fn, batches, losses, gnorms, final,
                 ckpt_dir) -> tuple:
     """Phase 5f's resume: the checkpoint restored into fresh tensors in the
     structure, dtypes and ``requires_grad`` of ``fresh`` (a tree on the meta
-    device), steps TRAIN_CKPT.. run again, which must repeat the run's losses,
-    gradient norms and final state (``final``, by digest) bit for bit.
-    Returns the resumed run's parameters and optimizer state."""
+    device) and handed to the captured step ``step_fn``, which copies them
+    into its donated buffers; steps TRAIN_CKPT.. run again (replays), which
+    must repeat the run's losses, gradient norms and final state
+    (``final``, by digest) bit for bit.  Returns the step's parameters and
+    optimizer state."""
     t1 = time.perf_counter()
     step0, restored = restore(ckpt_dir, {"params": fresh, "opt": adamw_init(fresh)},
                               "cuda")
@@ -3126,8 +3316,9 @@ def print_train(res: dict, tag: str = "train") -> None:
     print(f"{tag} {res['arch']} {depth}, {res['parameters']} parameters, float32 "
           f"masters drawn on the card in {res['init_s']:.1f} s, bfloat16 compute, "
           f"remat; {res['steps']} steps of {B}x{T} tokens, lr {res['lr']} warmup "
-          f"{res['warmup']} clip {res['clip']}; launches {res['launches']} = {step} "
-          f"a step (forward, remat's recompute, backward); first step "
+          f"{res['warmup']} clip {res['clip']}; launches {res['launches']} = "
+          f"(1 + {WARMUP}) x ({step}) (forward, remat's recompute, backward, AdamW a "
+          f"leaf; the {WARMUP} eager steps and the capture); first step's gradients "
           f"{res['first_step_launches']}")
     w, r = res["grad_rel_l2_worst"]
     routing = res["routing_agreement_first"]
@@ -3151,19 +3342,27 @@ def print_train(res: dict, tag: str = "train") -> None:
           f"{res['grad_norms'][0]:.3f} -> {res['grad_norms'][-1]:.3f}, all finite")
     ck = res["resumed_from"]
     resumed = (f"checkpoint at step {ck} saved in {res['checkpoint_save_s']:.1f} s, "
-               f"restored in {res['checkpoint_restore_s']:.1f} s, steps {ck}-"
-               f"{res['steps'] - 1} again bit for bit" if ck is not None
+               f"restored into fresh tensors in {res['checkpoint_restore_s']:.1f} s and "
+               f"copied into the donated ones, steps {ck}-{res['steps'] - 1} replayed "
+               f"again bit for bit with no launch" if ck is not None
                else "resume not repeated (phase 5f shows it; the store does not "
                "depend on the arch)")
-    print(f"{tag} step ms (median of the last 10) events "
-          f"{res['step_ms']:.2f} wall {res['step_wall_ms_median']:.2f}; "
-          f"{res['tokens_per_s']:.0f} tokens/s; peak memory "
-          f"{res['peak_memory_mib']:.0f} MiB; {resumed}; refusals "
-          f"{res['refused']}; phase wall {res['wall_s']:.1f} s")
+    e, cap, K = res["eager"], res["capture"], res["held_to_eager_steps"]
+    print(f"{tag} captured step ms (median of the last 10) events "
+          f"{res['step_ms']:.2f} wall {res['step_wall_ms_median']:.2f}, eager (median "
+          f"of the first {K}, their own run) events {e['step_ms']:.2f} wall "
+          f"{e['step_wall_ms']:.2f}; the captured run's first {K} steps equal the "
+          f"eager run's bit for bit (losses, grad norms, state digest); capture "
+          f"{cap['capture_s']:.2f} s (host clock), graph pool {cap['pool_mib']:.0f} MiB, "
+          f"{cap['replays']} replays in {cap['calls']} calls, launches only at the "
+          f"{WARMUP} eager steps and the capture; {res['tokens_per_s']:.0f} tokens/s; "
+          f"peak memory captured {res['peak_memory_mib']:.0f} MiB, eager "
+          f"{e['peak_mib']:.0f} MiB; {resumed}; refusals {res['refused']}; phase wall "
+          f"{res['wall_s']:.1f} s")
     tr = res["trace_steps"]
     busy = tr["device_busy_share"]
     top = ", ".join(f"{k['name'][:40]} {k['ms']:.1f}" for k in tr["top"][:6])
-    print(f"{tag} traced x{tr['traced_requests']} steps: window {tr['window_ms']:.1f} "
+    print(f"{tag} traced x{tr['traced_requests']} captured steps: window {tr['window_ms']:.1f} "
           f"ms, device busy {tr['device_busy_ms']:.1f} ms "
           f"({'not measured' if busy is None else f'{100 * busy:.1f} %'}), own kernels "
           f"{tr['own_kernels_ms']:.2f} ms, {tr['device_kernel_launches']} device "
@@ -3647,10 +3846,11 @@ def multiarch_phase() -> tuple[dict, dict]:
     """Phase 5l's ``train_multiarch`` on the card: every arch of
     ``configs.ARCHS`` at reduced size through ``train_multiarch.run`` (the
     example's 12 steps of 4 x 48 tokens, float32, the kernels at D 16), the
-    counters set to 0 before each and read after: exactly
-    ``per_train_step`` a step; the losses finite and the last below the
-    first.  Returns the launches summed over the archs (path
-    ``multiarch_train``) and the numbers by arch."""
+    counters set to 0 before each and read after: exactly (WARMUP + 1) x
+    ``per_train_step`` (the example's steps captured: the eager warm-up
+    steps and the capture launch, the replays do not); the losses finite
+    and the last below the first.  Returns the launches summed over the
+    archs (path ``multiarch_train``) and the numbers by arch."""
     out, counts = {}, []
     steps = train_multiarch.STEPS
     for arch in sorted(ARCHS):
@@ -3660,9 +3860,10 @@ def multiarch_phase() -> tuple[dict, dict]:
         losses = train_multiarch.run(arch, device="cuda")
         got = read_counts()
         want = {n: 0 for n in KERNELS}
-        want.update({n: c * steps for n, c in per_train_step(cfg).items()})
+        want.update({n: c * (WARMUP + 1) for n, c in per_train_step(cfg).items()})
         if got != want:
-            fail(f"train_multiarch {arch}: {steps} steps launched {got}, expected {want}")
+            fail(f"train_multiarch {arch}: {steps} captured steps launched {got}, "
+                 f"expected {want}")
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             fail(f"train_multiarch {arch}: losses {losses}")
         out[arch] = dict(family=cfg.family, losses=losses, launches=got,
@@ -3670,8 +3871,8 @@ def multiarch_phase() -> tuple[dict, dict]:
         counts.append(got)
         shape = train_multiarch.SHAPE
         print(f"train_multiarch {arch:24s} [{cfg.family:6s}] loss {losses[0]:7.3f} -> "
-              f"{losses[-1]:7.3f} (reduced, {steps} steps of {shape.global_batch}x"
-              f"{shape.seq_len}); launches "
+              f"{losses[-1]:7.3f} (reduced, {steps} captured steps of "
+              f"{shape.global_batch}x{shape.seq_len}); launches "
               f"{ {n: c for n, c in got.items() if c} } in "
               f"{out[arch]['wall_s']:.1f} s", flush=True)
     return {"multiarch_train": {n: sum(c[n] for c in counts) for n in KERNELS}}, out
@@ -3686,9 +3887,10 @@ def logits_gap(tag: str, got: list, want: list, vocab: int) -> float:
 
 def quickstart_phase() -> tuple[dict, dict]:
     """Phase 5l's ``quickstart`` on the card: ``quickstart.run`` at the
-    example's 120 steps, the counters set to 0 before and read after:
-    exactly ``per_train_step`` a step and one prefill's launches (none in
-    decode).  The losses finite and the mean of the last 20 below that of
+    example's 120 steps, captured as the example jits them, the counters set
+    to 0 before and read after: exactly (WARMUP + 1) x ``per_train_step``
+    and (WARMUP + 1) x one prefill's launches (the eager warm-up runs and the
+    capture of each; none at a replay, none in decode).  The losses finite and the mean of the last 20 below that of
     the first 20; the restored checkpoint (the save after step 120) equal to
     the run's last parameters and moments bit for bit; the 16 generated
     tokens teacher-forced through the plain steps (``kernels=ref.PLAIN``) on
@@ -3702,11 +3904,16 @@ def quickstart_phase() -> tuple[dict, dict]:
     got = read_counts()
     cfg, steps, losses = res["cfg"], quickstart.STEPS, res["losses"]
     want = {n: 0 for n in KERNELS}
-    want.update({n: c * steps for n, c in per_train_step(cfg).items()})
+    want.update({n: c * (WARMUP + 1) for n, c in per_train_step(cfg).items()})
     for n, c in get_module(cfg).kernel_launches_per_prefill(cfg).items():
-        want[n] += c
+        want[n] += c * (WARMUP + 1)
     if got != want:
-        fail(f"quickstart: {steps} steps and the generation launched {got}, expected {want}")
+        fail(f"quickstart: {steps} captured steps and the captured generation launched "
+             f"{got}, expected {want}")
+    cap = res["train_step"]
+    if cap.replays != steps - WARMUP:
+        fail(f"quickstart: {cap.replays} replays of the train step, expected "
+             f"{steps - WARMUP}")
     if not (np.isfinite(losses).all() and np.mean(losses[-20:]) < np.mean(losses[:20])):
         fail(f"quickstart: the loss did not fall: {losses}")
     restored, opt = res["restored"], res["opt"]
@@ -3728,9 +3935,11 @@ def quickstart_phase() -> tuple[dict, dict]:
                restored_bitwise=True, generated=res["generated"].tolist(),
                bigram_hits=res["bigram_hits"], last_hidden_err_vs_plain=hidden_err,
                logits_err_vs_plain=err, greedy_agreement=agree,
+               capture_s=cap.capture_s, pool_mib=cap.pool_mib, replays=cap.replays,
                wall_s=time.perf_counter() - t0)
     print(f"quickstart on the card: {steps} steps of {quickstart.SHAPE.global_batch}x"
-          f"{quickstart.SHAPE.seq_len}, loss {np.mean(losses[:20]):.4f} -> "
+          f"{quickstart.SHAPE.seq_len} ({WARMUP} eager, captured in {cap.capture_s:.2f} s, "
+          f"{cap.replays} replays), loss {np.mean(losses[:20]):.4f} -> "
           f"{np.mean(losses[-20:]):.4f} (mean of the first / last 20); launches "
           f"{ {n: c for n, c in got.items() if c} }; checkpoint at step "
           f"{res['restored_step']} restored bit for bit; {quickstart.GEN} tokens "
@@ -3743,8 +3952,10 @@ def quickstart_phase() -> tuple[dict, dict]:
 def serve_lm_phase() -> tuple[dict, dict]:
     """Phase 5l's ``serve_lm`` on the card: ``serve_lm.serve`` for each of
     the example's five archs at reduced size (4 x 48 prompts, 24 greedy
-    tokens), the counters set to 0 before and read after: exactly one
-    prefill's launches (``kernel_launches_per_prefill``), none in decode;
+    tokens; the steps captured as the example jits them), the counters set
+    to 0 before and read after: exactly (WARMUP + 1) x one prefill's
+    launches (``kernel_launches_per_prefill``: the eager warm-up runs and
+    the capture), none in decode;
     the tokens in the vocabulary; the same prompts teacher-forced with the
     served tokens through the plain steps (``kernels=ref.PLAIN``) on the
     same seed's weights: the last hidden state and every step's logits
@@ -3760,10 +3971,11 @@ def serve_lm_phase() -> tuple[dict, dict]:
         got = read_counts()
         cfg, toks = res["cfg"], res["tokens"]
         want = {n: 0 for n in KERNELS}
-        want.update(get_module(cfg).kernel_launches_per_prefill(cfg))
+        want.update({n: c * (WARMUP + 1) for n, c in
+                     get_module(cfg).kernel_launches_per_prefill(cfg).items()})
         if got != want:
-            fail(f"serve_lm {arch}: a prefill and {serve_lm_example.GEN} decode steps "
-                 f"launched {got}, expected one prefill's {want}")
+            fail(f"serve_lm {arch}: a captured prefill and {serve_lm_example.GEN} decode "
+                 f"steps launched {got}, expected (1 + {WARMUP}) prefills' {want}")
         if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
             fail(f"serve_lm {arch}: tokens outside the vocabulary: {toks.tolist()}")
         plain = serve_lm_example.serve(arch, device="cuda", kernels=ref.PLAIN,
@@ -3779,7 +3991,8 @@ def serve_lm_phase() -> tuple[dict, dict]:
                          greedy_agreement=agree, wall_s=time.perf_counter() - t0)
         counts.append(got)
         print(f"serve_lm {arch}: launches {got.get('flash_attention', 0)} flash_attention "
-              f"+ {got.get('wkv_chunked', 0)} wkv_chunked = one prefill's, 0 in decode; "
+              f"+ {got.get('wkv_chunked', 0)} wkv_chunked = (1 + {WARMUP}) prefills' (the "
+              f"capture's), 0 in decode; "
               f"tokens in the vocabulary; teacher-forced through the plain steps: last "
               f"hidden {hidden_err:.2e}, logits {err:.2e} (limit 2e-3 (1+|b|)), greedy "
               f"agreement {agree:.3f}; {out[arch]['wall_s']:.1f} s", flush=True)
@@ -4224,8 +4437,8 @@ def dist_train(tmp: Path, one: dict, shape=(2, 1), part: str = "c",
         times.append(dict(event_ms=start.elapsed_time(end),
                           wall_ms=1e3 * (time.perf_counter() - t_host)))
         n = read_counts()
-        if n != per_step:
-            fail(f"{tag}: step {s} launched {n}, expected {per_step}")
+        if n != with_update(per_step, defs):
+            fail(f"{tag}: step {s} launched {n}, expected {with_update(per_step, defs)}")
         staged.append(collectives.host_staged_bytes - before)
         gathered.append(sharding.gathered_bytes)
         live.append(sharding.peak_live_gathered_bytes)
@@ -4391,8 +4604,8 @@ def dist_rwkv(profile: str = "2d") -> dict:
         end.synchronize()
         times.append(start.elapsed_time(end))
         n = read_counts()
-        if n != per_step:
-            fail(f"{tag}: step {s} launched {n}, expected {per_step}")
+        if n != with_update(per_step, defs):
+            fail(f"{tag}: step {s} launched {n}, expected {with_update(per_step, defs)}")
         metrics.append([m["loss"].item(), m["grad_norm"].item()])
     loss_tol = DIST_CP_RWKV_LOSS_TOL if cp else TRAIN_LOSS_TOL
     if rank == 0:
@@ -4581,8 +4794,8 @@ def dist_moe_train() -> dict:
         end.synchronize()
         times.append(start.elapsed_time(end))
         n = read_counts()
-        if n != per_step:
-            fail(f"{tag}: step {s} launched {n}, expected {per_step}")
+        if n != with_update(per_step, defs):
+            fail(f"{tag}: step {s} launched {n}, expected {with_update(per_step, defs)}")
         staged.append(collectives.host_staged_bytes - before)
         metrics.append([m["loss"].item(), m["grad_norm"].item()])
     for s, ((loss, gn), (l1, g1)) in enumerate(zip(metrics, one_metrics)):
@@ -4962,6 +5175,10 @@ def dist_versus(other: Path) -> list:
               f"{[round(x, 1) for x in rec['step_ms']]} median "
               f"{statistics.median(rec['step_ms']):.1f}; losses "
               f"{[round(x, 5) for x in rec['losses']]}; {rec['seconds']:.1f} s", flush=True)
+    same = all(r["losses"] == rounds[0]["losses"]
+               and r["one_losses"] == rounds[0]["one_losses"] for r in rounds)
+    print(f"dist-vs: the losses of part (c) and of part (a)'s one-process steps are "
+          f"{'the same bits' if same else 'NOT the same bits'} in every round", flush=True)
     return rounds
 
 
@@ -5357,6 +5574,15 @@ def count_one(cfg, shape, serve_bf16: bool) -> dict:
     step, args = cell[0], cell[1]
     with torch.set_grad_enabled(train):
         ms = time_ms(lambda: step(*args), reps=COUNT_REPS, warmup=COUNT_WARMUP)
+    captured_ms = None
+    if train:
+        # the same step captured, as the launchers run it on the card: its
+        # warm-up steps and capture, then replays timed alike
+        cap = captured_train_step(step)
+        for _ in range(WARMUP + 1):
+            cap(*args)
+        captured_ms = time_ms(lambda: cap(*args), reps=COUNT_REPS, warmup=COUNT_WARMUP)
+        del cap
     del cell, step, args
     torch.cuda.empty_cache()
     ca = meta["cost_analysis"]
@@ -5366,7 +5592,9 @@ def count_one(cfg, shape, serve_bf16: bool) -> dict:
                 residue_bytes=residue,
                 card_trace_s=real["trace_s"], meta_trace_s=meta["trace_s"], ms=ms,
                 step_s=roof.step_s, bound=roof.bound,
-                roofline_share=roof.step_s * 1e3 / ms)
+                roofline_share=roof.step_s * 1e3 / ms, captured_ms=captured_ms,
+                captured_roofline_share=(None if captured_ms is None
+                                         else roof.step_s * 1e3 / captured_ms))
 
 
 def count_pair() -> dict:
@@ -5421,6 +5649,11 @@ def count_phase(smi: str) -> dict:
               f"{r['ms']:.3f} ms (events, median of {COUNT_REPS}) against the "
               f"roofline's {r['step_s'] * 1e3:.3f} ms ({r['bound']}, H100 datasheet "
               f"peaks): {100 * r['roofline_share']:.1f} % [{smi}]", flush=True)
+        if r["captured_ms"] is not None:
+            print(f"count (a) {name}: captured (captured_train_step, replays) "
+                  f"{r['captured_ms']:.3f} ms against the roofline's "
+                  f"{r['step_s'] * 1e3:.3f} ms: {100 * r['captured_roofline_share']:.1f} % "
+                  f"(eager above {r['ms']:.3f} ms) [{smi}]", flush=True)
     try:
         pair = mesh_lib.spawn_local(2, count_pair, timeout_s=COUNT_WORLD_S)
     except RuntimeError as e:

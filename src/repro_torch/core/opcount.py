@@ -34,7 +34,9 @@ versions), a CUDA run (the kernels) and a meta trace (empty outputs of the
 kernels' shapes) of one program give the same counts.  The formulas are
 the function's work, whatever implements it: ``attention_flops`` over the
 q.k pairs that no mask removes, ``wkv_flops`` (``core.workload.scan_macs``)
-and ``wkv_bwd_flops`` for the WKV.  Collectives run suspended as well:
+and ``wkv_bwd_flops`` for the WKV, ``adamw_counts`` for the optimizer's
+update of a leaf (elementwise, so no FLOPs, as no elementwise aten op
+adds any).  Collectives run suspended as well:
 their traffic is ``runtime.collectives``' record, not bytes accessed.
 
 The peak of live bytes follows storages: a storage that an op allocates
@@ -316,3 +318,18 @@ def wkv_bwd_macs(BH: int, T: int, K: int, V: int, C: int) -> int:
 def wkv_bwd_flops(BH: int, T: int, K: int, V: int, chunk: int) -> int:
     return 2 * wkv_bwd_macs(BH, T, K, V, min(chunk, T))
 
+
+
+# AdamW's floating-point operations a parameter (the clip's scale, the two
+# moments, the bias corrections, eps, the decay, the rate, the update), which
+# bound nothing on the card next to its bytes, and its square root
+ADAMW_OPS = 16
+
+
+def adamw_counts(p, g, m, v, *scalars) -> dict:
+    """``kernel``'s counts of one leaf's AdamW update: p, g, m, v and the
+    scalars read once, p, m and v written once (28 bytes a float32
+    parameter); FLOPs 0, as the counter counts no elementwise op's
+    (``ADAMW_OPS`` a parameter is the work); one square root a parameter."""
+    return dict(flops=0, bytes_accessed=nbytes(p, g, m, v, *scalars) + nbytes(p, m, v),
+                transcendentals=p.numel())

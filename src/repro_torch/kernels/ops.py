@@ -13,6 +13,13 @@ formula (``opcount.kernel``: the FLOPs, each operand read once and each
 output written once), and no aten op inside it counts, so the three
 routes give one count.
 
+``adamw_update`` is the optimizer's update of one leaf in place, no
+kernel of the JAX package but the fusion its launcher's jit makes of the
+reference's update (``kernels.adamw``); its plain version is
+``ref.adamw_ref``, under ``ref.PLAIN`` too.  It writes its leaf in place
+behind autograd's back, so on a CUDA tensor it refuses, as the three
+kernels below do, an input that requires grad under grad mode.
+
 Gradients: ``flash_attention`` goes through ``FlashAttention`` where grad
 mode is on and q, k or v requires grad, and ``wkv_chunked`` through
 ``WKVChunked`` where r, k, v, logw or u does; the backward of each is a
@@ -41,6 +48,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import opcount
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import depthwise_conv as _dw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_ibn as _ibn
@@ -179,3 +187,25 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if r.is_meta:
             return _wkv.meta_outputs(r, v)
         return _wkv.wkv_chunked(r, k, v, logw, u, chunk=chunk, state=state)
+
+
+def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
+                 lr: torch.Tensor, bc1: torch.Tensor, bc2: torch.Tensor,
+                 scale: Optional[torch.Tensor] = None, b1: float = 0.9, b2: float = 0.95,
+                 eps: float = 1e-8, weight_decay: float = 0.1) -> None:
+    """One AdamW step of the float32 leaf ``p`` with gradient ``g`` and
+    moments ``m`` and ``v``, written into ``p``, ``m`` and ``v``: the
+    reference's per-leaf ``upd`` on ``g * scale`` (the clip's factor;
+    None: no clip).  ``lr``, ``bc1`` = 1 - b1^count and ``bc2`` are 0-d
+    float32 tensors on the leaf's device, read by the kernel from there.
+    Counted by ``opcount.adamw_counts`` on every route."""
+    with opcount.kernel("adamw", **opcount.adamw_counts(p, g, m, v, lr, bc1, bc2, scale),
+                        reads=(p, g, m, v, lr, bc1, bc2, scale)):
+        kw = dict(lr=lr, bc1=bc1, bc2=bc2, scale=scale, b1=b1, b2=b2, eps=eps,
+                  weight_decay=weight_decay)
+        if p.is_cpu:
+            return ref.adamw_ref(p, g, m, v, **kw)
+        _refuse_grad("adamw_update", p, g, m, v)
+        if p.is_meta:
+            return None
+        return _adamw.adamw_update(p, g, m, v, **kw)

@@ -6,7 +6,9 @@ product, ``attention_ref`` masks with a finite -1e30 so a fully masked
 row softmaxes to uniform (``attention_fwd_lse_ref`` also returns each
 row's log-sum-exp, and ``attention_bwd_ref`` is the backward by the
 reference's formulas), ``matmul_ln_ref`` rounds only its output,
-``wkv_ref`` is the per-token recurrence (no chunks) in float32.
+``wkv_ref`` is the per-token recurrence (no chunks) in float32,
+``adamw_ref`` one leaf's AdamW step in place, each operation rounded to
+float32 where the reference's update rounds it.
 They run on any device; ``ops`` sends only CPU tensors here.
 """
 from __future__ import annotations
@@ -290,6 +292,24 @@ def wkv_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return grads if state is None else (*grads, G)
 
 
+def adamw_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
+              lr, bc1, bc2, scale=None, b1: float = 0.9, b2: float = 0.95,
+              eps: float = 1e-8, weight_decay: float = 0.1) -> None:
+    """One AdamW step of the leaf ``p``, written into ``p``, ``m`` and ``v``
+    (``g`` is read only): the reference's ``upd`` (``repro/optim/adamw.py``)
+    on ``g * scale`` (the clip's factor, rounded first; None: no clip), one
+    PyTorch operation a step of it, as the port's update ran before the
+    kernel."""
+    g = g.float()
+    if scale is not None:
+        g = g * scale.to(g.dtype)
+    m.mul_(b1).add_(g * (1.0 - b1))
+    v.mul_(b2).add_(torch.square(g).mul_(1.0 - b2))
+    vhat = v / bc2
+    step = (m / bc1).div_(vhat.sqrt_().add_(eps)).add_(weight_decay * p)
+    p.sub_(step.mul_(lr).to(p.dtype))
+
+
 # The plain versions under the names and signatures of ``ops``: a model
 # built with ``kernels=ref.PLAIN`` runs the same composition without any
 # kernel, on any device.
@@ -304,4 +324,5 @@ PLAIN = types.SimpleNamespace(
         matmul_ln_ref(x, w, b, gamma, beta, eps=eps),
     wkv_chunked=lambda r, k, v, logw, u, *, chunk=64, state=None:
         wkv_ref(r, k, v, logw, u, state),
+    adamw_update=adamw_ref,
 )

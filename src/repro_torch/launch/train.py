@@ -14,8 +14,17 @@ straggler watchdog, asynchronous checkpoints every ``--ckpt-every`` steps
 and at the end, and crash-resume from ``--ckpt-dir`` at the exact step and
 batch.  Weights come from ``--seed`` (``params.init_params``, numpy; not
 the reference's random numbers).  ``--device`` defaults to ``cuda`` (the
-hand-written kernels, the attention backward included; raises where there
-is no card); ``--device cpu`` runs the plain versions.
+hand-written kernels, the attention backward and AdamW included; raises
+where there is no card); ``--device cpu`` runs the plain versions.  On the
+card the step is captured as the reference jits it
+(``jit(train_step, donate_argnums=(0, 1))``): ``runtime.capture.
+captured_train_step``, one CUDA graph of the whole step with the
+parameters, moments and count donated; its first two calls run eagerly
+(steps 0 and 1 of the run), the third captures and replays, and a line
+``capture ...`` gives the capture's host seconds and the MiB its graph's
+pool reserved.  On the CPU, and on a mesh where an axis has more than one
+rank (gloo stages every collective through the host), the step runs
+eager.
 
 ``--mesh DATAxMODEL`` (``launch.mesh.make_mesh`` over the world) or
 ``--production-mesh`` (16 x 16, 256 ranks) runs the sharded step
@@ -60,6 +69,7 @@ from repro_torch.models.params import (PartitionSpec, count_params,
                                        init_params, tree_map)
 from repro_torch.optim import AdamWState, adamw_init, warmup_cosine
 from repro_torch.runtime import build_train_step, sharding
+from repro_torch.runtime.capture import capturable, captured_train_step
 from repro_torch.runtime.watchdog import StragglerWatchdog
 
 
@@ -153,6 +163,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     train_step = build_train_step(
         cfg, lr_schedule=warmup_cosine(args.lr, args.warmup, args.steps),
         ibn_chunks=args.ibn_chunks, mesh=mesh, profile=args.profile)
+    captured = device.type == "cuda" and capturable(mesh)
+    if captured:
+        train_step = captured_train_step(train_step)
+    if lead:
+        print("train step " + ("captured (one CUDA graph, the state donated)"
+                               if captured else "eager"))
 
     def state():
         """The training state to checkpoint: whole leaves (gathered by
@@ -176,6 +192,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = watchdog.stop(step)
+        if lead and captured and train_step.replays == 1:
+            print(f"capture train_step[{args.batch}x{args.seq}]="
+                  f"{train_step.capture_s:.2f}s pool={train_step.pool_mib:.0f}MiB "
+                  f"(host clock, after {train_step.calls - 1} eager steps)")
         if lead and (step % args.log_every == 0 or step == args.steps - 1):
             m = {k: float(v) for k, v in metrics.items()}
             print(f"step {step:5d} loss={m['loss']:.4f} ce={m['ce']:.4f} "

@@ -9,13 +9,20 @@ reference rounds it) and returns them, where the reference returns new
 arrays; the reference's launcher donates both (``donate_argnums=(0, 1)``),
 so neither keeps a second copy of the model's state.  A caller that needs
 the old values keeps a copy.
+
+Each leaf's update is one call of ``kernels.adamw_update`` (``kernels``:
+``ops``, the default, or ``ref.PLAIN``): on the card one pass of the
+hand-written kernel over the leaf, which reads the rate, the bias
+corrections and the clip's factor (``scale``, from ``clip.clip_scale``)
+from device memory; on the CPU its plain version.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.params import tree_leaves, tree_map
 
 Tree = Any
@@ -40,19 +47,24 @@ def adamw_init(params: Tree) -> AdamWState:
 
 def adamw_update(grads: Tree, state: AdamWState, params: Tree, *,
                  lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1) -> Tuple[Tree, AdamWState]:
-    """Returns (params, state), both updated in place (module docstring)."""
+                 weight_decay: float = 0.1, scale: Optional[torch.Tensor] = None,
+                 kernels=ops) -> Tuple[Tree, AdamWState]:
+    """Returns (params, state), both updated in place (module docstring);
+    the new count is a new tensor.  ``lr``: a float or a 0-d float32
+    tensor; ``scale``: each gradient's factor before the update (the clip's,
+    a 0-d float32 tensor), None for none.  A gradient that is not
+    contiguous is copied into one that is (the kernel takes dense leaves);
+    the gradients are not written."""
     with torch.no_grad():
         count = state.count + 1
         c = count.to(torch.float32)
         bc1 = 1.0 - torch.pow(b1, c)
         bc2 = 1.0 - torch.pow(b2, c)
+        if not isinstance(lr, torch.Tensor):
+            lr = torch.full((), lr, dtype=torch.float32, device=count.device)
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state.m), tree_leaves(state.v)):
-            g = g.float()
-            m.mul_(b1).add_(g * (1.0 - b1))
-            v.mul_(b2).add_(torch.square(g).mul_(1.0 - b2))
-            vhat = v / bc2
-            step = (m / bc1).div_(vhat.sqrt_().add_(eps)).add_(weight_decay * p)
-            p.sub_(step.mul_(lr).to(p.dtype))
+            kernels.adamw_update(p, g.contiguous(), m, v, lr=lr, bc1=bc1, bc2=bc2,
+                                 scale=scale, b1=b1, b2=b2, eps=eps,
+                                 weight_decay=weight_decay)
         return params, AdamWState(count=count, m=state.m, v=state.v)

@@ -17,6 +17,14 @@ def global_norm(tree: Tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The clip's factor of the gradients, min(1, max_norm / (norm +
+    1e-9)), as a 0-d tensor of ``norm``'s type and device (the train step
+    hands it to ``adamw_update``, which scales each gradient as it reads
+    it)."""
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads: Tree, max_norm: float, *,
                         norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Tree, torch.Tensor]:
@@ -27,6 +35,6 @@ def clip_by_global_norm(grads: Tree, max_norm: float, *,
     mesh), else ``global_norm(grads)``."""
     if norm is None:
         norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     with torch.no_grad():
         return tree_map(lambda g, path: g.mul_(scale.to(g.dtype)), grads), norm

@@ -36,7 +36,7 @@ OURS = ("ibn_kernel", "ibn_reduce_kernel", "dw_kernel", "rows_kernel",
         "online_kernel", "matmul_ln_kernel", "wkv_states_kernel",
         "wkv_outputs_kernel", "attn_bwd_delta_kernel", "attn_bwd_dkv_kernel",
         "attn_bwd_dq_kernel", "wkv_rstates_kernel", "wkv_grads_chunk_kernel",
-        "wkv_grads_tile_kernel", "wkv_finish_kernel")
+        "wkv_grads_tile_kernel", "wkv_finish_kernel", "adamw_kernel")
 SEED = 0
 
 

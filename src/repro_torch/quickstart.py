@@ -18,12 +18,17 @@ consistency:``).  The weights come from seed 0 (``params.init_params``,
 numpy: not the JAX example's random numbers; ``run`` takes any tree, the
 JAX package's carried across by ``from_jax_params`` among them).  On the
 card (the default; raises where there is none) every attention call,
-forward and backward, is a hand-written kernel; ``--device cpu`` runs their
-plain versions.  The steps run eagerly (the example jits them).
+forward and backward, and every leaf's AdamW update is a hand-written
+kernel, and the steps are captured as the example jits them: the train
+step by ``runtime.capture.captured_train_step`` (its state donated; steps
+0 and 1 eager, step 2 captured, the rest replayed), the prefill and the
+decode step by ``launch.serve.captured_steps``.  ``--device cpu`` runs the
+plain versions, eagerly.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import tempfile
 from typing import Callable, List, Optional
 
@@ -37,8 +42,9 @@ from repro_torch.models import get_module
 from repro_torch.models.params import (count_params, from_jax_params, init_params,
                                        tree_map)
 from repro_torch.optim import adamw_init, warmup_cosine
+from repro_torch.launch.serve import call_prefill, captured_steps
 from repro_torch.runtime import (build_decode_step, build_prefill_step,
-                                 build_train_step)
+                                 build_train_step, captured_train_step)
 
 # the example's arch, shape (train_4k cut to 8 rows of 64 tokens), seeds,
 # schedule, steps, logging and checkpoint cadence, and its prompt
@@ -64,16 +70,22 @@ def generate(cfg, params, tokens: torch.Tensor, *, kernels=None,
     tokens [B, GEN] int32, each step's logits [B, Vp]).  ``kernels`` as the
     step builders take it (the plain versions: ``kernels.ref.PLAIN``), their
     default where None.  ``tokens_in`` [B, GEN]: teacher-forced decode, step
-    i + 1 fed ``tokens_in[:, i]`` instead of step i's greedy token."""
-    kw = {} if kernels is None else {"kernels": kernels}
-    prefill = build_prefill_step(cfg, decode_len=DECODE_LEN, **kw)
-    decode = build_decode_step(cfg, **kw)
+    i + 1 fed ``tokens_in[:, i]`` instead of step i's greedy token.  On
+    the card with the default kernels both steps are captured
+    (``launch.serve.captured_steps``)."""
+    if kernels is None and tokens.is_cuda:
+        prefill, decode = captured_steps(cfg, params)
+    else:
+        kw = {} if kernels is None else {"kernels": kernels}
+        step = build_prefill_step(cfg, decode_len=DECODE_LEN, **kw)
+        prefill = lambda batch, decode_len: step(params, batch)  # noqa: E731
+        decode = functools.partial(build_decode_step(cfg, **kw), params)
     with torch.inference_mode():
-        last, cache = prefill(params, {"tokens": tokens})
+        last, cache = call_prefill(prefill, {"tokens": tokens}, DECODE_LEN)
         tok = tokens[:, -1:]
         toks, logits = [], []
         for i in range(GEN):
-            tok1, lg, cache = decode(params, cache, {"tokens": tok})
+            tok1, lg, cache = decode(cache, {"tokens": tok})
             tok = (tok1 if tokens_in is None else tokens_in[:, i])[:, None]
             toks.append(tok1)
             logits.append(lg)
@@ -90,7 +102,8 @@ def run(params=None, *, steps: int = STEPS, ckpt_every: int = CKPT_EVERY,
     example's lines through ``out`` and returns
     {"cfg", "losses" (each step's), "params" / "opt" (the run's last
     state), "saved_step", "restored" (the tree read back), "prompt",
-    "last_hidden", "generated", "logits", "bigram_hits"}."""
+    "last_hidden", "generated", "logits", "bigram_hits", "train_step" (the
+    step run: ``captured_train_step``'s on the card)}."""
     device = torch.device(device)
     cfg = config()
     mod = get_module(cfg)
@@ -102,6 +115,8 @@ def run(params=None, *, steps: int = STEPS, ckpt_every: int = CKPT_EVERY,
         params = from_jax_params(init_params(PARAM_SEED, defs), defs, device=device)
     opt = adamw_init(params)
     step_fn = build_train_step(cfg, lr_schedule=warmup_cosine(LR, WARMUP, DECAY))
+    if device.type == "cuda":
+        step_fn = captured_train_step(step_fn)
     with tempfile.TemporaryDirectory(prefix="quickstart_ckpt_") as ckpt_dir:
         ck = AsyncCheckpointer(ckpt_dir)
         losses, saved = [], None
@@ -136,7 +151,7 @@ def run(params=None, *, steps: int = STEPS, ckpt_every: int = CKPT_EVERY,
     return dict(cfg=cfg, losses=losses, params=params, opt=opt, saved_step=saved,
                 restored_step=step0, restored=restored, prompt=prompt,
                 last_hidden=last, generated=generated, logits=logits,
-                bigram_hits=hits)
+                bigram_hits=hits, train_step=step_fn)
 
 
 def main(argv: Optional[List[str]] = None) -> dict:

@@ -37,6 +37,35 @@ caller picks the eager step by device, as ``kernels.ops`` routes by
 device), and a capture that fails raises.  A sharded serving step is
 captured where its mesh has no axis of more than one rank, and runs eager
 where a collective crosses ranks (``capturable``).
+
+``captured_train_step(step)`` is the counterpart of the reference
+launcher's ``jit(train_step, donate_argnums=(0, 1))`` for a train step
+(``runtime.steps.build_train_step``: (params, opt_state, batch) ->
+(params, opt_state, metrics), the parameters and moments updated in
+place).  ``Captured`` cannot take one: it runs under inference mode, which
+forbids autograd, and warms up on clones, which would advance the
+optimizer on real state.  The train step's wrapper differs so:
+
+- grad mode, no inference mode;
+- the parameter and moment trees and the count of its first call are
+  donated: adopted as they are, never cloned, the graph's static buffers
+  from then on, and returned by every call.  The step's new count (a new
+  tensor, ``count + 1``) is written back into the donated count, inside
+  the graph once captured, so that each replay reads the count the one
+  before left (the schedule's rate and the bias corrections move on).  A
+  call with other tensors (a checkpoint restored into fresh ones) has
+  them copied into the donated buffers first;
+- each call is exactly one step: the first ``WARMUP`` are the real steps
+  0 and 1, run eagerly on a side stream (every kernel's module loaded and
+  opted into its shared memory outside the capture); then the card is
+  synchronised and the allocator's cache emptied, so that the eager
+  steps' cached blocks do not sit beside the graph's pool; the next call
+  captures (which records and runs nothing) and replays; later calls copy
+  the batch into its static buffers and replay.  The metrics come back
+  cloned out of the pool;
+- the launch counters tick at the eager steps and once at the capture,
+  never at a replay; so does anything else the step does in Python (a
+  collectives record, ``sharding.gathered_bytes``): read them per capture.
 """
 from __future__ import annotations
 
@@ -178,3 +207,148 @@ def donating(step: Callable, argnum: int) -> Callable:
         return (*out[:-1], old)
 
     return donated
+
+
+class DonatedTrainStep:
+    """A train step with its state donated, on any device (module
+    docstring): the first call's parameter and moment trees and count are
+    adopted and returned by every call, another call's tensors copied into
+    them, the step's new count written into the donated one."""
+
+    def __init__(self, step: Callable):
+        functools.update_wrapper(self, step, updated=())
+        self.step = step
+        self.params = self.opt = None
+
+    def __call__(self, params, opt_state, batch):
+        self.donate(params, opt_state)
+        params, opt, metrics = self.step(self.params, self.opt, batch)
+        kept = pytree.tree_leaves((self.params, self.opt.m, self.opt.v))
+        got = pytree.tree_leaves((params, opt.m, opt.v))
+        if len(got) != len(kept) or any(a is not b for a, b in zip(got, kept)):
+            raise ValueError("donated train step: the step returned new parameter or "
+                             "moment tensors; it must update them in place")
+        with torch.no_grad():
+            self.opt.count.copy_(opt.count)
+        return self.params, self.opt, metrics
+
+    def donate(self, params, opt_state) -> None:
+        """Adopts the first call's trees; copies another call's tensors into
+        them where they are not the donated ones."""
+        if self.params is None:
+            self.params, self.opt = params, opt_state
+            return
+        src, src_spec = pytree.tree_flatten((params, opt_state))
+        dst, dst_spec = pytree.tree_flatten((self.params, self.opt))
+        if repr(src_spec) != repr(dst_spec):
+            raise ValueError("donated train step: the parameters or the optimizer "
+                             "state are not the donated trees' structure")
+        with torch.no_grad():
+            for s, d in zip(src, dst):
+                if s is d:
+                    continue
+                if s.shape != d.shape or s.dtype != d.dtype:
+                    raise ValueError(
+                        f"donated train step: a leaf {tuple(s.shape)} {s.dtype} for "
+                        f"the donated {tuple(d.shape)} {d.dtype}")
+                d.copy_(s)
+
+
+class CapturedTrainStep:
+    """A train step captured once and replayed with its state donated
+    (module docstring).  ``capture_s``: the capture's host seconds (after
+    the warm-up steps, synchronised); ``pool_mib``: MiB the allocator
+    reserved for the graph's pool; ``calls`` and ``replays``."""
+
+    def __init__(self, step: Callable):
+        functools.update_wrapper(self, step, updated=())
+        self.donated = DonatedTrainStep(step)
+        self.graph: Any = None
+        self.batch_static: Any = None
+        self.batch_key: Any = None
+        self.metrics: Any = None
+        self.capture_s: Any = None
+        self.pool_mib: Any = None
+        self.calls = 0
+        self.replays = 0
+
+    def __call__(self, params, opt_state, batch):
+        for x in pytree.tree_leaves((params, opt_state, batch)):
+            if isinstance(x, torch.Tensor) and not x.is_cuda:
+                raise ValueError(
+                    f"captured_train_step: a tensor is on {x.device}; CUDA graphs "
+                    f"capture CUDA tensors only (run the eager step there)")
+        d = self.donated
+        with torch.cuda.device(pytree.tree_leaves(opt_state)[0].device):
+            d.donate(params, opt_state)
+            if self.calls < WARMUP:
+                metrics = self._eager(batch)
+            else:
+                if self.graph is None:
+                    self._capture(batch)
+                else:
+                    leaves, spec = pytree.tree_flatten(batch)
+                    if _signature(leaves, spec) != self.batch_key:
+                        raise ValueError(
+                            "captured_train_step: a batch of another signature than "
+                            "the captured one; build and capture another step for it")
+                    for src, dst in zip(leaves, self.batch_static):
+                        if src is not dst:
+                            dst.copy_(src)
+                self.graph.replay()
+                self.replays += 1
+                metrics = {k: v.clone() for k, v in self.metrics.items()}
+            self.calls += 1
+        return d.params, d.opt, metrics
+
+    def _eager(self, batch):
+        d = self.donated
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _, _, metrics = d(d.params, d.opt, batch)
+        torch.cuda.current_stream().wait_stream(side)
+        metrics = {k: v.clone() for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        return metrics
+
+    def _capture(self, batch) -> None:
+        t0 = time.perf_counter()
+        d = self.donated
+        leaves, spec = pytree.tree_flatten(batch)
+        self.batch_key = _signature(leaves, spec)
+        self.batch_static = [x.clone(memory_format=torch.contiguous_format)
+                             if isinstance(x, torch.Tensor) else x for x in leaves]
+        static = pytree.tree_unflatten(self.batch_static, spec)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _, _, metrics = d(d.params, d.opt, static)
+        torch.cuda.synchronize()
+        self.graph, self.metrics = graph, metrics
+        self.capture_s = time.perf_counter() - t0
+        self.pool_mib = (torch.cuda.memory_reserved() - before) / 2 ** 20
+
+
+def captured_train_step(step: Callable) -> CapturedTrainStep:
+    """``step`` (``build_train_step``'s) as the reference launcher's
+    ``jit(step, donate_argnums=(0, 1))``: one CUDA graph of the whole step,
+    the parameters, moments and count donated (module docstring).  Only on
+    the card and where ``capturable`` holds for the step's mesh (a sharded
+    step's ``mesh``); raises ``ValueError`` on any other."""
+    mesh = getattr(step, "mesh", None)
+    if not capturable(mesh):
+        raise ValueError(f"captured_train_step: the step's mesh {mesh.sizes} has an "
+                         f"axis of more than one rank (a collective crosses ranks); "
+                         f"run it eager")
+    return CapturedTrainStep(step)
+
+
+def donated_train_step(step: Callable) -> DonatedTrainStep:
+    """``step`` (``build_train_step``'s) with its parameter and moment trees
+    and count donated, as ``jax.jit(step, donate_argnums=(0, 1))`` donates
+    them, eagerly on any device: the part of ``captured_train_step`` that
+    is no graph (module docstring)."""
+    return DonatedTrainStep(step)

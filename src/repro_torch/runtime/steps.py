@@ -13,7 +13,12 @@ MoE auxiliary loss, the gradients by autograd (on the card the attention
 and WKV backwards are hand-written kernels), clipping by the global norm, the
 schedule's rate at the optimizer's count and AdamW.  The update is written
 into the parameter and moment tensors it is given (``optim.adamw``), as
-the reference's launcher donates them.
+the reference's launcher donates them: one pass of ``kernels.adamw_update``
+a leaf, which takes the clip's factor (``optim.clip_scale``) and scales
+each gradient as it reads it, so the gradients are not written.  On the
+card ``runtime.capture.captured_train_step`` captures the whole step as one
+CUDA graph, the port of the launcher's ``jit(train_step,
+donate_argnums=(0, 1))``.
 
 Under a mesh (``build_train_step(..., mesh=)``) the step is the per-rank
 program of the reference's ``jit(train_step, in_shardings=...)``, and the
@@ -42,7 +47,7 @@ masked sum over the mask's global count), so the sum of the ranks'
 gradients is the gradient of the global loss; a leaf that no hook gathers
 over a dp axis is summed over it explicitly.  The global norm for the
 clip sums the blocks' squares over the mesh, a replicated leaf counted
-once; AdamW runs on the blocks.
+once; AdamW runs on the blocks (the kernel on a rank's blocks).
 
 The inference steps take a mesh too (``build_prefill_step(...,
 mesh=, profile=)`` / ``build_decode_step(..., mesh=, profile=,
@@ -89,7 +94,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import actshard, get_module
 from repro_torch.models.params import tree_leaves, tree_map
-from repro_torch.optim import adamw_update, clip_by_global_norm, global_norm
+from repro_torch.optim import adamw_update, clip_scale, global_norm
 from repro_torch.runtime import sharding
 from repro_torch.runtime.collectives import axis_index, pmax, psum, reduce_from
 
@@ -226,24 +231,26 @@ def build_train_step(
     grad_fn = build_grad_fn(cfg, kernels=kernels, remat=remat,
                             ibn_chunks=ibn_chunks, cast_params=cast_params)
     opt = dict(lr_schedule=lr_schedule, clip_norm=clip_norm,
-               weight_decay=weight_decay)
+               weight_decay=weight_decay, kernels=kernels)
     if mesh is not None:
         return _sharded_train_step(cfg, grad_fn, mesh, profile, **opt)
     return _update_step(grad_fn, global_norm, **opt)
 
 
 def _update_step(grad_fn: Callable, norm_fn: Callable, *, lr_schedule: Callable,
-                 clip_norm: float, weight_decay: float) -> Callable:
+                 clip_norm: float, weight_decay: float, kernels) -> Callable:
     """The step over ``grad_fn``'s gradients: clipping by ``norm_fn`` of
     them (their global norm), the schedule's rate at the optimizer's
-    count, and AdamW."""
+    count, and AdamW through ``kernels``, which applies the clip's factor."""
 
     def train_step(params, opt_state, batch):
         loss, parts, grads = grad_fn(params, batch)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm, norm=norm_fn(grads))
+        gnorm = norm_fn(grads)
         lr = lr_schedule(opt_state.count)
-        params, opt_state = adamw_update(grads, opt_state, params,
-                                         lr=lr, weight_decay=weight_decay)
+        params, opt_state = adamw_update(grads, opt_state, params, lr=lr,
+                                         weight_decay=weight_decay,
+                                         scale=clip_scale(gnorm, clip_norm),
+                                         kernels=kernels)
         metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"],
                    "grad_norm": gnorm, "lr": lr}
         return params, opt_state, metrics
@@ -316,7 +323,7 @@ def _sharded_train_step(cfg: ModelConfig, grad_fn: Callable, mesh, profile: str,
         return torch.sqrt(total)
 
     train_step = _update_step(mesh_grad_fn, norm_fn, **opt)
-    train_step.pspecs, train_step.grad_fn = layout.pspecs, mesh_grad_fn
+    train_step.pspecs, train_step.grad_fn, train_step.mesh = layout.pspecs, mesh_grad_fn, mesh
     return train_step
 
 

@@ -19,15 +19,18 @@ decode of 4 tokens drops the claims past an expert's capacity of 1.  The
 weights come from seed 0 (``params.init_params``, numpy: not the JAX
 example's random numbers; ``serve`` takes any tree, the JAX package's
 among them).  On the card (the default; raises where there is none) every
-prefill's attention and WKV call is a hand-written kernel, timed by the
+prefill's attention and WKV call is a hand-written kernel, and the steps
+are captured as the example jits them (``launch.serve.captured_steps``:
+the prefill, and the decode step with its cache donated), timed by the
 host clock after ``torch.cuda.synchronize()`` where the example waits with
-``block_until_ready``; ``--device cpu`` runs the plain versions.  The steps
-run eagerly (the example jits them, and its prefill time includes the
-compile).
+``block_until_ready``: the prefill's time includes its capture, as the
+example's includes the compile.  ``--device cpu`` runs the plain versions,
+eagerly.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import List, Optional
 
@@ -37,6 +40,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import get_module
 from repro_torch.models.params import init_params
+from repro_torch.launch.serve import call_prefill, captured_steps
 from repro_torch.runtime import build_decode_step, build_prefill_step
 
 # the example's archs, batch, prompt, tokens generated and seeds
@@ -88,14 +92,18 @@ def serve(arch: str, batch_size: int = BATCH, prompt_len: int = PROMPT_LEN,
         if cfg.family == "audio":
             batch["tokens"] = batch["tokens"][:, :1]
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-    kw = {} if kernels is None else {"kernels": kernels}
-    prefill = build_prefill_step(cfg, decode_len=prompt_len + gen, **kw)
-    decode = build_decode_step(cfg, **kw)
+    if kernels is None and device.type == "cuda":
+        prefill, decode = captured_steps(cfg, params)
+    else:
+        kw = {} if kernels is None else {"kernels": kernels}
+        step = build_prefill_step(cfg, decode_len=prompt_len + gen, **kw)
+        prefill = lambda b, decode_len: step(params, b)  # noqa: E731
+        decode = functools.partial(build_decode_step(cfg, **kw), params)
 
     with torch.inference_mode():
         _sync(device)
         t0 = time.monotonic()
-        last, cache = prefill(params, batch)
+        last, cache = call_prefill(prefill, batch, prompt_len + gen)
         _sync(device)
         t_pre = time.monotonic() - t0
 
@@ -103,7 +111,7 @@ def serve(arch: str, batch_size: int = BATCH, prompt_len: int = PROMPT_LEN,
         toks, logits = [], []
         t0 = time.monotonic()
         for i in range(gen):
-            tok1, lg, cache = decode(params, cache, {"tokens": tok})
+            tok1, lg, cache = decode(cache, {"tokens": tok})
             tok = (tok1 if tokens_in is None else tokens_in[:, i])[:, None]
             toks.append(tok1)
             logits.append(lg)

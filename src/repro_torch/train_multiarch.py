@@ -15,8 +15,11 @@ weights come from seed 0 (``params.init_params``, numpy: not the JAX
 example's random numbers; ``train_arch`` takes any tree, the JAX
 package's carried across by ``from_jax_params`` among them).  On the card
 (the default; raises where there is none) every attention and WKV call,
-forward and backward, is a hand-written kernel; ``--device cpu`` runs
-their plain versions.
+forward and backward, and every leaf's AdamW update is a hand-written
+kernel, and the step is captured as the example jits it
+(``runtime.capture.captured_train_step``: steps 0 and 1 eager, step 2
+captured, the rest replayed); ``--device cpu`` runs their plain versions,
+eagerly.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from repro_torch.data.synthetic import make_dataset
 from repro_torch.models import get_module
 from repro_torch.models.params import from_jax_params, init_params
 from repro_torch.optim import adamw_init, warmup_cosine
-from repro_torch.runtime import build_train_step
+from repro_torch.runtime import build_train_step, captured_train_step
 
 # the example's shape (train_4k cut to 4 rows of 48 tokens), schedule,
 # steps and seeds
@@ -48,6 +51,8 @@ def train_arch(cfg, params, *, steps: int = STEPS,
     ds = make_dataset(cfg, SHAPE, seed=DATA_SEED)
     opt = adamw_init(params)
     step_fn = build_train_step(cfg, lr_schedule=warmup_cosine(LR, WARMUP, DECAY))
+    if torch.device(device).type == "cuda":
+        step_fn = captured_train_step(step_fn)
     losses = []
     for step in range(steps):
         batch = {k: torch.from_numpy(v).to(device) for k, v in ds.batch(step).items()}

@@ -5,13 +5,16 @@ donated decode chain is held to the functional chain of the port (bit for
 bit) and to the reference's own served form, a jitted prefill and a jitted
 decode step with its cache donated (tokens equal, logits within 2e-3, the
 tolerance of the port's decode-vs-forward test: float32 sums in another
-order through two layers and eight steps).  ``captured`` runs on the card
-only; here it must refuse CPU tensors.  Its captures and replays are
+order through two layers and eight steps).  ``captured`` and
+``captured_train_step`` run on the card only; here they must refuse CPU
+tensors (and the train step's wrapper a mesh whose collectives cross
+ranks).  Its captures and replays are
 ``tests/test_torch_cuda.py``'s.  Everything at ``reduced(rwkv6-1.6b)``
 with weights from ``repro.models.params.init_params``.
 """
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -28,8 +31,9 @@ from repro.runtime import build_decode_step as j_decode_step
 from repro.runtime import build_prefill_step as j_prefill_step
 from repro_torch import configs as TC
 from repro_torch.models import rwkv6 as R
+from repro_torch.optim import adamw_init
 from repro_torch.runtime import (build_decode_step, build_prefill_step,
-                                 captured, donating)
+                                 captured, captured_train_step, donating)
 
 ROOT = Path(__file__).resolve().parents[1]
 STEPS = 8
@@ -116,6 +120,37 @@ def test_captured_refuses_cpu_tensors_and_names_the_device():
     with pytest.raises(ValueError, match="no tensor argument"):
         cap(1, 2)
     assert not cap.graphs and not cap.capture_s
+
+
+def test_captured_train_step_refuses_cpu_tensors_and_names_the_device():
+    """The train step's wrapper takes CUDA tensors only (no graph on the
+    CPU, and no fallback to the eager step): it raises before it runs or
+    adopts anything."""
+    ran = []
+
+    def step(params, opt, batch):
+        ran.append(1)
+        return params, opt, {}
+
+    cap = captured_train_step(step)
+    opt = adamw_init({"w": torch.zeros(3)})
+    with pytest.raises(ValueError, match="on cpu"):
+        cap({"w": torch.zeros(3)}, opt, {"tokens": torch.zeros(2, dtype=torch.int32)})
+    assert not ran and cap.calls == 0 and cap.donated.params is None
+
+
+def test_captured_train_step_refuses_a_mesh_whose_collectives_cross_ranks():
+    """A sharded step whose mesh has an axis of more than one rank runs
+    eager (gloo stages its collectives through the host); one on a mesh of
+    one rank an axis is taken."""
+    def step(params, opt, batch):
+        return params, opt, {}
+
+    step.mesh = types.SimpleNamespace(shape=(2, 1), sizes={"data": 2, "model": 1})
+    with pytest.raises(ValueError, match="more than one rank"):
+        captured_train_step(step)
+    step.mesh = types.SimpleNamespace(shape=(1, 1), sizes={"data": 1, "model": 1})
+    assert captured_train_step(step).calls == 0
 
 
 def test_capture_module_loads_no_jax_and_builds_nothing():

@@ -1860,3 +1860,218 @@ def test_one_by_one_nccl_serving_changes_no_bit():
     assert mesh_lib.spawn_local(1, _one_by_one_serve_rank, device="cuda",
                                 timeout_s=240) == [("nccl", {"eager": True,
                                                              "captured": True})]
+
+
+# ---------------------------------------------------------------------------
+# AdamW in one pass (kernels/adamw.py) and the captured train step
+# ---------------------------------------------------------------------------
+
+# n, the element offset of each of p, g, m, v in its buffer (equal offsets:
+# a scalar head before the float4 body; unequal: every element scalar)
+_ADAMW_CASES = {
+    "odd": (1_000_003, (0, 0, 0, 0)),
+    "misaligned": (100_001, (1, 1, 1, 1)),
+    "offsets_differ": (4_099, (1, 2, 3, 0)),
+    "three": (3, (2, 2, 2, 2)),
+}
+
+
+def _adamw_leaf(case, seed):
+    n, offs = _ADAMW_CASES[case]
+    r = np.random.default_rng(seed)
+    out = []
+    for i, off in enumerate(offs):
+        base = r.standard_normal(n + off).astype(np.float32)
+        if i == 3:
+            base = np.abs(base)                 # v >= 0
+        out.append(_t(base).cuda()[off:])
+    return out
+
+
+def _adamw_scalars(step, device="cuda"):
+    c = torch.tensor(float(step), device=device)
+    lr = torch.tensor(3e-4, device=device) * (0.5 + 0.1 * step)
+    return lr, 1.0 - torch.pow(0.9, c), 1.0 - torch.pow(0.95, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [True, False], ids=["clip", "no_clip"])
+@pytest.mark.parametrize("case", list(_ADAMW_CASES))
+def test_adamw_kernel_equals_plain_bit_for_bit(case, scaled):
+    """Three steps of the kernel against ``ref.adamw_ref`` on the card at
+    an odd length, a leaf not 16-byte aligned, leaves of different
+    offsets and three elements: p, m and v the same bits; g unwritten."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from repro_torch.kernels import adamw as kadamw
+    p, g, m, v = _adamw_leaf(case, 60)
+    want = [t.clone() for t in (p, m, v)]
+    g0 = g.clone()
+    base = kadamw.launches
+    for step in range(1, 4):
+        lr, bc1, bc2 = _adamw_scalars(step)
+        scale = torch.tensor(0.37, device="cuda") if scaled else None
+        tops.adamw_update(p, g, m, v, lr=lr, bc1=bc1, bc2=bc2, scale=scale)
+        tref.adamw_ref(want[0], g, want[1], want[2], lr=lr, bc1=bc1, bc2=bc2, scale=scale)
+    torch.cuda.synchronize()
+    assert kadamw.launches == base + 3
+    for got, w in zip((p, m, v), want):
+        assert torch.equal(got, w)
+    assert torch.equal(g, g0)
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_reads_its_scalars_from_device_memory_in_a_graph():
+    """One update captured with 0-d rate and bias-correction tensors, then
+    replayed after each was refilled: the replays follow the new values as
+    the eager calls do (a rate passed by value would be baked in)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    p, g, m, v = _adamw_leaf("odd", 61)
+    eager = [t.clone() for t in (p, m, v)]
+    lr, bc1, bc2 = _adamw_scalars(1)
+    scale = torch.tensor(0.5, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # the module loaded before capture
+        tops.adamw_update(*[t.clone() for t in (p, g, m, v)], lr=lr, bc1=bc1, bc2=bc2,
+                          scale=scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tops.adamw_update(p, g, m, v, lr=lr, bc1=bc1, bc2=bc2, scale=scale)
+    outs = []
+    for step, rate in ((1, 3e-4), (2, 5e-2)):
+        new_lr, new_bc1, new_bc2 = _adamw_scalars(step)
+        new_lr.fill_(rate)
+        for dst, src in ((lr, new_lr), (bc1, new_bc1), (bc2, new_bc2)):
+            dst.copy_(src)
+        graph.replay()
+        tops.adamw_update(eager[0], g, eager[1], eager[2], lr=new_lr, bc1=new_bc1,
+                          bc2=new_bc2, scale=scale)
+        torch.cuda.synchronize()
+        outs.append(p.clone())
+        for got, want in zip((p, m, v), eager):
+            assert torch.equal(got, want)
+    assert not torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_refuses_what_it_cannot_take():
+    """A bfloat16 leaf, a leaf that is not contiguous, a rate that is not
+    float32, a scalar on the host and, under grad mode, a leaf that
+    requires grad (it is written in place) raise, nothing launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from repro_torch.kernels import adamw as kadamw
+    p, g, m, v = (torch.ones(1000, 1000, device="cuda") for _ in range(4))
+    lr, bc1, bc2 = _adamw_scalars(1)
+    base = kadamw.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        tops.adamw_update(p.bfloat16(), g.bfloat16(), m.bfloat16(), v.bfloat16(),
+                          lr=lr, bc1=bc1, bc2=bc2)
+    with pytest.raises(ValueError, match="not contiguous"):
+        tops.adamw_update(p, g.t(), m, v, lr=lr, bc1=bc1, bc2=bc2)
+    with pytest.raises(TypeError, match="float64"):
+        tops.adamw_update(p, g, m, v, lr=lr.double(), bc1=bc1, bc2=bc2)
+    with pytest.raises(ValueError, match="on cpu"):
+        tops.adamw_update(p, g, m, v, lr=lr.cpu(), bc1=bc1, bc2=bc2)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tops.adamw_update(p.requires_grad_(), g, m, v, lr=lr, bc1=bc1, bc2=bc2)
+    assert kadamw.launches == base
+
+
+def _train_run(arch, steps, *, captured, seed=5, resume_at=None):
+    """``steps`` train steps of ``arch`` reduced (float32) on the card,
+    eager or through ``captured_train_step``: each step's loss and grad
+    norm, the final state's leaves, the step object and its launches.
+    ``resume_at``: the state after that many steps handed to the step as
+    fresh tensors (a restored checkpoint) before the next, the tensors the
+    step holds overwritten first (7.0, count 99)."""
+    from repro_torch import configs as TC
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.models import get_module
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.optim import AdamWState, adamw_init, warmup_cosine
+    from repro_torch.runtime import build_train_step, captured_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TC.reduced(TC.get_config(arch))
+    tree = init_params(seed, get_module(cfg).param_defs(cfg))
+    ds = make_dataset(cfg, TC.ShapeConfig("train_4k", "train", 32, 4), seed=seed)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(s).items()}
+               for s in range(steps)]
+    step = build_train_step(cfg, lr_schedule=warmup_cosine(1e-3, 2, 10))
+    if captured:
+        step = captured_train_step(step)
+    params = tree_map(lambda a, path: torch.from_numpy(a.copy()).cuda().requires_grad_(),
+                      tree)
+    opt = adamw_init(params)
+    count = opt.count
+    metrics, base = [], kadamw.launches
+    for s, b in enumerate(batches):
+        if s == resume_at:
+            fresh = tree_map(lambda t, path: t.detach().clone().requires_grad_(), params)
+            fresh_opt = AdamWState(opt.count.clone(), tree_map(lambda t, path: t.clone(), opt.m),
+                                   tree_map(lambda t, path: t.clone(), opt.v))
+            with torch.no_grad():
+                for t in tree_leaves((params, opt.m, opt.v)):
+                    t.fill_(7.0)
+                opt.count.fill_(99)
+            params, opt = fresh, fresh_opt
+        params, opt, m = step(params, opt, b)
+        metrics.append(torch.stack([m["loss"], m["grad_norm"], m["lr"]]))
+    torch.cuda.synchronize()
+    return dict(metrics=torch.stack(metrics), state=tree_leaves((params, opt.m, opt.v)),
+                count=opt.count, first_count=count, step=step,
+                adamw_launches=kadamw.launches - base, leaves=len(tree_leaves(params)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "rwkv6-1.6b", "seamless-m4t-large-v2",
+                                  "recurrentgemma-2b", "qwen2-moe-a2.7b"])
+def test_captured_train_step_equals_eager_bit_for_bit(arch):
+    """Six steps of the reduced config (float32) captured (steps 0 and 1
+    eager, step 2 captured, 3-5 replayed) against six eager steps: every
+    loss, grad norm and rate and the final parameters and moments the same
+    bits; the caller's own count tensor reads 6 and is the one returned;
+    AdamW launched a leaf at each eager step and at the capture, never at a
+    replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from repro_torch.runtime.capture import WARMUP
+    eager = _train_run(arch, 6, captured=False)
+    cap = _train_run(arch, 6, captured=True)
+    assert torch.equal(cap["metrics"], eager["metrics"])
+    assert all(torch.equal(a, b) for a, b in zip(cap["state"], eager["state"], strict=True))
+    assert cap["count"] is cap["first_count"] and int(cap["count"]) == 6
+    assert cap["step"].replays == 6 - WARMUP and cap["step"].capture_s > 0
+    assert cap["adamw_launches"] == (WARMUP + 1) * cap["leaves"]
+    assert eager["adamw_launches"] == 6 * eager["leaves"]
+
+
+@pytest.mark.cuda
+def test_captured_train_step_resumes_into_fresh_tensors_bit_for_bit():
+    """The state after 4 of 6 captured steps handed back as fresh tensors
+    (a checkpoint restored), the donated buffers overwritten: the fresh
+    tensors are copied into them, and the last two steps and the final
+    state equal a straight captured run's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    straight = _train_run("olmo-1b", 6, captured=True)
+    resumed = _train_run("olmo-1b", 6, captured=True, resume_at=4)
+    assert torch.equal(resumed["metrics"], straight["metrics"])
+    assert all(torch.equal(a, b) for a, b in zip(resumed["state"], straight["state"]))
+    assert resumed["count"] is resumed["first_count"] and int(resumed["count"]) == 6
+
+
+@pytest.mark.cuda
+def test_captured_train_step_refuses_host_tensors_on_a_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import captured_train_step
+    cap = captured_train_step(lambda p, o, b: (p, o, {}))
+    params = {"w": torch.zeros(3, device="cuda")}
+    with pytest.raises(ValueError, match="on cpu"):
+        cap(params, adamw_init(params), {"tokens": torch.zeros(2, dtype=torch.int32)})
